@@ -1,8 +1,10 @@
 """`python -m ropebwt3_tpu_torch`: ropebwt3's command line with `mem` on the
 port's engine.
 
-`mem [--device=cuda|cpu] [options] idx.fmd reads...` loads the index with
-ropebwt3_tpu.cli.load_index, builds `BatchedSmemTG` on the device and hands
+`mem [--device=cuda|cpu] [--occ=auto|dense|rb] [options] idx.fmd reads...`
+loads the index with ropebwt3_tpu.cli.load_index, builds `BatchedSmemTG` on
+the device with the occ rows `--occ` names (auto: dense unless they would
+pass 75% of the card's memory, ops/smem.py `resolve_occ`) and hands
 both to the unchanged ropebwt3_tpu.cli.main_search, which writes the BED
 (and `-c`, `--gap`, `--cov`, `-p`) exactly as the JAX package does.  With
 the default `--device=cuda` and no CUDA it exits non-zero; it never goes on
@@ -45,9 +47,13 @@ def main_mem(argv: list[str], device: str) -> int:
     opts, args = ketopt(argv, _SEARCH_OPTS, _LONG_OPTS)
     if len(args) < 2 or any(o in ("-d", "-a", "-w", "--old-mem") for o, _ in opts):
         return main_search(argv, "mem")  # usage, or an algorithm the engine does not run
-    min_len, min_occ, max_pos, min_gap_len = 19, 1, 0, 0
+    min_len, min_occ, max_pos, min_gap_len, occ = 19, 1, 0, 0, "auto"
     for o, a in opts:
-        if o == "-l":
+        if o == "--occ":
+            if a not in ("auto", "dense", "rb"):
+                raise getopt.GetoptError(f"invalid --occ value '{a}' (auto|dense|rb)")
+            occ = a
+        elif o == "-l":
             min_len = atoi(a)
         elif o == "-c":
             min_occ = atoi(a)
@@ -59,11 +65,12 @@ def main_mem(argv: list[str], device: str) -> int:
     # logic for a preloaded index (cli.py:1141-1145, 1184)
     locate = max_pos > 0 and min_gap_len == 0
     f = load_index(args[0], load_ssa=locate, load_sid=locate)
-    eng = BatchedSmemTG(f, min_occ, min_len, device=device)
+    eng = BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ)
     # --engine=jax: with a preloaded engine, main_search's auto would split
     # reads between it and the native engine (cli.py:1214-1221)
     ret = main_search(["--engine=jax"] + argv, "mem", _preloaded=(args[0], f, eng))
-    log.info("%d smem_tg launches; %d reads rerun on the host engine", smem_tg_cuda.launches, eng.n_rerun, func="mem")
+    log.info("%d smem_tg launches (%s); %d reads rerun on the host engine", sum(smem_tg_cuda.launches.values()),
+             eng.idx.layout, eng.n_rerun, func="mem")
     return ret
 
 

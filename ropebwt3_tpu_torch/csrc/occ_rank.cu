@@ -1,38 +1,42 @@
-// Batched rank and single-symbol extension over the fused occ rows: two
-// thin kernels around occ.cuh, one thread per element.  They exist so the
-// device routine the SMEM kernel inlines can be held against the plain
-// PyTorch rank1a / extend_c (ropebwt3_tpu_torch/ops/rank.py) in isolation.
+// Batched rank and single-symbol extension over the occ tables: two thin
+// kernels around the layouts of occ.cuh and rb.cuh, one thread per element,
+// instantiated for every layout.  They exist so the device routines the SMEM
+// kernel inlines can be held against the plain PyTorch rank1a / extend_c
+// (ropebwt3_tpu_torch/ops/rank.py, ops/runblock.py) in isolation.
 //
-// Replaces the XLA rank1a / extend_c of ropebwt3_tpu/ops/rank.py:233-381.
-// Bound on the card: one (rank) or two (extend) random 48-B row loads per
+// Replaces the XLA rank1a / extend_c of ropebwt3_tpu/ops/rank.py:233-381 and
+// RunBlockIndex.rank1a / extend_c of ops/runblock.py:81-145.
+// Bound on the card: one (rank) or two (extend) random row loads per
 // element, all independent, so the card keeps many in flight; nothing else
 // to hide.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "occ.cuh"
+#include "rb.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void occ_rank1a_kernel(const int* __restrict__ occf, const int64_t* __restrict__ k, int64_t n,
-                                  int* __restrict__ out) {
+template <class L>
+__global__ void occ_rank1a_kernel(const L ix, const int64_t* __restrict__ k, int64_t n, typename L::T* __restrict__ out) {
+  using T = typename L::T;
   const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (t >= n) return;
-  int occ[6];
-  rb3c::rank6(occf, (int)k[t], occ);
+  T occ[6];
+  ix.rank6((T)k[t], occ);
 #pragma unroll
   for (int s = 0; s < 6; ++s) out[t * 6 + s] = occ[s];
 }
 
-__global__ void occ_extend_c_kernel(const int* __restrict__ occf, const int* __restrict__ acc,
-                                    const int* __restrict__ ik, const int* __restrict__ c,
-                                    const uint8_t* __restrict__ is_back, int64_t n, int* __restrict__ out) {
+template <class L>
+__global__ void occ_extend_c_kernel(const L ix, const typename L::T* __restrict__ ik, const int* __restrict__ c,
+                                    const uint8_t* __restrict__ is_back, int64_t n, typename L::T* __restrict__ out) {
+  using T = typename L::T;
   const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (t >= n) return;
-  const rb3c::Bi r = rb3c::extend_c(occf, acc, rb3c::Bi{ik[t * 3], ik[t * 3 + 1], ik[t * 3 + 2]}, c[t], is_back[t] != 0);
+  const rb3c::Bi<T> r = rb3c::extend_c(ix, rb3c::Bi<T>{ik[t * 3], ik[t * 3 + 1], ik[t * 3 + 2]}, c[t], is_back[t] != 0);
   out[t * 3] = r.x0;
   out[t * 3 + 1] = r.x1;
   out[t * 3 + 2] = r.s;
@@ -44,18 +48,25 @@ unsigned blocks(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 extern "C" {
 
-// out (n, 6) int32 = rank1a(k) for k (n,) int64 in [0, n_bwt]
-int rb3c_occ_rank1a(const int* occf, const int64_t* k, int64_t n, int* out, void* stream) {
-  occ_rank1a_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(occf, k, n, out);
-  return (int)cudaGetLastError();
-}
-
-// out (n, 3) int32 = extend_c(ik (n, 3), c (n,) in 0..5, is_back (n,) bool)
-int rb3c_occ_extend_c(const int* occf, const int* acc, const int* ik, const int* c, const uint8_t* is_back, int64_t n,
-                      int* out, void* stream) {
-  occ_extend_c_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(occf, acc, ik, c, is_back, n, out);
-  return (int)cudaGetLastError();
-}
+// out (n, 6) T = rank1a(k) for k (n,) int64 in [0, n_bwt]; out (n, 3) T =
+// extend_c(ik (n, 3) T, c (n,) int32 in 0..5, is_back (n,) bool); one pair
+// of entry points per layout
+#define RB3C_OCC_RANK(name, L)                                                                                       \
+  int rb3c_occ_rank1a_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift, \
+                             int block_shift, const int64_t* k, int64_t n, void* out, void* stream) {              \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                       \
+    occ_rank1a_kernel<L><<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(ix, k, n, static_cast<L::T*>(out));     \
+    return (int)cudaGetLastError();                                                                                 \
+  }                                                                                                                 \
+  int rb3c_occ_extend_c_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc,              \
+                               int mega_shift, int block_shift, const void* ik, const int* c,                       \
+                               const uint8_t* is_back, int64_t n, void* out, void* stream) {                        \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                       \
+    occ_extend_c_kernel<L><<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(                                      \
+        ix, static_cast<const L::T*>(ik), c, is_back, n, static_cast<L::T*>(out));                                  \
+    return (int)cudaGetLastError();                                                                                 \
+  }
+RB3C_LAYOUTS(RB3C_OCC_RANK)
 
 const char* rb3c_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

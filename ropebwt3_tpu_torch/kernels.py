@@ -1,14 +1,20 @@
 """The port's CUDA kernels: built from csrc/ with nvcc on first use, loaded
 with ctypes.
 
-All `.cu` files under csrc/ compile into ONE shared library with a plain C
-interface (no PyTorch headers: nvcc takes seconds, not minutes).  The build
-lands in `_build/` next to this file, keyed on a hash of the sources and the
-flags, the same build-on-demand pattern as ropebwt3_tpu/native.  Nothing is
-built or loaded when this module is imported; `lib()` does it.
+Each `.cu` file under csrc/ compiles to an object with its own nvcc, all
+started together; one more nvcc links them into ONE shared library with a
+plain C interface (no PyTorch headers: nvcc takes seconds, not minutes).  The
+build lands in `_build/` next to this file, keyed on a hash of the sources and
+the flags, the same build-on-demand pattern as ropebwt3_tpu/native.  Nothing
+is built or loaded when this module is imported; `lib()` does it.
 
 Every entry point takes PyTorch's current CUDA stream, allocates nothing, and
 returns `cudaGetLastError()` after its launch; `launch` raises on non-zero.
+The rank and SMEM kernels come in one variant per occ layout: dense32 and
+dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
+`RunBlockIndex`).  Each takes the index's tables first, as the index's
+`kernel_tables()` gives them: rows, escape planes, megablock bases, acc, the
+megablock shift and log2 of the block size.
 """
 
 from __future__ import annotations
@@ -22,16 +28,18 @@ import subprocess
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
 
 _V, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+_TABLES = [_V, _V, _V, _V, _I32, _I32]  # rows, esc, mega, acc, mega_shift, log2 block
 # argtypes of every entry point, stream last: without them ctypes passes
 # Python ints as 32-bit C ints and cuts pointers and int64 counts
-_ENTRIES = {
-    "rb3c_occ_rank1a": [_V, _V, _I64, _V, _V],
-    "rb3c_occ_extend_c": [_V, _V, _V, _V, _V, _I64, _V, _V],
-    "rb3c_smem_tg": [_V, _V, _V, _V, _I64, _I32, _I32, _I32, _V, _V, _V],
-}
+_ENTRIES = {}
+for _lay in LAYOUTS:
+    _ENTRIES[f"rb3c_occ_rank1a_{_lay}"] = [*_TABLES, _V, _I64, _V, _V]
+    _ENTRIES[f"rb3c_occ_extend_c_{_lay}"] = [*_TABLES, _V, _V, _V, _I64, _V, _V]
+    _ENTRIES[f"rb3c_smem_tg_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I32, _I32, _V, _V, _V]
 
 _lib = None
 
@@ -48,6 +56,15 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    for cmd, (out, rc) in zip(cmds, outs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}) on {cmd[-1]}:\n{out}")
+
+
 def build() -> str:
     """Compile csrc/*.cu into `_build/librb3c_<hash>.so` unless that file
     exists; return its path.  Raises with nvcc's output if compilation fails."""
@@ -56,20 +73,23 @@ def build() -> str:
     for p in srcs:
         with open(p, "rb") as fh:
             h.update(os.path.basename(p).encode() + b"\0" + fh.read())
-    so = os.path.join(BUILD_DIR, f"librb3c_{h.hexdigest()[:16]}.so")
+    tag = h.hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"librb3c_{tag}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp.{os.getpid()}"  # concurrent builds never share a path
-    cu = [p for p in srcs if p.endswith(".cu")]
+    # concurrent builds never share a path
+    tmp = f"{so}.tmp.{os.getpid()}"
+    objs = {p: os.path.join(BUILD_DIR, f"{os.path.basename(p)}.{tag}.{os.getpid()}.o") for p in srcs if p.endswith(".cu")}
+    nvcc = _nvcc()
     try:
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu], capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o, p] for p, o in objs.items()])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs.values()]])
         os.replace(tmp, so)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for f in (tmp, *objs.values()):
+            if os.path.exists(f):
+                os.unlink(f)
     return so
 
 

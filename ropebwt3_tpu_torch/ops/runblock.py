@@ -1,0 +1,319 @@
+"""Run-block compressed occ rows on a torch device — the capacity format.
+
+Port of ropebwt3_tpu/ops/runblock.py.  Per block of S symbols (S a power of
+two in 256..8192, picked per index by `choose_S`) ONE 160-byte row:
+
+    cols 0:6   counts of symbols 0..5 before the block (absolute int32 below
+               MAX_N_INT32 symbols; above, uint32 relative to the containing
+               megablock of 2^mega_shift rows, with int64 bases in `mega`)
+    col  6     dense-escape row index, or -1 for a run-coded block
+    col  7     pad
+    cols 8:40  64 packed uint16 run records (cumulative in-block end << 3) |
+               keyed symbol, padded with zero-length records
+
+plus, for blocks of more than 64 split runs, an escape table of three keyed
+bit-planes (3 * S / 32 int32 words per row).  Dense rows cost 0.75 B/sym;
+these cost ~160/S B/sym plus escapes, some 0.02-0.3 B/sym on pangenomes.
+
+Two faults of the JAX reference are fixed here, not copied:
+  F1  a position k at a block boundary (k = n included) is ranked at offset
+      S of block (k-1)//S, and k = 0 at block 0; no row past the table is
+      read.  The reference ranks k = n at row n//S, which its gather clamps
+      to the last row with offset 0, dropping that block when S divides n.
+  F4  a record end of 0 decodes as S: a run reaching the end of an
+      8192-symbol block stores 8192 << 3 = 65536, which uint16 keeps as 0.
+      No real record ends at 0, since every run in a block has length >= 1.
+The `.rb.npz` cache is used only when its n, S and width match and it is no
+older than the index's sidecar (F3).
+
+`RunBlockIndex.rank1a` is the plain decode; `extend`, `extend_c` and
+`set_intv` of ops/rank.py take this index as they take `OccIndex`, and so do
+the kernel wrappers, which launch the rb32 / rb64 kernels (csrc/rb.cuh).
+The host builder calls the native `rb3t_runblock_count` / `_fill`
+(ropebwt3_tpu/native/rld_codec.cpp) through ropebwt3_tpu.native, which
+imports no jax.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ropebwt3_tpu.native import get_lib
+
+from .rank import ASIZE, FLIP, KEY, U32, extend, extend_c, needs_int64, popcount32, rank1a, rebase_mega, set_intv
+
+__all__ = ["RunBlockIndex", "rank1a", "extend", "extend_c", "set_intv", "choose_S", "build_runblock_np", "runs_from_dense"]
+
+RB_R = 64  # run records per row
+RB_COLS = 40
+S_CHOICES = (8192, 4096, 2048, 1024, 512, 256)
+
+
+def default_mega_shift(S: int) -> int:
+    """log2 of the rows in a 2^32-symbol megablock (the native builder's)."""
+    return 32 - (S.bit_length() - 1)
+
+
+@dataclass(frozen=True)
+class RunBlockIndex:
+    rows: torch.Tensor  # (nb, 40) int32
+    esc: torch.Tensor  # (max(n_esc, 1), 3 * S / 32) int32 keyed bit-planes
+    acc: torch.Tensor  # (7,) int32 | int64
+    n: int
+    S: int
+    mega: torch.Tensor | None = None  # (n_mega, 6) int64 in int64 mode
+    mega_shift: int = 0  # log2 rows per megablock (int64 mode)
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+    @property
+    def int64(self) -> bool:
+        return self.mega is not None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.acc.dtype
+
+    @property
+    def layout(self) -> str:
+        return "rb64" if self.int64 else "rb32"
+
+    @property
+    def n_esc(self) -> int:
+        return int((self.rows[:, 6] >= 0).sum())
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the tables on the device."""
+        return sum(t.numel() * t.element_size() for t in (self.rows, self.esc, self.acc, self.mega) if t is not None)
+
+    def kernel_tables(self) -> tuple:
+        """(rows, esc, mega, acc, mega_shift, log2 S) as the C entry points take them."""
+        mega = self.mega.data_ptr() if self.int64 else None
+        return self.rows.data_ptr(), self.esc.data_ptr(), mega, self.acc.data_ptr(), self.mega_shift, self.S.bit_length() - 1
+
+    @classmethod
+    def from_np(cls, d: dict, device) -> "RunBlockIndex":
+        """Upload the pieces that `build_runblock_np` returns."""
+        S, n, rows = int(d["S"]), int(d["n"]), d["rows"]
+        if S not in S_CHOICES or rows.shape != ((n + S - 1) // S, RB_COLS) or d["esc"].shape[1:] != (3 * S // 32,):
+            raise ValueError(f"inconsistent rb rows: S {S}, n {n}, rows {rows.shape}, esc {d['esc'].shape}")
+        if d["mega"] is None and needs_int64(n):
+            raise ValueError(f"an index of {n} symbols needs int64 megablock rows")
+        if len(rows) and not -1 <= int(rows[:, 6].min()) <= int(rows[:, 6].max()) < len(d["esc"]):
+            raise ValueError("an escape row index points past the escape table")
+        return cls(
+            rows=torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(device),
+            esc=torch.from_numpy(np.ascontiguousarray(d["esc"], np.int32)).to(device),
+            acc=torch.from_numpy(np.asarray(d["acc"], np.int64 if d["int64"] else np.int32)).to(device),
+            n=n,
+            S=S,
+            mega=None if d["mega"] is None else torch.from_numpy(np.asarray(d["mega"], np.int64)).to(device),
+            mega_shift=int(d["mega_shift"]),
+        )
+
+    @classmethod
+    def from_dense(cls, f, device, S: int | None = None, int64: bool | None = None, mega_shift: int | None = None,
+                   cache: str | bool | None = True) -> "RunBlockIndex":
+        return cls.from_np(from_dense_np(f, S=S, int64=int64, mega_shift=mega_shift, cache=cache), device)
+
+    def block_and_offset(self, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(row, offset in [0, S]) of positions k in [0, n]: a block
+        boundary is the end of the block before it (F1)."""
+        sh = self.S.bit_length() - 1
+        bi = ((k - 1) >> sh).clamp(min=0)
+        return bi, k - (bi << sh)
+
+    def rank1a(self, k: torch.Tensor) -> torch.Tensor:
+        k = k.long()
+        bi, off = self.block_and_offset(k)
+        row = self.rows[bi]  # (..., 40)
+        base = row[..., :6].long()
+        if self.int64:  # uint32 megablock-relative: reinterpret, never sign-extend
+            base = self.mega[bi >> self.mega_shift] + (base & U32)
+        esc_i = row[..., 6].long()
+        occk = run_counts_keyed(row[..., 8:], off, self.S)
+        m = esc_i >= 0
+        if bool(m.any()):
+            occk[m] = dense_counts_keyed(self.esc, esc_i[m], off[m])
+        return base + occk[..., torch.as_tensor(KEY, dtype=torch.int64, device=k.device)]
+
+
+def run_counts_keyed(recs: torch.Tensor, off: torch.Tensor, S: int) -> torch.Tensor:
+    """recs: (..., 32) int32 words of 64 packed uint16 records; off: (...,)
+    int64 in [0, S].  Returns (..., 6) int64 counts per KEYED symbol below
+    off: each record covers [previous end, end)."""
+    w = recs.long() & U32
+    e16 = torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2)  # (..., 64) in record order
+    end = e16 >> 3
+    end = torch.where(end == 0, S, end)  # F4: 65536 wrapped to 0
+    start = torch.cat([torch.zeros_like(end[..., :1]), end[..., :-1]], dim=-1)
+    cov = (torch.minimum(off[..., None], end) - start).clamp(min=0)
+    return torch.zeros(off.shape + (ASIZE,), dtype=torch.int64, device=off.device).scatter_add_(-1, e16 & 7, cov)
+
+
+def dense_counts_keyed(esc: torch.Tensor, esc_i: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """Counts per KEYED symbol below off (M,) int64 in [0, 32W] in escape
+    rows esc_i (M,) of esc (n_esc, 3W) int32 keyed bit-planes: (M, 6) int64.
+    In chunks of lanes, so the (lanes, W) temporaries stay ~2^24 words."""
+    W = esc.shape[-1] // 3
+    wi = torch.arange(W, device=off.device)
+    out = torch.empty(off.shape + (ASIZE,), dtype=torch.int64, device=off.device)
+    step = max(1, (1 << 24) // W)
+    for a in range(0, off.numel(), step):
+        p = (esc[esc_i[a : a + step]].long() & U32).unflatten(-1, (3, W))  # (m, plane, W)
+        mask = (1 << (off[a : a + step, None] - 32 * wi).clamp(0, 32)) - 1  # (m, W); 32 gives all ones
+        for kc in range(ASIZE):
+            eq = mask
+            for pl in range(3):
+                eq = eq & (p[:, pl] ^ int(FLIP[kc, pl]))
+            out[a : a + step, kc] = popcount32(eq).sum(-1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# host builder
+# ---------------------------------------------------------------------------
+
+
+def _native():
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the native codec (ropebwt3_tpu/native/rld_codec.cpp) is unavailable; rb rows need it")
+    return lib
+
+
+def runs_from_dense(f) -> tuple[np.ndarray, np.ndarray]:
+    """(syms, lens) of the global BWT runs of a DenseFMIndex."""
+    bwt = np.asarray(f.bwt[: f.n])
+    brk = np.flatnonzero(np.diff(bwt)) + 1
+    starts = np.concatenate([[0], brk])
+    ends = np.concatenate([brk, [f.n]])
+    return bwt[starts], ends - starts
+
+
+def _split_counts(lens: np.ndarray, S: int, n: int) -> np.ndarray:
+    cnt = np.zeros((n + S - 1) // S, np.int32)
+    _native().rb3t_runblock_count(ctypes.c_void_p(lens.ctypes.data), len(lens), S, ctypes.c_void_p(cnt.ctypes.data))
+    return cnt
+
+
+def choose_S(lens: np.ndarray, n: int) -> tuple[int, dict]:
+    """The block size of fewest bytes (160 B rows + 3S/8 B per escape);
+    returns (S, {S: (bytes, escape share)})."""
+    lens = np.ascontiguousarray(lens, np.int64)
+    stats = {}
+    for S in S_CHOICES:
+        cnt = _split_counts(lens, S, n)
+        n_esc = int((cnt > RB_R).sum())
+        stats[S] = (len(cnt) * 160 + n_esc * (3 * S // 8), n_esc / max(len(cnt), 1))
+    return min(S_CHOICES, key=lambda s: stats[s][0]), stats  # a tie keeps the larger S, as the JAX package does
+
+
+def build_runblock_np(syms: np.ndarray, lens: np.ndarray, n: int | None = None, S: int | None = None,
+                      int64: bool | None = None, mega_shift: int | None = None) -> dict:
+    """The rb rows of the BWT given as runs (syms, lens), on the host:
+    {rows, esc, mega | None, acc, n, S, int64, mega_shift}.  int64 None picks
+    the width from n; mega_shift None takes 2^32-symbol megablocks, a smaller
+    one re-bases the native builder's output into smaller megablocks."""
+    syms = np.ascontiguousarray(syms, np.uint8)
+    lens = np.ascontiguousarray(lens, np.int64)
+    n = int(lens.sum()) if n is None else int(n)
+    if S is None:
+        S, _ = choose_S(lens, n)
+    if S not in S_CHOICES:
+        raise ValueError(f"S must be one of {S_CHOICES}")
+    int64 = needs_int64(n) if int64 is None else bool(int64)
+    native_shift = default_mega_shift(S)
+    mega_shift = native_shift if mega_shift is None else int(mega_shift)
+    if int64 and not 0 <= mega_shift <= native_shift:
+        raise ValueError(f"mega_shift {mega_shift} outside [0, {native_shift}] for S = {S}")
+    cnt = _split_counts(lens, S, n)
+    nb = len(cnt)
+    rows = np.zeros((nb, RB_COLS), np.int32)
+    esc_blocks = np.flatnonzero(cnt > RB_R)
+    rows[:, 6] = -1
+    rows[esc_blocks, 6] = np.arange(len(esc_blocks), dtype=np.int32)
+    esc = np.zeros((max(len(esc_blocks), 1), 3 * S // 32), np.int32)
+    mega = np.zeros((((nb - 1) >> native_shift) + 1, ASIZE), np.int64) if int64 else None
+    P = ctypes.c_void_p
+    _native().rb3t_runblock_fill(
+        P(syms.ctypes.data), P(lens.ctypes.data), len(lens), n, S, RB_R,
+        P(rows.ctypes.data), P(esc.ctypes.data), P(mega.ctypes.data) if int64 else None,
+    )
+    if int64 and mega_shift != native_shift:
+        absolute = mega[np.arange(nb) >> native_shift] + rows[:, :6].view(np.uint32)
+        rows[:, :6], mega = rebase_mega(absolute, mega_shift)
+    acc = np.zeros(ASIZE + 1, np.int64)
+    np.add.at(acc[1:], syms, lens)
+    acc = np.cumsum(acc)
+    return dict(rows=rows, esc=esc, mega=mega, acc=acc.astype(np.int64 if int64 else np.int32), n=n, S=S,
+                int64=int64, mega_shift=mega_shift if int64 else 0)
+
+
+# ---------------------------------------------------------------------------
+# sidecar cache `<index>.dense.rb.npz`, in the JAX package's format
+# ---------------------------------------------------------------------------
+
+
+def save_cache(path: str, d: dict) -> None:
+    """Write rows built with the native megablocks (`mega_shift` None)."""
+    if d["int64"] and d["mega_shift"] != default_mega_shift(d["S"]):
+        raise ValueError("only rows with 2^32-symbol megablocks go to the cache")
+    tmp = f"{path}.tmp.{os.getpid()}"  # np.savez appends .npz to a bare stem
+    np.savez(tmp, rows=d["rows"], esc=d["esc"], mega=d["mega"] if d["int64"] else np.zeros(0, np.int64),
+             acc=d["acc"], meta=np.array([d["n"], d["S"], int(d["int64"])], np.int64))
+    os.replace(tmp + ".npz", path)
+
+
+def load_cache(path: str, n: int, S: int | None = None, int64: bool | None = None, source: str | None = None) -> dict | None:
+    """The cached rows, or None unless the cache exists, is no older than
+    `source` (the index it was built from) and matches n, S (None: any) and
+    the width (None: the one n picks)."""
+    try:
+        if source is not None and os.path.getmtime(path) < os.path.getmtime(source):
+            return None
+        with np.load(path, allow_pickle=False) as z:
+            meta = [int(v) for v in z["meta"]]
+            want64 = needs_int64(n) if int64 is None else int64
+            if meta[0] != n or (S is not None and meta[1] != S) or bool(meta[2]) != want64:
+                return None
+            d = dict(rows=z["rows"], esc=z["esc"], mega=z["mega"] if want64 else None, acc=z["acc"], n=n, S=meta[1],
+                     int64=want64, mega_shift=default_mega_shift(meta[1]) if want64 else 0)
+    except (OSError, KeyError, ValueError):
+        return None
+    nb = (n + d["S"] - 1) // d["S"]
+    if d["rows"].shape != (nb, RB_COLS) or (want64 and d["mega"].shape != (((nb - 1) >> d["mega_shift"]) + 1, ASIZE)):
+        return None
+    if nb and not -1 <= int(d["rows"][:, 6].min()) <= int(d["rows"][:, 6].max()) < len(d["esc"]):
+        return None
+    return d
+
+
+def from_dense_np(f, S: int | None = None, int64: bool | None = None, mega_shift: int | None = None,
+                  cache: str | bool | None = True) -> dict:
+    """Host rows of a DenseFMIndex, through the cache.  cache True puts it
+    next to the index's `.dense` sidecar (none without one); a string names
+    it; None or False disables it.  A fresh build is cached only when it has
+    the native megablocks."""
+    source = getattr(f, "_sidecar_path", None)
+    if cache is True:
+        cache = source + ".rb.npz" if source else None
+    if cache and mega_shift is None:
+        got = load_cache(cache, int(f.n), S=S, int64=int64, source=source)
+        if got is not None:
+            return got
+    d = build_runblock_np(*runs_from_dense(f), n=f.n, S=S, int64=int64, mega_shift=mega_shift)
+    if cache and mega_shift is None:
+        try:
+            save_cache(cache, d)
+        except OSError:
+            pass
+    return d

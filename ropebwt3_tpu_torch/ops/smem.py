@@ -3,26 +3,40 @@
 Port of ropebwt3_tpu/ops/smem.py + ops/smem_fsm.py.  Reads arrive as one
 flat nt6 buffer plus int64 offsets (read r = flat[seq_off[r]:seq_off[r+1]],
 the native engine's contract, ropebwt3_tpu/ops/smem_native.py:99-103), so
-nothing is padded.  Both versions return (mems (R, M, 5) int32 rows
-(start, end, size, lo, lo_rc) in emit order, n_mem (R,) int32 TRUE counts);
+nothing is padded.  Both versions take either occ layout (ops/rank.py
+`OccIndex`, ops/runblock.py `RunBlockIndex`) in either width and return
+(mems (R, M, 5) rows (start, end, size, lo, lo_rc) in emit order, in the
+index's width (int64 mode: lo exceeds 2^31), n_mem (R,) int32 TRUE counts);
 a read with n_mem > M overflowed, its last slot holds its latest emit, and
 `BatchedSmemTG` reruns it on the native host engine.
 
 `smem_tg_plain` is a lock-step lane loop in PyTorch — the plain twin of the
-CUDA kernel (csrc/smem_tg.cu) that `smem_tg_cuda` launches.
+CUDA kernel (csrc/smem_tg.cu) that `smem_tg_cuda` launches, one variant per
+layout.
 """
 
 from __future__ import annotations
 
+import os
+from collections import Counter
+
 import numpy as np
 import torch
 
+from ropebwt3_tpu import log
 from ropebwt3_tpu.index.dense import DenseFMIndex
 from ropebwt3_tpu.ops.smem_native import smem_tg_batch_native
 from ropebwt3_tpu.ops.smem_ref import Mem
 
 from .. import kernels
 from .rank import OccIndex, extend_c, set_intv
+from .runblock import RunBlockIndex
+
+# `occ=auto` takes rb rows when dense rows (0.75 B/sym) would pass this share
+# of the card's memory: the JAX package's 12e9 bytes of a 16 GB TPU chip
+# (ropebwt3_tpu/ops/smem.py:157), which stays the budget on the CPU
+AUTO_RB_SHARE = 0.75
+AUTO_RB_BYTES_CPU = 12e9
 
 PH_START, PH_BACK1, PH_FWD, PH_BACK2, PH_DONE = range(5)
 
@@ -36,7 +50,7 @@ def pack_reads(queries: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     return flat, seq_off
 
 
-def _check_args(idx: OccIndex, flat: torch.Tensor, seq_off: torch.Tensor, min_len: int, max_mems: int) -> None:
+def _check_args(idx, flat: torch.Tensor, seq_off: torch.Tensor, min_len: int, max_mems: int) -> None:
     if flat.dtype != torch.uint8 or flat.dim() != 1 or seq_off.dtype != torch.int64 or seq_off.dim() != 1:
         raise ValueError("flat must be 1-D uint8 and seq_off 1-D int64")
     if flat.device != idx.device or seq_off.device != idx.device:
@@ -58,12 +72,12 @@ def _emit(mems, n_mem, m, st, en, ik) -> None:
     r = m.nonzero().squeeze(1)
     if r.numel():
         slot = n_mem[r].clamp(max=mems.shape[1] - 1)
-        mems[r, slot] = torch.stack([st[r], en[r], ik[r, 2], ik[r, 0], ik[r, 1]], dim=1).int()
+        mems[r, slot] = torch.stack([st[r], en[r], ik[r, 2], ik[r, 0], ik[r, 1]], dim=1).to(mems.dtype)
         n_mem[r] += 1
 
 
 def smem_tg_plain(
-    idx: OccIndex, flat: torch.Tensor, seq_off: torch.Tensor, *, min_occ: int, min_len: int, max_mems: int
+    idx, flat: torch.Tensor, seq_off: torch.Tensor, *, min_occ: int, min_len: int, max_mems: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SMEM-TG for every read, one lane per read, all lanes in lock-step:
     each trip resolves the transitions that need no rank, then extends every
@@ -71,7 +85,7 @@ def smem_tg_plain(
     _check_args(idx, flat, seq_off, min_len, max_mems)
     dev = flat.device
     R = seq_off.numel() - 1
-    mems = torch.zeros((R, max_mems, 5), dtype=torch.int32, device=dev)
+    mems = torch.zeros((R, max_mems, 5), dtype=idx.dtype, device=dev)
     n_mem = torch.zeros(R, dtype=torch.int64, device=dev)
     base = seq_off[:-1]
     qlen = seq_off[1:] - base
@@ -138,36 +152,63 @@ def smem_tg_plain(
 
 
 def smem_tg_cuda(
-    idx: OccIndex, flat: torch.Tensor, seq_off: torch.Tensor, *, min_occ: int, min_len: int, max_mems: int
+    idx, flat: torch.Tensor, seq_off: torch.Tensor, *, min_occ: int, min_len: int, max_mems: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """SMEM-TG through the smem_tg kernel (csrc/smem_tg.cu), one thread per
-    read.  Same contract as `smem_tg_plain`, which a CPU tensor takes."""
+    """SMEM-TG through the smem_tg kernel of the index's layout
+    (csrc/smem_tg.cu), one thread per read.  Same contract as
+    `smem_tg_plain`, which a CPU tensor takes."""
     if flat.device.type == "cpu":
         return smem_tg_plain(idx, flat, seq_off, min_occ=min_occ, min_len=min_len, max_mems=max_mems)
     _check_args(idx, flat, seq_off, min_len, max_mems)
     R = seq_off.numel() - 1
     flat, seq_off = flat.contiguous(), seq_off.contiguous()
-    mems = torch.empty((R, max_mems, 5), dtype=torch.int32, device=flat.device)
+    mems = torch.empty((R, max_mems, 5), dtype=idx.dtype, device=flat.device)
     n_mem = torch.empty(R, dtype=torch.int32, device=flat.device)
     if R:
         kernels.launch(
-            "rb3c_smem_tg", flat.device, idx.occf.data_ptr(), idx.acc.data_ptr(), flat.data_ptr(), seq_off.data_ptr(), R,
+            f"rb3c_smem_tg_{idx.layout}", flat.device, *idx.kernel_tables(), flat.data_ptr(), seq_off.data_ptr(), R,
             int(min_occ), int(min_len), int(max_mems), mems.data_ptr(), n_mem.data_ptr(),
         )
-        smem_tg_cuda.launches += 1
+        smem_tg_cuda.launches[idx.layout] += 1
     return mems, n_mem
 
 
-smem_tg_cuda.launches = 0
+smem_tg_cuda.launches = Counter()
+
+
+def resolve_occ(occ: str, n: int, device) -> str:
+    """"dense" or "rb" for `occ` auto|dense|rb, as the JAX package resolves
+    it (ropebwt3_tpu/ops/smem.py:154-157), the RB3TPU_DEVICE_OCC override
+    included; auto takes rb rows when dense rows would pass AUTO_RB_SHARE of
+    the card's memory."""
+    if occ == "auto":
+        occ = os.environ.get("RB3TPU_DEVICE_OCC", "auto")
+    if occ not in ("auto", "dense", "rb"):
+        raise ValueError(f"invalid occ '{occ}' (auto|dense|rb)")
+    if occ == "auto":
+        dev = torch.device(device)
+        budget = AUTO_RB_SHARE * torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else AUTO_RB_BYTES_CPU
+        occ = "rb" if n * 0.75 > budget else "dense"
+    return occ
 
 
 class BatchedSmemTG:
     """The `mem` engine: occ rows resident on `device`, one kernel launch
-    per `run`.  Reads whose MEM buffer overflows (n_mem > max_mems) are rerun
+    per `run`.  `occ` picks the rows: dense, rb (run-block compressed, from
+    the `.rb.npz` cache when it is fresh) or auto (`resolve_occ`); the width
+    follows n.  Reads whose MEM buffer overflows (n_mem > max_mems) are rerun
     on the native host engine in one call and counted in `n_rerun`."""
 
-    def __init__(self, f: DenseFMIndex, min_occ: int = 1, min_len: int = 19, max_mems: int = 64, *, device):
-        self.idx = OccIndex.from_dense(f, device)
+    def __init__(self, f: DenseFMIndex, min_occ: int = 1, min_len: int = 19, max_mems: int = 64, *, device,
+                 occ: str = "auto"):
+        if resolve_occ(occ, f.n, device) == "rb":
+            self.idx = RunBlockIndex.from_dense(f, device)
+            s = f"S {self.idx.S}, {self.idx.n_esc} escape blocks, "
+        else:
+            self.idx = OccIndex.from_dense(f, device)
+            s = ""
+        log.info("occ layout %s (%s%s rows): %d bytes on %s", self.idx.layout, s, "int64" if self.idx.int64 else "int32",
+                 self.idx.nbytes, self.idx.device, func="mem")
         self._dense = f
         self.min_occ = int(min_occ)
         self.min_len = int(min_len)

@@ -44,6 +44,23 @@ def test_mem_matches_native(corpus, corpus_fmd, opts):
     assert b"smem_tg launches" in got.stderr  # the port's engine ran, not the native one
 
 
+@pytest.mark.parametrize("occ,layout", [("rb", "rb32"), ("dense", "dense32")])
+def test_mem_occ_matches_native(corpus, corpus_fmd, occ, layout):
+    """`--occ` picks the rows the engine runs on; the BED stays the writer's."""
+    files = [str(corpus_fmd), str(corpus / "reads.fa")]
+    want = _run("ropebwt3_tpu", ["mem", "--engine=native", "-l21"] + files)
+    got = _run("ropebwt3_tpu_torch", ["mem", "--device=cpu", f"--occ={occ}", "-l21"] + files)
+    assert got.returncode == 0, got.stderr.decode()
+    assert want.stdout and got.stdout == want.stdout
+    assert f"occ layout {layout}".encode() in got.stderr and f"launches ({layout})".encode() in got.stderr
+
+
+def test_mem_rejects_bad_occ(corpus, corpus_fmd):
+    r = _run("ropebwt3_tpu_torch", ["mem", "--device=cpu", "--occ=bogus", str(corpus_fmd), str(corpus / "reads.fa")])
+    assert r.returncode != 0 and not r.stdout
+    assert b"invalid --occ value" in r.stderr
+
+
 def test_mem_without_cuda_exits_nonzero(corpus, corpus_fmd):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")

@@ -14,7 +14,9 @@ from ropebwt3_tpu.construct.sa import gsa_bwt
 from ropebwt3_tpu.index.dense import DenseFMIndex
 from ropebwt3_tpu.nt6 import char2nt6, revcomp
 from ropebwt3_tpu.seqio import read_seqs
-from ropebwt3_tpu_torch.ops import rank, smem
+from ropebwt3_tpu_torch.ops import rank, runblock, smem
+
+LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
 
 
 @pytest.fixture(scope="module")
@@ -50,6 +52,18 @@ def flat_of(qs):
     return torch.from_numpy(flat), torch.from_numpy(seq_off)
 
 
+def make_index(layout, f, device):
+    """The index of `layout` on `device`, int64 megablocks shrunk so the
+    corpus index spans several."""
+    if layout == "dense32":
+        return rank.OccIndex.from_dense(f, device)
+    if layout == "dense64":
+        return rank.OccIndex.from_dense(f, device, int64=True, mega_shift=6)
+    if layout == "rb32":
+        return runblock.RunBlockIndex.from_dense(f, device, cache=None)
+    return runblock.RunBlockIndex.from_dense(f, device, S=256, int64=True, mega_shift=2, cache=None)
+
+
 def assert_same_mems(m1, n1, m2, n2, M):
     """Equal true counts, and equal rows in the min(n, M) filled slots."""
     assert np.array_equal(n1, n2)
@@ -74,16 +88,71 @@ def test_occ_kernels_match_plain(corpus_index, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS[1:])
+def test_occ_kernels_match_plain_layouts(corpus_index, cuda_device, layout):
+    """Every rank position in [0, n] (block boundaries, k = n) and random
+    intervals, on the other layouts."""
+    cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
+    assert gpu.layout == layout
+    k = torch.arange(corpus_index.n + 1)
+    rank.rank1a_cuda.launches.clear()
+    assert torch.equal(rank.rank1a_cuda(gpu, k.to(cuda_device)).cpu(), rank.rank1a(cpu, k).to(cpu.dtype))
+    rng = np.random.default_rng(6)
+    ik = torch.from_numpy(random_intervals(rng, corpus_index.n, 100_000)).to(cpu.dtype)
+    c = torch.from_numpy(rng.integers(0, 6, len(ik))).int()
+    back = torch.from_numpy(rng.random(len(ik)) < 0.5)
+    got = rank.extend_c_cuda(gpu, ik.to(cuda_device), c.to(cuda_device), back.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), rank.extend_c(cpu, ik, c, back).to(cpu.dtype))
+    assert rank.rank1a_cuda.launches[layout] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("M", [16, 2])
-def test_smem_kernel_matches_plain(corpus, corpus_index, cuda_device, M):
+def test_smem_kernel_matches_plain(corpus, corpus_index, cuda_device, M, layout):
     """M = 2 makes reads overflow: the kernel must keep the true count and
     the latest emit in the last slot, as the plain version does."""
     reads = [char2nt6(r.seq) for r in read_seqs(str(corpus / "reads.fa"))]
     qs = [r[: 21 + 7 * (i % 19)] for i, r in enumerate(reads * 8)] + [reads[0][:0]]
     flat, seq_off = flat_of(qs)
-    cpu = rank.OccIndex.from_dense(corpus_index, "cpu")
-    gpu = rank.OccIndex.from_dense(corpus_index, cuda_device)
+    cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
     mk, nk = smem.smem_tg_cuda(gpu, flat.to(cuda_device), seq_off.to(cuda_device), min_occ=1, min_len=21, max_mems=M)
     torch.cuda.synchronize()
     mp, np_ = smem.smem_tg_plain(cpu, flat, seq_off, min_occ=1, min_len=21, max_mems=M)
+    assert mk.dtype == mp.dtype == gpu.dtype
     assert_same_mems(mk.cpu().numpy(), nk.cpu().numpy(), mp.numpy(), np_.numpy(), M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,int64", [(8192, False), (1024, True)])
+def test_smem_kernel_run_coded_rows(cuda_device, S, int64):
+    """rb rows where run-coded blocks dominate (150 near-identical copies; at
+    S = 8192 one block of 110 escapes): the record scan, and at S = 8192 the
+    wrapped record ends (F4), under the SMEM kernel."""
+    rng = np.random.default_rng(11)
+    base = rng.integers(1, 5, 3000).astype(np.uint8)
+    parts = []
+    for _ in range(150):
+        s = base.copy()
+        mut = rng.random(len(s)) < 0.0002
+        s[mut] = rng.integers(1, 5, int(mut.sum()))
+        parts += [s, np.zeros(1, np.uint8), revcomp(s), np.zeros(1, np.uint8)]
+    f = DenseFMIndex.from_bwt(gsa_bwt(np.concatenate(parts)))
+    kw = dict(S=S, int64=int64, mega_shift=2 if int64 else None, cache=None)
+    cpu, gpu = runblock.RunBlockIndex.from_dense(f, "cpu", **kw), runblock.RunBlockIndex.from_dense(f, cuda_device, **kw)
+    assert 2 * cpu.n_esc < cpu.rows.shape[0]
+    qs = []
+    for _ in range(500):
+        st = int(rng.integers(0, len(base) - 150))
+        r = base[st : st + 150].copy()
+        mut = rng.random(150) < 0.02
+        r[mut] = rng.integers(1, 5, int(mut.sum()))
+        qs.append(r)
+    flat, seq_off = flat_of(qs)
+    mk, nk = smem.smem_tg_cuda(gpu, flat.to(cuda_device), seq_off.to(cuda_device), min_occ=1, min_len=19, max_mems=16)
+    torch.cuda.synchronize()
+    mp, np_ = smem.smem_tg_plain(cpu, flat, seq_off, min_occ=1, min_len=19, max_mems=16)
+    assert_same_mems(mk.cpu().numpy(), nk.cpu().numpy(), mp.numpy(), np_.numpy(), 16)
+    k = torch.arange(f.n + 1)
+    assert torch.equal(rank.rank1a_cuda(gpu, k.to(cuda_device)).cpu(), rank.rank1a(cpu, k).to(cpu.dtype))

@@ -1,0 +1,258 @@
+"""The port's run-block occ rows (ropebwt3_tpu_torch/ops/runblock.py) against
+the JAX package's dense `DeviceIndex` and its `RunBlockIndex`, on indexes
+built with the repo's own index build.  Integer outputs: exact.
+
+Two faults of the JAX `RunBlockIndex` are fixed in the port, and tests here
+show both: F1 (rank at k = n when S divides n) and F4 (a run reaching the
+end of an 8192-symbol block stores 8192 << 3 in a uint16 record, which wraps
+to 0)."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ropebwt3_tpu.construct.sa import gsa_bwt
+from ropebwt3_tpu.index.dense import DenseFMIndex
+from ropebwt3_tpu.nt6 import revcomp
+from ropebwt3_tpu.ops import rank as jrank
+from ropebwt3_tpu.ops import runblock as jrb
+from ropebwt3_tpu_torch.ops import rank as trank
+from ropebwt3_tpu_torch.ops import runblock as trb
+
+from .test_torch_cuda import random_intervals
+
+CHUNK = 1 << 16
+
+
+def _index(seed, n_copies, L, div, with_ns=False):
+    """n_copies mutated copies of one random genome, each with its reverse
+    complement, 0-terminated."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(1, 5, L).astype(np.uint8)
+    parts = []
+    for _ in range(n_copies):
+        s = base.copy()
+        mut = rng.random(L) < div
+        s[mut] = rng.integers(1, 5, int(mut.sum()))
+        if with_ns:
+            s[rng.random(L) < 0.002] = 5
+        parts += [s, np.zeros(1, np.uint8), revcomp(s), np.zeros(1, np.uint8)]
+    return DenseFMIndex.from_bwt(gsa_bwt(np.concatenate(parts)))
+
+
+@pytest.fixture(scope="module")
+def pangenome():
+    return _index(0, 6, 3000, 0.02, with_ns=True)
+
+
+@pytest.fixture(scope="module")
+def divisible():
+    """4 copies of 2,047 bp: n = 16,384, which S = 256 and 1024 divide (F1)."""
+    f = _index(1, 4, 2047, 0.01)
+    assert f.n == 16384
+    return f
+
+
+@pytest.fixture(scope="module")
+def redundant():
+    """150 copies of 3,000 bp at 0.02% divergence: n = 900,300, where
+    choose_S picks 8192 (F4)."""
+    f = _index(3, 150, 3000, 0.0002)
+    assert f.n == 900300
+    return f
+
+
+def _rank_all(rank_fn, n):
+    """rank_fn over every k in [0, n], in chunks: (n + 1, 6) int64."""
+    return np.concatenate([np.asarray(rank_fn(np.arange(a, min(a + CHUNK, n + 1), dtype=np.int64))).astype(np.int64)
+                           for a in range(0, n + 1, CHUNK)])
+
+
+def _port_rank(idx):
+    return lambda k: idx.rank1a(torch.from_numpy(k)).numpy()
+
+
+def _jax_rank(idx):
+    return lambda k: jrank.rank1a(idx, jnp.asarray(k))
+
+
+def _totals(f):
+    return f.acc[1:] - f.acc[:-1]
+
+
+@pytest.mark.parametrize("S", [256, 1024, 8192, None])
+def test_rank_every_k_and_extend_match_dense(pangenome, S):
+    f = pangenome
+    rb = trb.RunBlockIndex.from_dense(f, "cpu", S=S, cache=None)
+    dense = jrank.DeviceIndex.from_dense(f, prefix=False)
+    assert rb.layout == "rb32" and (S is None or rb.S == S)
+    assert np.array_equal(_rank_all(_port_rank(rb), f.n), _rank_all(_jax_rank(dense), f.n))
+    rng = np.random.default_rng(2)
+    ik = random_intervals(rng, f.n, 2000)
+    back = rng.random(len(ik)) < 0.5
+    c = rng.integers(0, 6, len(ik))
+    got = trank.extend(rb, torch.from_numpy(ik), torch.from_numpy(back)).numpy()
+    assert np.array_equal(got, np.asarray(jrank.extend(dense, jnp.asarray(ik), jnp.asarray(back))))
+    got = trank.extend_c(rb, torch.from_numpy(ik), torch.from_numpy(c), torch.from_numpy(back)).numpy()
+    assert np.array_equal(got, np.asarray(jrank.extend_c(dense, jnp.asarray(ik), jnp.asarray(c, jnp.int32), jnp.asarray(back))))
+    got = trank.set_intv(rb, torch.arange(6)).numpy()
+    assert np.array_equal(got, np.asarray(jrank.set_intv(dense, jnp.arange(6, dtype=jnp.int32))))
+
+
+@pytest.mark.parametrize("S", [256, 1024])
+def test_f1_rank_at_n_when_S_divides_n(divisible, S):
+    f = divisible
+    assert f.n % S == 0
+    rb = trb.RunBlockIndex.from_dense(f, "cpu", S=S, cache=None)
+    dense = jrank.DeviceIndex.from_dense(f, prefix=False)
+    assert np.array_equal(_rank_all(_port_rank(rb), f.n), _rank_all(_jax_rank(dense), f.n))
+    assert np.array_equal(rb.rank1a(torch.tensor([f.n]))[0].numpy(), _totals(f))
+    full = np.array([[0, 0, f.n]] * 6, np.int64)
+    c, back = np.arange(6), np.ones(6, bool)
+    want = np.asarray(jrank.extend_c(dense, jnp.asarray(full), jnp.asarray(c, jnp.int32), jnp.asarray(back)))
+    got = trank.extend_c(rb, torch.from_numpy(full), torch.from_numpy(c), torch.from_numpy(back)).numpy()
+    assert np.array_equal(got, want)
+    # the JAX reference ranks k = n at row n // S, clamped to the last row
+    # with offset 0: it drops the last block (F1)
+    jax_rb = jrb.from_dense(f, S=S, cache=None)
+    assert not np.array_equal(np.asarray(jrank.rank1a(jax_rb, jnp.asarray([f.n])))[0], _totals(f))
+    assert not np.array_equal(
+        np.asarray(jrank.extend_c(jax_rb, jnp.asarray(full), jnp.asarray(c, jnp.int32), jnp.asarray(back))), want)
+
+
+def test_f4_full_8192_blocks_every_k(redundant):
+    f = redundant
+    syms, lens = trb.runs_from_dense(f)
+    S, _ = trb.choose_S(lens, f.n)
+    assert S == 8192
+    rb = trb.RunBlockIndex.from_dense(f, "cpu", cache=None)
+    assert rb.S == 8192
+    want = _rank_all(_jax_rank(jrank.DeviceIndex.from_dense(f, prefix=False)), f.n)
+    assert np.array_equal(_rank_all(_port_rank(rb), f.n), want)
+    # the JAX reference's uint16 record of a run ending at 8192 wraps to 0,
+    # and its decode gives that run no coverage (F4): wrong in the first
+    # four blocks already
+    k = np.arange(4 * 8192 + 1)
+    got = np.asarray(jrank.rank1a(jrb.from_dense(f, S=8192, cache=None), jnp.asarray(k)))
+    assert (got != want[k]).any()
+
+
+@pytest.mark.parametrize("S", [256, 1024])
+def test_matches_jax_runblock(pangenome, S):
+    """Where the JAX RunBlockIndex is right (S < 8192, S does not divide n),
+    the port agrees with it on the rows and on every answer."""
+    f = pangenome
+    assert f.n % S
+    d = trb.build_runblock_np(*trb.runs_from_dense(f), n=f.n, S=S)
+    jd = jrb.build_runblock_np(*jrb.runs_from_dense(f), n=f.n, S=S)
+    for key in ("rows", "esc", "acc"):
+        assert np.array_equal(d[key], jd[key]), key
+    rb, jax_rb = trb.RunBlockIndex.from_np(d, "cpu"), jrb.from_dense(f, S=S, cache=None)
+    assert np.array_equal(_rank_all(_port_rank(rb), f.n), _rank_all(_jax_rank(jax_rb), f.n))
+    rng = np.random.default_rng(4)
+    ik = random_intervals(rng, f.n, 1000)
+    back = rng.random(len(ik)) < 0.5
+    c = rng.integers(0, 6, len(ik))
+    got = trank.extend(rb, torch.from_numpy(ik), torch.from_numpy(back)).numpy()
+    assert np.array_equal(got, np.asarray(jrank.extend(jax_rb, jnp.asarray(ik), jnp.asarray(back))))
+    got = trank.extend_c(rb, torch.from_numpy(ik), torch.from_numpy(c), torch.from_numpy(back)).numpy()
+    assert np.array_equal(got, np.asarray(jrank.extend_c(jax_rb, jnp.asarray(ik), jnp.asarray(c, jnp.int32), jnp.asarray(back))))
+
+
+def test_forced_escape_blocks():
+    """A random sequence at S = 256: blocks of more than 64 runs take the
+    escape planes, including offset S at block boundaries."""
+    rng = np.random.default_rng(5)
+    seq = rng.integers(1, 5, 40000).astype(np.uint8)
+    f = DenseFMIndex.from_bwt(gsa_bwt(np.concatenate([seq, [0], revcomp(seq), [0]]).astype(np.uint8)))
+    rb = trb.RunBlockIndex.from_dense(f, "cpu", S=256, cache=None)
+    assert rb.n_esc > 1 and rb.esc.shape == (rb.n_esc, 3 * 256 // 32)
+    assert np.array_equal(_rank_all(_port_rank(rb), f.n), f.rank1a(np.arange(f.n + 1)))
+    ik = random_intervals(rng, f.n, 1000)
+    back = rng.random(len(ik)) < 0.5
+    c = rng.integers(0, 6, len(ik))
+    got = trank.extend_c(rb, torch.from_numpy(ik), torch.from_numpy(c), torch.from_numpy(back)).numpy()
+    assert np.array_equal(got, np.stack([f.extend(ik[t : t + 1], bool(back[t]))[0, c[t]] for t in range(len(ik))]))
+
+
+@pytest.mark.parametrize("S,mega_shift", [(256, 2), (1024, 0), (8192, None)])
+def test_int64_megablocks_match_jax(pangenome, monkeypatch, S, mega_shift):
+    """int64 rb rows, re-based into megablocks of 2^mega_shift rows, against
+    the JAX int64 DeviceIndex with its megablocks shrunk too."""
+    f = pangenome
+    monkeypatch.setattr(jrank, "MEGA_BLOCK_SHIFT", 4)
+    dense = jrank.DeviceIndex.from_dense(f, idx_dtype=jnp.int64, prefix=False)
+    assert dense.occ_super.shape[0] > 1
+    rb = trb.RunBlockIndex.from_dense(f, "cpu", S=S, int64=True, mega_shift=mega_shift, cache=None)
+    assert rb.layout == "rb64" and rb.dtype == torch.int64
+    if mega_shift is not None:
+        assert rb.mega.shape[0] == ((f.n + S - 1) // S - 1 >> mega_shift) + 1 > 1
+    else:  # the native builder's 2^32-symbol megablocks: its rows as they are
+        jd = jrb.build_runblock_np(*jrb.runs_from_dense(f), n=f.n, S=S, idx_dtype=jnp.int64)
+        assert np.array_equal(rb.rows.numpy()[:, :6], jd["rows"][:, :6]) and np.array_equal(rb.mega.numpy(), jd["mega"])
+    assert np.array_equal(_rank_all(_port_rank(rb), f.n), _rank_all(_jax_rank(dense), f.n))
+    rng = np.random.default_rng(6)
+    ik = random_intervals(rng, f.n, 1000)
+    back = rng.random(len(ik)) < 0.5
+    c = rng.integers(0, 6, len(ik))
+    got = trank.extend_c(rb, torch.from_numpy(ik), torch.from_numpy(c), torch.from_numpy(back)).numpy()
+    assert np.array_equal(got, np.asarray(jrank.extend_c(dense, jnp.asarray(ik), jnp.asarray(c, jnp.int32), jnp.asarray(back))))
+    got = trank.extend(rb, torch.from_numpy(ik), torch.from_numpy(back)).numpy()
+    assert np.array_equal(got, np.asarray(jrank.extend(dense, jnp.asarray(ik), jnp.asarray(back))))
+
+
+def test_kernel_wrappers_take_plain_on_cpu(pangenome):
+    f = pangenome
+    for rb in (trb.RunBlockIndex.from_dense(f, "cpu", S=512, cache=None),
+               trb.RunBlockIndex.from_dense(f, "cpu", S=512, int64=True, mega_shift=1, cache=None)):
+        k = torch.tensor([0, 1, 511, 512, 513, f.n - 1, f.n])
+        assert np.array_equal(trank.rank1a_cuda(rb, k).numpy(), f.rank1a(k.numpy()))
+        assert trank.rank1a_cuda(rb, k).dtype == rb.dtype
+        ik = torch.tensor([[0, 0, f.n], [5, 9, 100]], dtype=rb.dtype)
+        c, back = torch.tensor([2, 3], dtype=torch.int32), torch.tensor([True, False])
+        assert torch.equal(trank.extend_c_cuda(rb, ik, c, back), trank.extend_c(rb, ik, c, back).to(rb.dtype))
+        with pytest.raises(ValueError):  # past the end of the BWT
+            trank.rank1a_cuda(rb, torch.tensor([f.n + 1]))
+        with pytest.raises(ValueError):
+            trank.extend_c_cuda(rb, torch.tensor([[0, 0, f.n + 1]], dtype=rb.dtype), c[:1], back[:1])
+        with pytest.raises(ValueError):  # ik in the wrong width
+            trank.extend_c_cuda(rb, ik.to(torch.int16), c, back)
+
+
+def test_cache_refuses_stale_and_mismatched(pangenome, tmp_path):
+    """`<sidecar>.rb.npz`: the JAX package's format; used only when n, S and
+    the width match and it is no older than the index's sidecar (F3)."""
+    f = pangenome
+    sidecar = tmp_path / "idx.fmd.dense"
+    sidecar.write_bytes(b"")
+    f._sidecar_path = str(sidecar)
+    try:
+        cache = str(sidecar) + ".rb.npz"
+        d = trb.from_dense_np(f)  # builds and writes the cache
+        assert os.path.exists(cache)
+        jd = jrb.load_cache(cache, f.n)  # the JAX package reads it
+        assert jd is not None and jd["S"] == d["S"] and np.array_equal(jd["rows"], d["rows"])
+        got = trb.load_cache(cache, f.n, source=str(sidecar))
+        assert got is not None and np.array_equal(got["rows"], d["rows"]) and np.array_equal(got["esc"], d["esc"])
+        assert trb.load_cache(cache, f.n + 1) is None  # wrong n
+        other = 256 if d["S"] != 256 else 512
+        assert trb.load_cache(cache, f.n, S=other) is None  # wrong S
+        assert trb.from_dense_np(f, S=other)["S"] == other  # rebuilt, not taken from the cache
+        assert trb.load_cache(cache, f.n, int64=True) is None  # wrong width
+        t = os.path.getmtime(sidecar)
+        os.utime(cache, (t - 10, t - 10))
+        assert trb.load_cache(cache, f.n, source=str(sidecar)) is None  # older than the index
+        bad = dict(d, rows=d["rows"].copy())
+        bad["rows"][0, 6] = len(d["esc"])  # an escape index past the table
+        trb.save_cache(cache, bad)
+        assert trb.load_cache(cache, f.n) is None
+        with pytest.raises(ValueError):
+            trb.RunBlockIndex.from_np(bad, "cpu")
+        np.savez(str(tmp_path / "marker"), meta=np.array([f.n, d["S"], 0]))
+        os.replace(str(tmp_path / "marker.npz"), cache)  # a fresh cache with the same meta...
+        assert trb.from_dense_np(f)["rows"].shape == d["rows"].shape  # ...but no rows: rebuilt
+    finally:
+        del f._sidecar_path
