@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (ropebwt3_tpu_torch).
 
-Drives `mem -l31` on one CUDA card through the port's CLI, on the workload of
-bench.py (16 x 2 Mbp genomes at 1% divergence, indexed double strand: ~64 M
-symbols, ~48 MB of dense occ rows; 100,000 x 150 bp reads at 1% error) plus
-200 reads of 5-20 kb that overflow the MEM buffer: once on the default rows
-(the main path) and once with `--occ=rb`.  Every kernel runs on each of the
-four occ layouts (dense32, dense64, rb32, rb64).  Phases:
+Drives the port's entry points on one CUDA card: `mem -l31` on the workload
+of bench.py (16 x 2 Mbp genomes at 1% divergence, indexed double strand:
+~64 M symbols, ~48 MB of dense occ rows; 100,000 x 150 bp reads at 1% error)
+plus 200 reads of 5-20 kb that overflow the MEM buffer, once on the default
+rows (the main path) and once with `--occ=rb`; `ssa` on bench.py's index and
+two more; and the row-gather probes.  Every rank and SMEM kernel runs on each
+of the four occ layouts (dense32, dense64, rb32, rb64), ssa_gen on both dense
+ones.  Phases:
 
   build     compile the kernels from csrc/ (nvcc, sm_90a, one nvcc per source)
   corpus    generate the data from a seed; build the FMD with the repo's own
@@ -25,6 +27,21 @@ four occ layouts (dense32, dense64, rb32, rb64).  Phases:
   smem      smem_tg of each layout vs smem_tg_plain on the card, 4,096 reads,
             exact; then each layout's rows on the main path's batch must equal
             the dense32 kernel's
+  probe     the three probe kernels (csrc/probe.cu) vs their plain versions
+            on the card, exact: shared-memory capacity at the opt-in limit
+            (one 512-B row past it must be refused), the shared-memory and
+            device-memory row gathers in every mode, 48-B and 512-B rows;
+            then the probe path, `python -m ropebwt3_tpu_torch.probe`'s main,
+            with launch counts reset before and read after: the sweep
+  ssa       ssa_gen on three indexes: bench.py's (m = 32, dense32 and dense64
+            with megablocks of 2^20 symbols), one of the 100,000 short reads
+            (m = 200,000, cached under .bench/torch_smoke/many/) and the CPU
+            tests' corpus; the SSA byte-equal to ssa_gen_native, the kernel's
+            arrays equal to ssa_gen_plain on the card (not run on bench.py's
+            index: ~2 M lock-step trips); then `ssa` through
+            ropebwt3_tpu_torch.cli.main on each index (bench.py's is the ssa
+            path: counts reset before, read after) and once as `python -m
+            ropebwt3_tpu_torch ssa`, byte-equal to `python -m ropebwt3_tpu ssa`
   mem       the main path: `mem -l31` through ropebwt3_tpu_torch.cli.main with
             launch counts reset before and read after; its BED must equal
             `python -m ropebwt3_tpu mem --engine=native` byte for byte
@@ -55,6 +72,9 @@ N_GENOMES, GENOME_LEN, DIVERGENCE = 16, 2_000_000, 0.01
 N_READS, READ_LEN, READ_ERR, MIN_LEN = 100_000, 150, 0.01, 31
 SEED = 20260817
 N_LONG, LONG_LEN = 200, (5_000, 20_000)
+PROBE_Q, PROBE_ITERS = 4096, 200  # probe phase checks: lanes, steps
+PROBE_HBM_SHAPES = ((1_000_000, 12), (2_000_000, 128))  # 48 MB of 48-B rows, 1 GB of 512-B rows
+SSA_SHIFT = 8  # `ssa`'s default -s; the CPU tests' corpus runs -s 4
 N_CHECK = 1 << 20  # rank phase positions and intervals
 N_SMEM = 4096  # smem phase reads
 MAX_MEMS = 64  # BatchedSmemTG's MEM buffer rows per read
@@ -236,6 +256,182 @@ def run_length_rank(syms: np.ndarray, lens: np.ndarray, k: np.ndarray) -> np.nda
     return out
 
 
+def write_fasta(path: str, seqs) -> str:
+    """nt6 sequences as FASTA records r0, r1, ..."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    alpha = np.frombuffer(b"$ACGTN", dtype=np.uint8)
+    with open(path, "wb") as fh:
+        fh.write(b"".join(b">r%d\n" % i + alpha[s].tobytes() + b"\n" for i, s in enumerate(seqs)))
+    return path
+
+
+def make_test_corpus(work: str) -> str:
+    """genomes.fa of the CPU tests' `corpus` fixture (tests/conftest.py):
+    8 x 8 kb genomes at 1% divergence from seed 42."""
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(42)
+    base = rng.integers(0, 4, 8000)
+    fa = os.path.join(work, "genomes.fa")
+    with open(fa, "w") as fh:
+        for i in range(8):
+            s = base.copy()
+            mut = rng.random(len(s)) < 0.01
+            s[mut] = rng.integers(0, 4, mut.sum())
+            fh.write(f">s{i}\n" + "".join("ACGT"[c] for c in s) + "\n")
+    return fa
+
+
+def check_probes(probe, dev) -> dict:
+    """The three probe kernels vs their plain versions on the card; fails
+    unless exact.  Capacity at the opt-in limit (and one row past it, which
+    must be refused); each gather in every mode on 48-B and 512-B rows with
+    values over the whole int32 range, PROBE_Q lanes and a ragged count.
+    Times at the first shape, `dep`."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    optin = probe.smem_optin(dev)
+    top = optin // 512 * 512
+    out, err = probe.smem_capacity_cuda(top, dev)
+    if err or not torch.equal(out, probe.smem_capacity_plain(top, dev)):
+        fail(f"probe_smem_capacity at the opt-in size {top} B: {err or 'wrong sum'}")
+    past, refusal = probe.smem_capacity_cuda(top + 512, dev)
+    if past is not None:
+        fail(f"probe_smem_capacity ran {top + 512} B, past the opt-in limit {optin} B")
+    res = {"probe_smem_capacity": dict(
+        err=0, ms=cuda_ms(lambda: probe.smem_capacity_cuda(top, dev), 10),
+        plain=cuda_ms(lambda: probe.smem_capacity_plain(top, dev), 10),
+        input=f"{top} B of shared memory; {top + 512} B refused ({refusal})",
+        replaces="scripts/fused_probe.py:43 (P1), scripts/fused_probe2.py:42 (P4)")}
+    say(f"[probe] probe_smem_capacity: {top} B ran, P4's sum exact; {top + 512} B refused ({refusal}); "
+        f"cudaDevAttrMaxSharedMemoryPerBlockOptin {optin} B")
+    gathers = (
+        ("probe_smem_gather", probe.smem_gather_cuda, ((optin // 48, 12), (optin // 512, 128)),
+         "scripts/fused_probe.py:100 (P2), scripts/fused_probe2.py:75 (P5)"),
+        ("probe_hbm_gather", probe.hbm_gather_cuda, PROBE_HBM_SHAPES,
+         "scripts/fused_probe.py:146 (P3), scripts/fused_probe2.py:116 (P6), scripts/fused_probe3.py:44 (P7)"),
+    )
+    for name, fn, shapes, replaces in gathers:
+        err, r = 0, None
+        for rows, cols in shapes:
+            tab = torch.randint(-(1 << 31), 1 << 31, (rows, cols), dtype=torch.int64, device=dev, generator=gen).int()
+            for q in (PROBE_Q, PROBE_Q - 97):
+                idx0 = probe.random_starts(q, rows, dev, gen)
+                for mode in probe.MODES:
+                    err = max(err, max_abs(fn(tab, idx0, PROBE_ITERS, mode), probe.gather_plain(tab, idx0, PROBE_ITERS, mode)))
+                if r is None:  # the kernel alone: the wrapper's bounds check syncs
+                    r = dict(ms=probe.queued_ms([lambda: probe.launch_gather(fn, tab, idx0, PROBE_ITERS, "dep")] * 10),
+                             plain=cuda_ms(lambda: probe.gather_plain(tab, idx0, PROBE_ITERS, "dep"), 3),
+                             input=f"({rows}, {cols}) int32 table, {q} lanes x {PROBE_ITERS} dep steps")
+            del tab
+        if err:
+            fail(f"{name} differs from gather_plain by up to {err}")
+        res[name] = dict(r, err=err, replaces=replaces)
+        say(f"[probe] {name}: exact in every mode ({', '.join(probe.MODES)}) on "
+            + " and ".join(f"({rows}, {cols})" for rows, cols in shapes)
+            + f" int32 tables, {PROBE_Q} and {PROBE_Q - 97} lanes x {PROBE_ITERS} steps; {r['input']}: "
+            f"{r['ms']:.4f} ms vs plain {r['plain']:.4f} ms")
+    return res
+
+
+def walk_err(got, want) -> int:
+    """Largest difference between the kernel's and the plain version's walk
+    arrays (ssa_l only where a lane hit)."""
+    filled = want[1] >= 0
+    return max(max_abs(got[1], want[1]), max_abs(got[0][filled], want[0][filled]), max_abs(got[2], want[2]),
+               max_abs(got[3], want[3]))
+
+
+def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict, reads) -> tuple[dict, dict]:
+    """ssa_gen of both dense layouts on bench.py's index, the many-sequence
+    index and the CPU tests' corpus: byte-equal to ssa_gen_native, arrays
+    equal to ssa_gen_plain on the card where it runs; then `ssa` through the
+    CLI on each, byte-equal to `python -m ropebwt3_tpu ssa`.  Returns the
+    per-layout records and the ssa path's launch counts (bench.py's index)."""
+    import torch
+
+    from ropebwt3_tpu.formats.ssa import write_ssa_bytes
+    from ropebwt3_tpu.ssa_ops import ssa_gen_native
+
+    inputs = [("bench", f, fmd, idxs["dense32"], idxs["dense64"], SSA_SHIFT)]
+    t0 = time.perf_counter()
+    for name, fa, ss in (("many", write_fasta(os.path.join(WORK, "many", "reads.fa"), reads[:N_READS]), SSA_SHIFT),
+                         ("corpus", make_test_corpus(os.path.join(WORK, "corpus")), 4)):
+        x_fmd = build_index(fa)
+        xf = cli.load_index(x_fmd)
+        inputs.append((name, xf, x_fmd, rank.OccIndex.from_dense(xf, dev),
+                       rank.OccIndex.from_dense(xf, dev, int64=True, mega_shift=DENSE64_SHIFT), ss))
+    say("[ssa] indexes: " + "; ".join(f"{x[0]} n={x[1].n} m={int(x[1].acc[1])}" for x in inputs)
+        + f" (built or loaded in {time.perf_counter() - t0:.3f} s)")
+    res = {lay: {} for lay in ("dense32", "dense64")}
+    for name, xf, x_fmd, d32, d64, ss in inputs:
+        m = int(xf.acc[1])
+        t0 = time.perf_counter()
+        want = write_ssa_bytes(ssa_gen_native(xf, ss))
+        native_ms = (time.perf_counter() - t0) * 1e3
+        for lay, x in (("dense32", d32), ("dense64", d64)):
+            if write_ssa_bytes(ssa_ops.ssa_gen(xf, ss, occ=x)) != want:
+                fail(f"ssa_gen {lay} on the {name} index differs from ssa_gen_native")
+            ms = probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss)] * (1 if name == "bench" else 5))
+            r = res[lay]
+            if name == "bench":
+                r.update(bench_ms=ms, bench_native_ms=native_ms)
+                plain_note = f"plain not run (lanes of ~{int((xf.acc[6] - m) // m)} steps: as many lock-step trips)"
+            else:
+                got = ssa_ops.ssa_gen_cuda(x, m, ss)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                want_arr = ssa_ops.ssa_gen_plain(x, m, ss)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t1) * 1e3
+                err = walk_err(got, want_arr)
+                if err:
+                    fail(f"ssa_gen {lay} on the {name} index: arrays differ from ssa_gen_plain by up to {err}")
+                r["err"] = max(r.get("err", 0), err)
+                if name == "many":
+                    r.update(ms=ms, plain=plain_ms, input=f"many-sequence index: {N_READS} x {READ_LEN} bp reads, "
+                             f"double strand, n={xf.n}, m={m}, -s {ss}")
+                plain_note = f"plain on the card {plain_ms:.4f} ms, arrays exact"
+            say(f"[ssa] {name} {lay}: SSA (-s {ss}) byte-equal to ssa_gen_native; kernel {ms:.4f} ms vs native "
+                f"{native_ms:.4f} ms wall ({os.cpu_count()} host cores); {plain_note} ({card})")
+
+    path = None
+    for name, xf, x_fmd, d32, d64, ss in inputs:
+        opts = [] if ss == SSA_SHIFT else ["-s", str(ss)]
+        ref_fn, port_fn = os.path.join(WORK, f"ssa_{name}_ref.ssa"), os.path.join(WORK, f"ssa_{name}_port.ssa")
+        ref_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "ssa", *opts, "-o", ref_fn, x_fmd])
+        argv = ["ssa", *opts, "-o", port_fn, x_fmd]
+        ssa_ops.ssa_gen_cuda.launches.clear()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        port_s = time.perf_counter() - t0
+        launches = dict(ssa_ops.ssa_gen_cuda.launches)
+        sys.stderr.write(err.getvalue())
+        if rc != 0:
+            fail(f"ropebwt3_tpu_torch {' '.join(argv)} exited {rc}")
+        if open(port_fn, "rb").read() != open(ref_fn, "rb").read():
+            fail(f"port `ssa` on the {name} index differs from `python -m ropebwt3_tpu ssa`")
+        if launches.get("dense32", 0) < 1 or f"{launches['dense32']} ssa_gen launches (dense32)" not in err.getvalue():
+            fail(f"port `ssa` on the {name} index: no dense32 ssa_gen launch counted ({launches})")
+        if name == "bench":
+            path = dict(launches=launches, port_s=port_s)
+        say(f"[ssa] `{' '.join(['ssa', *opts])}` on the {name} index: file byte-equal to `python -m ropebwt3_tpu ssa`; "
+            f"launches {launches}; port in-process {port_s:.3f} s, reference `python -m ropebwt3_tpu ssa` {ref_s:.3f} s")
+    many_fmd = inputs[1][2]
+    sub_fn = os.path.join(WORK, "ssa_many_sub.ssa")
+    sub_s, sub_err = run([sys.executable, "-m", "ropebwt3_tpu_torch", "ssa", "-o", sub_fn, many_fmd])
+    m_sub = re.search(r"(\d+) ssa_gen launches \(dense32\)", sub_err)
+    if m_sub is None or int(m_sub.group(1)) < 1:
+        fail(f"`python -m ropebwt3_tpu_torch ssa` reported no dense32 launch: {sub_err[-500:]}")
+    if open(sub_fn, "rb").read() != open(os.path.join(WORK, "ssa_many_ref.ssa"), "rb").read():
+        fail("`python -m ropebwt3_tpu_torch ssa` on the many index differs from `python -m ropebwt3_tpu ssa`")
+    say(f"[ssa] `python -m ropebwt3_tpu_torch ssa` on the many index: byte-equal, {m_sub.group(1)} dense32 launch, "
+        f"{sub_s:.3f} s one-shot ({card})")
+    return res, path
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu_torch")) or not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu")):
         fail("run chip_smoke.py from a checkout of the repository")
@@ -245,7 +441,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import ropebwt3_tpu_torch
-    from ropebwt3_tpu_torch import cli, kernels
+    from ropebwt3_tpu_torch import cli, kernels, probe, ssa_ops
     from ropebwt3_tpu_torch.ops import rank, runblock, smem
 
     if os.path.dirname(os.path.abspath(ropebwt3_tpu_torch.__file__)) != os.path.join(ROOT, "ropebwt3_tpu_torch"):
@@ -383,6 +579,24 @@ def main() -> None:
         del mk, mp, mf
     del aflat, aoff, ref
 
+    # ---- probe ---------------------------------------------------------------
+    probe_res = check_probes(probe, dev)
+    counted = (probe.smem_capacity_cuda, probe.smem_gather_cuda, probe.hbm_gather_cuda)
+    for fn in counted:
+        fn.launches.clear()
+    t0 = time.perf_counter()
+    if probe.main([]) != 0:
+        fail("python -m ropebwt3_tpu_torch.probe failed")
+    for fn, name in zip(counted, ("probe_smem_capacity", "probe_smem_gather", "probe_hbm_gather")):
+        probe_res[name]["launches"] = sum(fn.launches.values())
+        if probe_res[name]["launches"] < 1:
+            fail(f"the probe path launched no {name}")
+    say(f"[probe] path `python -m ropebwt3_tpu_torch.probe` in {time.perf_counter() - t0:.3f} s; launches "
+        + ", ".join(f"{k} {v['launches']}" for k, v in probe_res.items()))
+
+    # ---- ssa -----------------------------------------------------------------
+    ssa_res, ssa_path = check_ssa(cli, ssa_ops, probe, rank, dev, card, f, fmd, idxs, reads)
+
     # ---- mem: the main path, then --occ=rb --------------------------------------
     # the reference output first, untimed: that run also builds the native
     # host library (g++) and the index's packed-row sidecar, one-time costs
@@ -475,6 +689,20 @@ def main() -> None:
                 e.update({"rank64_ms": r64[f"{key}_ms"], "rank64_plain_ms": r64[f"{key}_plain"],
                           "rank64_max_abs_err": r64[f"{key}_err"], "rank64_vs_run_length_rank_err": ind_err})
             entries.append(e)
+    for name in ("probe_smem_capacity", "probe_smem_gather", "probe_hbm_gather"):
+        r = probe_res[name]
+        entries.append({"name": name, "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/probe.cu", "replaces": r["replaces"],
+                        "launches": r["launches"], "path": "probe", "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain"], "input": r["input"]})
+    for name in ("dense32", "dense64"):
+        r = ssa_res[name]
+        entries.append({
+            "name": f"ssa_gen_{name}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/ssa_gen.cu + occ.cuh",
+            "replaces": "ropebwt3_tpu/ssa_ops.py:127", "launches": ssa_path["launches"].get(name, 0),
+            "path": "ssa" if ssa_path["launches"].get(name, 0) else None, "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain"], "input": r["input"], "bench_index_ms": r["bench_ms"],
+            "bench_index_native_ms": r["bench_native_ms"],
+        })
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

@@ -3,7 +3,8 @@
 //
 // Replaces the XLA rank/extend of ropebwt3_tpu/ops/rank.py (_inblock_counts,
 // rank1a, extend_c, set_intv, DeviceIndex.bits_and_base) and the in-kernel
-// _inblock6 of ops/smem_pallas.py.  A layout is a small struct with a
+// _inblock6 of ops/smem_pallas.py, and the dense layout's `lf_step` the LF
+// step of ssa_ops.py ssa_gen_device (bwt[k], rank1a, acc).  A layout is a small struct with a
 // position type T (int below 2^31 - 2^20 symbols, int64_t above), a
 // `rank6(k, occ)` and an `acc(c)`; `set_intv` and `extend_c` below work on
 // any layout.  This file has the dense fused rows; rb.cuh the run-block rows.
@@ -66,12 +67,65 @@ struct Dense {
 
   __device__ __forceinline__ T acc(int c) const { return __ldg(static_cast<const T*>(t.acc) + c); }
 
-  // occ[s] = |{i < k : B[i] = s}| for s = 0..5, 0 <= k <= n.  One row =
-  // three 16-byte read-only loads (rows are 48 B, so every row is 16-B aligned).
+  // Row bi as three 16-byte read-only loads (rows are 48 B, so every row is
+  // 16-B aligned): a = planes 0..3, b = planes 4..5 and counts 0..1, c = counts 2..5.
+  __device__ __forceinline__ void load_row(int64_t bi, int4& a, int4& b, int4& c) const {
+    const int4* row = reinterpret_cast<const int4*>(t.rows) + 3 * bi;
+    a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+  }
+
+  // KEY of the symbol at offset off (0..63) of a row: bit off of each plane
+  __device__ __forceinline__ static int key_at(const int4& a, const int4& b, unsigned off) {
+    const bool hi = off >= 32;
+    const unsigned sh = off & 31;
+    const unsigned w0 = (unsigned)(hi ? a.y : a.x), w1 = (unsigned)(hi ? a.w : a.z), w2 = (unsigned)(hi ? b.y : b.x);
+    return (int)(((w0 >> sh) & 1u) | (((w1 >> sh) & 1u) << 1) | (((w2 >> sh) & 1u) << 2));
+  }
+
+  // The symbol at k, 0 <= k < n.  The planes hold KEY[sym], and KEY is the
+  // nt6 complement, so comp6 inverts it: the rows stand in for the BWT, and
+  // the card holds no BWT array (n bytes saved).
+  __device__ __forceinline__ int sym_at(T k) const {
+    int4 a, b, c;
+    load_row(k >> 6, a, b, c);
+    return comp6(key_at(a, b, (unsigned)(k & 63)));
+  }
+
+  // One LF step from k, 0 <= k < n: returns c = B[k] and sets nk = acc[c] +
+  // occ_c(k).  One 48-B row gives both the symbol and its count; int64 mode
+  // adds one 8-B megablock base.
+  __device__ __forceinline__ int lf_step(T k, T& nk) const {
+    const int64_t bi = k >> 6;
+    int4 a, b, c4;
+    load_row(bi, a, b, c4);
+    const unsigned off = (unsigned)(k & 63);
+    const int key = key_at(a, b, off);
+    const int c = comp6(key);
+    unsigned lo = low_mask(off), hi = low_mask(off > 32 ? off - 32 : 0);
+    const unsigned p[6] = {(unsigned)a.x, (unsigned)a.y, (unsigned)a.z, (unsigned)a.w, (unsigned)b.x, (unsigned)b.y};
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl) {
+      const bool bit = (key >> pl) & 1;
+      lo &= bit ? p[2 * pl] : ~p[2 * pl];
+      hi &= bit ? p[2 * pl + 1] : ~p[2 * pl + 1];
+    }
+    // count column c, by selects: a dynamic index would put the row in local memory
+    const int col = c == 0 ? b.z : c == 1 ? b.w : c == 2 ? c4.x : c == 3 ? c4.y : c == 4 ? c4.z : c4.w;
+    T base;
+    if constexpr (sizeof(T) == 8) {
+      base = __ldg(t.mega + 6 * (bi >> t.mega_shift) + c) + (int64_t)(uint32_t)col;
+    } else {
+      base = col;
+    }
+    nk = acc(c) + base + __popc(lo) + __popc(hi);
+    return c;
+  }
+
+  // occ[s] = |{i < k : B[i] = s}| for s = 0..5, 0 <= k <= n: one row.
   __device__ __forceinline__ void rank6(T k, T occ[6]) const {
     const int64_t bi = k >> 6;
-    const int4* row = reinterpret_cast<const int4*>(t.rows) + 3 * bi;
-    const int4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2);
+    int4 a, b, c;
+    load_row(bi, a, b, c);
     const unsigned off = (unsigned)(k & 63);
     const unsigned m_lo = low_mask(off), m_hi = low_mask(off > 32 ? off - 32 : 0);
     const unsigned p[6] = {(unsigned)a.x, (unsigned)a.y, (unsigned)a.z, (unsigned)a.w, (unsigned)b.x, (unsigned)b.y};

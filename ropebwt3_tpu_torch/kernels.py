@@ -9,12 +9,14 @@ the flags, the same build-on-demand pattern as ropebwt3_tpu/native.  Nothing
 is built or loaded when this module is imported; `lib()` does it.
 
 Every entry point takes PyTorch's current CUDA stream, allocates nothing, and
-returns `cudaGetLastError()` after its launch; `launch` raises on non-zero.
+returns `cudaGetLastError()` after its launch; `launch` raises on non-zero,
+`call` returns the code (the shared-memory capacity probe reports a refusal).
 The rank and SMEM kernels come in one variant per occ layout: dense32 and
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
-`RunBlockIndex`).  Each takes the index's tables first, as the index's
-`kernel_tables()` gives them: rows, escape planes, megablock bases, acc, the
-megablock shift and log2 of the block size.
+`RunBlockIndex`); ssa_gen in the two dense ones.  Each takes the index's
+tables first, as the index's `kernel_tables()` gives them: rows, escape
+planes, megablock bases, acc, the megablock shift and log2 of the block size.
+The probes of csrc/probe.cu take a plain int32 table (probe.py).
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_occ_rank1a_{_lay}"] = [*_TABLES, _V, _I64, _V, _V]
     _ENTRIES[f"rb3c_occ_extend_c_{_lay}"] = [*_TABLES, _V, _V, _V, _I64, _V, _V]
     _ENTRIES[f"rb3c_smem_tg_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I32, _I32, _V, _V, _V]
+for _lay in LAYOUTS[:2]:
+    _ENTRIES[f"rb3c_ssa_gen_{_lay}"] = [*_TABLES, _I64, _I32, _V, _V, _V, _V, _V]
+for _name in ("rb3c_probe_smem_gather", "rb3c_probe_hbm_gather"):
+    _ENTRIES[_name] = [_V, _I32, _I32, _I32, _V, _I32, _I32, _V, _V]
+_ENTRIES["rb3c_probe_smem_capacity"] = [_I32, _V, _V]
+_ENTRIES["rb3c_smem_optin"] = [_I32]  # no stream: a device attribute
 
 _lib = None
 
@@ -108,13 +116,21 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device, *args) -> None:
+def call(name: str, device, *args) -> int:
     """Call entry point `name` with `args` on `device`, on PyTorch's current
-    stream there; raise if the launch was refused."""
+    stream there; return its CUDA error code (0: launched)."""
     import torch
 
-    dll = lib()
     with torch.cuda.device(device):
-        err = getattr(dll, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+        return getattr(lib(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def error_string(err: int) -> str:
+    return lib().rb3c_error_string(err).decode()
+
+
+def launch(name: str, device, *args) -> None:
+    """`call`, raising if the launch was refused."""
+    err = call(name, device, *args)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}: {dll.rb3c_error_string(err).decode()}")
+        raise RuntimeError(f"{name}: CUDA error {err}: {error_string(err)}")

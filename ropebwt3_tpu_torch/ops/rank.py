@@ -174,6 +174,20 @@ class OccIndex:
             base = self.mega[bi >> self.mega_shift] + (base & U32)
         return base + _inblock_counts(row[..., :6] & U32, k & (BLOCK - 1))
 
+    def sym_at(self, k: torch.Tensor) -> torch.Tensor:
+        """The BWT symbol at each k in [0, n), from the row's bit-planes:
+        bit k & 63 of the three planes is KEY[sym], and KEY is its own
+        inverse (the nt6 complement).  Returns int64."""
+        k = k.long()
+        planes = self.occf[k >> 6][..., :6].long() & U32
+        off = k & (BLOCK - 1)
+        half = (off >= 32).long()
+        key = torch.zeros_like(k)
+        for plane in range(3):
+            word = planes[..., 2 * plane : 2 * plane + 2].gather(-1, half[..., None])[..., 0]
+            key |= ((word >> (off & 31)) & 1) << plane
+        return torch.as_tensor(KEY, dtype=torch.int64, device=k.device)[key]
+
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
@@ -210,6 +224,15 @@ def _inblock_counts(planes: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
 def rank1a(idx, k: torch.Tensor) -> torch.Tensor:
     """occ[..., c] = |{i < k : B[i] = c}| for k in [0, n].  Returns int64."""
     return idx.rank1a(k)
+
+
+def lf(idx, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One LF step from each k in [0, n): (c = B[k], acc[c] + occ_c(k)),
+    as index/dense.py DenseFMIndex.lf, on an index with `sym_at` and
+    `rank1a`.  Returns two int64 tensors."""
+    c = idx.sym_at(k)
+    occ = idx.rank1a(k).gather(-1, c[..., None])[..., 0]
+    return c, idx.acc.long()[c] + occ
 
 
 def _rank_pair(idx, prim: torch.Tensor, size: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

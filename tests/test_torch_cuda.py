@@ -11,9 +11,12 @@ import pytest
 import torch
 
 from ropebwt3_tpu.construct.sa import gsa_bwt
+from ropebwt3_tpu.formats.ssa import write_ssa_bytes
 from ropebwt3_tpu.index.dense import DenseFMIndex
 from ropebwt3_tpu.nt6 import char2nt6, revcomp
 from ropebwt3_tpu.seqio import read_seqs
+from ropebwt3_tpu.ssa_ops import ssa_gen_native
+from ropebwt3_tpu_torch import probe, ssa_ops
 from ropebwt3_tpu_torch.ops import rank, runblock, smem
 
 LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
@@ -156,3 +159,63 @@ def test_smem_kernel_run_coded_rows(cuda_device, S, int64):
     assert_same_mems(mk.cpu().numpy(), nk.cpu().numpy(), mp.numpy(), np_.numpy(), 16)
     k = torch.arange(f.n + 1)
     assert torch.equal(rank.rank1a_cuda(gpu, k.to(cuda_device)).cpu(), rank.rank1a(cpu, k).to(cpu.dtype))
+
+
+def short_seqs_index(m, seed=9, lo=20, hi=200):
+    """Single-strand index of m random sequences of lo..hi bases."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(m):
+        parts += [rng.integers(1, 5, int(rng.integers(lo, hi))).astype(np.uint8), np.zeros(1, np.uint8)]
+    return DenseFMIndex.from_bwt(gsa_bwt(np.concatenate(parts)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("which", ["corpus", "many"])
+def test_ssa_kernel_matches_plain(corpus_index, cuda_device, layout, which):
+    """ssa_gen's four arrays from the kernel equal the lock-step plain
+    version's, and the SSA equals the native engine's, at ss 0, 3 and 8."""
+    f = corpus_index if which == "corpus" else short_seqs_index(3000)
+    cpu, gpu = make_index(layout, f, "cpu"), make_index(layout, f, cuda_device)
+    m = int(f.acc[1])
+    for ss in (0, 3, 8):
+        got = ssa_ops.ssa_gen_cuda(gpu, m, ss)
+        torch.cuda.synchronize()
+        want = ssa_ops.ssa_gen_plain(cpu, m, ss)
+        assert torch.equal(got[1].cpu(), want[1])
+        filled = want[1] >= 0
+        assert torch.equal(got[0].cpu().long()[filled], want[0][filled])
+        assert torch.equal(got[2].cpu().long(), want[2]) and torch.equal(got[3].cpu().long(), want[3])
+        assert write_ssa_bytes(ssa_ops.ssa_gen(f, ss, occ=gpu)) == write_ssa_bytes(ssa_gen_native(f, ss))
+    assert ssa_ops.ssa_gen_cuda.launches[layout] >= 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", probe.ROW_COLS)
+def test_probe_gather_kernels_match_plain(cuda_device, cols):
+    """Both gather kernels in every mode, exact against gather_plain: a
+    shared-memory table of 300 rows and a device-memory table of 100,000,
+    q = 1,000 lanes (a ragged last block), iters 0, 1, 9 and 200."""
+    g = torch.Generator().manual_seed(cols)
+    for fn, nb in ((probe.smem_gather_cuda, 300), (probe.hbm_gather_cuda, 100_000)):
+        tab = torch.randint(-(1 << 31), 1 << 31, (nb, cols), dtype=torch.int64, generator=g).int()
+        idx0 = torch.randint(0, nb, (1000,), dtype=torch.int32, generator=g)
+        for mode in probe.MODES:
+            for iters in (0, 1, 9, 200):
+                got = fn(tab.to(cuda_device), idx0.to(cuda_device), iters, mode)
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), probe.gather_plain(tab, idx0, iters, mode)), (fn.__name__, mode, iters)
+
+
+@pytest.mark.cuda
+def test_probe_smem_capacity(cuda_device):
+    """48 KB and the opt-in limit run with P4's sum; one row past it is refused."""
+    top = probe.smem_optin(cuda_device) // 512 * 512
+    for nbytes in (48 << 10, top):
+        out, err = probe.smem_capacity_cuda(nbytes, cuda_device)
+        assert err is None and torch.equal(out.cpu(), probe.smem_capacity_plain(nbytes))
+    out, err = probe.smem_capacity_cuda(top + 512, cuda_device)
+    assert out is None and err
+    x = torch.ones(4, device=cuda_device)  # the refusal left no error behind
+    assert float((x + x).sum()) == 8.0
