@@ -4,11 +4,12 @@
 Drives the port's entry points on one CUDA card: `mem -l31` on the workload
 of bench.py (16 x 2 Mbp genomes at 1% divergence, indexed double strand:
 ~64 M symbols, ~48 MB of dense occ rows; 100,000 x 150 bp reads at 1% error)
-plus 200 reads of 5-20 kb that overflow the MEM buffer, once on the default
-rows (the main path) and once with `--occ=rb`; `ssa` on bench.py's index and
-two more; and the row-gather probes.  Every rank and SMEM kernel runs on each
-of the four occ layouts (dense32, dense64, rb32, rb64), ssa_gen on both dense
-ones.  Phases:
+plus 200 reads of 5-20 kb, once on the default rows (the main path) and once
+with `--occ=rb`; `ssa` on bench.py's index and two more; and the row-gather
+probes.  Every rank and SMEM kernel runs on each of the four occ layouts
+(dense32, dense64, rb32, rb64), ssa_gen on both dense ones.  The reference
+outputs come from `python -m ropebwt3_tpu` in subprocesses (`build`,
+`mem --engine=native`, `ssa -o`): this script imports nothing of it.  Phases:
 
   build     compile the kernels from csrc/ (nvcc, sm_90a, one nvcc per source)
   corpus    generate the data from a seed; build the FMD with the repo's own
@@ -24,29 +25,38 @@ ones.  Phases:
             the plain rb rank on the card and rank1a vs an independent rank
             from the run lengths, on 1 M positions incl. 0, n, 2^32 +- 1 and
             block boundaries; exact
-  smem      smem_tg of each layout vs smem_tg_plain on the card, 4,096 reads,
-            exact; then each layout's rows on the main path's batch must equal
-            the dense32 kernel's
   probe     the three probe kernels (csrc/probe.cu) vs their plain versions
             on the card, exact: shared-memory capacity at the opt-in limit
             (one 512-B row past it must be refused), the shared-memory and
-            device-memory row gathers in every mode, 48-B and 512-B rows;
+            device-memory row gathers in every mode, 48-B and 512-B rows, and
+            `tab[idx]` beside the `indep` gathers as the library yardstick;
             then the probe path, `python -m ropebwt3_tpu_torch.probe`'s main,
-            with launch counts reset before and read after: the sweep
+            with launch counts reset before and read after: its latency sweep
+            gives this run's ns per dependent step, which the chain floors use
+  smem      per layout: smem_tg (one thread per read) vs smem_tg_plain on the
+            card, 4,096 reads, exact; smem_tgc (one thread per lane) vs the
+            plain lanes on the main path's lanes of 64 long reads and 2,048
+            short ones (rows, counts, START logs, trips), exact; then on the
+            main path's batch the chunked engine (smem_tgc, stitch, reruns)
+            must equal the one-thread kernel's rows and counts (rerun with a
+            buffer of the true counts) and dense32's; times of both kernels,
+            n_unmerged, trip counts, the roofline bound and the chain floor;
+            on dense32 also a sweep of the chunk size
   ssa       ssa_gen on three indexes: bench.py's (m = 32, dense32 and dense64
             with megablocks of 2^20 symbols), one of the 100,000 short reads
             (m = 200,000, cached under .bench/torch_smoke/many/) and the CPU
-            tests' corpus; the SSA byte-equal to ssa_gen_native, the kernel's
-            arrays equal to ssa_gen_plain on the card (not run on bench.py's
-            index: ~2 M lock-step trips); then `ssa` through
-            ropebwt3_tpu_torch.cli.main on each index (bench.py's is the ssa
-            path: counts reset before, read after) and once as `python -m
-            ropebwt3_tpu_torch ssa`, byte-equal to `python -m ropebwt3_tpu ssa`
+            tests' corpus; the SSA byte-equal to `python -m ropebwt3_tpu ssa`
+            (whose run gives the native walk's time), the kernel's arrays equal
+            to ssa_gen_plain on the card (not run on bench.py's index: ~2 M
+            lock-step trips); then `ssa` through ropebwt3_tpu_torch.cli.main
+            on each index (bench.py's is the ssa path: counts reset before,
+            read after) and once as `python -m ropebwt3_tpu_torch ssa`
   mem       the main path: `mem -l31` through ropebwt3_tpu_torch.cli.main with
             launch counts reset before and read after; its BED must equal
-            `python -m ropebwt3_tpu mem --engine=native` byte for byte
+            `python -m ropebwt3_tpu mem --engine=native` byte for byte; then
+            its host work piece by piece
   mem-rb    the second path: `mem -l31 --occ=rb`, counts reset before and
-            read after; BED byte-equal to native, >= 1 rb32 smem_tg launch
+            read after; BED byte-equal to native, >= 1 rb32 smem_tgc launch
 
 Any failure exits non-zero.  The last line is {"ok": true, "device": ...}.
 Run from the repository root: python3 chip_smoke.py
@@ -76,8 +86,14 @@ PROBE_Q, PROBE_ITERS = 4096, 200  # probe phase checks: lanes, steps
 PROBE_HBM_SHAPES = ((1_000_000, 12), (2_000_000, 128))  # 48 MB of 48-B rows, 1 GB of 512-B rows
 SSA_SHIFT = 8  # `ssa`'s default -s; the CPU tests' corpus runs -s 4
 N_CHECK = 1 << 20  # rank phase positions and intervals
-N_SMEM = 4096  # smem phase reads
-MAX_MEMS = 64  # BatchedSmemTG's MEM buffer rows per read
+N_SMEM = 4096  # smem phase: reads of the one-thread kernel's plain check
+N_TGC_SHORT, N_TGC_LONG = 2048, 64  # smem phase: reads of the chunked kernel's plain check
+CHUNK_SWEEP = (64, 128, 256, 512, 1024)  # smem phase, dense32: chunk sizes timed (margin = chunk / 2)
+MAX_MEMS = 64  # BatchedSmemTG's MEM buffer rows per chain
+HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's 3.35 TB/s HBM3 rate, in bytes a millisecond
+# the latency sweep's tables (probe.LAT_TABLES) whose ns per dependent step
+# the chain floors use: one the L2 holds, and one of the bench index's 48 MB
+LAT_L2, LAT_48MB = "48 B x 87 k (4 MB)", "48 B x 1 M (48 MB)"
 SUBPROCESS_TIMEOUT = 600
 LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
 # bench-index int64 layouts: megablocks of 2^20 symbols; rb64 at the smallest
@@ -200,9 +216,35 @@ def boundaries(n: int, step: int, limit: int) -> np.ndarray:
     return np.clip(np.concatenate([b - 1, b, b + 1]), 0, n)
 
 
+def bound_ms(nbytes: int) -> float:
+    """Milliseconds to move `nbytes` at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_MS
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def table_bytes(rank, idx, k) -> int:
+    """Bytes of idx's tables that ranks at positions k need, each row once:
+    the distinct occ rows (and megablock bases); for rb rows the distinct
+    160-B rows and, for escape blocks among them, their escape rows."""
+    import torch
+
+    if isinstance(idx, rank.OccIndex):
+        rows = torch.unique(k.long() >> 6)
+        return rows.numel() * 48 + (torch.unique(rows >> idx.mega_shift).numel() * 48 if idx.int64 else 0)
+    rows = torch.unique(idx.block_and_offset(k.long())[0])
+    esc = idx.rows[rows, 6]
+    n = rows.numel() * 160 + torch.unique(esc[esc >= 0]).numel() * idx.esc.shape[1] * 4
+    return n + (torch.unique(rows >> idx.mega_shift).numel() * 48 if idx.int64 else 0)
+
+
 def check_occ_kernels(rank, idx, k, ik, c, back, plain_reps: int) -> dict:
     """occ_rank1a and occ_extend_c of idx's layout vs the plain versions on
-    the card; fails unless exact.  Returns errors and times (ms)."""
+    the card; fails unless exact.  Returns errors, times (ms) and bounds."""
+    import torch
+
     got = rank.rank1a_cuda(idx, k)
     want = rank.rank1a(idx, k).to(idx.dtype)
     r_err = max_abs(got, want)
@@ -212,11 +254,14 @@ def check_occ_kernels(rank, idx, k, ik, c, back, plain_reps: int) -> dict:
     e_err = max_abs(e_got, e_want)
     if r_err or e_err:
         fail(f"{idx.layout}: occ_rank1a off by {r_err}, occ_extend_c off by {e_err} against the plain versions")
+    prim = torch.where(back, ik[:, 0], ik[:, 1]).long()
     return dict(
         got=got, rank_err=r_err, ext_err=e_err,
         rank_ms=cuda_ms(lambda: rank.rank1a_cuda(idx, k), 10), rank_plain=cuda_ms(lambda: rank.rank1a(idx, k), plain_reps),
         ext_ms=cuda_ms(lambda: rank.extend_c_cuda(idx, ik, c, back), 10),
         ext_plain=cuda_ms(lambda: rank.extend_c(idx, ik, c, back), plain_reps),
+        rank_bound=bound_ms(table_bytes(rank, idx, k) + nbytes(k, got)),
+        ext_bound=bound_ms(table_bytes(rank, idx, torch.cat([prim, prim + ik[:, 2].long()])) + nbytes(ik, c, back, e_got)),
     )
 
 
@@ -286,7 +331,8 @@ def check_probes(probe, dev) -> dict:
     unless exact.  Capacity at the opt-in limit (and one row past it, which
     must be refused); each gather in every mode on 48-B and 512-B rows with
     values over the whole int32 range, PROBE_Q lanes and a ragged count.
-    Times at the first shape, `dep`."""
+    Times at the first shape: `dep` (the kernel's time), and `indep` beside
+    `tab[idx]` over the same rows (the library yardstick)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -300,7 +346,7 @@ def check_probes(probe, dev) -> dict:
         fail(f"probe_smem_capacity ran {top + 512} B, past the opt-in limit {optin} B")
     res = {"probe_smem_capacity": dict(
         err=0, ms=cuda_ms(lambda: probe.smem_capacity_cuda(top, dev), 10),
-        plain=cuda_ms(lambda: probe.smem_capacity_plain(top, dev), 10),
+        plain=cuda_ms(lambda: probe.smem_capacity_plain(top, dev), 10), bound=bound_ms(out.numel() * 4), library=None,
         input=f"{top} B of shared memory; {top + 512} B refused ({refusal})",
         replaces="scripts/fused_probe.py:43 (P1), scripts/fused_probe2.py:42 (P4)")}
     say(f"[probe] probe_smem_capacity: {top} B ran, P4's sum exact; {top + 512} B refused ({refusal}); "
@@ -320,17 +366,23 @@ def check_probes(probe, dev) -> dict:
                 for mode in probe.MODES:
                     err = max(err, max_abs(fn(tab, idx0, PROBE_ITERS, mode), probe.gather_plain(tab, idx0, PROBE_ITERS, mode)))
                 if r is None:  # the kernel alone: the wrapper's bounds check syncs
+                    rows_idx = (idx0.long()[:, None] + torch.arange(PROBE_ITERS, device=dev)) % rows
+                    row_bytes = min(q * PROBE_ITERS, rows) * cols * 4  # at most the table: each row once
                     r = dict(ms=probe.queued_ms([lambda: probe.launch_gather(fn, tab, idx0, PROBE_ITERS, "dep")] * 10),
                              plain=cuda_ms(lambda: probe.gather_plain(tab, idx0, PROBE_ITERS, "dep"), 3),
-                             input=f"({rows}, {cols}) int32 table, {q} lanes x {PROBE_ITERS} dep steps")
+                             indep_ms=probe.queued_ms([lambda: probe.launch_gather(fn, tab, idx0, PROBE_ITERS, "indep")] * 10),
+                             library=cuda_ms(lambda: tab[rows_idx], 10), bound=bound_ms(row_bytes + nbytes(idx0) + 12 * q),
+                             input=f"({rows}, {cols}) int32 table, {q} lanes x {PROBE_ITERS} dep steps; indep and "
+                                   f"`tab[idx]` over the same {q} x {PROBE_ITERS} rows")
             del tab
         if err:
             fail(f"{name} differs from gather_plain by up to {err}")
         res[name] = dict(r, err=err, replaces=replaces)
         say(f"[probe] {name}: exact in every mode ({', '.join(probe.MODES)}) on "
             + " and ".join(f"({rows}, {cols})" for rows, cols in shapes)
-            + f" int32 tables, {PROBE_Q} and {PROBE_Q - 97} lanes x {PROBE_ITERS} steps; {r['input']}: "
-            f"{r['ms']:.4f} ms vs plain {r['plain']:.4f} ms")
+            + f" int32 tables, {PROBE_Q} and {PROBE_Q - 97} lanes x {PROBE_ITERS} steps; {r['input']}: dep "
+            f"{r['ms']:.4f} ms vs plain {r['plain']:.4f} ms; indep {r['indep_ms']:.4f} ms vs `tab[idx]` "
+            f"{r['library']:.4f} ms; bound {r['bound']:.4f} ms")
     return res
 
 
@@ -342,16 +394,26 @@ def walk_err(got, want) -> int:
                max_abs(got[3], want[3]))
 
 
-def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict, reads) -> tuple[dict, dict]:
+def native_walk_s(stderr: str) -> float:
+    """The seconds `python -m ropebwt3_tpu ssa` spent after loading the
+    index (its native walk and the SSA write), from its log: the footer's
+    real time less the time of the `loaded the BWT` line."""
+    load = re.search(r"\[M::load_index::([0-9.]+)\*", stderr)
+    end = re.search(r"Real time: ([0-9.]+) sec", stderr)
+    if load is None or end is None:
+        fail(f"`python -m ropebwt3_tpu ssa` logged no load or end time: {stderr[-500:]}")
+    return float(end.group(1)) - float(load.group(1))
+
+
+def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict, reads, ns: dict) -> tuple[dict, dict]:
     """ssa_gen of both dense layouts on bench.py's index, the many-sequence
-    index and the CPU tests' corpus: byte-equal to ssa_gen_native, arrays
-    equal to ssa_gen_plain on the card where it runs; then `ssa` through the
-    CLI on each, byte-equal to `python -m ropebwt3_tpu ssa`.  Returns the
+    index and the CPU tests' corpus: byte-equal to `python -m ropebwt3_tpu
+    ssa`, arrays equal to ssa_gen_plain on the card where it runs; then `ssa`
+    through the CLI on each, byte-equal to the same file.  Returns the
     per-layout records and the ssa path's launch counts (bench.py's index)."""
     import torch
 
-    from ropebwt3_tpu.formats.ssa import write_ssa_bytes
-    from ropebwt3_tpu.ssa_ops import ssa_gen_native
+    from ropebwt3_tpu_torch.formats.ssa import write_ssa_bytes
 
     inputs = [("bench", f, fmd, idxs["dense32"], idxs["dense64"], SSA_SHIFT)]
     t0 = time.perf_counter()
@@ -364,42 +426,50 @@ def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict
     say("[ssa] indexes: " + "; ".join(f"{x[0]} n={x[1].n} m={int(x[1].acc[1])}" for x in inputs)
         + f" (built or loaded in {time.perf_counter() - t0:.3f} s)")
     res = {lay: {} for lay in ("dense32", "dense64")}
+    refs = {}
     for name, xf, x_fmd, d32, d64, ss in inputs:
         m = int(xf.acc[1])
-        t0 = time.perf_counter()
-        want = write_ssa_bytes(ssa_gen_native(xf, ss))
-        native_ms = (time.perf_counter() - t0) * 1e3
+        opts = [] if ss == SSA_SHIFT else ["-s", str(ss)]
+        ref_fn = os.path.join(WORK, f"ssa_{name}_ref.ssa")
+        ref_s, ref_err = run([sys.executable, "-m", "ropebwt3_tpu", "ssa", *opts, "-o", ref_fn, x_fmd])
+        want = open(ref_fn, "rb").read()
+        native_ms = native_walk_s(ref_err) * 1e3
+        refs[name] = (ref_fn, ref_s, opts)
         for lay, x in (("dense32", d32), ("dense64", d64)):
-            if write_ssa_bytes(ssa_ops.ssa_gen(xf, ss, occ=x)) != want:
-                fail(f"ssa_gen {lay} on the {name} index differs from ssa_gen_native")
+            walk = ssa_ops.ssa_gen_cuda(x, m, ss)
+            if write_ssa_bytes(ssa_ops.assemble(m, ss, *walk)) != want:
+                fail(f"ssa_gen {lay} on the {name} index differs from `python -m ropebwt3_tpu ssa`")
+            longest = int(walk[2].max())
             ms = probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss)] * (1 if name == "bench" else 5))
             r = res[lay]
             if name == "bench":
-                r.update(bench_ms=ms, bench_native_ms=native_ms)
+                r.update(bench_ms=ms, bench_native_ms=native_ms, bench_longest=longest,
+                         bench_chain_floor_ms=longest * ns[LAT_48MB] / 1e6)
                 plain_note = f"plain not run (lanes of ~{int((xf.acc[6] - m) // m)} steps: as many lock-step trips)"
             else:
-                got = ssa_ops.ssa_gen_cuda(x, m, ss)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 want_arr = ssa_ops.ssa_gen_plain(x, m, ss)
                 torch.cuda.synchronize()
                 plain_ms = (time.perf_counter() - t1) * 1e3
-                err = walk_err(got, want_arr)
+                err = walk_err(walk, want_arr)
                 if err:
                     fail(f"ssa_gen {lay} on the {name} index: arrays differ from ssa_gen_plain by up to {err}")
                 r["err"] = max(r.get("err", 0), err)
-                if name == "many":
-                    r.update(ms=ms, plain=plain_ms, input=f"many-sequence index: {N_READS} x {READ_LEN} bp reads, "
-                             f"double strand, n={xf.n}, m={m}, -s {ss}")
+                if name == "many":  # its 22.6 MB of rows stay in the L2
+                    r.update(ms=ms, plain=plain_ms, bound=bound_ms(x.nbytes + nbytes(*walk)), longest=longest,
+                             chain_floor_ms=longest * ns[LAT_L2] / 1e6,
+                             input=f"many-sequence index: {N_READS} x {READ_LEN} bp reads, double strand, n={xf.n}, "
+                                   f"m={m}, -s {ss}")
                 plain_note = f"plain on the card {plain_ms:.4f} ms, arrays exact"
-            say(f"[ssa] {name} {lay}: SSA (-s {ss}) byte-equal to ssa_gen_native; kernel {ms:.4f} ms vs native "
-                f"{native_ms:.4f} ms wall ({os.cpu_count()} host cores); {plain_note} ({card})")
+            say(f"[ssa] {name} {lay}: SSA (-s {ss}) byte-equal to `python -m ropebwt3_tpu ssa`; kernel {ms:.4f} ms, "
+                f"longest walk {longest} steps, vs the reference's native walk and write {native_ms:.4f} ms "
+                f"({os.cpu_count()} host cores; its log); {plain_note} ({card})")
 
     path = None
     for name, xf, x_fmd, d32, d64, ss in inputs:
-        opts = [] if ss == SSA_SHIFT else ["-s", str(ss)]
-        ref_fn, port_fn = os.path.join(WORK, f"ssa_{name}_ref.ssa"), os.path.join(WORK, f"ssa_{name}_port.ssa")
-        ref_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "ssa", *opts, "-o", ref_fn, x_fmd])
+        ref_fn, ref_s, opts = refs[name]
+        port_fn = os.path.join(WORK, f"ssa_{name}_port.ssa")
         argv = ["ssa", *opts, "-o", port_fn, x_fmd]
         ssa_ops.ssa_gen_cuda.launches.clear()
         err = io.StringIO()
@@ -425,11 +495,46 @@ def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict
     m_sub = re.search(r"(\d+) ssa_gen launches \(dense32\)", sub_err)
     if m_sub is None or int(m_sub.group(1)) < 1:
         fail(f"`python -m ropebwt3_tpu_torch ssa` reported no dense32 launch: {sub_err[-500:]}")
-    if open(sub_fn, "rb").read() != open(os.path.join(WORK, "ssa_many_ref.ssa"), "rb").read():
+    if open(sub_fn, "rb").read() != open(refs["many"][0], "rb").read():
         fail("`python -m ropebwt3_tpu_torch ssa` on the many index differs from `python -m ropebwt3_tpu ssa`")
     say(f"[ssa] `python -m ropebwt3_tpu_torch ssa` on the many index: byte-equal, {m_sub.group(1)} dense32 launch, "
         f"{sub_s:.3f} s one-shot ({card})")
     return res, path
+
+
+def chains_err(got, want, max_mems: int, what: str) -> int:
+    """Largest difference between two Chains (kernel vs plain) over the
+    filled MEM rows, the filled START log entries and the trips; fails if a
+    count differs."""
+    import torch
+
+    if not torch.equal(got.n_mem.long(), want.n_mem.long()):
+        fail(f"{what}: MEM counts differ from the plain version")
+    filled = torch.arange(max_mems, device=got.mems.device) < got.n_mem.long().clamp(max=max_mems)[:, None]
+    err = max_abs(got.mems[filled], want.mems[filled])
+    if got.trips is not None:
+        err = max(err, max_abs(got.trips, want.trips))
+    if got.log is not None:
+        if not torch.equal(got.n_log.long(), want.n_log.long()):
+            fail(f"{what}: START log counts differ from the plain version")
+        k = got.log.shape[1]
+        filled = torch.arange(k, device=got.log.device) < got.n_log.long().clamp(max=k)[:, None]
+        err = max(err, max_abs(got.log[filled], want.log[filled]))
+    return err
+
+
+def serial_answer(smem, x, flat, seq_off) -> tuple:
+    """Every read's MEMs from the one-thread kernel, rerun with a buffer of
+    the largest true count where the first buffer overflowed; and its trips."""
+    import torch
+
+    one = smem.smem_tg_cuda(x, flat, seq_off, min_occ=1, min_len=MIN_LEN, max_mems=MAX_MEMS, trips=True)
+    big = max(int(one.n_mem.max()), 1)
+    if big > MAX_MEMS:
+        one = smem.smem_tg_cuda(x, flat, seq_off, min_occ=1, min_len=MIN_LEN, max_mems=big, trips=True)
+    width = one.mems.shape[1]
+    filled = torch.arange(width, device=flat.device) < one.n_mem.long()[:, None]
+    return one.n_mem.long(), one.mems[filled], one.trips
 
 
 def main() -> None:
@@ -452,7 +557,7 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     say(card)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
-    counters = (rank.rank1a_cuda, rank.extend_c_cuda, smem.smem_tg_cuda)
+    counters = (rank.rank1a_cuda, rank.extend_c_cuda, smem.smem_tg_cuda, smem.smem_tgc_cuda)
 
     # ---- build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -544,63 +649,126 @@ def main() -> None:
     )
     del x64, ik64
 
-    # ---- smem ----------------------------------------------------------------
-    args = dict(min_occ=1, min_len=MIN_LEN, max_mems=MAX_MEMS)
-    sflat, soff = (torch.from_numpy(a).to(dev) for a in smem.pack_reads(reads[:N_SMEM]))
-    aflat, aoff = (torch.from_numpy(a).to(dev) for a in smem.pack_reads(reads))
-    smem_res, ref = {}, None
-    for name, x in idxs.items():
-        mk, nk = smem.smem_tg_cuda(x, sflat, soff, **args)
-        mp, npl = smem.smem_tg_plain(x, sflat, soff, **args)
-        if not torch.equal(nk, npl):
-            fail(f"smem_tg {name}: n_mem differs from smem_tg_plain")
-        valid = torch.arange(MAX_MEMS, device=dev)[None, :] < nk.clamp(max=MAX_MEMS)[:, None]
-        err = max_abs(mk[valid], mp[valid])
-        if err != 0:
-            fail(f"smem_tg {name}: rows differ from smem_tg_plain by up to {err}")
-        ms = cuda_ms(lambda: smem.smem_tg_cuda(x, sflat, soff, **args), 10)
-        plain = wall_ms(lambda: smem.smem_tg_plain(x, sflat, soff, **args))
-        mf, nf = smem.smem_tg_cuda(x, aflat, aoff, **args)
-        if ref is None:
-            ref = (mf.long(), nf)
-        else:
-            fvalid = torch.arange(MAX_MEMS, device=dev)[None, :] < nf.clamp(max=MAX_MEMS)[:, None]
-            if not (torch.equal(nf, ref[1]) and torch.equal(mf.long()[fvalid], ref[0][fvalid])):
-                fail(f"smem_tg {name}: rows on the main path's batch differ from the dense32 kernel's")
-        full_ms = cuda_ms(lambda: smem.smem_tg_cuda(x, aflat, aoff, **args), 3)
-        short_ms = cuda_ms(lambda: smem.smem_tg_cuda(x, aflat[: N_READS * READ_LEN], aoff[: N_READS + 1], **args), 3)
-        smem_res[name] = dict(err=err, ms=ms, plain=plain, full_ms=full_ms, short_ms=short_ms)
-        say(
-            f"[smem] {name}: exact on {N_SMEM} reads ({int(nk.sum())} MEMs); smem_tg {ms:.4f} ms "
-            f"({N_SMEM / ms * 1e3:.1f} reads/s) vs plain {plain:.4f} ms ({N_SMEM / plain * 1e3:.1f} reads/s); main path's "
-            f"batch ({len(reads)} reads, rows equal to dense32's) {full_ms:.4f} ms ({len(reads) / full_ms * 1e3:.1f} reads/s), "
-            f"its {N_READS} short reads alone {short_ms:.4f} ms ({N_READS / short_ms * 1e3:.1f} reads/s) ({card})"
-        )
-        del mk, mp, mf
-    del aflat, aoff, ref
-
     # ---- probe ---------------------------------------------------------------
     probe_res = check_probes(probe, dev)
     counted = (probe.smem_capacity_cuda, probe.smem_gather_cuda, probe.hbm_gather_cuda)
     for fn in counted:
         fn.launches.clear()
     t0 = time.perf_counter()
-    if probe.main([]) != 0:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = probe.main([])
+    sys.stdout.write(buf.getvalue())
+    if rc != 0:
         fail("python -m ropebwt3_tpu_torch.probe failed")
     for fn, name in zip(counted, ("probe_smem_capacity", "probe_smem_gather", "probe_hbm_gather")):
         probe_res[name]["launches"] = sum(fn.launches.values())
         if probe_res[name]["launches"] < 1:
             fail(f"the probe path launched no {name}")
+    # this run's ns per dependent row step, from the probe path's latency sweep
+    ns = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\[probe\] probe_hbm_gather (.+?) q=32 dep, new starts: \d+ steps in [0-9.]+ ms, ([0-9.]+) ns/step", buf.getvalue())}
+    if LAT_L2 not in ns or LAT_48MB not in ns:
+        fail(f"the probe path's latency sweep gave no ns per step for {LAT_L2} and {LAT_48MB}: {ns}")
     say(f"[probe] path `python -m ropebwt3_tpu_torch.probe` in {time.perf_counter() - t0:.3f} s; launches "
-        + ", ".join(f"{k} {v['launches']}" for k, v in probe_res.items()))
+        + ", ".join(f"{k} {v['launches']}" for k, v in probe_res.items())
+        + f"; ns per dependent step: {ns[LAT_L2]} ({LAT_L2}), {ns[LAT_48MB]} ({LAT_48MB})")
+
+    # ---- smem ----------------------------------------------------------------
+    args = dict(min_occ=1, min_len=MIN_LEN, max_mems=MAX_MEMS)
+
+    def on_card(rs):
+        return tuple(torch.from_numpy(a).to(dev) for a in smem.pack_reads(rs))
+
+    sflat, soff = on_card(reads[:N_SMEM])
+    cflat, coff = on_card(reads[:N_TGC_SHORT] + reads[N_READS : N_READS + N_TGC_LONG])
+    clanes = smem.chunk_lanes(coff)
+    aflat, aoff = on_card(reads)
+    alanes = smem.chunk_lanes(aoff)
+    n_short = N_READS * READ_LEN
+    smem_res, ref, sweep = {}, None, []
+    for name, x in idxs.items():
+        k1 = smem.smem_tg_cuda(x, sflat, soff, trips=True, **args)
+        err1 = chains_err(k1, smem.smem_tg_plain(x, sflat, soff, **args), MAX_MEMS, f"smem_tg {name}")
+        kc = smem.smem_tgc_cuda(x, cflat, coff, clanes, trips=True, **args)
+        errc = chains_err(kc, smem.smem_tg_plain(x, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args), MAX_MEMS,
+                          f"smem_tgc {name}")
+        if err1 or errc:
+            fail(f"smem {name}: smem_tg off by {err1}, smem_tgc off by {errc} against smem_tg_plain")
+        r = dict(err=err1, cerr=errc,
+                 ms=probe.queued_ms([lambda: smem.launch_tg(x, sflat, soff, **args)] * 10),
+                 plain=wall_ms(lambda: smem.smem_tg_plain(x, sflat, soff, **args)),
+                 bound=bound_ms(x.nbytes + nbytes(sflat, soff) + nbytes(k1.n_mem) + int(k1.n_mem.clamp(max=MAX_MEMS).sum())
+                                * 5 * k1.mems.element_size()),
+                 floor=int(k1.trips.max()) * ns[LAT_48MB] / 1e6,
+                 cms=probe.queued_ms([lambda: smem.launch_tgc(x, cflat, coff, clanes, **args)] * 10),
+                 cplain=wall_ms(lambda: smem.smem_tg_plain(x, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args)),
+                 cbound=bound_ms(x.nbytes + nbytes(cflat, coff, clanes, kc.n_mem, kc.n_log)
+                                 + int(kc.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * kc.mems.element_size()
+                                 + int(kc.n_log.clamp(max=smem.LOG_LEN).sum()) * 4),
+                 cfloor=int(kc.trips.max()) * ns[LAT_48MB] / 1e6)
+        # the main path's batch: the chunked engine against the one-thread kernel
+        out = smem.smem_tg(x, aflat, aoff, **args)
+        counts, rows, read_trips = serial_answer(smem, x, aflat, aoff)
+        if not (torch.equal(out.counts, counts) and torch.equal(out.rows, rows)):
+            fail(f"smem {name}: the chunked engine's rows on the main path's batch differ from the one-thread kernel's")
+        if ref is None:
+            ref = (counts, rows.long())
+        elif not (torch.equal(counts, ref[0]) and torch.equal(rows.long(), ref[1])):
+            fail(f"smem {name}: rows on the main path's batch differ from the dense32 kernels'")
+        lane_trips = smem.launch_tgc(x, aflat, aoff, alanes, trips=True, **args).trips
+        r.update(
+            n_unmerged=out.n_unmerged, n_rerun=out.n_rerun, n_mems=int(counts.sum()), lanes=alanes.shape[0],
+            tgc_ms=probe.queued_ms([lambda: smem.launch_tgc(x, aflat, aoff, alanes, **args)] * 3),
+            tg_ms=probe.queued_ms([lambda: smem.launch_tg(x, aflat, aoff, **args)] * 3),
+            short_ms=probe.queued_ms([lambda: smem.launch_tg(x, aflat[:n_short], aoff[: N_READS + 1], **args)] * 3),
+            engine_ms=wall_ms(lambda: smem.smem_tg(x, aflat, aoff, **args)),
+            lane_trips=int(lane_trips.max()), lane_trips_sum=int(lane_trips.sum()), read_trips=int(read_trips.max()),
+            read_trips_sum=int(read_trips.sum()),
+            batch_bound=bound_ms(x.nbytes + nbytes(aflat, aoff, counts, rows)),
+        )
+        for key, trips in (("tgc", r["lane_trips"]), ("tg", r["read_trips"])):
+            r[f"{key}_floor"] = (trips * ns[LAT_L2] / 1e6, trips * ns[LAT_48MB] / 1e6)
+        smem_res[name] = r
+        say(
+            f"[smem] {name}: smem_tg exact on {N_SMEM} reads ({int(k1.n_mem.sum())} MEMs) {r['ms']:.4f} ms vs plain "
+            f"{r['plain']:.4f} ms; smem_tgc exact on the lanes of {N_TGC_SHORT} short + {N_TGC_LONG} long reads "
+            f"({clanes.shape[0]} lanes; rows, counts, START logs, trips) {r['cms']:.4f} ms vs plain {r['cplain']:.4f} ms "
+            f"({card})")
+        say(
+            f"[smem] {name} main path's batch ({len(reads)} reads, {r['lanes']} lanes of {smem.CHUNK} + {smem.MARGIN}): "
+            f"chunked engine rows equal to the one-thread kernel's ({r['n_mems']} MEMs) and dense32's; smem_tgc "
+            f"{r['tgc_ms']:.4f} ms, engine (launch, stitch, reruns) {r['engine_ms']:.4f} ms, n_unmerged {out.n_unmerged}, "
+            f"n_rerun {out.n_rerun}; one-thread smem_tg {r['tg_ms']:.4f} ms, its {N_READS} short reads alone "
+            f"{r['short_ms']:.4f} ms; trips: longest lane {r['lane_trips']} (all lanes {r['lane_trips_sum']}), longest "
+            f"read {r['read_trips']} (all reads {r['read_trips_sum']}); roofline bound (bytes) {r['batch_bound']:.4f} ms; "
+            f"chain floor smem_tgc {r['tgc_floor'][0]:.4f} / {r['tgc_floor'][1]:.4f} ms, smem_tg {r['tg_floor'][0]:.4f} / "
+            f"{r['tg_floor'][1]:.4f} ms (at {ns[LAT_L2]} / {ns[LAT_48MB]} ns a step) ({card})"
+        )
+        if name == "dense32":
+            for C in CHUNK_SWEEP:
+                lanes = smem.chunk_lanes(aoff, C, C // 2)
+                o = smem.smem_tg(x, aflat, aoff, chunk=C, margin=C // 2, **args)
+                if not (torch.equal(o.counts, counts) and torch.equal(o.rows, rows)):
+                    fail(f"smem dense32: chunk {C} gives other rows than the one-thread kernel")
+                t = smem.launch_tgc(x, aflat, aoff, lanes, trips=True, **args).trips
+                sweep.append(dict(chunk=C, margin=C // 2, lanes=lanes.shape[0], n_unmerged=o.n_unmerged,
+                                  max_trips=int(t.max()), sum_trips=int(t.sum()),
+                                  ms=probe.queued_ms([lambda lanes=lanes: smem.launch_tgc(x, aflat, aoff, lanes, **args)] * 3),
+                                  engine_ms=wall_ms(lambda C=C: smem.smem_tg(x, aflat, aoff, chunk=C, margin=C // 2, **args))))
+            say("[smem] dense32 chunk sweep (exact at each): " + "; ".join(
+                f"C {w['chunk']} W {w['margin']}: {w['lanes']} lanes, smem_tgc {w['ms']:.4f} ms, engine "
+                f"{w['engine_ms']:.4f} ms, longest lane {w['max_trips']} trips (all {w['sum_trips']}), n_unmerged "
+                f"{w['n_unmerged']}" for w in sweep) + f" ({card})")
+        del k1, kc, out, rows
+    del aflat, aoff, alanes, ref
 
     # ---- ssa -----------------------------------------------------------------
-    ssa_res, ssa_path = check_ssa(cli, ssa_ops, probe, rank, dev, card, f, fmd, idxs, reads)
+    ssa_res, ssa_path = check_ssa(cli, ssa_ops, probe, rank, dev, card, f, fmd, idxs, reads, ns)
 
     # ---- mem: the main path, then --occ=rb --------------------------------------
-    # the reference output first, untimed: that run also builds the native
-    # host library (g++) and the index's packed-row sidecar, one-time costs
-    # that the port's host reruns would otherwise pay inside its timing
+    # the reference output first, untimed: that run also builds the JAX
+    # package's native library and its sidecars, one-time costs
     native_bed = os.path.join(WORK, "native.bed")
     native_cmd = [sys.executable, "-m", "ropebwt3_tpu", "mem", "--engine=native", f"-l{MIN_LEN}", fmd, reads_fa]
     with open(native_bed, "wb") as out:
@@ -608,6 +776,7 @@ def main() -> None:
     want = open(native_bed, "rb").read()
     n_all = len(reads)
     paths = {}
+    names = ("occ_rank1a", "occ_extend_c", "smem_tg", "smem_tgc")
     for path, extra, layout in (("mem", [], "dense32"), ("mem-rb", ["--occ=rb"], "rb32")):
         argv = ["mem", f"-l{MIN_LEN}", *extra, fmd, reads_fa]
         port_bed = os.path.join(WORK, f"port_{path}.bed")
@@ -618,14 +787,15 @@ def main() -> None:
         with open(port_bed, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli.main(argv)
         port_s = time.perf_counter() - t0
-        launches = {name: dict(counted.launches) for name, counted in zip(("occ_rank1a", "occ_extend_c", "smem_tg"), counters)}
+        launches = {name: dict(counted.launches) for name, counted in zip(names, counters)}
         sys.stderr.write(err.getvalue())
         if rc != 0:
             fail(f"ropebwt3_tpu_torch {' '.join(argv)} exited {rc}")
-        if launches["smem_tg"].get(layout, 0) < 1:
-            fail(f"{path}: no {layout} smem_tg launch ({launches})")
-        m = re.search(rf"(\d+) smem_tg launches \({layout}\); (\d+) reads rerun", err.getvalue())
-        if m is None:
+        if launches["smem_tgc"].get(layout, 0) < 1:
+            fail(f"{path}: no {layout} smem_tgc launch ({launches})")
+        m = re.search(rf"(\d+) smem_tg launches \({layout}\): (\d+) chunked, (\d+) one-thread; (\d+) reads rerun on "
+                      rf"the card, (\d+) unmerged", err.getvalue())
+        if m is None or int(m.group(2)) != launches["smem_tgc"][layout]:
             fail(f"{path}: the port's mem did not report its engine counts for {layout}")
         got_bed = open(port_bed, "rb").read()
         if got_bed != want:
@@ -633,11 +803,41 @@ def main() -> None:
         n_lines = want.count(b"\n")
         if n_lines < N_READS:
             fail(f"only {n_lines} BED lines for {N_READS + N_LONG} reads")
-        paths[path] = dict(launches=launches, layout=layout, port_s=port_s)
+        paths[path] = dict(launches=launches, layout=layout, port_s=port_s, n_rerun=int(m.group(4)),
+                           n_unmerged=int(m.group(5)))
         say(
             f"[{path}] `{' '.join(argv[:-2])}`: BED byte-equal to --engine=native ({n_lines} lines); launches {launches}; "
-            f"n_rerun {m.group(2)} (of {N_LONG} long reads); port in-process {port_s:.3f} s ({n_all / port_s:.1f} reads/s)"
+            f"n_rerun {m.group(4)}, n_unmerged {m.group(5)} (of {N_LONG} long reads); port in-process {port_s:.3f} s "
+            f"({n_all / port_s:.1f} reads/s)"
         )
+
+    # the main path's host work, piece by piece (warm: the sidecar and the
+    # kernels exist), through the functions `mem` runs; its BED must match too
+    from ropebwt3_tpu_torch import seqio
+
+    t = {}
+    t0 = time.perf_counter()
+    f2 = cli.load_index(fmd)
+    t["load_index"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = smem.BatchedSmemTG(f2, 1, MIN_LEN, device=dev)
+    torch.cuda.synchronize()
+    t["occ rows build and upload"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = list(seqio.iter_flat_batches(reads_fa, False, 100_000_000))
+    t["FASTA read (iter_flat_batches)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    found = [eng.run_flat(fl, of) for _, fl, of in batches]
+    t["engine (run_flat: upload, smem_tgc, stitch, reruns, download)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sink, sid = io.StringIO(), 0
+    for (bnames, _, of), (bc, br) in zip(batches, found):
+        sid = cli.write_bed(sink, f2, bnames, of, bc, br, sid, 0, False, 0)
+    t["BED write (write_bed)"] = time.perf_counter() - t0
+    if sink.getvalue().encode() != want:
+        fail("the main path's pieces, run one by one, give another BED")
+    say("[mem] host work of the main path, warm, in-process: " + "; ".join(f"{k} {v:.3f} s" for k, v in t.items())
+        + f" ({len(batches)} batch, {card})")
 
     sub_bed = os.path.join(WORK, "port_subprocess.bed")
     argv = ["mem", f"-l{MIN_LEN}", fmd, reads_fa]
@@ -654,36 +854,53 @@ def main() -> None:
         f"{os.cpu_count()} host cores) ({card})"
     )
     say(
-        "[mem-rb] rows on the card and smem_tg on the main path's batch: "
-        + "; ".join(f"{name} {x.nbytes} B, {smem_res[name]['full_ms']:.4f} ms" for name, x in idxs.items())
+        "[mem-rb] rows on the card and the chunked engine on the main path's batch: "
+        + "; ".join(f"{name} {x.nbytes} B, smem_tgc {smem_res[name]['tgc_ms']:.4f} ms, one-thread smem_tg "
+                    f"{smem_res[name]['tg_ms']:.4f} ms" for name, x in idxs.items())
         + f" ({card})"
     )
 
     def path_launches(kernel: str, layout: str) -> tuple[int, str | None]:
         for path, p in paths.items():
-            if p["layout"] == layout and kernel == "smem_tg":
+            if p["layout"] == layout and kernel in ("smem_tg", "smem_tgc"):
                 return p["launches"][kernel].get(layout, 0), path
         return sum(p["launches"][kernel].get(layout, 0) for p in paths.values()), None
 
     entries = []
+    smem_src, smem_rep = "ropebwt3_tpu_torch/csrc/smem_tg.cu", "ropebwt3_tpu/ops/smem_pallas.py:91"
     for name in LAYOUTS:
-        n, path = path_launches("smem_tg", name)
         s = smem_res[name]
+        n, path = path_launches("smem_tg", name)
         entries.append({
-            "name": f"smem_tg_{name}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/smem_tg.cu",
-            "replaces": "ropebwt3_tpu/ops/smem_pallas.py:91", "launches": n, "path": path, "max_abs_err": s["err"],
-            "ms": s["ms"], "plain_ms": s["plain"], "input": f"{N_SMEM} x {READ_LEN} bp reads",
-            "main_path_batch_ms": s["full_ms"],
+            "name": f"smem_tg_{name}", "route": "cuda", "source": smem_src, "replaces": smem_rep, "launches": n,
+            "path": path if n else None, "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain"],
+            "bound_ms": s["bound"], "bound_by": "bytes", "library_ms": None, "chain_floor_ms": s["floor"],
+            "input": f"{N_SMEM} x {READ_LEN} bp reads, one thread each",
+            "main_path_batch_ms": s["tg_ms"], "main_path_batch_short_reads_ms": s["short_ms"],
+            "main_path_batch_bound_ms": s["batch_bound"], "main_path_batch_chain_floor_ms": s["tg_floor"],
+            "main_path_batch_longest_read_trips": s["read_trips"],
+        })
+        n, path = path_launches("smem_tgc", name)
+        entries.append({
+            "name": f"smem_tgc_{name}", "route": "cuda", "source": smem_src, "replaces": smem_rep, "launches": n,
+            "path": path, "max_abs_err": s["cerr"], "ms": s["cms"], "plain_ms": s["cplain"], "bound_ms": s["cbound"],
+            "bound_by": "bytes", "library_ms": None, "chain_floor_ms": s["cfloor"],
+            "input": f"the lanes ({smem.CHUNK} + {smem.MARGIN}) of {N_TGC_SHORT} short and {N_TGC_LONG} long reads",
+            "main_path_batch_ms": s["tgc_ms"], "main_path_batch_engine_ms": s["engine_ms"],
+            "main_path_batch_bound_ms": s["batch_bound"], "main_path_batch_chain_floor_ms": s["tgc_floor"],
+            "main_path_batch_longest_lane_trips": s["lane_trips"], "n_unmerged": s["n_unmerged"], "n_rerun": s["n_rerun"],
+            **({"chunk_sweep": sweep} if name == "dense32" else {}),
         })
     for name in LAYOUTS:
         o = occ_res[name]
         src = "ropebwt3_tpu_torch/csrc/occ_rank.cu + " + ("rb.cuh" if name.startswith("rb") else "occ.cuh")
         rep = "ropebwt3_tpu/ops/runblock.py:154" if name.startswith("rb") else "ropebwt3_tpu/ops/rank.py:233"
-        for kern, err, ms, plain in (("occ_rank1a", o["rank_err"], o["rank_ms"], o["rank_plain"]),
-                                     ("occ_extend_c", o["ext_err"], o["ext_ms"], o["ext_plain"])):
+        for kern, err, ms, plain, bound in (("occ_rank1a", o["rank_err"], o["rank_ms"], o["rank_plain"], o["rank_bound"]),
+                                            ("occ_extend_c", o["ext_err"], o["ext_ms"], o["ext_plain"], o["ext_bound"])):
             n, path = path_launches(kern, name)
             e = {"name": f"{kern}_{name}", "route": "cuda", "source": src, "replaces": rep, "launches": n, "path": path,
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain, "input": f"{N_CHECK} on the bench index"}
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+                 "library_ms": None, "input": f"{N_CHECK} on the bench index"}
             if name == "rb64":
                 key = "rank" if kern == "occ_rank1a" else "ext"
                 e.update({"rank64_ms": r64[f"{key}_ms"], "rank64_plain_ms": r64[f"{key}_plain"],
@@ -693,15 +910,18 @@ def main() -> None:
         r = probe_res[name]
         entries.append({"name": name, "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/probe.cu", "replaces": r["replaces"],
                         "launches": r["launches"], "path": "probe", "max_abs_err": r["err"], "ms": r["ms"],
-                        "plain_ms": r["plain"], "input": r["input"]})
+                        "plain_ms": r["plain"], "bound_ms": r["bound"], "bound_by": "bytes", "library_ms": r["library"],
+                        "input": r["input"], **({"indep_ms": r["indep_ms"]} if "indep_ms" in r else {})})
     for name in ("dense32", "dense64"):
         r = ssa_res[name]
         entries.append({
             "name": f"ssa_gen_{name}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/ssa_gen.cu + occ.cuh",
             "replaces": "ropebwt3_tpu/ssa_ops.py:127", "launches": ssa_path["launches"].get(name, 0),
             "path": "ssa" if ssa_path["launches"].get(name, 0) else None, "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain"], "input": r["input"], "bench_index_ms": r["bench_ms"],
-            "bench_index_native_ms": r["bench_native_ms"],
+            "plain_ms": r["plain"], "bound_ms": r["bound"], "bound_by": "bytes", "library_ms": None,
+            "chain_floor_ms": r["chain_floor_ms"], "input": r["input"], "longest_walk": r["longest"],
+            "bench_index_ms": r["bench_ms"], "bench_index_native_walk_ms": r["bench_native_ms"],
+            "bench_index_longest_walk": r["bench_longest"], "bench_index_chain_floor_ms": r["bench_chain_floor_ms"],
         })
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

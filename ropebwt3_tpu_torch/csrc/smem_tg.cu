@@ -1,6 +1,5 @@
 // SMEM-TG: the Travis-Gagie long-MEM algorithm (fm-index.c:483-528,
-// ropebwt3_tpu/ops/smem_ref.py smem_tg), one thread per read, each thread
-// running its read's state machine to the end.
+// ropebwt3_tpu/ops/smem_ref.py smem_tg) as chains of one thread each.
 //
 // Replaces the TPU kernel ropebwt3_tpu/ops/smem_pallas.py `_make_kernel` ->
 // `kernel` (launched by `smem_tg_pallas` inside a lax.while_loop) together
@@ -13,21 +12,31 @@
 // extension, from one call site, so the threads of a warp stay converged on
 // the loads.
 //
-// Bound on the card: a dependent chain of random occ-row loads, two
-// independent ranks per extension step and some 300-600 steps per 150 bp
-// read.  Dense rows (48 B per 64 symbols, 0.75 B/sym) stay L2-resident up to
-// ~50 MB of table; rb rows (160 B per S symbols) cost more loads and a short
-// record scan per rank but hold a pangenome in a fraction of the bytes.
-// The design's answer is occupancy: one read per thread and 256-thread blocks
-// keep tens of thousands of chains in flight.  Warp-cooperative or
-// latency-hiding versions are later work.
+// Bound on the card: a chain of dependent occ-row loads (one trip = one
+// extension = two independent ranks), some three trips a base.  A read run
+// by one thread costs its length in dependent steps: a 20 kb read ~60,000
+// steps of ~0.5 us, ~30 ms, while 100,000 short reads in parallel take ~1 ms.
+// So there are two kernels over one chain routine:
+//   smem_tg   one thread per read, from x = 0 to the read's end (the path
+//             of a read that cannot be split, below);
+//   smem_tgc  one thread per LANE: a lane runs read r's state machine from a
+//             START at x0 until the first START x >= x_stop, or the read's
+//             end, and logs every START x it passes.  ops/smem.py cuts a long
+//             read into chunks of C symbols, one lane each, that overrun the
+//             next chunk's start by a margin W, and stitches their emits:
+//             the state at START is a function of x alone and x strictly
+//             increases, so two chains that meet at one START x coincide
+//             from there on.  Lanes of short reads are whole reads.
 //
-// The kernel is instantiated once per occ layout (rb.cuh RB3C_LAYOUTS):
-// dense or rb rows, int32 or int64 positions.  Output: per read at most
+// The kernels are instantiated once per occ layout (rb.cuh RB3C_LAYOUTS):
+// dense or rb rows, int32 or int64 positions.  Output per chain: at most
 // max_mems rows (start, end, size, lo, lo_rc) in the index's width (int64
-// mode: lo exceeds 2^31) in emit order, plus the TRUE emit count, which may exceed max_mems; on
-// overflow the last slot holds the latest emit, as ops/smem_fsm.py `emit`
-// does, and the caller reruns that read on the host.
+// mode: lo exceeds 2^31) in emit order, plus the TRUE emit count, which may
+// exceed max_mems; on overflow the last slot holds the latest emit, as
+// ops/smem_fsm.py `emit` does, and the caller reruns the read with a buffer
+// of the true count.  A lane also writes its START log (at most log_len
+// entries, the true count beside it; END = n + 1 once the chain finishes)
+// and, where asked, its trip count.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,26 +49,41 @@ constexpr int kThreads = 256;
 enum Phase { kStart, kBack1, kFwd, kBack2 };
 
 template <class L>
-__global__ void smem_tg_kernel(const L ix, const uint8_t* __restrict__ flat, const int64_t* __restrict__ seq_off,
-                               int64_t n_reads, int min_occ, int min_len, int max_mems,
-                               typename L::T* __restrict__ mems, int* __restrict__ n_mem) {
+__device__ __forceinline__ void put_mem(typename L::T* out, int cnt, int max_mems, int st, int en,
+                                        const rb3c::Bi<typename L::T>& ik) {
+  typename L::T* o = out + 5 * (cnt < max_mems ? cnt : max_mems - 1);
+  o[0] = st, o[1] = en, o[2] = ik.s, o[3] = ik.x0, o[4] = ik.x1;
+}
+
+// One chain over q[0:n) from START x until the first START x >= x_stop or
+// the read's end.  kLog: write every START x passed (and END = n + 1 at the
+// end) to log[0:log_len), counting them all in *n_log.  Returns the emit
+// count; *trips gets the number of extensions.
+template <class L, bool kLog>
+__device__ __forceinline__ int run_chain(const L& ix, const uint8_t* __restrict__ q, int n, int x, int x_stop,
+                                         int min_occ, int min_len, int max_mems, typename L::T* __restrict__ out,
+                                         int* __restrict__ log, int log_len, int* n_log, int* trips) {
   using T = typename L::T;
-  const int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (r >= n_reads) return;
-  const uint8_t* q = flat + seq_off[r];
-  const int n = (int)(seq_off[r + 1] - seq_off[r]);
-  T* out = mems + r * (int64_t)max_mems * 5;
-  int cnt = 0;
-  int x = 0, i = 0, j = 0;
+  int cnt = 0, nl = 0, tr = 0;
+  int i = 0, j = 0;
   int ph = kStart;
   rb3c::Bi<T> ik{0, 0, 0};
+  auto note = [&](int v) {
+    if (kLog && nl < log_len) log[nl] = v;
+    ++nl;
+  };
   for (;;) {
     if (ph == kBack2 && i <= x) {  // backward re-extension reached x
       x = i + 1;
       ph = kStart;
     }
     if (ph == kStart) {  // new window [x, x + min_len)
-      if (n - x < min_len) break;
+      if (n - x < min_len) {
+        note(n + 1);
+        break;
+      }
+      note(x);
+      if (x >= x_stop) break;
       ik = rb3c::set_intv(ix, q[x + min_len - 1]);
       i = x + min_len - 2;
       ph = kBack1;
@@ -69,14 +93,14 @@ __global__ void smem_tg_kernel(const L ix, const uint8_t* __restrict__ flat, con
       }
     }
     if (ph == kFwd && j >= n) {  // forward extension reached the read end
-      T* o = out + 5 * (cnt < max_mems ? cnt : max_mems - 1);
-      o[0] = x, o[1] = n, o[2] = ik.s, o[3] = ik.x0, o[4] = ik.x1;
-      ++cnt;
+      put_mem<L>(out, cnt++, max_mems, x, n, ik);
+      note(n + 1);
       break;
     }
     const bool back = ph != kFwd;
     const int c = q[back ? i : j];
     const rb3c::Bi<T> ok = rb3c::extend_c(ix, ik, back ? c : rb3c::comp6(c), back);
+    ++tr;
     const bool succ = ok.s >= min_occ;
     if (ph == kBack1) {
       if (succ) {
@@ -94,9 +118,7 @@ __global__ void smem_tg_kernel(const L ix, const uint8_t* __restrict__ flat, con
         ik = ok;
         ++j;
       } else {  // emit the MEM [x, j), then re-extend backward from j
-        T* o = out + 5 * (cnt < max_mems ? cnt : max_mems - 1);
-        o[0] = x, o[1] = j, o[2] = ik.s, o[3] = ik.x0, o[4] = ik.x1;
-        ++cnt;
+        put_mem<L>(out, cnt++, max_mems, x, j, ik);
         ik = rb3c::set_intv(ix, q[j]);
         i = j - 1;
         ph = kBack2;
@@ -111,23 +133,65 @@ __global__ void smem_tg_kernel(const L ix, const uint8_t* __restrict__ flat, con
       }
     }
   }
-  n_mem[r] = cnt;
+  if (kLog) *n_log = nl;
+  if (trips) *trips = tr;
+  return cnt;
 }
+
+template <class L>
+__global__ void smem_tg_kernel(const L ix, const uint8_t* __restrict__ flat, const int64_t* __restrict__ seq_off,
+                               int64_t n_reads, int min_occ, int min_len, int max_mems,
+                               typename L::T* __restrict__ mems, int* __restrict__ n_mem, int* __restrict__ trips) {
+  const int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (r >= n_reads) return;
+  const int n = (int)(seq_off[r + 1] - seq_off[r]);
+  n_mem[r] = run_chain<L, false>(ix, flat + seq_off[r], n, 0, n + 1, min_occ, min_len, max_mems,
+                                 mems + r * (int64_t)max_mems * 5, nullptr, 0, nullptr, trips ? trips + r : nullptr);
+}
+
+// lanes (n_lanes, 3) int64: read, x0, x_stop
+template <class L>
+__global__ void smem_tgc_kernel(const L ix, const uint8_t* __restrict__ flat, const int64_t* __restrict__ seq_off,
+                                const int64_t* __restrict__ lanes, int64_t n_lanes, int min_occ, int min_len,
+                                int max_mems, int log_len, typename L::T* __restrict__ mems, int* __restrict__ n_mem,
+                                int* __restrict__ log, int* __restrict__ n_log, int* __restrict__ trips) {
+  const int64_t l = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (l >= n_lanes) return;
+  const int64_t r = lanes[l * 3];
+  const int n = (int)(seq_off[r + 1] - seq_off[r]);
+  n_mem[l] = run_chain<L, true>(ix, flat + seq_off[r], n, (int)lanes[l * 3 + 1], (int)lanes[l * 3 + 2], min_occ,
+                                min_len, max_mems, mems + l * (int64_t)max_mems * 5, log + l * (int64_t)log_len,
+                                log_len, n_log + l, trips ? trips + l : nullptr);
+}
+
+unsigned blocks(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
 
 extern "C" {
 
-// mems (n_reads, max_mems, 5) T and n_mem (n_reads,) int32 for the reads
-// flat[seq_off[r]:seq_off[r+1]] (nt6 codes 0..5), one entry point per layout
+// smem_tg: mems (n_reads, max_mems, 5) T and n_mem (n_reads,) int32 for the
+// reads flat[seq_off[r]:seq_off[r+1]] (nt6 codes 0..5); trips (n_reads,)
+// int32 or NULL.  smem_tgc: the same per lane, plus log (n_lanes, log_len)
+// and n_log (n_lanes,) int32.  One entry point per layout.
 #define RB3C_SMEM_TG(name, L)                                                                                       \
   int rb3c_smem_tg_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift,   \
                           int block_shift, const uint8_t* flat, const int64_t* seq_off, int64_t n_reads,          \
-                          int min_occ, int min_len, int max_mems, void* mems, int* n_mem, void* stream) {         \
+                          int min_occ, int min_len, int max_mems, void* mems, int* n_mem, int* trips,             \
+                          void* stream) {                                                                         \
     const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                      \
-    const unsigned grid = (unsigned)((n_reads + kThreads - 1) / kThreads);                                         \
-    smem_tg_kernel<L><<<grid, kThreads, 0, (cudaStream_t)stream>>>(ix, flat, seq_off, n_reads, min_occ, min_len,  \
-                                                                    max_mems, static_cast<L::T*>(mems), n_mem);   \
+    smem_tg_kernel<L><<<blocks(n_reads), kThreads, 0, (cudaStream_t)stream>>>(                                    \
+        ix, flat, seq_off, n_reads, min_occ, min_len, max_mems, static_cast<L::T*>(mems), n_mem, trips);          \
+    return (int)cudaGetLastError();                                                                                \
+  }                                                                                                                \
+  int rb3c_smem_tgc_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift,  \
+                           int block_shift, const uint8_t* flat, const int64_t* seq_off, const int64_t* lanes,   \
+                           int64_t n_lanes, int min_occ, int min_len, int max_mems, int log_len, void* mems,     \
+                           int* n_mem, int* log, int* n_log, int* trips, void* stream) {                         \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                      \
+    smem_tgc_kernel<L><<<blocks(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(                                   \
+        ix, flat, seq_off, lanes, n_lanes, min_occ, min_len, max_mems, log_len, static_cast<L::T*>(mems), n_mem,  \
+        log, n_log, trips);                                                                                        \
     return (int)cudaGetLastError();                                                                                \
   }
 RB3C_LAYOUTS(RB3C_SMEM_TG)

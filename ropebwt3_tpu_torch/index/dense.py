@@ -1,0 +1,72 @@
+"""Dense occurrence-checkpoint FM-index on the host, copied from
+ropebwt3_tpu/index/dense.py: the BWT as one byte per symbol plus two-level
+occurrence checkpoints (uint16 per-block counts every BLOCK symbols relative
+to int64 superblock counts every SUPER symbols).  The port builds its device
+rows (ops/rank.py, ops/runblock.py) and runs the native multi-locate
+(native/locate.cpp) on these arrays; the `.dense` sidecar (sidecar.py)
+stores them in the JAX package's format.  The tables are built natively
+(native/rld_codec.cpp), as the JAX package does when its library loads.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from .. import native
+
+ASIZE = 6
+BLOCK = 64
+SUPER = 1 << 16
+BLOCKS_PER_SUPER = SUPER // BLOCK
+
+
+@dataclass
+class DenseFMIndex:
+    bwt: np.ndarray  # uint8 [n_pad], padded with zeros beyond n
+    n: int
+    acc: np.ndarray  # int64 [7] cumulative symbol counts (C-array), acc[0]=0
+    occ_block: np.ndarray  # uint16 [n_blocks+1, 6], counts in [super_start, block_start)
+    occ_super: np.ndarray  # int64 [n_supers+1, 6], counts before superblock
+    # lazily attached extras
+    ssa: object | None = field(default=None, repr=False)
+    sid: object | None = field(default=None, repr=False)
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def from_bwt(cls, bwt: np.ndarray) -> "DenseFMIndex":
+        bwt = np.ascontiguousarray(bwt, dtype=np.uint8)
+        n = len(bwt)
+        n_blocks = (n + BLOCK - 1) // BLOCK
+        n_pad = (n_blocks + 1) * BLOCK
+        b = np.zeros(n_pad, dtype=np.uint8)
+        b[:n] = bwt
+        # one-pass native table build (ropebwt3_tpu/index/dense.py:47-69)
+        n_supers = (n_blocks + BLOCKS_PER_SUPER - 1) // BLOCKS_PER_SUPER
+        occ_block = np.empty((n_blocks + 1, ASIZE), dtype=np.uint16)
+        occ_super = np.empty((n_supers + 1, ASIZE), dtype=np.int64)
+        acc = np.zeros(ASIZE + 1, dtype=np.int64)
+        native.lib().rb3t_dense_tables(b.ctypes.data, n, n_blocks, n_supers, occ_block.ctypes.data,
+                                       occ_super.ctypes.data, acc.ctypes.data, os.cpu_count() or 1)
+        return cls(bwt=b, n=n, acc=acc, occ_block=occ_block, occ_super=occ_super)
+
+    @classmethod
+    def from_runs(cls, syms: np.ndarray, lens: np.ndarray) -> "DenseFMIndex":
+        syms = np.ascontiguousarray(syms, dtype=np.uint8)
+        lens = np.ascontiguousarray(lens, dtype=np.int64)
+        bwt = np.empty(int(lens.sum()), dtype=np.uint8)
+        native.lib().rb3t_runs_expand(syms.ctypes.data, lens.ctypes.data, len(syms), bwt.ctypes.data)
+        return cls.from_bwt(bwt)
+
+    @property
+    def n_runs(self) -> int:
+        b = self.bwt[: self.n]
+        if self.n == 0:
+            return 0
+        return int(1 + np.count_nonzero(b[1:] != b[:-1]))
+
+    def is_symmetric(self) -> bool:
+        a = self.acc
+        return (a[1] & 1) == 0 and a[2] - a[1] == a[5] - a[4] and a[3] - a[2] == a[4] - a[3]

@@ -5,13 +5,14 @@ Each `.cu` file under csrc/ compiles to an object with its own nvcc, all
 started together; one more nvcc links them into ONE shared library with a
 plain C interface (no PyTorch headers: nvcc takes seconds, not minutes).  The
 build lands in `_build/` next to this file, keyed on a hash of the sources and
-the flags, the same build-on-demand pattern as ropebwt3_tpu/native.  Nothing
+the flags, the same build-on-demand pattern as the port's native/.  Nothing
 is built or loaded when this module is imported; `lib()` does it.
 
 Every entry point takes PyTorch's current CUDA stream, allocates nothing, and
 returns `cudaGetLastError()` after its launch; `launch` raises on non-zero,
 `call` returns the code (the shared-memory capacity probe reports a refusal).
-The rank and SMEM kernels come in one variant per occ layout: dense32 and
+The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
+thread per lane of a chunked read) come in one variant per occ layout: dense32 and
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
 `RunBlockIndex`); ssa_gen in the two dense ones.  Each takes the index's
 tables first, as the index's `kernel_tables()` gives them: rows, escape
@@ -41,7 +42,8 @@ _ENTRIES = {}
 for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_occ_rank1a_{_lay}"] = [*_TABLES, _V, _I64, _V, _V]
     _ENTRIES[f"rb3c_occ_extend_c_{_lay}"] = [*_TABLES, _V, _V, _V, _I64, _V, _V]
-    _ENTRIES[f"rb3c_smem_tg_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I32, _I32, _V, _V, _V]
+    _ENTRIES[f"rb3c_smem_tg_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I32, _I32, _V, _V, _V, _V]
+    _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_TABLES, _V, _V, _V, _I64, _I32, _I32, _I32, _I32, _V, _V, _V, _V, _V, _V]
 for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_ssa_gen_{_lay}"] = [*_TABLES, _I64, _I32, _V, _V, _V, _V, _V]
 for _name in ("rb3c_probe_smem_gather", "rb3c_probe_hbm_gather"):

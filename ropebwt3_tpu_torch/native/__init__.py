@@ -1,0 +1,81 @@
+"""The port's native host code, built with g++ on first use and loaded with
+ctypes: the FMD decoder, run expansion, dense tables and run-block row
+builder (rld_codec.cpp) and the sampled-suffix-array multi-locate that
+`mem -p` runs (locate.cpp).  Both are copies of the functions the port
+calls from ropebwt3_tpu/native, compiled into one library.
+
+The library lands in `../_build/` (gitignored), keyed on a hash of the
+sources, the flags and the machine, since `-march=native` code must never
+run on another CPU.  The port has no pure-Python fallback: `lib()` raises
+with the compiler's output when the build fails.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+SOURCES = [os.path.join(_DIR, f) for f in ("rld_codec.cpp", "locate.cpp")]
+BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
+CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+
+_V, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+_ENTRIES = {
+    "rb3t_fmd_decode": (_I64, [ctypes.c_char_p, _I64, _V, _V, _I64]),
+    "rb3t_runs_expand": (None, [_V, _V, _I64, _V]),
+    "rb3t_dense_tables": (None, [_V, _I64, _I64, _I64, _V, _V, _V, _I32]),
+    "rb3t_runblock_count": (None, [_V, _I64, _I64, _V]),
+    "rb3t_runblock_fill": (None, [_V, _V, _I64, _I64, _I64, _I64, _V, _V, _V]),
+    "rb3t_ssa_multi_batch": (None, [_V, _V, _V, _V, _I64, _I32, _I32, _V, _V, _I64, _V, _V, _V, _V, _V, _V, _V, _I32]),
+}
+
+_lib = None
+
+
+def _machine() -> bytes:
+    """What `-march=native` compiles for: the CPU's model and flags."""
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            lines = [ln for ln in fh.read().splitlines() if ln.startswith((b"model name", b"flags", b"Features"))]
+        return b"\n".join(sorted(set(lines)))
+    except OSError:
+        return platform.machine().encode()
+
+
+def build() -> str:
+    """Compile the sources into `_build/libhost_<hash>.so` unless it exists;
+    return its path."""
+    h = hashlib.sha256(" ".join(CXXFLAGS).encode() + _machine())
+    for p in SOURCES:
+        with open(p, "rb") as fh:
+            h.update(fh.read())
+    so = os.path.join(BUILD_DIR, f"libhost_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp.{os.getpid()}"  # concurrent builds never share a path
+    try:
+        r = subprocess.run(["g++", *CXXFLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"g++ failed ({r.returncode}) on the port's native sources:\n{r.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded library, built on first call."""
+    global _lib
+    if _lib is None:
+        dll = ctypes.CDLL(build())
+        for name, (restype, argtypes) in _ENTRIES.items():
+            fn = getattr(dll, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _lib = dll
+    return _lib

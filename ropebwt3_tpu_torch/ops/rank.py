@@ -28,9 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ropebwt3_tpu.index.dense import BLOCK, BLOCKS_PER_SUPER, DenseFMIndex
-
 from .. import kernels
+from ..index.dense import BLOCK, BLOCKS_PER_SUPER, DenseFMIndex
 
 ASIZE = 6
 # bidirectional-extend complement order: the secondary coordinate accumulates

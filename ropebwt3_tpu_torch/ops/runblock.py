@@ -30,21 +30,18 @@ older than the index's sidecar (F3).
 `set_intv` of ops/rank.py take this index as they take `OccIndex`, and so do
 the kernel wrappers, which launch the rb32 / rb64 kernels (csrc/rb.cuh).
 The host builder calls the native `rb3t_runblock_count` / `_fill`
-(ropebwt3_tpu/native/rld_codec.cpp) through ropebwt3_tpu.native, which
-imports no jax.
+(../native/rld_codec.cpp, the port's copy of the JAX package's builder).
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ropebwt3_tpu.native import get_lib
-
+from .. import native
 from .rank import ASIZE, FLIP, KEY, U32, extend, extend_c, needs_int64, popcount32, rank1a, rebase_mega, set_intv
 
 __all__ = ["RunBlockIndex", "rank1a", "extend", "extend_c", "set_intv", "choose_S", "build_runblock_np", "runs_from_dense"]
@@ -183,13 +180,6 @@ def dense_counts_keyed(esc: torch.Tensor, esc_i: torch.Tensor, off: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _native():
-    lib = get_lib()
-    if lib is None:
-        raise RuntimeError("the native codec (ropebwt3_tpu/native/rld_codec.cpp) is unavailable; rb rows need it")
-    return lib
-
-
 def runs_from_dense(f) -> tuple[np.ndarray, np.ndarray]:
     """(syms, lens) of the global BWT runs of a DenseFMIndex."""
     bwt = np.asarray(f.bwt[: f.n])
@@ -201,7 +191,7 @@ def runs_from_dense(f) -> tuple[np.ndarray, np.ndarray]:
 
 def _split_counts(lens: np.ndarray, S: int, n: int) -> np.ndarray:
     cnt = np.zeros((n + S - 1) // S, np.int32)
-    _native().rb3t_runblock_count(ctypes.c_void_p(lens.ctypes.data), len(lens), S, ctypes.c_void_p(cnt.ctypes.data))
+    native.lib().rb3t_runblock_count(lens.ctypes.data, len(lens), S, cnt.ctypes.data)
     return cnt
 
 
@@ -243,11 +233,8 @@ def build_runblock_np(syms: np.ndarray, lens: np.ndarray, n: int | None = None, 
     rows[esc_blocks, 6] = np.arange(len(esc_blocks), dtype=np.int32)
     esc = np.zeros((max(len(esc_blocks), 1), 3 * S // 32), np.int32)
     mega = np.zeros((((nb - 1) >> native_shift) + 1, ASIZE), np.int64) if int64 else None
-    P = ctypes.c_void_p
-    _native().rb3t_runblock_fill(
-        P(syms.ctypes.data), P(lens.ctypes.data), len(lens), n, S, RB_R,
-        P(rows.ctypes.data), P(esc.ctypes.data), P(mega.ctypes.data) if int64 else None,
-    )
+    native.lib().rb3t_runblock_fill(syms.ctypes.data, lens.ctypes.data, len(lens), n, S, RB_R, rows.ctypes.data,
+                                    esc.ctypes.data, mega.ctypes.data if int64 else None)
     if int64 and mega_shift != native_shift:
         absolute = mega[np.arange(nb) >> native_shift] + rows[:, :6].view(np.uint32)
         rows[:, :6], mega = rebase_mega(absolute, mega_shift)

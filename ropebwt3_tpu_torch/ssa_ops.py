@@ -5,26 +5,29 @@ from its sentinel row (lanes 0..m-1, m = acc[1]) to the sentinel that ends
 it; at each step whose new row r is sampled, (r - m) & (2^ss - 1) == 0 with
 a non-sentinel symbol, the slot (r - m) >> ss records the step and the lane.
 The host then turns (ssa_l, ssa_lane, death_l, final_k) into the SSA, as
-ssa_ops.py:200-207 does, and returns ropebwt3_tpu.formats.ssa.SSA.
+ssa_ops.py:200-207 does, and returns formats.ssa.SSA.
 
 `ssa_gen_plain` is the lock-step body of ssa_ops.py:127-147 in PyTorch (the
 CPU path and the reference for the kernel); `ssa_gen_cuda` wraps the CUDA
 kernel of csrc/ssa_gen.cu, one thread per lane.  Both take the dense occ rows
 of ops/rank.py `OccIndex` (dense32 or dense64): the symbol at k comes from
 the rows' bit-planes, so no BWT array goes to the device.
+
+`ssa_multi_batch` is the host side of `mem -p`: the native batched
+multi-locate (native/locate.cpp), as ropebwt3_tpu/ssa_ops.py runs it.
 """
 
 from __future__ import annotations
 
+import os
 from collections import Counter
 
 import numpy as np
 import torch
 
-from ropebwt3_tpu.formats.ssa import SSA
-from ropebwt3_tpu.index.dense import DenseFMIndex
-
-from . import kernels
+from . import kernels, native
+from .formats.ssa import SSA
+from .index.dense import DenseFMIndex
 from .ops.rank import OccIndex, lf
 
 MAX_SHIFT = 62  # positions are int64; a larger -s samples nothing past row m
@@ -147,3 +150,25 @@ def ssa_gen(f: DenseFMIndex, ssa_shift: int = 8, device="cuda", occ: OccIndex | 
     idx = OccIndex.from_dense(f, device) if occ is None else occ
     m = int(f.acc[1])
     return assemble(m, ssa_shift, *ssa_gen_cuda(idx, m, ssa_shift))
+
+
+def ssa_multi_batch(f: DenseFMIndex, sa: SSA, reqs: list[tuple[int, int, int]]) -> list[list[tuple[int, int]]]:
+    """Up to max_sa (sid, pos) pairs of each request (lo, hi, max_sa), in
+    rb3_ssa_multi's order (ssa.c:158-192): ropebwt3_tpu/ssa_ops.py
+    `ssa_multi_batch` on the port's native copy, threaded over requests."""
+    n_req = len(reqs)
+    if not n_req:
+        return []
+    lo, hi, cap = (np.array(c, np.int64) for c in zip(*reqs))
+    cap = np.clip(np.minimum(cap, hi - lo), 0, None)
+    off = np.zeros(n_req + 1, np.int64)
+    np.cumsum(cap, out=off[1:])
+    out_sid, out_pos = np.empty(int(off[-1]), np.int64), np.empty(int(off[-1]), np.int64)
+    n_out = np.zeros(n_req, np.int64)
+    native.lib().rb3t_ssa_multi_batch(
+        f.bwt.ctypes.data, f.occ_block.ctypes.data, f.occ_super.ctypes.data, f.acc.ctypes.data, f.n, sa.ss, sa.ms,
+        sa.r2i.ctypes.data, sa.ssa.ctypes.data, n_req, lo.ctypes.data, hi.ctypes.data, cap.ctypes.data,
+        off.ctypes.data, out_sid.ctypes.data, out_pos.ctypes.data, n_out.ctypes.data, os.cpu_count() or 1,
+    )
+    sid_l, pos_l = out_sid.tolist(), out_pos.tolist()
+    return [list(zip(sid_l[o : o + k], pos_l[o : o + k])) for o, k in zip(off.tolist(), n_out.tolist())]

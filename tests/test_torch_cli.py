@@ -129,8 +129,24 @@ def test_refuses_jax_device_options(corpus_fmd, argv, why):
 
 
 def test_host_commands_pass_without_jax(corpus_fmd):
-    """`stat`, a host command of the JAX package, is handed through unchanged."""
+    """`stat`, a host command, runs on the port's own loader, jax unimportable."""
     want = _run("ropebwt3_tpu", ["stat", str(corpus_fmd)])
     got = _run_without_jax(["stat", str(corpus_fmd)])
+    assert got.returncode == 0, got.stderr.decode()
+    assert want.stdout and got.stdout == want.stdout
+
+
+def test_mem_record_reader_matches_native(corpus, corpus_fmd, tmp_path):
+    """FASTA and FASTQ records in one file: the vectorized reader declines
+    it, and `mem` reads it record by record, with the same BED."""
+    recs = list(read_seqs(str(corpus / "reads.fa")))[:20]
+    mixed = tmp_path / "mixed.fq"
+    with open(mixed, "w") as fh:
+        for i, rec in enumerate(recs):
+            seq = rec.seq.decode()
+            fh.write(f"@{rec.name}\n{seq}\n+\n{'I' * len(seq)}\n" if i % 2 else f">{rec.name}\n{seq[:70]}\n{seq[70:]}\n")
+    files = [str(corpus_fmd), str(mixed)]
+    want = _run("ropebwt3_tpu", ["mem", "--engine=native", "-l21"] + files)
+    got = _run("ropebwt3_tpu_torch", ["mem", "--device=cpu", "-K", "2000", "-l21"] + files)
     assert got.returncode == 0, got.stderr.decode()
     assert want.stdout and got.stdout == want.stdout

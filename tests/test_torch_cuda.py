@@ -120,9 +120,9 @@ def test_smem_kernel_matches_plain(corpus, corpus_index, cuda_device, M, layout)
     qs = [r[: 21 + 7 * (i % 19)] for i, r in enumerate(reads * 8)] + [reads[0][:0]]
     flat, seq_off = flat_of(qs)
     cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
-    mk, nk = smem.smem_tg_cuda(gpu, flat.to(cuda_device), seq_off.to(cuda_device), min_occ=1, min_len=21, max_mems=M)
+    mk, nk = smem.smem_tg_cuda(gpu, flat.to(cuda_device), seq_off.to(cuda_device), min_occ=1, min_len=21, max_mems=M)[:2]
     torch.cuda.synchronize()
-    mp, np_ = smem.smem_tg_plain(cpu, flat, seq_off, min_occ=1, min_len=21, max_mems=M)
+    mp, np_ = smem.smem_tg_plain(cpu, flat, seq_off, min_occ=1, min_len=21, max_mems=M)[:2]
     assert mk.dtype == mp.dtype == gpu.dtype
     assert_same_mems(mk.cpu().numpy(), nk.cpu().numpy(), mp.numpy(), np_.numpy(), M)
 
@@ -153,12 +153,73 @@ def test_smem_kernel_run_coded_rows(cuda_device, S, int64):
         r[mut] = rng.integers(1, 5, int(mut.sum()))
         qs.append(r)
     flat, seq_off = flat_of(qs)
-    mk, nk = smem.smem_tg_cuda(gpu, flat.to(cuda_device), seq_off.to(cuda_device), min_occ=1, min_len=19, max_mems=16)
+    mk, nk = smem.smem_tg_cuda(gpu, flat.to(cuda_device), seq_off.to(cuda_device), min_occ=1, min_len=19, max_mems=16)[:2]
     torch.cuda.synchronize()
-    mp, np_ = smem.smem_tg_plain(cpu, flat, seq_off, min_occ=1, min_len=19, max_mems=16)
+    mp, np_ = smem.smem_tg_plain(cpu, flat, seq_off, min_occ=1, min_len=19, max_mems=16)[:2]
     assert_same_mems(mk.cpu().numpy(), nk.cpu().numpy(), mp.numpy(), np_.numpy(), 16)
     k = torch.arange(f.n + 1)
     assert torch.equal(rank.rank1a_cuda(gpu, k.to(cuda_device)).cpu(), rank.rank1a(cpu, k).to(cpu.dtype))
+
+
+def cut_reads(f, rng, n, lens, err):
+    """n reads of lens[0]..lens[1] symbols cut from the index's first
+    sequence, each symbol replaced by a random base with probability err."""
+    g, _ = f.retrieve(0)
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(*lens))
+        st = int(rng.integers(0, len(g) - ln))
+        r = g[st : st + ln].copy()
+        mut = rng.random(ln) < err
+        r[mut] = rng.integers(1, 5, int(mut.sum()))
+        out.append(r)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_chunked_kernel_matches_plain(corpus_index, cuda_device, layout):
+    """smem_tgc on lanes of 64 symbols with a 32-symbol margin, reads of
+    1-5 kb at 1% error: every lane's rows, counts, START log and trips equal
+    the plain version's; the stitched answer equals the CPU's."""
+    reads = cut_reads(corpus_index, np.random.default_rng(21), 6, (1000, 5001), 0.01) + [np.zeros(0, np.uint8)]
+    flat, seq_off = flat_of(reads)
+    cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
+    lanes = smem.chunk_lanes(seq_off, 64, 32)
+    kw = dict(min_occ=1, min_len=19, max_mems=8, log_len=16, trips=True)
+    got = smem.smem_tgc_cuda(gpu, flat.to(cuda_device), seq_off.to(cuda_device), lanes.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    want = smem.smem_tgc_cuda(cpu, flat, seq_off, lanes, **kw)
+    assert_same_mems(got.mems.cpu().numpy(), got.n_mem.cpu().numpy(), want.mems.numpy(), want.n_mem.numpy(), 8)
+    assert_same_mems(got.log.cpu().numpy()[..., None], got.n_log.cpu().numpy(), want.log.numpy()[..., None],
+                     want.n_log.numpy(), 16)
+    assert torch.equal(got.trips.cpu(), want.trips)
+    out_gpu = smem.smem_tg(gpu, flat.to(cuda_device), seq_off.to(cuda_device), min_occ=1, min_len=19, chunk=64, margin=32)
+    out_cpu = smem.smem_tg(cpu, flat, seq_off, min_occ=1, min_len=19, chunk=64, margin=32)
+    assert torch.equal(out_gpu.counts.cpu(), out_cpu.counts) and torch.equal(out_gpu.rows.cpu(), out_cpu.rows)
+    assert out_gpu[2:] == out_cpu[2:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_chunked_reruns_on_card(corpus_index, cuda_device, layout):
+    """Reads whose lanes do not meet (a 2-symbol margin at 5% error) rerun
+    whole through smem_tg, and reads whose lanes overflow a 4-row buffer
+    rerun through smem_tgc with a buffer of their true count: launches of
+    the card's kernels, with the CPU's answer."""
+    reads = cut_reads(corpus_index, np.random.default_rng(5), 4, (1000, 2001), 0.05)
+    flat, seq_off = flat_of(reads)
+    cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
+    for kw in (dict(chunk=64, margin=2), dict(max_mems=4)):
+        one, chunked = smem.smem_tg_cuda.launches[layout], smem.smem_tgc_cuda.launches[layout]
+        out_gpu = smem.smem_tg(gpu, flat.to(cuda_device), seq_off.to(cuda_device), min_occ=1, min_len=19, **kw)
+        out_cpu = smem.smem_tg(cpu, flat, seq_off, min_occ=1, min_len=19, **kw)
+        assert torch.equal(out_gpu.counts.cpu(), out_cpu.counts) and torch.equal(out_gpu.rows.cpu(), out_cpu.rows)
+        assert out_gpu[2:] == out_cpu[2:]
+        if "margin" in kw:
+            assert out_gpu.n_unmerged >= 1 and smem.smem_tg_cuda.launches[layout] > one
+        else:
+            assert out_gpu.n_rerun >= 1 and smem.smem_tgc_cuda.launches[layout] >= chunked + 2
 
 
 def short_seqs_index(m, seed=9, lo=20, hi=200):

@@ -1,18 +1,62 @@
-"""The port never imports jax."""
+"""The port never imports jax, and imports nothing of the JAX package: not
+when its modules are imported, not while its CLI runs `mem`, `ssa` and
+`stat`, and not in its sources or chip_smoke.py."""
 
 import os
+import re
 import subprocess
 import sys
 
+from .test_torch_cli import corpus_fmd  # noqa: F401  (fixture reuse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "ropebwt3_tpu_torch")
+FORBIDDEN = "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ropebwt3_tpu'))"
+
+
+def port_modules() -> list[str]:
+    """Every module of the port by dotted name, but `__main__` (the CLI)."""
+    out = []
+    for d, _, files in os.walk(PORT):
+        for fn in sorted(files):
+            if fn.endswith(".py") and fn != "__main__.py":
+                rel = os.path.relpath(os.path.join(d, fn), ROOT)[: -len(".py")].replace(os.sep, ".")
+                out.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
+    return sorted(out)
 
 
 def test_port_imports_no_jax():
-    code = (
-        "import sys\n"
-        "import ropebwt3_tpu_torch, ropebwt3_tpu_torch.ops.rank, ropebwt3_tpu_torch.ops.runblock, ropebwt3_tpu_torch.ops.smem, ropebwt3_tpu_torch.cli\n"
-        "import ropebwt3_tpu_torch.ssa_ops, ropebwt3_tpu_torch.probe\n"
-        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
-    )
+    mods = port_modules()
+    assert "ropebwt3_tpu_torch.native" in mods and "ropebwt3_tpu_torch.index.sidecar" in mods
+    code = "import importlib, sys\n" + "".join(f"importlib.import_module({m!r})\n" for m in mods) + f"print({FORBIDDEN})\n"
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
     assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_cli_commands_import_no_jax_package(corpus, corpus_fmd, tmp_path):
+    """`mem` (with -p: the native locate), `ssa` and `stat` through the
+    port's CLI on the CPU leave no jax and no ropebwt3_tpu module loaded."""
+    fmd, reads = str(corpus_fmd), str(corpus / "reads.fa")
+    code = (
+        "import contextlib, io, sys\n"
+        "from ropebwt3_tpu_torch.cli import main\n"
+        "rcs = []\n"
+        "with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):\n"
+        f"    rcs.append(main(['mem', '--device=cpu', '-l21', '-p3', {fmd!r}, {reads!r}]))\n"
+        f"    rcs.append(main(['ssa', '--device=cpu', '-o', {str(tmp_path / 'x.ssa')!r}, {fmd!r}]))\n"
+        f"    rcs.append(main(['stat', {fmd!r}]))\n"
+        f"print(rcs, {FORBIDDEN})\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert r.returncode == 0 and r.stdout.strip() == "[0, 0, 0] []", r.stdout + r.stderr
+
+
+def test_sources_import_no_jax_package():
+    """No `import ropebwt3_tpu` / `from ropebwt3_tpu` (other than the port
+    itself) and no jax import in the port's files or chip_smoke.py."""
+    bad = re.compile(r"^\s*(import|from)\s+(ropebwt3_tpu(?!_torch)\b|jax\b|jaxlib\b)", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(d, fn) for d, _, fns in os.walk(PORT) for fn in fns if fn.endswith(".py")]
+    assert len(files) > 15
+    hits = [f"{os.path.relpath(p, ROOT)}: {m.group(0).strip()}" for p in files for m in bad.finditer(open(p).read())]
+    assert hits == []
