@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (ropebwt3_tpu_torch).
 
-Drives the port's entry points on one CUDA card: `mem -l31` on the workload
+Drives the port's entry points on one CUDA card: `build` (and `merge`) of
+bench.py's genomes and of its short reads, `mem -l31` on the workload
 of bench.py (16 x 2 Mbp genomes at 1% divergence, indexed double strand:
 ~64 M symbols, ~48 MB of dense occ rows; 100,000 x 150 bp reads at 1% error)
 plus 200 reads of 5-20 kb, once on the default rows (the main path) and once
@@ -9,11 +10,23 @@ with `--occ=rb`; `ssa` on bench.py's index and two more; and the row-gather
 probes.  Every rank and SMEM kernel runs on each of the four occ layouts
 (dense32, dense64, rb32, rb64), ssa_gen on both dense ones.  The reference
 outputs come from `python -m ropebwt3_tpu` in subprocesses (`build`,
-`mem --engine=native`, `ssa -o`): this script imports nothing of it.  Phases:
+`merge`, `mem --engine=native`, `ssa -o`): this script imports nothing of
+it.  Phases:
 
   build     compile the kernels from csrc/ (nvcc, sm_90a, one nvcc per source)
   corpus    generate the data from a seed; build the FMD with the repo's own
             index build (cached under .bench/torch_smoke/)
+  construct `build` on the card (csrc/sa_round.cu K7, csrc/merge_rank.cu K6):
+            bench.py's genomes in one batch, then with -m 16M (three merges
+            of 8 lanes: the build path, counts reset before and read after),
+            then the 100,000 short reads with -m 12M, each FMD byte-equal to
+            the repo's index build; K7 round by round (the passes, and
+            torch.sort alone on the same keys) against its plain passes on
+            the card, sa and BWT exact; K6's ins against merge_rank_plain on
+            the card on the short reads' first merge (80,000 lanes), dense32
+            and dense64 (megablocks of 2^20 symbols), exact; `merge` of the
+            genomes' two halves byte-equal to `python -m ropebwt3_tpu merge`;
+            beside each, the JAX package's native command timed
   rank      occ_rank1a / occ_extend_c of each layout vs the plain PyTorch
             rank1a / extend_c on the card, on the bench index: 1 M positions
             (0, n, block and megablock boundaries included), 1 M intervals;
@@ -99,6 +112,9 @@ LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
 # bench-index int64 layouts: megablocks of 2^20 symbols; rb64 at the smallest
 # S, where run-coded blocks remain (choose_S's S makes every block an escape)
 DENSE64_SHIFT, RB64_S, RB64_SHIFT = 14, 256, 12
+# [construct]: bench.py's genomes in four batches of four (three merges of 8
+# lanes); the short reads in batches of 40,000, 40,000 and 20,000 reads
+CONSTRUCT_M, MANY_M = "16M", "12M"
 N64 = (1 << 32) + (1 << 31)  # rank64: 6,442,450,944 symbols, a multiple of 8192
 DEVICE = "cuda"
 
@@ -537,6 +553,295 @@ def serial_answer(smem, x, flat, seq_off) -> tuple:
     return one.n_mem.long(), one.mems[filled], one.trips
 
 
+def cli_run(cli, argv: list[str]) -> tuple[float, str]:
+    """`python -m ropebwt3_tpu_torch <argv>` in this process (stdout to
+    /dev/null); fails unless it exits 0.  Returns its wall seconds (the card
+    synchronized) and its stderr."""
+    import torch
+
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"ropebwt3_tpu_torch {' '.join(argv)} exited {rc}: {err.getvalue()[-2000:]}")
+    return s, err.getvalue()
+
+
+def same_file(a: str, b: str, what: str) -> None:
+    if open(a, "rb").read() != open(b, "rb").read():
+        fail(f"{what}: {a} differs from {b}")
+
+
+def host_batches(fa: str, batch_size: int) -> list[np.ndarray]:
+    """The construction batches `build -m batch_size` reads from `fa` (both
+    strands), through the port's reader as main_build calls it."""
+    from ropebwt3_tpu_torch import seqio
+
+    return [seqio.batch_nt6_flat(fl, of)[1] for _, fl, of in seqio.iter_flat_batches(fa, False, batch_size // 2)]
+
+
+def longest_walk(seq: np.ndarray) -> int:
+    """Steps of the longest LF walk over a batch's sequences: its longest
+    0-terminated sequence, sentinel included."""
+    ends = np.flatnonzero(seq == 0)
+    return int(np.diff(np.concatenate([[-1], ends])).max())
+
+
+def timed_rounds(sa, seq_d, passes) -> tuple[list[dict], object, object, float]:
+    """construct/sa.py's rounds (packed keys) pass by pass, with CUDA events
+    around each pass, the library sort and the scan: (per round ms, sa, bwt,
+    the final gather's ms)."""
+    import torch
+
+    keys, flags, scatter, to_bwt = passes
+    n = seq_d.numel()
+    rank = sa.initial_ranks(seq_d)
+    k, rounds = 1, []
+    while True:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        key = keys(rank, k, True)
+        ev[1].record()
+        key_s, perm = torch.sort(key)
+        ev[2].record()
+        del key
+        neq = flags(key_s, None)
+        ev[3].record()
+        del key_s
+        nr = torch.cumsum(neq, 0)
+        ev[4].record()
+        del neq
+        done = int(nr[-1]) == n - 1
+        ev[5].record()
+        if not done:
+            scatter(perm, nr, rank)
+        ev[6].record()
+        ev[6].synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+        rounds.append(dict(k=k, keys=ms[0], sort=ms[1], flags=ms[2], scan=ms[3], scatter=ms[5],
+                           wall=(time.perf_counter() - t0) * 1e3))
+        if done:
+            break
+        k *= 2
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    bwt = to_bwt(seq_d, perm)
+    b.record()
+    b.synchronize()
+    return rounds, perm, bwt, a.elapsed_time(b)
+
+
+def k6_ms(merge, idx, rec, m2: int, reps: int) -> tuple[float, object]:
+    """K6's mean ms over `reps` launches, each on its own copy of rec (the
+    kernel writes ins over it); returns the time and one result."""
+    import torch
+
+    copies = [rec.clone() for _ in range(reps)]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for c in copies:
+        merge.launch_merge_rank(idx, c, m2)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, copies[0]
+
+
+def log_merge_s(stderr: str) -> list[float]:
+    """Seconds of each merge in a `python -m ropebwt3_tpu build` log: each
+    `merged the partial BWT` line's time less the line before it (its dense
+    tables, lf2, native merge rank, merge apply and the merged tables)."""
+    stamps = [(float(m.group(1)), m.group(2)) for m in re.finditer(r"\[M::main_build::([0-9.]+)\*[0-9.]+\] (.*)", stderr)]
+    return [t - stamps[i - 1][0] for i, (t, msg) in enumerate(stamps) if msg.startswith("merged the partial BWT") and i]
+
+
+def check_construct(cli, dev, card: str, fa: str, fmd: str, many_fa: str, many_fmd: str) -> dict:
+    """[construct]: `build` on the card, its FMDs byte-equal to the repo's
+    own (native SA-IS) index build; K7 and K6 against their plain versions
+    on the card; `merge` byte-equal to the JAX package's.  Returns the
+    records of the kernels line (K6's chain floors wait for [probe]'s ns per
+    step)."""
+    import torch
+
+    from ropebwt3_tpu_torch.cli import _runs_of_bwt
+    from ropebwt3_tpu_torch.construct import merge, sa
+    from ropebwt3_tpu_torch.formats.fmd import encode_runs
+    from ropebwt3_tpu_torch.ops.rank import OccIndex
+
+    out = {}
+    # 1. bench.py's genomes in one batch
+    port_fmd = os.path.join(WORK, "construct_port.fmd")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    one_s, _ = cli_run(cli, ["build", "-do", port_fmd, fa])
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    same_file(port_fmd, fmd, "port `build -do` (one batch) vs the repo's index build")
+    ref_fmd = os.path.join(WORK, "construct_ref.fmd")
+    ref_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "build", "-do", ref_fmd, fa])
+    same_file(ref_fmd, fmd, "a fresh `python -m ropebwt3_tpu build -do`")
+    sub_fmd = os.path.join(WORK, "construct_sub.fmd")
+    sub_s, _ = run([sys.executable, "-m", "ropebwt3_tpu_torch", "build", "-do", sub_fmd, fa])
+    same_file(sub_fmd, fmd, "`python -m ropebwt3_tpu_torch build -do`")
+    # its pieces, warm: read, sort (upload, K7, download), FMD encode
+    t0 = time.perf_counter()
+    (seq,) = host_batches(fa, 7_000_000_000)
+    t_read = time.perf_counter() - t0
+    n = len(seq)
+    seq_d = torch.from_numpy(seq).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bwt_host = sa.gsa_bwt(seq_d, dev)[0].cpu().numpy()
+    t_sort = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = encode_runs(*_runs_of_bwt(bwt_host))
+    t_enc = time.perf_counter() - t0
+    if data != open(fmd, "rb").read():
+        fail("[construct] gsa_bwt's BWT of bench.py's batch, encoded, differs from the index build's FMD")
+    # 4. K7 against its plain passes on the card, pass by pass
+    rounds, perm, bwt_k, bwt_ms = timed_rounds(sa, seq_d, sa.CUDA)
+    prounds, pperm, bwt_p, pbwt_ms = timed_rounds(sa, seq_d, sa.PLAIN)
+    k7_err = max(max_abs(perm, pperm), max_abs(bwt_k, bwt_p))
+    if k7_err or len(rounds) != len(prounds) or not np.array_equal(bwt_k.cpu().numpy(), bwt_host):
+        fail(f"[construct] K7 kernels vs plain passes: sa/bwt off by {k7_err}, {len(rounds)} vs {len(prounds)} rounds")
+    del perm, pperm, bwt_k, bwt_p
+
+    def passes_ms(rs, last):
+        return sum(r["keys"] + r["flags"] + r["scatter"] for r in rs) + last
+
+    nr = len(rounds)
+    k7 = dict(rounds=nr, per_round=rounds, ms=passes_ms(rounds, bwt_ms), plain=passes_ms(prounds, pbwt_ms),
+              sort_ms=sum(r["sort"] for r in rounds), scan_ms=sum(r["scan"] for r in rounds),
+              total_ms=sum(r["wall"] for r in rounds) + bwt_ms, err=k7_err,
+              # keys 16 B, flags 16 B, scatter 24 B a symbol (not in the last round), the gather 10 B
+              bound=bound_ms(n * (32 * nr + 24 * (nr - 1) + 10)), peak_b_per_sym=peak / n,
+              input=f"bench.py's batch: {n} symbols, one batch, {nr} rounds")
+    say(f"[construct] `build -do` of bench.py's genomes (one batch, n={n}): FMD byte-equal to the repo's index build; "
+        f"port in-process {one_s:.3f} s (read {t_read:.3f} s, upload + sort + download {t_sort:.3f} s, FMD encode "
+        f"{t_enc:.3f} s), one-shot `python -m ropebwt3_tpu_torch build -do` {sub_s:.3f} s, fresh `python -m "
+        f"ropebwt3_tpu build -do` (native SA-IS, {os.cpu_count()} host cores) {ref_s:.3f} s; peak card memory {peak} B "
+        f"({peak / n:.2f} B a symbol) ({card})")
+    say(f"[construct] K7 on bench.py's batch: {nr} rounds, card ms per round (keys / torch.sort / flags / cumsum / "
+        f"scatter; wall): " + "; ".join(
+            f"k={r['k']}: {r['keys']:.3f}/{r['sort']:.3f}/{r['flags']:.3f}/{r['scan']:.3f}/{r['scatter']:.3f}; "
+            f"{r['wall']:.3f}" for r in rounds)
+        + f"; final gather {bwt_ms:.3f} ms; total {k7['total_ms']:.3f} ms, of it torch.sort {k7['sort_ms']:.3f} ms, "
+        f"the four passes {k7['ms']:.3f} ms (plain passes on the card {k7['plain']:.3f} ms; sa and BWT exact); "
+        f"passes' bound (bytes) {k7['bound']:.4f} ms ({card})")
+    del seq_d
+    out["sa_round"] = k7
+
+    # 2. the same genomes with -m 16M: three merges, the build path
+    port16 = os.path.join(WORK, "construct_port_m16.fmd")
+    sa.SA_LAUNCHES.clear()
+    merge.merge_rank_cuda.launches.clear()
+    path_s, path_err = cli_run(cli, ["build", "-m", CONSTRUCT_M, "-do", port16, fa])
+    out["path"] = dict(sa=dict(sa.SA_LAUNCHES), merge=dict(merge.merge_rank_cuda.launches), s=path_s)
+    same_file(port16, fmd, f"port `build -m {CONSTRUCT_M} -do` vs the one-batch index build")
+    if min(out["path"]["sa"].get(p, 0) for p in ("sa_keys", "sa_flags", "sa_scatter", "sa_bwt")) < 1 or \
+            out["path"]["merge"].get("dense32", 0) < 1:
+        fail(f"[construct] the build path launched {out['path']} (every sa_round pass and merge_rank_dense32 expected)")
+    ref16 = os.path.join(WORK, "construct_ref_m16.fmd")
+    ref16_s, ref16_err = run([sys.executable, "-m", "ropebwt3_tpu", "build", "-m", CONSTRUCT_M, "-do", ref16, fa])
+    same_file(ref16, fmd, f"`python -m ropebwt3_tpu build -m {CONSTRUCT_M} -do`")
+    merges, bwt = [], None
+    for seq in host_batches(fa, cli.parse_num(CONSTRUCT_M)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b2 = sa.gsa_bwt(seq, dev)[0]
+        torch.cuda.synchronize()
+        t_k7 = time.perf_counter() - t0
+        if bwt is None:
+            bwt = b2
+            continue
+        t0 = time.perf_counter()
+        idx = OccIndex.from_bwt(bwt)
+        torch.cuda.synchronize()
+        t_rows = time.perf_counter() - t0
+        acc2, rec = merge.lf2_packed(b2)
+        m2 = int(acc2[1])
+        ms, ins = k6_ms(merge, idx, rec, m2, 1)
+        t0 = time.perf_counter()
+        bwt = merge.merge_apply(bwt, b2, ins)
+        torch.cuda.synchronize()
+        t_apply = time.perf_counter() - t0
+        steps = longest_walk(seq)
+        merges.append(dict(n1=idx.n, n2=len(seq), m2=m2, ms=ms, longest=steps, k7_s=t_k7, rows_s=t_rows,
+                           apply_s=t_apply, bound=bound_ms(idx.nbytes + 16 * len(seq))))
+        del idx, rec, ins
+    if encode_runs(*_runs_of_bwt(bwt.cpu().numpy())) != open(fmd, "rb").read():
+        fail(f"[construct] the -m {CONSTRUCT_M} pieces, run one by one, give another FMD")
+    del bwt, b2
+    native16 = log_merge_s(ref16_err)
+    out["merges16"] = merges
+    say(f"[construct] `build -m {CONSTRUCT_M} -do` (the build path): FMD byte-equal to the one-batch build; launches "
+        f"{out['path']['sa']}, merge_rank {out['path']['merge']}; port in-process {path_s:.3f} s, `python -m "
+        f"ropebwt3_tpu build -m {CONSTRUCT_M} -do` {ref16_s:.3f} s (its merges {[round(x, 3) for x in native16]} s); "
+        "per merge: " + "; ".join(
+            f"n1={m['n1']} m2={m['m2']}: K6 {m['ms']:.3f} ms (longest walk {m['longest']} steps, bound "
+            f"{m['bound']:.4f} ms), rows "
+            f"(OccIndex.from_bwt) {m['rows_s'] * 1e3:.3f} ms, merge_apply {m['apply_s'] * 1e3:.3f} ms" for m in merges)
+        + f"; K7 per later batch (upload, sort) {[round(m['k7_s'] * 1e3, 3) for m in merges]} ms ({card})")
+
+    # 3. many short walks: the 100,000 reads with -m 12M
+    many_port = os.path.join(WORK, "construct_port_many.fmd")
+    many_s, _ = cli_run(cli, ["build", "-m", MANY_M, "-do", many_port, many_fa])
+    same_file(many_port, many_fmd, f"port `build -m {MANY_M}` of the short reads vs their index build")
+    many_ref = os.path.join(WORK, "construct_ref_many.fmd")
+    many_ref_s, many_ref_err = run([sys.executable, "-m", "ropebwt3_tpu", "build", "-m", MANY_M, "-do", many_ref, many_fa])
+    same_file(many_ref, many_fmd, f"`python -m ropebwt3_tpu build -m {MANY_M}` of the short reads")
+    s1, s2 = host_batches(many_fa, cli.parse_num(MANY_M))[:2]
+    b1, b2 = sa.gsa_bwt(s1, dev)[0], sa.gsa_bwt(s2, dev)[0]
+    acc2, rec = merge.lf2_packed(b2)
+    m2, steps = int(acc2[1]), longest_walk(s2)
+    for layout, idx in (("dense32", OccIndex.from_bwt(b1)),
+                        ("dense64", OccIndex.from_bwt(b1, int64=True, mega_shift=DENSE64_SHIFT))):
+        ms, ins = k6_ms(merge, idx, rec, m2, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = merge.merge_rank_plain(idx, rec.clone(), m2)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        err = max_abs(ins, want)
+        if err or idx.layout != layout:
+            fail(f"[construct] merge_rank_{layout} on the short reads' first merge differs from merge_rank_plain by {err}")
+        out[f"merge_rank_{layout}"] = dict(
+            err=err, ms=ms, plain=plain, bound=bound_ms(idx.nbytes + 16 * len(s2)), longest=steps,
+            many_native_merges_s=log_merge_s(many_ref_err),
+            input=f"the short reads' first merge (-m {MANY_M}): n1={idx.n}, n2={len(s2)}, m2={m2} lanes of up to "
+                  f"{steps} steps")
+        say(f"[construct] merge_rank_{layout} on the short reads' first merge (n1={idx.n}, m2={m2}, longest walk "
+            f"{steps} steps): ins exact against merge_rank_plain on the card; K6 {ms:.4f} ms, plain {plain:.3f} ms, "
+            f"bound {out[f'merge_rank_{layout}']['bound']:.4f} ms ({card})")
+    say(f"[construct] `build -m {MANY_M}` of the {N_READS} short reads: FMD byte-equal to their index build; port "
+        f"in-process {many_s:.3f} s, `python -m ropebwt3_tpu build -m {MANY_M}` {many_ref_s:.3f} s (its merges "
+        f"{[round(x, 3) for x in log_merge_s(many_ref_err)]} s) ({card})")
+    del b1, b2, rec
+
+    # 5. merge: the first and the second half of the genomes, built by the port
+    halves = []
+    with open(fa, "rb") as fh:
+        lines = fh.read().splitlines(keepends=True)
+    half = N_GENOMES  # lines of N_GENOMES // 2 genomes, two lines each
+    for i in range(2):
+        part = os.path.join(WORK, f"construct_half{i}.fa")
+        with open(part, "wb") as fh:
+            fh.writelines(lines[i * half : (i + 1) * half])
+        halves.append(os.path.join(WORK, f"construct_half{i}.fmd"))
+        cli_run(cli, ["build", "-do", halves[-1], part])
+    port_fmr, ref_fmr = os.path.join(WORK, "construct_port.fmr"), os.path.join(WORK, "construct_ref.fmr")
+    merge_s, _ = cli_run(cli, ["merge", "-o", port_fmr, *halves])
+    ref_merge_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "merge", "-o", ref_fmr, *halves])
+    same_file(port_fmr, ref_fmr, "port `merge` vs `python -m ropebwt3_tpu merge`")
+    say(f"[construct] `merge` of the two halves ({N_GENOMES // 2} genomes each, built by the port): FMR byte-equal to "
+        f"`python -m ropebwt3_tpu merge`; port in-process {merge_s:.3f} s, reference {ref_merge_s:.3f} s ({card})")
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu_torch")) or not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu")):
         fail("run chip_smoke.py from a checkout of the repository")
@@ -595,6 +900,12 @@ def main() -> None:
         )
         + "; choose_S (bytes, escape share): " + ", ".join(f"{S}: {v[0]} {v[1]:.4f}" for S, v in s_stats.items())
     )
+
+    # ---- construct -----------------------------------------------------------
+    t0 = time.perf_counter()
+    many_fa = write_fasta(os.path.join(WORK, "many", "reads.fa"), reads[:N_READS])
+    con = check_construct(cli, dev, card, fa, fmd, many_fa, build_index(many_fa))
+    say(f"[construct] phase in {time.perf_counter() - t0:.3f} s")
 
     # ---- rank ----------------------------------------------------------------
     rng = np.random.default_rng(SEED + 1)
@@ -673,6 +984,18 @@ def main() -> None:
     say(f"[probe] path `python -m ropebwt3_tpu_torch.probe` in {time.perf_counter() - t0:.3f} s; launches "
         + ", ".join(f"{k} {v['launches']}" for k, v in probe_res.items())
         + f"; ns per dependent step: {ns[LAT_L2]} ({LAT_L2}), {ns[LAT_48MB]} ({LAT_48MB})")
+
+    # K6's chain floors: the short reads' B1 rows (9 MB) stay in the L2; the
+    # genomes' (12-36 MB) are taken at the 48 MB table's ns per step
+    for layout in ("dense32", "dense64"):
+        con[f"merge_rank_{layout}"]["chain_floor_ms"] = con[f"merge_rank_{layout}"]["longest"] * ns[LAT_L2] / 1e6
+    for m in con["merges16"]:
+        m["chain_floor_ms"] = m["longest"] * ns[LAT_48MB] / 1e6
+    say("[construct] K6 chain floors: short reads' merge " + ", ".join(
+        f"{lay} {con[f'merge_rank_{lay}']['chain_floor_ms']:.4f} ms" for lay in ("dense32", "dense64"))
+        + f" ({ns[LAT_L2]} ns a step); -m {CONSTRUCT_M} merges "
+        + ", ".join(f"{m['chain_floor_ms']:.3f} ms (K6 {m['ms']:.3f} ms)" for m in con["merges16"])
+        + f" ({ns[LAT_48MB]} ns a step) ({card})")
 
     # ---- smem ----------------------------------------------------------------
     args = dict(min_occ=1, min_len=MIN_LEN, max_mems=MAX_MEMS)
@@ -922,6 +1245,27 @@ def main() -> None:
             "chain_floor_ms": r["chain_floor_ms"], "input": r["input"], "longest_walk": r["longest"],
             "bench_index_ms": r["bench_ms"], "bench_index_native_walk_ms": r["bench_native_ms"],
             "bench_index_longest_walk": r["bench_longest"], "bench_index_chain_floor_ms": r["bench_chain_floor_ms"],
+        })
+    k7, path = con["sa_round"], con["path"]
+    entries.append({
+        "name": "sa_round", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/sa_round.cu",
+        "replaces": "ropebwt3_tpu/construct/sa_jax.py:23-48 (_round, _initial)", "launches": sum(path["sa"].values()),
+        "path": f"build -m {CONSTRUCT_M}", "launches_by_pass": path["sa"], "max_abs_err": k7["err"], "ms": k7["ms"],
+        "plain_ms": k7["plain"], "bound_ms": k7["bound"], "bound_by": "bytes", "library_ms": k7["sort_ms"],
+        "library": "torch.sort of the same keys, every round", "input": k7["input"], "rounds": k7["rounds"],
+        "per_round_ms": k7["per_round"], "cumsum_ms": k7["scan_ms"], "k7_total_ms": k7["total_ms"],
+        "peak_card_bytes_per_symbol": k7["peak_b_per_sym"],
+    })
+    for layout in ("dense32", "dense64"):
+        r = con[f"merge_rank_{layout}"]
+        n = path["merge"].get(layout, 0)
+        entries.append({
+            "name": f"merge_rank_{layout}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/merge_rank.cu + occ.cuh",
+            "replaces": "ropebwt3_tpu/construct/merge.py:112-123 (window.step)", "launches": n,
+            "path": f"build -m {CONSTRUCT_M}" if n else None, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain"],
+            "bound_ms": r["bound"], "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["chain_floor_ms"],
+            "input": r["input"], "longest_walk": r["longest"], "native_merges_s": r["many_native_merges_s"],
+            **({"build_path_merges": con["merges16"]} if layout == "dense32" else {}),
         })
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

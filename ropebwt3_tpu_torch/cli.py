@@ -1,5 +1,16 @@
 """`python -m ropebwt3_tpu_torch`: ropebwt3's command line for the commands
-the port owns: `mem`, `ssa`, `stat` and `version`.
+the port owns: `build`, `merge`, `plain2fmd`, `mem`, `ssa`, `stat` and
+`version`.
+
+`build [--device=cuda|cpu] [options] in.fa...` reads each file in batches
+of -m symbols (each record then its reverse complement, 0-terminated),
+suffix-sorts each batch into its multi-string BWT on the device
+(construct/sa.py, K7), merges each later batch into the BWT so far on the
+device (construct/merge.py, K6) and writes the index as plain text, FMD
+(-d), FMR (-b), BRE (-e) or the -T tree, byte-equal to `python -m
+ropebwt3_tpu build` with the same arguments.  `merge` merges FMD/FMR/BRE
+indexes the same way and writes FMR; `plain2fmd` (host only) encodes a
+plain-text BWT as FMD.
 
 `mem [--device=cuda|cpu] [--occ=auto|dense|rb] [options] idx.fmd reads...`
 loads the index (`load_index`), reads each file in flat batches of -K
@@ -14,13 +25,14 @@ sequence on the device's dense occ rows (ssa_ops.py) and writes the SSA
 file byte-equal to `python -m ropebwt3_tpu ssa`; `-t` is accepted and
 unused, as the JAX package's own walk ignores it.
 
-With the default `--device=cuda` and no CUDA both exit non-zero; they never
-go on on the CPU unasked.  Every other command, and every option that the
-port's engines do not run, is refused with one `ERROR:` line that names the
-ROADMAP queue item porting it (`refusal`); `python -m ropebwt3_tpu` runs
-them.  The option parser, the usage text, the index loader and the BED
-writer are copies of ropebwt3_tpu/cli.py's (main_search, _run_mem's flat
-path, main_ssa, main_stat).
+With the default `--device=cuda` and no CUDA, `build`, `merge`, `mem` and
+`ssa` exit non-zero; they never go on on the CPU unasked.  Every other
+command, and every option that the port's engines do not run, is refused
+with one `ERROR:` line that names the ROADMAP queue item porting it
+(`refusal`); `python -m ropebwt3_tpu` runs them.  The option parsers, the
+usage texts, the index loader and the writers are copies of
+ropebwt3_tpu/cli.py's (main_build, _dump_index, main_merge, main_plain2fmd,
+main_search, _run_mem's flat path, main_ssa, main_stat).
 """
 
 from __future__ import annotations
@@ -35,11 +47,11 @@ import numpy as np
 from . import log
 from .bufio import write_all
 from .index.dense import DenseFMIndex
-from .nt6 import char2nt6
-from .seqio import iter_flat_batches, read_seqs, read_sid
+from .nt6 import NT6_TABLE, char2nt6, nt6_to_str, revcomp
+from .seqio import batch_nt6_flat, iter_flat_batches, read_batch_nt6, read_seqs, read_sid
 
 REF_VERSION = "3.10-r281"  # ropebwt3 version whose formats and outputs are matched
-OWNED = ("mem", "ssa", "stat", "version")
+OWNED = ("build", "merge", "plain2fmd", "mem", "ssa", "stat", "version")
 # main_search's short and long options (ropebwt3_tpu/cli.py:1022-1029)
 _SEARCH_OPTS = "Ll:c:t:K:MdN:A:B:O:E:C:m:k:uj:ey:a:w:p:bg:"
 _LONG_OPTS = ["no-ssa", "seq", "gap=", "cov", "old-mem", "all-e2e", "no-kalloc", "dbg-dawg", "dbg-sw", "dbg-qname",
@@ -47,8 +59,8 @@ _LONG_OPTS = ["no-ssa", "seq", "gap=", "cov", "old-mem", "all-e2e", "no-kalloc",
 # the ROADMAP queue 1 item that ports each command or engine the port refuses
 _ENGINE_ITEM = {"sw": "item 11 (sw scoring DP)", "hapdiv": "item 10 (hapdiv DP)",
                 "search": "items 4, 10 and 11 (use `mem`, `sw` or `hapdiv`)"}
-_COMMAND_ITEM = {**_ENGINE_ITEM, "build": "item 14", "merge": "item 15", "get": "item 16", "suffix": "item 17",
-                 "kount": "item 18", "fa2line": "item 19", "fa2kmer": "item 20", "plain2fmd": "item 21"}
+_COMMAND_ITEM = {**_ENGINE_ITEM, "get": "item 16", "suffix": "item 17", "kount": "item 18", "fa2line": "item 19",
+                 "fa2kmer": "item 20"}
 
 
 def atoi(s: str) -> int:
@@ -161,6 +173,38 @@ def ketopt(argv: list[str], ostr: str, longopts: list[str] = (), strict: bool = 
 # usage text; the first _USAGE_STDOUT_LINES lines go to stdout and the rest
 # to stderr, as the reference prints them (search.c:508, main.c, ssa.c:261)
 _USAGE = {
+    "build": """Usage: python -m ropebwt3_tpu_torch build [options] <in.fa> [...]
+Options:
+  Algorithm:
+    -m NUM      batch size [7G]
+    -t INT      total number of threads [4]
+    -p INT      #threads for sais and run sais and merge together (more RAM) [0]
+    -l INT      leaf block size in B+-tree [512]
+    -n INT      max number children per internal node [64]
+    -2          use the ropebwt2 algorithm (libsais by default)
+    -s          build BWT in the reverse lexicographical order (RLO; force -2)
+    -r          build BWT in RCLO (force -2)
+  Input:
+    -i FILE     read existing index from FILE []
+    -L          one sequence per line in the input
+    -F          no forward strand
+    -R          no reverse strand
+  Output:
+    -o FILE     output to FILE [stdout]
+    -d          dump in the fermi-delta format (FMD)
+    -b          dump in the ropebwt format (FMR)
+    -e          dump in the BRE format
+    -T          output the index in the Newick format (for debugging)
+    -S FILE     save the current index to FILE after each input file []
+  Device:
+    --device=STR  cuda (the kernels) or cpu (the plain PyTorch versions) [cuda]""",
+    "merge": """Usage: python -m ropebwt3_tpu_torch merge [options] <base.fmr> <other1.fmr> [...]
+Options:
+  -t INT     number of threads [1]
+  -o FILE    output FMR to FILE [stdout]
+  -S FILE    save the current index to FILE after each input file []
+  --device=STR  cuda or cpu [cuda]""",
+    "plain2fmd": "Usage: python -m ropebwt3_tpu_torch plain2fmd [-o output.fmd] <in.txt>",
     "mem": """Usage: python -m ropebwt3_tpu_torch mem [options] <idx.fmr> <seq.fa> [...]
 Options:
   -l INT      min MEM length [19]
@@ -180,7 +224,7 @@ Options:
   --device=STR  cuda or cpu [cuda]""",
     "stat": "Usage: python -m ropebwt3_tpu_torch stat [-M] <idx.fmd>",
 }
-_USAGE_STDOUT_LINES = {"mem": 1, "ssa": 0, "stat": 1}
+_USAGE_STDOUT_LINES = {"build": 0, "merge": 4, "plain2fmd": 1, "mem": 1, "ssa": 0, "stat": 1}
 
 
 def _usage(cmd: str) -> int:
@@ -306,6 +350,307 @@ def _split_device(argv: list[str]) -> tuple[str, list[str]]:
         else:
             rest.append(a)
     return device, rest
+
+
+# ---------------------------------------------------------------------------
+# build, merge, plain2fmd (ropebwt3_tpu/cli.py:377-660, 718-749)
+# ---------------------------------------------------------------------------
+
+
+class CapacityError(Exception):
+    """The work does not fit the card; raised before it starts, or from an
+    allocation that failed on the card."""
+
+
+def card_bytes(dev) -> int | None:
+    """Bytes of the card this process can use: its free memory plus what
+    PyTorch's allocator holds, live tensors included; None off the card."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+
+
+def _to_device(bwt: np.ndarray, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(bwt, dtype=np.uint8)).to(dev)
+
+
+def _merge_into(bwt, seq2, dev):
+    """B2 (a uint8 BWT, host or device) merged into the device BWT `bwt`,
+    on B1's rows built where it lies; the check comes first, so a merge
+    that would not fit the card stops with one error, never on the host."""
+    from .construct.merge import merge_bytes, merge_plain
+    from .ops.rank import OccIndex
+
+    n1, n2 = bwt.numel(), len(seq2)
+    budget = card_bytes(dev)
+    if budget is not None and merge_bytes(n1, n2) > budget:
+        raise CapacityError(f"merging {n2} symbols into an index of {n1} needs ~{merge_bytes(n1, n2)} B of the "
+                            f"card, which has {budget} B")
+    return merge_plain(OccIndex.from_bwt(bwt), bwt, seq2)
+
+
+def _launch_summary() -> str:
+    from .construct.merge import merge_rank_cuda
+    from .construct.sa import SA_LAUNCHES
+
+    rank = ", ".join(f"{v} {k}" for k, v in sorted(merge_rank_cuda.launches.items())) or "0"
+    return f"{sum(SA_LAUNCHES.values())} sa_round launches ({dict(SA_LAUNCHES)}); merge_rank launches: {rank}"
+
+
+def main_build(argv: list[str], device: str) -> int:
+    import torch
+
+    from .construct.sa import SA_BYTES_PER_SYMBOL, gsa_bwt
+    from .formats.fmr import write_fmr
+
+    opts, args = ketopt(argv, "l:n:m:t:2sri:LFRo:dbTS:p:e")
+    fmt, batch_size, user_m, is_line, is_for, is_rev = "plain", 7_000_000_000, False, False, True, True
+    fn_in = fn_tmp = out_fn = None
+    sort_order = 0
+    for o, a in opts:
+        # -t, -p, -l, -n and -2 are taken and change nothing, as in the JAX
+        # package: -l/-n do not shape its dumped tree, -2 gives the same BWT,
+        # and -p (sort the next batch while merging this one) changes only
+        # timing there.  Here batches run in order on the one card, where
+        # both phases would share the same SMs.
+        if o == "-m":
+            batch_size, user_m = parse_num(a), True
+        elif o in ("-s", "-r"):
+            sort_order = 1 if o == "-s" else 2
+        elif o == "-i":
+            fn_in = a
+        elif o == "-L":
+            is_line = True
+        elif o == "-F":
+            is_for = False
+        elif o == "-R":
+            is_rev = False
+        elif o == "-o":
+            out_fn = a
+        elif o in ("-d", "-b", "-T", "-e"):
+            fmt = {"-d": "fmd", "-b": "fmr", "-T": "tree", "-e": "bre"}[o]
+        elif o == "-S":
+            fn_tmp = a
+    if not args and fn_in is None:
+        return _usage("build")
+    if not (is_for or is_rev):
+        return _err("-F and -R leave no strand to index")
+    dev = torch.device(device)
+    bwt = None  # the BWT built so far, on the device
+    if fn_in is not None:
+        if sort_order != 0:
+            return _err("-s/-r cannot be combined with -i yet")
+        f = load_index(fn_in)
+        bwt = _to_device(f.bwt[: f.n], dev)
+        del f
+    if not user_m and sort_order == 0:
+        # the JAX package's auto batch size (ropebwt3_tpu/cli.py:446-460);
+        # batch boundaries change no output, the merge keeps order
+        try:
+            est = sum(os.path.getsize(fn) for fn in args if fn != "-" and os.path.exists(fn))
+        except OSError:
+            est = 0
+        est *= int(is_for) + int(is_rev)
+        if est > 160_000_000:
+            batch_size = min(max(est // 6, 48_000_000), 320_000_000)
+            log.info("auto batch size %d for ~%d input symbols (pass -m to override)", batch_size, est, func="main_build")
+    budget = card_bytes(dev)
+    if budget is not None:
+        # half the card for a batch's suffix sort, the rest for the index
+        cap = budget // (2 * (SA_BYTES_PER_SYMBOL + 1))
+        batch_size = min(batch_size, cap)
+        log.info("batch size %d symbols (the card has %d B; the suffix sort takes %d B a symbol)", batch_size, budget,
+                 SA_BYTES_PER_SYMBOL + 1, func="main_build")
+
+    def from_records(records):
+        while (got := read_batch_nt6(records, batch_size, is_for, is_rev))[0]:
+            yield got
+
+    def batches():
+        nonlocal n_batches
+        for fn in args:
+            if not seq_openable(fn):
+                # build.c:209: report and move on to the next input
+                print(f"ERROR: failed to open file '{fn}'", file=sys.stderr)
+                continue
+            strands = int(is_for) + int(is_rev)
+            fb = iter_flat_batches(fn, is_line, max(1, batch_size // strands))
+            if fb is not None:
+                gen = (batch_nt6_flat(bflat, boffs, is_for, is_rev) for _names, bflat, boffs in fb)
+            else:
+                gen = from_records(read_seqs(fn, is_line))
+            for n_seq, seq in gen:
+                if n_seq == 0:
+                    continue
+                n_batches += 1
+                log.info("read %d symbols", len(seq), func="main_build")
+                if sort_order != 0:
+                    if n_batches > 1:
+                        raise IndexLoadError("-s/-r only supported within a single batch; raise -m")
+                    seq = _sort_units(seq, sort_order)
+                yield seq
+            yield None  # file boundary (for -S checkpointing)
+
+    n_batches = 0
+    try:
+        for seq in batches():
+            if seq is None:
+                if fn_tmp and bwt is not None:
+                    write_fmr(fn_tmp, *_runs_of_bwt(bwt.cpu().numpy()))
+                    log.info("saved the current index to '%s'", fn_tmp, func="main_build")
+                continue
+            n1 = 0 if bwt is None else bwt.numel()
+            budget = card_bytes(dev)
+            if budget is not None and (SA_BYTES_PER_SYMBOL + 1) * len(seq) + n1 > budget:
+                raise CapacityError(f"a batch of {len(seq)} symbols does not fit the card beside an index of {n1} "
+                                    f"symbols ({budget} B); lower -m")
+            b2 = gsa_bwt(seq, dev)[0]
+            log.info("constructed partial BWT for %d symbols", len(b2), func="main_build")
+            bwt = b2 if bwt is None else _merge_into(bwt, b2, dev)
+            if n1:
+                log.info("merged the partial BWT for %d symbols", len(b2), func="main_build")
+    except torch.OutOfMemoryError as e:
+        raise CapacityError(f"out of card memory: {str(e).splitlines()[0]}") from e
+    if bwt is None:
+        return 1
+    _dump_index(bwt.cpu().numpy(), fmt, out_fn)
+    log.info(_launch_summary(), func="main_build")
+    return 0
+
+
+def _sort_units(seq: np.ndarray, sort_order: int) -> np.ndarray:
+    """Reorder the 0-terminated units of a batch for RLO (-s) or RCLO (-r)
+    construction: sentinels sort by position, so permuting the units into
+    reverse-lexicographic or reverse-complement-lexicographic order gives the
+    BWT the reference's inserter builds (mrope.c:300-385)."""
+    ends = np.flatnonzero(seq == 0)
+    starts = np.concatenate(([0], ends[:-1] + 1))
+    units = [seq[s:e] for s, e in zip(starts, ends)]
+    if sort_order == 1:  # RLO
+        keys = [u[::-1].tobytes() for u in units]
+    else:  # RCLO
+        keys = [revcomp(u).tobytes() for u in units]
+    order = sorted(range(len(units)), key=lambda t: keys[t])
+    zero = np.zeros(1, dtype=np.uint8)
+    return np.concatenate([x for t in order for x in (units[t], zero)])
+
+
+def _runs_of_bwt(bwt: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Run-length encode a raw BWT array: (symbols uint8, lengths int64)."""
+    if len(bwt) == 0:
+        return np.zeros(0, dtype=np.uint8), np.zeros(0, dtype=np.int64)
+    change = np.flatnonzero(bwt[1:] != bwt[:-1]) + 1
+    starts = np.concatenate(([0], change))
+    ends = np.concatenate((change, [len(bwt)]))
+    return bwt[starts].copy(), (ends - starts).astype(np.int64)
+
+
+def _dump_index(raw: np.ndarray, fmt: str, out_fn: str | None) -> None:
+    """Write a BWT (uint8 array) as plain text, FMD, FMR, BRE or the -T tree."""
+    from .formats.fmr import _pack_leaves, rle_decode_block, split_runs_into_buckets
+
+    syms, lens = _runs_of_bwt(raw)
+    out = sys.stdout.buffer if out_fn is None else open(out_fn, "wb")
+    try:
+        if fmt == "plain":
+            write_all(out, nt6_to_str(raw).encode() + b"\n")
+        elif fmt == "fmd":
+            from .formats.fmd import encode_runs
+
+            write_all(out, encode_runs(syms, lens))
+        elif fmt == "fmr":
+            from .formats.fmr import write_fmr_bytes
+
+            write_all(out, write_fmr_bytes(split_runs_into_buckets(syms, lens)))
+        elif fmt == "bre":
+            from .formats.bre import write_bre_bytes
+
+            write_all(out, write_bre_bytes(syms, lens))
+        elif fmt == "tree":
+            chunks = []
+            for bs, bl in split_runs_into_buckets(syms, lens):
+                leaves = _pack_leaves(bs, bl, 512)
+                inner = ",".join("".join(nt6_to_str(np.repeat(c, l)) for c, l in rle_decode_block(d)) for d, _ in leaves)
+                chunks.append("(" + inner + ")")
+            write_all(out, ("".join(chunks) + "\n").encode())
+    finally:
+        if out_fn is not None:
+            out.close()
+
+
+def main_merge(argv: list[str], device: str) -> int:
+    import torch
+
+    from .formats.fmr import write_fmr
+
+    opts, args = ketopt(argv, "t:o:S:")
+    out_fn = fn_tmp = None
+    for o, a in opts:
+        if o == "-o":
+            out_fn = a
+        elif o == "-S":
+            fn_tmp = a
+    if len(args) < 2:
+        return _usage("merge")
+    dev = torch.device(device)
+    f = load_index(args[0])
+    bwt = _to_device(f.bwt[: f.n], dev)
+    del f
+    try:
+        for fn in args[1:]:
+            syms, lens = load_runs(fn)
+            bwt = _merge_into(bwt, np.repeat(syms, lens), dev)
+            if fn_tmp:
+                write_fmr(fn_tmp, *_runs_of_bwt(bwt.cpu().numpy()))
+    except torch.OutOfMemoryError as e:
+        raise CapacityError(f"out of card memory: {str(e).splitlines()[0]}") from e
+    write_fmr(out_fn if out_fn else "-", *_runs_of_bwt(bwt.cpu().numpy()))
+    log.info(_launch_summary(), func="main_merge")
+    return 0
+
+
+def main_plain2fmd(argv: list[str]) -> int:
+    """A plain-text BWT (nt6 letters; '\\n' and '$' are separators,
+    main.c:320-326) as FMD, through the native encoder: one run list over
+    all the files, so runs that meet across files merge, as one encoder's
+    would."""
+    from .formats.fmd import encode_runs
+
+    opts, args = ketopt(argv, "o:")
+    out_fn = None
+    for o, a in opts:
+        if o == "-o":
+            out_fn = a
+    if not args:
+        return _usage("plain2fmd")
+    syms, lens = [], []
+    for fn in args:
+        if fn == "-":
+            data = sys.stdin.buffer.read()
+        else:
+            try:
+                with open(fn, "rb") as fp:
+                    data = fp.read()
+            except OSError as e:
+                raise IndexLoadError(f"failed to open file '{fn}': {e.strerror}") from e
+        a = np.frombuffer(data, dtype=np.uint8)
+        codes = NT6_TABLE[a]
+        codes[(a == ord("\n")) | (a == ord("$"))] = 0
+        s, l = _runs_of_bwt(codes)
+        syms.append(s)
+        lens.append(l)
+    data = encode_runs(np.concatenate(syms), np.concatenate(lens))
+    out = sys.stdout.buffer if out_fn is None else open(out_fn, "wb")
+    try:
+        write_all(out, data)
+    finally:
+        if out_fn is not None:
+            out.close()
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +860,8 @@ def main(argv: list[str] | None = None) -> int:
     try:
         if cmd == "stat":
             ret = main_stat(rest)
+        elif cmd == "plain2fmd":
+            ret = main_plain2fmd(rest)
         else:
             device, rest = _split_device(rest)
             if device not in ("cuda", "cpu"):
@@ -524,8 +871,8 @@ def main(argv: list[str] | None = None) -> int:
 
                 if not torch.cuda.is_available():
                     return _err("CUDA is not available; pass --device=cpu to run the plain PyTorch engine")
-            ret = (main_mem if cmd == "mem" else main_ssa)(rest, device)
-    except (IndexLoadError, getopt.GetoptError) as e:
+            ret = {"build": main_build, "merge": main_merge, "mem": main_mem, "ssa": main_ssa}[cmd](rest, device)
+    except (IndexLoadError, CapacityError, getopt.GetoptError) as e:
         ret = _err(str(e))
     except BrokenPipeError:
         ret = 0

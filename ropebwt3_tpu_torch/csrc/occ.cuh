@@ -3,8 +3,9 @@
 //
 // Replaces the XLA rank/extend of ropebwt3_tpu/ops/rank.py (_inblock_counts,
 // rank1a, extend_c, set_intv, DeviceIndex.bits_and_base) and the in-kernel
-// _inblock6 of ops/smem_pallas.py, and the dense layout's `lf_step` the LF
-// step of ssa_ops.py ssa_gen_device (bwt[k], rank1a, acc).  A layout is a small struct with a
+// _inblock6 of ops/smem_pallas.py, the dense layout's `lf_step` the LF
+// step of ssa_ops.py ssa_gen_device (bwt[k], rank1a, acc), and its `rank1`
+// the one-symbol rank of construct/merge.py's merge rank step.  A layout is a small struct with a
 // position type T (int below 2^31 - 2^20 symbols, int64_t above), a
 // `rank6(k, occ)` and an `acc(c)`; `set_intv` and `extend_c` below work on
 // any layout.  This file has the dense fused rows; rb.cuh the run-block rows.
@@ -119,6 +120,33 @@ struct Dense {
     }
     nk = acc(c) + base + __popc(lo) + __popc(hi);
     return c;
+  }
+
+  // occ_c(k) = |{i < k : B[i] = c}| for ONE symbol c, 0 <= k <= n, from k's
+  // row (a, b, c4) as load_row gives it: the merge rank (merge_rank.cu)
+  // issues the row load before the load that tells it c.  lf_step's count
+  // for a symbol known beforehand: the planes masked for KEY[c] below the
+  // offset, and count column c by selects.
+  __device__ __forceinline__ T rank1(T k, int c, const int4& a, const int4& b, const int4& c4) const {
+    const int64_t bi = k >> 6;
+    const unsigned off = (unsigned)(k & 63);
+    const int key = comp6(c);
+    unsigned lo = low_mask(off), hi = low_mask(off > 32 ? off - 32 : 0);
+    const unsigned p[6] = {(unsigned)a.x, (unsigned)a.y, (unsigned)a.z, (unsigned)a.w, (unsigned)b.x, (unsigned)b.y};
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl) {
+      const bool bit = (key >> pl) & 1;
+      lo &= bit ? p[2 * pl] : ~p[2 * pl];
+      hi &= bit ? p[2 * pl + 1] : ~p[2 * pl + 1];
+    }
+    const int col = c == 0 ? b.z : c == 1 ? b.w : c == 2 ? c4.x : c == 3 ? c4.y : c == 4 ? c4.z : c4.w;
+    T base;
+    if constexpr (sizeof(T) == 8) {
+      base = __ldg(t.mega + 6 * (bi >> t.mega_shift) + c) + (int64_t)(uint32_t)col;
+    } else {
+      base = col;
+    }
+    return base + __popc(lo) + __popc(hi);
   }
 
   // occ[s] = |{i < k : B[i] = s}| for s = 0..5, 0 <= k <= n: one row.

@@ -1,4 +1,4 @@
-"""Readers of ropebwt3's on-disk formats, copied from ropebwt3_tpu/formats:
-the decode side of fmd ("RLD\\3"), fmr ("RB\\2") and bre ("BRE\\1"), and the
-ssa ("SSA\\1") reader and writer.  Every codec speaks runs: (symbols uint8,
-lengths int64) of the run-length BWT."""
+"""Readers and writers of ropebwt3's on-disk formats, copied from
+ropebwt3_tpu/formats: fmd ("RLD\\3"), fmr ("RB\\2"), bre ("BRE\\1") and ssa
+("SSA\\1").  Every BWT codec speaks runs: (symbols uint8, lengths int64) of
+the run-length BWT."""

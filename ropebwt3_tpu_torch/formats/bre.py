@@ -1,5 +1,5 @@
-"""BRE ("BRE\\1") reader — portable run-length BWT interchange (bre.c);
-the read side of ropebwt3_tpu/formats/bre.py, copied.
+"""BRE ("BRE\\1") codec — portable run-length BWT interchange (bre.c);
+ropebwt3_tpu/formats/bre.py's reader and byte writer, copied.
 
 Header (24 B): magic, b_per_sym(1), b_per_run(1), atype(1), mtype(1),
 asize(u64 LE), l_aux(u64 LE), then l_aux bytes.  Records are fixed-width
@@ -12,6 +12,30 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+AT_UNKNOWN, AT_ASCII, AT_DNA6, AT_DNA16 = 0, 1, 2, 3
+
+
+def write_bre_bytes(syms: np.ndarray, lens: np.ndarray, b_per_sym: int = 1, b_per_run: int = 2, atype: int = AT_DNA6) -> bytes:
+    asize = {AT_ASCII: 128, AT_DNA6: 6, AT_DNA16: 16}.get(atype, 256)
+    out = [b"BRE\x01", bytes([b_per_sym, b_per_run, atype, 0]), struct.pack("<QQ", asize, 0)]
+    max_run = (1 << (8 * b_per_run)) - 1
+    n_rec = n_sym = n_run = 0
+    for c, l in zip(np.asarray(syms).tolist(), np.asarray(lens).tolist()):
+        if l <= 0:
+            continue
+        n_run += 1
+        rest = l
+        while rest > 0:
+            ll = min(rest, max_run)
+            out.append(int(c).to_bytes(b_per_sym, "little"))
+            out.append(int(ll).to_bytes(b_per_run, "little"))
+            n_rec += 1
+            n_sym += ll
+            rest -= ll
+    out.append(b"\x00" * (b_per_sym + b_per_run))
+    out.append(struct.pack("<QQQ", n_rec, n_sym, n_run))
+    return b"".join(out)
 
 
 def read_bre_bytes(data: bytes) -> tuple[np.ndarray, np.ndarray]:

@@ -1,6 +1,7 @@
 """The port's native host code, built with g++ on first use and loaded with
-ctypes: the FMD decoder, run expansion, dense tables and run-block row
-builder (rld_codec.cpp) and the sampled-suffix-array multi-locate that
+ctypes: the FMD decoder and encoder, run expansion, dense tables and
+run-block row builder (rld_codec.cpp) and the sampled-suffix-array
+multi-locate that
 `mem -p` runs (locate.cpp).  Both are copies of the functions the port
 calls from ropebwt3_tpu/native, compiled into one library.
 
@@ -26,6 +27,8 @@ CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread"
 _V, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _ENTRIES = {
     "rb3t_fmd_decode": (_I64, [ctypes.c_char_p, _I64, _V, _V, _I64]),
+    "rb3t_fmd_encode": (_V, [_V, _V, _I64, ctypes.POINTER(_I64)]),
+    "rb3t_free": (None, [_V]),
     "rb3t_runs_expand": (None, [_V, _V, _I64, _V]),
     "rb3t_dense_tables": (None, [_V, _I64, _I64, _I64, _V, _V, _V, _I32]),
     "rb3t_runblock_count": (None, [_V, _I64, _I64, _V]),

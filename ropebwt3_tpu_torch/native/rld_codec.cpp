@@ -1,11 +1,11 @@
-// Native host codec of the port: the FMD ("RLD\3") decoder behind
-// formats/fmd.py, the run expansion and one-pass dense tables behind
+// Native host codec of the port: the FMD ("RLD\3") decoder and encoder
+// behind formats/fmd.py, the run expansion and one-pass dense tables behind
 // index/dense.py, and the run-block row builder behind ops/runblock.py.
 //
 // The functions the port calls, copied from ropebwt3_tpu/native/rld_codec.cpp
-// (the encoder and the per-block count pass are left out).  Bit-exact with
-// the rld0 on-disk format (reference rld0.c:45-243).  Built with g++ at first
-// use and loaded with ctypes (native/__init__.py).
+// (the per-block count pass is left out).  Bit-exact with the rld0 on-disk
+// format (reference rld0.c:45-243).  Built with g++ at first use and loaded
+// with ctypes (native/__init__.py).
 
 #include <cstdint>
 #include <cstdlib>
@@ -21,6 +21,165 @@ namespace {
 constexpr int LBITS = 23;
 constexpr int64_t LSIZE = 1LL << LBITS;
 constexpr uint64_t DEC_TAB = 0x333333335555779bULL;
+
+inline int ilog2_64(uint64_t v) { return v ? 63 - __builtin_clzll(v) : -1; }
+
+struct DeltaCode {
+    uint64_t code;
+    int width;
+};
+
+inline DeltaCode delta_enc(uint64_t l) {
+    int y = ilog2_64(l);
+    int z = ilog2_64((uint64_t)(y + 1));
+    DeltaCode d;
+    d.width = (z << 1) + 1 + y;
+    d.code = (l ^ (1ULL << y)) | ((uint64_t)(y + 1) << y);
+    return d;
+}
+
+// rld_enc / rld_enc_finish / rld_rank_index (rld0.c:107-204) for the DNA
+// alphabet (asize 6, 3-bit symbols, sbits 3).
+struct Encoder {
+    int asize = 6, asize1 = 7, sbits = 3, ssize = 8;
+    int off0[3];
+    std::vector<uint64_t> words;
+    int64_t shead = 0, p = 0;
+    int r = 64;
+    int64_t cnt[7] = {0}, mcnt[7] = {0};
+    int pend_c = -1;
+    int64_t pend_l = 0;
+    int64_t n_bytes = 0;
+    int ibits = 0;
+    int64_t n_frames = 0;
+    std::vector<uint64_t> frame;
+    int64_t final_mcnt[7];
+
+    Encoder() {
+        off0[0] = (asize1 * 16 + 63) / 64;
+        off0[1] = (asize1 * 32 + 63) / 64;
+        off0[2] = asize1;
+        words.resize(1 << 16, 0);
+        p = off0[0];
+    }
+
+    void grow(int64_t need) {
+        if (need >= (int64_t)words.size()) {
+            size_t ns = words.size() * 2;
+            while ((int64_t)ns <= need) ns *= 2;
+            words.resize(ns, 0);
+        }
+    }
+
+    int64_t stail(int64_t sh) const {
+        bool last_in_seg = (sh % LSIZE) + ssize == LSIZE;
+        return sh + ssize - (last_in_seg ? 2 : 1);
+    }
+
+    void next_block() {
+        int64_t st = stail(shead);
+        if ((st % LSIZE) + 2 == LSIZE)
+            shead = (shead / LSIZE + 1) * LSIZE;
+        else
+            shead += ssize;
+        grow(shead + ssize);
+        int64_t marg0 = cnt[0] - mcnt[0];
+        int typ;
+        if (marg0 < 0x4000) typ = 0;
+        else if (marg0 < 0x40000000LL) typ = 1;
+        else typ = 2;
+        if (typ == 0) {
+            uint16_t *q = (uint16_t *)&words[shead];
+            for (int i = 0; i < asize1; ++i) q[i] = (uint16_t)(cnt[i] - mcnt[i]);
+        } else if (typ == 1) {
+            uint32_t *q = (uint32_t *)&words[shead];
+            for (int i = 0; i < asize1; ++i) q[i] = (uint32_t)(cnt[i] - mcnt[i]);
+        } else {
+            uint64_t *q = &words[shead];
+            for (int i = 0; i < asize1; ++i) q[i] = (uint64_t)(cnt[i] - mcnt[i]);
+        }
+        words[shead] |= (uint64_t)typ << 62;
+        p = shead + off0[typ];
+        r = 64;
+        memcpy(mcnt, cnt, sizeof(cnt));
+    }
+
+    void enc1(int64_t l, int c) {
+        DeltaCode d = delta_enc((uint64_t)l);
+        uint64_t x = d.code << 3 | (unsigned)c;
+        int w = d.width + 3;
+        if (w >= r && p == stail(shead)) next_block();
+        if (w > r) {
+            int w2 = w - r;
+            words[p] |= x >> w2;
+            ++p;
+            r = 64 - w2;
+            words[p] = x << r;
+        } else {
+            r -= w;
+            words[p] |= x << r;
+        }
+        cnt[0] += l;
+        cnt[c + 1] += l;
+    }
+
+    void put(int64_t l, int c) {
+        if (l == 0) return;
+        if (pend_c != c) {
+            if (pend_l) enc1(pend_l, pend_c);
+            pend_c = c;
+            pend_l = l;
+        } else {
+            pend_l += l;
+        }
+    }
+
+    void finish() {
+        if (pend_l) enc1(pend_l, pend_c);
+        next_block();
+        n_bytes = p * 8;
+        for (int i = 0; i < asize1; ++i) final_mcnt[i] = cnt[i];
+        build_frames();
+    }
+
+    void build_frames() {
+        int64_t n_blks = n_bytes * 8 / 64 / ssize + 1;
+        int64_t last = (n_bytes >> 3) >> sbits << sbits;
+        int64_t tot = final_mcnt[0];
+        ibits = ilog2_64((uint64_t)(tot / n_blks)) + 4;
+        n_frames = ((tot + (1LL << ibits) - 1) >> ibits) + 1;
+        frame.assign((size_t)(n_frames * asize1), 0);
+        int64_t cnt6[6] = {0};
+        int64_t k = 1;
+        for (int64_t i = ssize; i <= last; i += ssize) {
+            uint64_t w0 = words[i];
+            int typ = (int)(w0 >> 62);
+            if (typ == 0) {
+                const uint16_t *q = (const uint16_t *)&words[i];
+                for (int j = 1; j < asize1; ++j) cnt6[j - 1] += q[j];
+            } else if (typ == 1) {
+                const uint32_t *q = (const uint32_t *)&words[i];
+                for (int j = 1; j < asize1; ++j) cnt6[j - 1] += q[j] & 0x3fffffffu;
+            } else {
+                const uint64_t *q = &words[i];
+                for (int j = 1; j < asize1; ++j) cnt6[j - 1] += q[j];
+            }
+            int64_t sum = 0;
+            for (int j = 0; j < 6; ++j) sum += cnt6[j];
+            while (sum >= (k << ibits)) ++k;
+            if (k < n_frames) {
+                int64_t x = k * asize1;
+                frame[x] = (uint64_t)i;
+                for (int j = 0; j < 6; ++j) frame[x + j + 1] = (uint64_t)cnt6[j];
+            }
+        }
+        for (int64_t kk = 1; kk < n_frames; ++kk) {
+            int64_t x = kk * asize1;
+            if (frame[x] == 0)
+                for (int j = 0; j < asize1; ++j) frame[x + j] = frame[x - asize1 + j];
+        }
+    }
+};
 
 }  // namespace
 
@@ -89,6 +248,38 @@ int64_t rb3t_fmd_decode(const uint8_t *data, int64_t size, uint8_t *syms, int64_
     }
     return n;
 }
+
+// Encode runs into a malloc'd FMD byte buffer; the caller frees it with
+// rb3t_free.  Adjacent runs of one symbol merge, as rld_enc does.
+uint8_t *rb3t_fmd_encode(const uint8_t *syms, const int64_t *lens, int64_t n_runs, int64_t *out_size) {
+    Encoder e;
+    for (int64_t i = 0; i < n_runs; ++i) e.put(lens[i], syms[i]);
+    e.finish();
+    int64_t data_bytes = e.n_bytes;
+    int64_t total = 4 + 4 + 8 + 8 + 8 + 8 * 6 + data_bytes + 8 * e.n_frames * 7;
+    uint8_t *out = (uint8_t *)malloc((size_t)total);
+    if (out == nullptr) return nullptr;
+    uint8_t *q = out;
+    memcpy(q, "RLD\x03", 4); q += 4;
+    uint32_t a = (uint32_t)(6 << 16 | 3);
+    memcpy(q, &a, 4); q += 4;
+    uint64_t zero = 0;
+    memcpy(q, &zero, 8); q += 8;
+    uint64_t nb = (uint64_t)data_bytes;
+    memcpy(q, &nb, 8); q += 8;
+    uint64_t nf = (uint64_t)e.n_frames;
+    memcpy(q, &nf, 8); q += 8;
+    for (int i = 1; i <= 6; ++i) {
+        uint64_t v = (uint64_t)e.final_mcnt[i];
+        memcpy(q, &v, 8); q += 8;
+    }
+    memcpy(q, e.words.data(), (size_t)data_bytes); q += data_bytes;
+    memcpy(q, e.frame.data(), (size_t)(8 * e.n_frames * 7));
+    *out_size = total;
+    return out;
+}
+
+void rb3t_free(void *p) { free(p); }
 
 // Expand runs into a dense symbol array (helper for fast index loading).
 void rb3t_runs_expand(const uint8_t *syms, const int64_t *lens, int64_t n_runs, uint8_t *out) {

@@ -47,10 +47,16 @@ MAX_N_INT32 = (1 << 31) - (1 << 20)
 # the index, so tests and the smoke can shrink it
 MEGA_BLOCK_SHIFT = 32 - 6
 U32 = 0xFFFFFFFF
+FROM_BWT_BLOCKS = 1 << 18  # rows per chunk of OccIndex.from_bwt (16 M symbols)
 
 
 def needs_int64(n: int) -> bool:
     return n >= MAX_N_INT32
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 of the same 32 bits."""
+    return torch.where(x > 0x7FFFFFFF, x - (1 << 32), x).int()
 
 
 def pack_bitplanes(bwt_blocks: np.ndarray) -> np.ndarray:
@@ -140,6 +146,50 @@ class OccIndex:
         int64 = needs_int64(f.n) if int64 is None else int64
         occf, mega = build_occf(f, int64, mega_shift)
         return cls.from_jax_arrays(occf, f.acc, f.n, device, mega=mega, mega_shift=mega_shift)
+
+    @classmethod
+    def from_bwt(cls, bwt: torch.Tensor, device=None, int64: bool | None = None,
+                 mega_shift: int = MEGA_BLOCK_SHIFT) -> "OccIndex":
+        """The rows of a uint8 BWT tensor, built with torch ops where it
+        lies (or on `device`), so a BWT on the card never visits the host:
+        bit for bit `build_occf(DenseFMIndex.from_bwt(bwt))`, the padded last
+        block and the extra row (k = n) included.  Chunks of FROM_BWT_BLOCKS
+        rows keep the int64 temporaries small.  int64 None picks the width
+        from n."""
+        bwt = bwt.to(device) if device is not None else bwt
+        if bwt.dtype != torch.uint8 or bwt.dim() != 1:
+            raise ValueError("from_bwt takes a 1-D uint8 BWT")
+        dev, n = bwt.device, bwt.numel()
+        int64 = needs_int64(n) if int64 is None else int64
+        nb = (n + BLOCK - 1) // BLOCK + 1
+        occf = torch.empty((nb, 12), dtype=torch.int32, device=dev)
+        cnt = torch.empty((nb, ASIZE), dtype=torch.int64, device=dev)  # symbols in each block
+        key = torch.as_tensor(np.append(KEY, 0), dtype=torch.int64, device=dev)  # padding (6) keys as 0
+        shifts = torch.arange(32, dtype=torch.int64, device=dev)
+        for b0 in range(0, nb, FROM_BWT_BLOCKS):
+            b1 = min(b0 + FROM_BWT_BLOCKS, nb)
+            blk = torch.full(((b1 - b0) * BLOCK,), ASIZE, dtype=torch.uint8, device=dev)
+            part = bwt[b0 * BLOCK : min(b1 * BLOCK, n)]
+            blk[: part.numel()] = part
+            blk = blk.view(b1 - b0, BLOCK)
+            keyed = key[blk.long()].view(b1 - b0, 2, 32)
+            for plane in range(3):
+                words = (((keyed >> plane) & 1) << shifts).sum(-1)  # (rows, 2) in [0, 2^32)
+                occf[b0:b1, 2 * plane : 2 * plane + 2] = _as_int32(words)
+            for c in range(ASIZE):
+                cnt[b0:b1, c] = (blk == c).sum(1)
+        before = torch.cumsum(cnt, 0) - cnt  # counts before each block
+        acc = torch.zeros(ASIZE + 1, dtype=torch.int64, device=dev)
+        acc[1:] = torch.cumsum(cnt.sum(0), 0)
+        if not int64:
+            occf[:, 6:] = before.int()
+            return cls(occf=occf, acc=acc.int(), n=n)
+        mega = before[:: 1 << mega_shift].contiguous()
+        rel = before - mega[torch.arange(nb, device=dev) >> mega_shift]
+        if rel.numel() and int(rel.max()) > U32:
+            raise ValueError(f"a megablock of 2^{mega_shift} rows holds more than 2^32 symbols")
+        occf[:, 6:] = _as_int32(rel)
+        return cls(occf=occf, acc=acc, n=n, mega=mega, mega_shift=int(mega_shift))
 
     @classmethod
     def from_jax_arrays(cls, occf: np.ndarray, acc: np.ndarray, n: int, device, mega: np.ndarray | None = None,

@@ -2,8 +2,11 @@
 ``.len.gz`` sequence-name/length sidecar.
 
 Mirrors the behavior of the reference reader (io.c:60-155).  The readers
-that `mem` uses, copied from ropebwt3_tpu/seqio.py: the record reader, the
-vectorized flat reader and its batches, and the sidecar reader.
+that `mem` and `build` use, copied from ropebwt3_tpu/seqio.py: the record
+reader and its construction batches, the vectorized flat reader, its
+batches and their construction layout, and the sidecar reader.  A
+construction batch concatenates nt6 sequences each followed by a 0
+separator, the forward strand then (optionally) its reverse complement.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Iterator
 
 import numpy as np
 
-from .nt6 import NT6_TABLE
+from .nt6 import COMP_TABLE, NT6_TABLE, char2nt6, revcomp
 
 
 def _open_maybe_gzip(fn: str):
@@ -82,6 +85,41 @@ def read_seqs(fn: str, is_line: bool = False) -> Iterator[SeqRecord]:
             line = fp.readline()
     if name is not None:
         yield SeqRecord(name, b"".join(seq_parts))
+
+
+def read_batch_nt6(
+    records: Iterator[SeqRecord],
+    max_len: int,
+    is_for: bool = True,
+    is_rev: bool = True,
+) -> tuple[int, np.ndarray]:
+    """Read a batch like rb3_seq_read (io.c:104-125): returns (n_seq, buffer)
+    where buffer holds nt6 codes with a 0 after every sequence; for each input
+    sequence the forward strand (if is_for) then its reverse complement (if
+    is_rev) is appended, each 0-terminated. Stops once total length exceeds
+    max_len (if positive)."""
+    if not (is_for or is_rev):
+        raise ValueError("a batch needs at least one strand")
+    parts: list[np.ndarray] = []
+    zero = np.zeros(1, dtype=np.uint8)
+    n_seq, tot = 0, 0
+    for rec in records:
+        s = char2nt6(rec.seq)
+        if is_for:
+            parts.append(s)
+            parts.append(zero)
+            tot += len(s) + 1
+            n_seq += 1
+        if is_rev:
+            parts.append(revcomp(s))
+            parts.append(zero)
+            tot += len(s) + 1
+            n_seq += 1
+        if max_len > 0 and tot > max_len:
+            break
+    if n_seq == 0:
+        return 0, np.zeros(0, dtype=np.uint8)
+    return n_seq, np.concatenate(parts)
 
 
 def read_seqs_flat(fn: str, is_line: bool = False, max_bytes: int = 1 << 30):
@@ -193,6 +231,38 @@ def iter_flat_batches(fn: str, is_line: bool, batch_size: int):
             a = b
 
     return gen()
+
+
+def batch_nt6_flat(flat: np.ndarray, offs: np.ndarray, is_for: bool = True, is_rev: bool = True) -> tuple[int, np.ndarray]:
+    """Vectorized read_batch_nt6: from a flat nt6 buffer + offsets, build the
+    construction batch [fwd, 0][, rc, 0] per record (io.c:104-125 layout) with
+    two fancy scatters instead of a per-record Python loop."""
+    if not (is_for or is_rev):
+        raise ValueError("a batch needs at least one strand")
+    n = len(offs) - 1
+    if n == 0:
+        return 0, np.zeros(0, dtype=np.uint8)
+    offs = np.asarray(offs, dtype=np.int64)
+    lens = np.diff(offs)
+    strands = int(is_for) + int(is_rev)
+    unit = (lens + 1) * strands
+    base = np.zeros(n, np.int64)
+    np.cumsum(unit[:-1], out=base[1:])
+    total = int(base[-1] + unit[-1])
+    dest = np.zeros(total, dtype=np.uint8)  # separators stay 0
+    # int32 index vectors halve the fill/scatter traffic (all dest indices
+    # are < total, and fwd offsets are nonnegative since unit >= lens)
+    idt = np.int32 if total < 2**31 else np.int64
+    pos = np.arange(len(flat), dtype=idt)
+    # per-record dest offsets expanded with np.repeat (C-speed, no gathers):
+    # fwd bytes land ascending from base - offs; rc bytes land DESCENDING
+    # from the rc span's end, which reverses each record in the scatter
+    if is_for:
+        dest[pos + np.repeat((base - offs[:-1]).astype(idt), lens)] = flat
+    if is_rev:
+        end_rc = base + (lens + 1 if is_for else 0) + (lens - 1) + offs[:-1]
+        dest[np.repeat(end_rc.astype(idt), lens) - pos] = COMP_TABLE[flat]
+    return n * strands, dest
 
 
 @dataclass

@@ -1,9 +1,13 @@
 """`python -m ropebwt3_tpu_torch` against `python -m ropebwt3_tpu` on the
-corpus: `mem` stdout byte for byte against `--engine=native`, the `ssa` file
-byte for byte; and the options that would reach the JAX package's device
-code refused with jax unimportable."""
+corpus: `build` (every output format and input option, several merges,
+`-S` then `-i`), `merge` and `plain2fmd` output byte for byte, `mem` stdout
+byte for byte against `--engine=native`, the `ssa` file byte for byte; and
+the options that would reach the JAX package's device code refused with jax
+unimportable."""
 
+import contextlib
 import gzip
+import io
 import os
 import subprocess
 import sys
@@ -11,7 +15,9 @@ import sys
 import pytest
 import torch
 
+from ropebwt3_tpu import cli as jcli
 from ropebwt3_tpu.seqio import read_seqs
+from ropebwt3_tpu_torch import cli as tcli
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -27,6 +33,95 @@ def _run_without_jax(args):
     code = "import sys\nsys.modules['jax'] = None\nfrom ropebwt3_tpu_torch.cli import main\nsys.exit(main(sys.argv[1:]))\n"
     env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu")
     return subprocess.run([sys.executable, "-c", code] + args, cwd=ROOT, capture_output=True, env=env)
+
+
+def _in_process(main, argv):
+    """(exit code, stdout bytes) of a CLI's main called in this process."""
+    buf = io.BytesIO()
+    out = io.TextIOWrapper(buf, encoding="utf-8", write_through=True)
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = main(argv)
+    out.flush()
+    return rc, buf.getvalue()
+
+
+BUILD_OPTS = [[], ["-d"], ["-b"], ["-e"], ["-T"], ["-L"], ["-F"], ["-R"], ["-s"], ["-r"], ["-m", "20000", "-d"]]
+
+
+@pytest.fixture(scope="module")
+def build_refs(corpus):
+    """`python -m ropebwt3_tpu build` stdout for each of BUILD_OPTS (in process)."""
+    fa = str(corpus / "genomes.fa")
+    return {" ".join(o): _in_process(jcli.main, ["build", *o, fa])[1] for o in BUILD_OPTS}
+
+
+@pytest.mark.parametrize("opts", BUILD_OPTS, ids=lambda o: "".join(o) or "plain")
+def test_build_matches_reference(corpus, build_refs, opts):
+    """The plain text, FMD, FMR, BRE and -T outputs, one strand or line
+    input, RLO / RCLO order, and -m 20000 (four batches, three merges)."""
+    rc, got = _in_process(tcli.main, ["build", "--device=cpu", *opts, str(corpus / "genomes.fa")])
+    want = build_refs[" ".join(opts)]
+    assert rc == 0 and want and got == want
+
+
+def test_build_checkpoint_then_input(corpus, tmp_path):
+    """-S saves the index after each file as FMR; -i builds on it: both
+    files and the final FMD byte-equal to the JAX package's."""
+    recs = list(read_seqs(str(corpus / "genomes.fa")))
+    halves = []
+    for i, part in enumerate((recs[:3], recs[3:])):
+        halves.append(str(tmp_path / f"h{i}.fa"))
+        with open(halves[-1], "w") as fh:
+            fh.writelines(f">{r.name}\n{r.seq.decode()}\n" for r in part)
+    out = {}
+    for tag, main, extra in (("ref", jcli.main, []), ("port", tcli.main, ["--device=cpu"])):
+        ck, fmd = str(tmp_path / f"{tag}.fmr"), str(tmp_path / f"{tag}.fmd")
+        assert _in_process(main, ["build", *extra, "-S", ck, "-m", "30000", halves[0]])[0] == 0
+        assert _in_process(main, ["build", *extra, "-i", ck, "-do", fmd, halves[1]])[0] == 0
+        out[tag] = (open(ck, "rb").read(), open(fmd, "rb").read())
+    assert out["ref"][0] and out["port"] == out["ref"]
+
+
+def test_merge_and_plain2fmd_match_reference(corpus, tmp_path):
+    recs = list(read_seqs(str(corpus / "genomes.fa")))
+    fmds = []
+    for i, part in enumerate((recs[:5], recs[5:])):
+        fa, fmd = tmp_path / f"p{i}.fa", str(tmp_path / f"p{i}.fmd")
+        fa.write_text("".join(f">{r.name}\n{r.seq.decode()}\n" for r in part))
+        _in_process(jcli.main, ["build", "-do", fmd, str(fa)])
+        fmds.append(fmd)
+    want = _in_process(jcli.main, ["merge", *fmds])[1]
+    rc, got = _in_process(tcli.main, ["merge", "--device=cpu", *fmds])
+    assert rc == 0 and want[:3] == b"RB\x02" and got == want
+    plain = tmp_path / "plain.txt"
+    plain.write_bytes(build_text := _in_process(jcli.main, ["build", str(corpus / "genomes.fa")])[1])
+    assert build_text
+    for files in ([str(plain)], [str(plain), str(plain)]):
+        want = _in_process(jcli.main, ["plain2fmd", *files])[1]
+        rc, got = _in_process(tcli.main, ["plain2fmd", *files])
+        assert rc == 0 and want[:4] == b"RLD\x03" and got == want
+
+
+@pytest.mark.parametrize("budget,what", [(10_000, "a batch of"), (3_000_000, "merging")])
+def test_build_beyond_the_card_stops_with_one_error(monkeypatch, capsys, corpus, tmp_path, budget, what):
+    """A batch, or a merge, that the card's memory (here a budget given to
+    the CPU run) cannot hold stops `build` with one ERROR line, exit 1, and
+    no output: nothing moves to the host."""
+    monkeypatch.setattr(tcli, "card_bytes", lambda dev: budget)
+    out = tmp_path / "x.fmd"
+    rc = tcli.main(["build", "--device=cpu", "-do", str(out), str(corpus / "genomes.fa")])
+    err = [ln for ln in capsys.readouterr().err.splitlines() if not ln.startswith("[M::")]
+    assert rc == 1 and not out.exists()
+    assert len(err) == 1 and err[0].startswith(f"ERROR: {what}"), err
+
+
+def test_build_and_merge_without_cuda_exit_nonzero(corpus, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    out = tmp_path / "x.fmd"
+    for argv in (["build", "-do", str(out), str(corpus / "genomes.fa")], ["merge", "-o", str(out), "a.fmd", "b.fmd"]):
+        r = _run("ropebwt3_tpu_torch", argv)
+        assert r.returncode != 0 and not r.stdout and b"CUDA" in r.stderr and not out.exists()
 
 
 @pytest.fixture(scope="module")

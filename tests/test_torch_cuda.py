@@ -17,6 +17,8 @@ from ropebwt3_tpu.nt6 import char2nt6, revcomp
 from ropebwt3_tpu.seqio import read_seqs
 from ropebwt3_tpu.ssa_ops import ssa_gen_native
 from ropebwt3_tpu_torch import probe, ssa_ops
+from ropebwt3_tpu_torch.construct import merge as tmerge
+from ropebwt3_tpu_torch.construct import sa as tsa
 from ropebwt3_tpu_torch.ops import rank, runblock, smem
 
 LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
@@ -280,3 +282,57 @@ def test_probe_smem_capacity(cuda_device):
     assert out is None and err
     x = torch.ones(4, device=cuda_device)  # the refusal left no error behind
     assert float((x + x).sum()) == 8.0
+
+
+def corpus_batch(corpus) -> np.ndarray:
+    """The corpus genomes as one construction batch (each forward, then its
+    reverse complement, 0-terminated)."""
+    z = np.zeros(1, np.uint8)
+    return np.concatenate([x for r in read_seqs(str(corpus / "genomes.fa")) for s in [char2nt6(r.seq)]
+                           for x in (s, z, revcomp(s), z)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["packed", "wide"])
+def test_sa_round_kernels_match_plain(corpus, cuda_device, monkeypatch, wide):
+    """K7 on the card: the passes of csrc/sa_round.cu give the suffix array
+    and BWT of the plain passes on the card, and the native SA-IS's BWT; the
+    wide path (two stable sorts) with the threshold shrunk."""
+    if wide:
+        monkeypatch.setattr(tsa, "PACKED_MAX", 16)
+    seq = corpus_batch(corpus)
+    before = dict(tsa.SA_LAUNCHES)
+    bwt, sa = tsa.gsa_bwt(seq, cuda_device)
+    torch.cuda.synchronize()
+    pbwt, psa = tsa.gsa_bwt_plain(torch.from_numpy(seq).to(cuda_device))
+    assert torch.equal(sa, psa) and torch.equal(bwt, pbwt)
+    assert np.array_equal(bwt.cpu().numpy(), gsa_bwt(seq, backend="native"))
+    for name in ("sa_keys", "sa_flags", "sa_scatter", "sa_bwt"):
+        assert tsa.SA_LAUNCHES[name] > before.get(name, 0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("b2", ["many_short", "genomes"])
+def test_merge_rank_kernel_matches_plain(corpus, corpus_index, cuda_device, layout, b2):
+    """K6 on the card against merge_rank_plain on the card, exact: B1 the
+    corpus index (its rows built on the card by OccIndex.from_bwt equal to
+    the host build; dense64 with megablocks of 64 rows), B2 3,000 short
+    sequences or the corpus genomes again; then the merged BWT equals the
+    CPU's."""
+    b1 = torch.from_numpy(np.ascontiguousarray(corpus_index.bwt[: corpus_index.n]))
+    int64 = layout == "dense64"
+    idx = rank.OccIndex.from_bwt(b1.to(cuda_device), int64=int64, mega_shift=6 if int64 else rank.MEGA_BLOCK_SHIFT)
+    ref = make_index(layout, corpus_index, "cpu")
+    assert idx.layout == layout and torch.equal(idx.occf.cpu(), ref.occf) and torch.equal(idx.acc.cpu(), ref.acc)
+    f2 = short_seqs_index(3000) if b2 == "many_short" else DenseFMIndex.from_bwt(gsa_bwt(corpus_batch(corpus)))
+    seq2 = torch.from_numpy(np.ascontiguousarray(f2.bwt[: f2.n])).to(cuda_device)
+    acc2, rec = tmerge.lf2_packed(seq2)
+    m2 = int(acc2[1])
+    before = tmerge.merge_rank_cuda.launches[layout]
+    got = tmerge.merge_rank_cuda(idx, rec.clone(), m2)
+    torch.cuda.synchronize()
+    want = tmerge.merge_rank_plain(idx, rec.clone(), m2)
+    assert torch.equal(got, want) and tmerge.merge_rank_cuda.launches[layout] == before + 1
+    merged = tmerge.merge_plain(idx, b1.to(cuda_device), seq2)
+    assert torch.equal(merged.cpu(), tmerge.merge_plain(rank.OccIndex.from_bwt(b1), b1, seq2.cpu()))

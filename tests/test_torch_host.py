@@ -119,7 +119,7 @@ def test_stat_matches(indexes):
     assert want.stdout and got.stdout == want.stdout
 
 
-@pytest.mark.parametrize("argv,item", [(["build", "-do", "x.fmd", "y.fa"], "item 14"), (["get", "x.fmd", "0"], "item 16"),
+@pytest.mark.parametrize("argv,item", [(["suffix", "x.fmd", "y.fa"], "item 17"), (["get", "x.fmd", "0"], "item 16"),
                                        (["sw", "x.fmd", "y.fa"], "item 11"),
                                        (["mem", "--device=cpu", "-d", "x.fmd", "y.fa"], "item 11")])
 def test_refused_command_names_roadmap_item(argv, item):

@@ -1,6 +1,7 @@
 """The port never imports jax, and imports nothing of the JAX package: not
-when its modules are imported, not while its CLI runs `mem`, `ssa` and
-`stat`, and not in its sources or chip_smoke.py."""
+when its modules are imported, not while its CLI runs `build`, `merge`,
+`plain2fmd`, `mem`, `ssa` and `stat`, and not in its sources or
+chip_smoke.py."""
 
 import os
 import re
@@ -34,21 +35,28 @@ def test_port_imports_no_jax():
 
 
 def test_cli_commands_import_no_jax_package(corpus, corpus_fmd, tmp_path):
-    """`mem` (with -p: the native locate), `ssa` and `stat` through the
-    port's CLI on the CPU leave no jax and no ropebwt3_tpu module loaded."""
-    fmd, reads = str(corpus_fmd), str(corpus / "reads.fa")
+    """`build` (-d, and plain text with two batches), `merge`, `plain2fmd`,
+    `mem` (with -p: the native locate), `ssa` and `stat` through the port's
+    CLI on the CPU leave no jax and no ropebwt3_tpu module loaded."""
+    fmd, reads, fa = str(corpus_fmd), str(corpus / "reads.fa"), str(corpus / "genomes.fa")
+    built, plain = str(tmp_path / "b.fmd"), str(tmp_path / "b.txt")
     code = (
         "import contextlib, io, sys\n"
         "from ropebwt3_tpu_torch.cli import main\n"
         "rcs = []\n"
         "with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):\n"
+        f"    rcs.append(main(['build', '--device=cpu', '-do', {built!r}, {fa!r}]))\n"
+        f"    rcs.append(main(['build', '--device=cpu', '-m', '70000', '-o', {plain!r}, {fa!r}]))\n"
+        f"    rcs.append(main(['merge', '--device=cpu', '-o', {str(tmp_path / 'm.fmr')!r}, {built!r}, {fmd!r}]))\n"
+        f"    rcs.append(main(['plain2fmd', '-o', {str(tmp_path / 'p.fmd')!r}, {plain!r}]))\n"
         f"    rcs.append(main(['mem', '--device=cpu', '-l21', '-p3', {fmd!r}, {reads!r}]))\n"
         f"    rcs.append(main(['ssa', '--device=cpu', '-o', {str(tmp_path / 'x.ssa')!r}, {fmd!r}]))\n"
         f"    rcs.append(main(['stat', {fmd!r}]))\n"
         f"print(rcs, {FORBIDDEN})\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
-    assert r.returncode == 0 and r.stdout.strip() == "[0, 0, 0] []", r.stdout + r.stderr
+    assert r.returncode == 0 and r.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0] []", r.stdout + r.stderr
+    assert open(built, "rb").read() == open(fmd, "rb").read()  # the port's FMD is the JAX package's
 
 
 def test_sources_import_no_jax_package():
