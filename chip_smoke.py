@@ -18,13 +18,18 @@ it.  Phases:
             index build (cached under .bench/torch_smoke/)
   construct `build` on the card (csrc/sa_round.cu K7, csrc/merge_rank.cu K6):
             bench.py's genomes in one batch, then with -m 16M (three merges
-            of 8 lanes: the build path, counts reset before and read after),
-            then the 100,000 short reads with -m 12M, each FMD byte-equal to
-            the repo's index build; K7 round by round (the passes, and
-            torch.sort alone on the same keys) against its plain passes on
-            the card, sa and BWT exact; K6's ins against merge_rank_plain on
-            the card on the short reads' first merge (80,000 lanes), dense32
-            and dense64 (megablocks of 2^20 symbols), exact; `merge` of the
+            of 8 sequences of 2 M steps: the build path, counts reset before
+            and read after), then the 100,000 short reads with -m 12M, each
+            FMD byte-equal to the repo's index build; K7 round by round (the
+            passes, and torch.sort alone on the same keys) against its plain
+            passes on the card, sa and BWT exact; K6 on each -m 16M merge and
+            on the short reads' first merge (80,000 sequences; dense32 and
+            dense64, megablocks of 2^20 symbols) at the derived stride, its
+            ins exact against merge_rank_chunked_plain on the card (segment
+            records too), the JAX package's native walk (a subprocess) and,
+            on the short reads, merge_rank_plain on the card; its stride,
+            lanes, meeting lengths and hand-overs; each -m 16M
+            merge's peak card memory at or under merge_bytes; `merge` of the
             genomes' two halves byte-equal to `python -m ropebwt3_tpu merge`;
             beside each, the JAX package's native command timed
   rank      occ_rank1a / occ_extend_c of each layout vs the plain PyTorch
@@ -636,20 +641,90 @@ def timed_rounds(sa, seq_d, passes) -> tuple[list[dict], object, object, float]:
     return rounds, perm, bwt, a.elapsed_time(b)
 
 
-def k6_ms(merge, idx, rec, m2: int, reps: int) -> tuple[float, object]:
-    """K6's mean ms over `reps` launches, each on its own copy of rec (the
-    kernel writes ins over it); returns the time and one result."""
+def k6_ms(merge, idx, rec, m2: int, S: int, reps: int) -> tuple[float, object, object]:
+    """K6's mean ms over `reps` launches at stride S, each into its own ins
+    (allocated beforehand, as merge_rank_cuda's allocation takes no card
+    time); returns the time, one result and its segment records."""
     import torch
 
-    copies = [rec.clone() for _ in range(reps)]
+    ins = [torch.empty_like(rec) for _ in range(reps)]
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     a.record()
-    for c in copies:
-        merge.launch_merge_rank(idx, c, m2)
+    segs = [merge.launch_merge_rank(idx, rec, x, m2, S)[1] for x in ins]
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / reps, copies[0]
+    return a.elapsed_time(b) / reps, ins[0], segs[0]
+
+
+# ins of the JAX package's native merge walk, in a subprocess (this script
+# imports nothing of that package): merge_rank_native, which its tests hold
+# bit-identical to its merge_rank_plain
+NATIVE_INS = ("import sys\nimport numpy as np\nfrom ropebwt3_tpu.construct.merge import merge_rank_native\n"
+              "from ropebwt3_tpu.index.dense import DenseFMIndex\nd = np.load(sys.argv[1])\n"
+              "np.save(sys.argv[2], merge_rank_native(DenseFMIndex.from_bwt(d['b1']), d['b2'])[1])\n")
+
+
+def native_ins(b1, b2) -> tuple[np.ndarray, float]:
+    """(ins, seconds of the subprocess) of the native merge walk of B2 into B1."""
+    src, dst = os.path.join(WORK, "k6_in.npz"), os.path.join(WORK, "k6_ins.npy")
+    np.savez(src, b1=b1.cpu().numpy(), b2=b2.cpu().numpy())
+    s, _ = run([sys.executable, "-c", NATIVE_INS, src, dst])
+    return np.load(dst), s
+
+
+def check_k6(merge, idx, b1, b2, reps: int, lanes_plain: bool) -> dict:
+    """K6 on one merge, B2's BWT b2 into B1 (b1, its rows idx), at the
+    derived stride, as merge_rank_cuda runs it: timed, and its ins held
+    exactly against merge_rank_chunked_plain on the card (segment records
+    too), the native walk, and (lanes_plain) merge_rank_plain on the card.
+    Returns ins and the record of the merge."""
+    import torch
+
+    acc2, rec = merge.lf2_packed(b2)
+    m2, n2 = int(acc2[1]), rec.numel()
+    S = merge.stride(n2, idx.device)
+    first, n_seg = merge.segments(n2, m2, S)
+    ms, ins, seg = k6_ms(merge, idx, rec, m2, S, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pins, pseg = merge.merge_rank_chunked_plain(idx, rec.clone(), m2, S)
+    torch.cuda.synchronize()
+    chunked_plain = (time.perf_counter() - t0) * 1e3
+    nat, nat_s = native_ins(b1, b2)
+    err = max(max_abs(ins, pins), int(np.abs(ins.cpu().numpy() - nat).max()) if n2 else 0)
+    plain = None
+    if lanes_plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = merge.merge_rank_plain(idx, rec.clone(), m2)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        err = max(err, max_abs(ins, want))
+    if err or not torch.equal(seg, pseg):
+        fail(f"[construct] merge_rank_{idx.layout} (n1={idx.n}, n2={n2}, S={S}) differs from its plain versions or the "
+             f"native walk by {err}, or its segment records differ")
+    meet, length, _, _, hand = (x.cpu().numpy() for x in pseg)
+    met = meet[m2:][meet[m2:] != merge.NEVER]
+    q = np.percentile(met, [50, 99]) if met.size else [0, 0]
+    return ins, dict(
+        n1=idx.n, n2=n2, m2=m2, S=S, lanes=n_seg, err=err, ms=ms, plain=plain,
+        chunked_plain_ms=chunked_plain, native_walk_s=nat_s, meet_median=float(q[0]), meet_p99=float(q[1]),
+        meet_max=int(met.max()) if met.size else 0, never_met=int(n_seg - m2 - met.size),
+        longest_segment=int(length.max()) if n_seg else 0, longest_hand_over=int(hand.max()) if n_seg else 0,
+        # the rows and acc read, the records read and ins written (8 B each a
+        # B2 symbol), the segment records written
+        bound=bound_ms(idx.nbytes + 16 * n2 + 8 * merge.SEG_ROWS * n_seg))
+
+
+def k6_line(m: dict) -> str:
+    return (f"n1={m['n1']} n2={m['n2']} m2={m['m2']}: S {m['S']}, {m['lanes']} lanes, meeting length median "
+            f"{m['meet_median']:.0f} / p99 {m['meet_p99']:.0f} / max {m['meet_max']} steps ({m['never_met']} strided "
+            f"segments never met), longest segment {m['longest_segment']}, longest hand-over "
+            f"{m['longest_hand_over']}; K6 {m['ms']:.4f} ms, bytes bound {m['bound']:.4f} ms; "
+            f"merge_rank_chunked_plain on the card {m['chunked_plain_ms']:.1f} ms"
+            + (f", merge_rank_plain {m['plain']:.1f} ms" if m["plain"] is not None else "")
+            + f"; ins exact against both plain versions and the native walk ({m['native_walk_s']:.2f} s subprocess)")
 
 
 def log_merge_s(stderr: str) -> list[float]:
@@ -762,17 +837,27 @@ def check_construct(cli, dev, card: str, fa: str, fmd: str, many_fa: str, many_f
         idx = OccIndex.from_bwt(bwt)
         torch.cuda.synchronize()
         t_rows = time.perf_counter() - t0
-        acc2, rec = merge.lf2_packed(b2)
-        m2 = int(acc2[1])
-        ms, ins = k6_ms(merge, idx, rec, m2, 1)
+        ins, m = check_k6(merge, idx, bwt, b2, 3, lanes_plain=False)
         t0 = time.perf_counter()
-        bwt = merge.merge_apply(bwt, b2, ins)
+        merged = merge.merge_apply(bwt, b2, ins)
         torch.cuda.synchronize()
         t_apply = time.perf_counter() - t0
-        steps = longest_walk(seq)
-        merges.append(dict(n1=idx.n, n2=len(seq), m2=m2, ms=ms, longest=steps, k7_s=t_k7, rows_s=t_rows,
-                           apply_s=t_apply, bound=bound_ms(idx.nbytes + 16 * len(seq))))
-        del idx, rec, ins
+        del idx, ins
+        # the merge as `build` runs it, its peak card memory against merge_bytes (which counts B1 and B2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        other = torch.cuda.memory_allocated(dev) - bwt.numel() - b2.numel()
+        got = cli._merge_into(bwt, b2, dev)
+        peak = torch.cuda.max_memory_allocated(dev) - other
+        count = merge.merge_bytes(bwt.numel(), b2.numel(), m["m2"])
+        if peak > count or not torch.equal(got, merged):
+            fail(f"[construct] merge of {b2.numel()} symbols into {bwt.numel()}: peak {peak} B against merge_bytes "
+                 f"{count} B, or _merge_into's BWT differs from the pieces'")
+        m.update(longest=longest_walk(seq), k7_s=t_k7, rows_s=t_rows, apply_s=t_apply, peak_bytes=peak,
+                 merge_bytes=count)
+        merges.append(m)
+        bwt = merged
+        del got
     if encode_runs(*_runs_of_bwt(bwt.cpu().numpy())) != open(fmd, "rb").read():
         fail(f"[construct] the -m {CONSTRUCT_M} pieces, run one by one, give another FMD")
     del bwt, b2
@@ -781,11 +866,11 @@ def check_construct(cli, dev, card: str, fa: str, fmd: str, many_fa: str, many_f
     say(f"[construct] `build -m {CONSTRUCT_M} -do` (the build path): FMD byte-equal to the one-batch build; launches "
         f"{out['path']['sa']}, merge_rank {out['path']['merge']}; port in-process {path_s:.3f} s, `python -m "
         f"ropebwt3_tpu build -m {CONSTRUCT_M} -do` {ref16_s:.3f} s (its merges {[round(x, 3) for x in native16]} s); "
-        "per merge: " + "; ".join(
-            f"n1={m['n1']} m2={m['m2']}: K6 {m['ms']:.3f} ms (longest walk {m['longest']} steps, bound "
-            f"{m['bound']:.4f} ms), rows "
-            f"(OccIndex.from_bwt) {m['rows_s'] * 1e3:.3f} ms, merge_apply {m['apply_s'] * 1e3:.3f} ms" for m in merges)
-        + f"; K7 per later batch (upload, sort) {[round(m['k7_s'] * 1e3, 3) for m in merges]} ms ({card})")
+        f"K7 per later batch (upload, sort) {[round(m['k7_s'] * 1e3, 3) for m in merges]} ms ({card})")
+    for m in merges:
+        say(f"[construct] -m {CONSTRUCT_M} merge, dense32, {k6_line(m)}; rows (OccIndex.from_bwt) "
+            f"{m['rows_s'] * 1e3:.3f} ms, merge_apply {m['apply_s'] * 1e3:.3f} ms; peak card memory {m['peak_bytes']} "
+            f"B, merge_bytes {m['merge_bytes']} B ({card})")
 
     # 3. many short walks: the 100,000 reads with -m 12M
     many_port = os.path.join(WORK, "construct_port_many.fmd")
@@ -796,31 +881,22 @@ def check_construct(cli, dev, card: str, fa: str, fmd: str, many_fa: str, many_f
     same_file(many_ref, many_fmd, f"`python -m ropebwt3_tpu build -m {MANY_M}` of the short reads")
     s1, s2 = host_batches(many_fa, cli.parse_num(MANY_M))[:2]
     b1, b2 = sa.gsa_bwt(s1, dev)[0], sa.gsa_bwt(s2, dev)[0]
-    acc2, rec = merge.lf2_packed(b2)
-    m2, steps = int(acc2[1]), longest_walk(s2)
+    steps = longest_walk(s2)
     for layout, idx in (("dense32", OccIndex.from_bwt(b1)),
                         ("dense64", OccIndex.from_bwt(b1, int64=True, mega_shift=DENSE64_SHIFT))):
-        ms, ins = k6_ms(merge, idx, rec, m2, 5)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = merge.merge_rank_plain(idx, rec.clone(), m2)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
-        err = max_abs(ins, want)
-        if err or idx.layout != layout:
-            fail(f"[construct] merge_rank_{layout} on the short reads' first merge differs from merge_rank_plain by {err}")
-        out[f"merge_rank_{layout}"] = dict(
-            err=err, ms=ms, plain=plain, bound=bound_ms(idx.nbytes + 16 * len(s2)), longest=steps,
-            many_native_merges_s=log_merge_s(many_ref_err),
-            input=f"the short reads' first merge (-m {MANY_M}): n1={idx.n}, n2={len(s2)}, m2={m2} lanes of up to "
-                  f"{steps} steps")
-        say(f"[construct] merge_rank_{layout} on the short reads' first merge (n1={idx.n}, m2={m2}, longest walk "
-            f"{steps} steps): ins exact against merge_rank_plain on the card; K6 {ms:.4f} ms, plain {plain:.3f} ms, "
-            f"bound {out[f'merge_rank_{layout}']['bound']:.4f} ms ({card})")
+        if idx.layout != layout:
+            fail(f"[construct] the short reads' B1 rows are {idx.layout}, not {layout}")
+        _, r = check_k6(merge, idx, b1, b2, 5, lanes_plain=True)
+        r.update(longest=steps, many_native_merges_s=log_merge_s(many_ref_err),
+                 input=f"the short reads' first merge (-m {MANY_M}): n1={idx.n}, n2={len(s2)}, m2={r['m2']} sequences "
+                       f"of up to {steps} steps")
+        out[f"merge_rank_{layout}"] = r
+        say(f"[construct] merge_rank_{layout} on the short reads' first merge (longest walk {steps} steps), {k6_line(r)} "
+            f"({card})")
     say(f"[construct] `build -m {MANY_M}` of the {N_READS} short reads: FMD byte-equal to their index build; port "
         f"in-process {many_s:.3f} s, `python -m ropebwt3_tpu build -m {MANY_M}` {many_ref_s:.3f} s (its merges "
         f"{[round(x, 3) for x in log_merge_s(many_ref_err)]} s) ({card})")
-    del b1, b2, rec
+    del b1, b2
 
     # 5. merge: the first and the second half of the genomes, built by the port
     halves = []
@@ -985,14 +1061,16 @@ def main() -> None:
         + ", ".join(f"{k} {v['launches']}" for k, v in probe_res.items())
         + f"; ns per dependent step: {ns[LAT_L2]} ({LAT_L2}), {ns[LAT_48MB]} ({LAT_48MB})")
 
-    # K6's chain floors: the short reads' B1 rows (9 MB) stay in the L2; the
-    # genomes' (12-36 MB) are taken at the 48 MB table's ns per step
-    for layout in ("dense32", "dense64"):
-        con[f"merge_rank_{layout}"]["chain_floor_ms"] = con[f"merge_rank_{layout}"]["longest"] * ns[LAT_L2] / 1e6
-    for m in con["merges16"]:
-        m["chain_floor_ms"] = m["longest"] * ns[LAT_48MB] / 1e6
-    say("[construct] K6 chain floors: short reads' merge " + ", ".join(
-        f"{lay} {con[f'merge_rank_{lay}']['chain_floor_ms']:.4f} ms" for lay in ("dense32", "dense64"))
+    # K6's chain floors: pass 1's longest segment, then pass 2's longest
+    # hand-over, a dependent row step each.  The short reads' B1 rows (9 MB)
+    # stay in the L2; the genomes' (12-36 MB) are taken at the 48 MB
+    # table's ns per step
+    for m, step in [(con[f"merge_rank_{lay}"], ns[LAT_L2]) for lay in ("dense32", "dense64")] + \
+            [(m, ns[LAT_48MB]) for m in con["merges16"]]:
+        m["chain_floor_ms"] = (m["longest_segment"] + m["longest_hand_over"]) * step / 1e6
+    say("[construct] K6 chain floors (longest segment + longest hand-over): short reads' merge " + ", ".join(
+            f"{lay} {con[f'merge_rank_{lay}']['chain_floor_ms']:.4f} ms (K6 {con[f'merge_rank_{lay}']['ms']:.4f} ms)"
+            for lay in ("dense32", "dense64"))
         + f" ({ns[LAT_L2]} ns a step); -m {CONSTRUCT_M} merges "
         + ", ".join(f"{m['chain_floor_ms']:.3f} ms (K6 {m['ms']:.3f} ms)" for m in con["merges16"])
         + f" ({ns[LAT_48MB]} ns a step) ({card})")
@@ -1256,6 +1334,8 @@ def main() -> None:
         "per_round_ms": k7["per_round"], "cumsum_ms": k7["scan_ms"], "k7_total_ms": k7["total_ms"],
         "peak_card_bytes_per_symbol": k7["peak_b_per_sym"],
     })
+    k6_keys = ("S", "lanes", "meet_median", "meet_p99", "meet_max", "never_met", "longest_segment",
+               "longest_hand_over", "chunked_plain_ms", "native_walk_s")
     for layout in ("dense32", "dense64"):
         r = con[f"merge_rank_{layout}"]
         n = path["merge"].get(layout, 0)
@@ -1265,6 +1345,7 @@ def main() -> None:
             "path": f"build -m {CONSTRUCT_M}" if n else None, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain"],
             "bound_ms": r["bound"], "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["chain_floor_ms"],
             "input": r["input"], "longest_walk": r["longest"], "native_merges_s": r["many_native_merges_s"],
+            **{k: r[k] for k in k6_keys},
             **({"build_path_merges": con["merges16"]} if layout == "dense32" else {}),
         })
     say(json.dumps({"kernels": entries}))

@@ -387,9 +387,11 @@ def _merge_into(bwt, seq2, dev):
 
     n1, n2 = bwt.numel(), len(seq2)
     budget = card_bytes(dev)
-    if budget is not None and merge_bytes(n1, n2) > budget:
-        raise CapacityError(f"merging {n2} symbols into an index of {n1} needs ~{merge_bytes(n1, n2)} B of the "
-                            f"card, which has {budget} B")
+    if budget is not None:
+        need = merge_bytes(n1, n2, int((seq2 == 0).sum()))
+        if need > budget:
+            raise CapacityError(f"merging {n2} symbols into an index of {n1} needs ~{need} B of the card, which "
+                                f"has {budget} B")
     return merge_plain(OccIndex.from_bwt(bwt), bwt, seq2)
 
 
@@ -447,21 +449,22 @@ def main_build(argv: list[str], device: str) -> int:
         f = load_index(fn_in)
         bwt = _to_device(f.bwt[: f.n], dev)
         del f
+    try:  # the input's size in symbols, roughly (its files' bytes, times the strands)
+        est = sum(os.path.getsize(fn) for fn in args if fn != "-" and os.path.exists(fn))
+    except OSError:
+        est = 0
+    est *= int(is_for) + int(is_rev)
     if not user_m and sort_order == 0:
         # the JAX package's auto batch size (ropebwt3_tpu/cli.py:446-460);
         # batch boundaries change no output, the merge keeps order
-        try:
-            est = sum(os.path.getsize(fn) for fn in args if fn != "-" and os.path.exists(fn))
-        except OSError:
-            est = 0
-        est *= int(is_for) + int(is_rev)
         if est > 160_000_000:
             batch_size = min(max(est // 6, 48_000_000), 320_000_000)
             log.info("auto batch size %d for ~%d input symbols (pass -m to override)", batch_size, est, func="main_build")
-    budget = card_bytes(dev)
+    budget, capped = card_bytes(dev), False
     if budget is not None:
         # half the card for a batch's suffix sort, the rest for the index
         cap = budget // (2 * (SA_BYTES_PER_SYMBOL + 1))
+        capped = cap < batch_size
         batch_size = min(batch_size, cap)
         log.info("batch size %d symbols (the card has %d B; the suffix sort takes %d B a symbol)", batch_size, budget,
                  SA_BYTES_PER_SYMBOL + 1, func="main_build")
@@ -489,6 +492,11 @@ def main_build(argv: list[str], device: str) -> int:
                 n_batches += 1
                 log.info("read %d symbols", len(seq), func="main_build")
                 if sort_order != 0:
+                    if n_batches > 1 and capped:
+                        raise IndexLoadError(
+                            f"-s/-r sort the input as one batch, and the card takes batches of at most {batch_size} "
+                            f"symbols ({budget} B at {2 * (SA_BYTES_PER_SYMBOL + 1)} B a symbol), but the input has "
+                            + (f"~{est} symbols" if est > batch_size else f"more than {batch_size} symbols"))
                     if n_batches > 1:
                         raise IndexLoadError("-s/-r only supported within a single batch; raise -m")
                     seq = _sort_units(seq, sort_order)

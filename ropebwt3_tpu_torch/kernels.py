@@ -48,7 +48,7 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_TABLES, _V, _V, _V, _I64, _I32, _I32, _I32, _I32, _V, _V, _V, _V, _V, _V]
 for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_ssa_gen_{_lay}"] = [*_TABLES, _I64, _I32, _V, _V, _V, _V, _V]
-    _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _I64, _V]
+    _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _V, _V]
 _ENTRIES["rb3c_sa_keys"] = [_V, _I64, _I64, _I32, _V, _V]
 _ENTRIES["rb3c_sa_flags"] = [_V, _V, _I64, _V, _V]
 _ENTRIES["rb3c_sa_scatter"] = [_V, _V, _I64, _V, _V]

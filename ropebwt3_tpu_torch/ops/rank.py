@@ -50,6 +50,14 @@ U32 = 0xFFFFFFFF
 FROM_BWT_BLOCKS = 1 << 18  # rows per chunk of OccIndex.from_bwt (16 M symbols)
 
 
+def from_bwt_temp_bytes(n: int) -> int:
+    """Bytes `OccIndex.from_bwt` holds at its peak for n symbols, beside the
+    BWT and the rows it returns: its (nb + 1, 6) int64 counts, room for a
+    scan's copy of them, and one chunk's temporaries (< 32 B a symbol)."""
+    nb = n // BLOCK + 2
+    return 2 * 48 * nb + 32 * BLOCK * min(nb, FROM_BWT_BLOCKS)
+
+
 def needs_int64(n: int) -> bool:
     return n >= MAX_N_INT32
 
@@ -163,7 +171,7 @@ class OccIndex:
         int64 = needs_int64(n) if int64 is None else int64
         nb = (n + BLOCK - 1) // BLOCK + 1
         occf = torch.empty((nb, 12), dtype=torch.int32, device=dev)
-        cnt = torch.empty((nb, ASIZE), dtype=torch.int64, device=dev)  # symbols in each block
+        cnt = torch.zeros((nb + 1, ASIZE), dtype=torch.int64, device=dev)  # row i + 1: symbols in block i
         key = torch.as_tensor(np.append(KEY, 0), dtype=torch.int64, device=dev)  # padding (6) keys as 0
         shifts = torch.arange(32, dtype=torch.int64, device=dev)
         for b0 in range(0, nb, FROM_BWT_BLOCKS):
@@ -177,18 +185,23 @@ class OccIndex:
                 words = (((keyed >> plane) & 1) << shifts).sum(-1)  # (rows, 2) in [0, 2^32)
                 occf[b0:b1, 2 * plane : 2 * plane + 2] = _as_int32(words)
             for c in range(ASIZE):
-                cnt[b0:b1, c] = (blk == c).sum(1)
-        before = torch.cumsum(cnt, 0) - cnt  # counts before each block
+                cnt[b0 + 1 : b1 + 1, c] = (blk == c).sum(1)
+            del blk, keyed  # before the next chunk's
+        cnt.cumsum_(0)  # in place: row i counts the symbols before block i
+        before = cnt[:nb]
         acc = torch.zeros(ASIZE + 1, dtype=torch.int64, device=dev)
-        acc[1:] = torch.cumsum(cnt.sum(0), 0)
+        acc[1:] = torch.cumsum(cnt[nb], 0)
         if not int64:
-            occf[:, 6:] = before.int()
+            occf[:, 6:] = before
             return cls(occf=occf, acc=acc.int(), n=n)
-        mega = before[:: 1 << mega_shift].contiguous()
-        rel = before - mega[torch.arange(nb, device=dev) >> mega_shift]
-        if rel.numel() and int(rel.max()) > U32:
+        rows = 1 << mega_shift
+        mega = before[::rows].clone()
+        full = nb // rows * rows  # rebased in place, megablock by megablock
+        before[:full].view(-1, rows, ASIZE).sub_(mega[: full // rows, None])
+        before[full:].sub_(mega[-1])
+        if int(before.max()) > U32:
             raise ValueError(f"a megablock of 2^{mega_shift} rows holds more than 2^32 symbols")
-        occf[:, 6:] = _as_int32(rel)
+        occf[:, 6:] = before.view(torch.int32)[:, 0::2]  # the low 32 bits (little-endian), as _as_int32 gives them
         return cls(occf=occf, acc=acc, n=n, mega=mega, mega_shift=int(mega_shift))
 
     @classmethod

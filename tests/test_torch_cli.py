@@ -12,12 +12,14 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from ropebwt3_tpu import cli as jcli
 from ropebwt3_tpu.seqio import read_seqs
 from ropebwt3_tpu_torch import cli as tcli
+from ropebwt3_tpu_torch.construct import sa as tsa
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -113,6 +115,44 @@ def test_build_beyond_the_card_stops_with_one_error(monkeypatch, capsys, corpus,
     err = [ln for ln in capsys.readouterr().err.splitlines() if not ln.startswith("[M::")]
     assert rc == 1 and not out.exists()
     assert len(err) == 1 and err[0].startswith(f"ERROR: {what}"), err
+
+
+@pytest.mark.parametrize("order", ["-s", "-r"])
+def test_build_sorted_beyond_the_card_names_the_cap(monkeypatch, capsys, corpus, tmp_path, order):
+    """-s/-r sort the input as one batch: when the card's batch cap (a
+    budget given to the CPU run) splits it, the one ERROR line names the cap
+    and the input's size, not -m, which cannot lift the cap."""
+    cap = 40_000
+    monkeypatch.setattr(tcli, "card_bytes", lambda dev: cap * 2 * (tsa.SA_BYTES_PER_SYMBOL + 1))
+    out = tmp_path / "x.fmd"
+    rc = tcli.main(["build", "--device=cpu", order, "-do", str(out), str(corpus / "genomes.fa")])
+    err = [ln for ln in capsys.readouterr().err.splitlines() if not ln.startswith("[M::")]
+    size = 2 * os.path.getsize(corpus / "genomes.fa")
+    assert rc == 1 and not out.exists() and len(err) == 1, err
+    assert f"batches of at most {cap} symbols" in err[0] and f"~{size} symbols" in err[0] and "-m" not in err[0], err
+
+
+def test_merge_into_refuses_past_merge_bytes(monkeypatch, corpus):
+    """`_merge_into` checks merge_bytes, which counts OccIndex.from_bwt's
+    temporaries, against the card's budget: one byte short stops it with a
+    CapacityError before any work; the exact count lets it merge."""
+    from ropebwt3_tpu_torch.construct import merge as tmerge
+    from ropebwt3_tpu_torch.ops.rank import OccIndex, from_bwt_temp_bytes
+
+    genomes = [np.frombuffer(r.seq, np.uint8) for r in read_seqs(str(corpus / "genomes.fa"))]
+    enc = np.zeros(256, np.uint8)
+    enc[np.frombuffer(b"ACGT", np.uint8)] = [1, 2, 3, 4]
+    bwt = tsa.gsa_bwt(np.concatenate([x for g in genomes[:5] for x in (enc[g], [0])]).astype(np.uint8), "cpu")[0]
+    seq2 = tsa.gsa_bwt(np.concatenate([x for g in genomes[5:] for x in (enc[g], [0])]).astype(np.uint8), "cpu")[0]
+    n1, n2, m2 = bwt.numel(), seq2.numel(), int((seq2 == 0).sum())
+    need = tmerge.merge_bytes(n1, n2, m2)
+    assert need >= n1 + 48 * (n1 // 64 + 1) + n2 + from_bwt_temp_bytes(n1) and m2 == 3
+    monkeypatch.setattr(tcli, "card_bytes", lambda dev: need - 1)
+    with pytest.raises(tcli.CapacityError, match=f"needs ~{need} B"):
+        tcli._merge_into(bwt, seq2, torch.device("cpu"))
+    monkeypatch.setattr(tcli, "card_bytes", lambda dev: need)
+    got = tcli._merge_into(bwt, seq2, torch.device("cpu"))
+    assert torch.equal(got, tmerge.merge_plain(OccIndex.from_bwt(bwt), bwt, seq2))
 
 
 def test_build_and_merge_without_cuda_exit_nonzero(corpus, tmp_path):

@@ -318,8 +318,8 @@ def test_merge_rank_kernel_matches_plain(corpus, corpus_index, cuda_device, layo
     """K6 on the card against merge_rank_plain on the card, exact: B1 the
     corpus index (its rows built on the card by OccIndex.from_bwt equal to
     the host build; dense64 with megablocks of 64 rows), B2 3,000 short
-    sequences or the corpus genomes again; then the merged BWT equals the
-    CPU's."""
+    sequences or the corpus genomes again, ins written apart from the
+    records; then the merged BWT equals the CPU's."""
     b1 = torch.from_numpy(np.ascontiguousarray(corpus_index.bwt[: corpus_index.n]))
     int64 = layout == "dense64"
     idx = rank.OccIndex.from_bwt(b1.to(cuda_device), int64=int64, mega_shift=6 if int64 else rank.MEGA_BLOCK_SHIFT)
@@ -330,9 +330,55 @@ def test_merge_rank_kernel_matches_plain(corpus, corpus_index, cuda_device, layo
     acc2, rec = tmerge.lf2_packed(seq2)
     m2 = int(acc2[1])
     before = tmerge.merge_rank_cuda.launches[layout]
-    got = tmerge.merge_rank_cuda(idx, rec.clone(), m2)
+    mine = rec.clone()
+    got = tmerge.merge_rank_cuda(idx, mine, m2)
     torch.cuda.synchronize()
     want = tmerge.merge_rank_plain(idx, rec.clone(), m2)
     assert torch.equal(got, want) and tmerge.merge_rank_cuda.launches[layout] == before + 1
+    assert got is not mine and torch.equal(mine, rec)  # ins apart: the records stay as they were
     merged = tmerge.merge_plain(idx, b1.to(cuda_device), seq2)
     assert torch.equal(merged.cpu(), tmerge.merge_plain(rank.OccIndex.from_bwt(b1), b1, seq2.cpu()))
+
+
+def merge_b2(corpus, kind: str) -> np.ndarray:
+    """A B2 BWT against the corpus index: 3,000 short sequences, the corpus
+    genomes again (no strided segment meets: the hand-overs run whole
+    walks), or the genomes with 2% more mutations (segments meet)."""
+    if kind == "many_short":
+        f2 = short_seqs_index(3000)
+        return np.ascontiguousarray(f2.bwt[: f2.n])
+    seq = corpus_batch(corpus)
+    if kind == "mutated":
+        rng = np.random.default_rng(5)
+        mut = (rng.random(len(seq)) < 0.02) & (seq != 0)
+        seq = seq.copy()
+        seq[mut] = rng.integers(1, 5, int(mut.sum()))
+    return gsa_bwt(seq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("b2", ["many_short", "genomes", "mutated"])
+@pytest.mark.parametrize("S", [1, 8, 64, "derived", "above_n2"])
+def test_merge_rank_segments_match_plain(corpus, corpus_index, cuda_device, layout, b2, S):
+    """K6's two passes on the card against merge_rank_chunked_plain on the
+    card at the same stride (ins and every segment record), and ins
+    against merge_rank_plain, exact; a stride that is not a power of two
+    is refused before the launch."""
+    b1 = torch.from_numpy(np.ascontiguousarray(corpus_index.bwt[: corpus_index.n])).to(cuda_device)
+    int64 = layout == "dense64"
+    idx = rank.OccIndex.from_bwt(b1, int64=int64, mega_shift=6 if int64 else rank.MEGA_BLOCK_SHIFT)
+    acc2, rec = tmerge.lf2_packed(torch.from_numpy(merge_b2(corpus, b2)).to(cuda_device))
+    m2, n2 = int(acc2[1]), rec.numel()
+    S = {"derived": tmerge.stride(n2, cuda_device), "above_n2": 1 << n2.bit_length()}.get(S, S)
+    want = tmerge.merge_rank_plain(idx, rec.clone(), m2)
+    pins, pseg = tmerge.merge_rank_chunked_plain(idx, rec.clone(), m2, S)
+    assert torch.equal(pins, want)
+    ins = torch.empty_like(rec)
+    before = tmerge.merge_rank_cuda.launches[layout]
+    got, seg = tmerge.launch_merge_rank(idx, rec, ins, m2, S)
+    torch.cuda.synchronize()
+    assert tmerge.merge_rank_cuda.launches[layout] == before + 1 and got is ins
+    assert torch.equal(got, want) and torch.equal(seg, pseg)
+    with pytest.raises(ValueError):
+        tmerge.merge_rank_cuda(idx, rec.clone(), m2, S=7)

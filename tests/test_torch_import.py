@@ -1,7 +1,8 @@
 """The port never imports jax, and imports nothing of the JAX package: not
 when its modules are imported, not while its CLI runs `build`, `merge`,
 `plain2fmd`, `mem`, `ssa` and `stat`, and not in its sources or
-chip_smoke.py."""
+chip_smoke.py.  Also read from the sources: each C entry point's ctypes
+argument list (kernels.py) matches its signature in csrc/."""
 
 import os
 import re
@@ -68,3 +69,24 @@ def test_sources_import_no_jax_package():
     assert len(files) > 15
     hits = [f"{os.path.relpath(p, ROOT)}: {m.group(0).strip()}" for p in files for m in bad.finditer(open(p).read())]
     assert hits == []
+
+
+def test_kernel_argtypes_match_the_c_signatures():
+    """Without argtypes of the right length ctypes passes a pointer or an
+    int64 as a 32-bit int: every `int rb3c_*(...)` of csrc/*.cu (the
+    `##name` ones for each layout kernels.py lists) takes as many arguments
+    as kernels.py declares, stream included."""
+    from ropebwt3_tpu_torch import kernels
+
+    seen = set()
+    for fn in sorted(os.listdir(kernels.CSRC)):
+        if not fn.endswith(".cu"):
+            continue
+        text = open(os.path.join(kernels.CSRC, fn)).read().replace("\\\n", " ")
+        for name, macro, params in re.findall(r"\bint (rb3c_\w+?)(##name)?\(([^)]*)\)\s*\{", text):
+            names = [k for k in kernels._ENTRIES if k.startswith(name)] if macro else [name]
+            assert names, name
+            for k in names:
+                assert len(kernels._ENTRIES[k]) == params.count(",") + 1, (k, params)
+                seen.add(k)
+    assert seen == set(kernels._ENTRIES)
