@@ -60,15 +60,22 @@ it.  Phases:
             buffer of the true counts) and dense32's; times of both kernels,
             n_unmerged, trip counts, the roofline bound and the chain floor;
             on dense32 also a sweep of the chunk size
-  ssa       ssa_gen on three indexes: bench.py's (m = 32, dense32 and dense64
-            with megablocks of 2^20 symbols), one of the 100,000 short reads
-            (m = 200,000, cached under .bench/torch_smoke/many/) and the CPU
-            tests' corpus; the SSA byte-equal to `python -m ropebwt3_tpu ssa`
-            (whose run gives the native walk's time), the kernel's arrays equal
-            to ssa_gen_plain on the card (not run on bench.py's index: ~2 M
-            lock-step trips); then `ssa` through ropebwt3_tpu_torch.cli.main
-            on each index (bench.py's is the ssa path: counts reset before,
-            read after) and once as `python -m ropebwt3_tpu_torch ssa`
+  ssa       ssa_gen (csrc/ssa_gen.cu: segments walked at once, ranked by
+            pointer jumping) on three indexes: bench.py's (m = 32 walks of
+            2 M steps, dense32 and dense64 with megablocks of 2^20 symbols),
+            one of the 100,000 short reads (m = 200,000, cached under
+            .bench/torch_smoke/many/) and the CPU tests' corpus, at the
+            derived stride: the SSA byte-equal to `python -m ropebwt3_tpu ssa`
+            (whose run gives the native walk's time), the kernel's arrays and
+            segment records equal to ssa_gen_seg_plain on the card, its
+            arrays to ssa_gen_plain (lock-step; not on bench.py's index: ~2 M
+            trips), each walk's peak card memory at or under ssa_bytes; S,
+            segments, the longest segment, chain floor, bounds, each pass's
+            ms and the heads-only walk (one thread a sequence) in the same
+            call; on bench.py's index a stride sweep (32 to 1024, heads only); then
+            `ssa` through ropebwt3_tpu_torch.cli.main on each index (bench.py's
+            is the ssa path: counts reset before, read after) and once as
+            `python -m ropebwt3_tpu_torch ssa`
   mem       the main path: `mem -l31` through ropebwt3_tpu_torch.cli.main with
             launch counts reset before and read after; its BED must equal
             `python -m ropebwt3_tpu mem --engine=native` byte for byte; then
@@ -426,14 +433,33 @@ def native_walk_s(stderr: str) -> float:
     return float(end.group(1)) - float(load.group(1))
 
 
-def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict, reads, ns: dict) -> tuple[dict, dict]:
-    """ssa_gen of both dense layouts on bench.py's index, the many-sequence
-    index and the CPU tests' corpus: byte-equal to `python -m ropebwt3_tpu
-    ssa`, arrays equal to ssa_gen_plain on the card where it runs; then `ssa`
-    through the CLI on each, byte-equal to the same file.  Returns the
-    per-layout records and the ssa path's launch counts (bench.py's index)."""
+def walk_passes(ssa_ops, probe, x, m: int, ss: int, S: int) -> list[float]:
+    """Milliseconds of each of the walk's three passes at stride S (CUDA
+    events between them, the launches queued behind a spin kernel)."""
     import torch
 
+    ssa_ops.launch_walk(x, m, ss, S)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda._sleep(probe.SPIN_CYCLES)
+    ssa_ops.launch_walk(x, m, ss, S, marks=ev)
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict, reads, ns: dict) -> tuple[dict, dict]:
+    """ssa_gen of both dense layouts on bench.py's index, the many-sequence
+    index and the CPU tests' corpus, at the derived stride: byte-equal to
+    `python -m ropebwt3_tpu ssa`, arrays and segment records equal to
+    ssa_gen_seg_plain on the card, arrays equal to ssa_gen_plain where its
+    lock-step walk is short, peak card memory at or under ssa_bytes; the
+    passes timed, and beside them the heads-only walk (one thread a
+    sequence) and, on bench.py's index, a stride sweep; then `ssa` through the CLI on each,
+    byte-equal to the same file.  Returns the per-layout records and the ssa
+    path's launch counts (bench.py's index)."""
+    import torch
+
+    from ropebwt3_tpu_torch.construct.merge import stride
     from ropebwt3_tpu_torch.formats.ssa import write_ssa_bytes
 
     inputs = [("bench", f, fmd, idxs["dense32"], idxs["dense64"], SSA_SHIFT)]
@@ -446,7 +472,7 @@ def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict
                        rank.OccIndex.from_dense(xf, dev, int64=True, mega_shift=DENSE64_SHIFT), ss))
     say("[ssa] indexes: " + "; ".join(f"{x[0]} n={x[1].n} m={int(x[1].acc[1])}" for x in inputs)
         + f" (built or loaded in {time.perf_counter() - t0:.3f} s)")
-    res = {lay: {} for lay in ("dense32", "dense64")}
+    res = {lay: {"err": 0} for lay in ("dense32", "dense64")}
     refs = {}
     for name, xf, x_fmd, d32, d64, ss in inputs:
         m = int(xf.acc[1])
@@ -456,36 +482,84 @@ def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict
         want = open(ref_fn, "rb").read()
         native_ms = native_walk_s(ref_err) * 1e3
         refs[name] = (ref_fn, ref_s, opts)
+        lat = ns[LAT_48MB] if name == "bench" else ns[LAT_L2]  # the many index's 22.6 MB of rows stay in the L2
+        reps = 3 if name == "bench" else 5
         for lay, x in (("dense32", d32), ("dense64", d64)):
+            S = ssa_ops.walk_stride(xf.n, m, dev)
+            heads = ssa_ops.heads_only(xf.n)
+            n_seg = ssa_ops.segments(xf.n, m, S)
             walk = ssa_ops.ssa_gen_cuda(x, m, ss)
             if write_ssa_bytes(ssa_ops.assemble(m, ss, *walk)) != want:
                 fail(f"ssa_gen {lay} on the {name} index differs from `python -m ropebwt3_tpu ssa`")
-            longest = int(walk[2].max())
-            ms = probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss)] * (1 if name == "bench" else 5))
-            r = res[lay]
-            if name == "bench":
-                r.update(bench_ms=ms, bench_native_ms=native_ms, bench_longest=longest,
-                         bench_chain_floor_ms=longest * ns[LAT_48MB] / 1e6)
-                plain_note = f"plain not run (lanes of ~{int((xf.acc[6] - m) // m)} steps: as many lock-step trips)"
-            else:
+            # the walk's peak card memory: its own allocations and the rows
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            *got, rec = ssa_ops.launch_walk(x, m, ss, S)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before + x.nbytes
+            cap = ssa_ops.ssa_bytes(xf.n, m, ss, S, x.mega_shift if x.int64 else None)
+            if peak > cap:
+                fail(f"ssa_gen {lay} on the {name} index: peak card memory {peak} B above ssa_bytes {cap} B")
+            t1 = time.perf_counter()
+            *want_seg, want_rec = ssa_ops.ssa_gen_seg_plain(x, m, ss, S)
+            torch.cuda.synchronize()
+            seg_plain_ms = (time.perf_counter() - t1) * 1e3
+            err = max(walk_err(got, want_seg), max_abs(rec, want_rec[1:]), walk_err(walk, want_seg))
+            if err:
+                fail(f"ssa_gen {lay} on the {name} index: arrays or segment records differ from ssa_gen_seg_plain "
+                     f"by up to {err}")
+            longest_seg, longest = int(want_rec[0].max()), int(walk[2].max())
+            ms = probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss, S)] * reps)
+            passes = walk_passes(ssa_ops, probe, x, m, ss, S)
+            heads_ms = probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss, heads)] * (1 if name == "bench" else reps))
+            S_cut = stride(xf.n - m, dev)  # the shared stride rule alone, without walk_stride's heads-only cases
+            cut_ms = ms if S_cut == S else probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss, S_cut)] * reps)
+            out_bytes = nbytes(*walk)
+            r = dict(input=f"{name} index: n={xf.n}, m={m}, -s {ss}", S=S, n_seg=n_seg, ms=ms, pass_ms=passes,
+                     heads_only_ms=heads_ms, seg_plain_ms=seg_plain_ms,
+                     longest_segment=longest_seg, longest_walk=longest, chain_floor_ms=longest_seg * lat / 1e6,
+                     heads_only_chain_floor_ms=longest * lat / 1e6, bound_ms=bound_ms(x.nbytes + out_bytes),
+                     row_load_bound_ms=bound_ms(64 * xf.n), peak_bytes=peak, ssa_bytes=cap, native_ms=native_ms,
+                     rule_stride=S_cut, rule_stride_ms=cut_ms)
+            note = ""
+            if name != "bench":  # the lock-step walk, as the JAX package defines it: ~2 M trips on bench.py's index
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 want_arr = ssa_ops.ssa_gen_plain(x, m, ss)
                 torch.cuda.synchronize()
-                plain_ms = (time.perf_counter() - t1) * 1e3
-                err = walk_err(walk, want_arr)
-                if err:
-                    fail(f"ssa_gen {lay} on the {name} index: arrays differ from ssa_gen_plain by up to {err}")
-                r["err"] = max(r.get("err", 0), err)
-                if name == "many":  # its 22.6 MB of rows stay in the L2
-                    r.update(ms=ms, plain=plain_ms, bound=bound_ms(x.nbytes + nbytes(*walk)), longest=longest,
-                             chain_floor_ms=longest * ns[LAT_L2] / 1e6,
-                             input=f"many-sequence index: {N_READS} x {READ_LEN} bp reads, double strand, n={xf.n}, "
-                                   f"m={m}, -s {ss}")
-                plain_note = f"plain on the card {plain_ms:.4f} ms, arrays exact"
-            say(f"[ssa] {name} {lay}: SSA (-s {ss}) byte-equal to `python -m ropebwt3_tpu ssa`; kernel {ms:.4f} ms, "
-                f"longest walk {longest} steps, vs the reference's native walk and write {native_ms:.4f} ms "
-                f"({os.cpu_count()} host cores; its log); {plain_note} ({card})")
+                r["lockstep_plain_ms"] = (time.perf_counter() - t1) * 1e3
+                e2 = walk_err(walk, want_arr)
+                if e2:
+                    fail(f"ssa_gen {lay} on the {name} index: arrays differ from ssa_gen_plain by up to {e2}")
+                err = max(err, e2)
+                note = f"; ssa_gen_plain (lock-step) {r['lockstep_plain_ms']:.4f} ms, arrays exact"
+            elif lay == "dense32":
+                sweep = []
+                for Sw in (32, 64, 128, 256, 512, 1024, heads):
+                    w = ssa_ops.launch_walk(x, m, ss, Sw)
+                    if walk_err(w[:4], walk):
+                        fail(f"ssa_gen dense32 on the bench index at stride {Sw}: other arrays than at {S}")
+                    sweep.append(dict(S=Sw, n_seg=ssa_ops.segments(xf.n, m, Sw),
+                                      ms=probe.queued_ms([lambda Sw=Sw: ssa_ops.launch_walk(x, m, ss, Sw)]
+                                                         * (1 if Sw == heads else reps)),
+                                      pass_ms=walk_passes(ssa_ops, probe, x, m, ss, Sw) if Sw != heads else None))
+                r["stride_sweep"] = sweep
+                note = "; stride sweep (arrays equal at each): " + "; ".join(
+                    f"S {w['S']}: {w['n_seg']} segments, {w['ms']:.4f} ms"
+                    + (f" (passes {', '.join(f'{p:.4f}' for p in w['pass_ms'])})" if w["pass_ms"] else "")
+                    for w in sweep)
+            res[lay]["err"] = max(res[lay]["err"], err)
+            res[lay][name] = r
+            say(f"[ssa] {name} {lay}: SSA (-s {ss}) byte-equal to `python -m ropebwt3_tpu ssa`; S {S}, {n_seg} "
+                f"segments; kernel {ms:.4f} ms (passes {passes[0]:.4f} / {passes[1]:.4f} / {passes[2]:.4f}), heads-only walk "
+                f"{heads_ms:.4f} ms, at the stride rule's S {S_cut} {cut_ms:.4f} ms; longest segment {longest_seg} "
+                f"steps (chain floor {r['chain_floor_ms']:.4f} ms at {lat:.1f} ns), longest walk {longest} "
+                f"({r['heads_only_chain_floor_ms']:.4f} ms); bounds: tables and outputs {r['bound_ms']:.4f} ms, row "
+                f"loads {r['row_load_bound_ms']:.4f} ms; peak card memory {peak} B <= ssa_bytes {cap} B; arrays and "
+                f"segment records equal to ssa_gen_seg_plain on the card "
+                f"({seg_plain_ms:.4f} ms){note}; the reference's native walk and write {native_ms:.4f} ms "
+                f"({os.cpu_count()} host cores; its log) ({card})")
 
     path = None
     for name, xf, x_fmd, d32, d64, ss in inputs:
@@ -1315,14 +1389,14 @@ def main() -> None:
                         "input": r["input"], **({"indep_ms": r["indep_ms"]} if "indep_ms" in r else {})})
     for name in ("dense32", "dense64"):
         r = ssa_res[name]
+        b = r["bench"]
+        n = ssa_path["launches"].get(name, 0)
         entries.append({
             "name": f"ssa_gen_{name}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/ssa_gen.cu + occ.cuh",
-            "replaces": "ropebwt3_tpu/ssa_ops.py:127", "launches": ssa_path["launches"].get(name, 0),
-            "path": "ssa" if ssa_path["launches"].get(name, 0) else None, "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain"], "bound_ms": r["bound"], "bound_by": "bytes", "library_ms": None,
-            "chain_floor_ms": r["chain_floor_ms"], "input": r["input"], "longest_walk": r["longest"],
-            "bench_index_ms": r["bench_ms"], "bench_index_native_walk_ms": r["bench_native_ms"],
-            "bench_index_longest_walk": r["bench_longest"], "bench_index_chain_floor_ms": r["bench_chain_floor_ms"],
+            "replaces": "ropebwt3_tpu/ssa_ops.py:127-147 (ssa_gen_device body)", "launches": n,
+            "path": "ssa" if n else None, "max_abs_err": r["err"], "ms": b["ms"], "plain_ms": b["seg_plain_ms"],
+            "bound_ms": b["bound_ms"], "bound_by": "bytes", "library_ms": None, **b,
+            "many_index": r["many"], "corpus_index": r["corpus"],
         })
     k7, path = con["sa_round"], con["path"]
     entries.append({

@@ -95,11 +95,16 @@ def check_merge(idx: OccIndex, rec: torch.Tensor, m2: int) -> None:
         raise ValueError("B1's rows must count n nt6 symbols")
 
 
-def stride(n2: int, device) -> int:
-    """The segment stride for n2 B2 symbols on `device` (one SM on the CPU)."""
+def sm_count(device) -> int:
+    """The SMs of `device` (one on the CPU)."""
     device = torch.device(device)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 1
-    want = -(-n2 // (sms * LANES_PER_SM))
+    return torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 1
+
+
+def stride(n2: int, device) -> int:
+    """The segment stride for n2 positions to walk on `device`: the merge
+    rank's B2 symbols, ssa_ops.walk_stride's rows past the heads."""
+    want = -(-n2 // (sm_count(device) * LANES_PER_SM))
     return max(MIN_STRIDE, 1 << max(0, want - 1).bit_length())
 
 

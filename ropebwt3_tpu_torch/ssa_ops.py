@@ -7,11 +7,15 @@ a non-sentinel symbol, the slot (r - m) >> ss records the step and the lane.
 The host then turns (ssa_l, ssa_lane, death_l, final_k) into the SSA, as
 ssa_ops.py:200-207 does, and returns formats.ssa.SSA.
 
-`ssa_gen_plain` is the lock-step body of ssa_ops.py:127-147 in PyTorch (the
-CPU path and the reference for the kernel); `ssa_gen_cuda` wraps the CUDA
-kernel of csrc/ssa_gen.cu, one thread per lane.  Both take the dense occ rows
-of ops/rank.py `OccIndex` (dense32 or dense64): the symbol at k comes from
-the rows' bit-planes, so no BWT array goes to the device.
+The walks run as segments (csrc/ssa_gen.cu says how): one from each
+sentinel row and one from every S-th row past them, walked at once and
+ranked along their walks by pointer jumping.  `ssa_gen_cuda` runs the three
+passes of that kernel; `ssa_gen_seg_plain` is their lock-step PyTorch
+version (the CPU path, and the reference on the card); `ssa_gen_plain`, all
+m lanes in lock-step, is the body of ssa_ops.py:127-147 as the JAX package
+defines it.  All take the dense occ rows of ops/rank.py `OccIndex` (dense32
+or dense64): the symbol at k comes from the rows' bit-planes, so no BWT
+array goes to the device.
 
 `ssa_multi_batch` is the host side of `mem -p`: the native batched
 multi-locate (native/locate.cpp), as ropebwt3_tpu/ssa_ops.py runs it.
@@ -26,11 +30,19 @@ import numpy as np
 import torch
 
 from . import kernels, native
+from .construct.merge import LANES_PER_SM, sm_count, stride
 from .formats.ssa import SSA
 from .index.dense import DenseFMIndex
 from .ops.rank import OccIndex, lf
 
 MAX_SHIFT = 62  # positions are int64; a larger -s samples nothing past row m
+SEG_ROWS = 3  # per segment: d, nxt, term (csrc/ssa_gen.cu)
+ALLOC_ROUND, ALLOC_SPLIT = 512, 1 << 20  # PyTorch's caching allocator: its unit; a rest it does not split off
+# Walks shorter than this many strides on average run as their heads alone:
+# pass 1's longest segment is ~S ln(n_seg), 10-15 S at 10^4-10^6 segments,
+# so cutting them saves little and pass 2 costs more (on the short reads'
+# index, ~151 steps a walk at S = 128, the cut walk lost to the heads, PERF.md)
+MIN_WALK_STRIDES = 16
 
 
 def sid_bits(m: int) -> int:
@@ -45,12 +57,48 @@ def n_slots(idx: OccIndex, m: int, ssa_shift: int) -> int:
     return (int(idx.acc[6]) - m + (1 << ssa_shift) - 1) >> ssa_shift
 
 
-def check_walk(idx: OccIndex, m: int, ssa_shift: int) -> None:
+def heads_only(n: int) -> int:
+    """A stride above n: the walk's segments are the m heads alone."""
+    return 1 << n.bit_length()
+
+
+def walk_stride(n: int, m: int, device) -> int:
+    """The segment stride S of a walk of n rows with m heads on `device`:
+    construct/merge.py's `stride` rule on the n - m rows past the heads, or
+    heads only when the m heads alone give every SM LANES_PER_SM lanes or
+    the mean walk is shorter than MIN_WALK_STRIDES strides."""
+    S = stride(n - m, device)
+    if m >= sm_count(device) * LANES_PER_SM or n - m < MIN_WALK_STRIDES * S * m:
+        return heads_only(n)
+    return S
+
+
+def jump_rounds(n_seg: int, m: int) -> int:
+    """Pass 2's rounds: a walk's chain is its head and at most n_seg - m
+    strided segments, so after bit_length(n_seg - m) rounds every head
+    points past its last; none with the heads alone."""
+    return (n_seg - m).bit_length()
+
+
+def segments(n: int, m: int, S: int) -> int:
+    """n_seg: the m heads (segments 0..m-1, at the sentinel rows), then one
+    segment from each row m + j S below n (segment m + j), none when
+    S > n - m.  No sentinel, no walk: m == 0 gives none."""
+    if not isinstance(S, int) or S < 1:
+        raise ValueError(f"the segment stride must be a positive int, not {S!r}")
+    if not m:
+        return 0
+    return m + (-(-(n - m) // S) if S <= n - m else 0)
+
+
+def check_walk(idx: OccIndex, m: int, ssa_shift: int, S: int | None = None, kernel: bool = False) -> None:
     """The bounds a walk relies on (ROADMAP F2): dense rows; every symbol an
     nt6 code (acc[6] = n: the rows count symbols 0..5 only); lanes 0..m-1
     that are the sentinel rows, m = acc[1], with lane ids in int32; a shift
     in [0, MAX_SHIFT].  Steps fit the index's width: a lane walks at most n
-    steps, and dense32 holds n < 2^31."""
+    steps, and dense32 holds n < 2^31.  With a stride S: segment ids in
+    int32, and for the kernel S a power of two (a mask in each step) of at
+    most 2^62."""
     if not isinstance(idx, OccIndex):
         raise TypeError(f"SSA generation takes dense occ rows (OccIndex), not {type(idx).__name__}")
     acc = idx.acc.tolist()
@@ -60,6 +108,34 @@ def check_walk(idx: OccIndex, m: int, ssa_shift: int) -> None:
         raise ValueError(f"m = {m} must be acc[1] = {acc[1]} and below 2^31")
     if not 0 <= ssa_shift <= MAX_SHIFT:
         raise ValueError(f"sample shift {ssa_shift} outside [0, {MAX_SHIFT}]")
+    if S is not None:
+        check_segments(idx.n, m, S, kernel)
+
+
+def check_segments(n: int, m: int, S: int, kernel: bool) -> None:
+    n_seg = segments(n, m, S)
+    if n_seg >= 1 << 31:
+        raise ValueError(f"{n_seg} segments at stride {S}: segment ids must fit int32")
+    if kernel and (S & (S - 1) or S > 1 << MAX_SHIFT):
+        raise ValueError(f"the kernel takes a power-of-two stride of at most 2^{MAX_SHIFT}, not {S}")
+
+
+def ssa_bytes(n: int, m: int, ssa_shift: int, S: int, mega_shift: int | None = None) -> int:
+    """Card bytes of a walk at its peak: the index's rows (48 B a 64
+    symbols, the padded last block and the extra row; int64 rows
+    (`mega_shift` given) add a 48-B base a megablock of 2^mega_shift rows),
+    acc, the slot arrays, death_l, final_k and lane_of, and the segment
+    records: three int64 a segment, double-buffered (48 B; 0.375 B a symbol
+    at S = 128).  Each array as PyTorch's caching allocator counts it:
+    rounded up to 512 B, and one of 1 MiB or more may hold a rest of up to
+    1 MiB that the allocator does not split off."""
+    w = 4 if mega_shift is None else 8
+    nb = n // 64 + 2
+    n_ssa = (n - m + (1 << ssa_shift) - 1) >> ssa_shift
+    arrays = [48 * nb, 7 * w, w * n_ssa, 4 * n_ssa, w * m, w * m, 4 * m, 2 * SEG_ROWS * 8 * segments(n, m, S)]
+    if mega_shift is not None:
+        arrays.append(48 * ((nb + (1 << mega_shift) - 1) >> mega_shift))
+    return sum(-(-a // ALLOC_ROUND) * ALLOC_ROUND + (ALLOC_SPLIT if a >= ALLOC_SPLIT else 0) for a in arrays)
 
 
 def ssa_gen_plain(idx: OccIndex, m: int, ssa_shift: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -94,33 +170,119 @@ def ssa_gen_plain(idx: OccIndex, m: int, ssa_shift: int) -> tuple[torch.Tensor, 
     return ssa_l[:n_ssa], ssa_lane[:n_ssa], death_l, final_k
 
 
-def ssa_gen_cuda(idx: OccIndex, m: int, ssa_shift: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+def ssa_gen_seg_plain(idx: OccIndex, m: int, ssa_shift: int,
+                      S: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's three passes at stride S (any positive int), each over
+    all its segments in lock-step: the four arrays of `ssa_gen_plain` (int64
+    and int32, slots no lane reaches -1 / 0), then the segment records
+    (4, n_seg) int64: pass 1's length of each segment, then d, nxt and term
+    after pass 2, the three rows the kernel leaves."""
+    check_walk(idx, m, ssa_shift, S)
+    dev = idx.device
+    n_ssa, n_seg = n_slots(idx, m, ssa_shift), segments(idx.n, m, S)
+    mask = (1 << ssa_shift) - 1
+    # slot n_ssa is the dummy that non-hit segments scatter into
+    ssa_l = torch.zeros(n_ssa + 1, dtype=torch.int64, device=dev)
+    ssa_lane = torch.full((n_ssa + 1,), -1, dtype=torch.int32, device=dev)
+    seg_ids = torch.arange(n_seg, dtype=torch.int64, device=dev)
+    d, nxt, term = torch.zeros_like(seg_ids), torch.full_like(seg_ids, -1), torch.full_like(seg_ids, -1)
+
+    # pass 1: a strided start row that is sampled takes step 0; each segment
+    # walks to a `$` step or to the next start row
+    g = seg_ids
+    r0 = (g - m) * S
+    hit = (g >= m) & ((r0 & mask) == 0)
+    ssa_lane[r0[hit] >> ssa_shift] = g[hit].int()
+    k = torch.where(g < m, g, m + r0)
+    t = 0
+    while g.numel():
+        c, nk = lf(idx, k)
+        t += 1
+        r = nk - m
+        end = c == 0
+        at_start = ~end & (r % S == 0) & (n_seg > m)
+        hit = ~end & ~at_start & ((r & mask) == 0)
+        x = torch.where(hit, r >> ssa_shift, n_ssa)
+        ssa_l[x] = t
+        ssa_lane[x] = g.int()
+        done = end | at_start
+        if not bool(done.any()):
+            k = nk
+            continue
+        d[g[done]] = t
+        term[g[end]] = nk[end]
+        nxt[g[at_start]] = m + r[at_start] // S
+        g, k = g[~done], nk[~done]
+
+    length = d.clone()
+    # pass 2: pointer jumping
+    for _ in range(jump_rounds(n_seg, m)):
+        go = nxt >= 0
+        j = torch.where(go, nxt, seg_ids)
+        d, nxt, term = torch.where(go, d + d[j], d), nxt[j], term[j]
+
+    # pass 3: lanes, then slots; a slot of a segment no lane reaches is cleared
+    death_l, final_k = d[:m].clone(), term[:m].clone()
+    lane_of = torch.empty(m, dtype=torch.int64, device=dev)
+    lane_of[final_k] = torch.arange(m, dtype=torch.int64, device=dev)
+    ssa_l, ssa_lane = ssa_l[:n_ssa], ssa_lane[:n_ssa]
+    f = torch.nonzero(ssa_lane >= 0)[:, 0]
+    gs = ssa_lane[f].long()
+    reached = nxt[gs] < 0
+    lane = lane_of[term[gs].clamp(min=0)]
+    ssa_l[f] = torch.where(reached, death_l[lane] - (d[gs] - ssa_l[f]), 0)
+    ssa_lane[f] = torch.where(reached, lane, -1).int()
+    return ssa_l, ssa_lane, death_l, final_k, torch.stack([length, d, nxt, term])
+
+
+def ssa_gen_cuda(idx: OccIndex, m: int, ssa_shift: int,
+                 S: int | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The walk through the ssa_gen kernel of the index's layout: the same
     four tensors as `ssa_gen_plain`, ssa_l, death_l and final_k in the
-    index's width.  A CPU index takes the plain version."""
-    check_walk(idx, m, ssa_shift)
+    index's width.  S, the segment stride, is derived from n, m and the card
+    (`walk_stride`); the tests pass small ones (any positive int on the CPU,
+    a power of two on the card).  A CPU index takes the plain version."""
+    S = walk_stride(idx.n, m, idx.device) if S is None else S
+    check_walk(idx, m, ssa_shift, S, kernel=idx.device.type != "cpu")
     if idx.device.type == "cpu":
-        return ssa_gen_plain(idx, m, ssa_shift)
-    return launch_walk(idx, m, ssa_shift)
+        return ssa_gen_seg_plain(idx, m, ssa_shift, S)[:4]
+    return launch_walk(idx, m, ssa_shift, S)[:4]
 
 
-def launch_walk(idx: OccIndex, m: int, ssa_shift: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`ssa_gen_cuda` on a CUDA index that `check_walk` has passed, counting
-    the launch: timing loops call this, as the check reads acc back to the
-    host."""
-    n_ssa = n_slots(idx, m, ssa_shift)
+def launch_walk(idx: OccIndex, m: int, ssa_shift: int, S: int,
+                marks: list | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ssa_gen_cuda` on a CUDA index that `check_walk` has passed at the
+    stride S: the four arrays and the segment records (3, n_seg) int64, d,
+    nxt and term after pass 2 (rows 1-3 of `ssa_gen_seg_plain`'s).  Counts
+    one launch a walk.  `marks`, four CUDA events, are recorded before pass
+    1 and after each pass.  Timing loops call this, as the check reads acc
+    back to the host."""
+    n_ssa, n_seg = n_slots(idx, m, ssa_shift), segments(idx.n, m, S)
     dev, dt = idx.device, idx.dtype
     ssa_l = torch.zeros(n_ssa, dtype=dt, device=dev)
     ssa_lane = torch.full((n_ssa,), -1, dtype=torch.int32, device=dev)
     death_l = torch.zeros(m, dtype=dt, device=dev)
     final_k = torch.zeros(m, dtype=dt, device=dev)
-    if m:
-        kernels.launch(
-            f"rb3c_ssa_gen_{idx.layout}", dev, *idx.kernel_tables(), m, ssa_shift, ssa_l.data_ptr(),
-            ssa_lane.data_ptr(), death_l.data_ptr(), final_k.data_ptr(),
+    seg = torch.empty((2, SEG_ROWS, n_seg), dtype=torch.int64, device=dev)
+    rounds = jump_rounds(n_seg, m)
+    if n_seg:
+        lane_of = torch.empty(m, dtype=torch.int32, device=dev)
+        passes = (
+            (f"rb3c_ssa_walk_{idx.layout}", *idx.kernel_tables(), m, ssa_shift, S.bit_length() - 1, n_seg,
+             ssa_l.data_ptr(), ssa_lane.data_ptr(), seg.data_ptr()),
+            ("rb3c_ssa_jump", seg.data_ptr(), n_seg, rounds),
+            (f"rb3c_ssa_finish_{idx.layout}", seg[rounds % 2].data_ptr(), n_seg, m, n_ssa, ssa_l.data_ptr(),
+             ssa_lane.data_ptr(), death_l.data_ptr(), final_k.data_ptr(), lane_of.data_ptr()),
         )
+        marks = marks or [None] * 4
+        for ev, (name, *args) in zip(marks, passes):
+            if ev is not None:
+                ev.record()
+            kernels.launch(name, dev, *args)
+        if marks[3] is not None:
+            marks[3].record()
         ssa_gen_cuda.launches[idx.layout] += 1
-    return ssa_l, ssa_lane, death_l, final_k
+    return ssa_l, ssa_lane, death_l, final_k, seg[rounds % 2]
 
 
 ssa_gen_cuda.launches = Counter()

@@ -255,6 +255,32 @@ def test_ssa_kernel_matches_plain(corpus_index, cuda_device, layout, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [4, 128, "above_n"])
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("which", ["corpus", "many"])
+def test_ssa_segments_match_plain(corpus_index, cuda_device, layout, which, S):
+    """ssa_gen's three passes on the card against ssa_gen_seg_plain on the
+    CPU at the same stride (above n: the heads alone), at ss 0, 3 and 8: the
+    four arrays and the segment records exact, one launch a walk; a stride
+    that is not a power of two is refused."""
+    f = corpus_index if which == "corpus" else short_seqs_index(3000)
+    cpu, gpu = make_index(layout, f, "cpu"), make_index(layout, f, cuda_device)
+    m = int(f.acc[1])
+    S = ssa_ops.heads_only(f.n) if S == "above_n" else S
+    for ss in (0, 3, 8):
+        before = ssa_ops.ssa_gen_cuda.launches[layout]
+        *got, rec = ssa_ops.launch_walk(gpu, m, ss, S)
+        torch.cuda.synchronize()
+        *want, want_rec = ssa_ops.ssa_gen_seg_plain(cpu, m, ss, S)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().long(), w.long())
+        assert torch.equal(rec.cpu(), want_rec[1:])
+        assert ssa_ops.ssa_gen_cuda.launches[layout] == before + 1
+    with pytest.raises(ValueError):
+        ssa_ops.ssa_gen_cuda(gpu, m, 3, S=7)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cols", probe.ROW_COLS)
 def test_probe_gather_kernels_match_plain(cuda_device, cols):
     """Both gather kernels in every mode, exact against gather_plain: a
