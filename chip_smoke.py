@@ -15,7 +15,9 @@ it.  Phases:
 
   build     compile the kernels from csrc/ (nvcc, sm_90a, one nvcc per source)
   corpus    generate the data from a seed; build the FMD with the repo's own
-            index build (cached under .bench/torch_smoke/)
+            index build (cached under .bench/torch_smoke/); the four layouts'
+            rows on the card, with the rb escapes packed into 64-B sub-rows
+            (pack_escapes timed alone) and each layout's B/sym
   construct `build` on the card (csrc/sa_round.cu K7, csrc/merge_rank.cu K6):
             bench.py's genomes in one batch, then with -m 16M (three merges
             of 8 sequences of 2 M steps: the build path, counts reset before
@@ -50,7 +52,9 @@ it.  Phases:
             `tab[idx]` beside the `indep` gathers as the library yardstick;
             then the probe path, `python -m ropebwt3_tpu_torch.probe`'s main,
             with launch counts reset before and read after: its latency sweep
-            gives this run's ns per dependent step, which the chain floors use
+            gives this run's ns per dependent step, which the chain floors use;
+            the same sweep on a table of each rb layout's size gives the rb
+            chain floors' step
   smem      per layout: smem_tg (one thread per read) vs smem_tg_plain on the
             card, 4,096 reads, exact; smem_tgc (one thread per lane) vs the
             plain lanes on the main path's lanes of 64 long reads and 2,048
@@ -59,7 +63,11 @@ it.  Phases:
             must equal the one-thread kernel's rows and counts (rerun with a
             buffer of the true counts) and dense32's; times of both kernels,
             n_unmerged, trip counts, the roofline bound and the chain floor;
-            on dense32 also a sweep of the chunk size
+            on dense32 also a sweep of the chunk size.  On rb rows the bytes
+            bound counts the 32-B sectors that the plain twin's ranks read
+            (on the main path's batch: its lanes on the dense32 rows, the
+            same positions), and the chain floor takes two dependent load
+            rounds a trip
   ssa       ssa_gen (csrc/ssa_gen.cu: segments walked at once, ranked by
             pointer jumping) on three indexes: bench.py's (m = 32 walks of
             2 M steps, dense32 and dense64 with megablocks of 2^20 symbols),
@@ -128,6 +136,10 @@ DENSE64_SHIFT, RB64_S, RB64_SHIFT = 14, 256, 12
 # lanes); the short reads in batches of 40,000, 40,000 and 20,000 reads
 CONSTRUCT_M, MANY_M = "16M", "12M"
 N64 = (1 << 32) + (1 << 31)  # rank64: 6,442,450,944 symbols, a multiple of 8192
+# dependent load rounds of one rank on rb rows (csrc/rb.cuh): the row's
+# header, then its records or one escape sub-row; an SMEM trip's two ranks
+# run side by side
+RB_ROUNDS = 2
 DEVICE = "cuda"
 
 
@@ -253,19 +265,68 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def rb_sectors(idx, k):
+    """The 32-B sectors of an rb index's tables that a rank at each k reads
+    on the card (csrc/rb.cuh), as the plain twin finds its block and
+    sub-row: (N, 5) ids, rows' sectors first, then the escape table's.  A
+    run-coded block: its row's five (header and records); an escape block:
+    the header's and the two of the sub-row that holds the offset (the
+    header's repeated)."""
+    import torch
+
+    bi, off = idx.block_and_offset(k.long())
+    row = bi * 5
+    e = idx.rows[bi, 6].long()
+    W4 = idx.esc.shape[1]
+    sub = idx.rows.shape[0] * 5 + (e.clamp(min=0) * W4 + (off >> 7).clamp(max=W4 - 1)) * 2
+    return torch.where((e >= 0)[:, None], torch.stack([row, sub, sub + 1, row, row], dim=-1),
+                       row[:, None] + torch.arange(5, device=k.device))
+
+
+class SectorCount:
+    """An index for the plain twins that marks, at every position they rank,
+    the sectors the card's rank would read in each of the rb indexes `rbs`
+    (and their megablock bases): the positions are the same on every layout."""
+
+    def __init__(self, idx, rbs):
+        import torch
+
+        self.idx, self.rbs = idx, rbs
+        self.seen = [torch.zeros(x.rows.shape[0] * 5 + x.esc.numel() // 8, dtype=torch.bool, device=x.device) for x in rbs]
+        self.mega = [torch.zeros(x.mega.shape[0] if x.int64 else 0, dtype=torch.bool, device=x.device) for x in rbs]
+
+    def __getattr__(self, name):
+        return getattr(self.idx, name)
+
+    def mark(self, k) -> None:
+        k = k.flatten().long()
+        for x, seen, mega in zip(self.rbs, self.seen, self.mega):
+            seen[rb_sectors(x, k).flatten()] = True
+            if x.int64:
+                mega[x.block_and_offset(k)[0] >> x.mega_shift] = True
+
+    def rank1a(self, k):
+        self.mark(k)
+        return self.idx.rank1a(k)
+
+    def bytes(self) -> list[int]:
+        """Per rb index: the distinct sectors read, 32 B each, its megablock
+        bases (48 B) and acc."""
+        return [int(s.sum()) * 32 + int(m.sum()) * 48 + nbytes(x.acc) for x, s, m in zip(self.rbs, self.seen, self.mega)]
+
+
 def table_bytes(rank, idx, k) -> int:
-    """Bytes of idx's tables that ranks at positions k need, each row once:
-    the distinct occ rows (and megablock bases); for rb rows the distinct
-    160-B rows and, for escape blocks among them, their escape rows."""
+    """Bytes of idx's tables that ranks at positions k need, each once: the
+    distinct occ rows (and megablock bases); for rb rows the distinct 32-B
+    sectors that the card's rank reads (rb_sectors)."""
     import torch
 
     if isinstance(idx, rank.OccIndex):
         rows = torch.unique(k.long() >> 6)
         return rows.numel() * 48 + (torch.unique(rows >> idx.mega_shift).numel() * 48 if idx.int64 else 0)
-    rows = torch.unique(idx.block_and_offset(k.long())[0])
-    esc = idx.rows[rows, 6]
-    n = rows.numel() * 160 + torch.unique(esc[esc >= 0]).numel() * idx.esc.shape[1] * 4
-    return n + (torch.unique(rows >> idx.mega_shift).numel() * 48 if idx.int64 else 0)
+    sc = SectorCount(idx, [idx])
+    sc.mark(k)
+    return sc.bytes()[0]
 
 
 def check_occ_kernels(rank, idx, k, ik, c, back, plain_reps: int) -> dict:
@@ -1034,11 +1095,13 @@ def main() -> None:
     )
     t0 = time.perf_counter()
     S_bench, s_stats = runblock.choose_S(runblock.runs_from_dense(f)[1], f.n)
+    rb_np = {"rb32": runblock.from_dense_np(f, cache=None),
+             "rb64": runblock.from_dense_np(f, S=RB64_S, int64=True, mega_shift=RB64_SHIFT, cache=None)}
     idxs = {
         "dense32": idx,
         "dense64": rank.OccIndex.from_dense(f, dev, int64=True, mega_shift=DENSE64_SHIFT),
-        "rb32": runblock.RunBlockIndex.from_dense(f, dev, cache=None),
-        "rb64": runblock.RunBlockIndex.from_dense(f, dev, S=RB64_S, int64=True, mega_shift=RB64_SHIFT, cache=None),
+        "rb32": runblock.RunBlockIndex.from_np(rb_np["rb32"], dev),
+        "rb64": runblock.RunBlockIndex.from_np(rb_np["rb64"], dev),
     }
     say(
         f"[corpus] the other layouts in {time.perf_counter() - t0:.3f} s: "
@@ -1048,8 +1111,17 @@ def main() -> None:
             + (f", {x.mega.shape[0]} megablocks" if x.int64 else "") + ")"
             for name, x in idxs.items()
         )
-        + "; choose_S (bytes, escape share): " + ", ".join(f"{S}: {v[0]} {v[1]:.4f}" for S, v in s_stats.items())
+        + "; choose_S (cache bytes, escape share, card bytes): "
+        + ", ".join(f"{S}: {v[0]} {v[1]:.4f} {v[2]}" for S, v in s_stats.items())
     )
+    # the escape pack alone (planes to sub-rows on the card), warm
+    rb_pack = {name: dict(ms=wall_ms(lambda d=d: runblock.pack_escapes(d["esc"], d["S"], dev)), esc_rows=len(d["esc"]),
+                          cache_bytes=d["esc"].nbytes, card_bytes=nbytes(idxs[name].esc),
+                          b_per_sym=idxs[name].nbytes / f.n) for name, d in rb_np.items()}
+    del rb_np
+    say("[corpus] escape pack (pack_escapes: cache planes to 64-B sub-rows, on the card): " + "; ".join(
+        f"{name} {p['ms']:.3f} ms for {p['esc_rows']} escape rows ({p['cache_bytes']} B of planes -> {p['card_bytes']} B "
+        f"of sub-rows), {p['b_per_sym']:.4f} B/sym on the card" for name, p in rb_pack.items()) + f" ({card})")
 
     # ---- construct -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1083,11 +1155,14 @@ def main() -> None:
     d64 = runblock.build_runblock_np(syms, lens, n=N64)
     t1 = time.perf_counter()
     x64 = runblock.RunBlockIndex.from_np(d64, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
     del d64
     if not (S64 == x64.S == 8192 and x64.int64 and x64.n_esc >= 1 and x64.n % x64.S == 0):
         fail(f"rank64 rows: S {x64.S} (choose_S {S64}), int64 {x64.int64}, {x64.n_esc} escape blocks")
     say(
-        f"[rank64] {len(lens)} runs, n={N64}; rb64 rows built in {t1 - t0:.3f} s: S {x64.S}, {x64.rows.shape[0]} rows, "
+        f"[rank64] {len(lens)} runs, n={N64}; rb64 rows built in {t1 - t0:.3f} s, uploaded (escapes packed) in "
+        f"{t2 - t1:.3f} s: S {x64.S}, {x64.rows.shape[0]} rows, "
         f"{x64.n_esc} escape blocks, {x64.mega.shape[0]} megablocks, {x64.nbytes} B on the card "
         f"({x64.nbytes / N64:.5f} B/sym; choose_S bytes {[stats[s][0] for s in runblock.S_CHOICES]})"
     )
@@ -1134,6 +1209,13 @@ def main() -> None:
     say(f"[probe] path `python -m ropebwt3_tpu_torch.probe` in {time.perf_counter() - t0:.3f} s; launches "
         + ", ".join(f"{k} {v['launches']}" for k, v in probe_res.items())
         + f"; ns per dependent step: {ns[LAT_L2]} ({LAT_L2}), {ns[LAT_48MB]} ({LAT_48MB})")
+    # the rb chain floors' step: the latency sweep on a table of the rb tables' size
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name in ("rb32", "rb64"):
+        nb = idxs[name].nbytes
+        lat = probe.latency_sweep(dev, gen, tables=[(f"48 B x {nb // 48} ({nb / 1e6:.1f} MB)", nb // 48, 12)])[0]
+        ns[name] = lat["ns_per_step"]
+        say(f"[probe] ns per dependent step at the {name} tables' size, {lat['table']}: {ns[name]} ({card})")
 
     # K6's chain floors: pass 1's longest segment, then pass 2's longest
     # hand-over, a dependent row step each.  The short reads' B1 rows (9 MB)
@@ -1163,25 +1245,31 @@ def main() -> None:
     n_short = N_READS * READ_LEN
     smem_res, ref, sweep = {}, None, []
     for name, x in idxs.items():
+        # rb: the tables' bytes are the sectors the plain twin's ranks read;
+        # a trip's chain step is RB_ROUNDS loads at the rb tables' size
+        is_rb = name.startswith("rb")
+        sc1, scc = (SectorCount(x, [x]), SectorCount(x, [x])) if is_rb else (x, x)
+        step = RB_ROUNDS * ns[name] if is_rb else ns[LAT_48MB]
         k1 = smem.smem_tg_cuda(x, sflat, soff, trips=True, **args)
-        err1 = chains_err(k1, smem.smem_tg_plain(x, sflat, soff, **args), MAX_MEMS, f"smem_tg {name}")
+        err1 = chains_err(k1, smem.smem_tg_plain(sc1, sflat, soff, **args), MAX_MEMS, f"smem_tg {name}")
         kc = smem.smem_tgc_cuda(x, cflat, coff, clanes, trips=True, **args)
-        errc = chains_err(kc, smem.smem_tg_plain(x, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args), MAX_MEMS,
+        errc = chains_err(kc, smem.smem_tg_plain(scc, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args), MAX_MEMS,
                           f"smem_tgc {name}")
         if err1 or errc:
             fail(f"smem {name}: smem_tg off by {err1}, smem_tgc off by {errc} against smem_tg_plain")
         r = dict(err=err1, cerr=errc,
                  ms=probe.queued_ms([lambda: smem.launch_tg(x, sflat, soff, **args)] * 10),
                  plain=wall_ms(lambda: smem.smem_tg_plain(x, sflat, soff, **args)),
-                 bound=bound_ms(x.nbytes + nbytes(sflat, soff) + nbytes(k1.n_mem) + int(k1.n_mem.clamp(max=MAX_MEMS).sum())
-                                * 5 * k1.mems.element_size()),
-                 floor=int(k1.trips.max()) * ns[LAT_48MB] / 1e6,
+                 bound=bound_ms((sc1.bytes()[0] if is_rb else x.nbytes) + nbytes(sflat, soff) + nbytes(k1.n_mem)
+                                + int(k1.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * k1.mems.element_size()),
+                 floor=int(k1.trips.max()) * step / 1e6,
                  cms=probe.queued_ms([lambda: smem.launch_tgc(x, cflat, coff, clanes, **args)] * 10),
                  cplain=wall_ms(lambda: smem.smem_tg_plain(x, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args)),
-                 cbound=bound_ms(x.nbytes + nbytes(cflat, coff, clanes, kc.n_mem, kc.n_log)
+                 cbound=bound_ms((scc.bytes()[0] if is_rb else x.nbytes) + nbytes(cflat, coff, clanes, kc.n_mem, kc.n_log)
                                  + int(kc.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * kc.mems.element_size()
                                  + int(kc.n_log.clamp(max=smem.LOG_LEN).sum()) * 4),
-                 cfloor=int(kc.trips.max()) * ns[LAT_48MB] / 1e6)
+                 cfloor=int(kc.trips.max()) * step / 1e6)
+        del sc1, scc
         # the main path's batch: the chunked engine against the one-thread kernel
         out = smem.smem_tg(x, aflat, aoff, **args)
         counts, rows, read_trips = serial_answer(smem, x, aflat, aoff)
@@ -1200,10 +1288,10 @@ def main() -> None:
             engine_ms=wall_ms(lambda: smem.smem_tg(x, aflat, aoff, **args)),
             lane_trips=int(lane_trips.max()), lane_trips_sum=int(lane_trips.sum()), read_trips=int(read_trips.max()),
             read_trips_sum=int(read_trips.sum()),
-            batch_bound=bound_ms(x.nbytes + nbytes(aflat, aoff, counts, rows)),
+            batch_io=nbytes(aflat, aoff, counts, rows), batch_bound=bound_ms(x.nbytes + nbytes(aflat, aoff, counts, rows)),
         )
         for key, trips in (("tgc", r["lane_trips"]), ("tg", r["read_trips"])):
-            r[f"{key}_floor"] = (trips * ns[LAT_L2] / 1e6, trips * ns[LAT_48MB] / 1e6)
+            r[f"{key}_floor"] = (trips * step / 1e6,) if is_rb else (trips * ns[LAT_L2] / 1e6, trips * ns[LAT_48MB] / 1e6)
         smem_res[name] = r
         say(
             f"[smem] {name}: smem_tg exact on {N_SMEM} reads ({int(k1.n_mem.sum())} MEMs) {r['ms']:.4f} ms vs plain "
@@ -1216,9 +1304,11 @@ def main() -> None:
             f"{r['tgc_ms']:.4f} ms, engine (launch, stitch, reruns) {r['engine_ms']:.4f} ms, n_unmerged {out.n_unmerged}, "
             f"n_rerun {out.n_rerun}; one-thread smem_tg {r['tg_ms']:.4f} ms, its {N_READS} short reads alone "
             f"{r['short_ms']:.4f} ms; trips: longest lane {r['lane_trips']} (all lanes {r['lane_trips_sum']}), longest "
-            f"read {r['read_trips']} (all reads {r['read_trips_sum']}); roofline bound (bytes) {r['batch_bound']:.4f} ms; "
-            f"chain floor smem_tgc {r['tgc_floor'][0]:.4f} / {r['tgc_floor'][1]:.4f} ms, smem_tg {r['tg_floor'][0]:.4f} / "
-            f"{r['tg_floor'][1]:.4f} ms (at {ns[LAT_L2]} / {ns[LAT_48MB]} ns a step) ({card})"
+            f"read {r['read_trips']} (all reads {r['read_trips_sum']}); roofline bound (the whole tables) "
+            f"{r['batch_bound']:.4f} ms; chain floor smem_tgc "
+            + " / ".join(f"{v:.4f}" for v in r["tgc_floor"]) + " ms, smem_tg " + " / ".join(f"{v:.4f}" for v in r["tg_floor"])
+            + (f" ms ({RB_ROUNDS} rounds a trip at {ns[name]} ns)" if is_rb else f" ms (at {ns[LAT_L2]} / {ns[LAT_48MB]} ns a step)")
+            + f"; lanes' check: smem_tgc {r['cms']:.4f} ms, bound {r['cbound']:.4f} ms, chain floor {r['cfloor']:.4f} ms ({card})"
         )
         if name == "dense32":
             for C in CHUNK_SWEEP:
@@ -1236,7 +1326,23 @@ def main() -> None:
                 f"{w['engine_ms']:.4f} ms, longest lane {w['max_trips']} trips (all {w['sum_trips']}), n_unmerged "
                 f"{w['n_unmerged']}" for w in sweep) + f" ({card})")
         del k1, kc, out, rows
-    del aflat, aoff, alanes, ref
+    # the main path's batch: the sectors its ranks read in the rb tables,
+    # from the plain twin's lanes on the dense32 rows (the same positions)
+    t0 = time.perf_counter()
+    sc = SectorCount(idxs["dense32"], [idxs["rb32"], idxs["rb64"]])
+    chains = smem.smem_tg_plain(sc, aflat, aoff, lanes=alanes, log_len=smem.LOG_LEN, **args)
+    if int(chains.trips.max()) != smem_res["dense32"]["lane_trips"]:
+        fail("smem: the plain twin's lanes on the main path's batch take other trips than smem_tgc")
+    for name, b in zip(("rb32", "rb64"), sc.bytes()):
+        r = smem_res[name]
+        r["batch_sector_bytes"] = b
+        r["batch_sector_bound"] = bound_ms(b + r["batch_io"])
+    say(f"[smem] main path's batch, the sectors its ranks read (plain twin's lanes, {time.perf_counter() - t0:.1f} s): "
+        + "; ".join(f"{name} {smem_res[name]['batch_sector_bytes']} B of {idxs[name].nbytes} B, bound "
+                    f"{smem_res[name]['batch_sector_bound']:.4f} ms, chain floor {smem_res[name]['tgc_floor'][0]:.4f} ms, "
+                    f"smem_tgc {smem_res[name]['tgc_ms']:.4f} ms" for name in ("rb32", "rb64"))
+        + f"; dense32 smem_tgc {smem_res['dense32']['tgc_ms']:.4f} ms ({card})")
+    del sc, chains, aflat, aoff, alanes, ref
 
     # ---- ssa -----------------------------------------------------------------
     ssa_res, ssa_path = check_ssa(cli, ssa_ops, probe, rank, dev, card, f, fmd, idxs, reads, ns)
@@ -1345,6 +1451,11 @@ def main() -> None:
     smem_src, smem_rep = "ropebwt3_tpu_torch/csrc/smem_tg.cu", "ropebwt3_tpu/ops/smem_pallas.py:91"
     for name in LAYOUTS:
         s = smem_res[name]
+        rb = {} if not name.startswith("rb") else {
+            "bound_counts": "the 32-B sectors of the rb tables that the plain twin's ranks read",
+            "chain_floor_rounds_per_trip": RB_ROUNDS, "chain_floor_ns_per_step": ns[name],
+            "chain_floor_table_bytes": idxs[name].nbytes, "dense32_main_path_batch_ms": smem_res["dense32"]["tgc_ms"],
+        }
         n, path = path_launches("smem_tg", name)
         entries.append({
             "name": f"smem_tg_{name}", "route": "cuda", "source": smem_src, "replaces": smem_rep, "launches": n,
@@ -1353,7 +1464,7 @@ def main() -> None:
             "input": f"{N_SMEM} x {READ_LEN} bp reads, one thread each",
             "main_path_batch_ms": s["tg_ms"], "main_path_batch_short_reads_ms": s["short_ms"],
             "main_path_batch_bound_ms": s["batch_bound"], "main_path_batch_chain_floor_ms": s["tg_floor"],
-            "main_path_batch_longest_read_trips": s["read_trips"],
+            "main_path_batch_longest_read_trips": s["read_trips"], **rb,
         })
         n, path = path_launches("smem_tgc", name)
         entries.append({
@@ -1364,7 +1475,9 @@ def main() -> None:
             "main_path_batch_ms": s["tgc_ms"], "main_path_batch_engine_ms": s["engine_ms"],
             "main_path_batch_bound_ms": s["batch_bound"], "main_path_batch_chain_floor_ms": s["tgc_floor"],
             "main_path_batch_longest_lane_trips": s["lane_trips"], "n_unmerged": s["n_unmerged"], "n_rerun": s["n_rerun"],
-            **({"chunk_sweep": sweep} if name == "dense32" else {}),
+            **({"chunk_sweep": sweep} if name == "dense32" else {}), **rb,
+            **({"main_path_batch_sector_bytes": s["batch_sector_bytes"], "main_path_batch_sector_bound_ms":
+                s["batch_sector_bound"]} if rb else {}),
         })
     for name in LAYOUTS:
         o = occ_res[name]

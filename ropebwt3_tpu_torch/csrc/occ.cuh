@@ -27,7 +27,7 @@ namespace rb3c {
 // The tables of an index as the C entry points take them (kernels.py).
 struct Tables {
   const int* rows;       // dense: (nb, 12) int32; rb: (nb, 40) int32
-  const int* esc;        // rb escape planes, (n_esc, 3 * S / 32) int32
+  const int* esc;        // rb escape sub-rows, (n_esc, S / 128, 16) int32 (rb.cuh)
   const int64_t* mega;   // int64 mode: (n_mega, 6) megablock bases
   const void* acc;       // (7,) T
   int mega_shift;        // log2 rows per megablock

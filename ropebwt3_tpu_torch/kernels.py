@@ -16,7 +16,7 @@ thread per lane of a chunked read) come in one variant per occ layout: dense32 a
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
 `RunBlockIndex`); ssa_gen's walk and merge_rank in the two dense ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
-them: rows, escape planes, megablock bases, acc, the megablock shift and
+them: rows, escape sub-rows, megablock bases, acc, the megablock shift and
 log2 of the block size.  ssa_gen's finish pass comes in the two dense
 widths and its pointer-jumping pass in one; neither reads the index.  The
 probes of csrc/probe.cu take a plain int32 table (probe.py); the suffix

@@ -11,9 +11,21 @@ two in 256..8192, picked per index by `choose_S`) ONE 160-byte row:
     cols 8:40  64 packed uint16 run records (cumulative in-block end << 3) |
                keyed symbol, padded with zero-length records
 
-plus, for blocks of more than 64 split runs, an escape table of three keyed
-bit-planes (3 * S / 32 int32 words per row).  Dense rows cost 0.75 B/sym;
-these cost ~160/S B/sym plus escapes, some 0.02-0.3 B/sym on pangenomes.
+plus, for blocks of more than 64 split runs, a dense escape.  The host
+format (`build_runblock_np`, the `.rb.npz` cache) keeps the JAX package's
+three keyed bit-planes of S/32 int32 words (3S/8 B a block), so either
+package reads a cache the other wrote.  The uploaded `RunBlockIndex`, on the
+CPU as on the card, holds each escape as S/128 sub-rows of 64 B
+(`pack_escapes`, S/2 B a block):
+
+    words 0:3   six uint16 keyed counts of the block's symbols before the
+                sub-row (at most S - 128 = 8064), two a word, low half first
+    word  3     pad
+    words 4:16  the four words of planes 0, 1, 2 that cover its 128 symbols
+
+so an escape rank reads one 64-B sub-row, not the planes below its offset.
+Dense rows cost 0.75 B/sym; these cost ~160/S B/sym plus escapes, some
+0.02-0.3 B/sym on pangenomes.
 
 Two faults of the JAX reference are fixed here, not copied:
   F1  a position k at a block boundary (k = n included) is ranked at offset
@@ -26,11 +38,12 @@ Two faults of the JAX reference are fixed here, not copied:
 The `.rb.npz` cache is used only when its n, S and width match and it is no
 older than the index's sidecar (F3).
 
-`RunBlockIndex.rank1a` is the plain decode; `extend`, `extend_c` and
-`set_intv` of ops/rank.py take this index as they take `OccIndex`, and so do
-the kernel wrappers, which launch the rb32 / rb64 kernels (csrc/rb.cuh).
-The host builder calls the native `rb3t_runblock_count` / `_fill`
-(../native/rld_codec.cpp, the port's copy of the JAX package's builder).
+`RunBlockIndex.rank1a` is the plain decode, from the same sub-rows the card
+reads; `extend`, `extend_c` and `set_intv` of ops/rank.py take this index as
+they take `OccIndex`, and so do the kernel wrappers, which launch the rb32 /
+rb64 kernels (csrc/rb.cuh).  The host builder calls the native
+`rb3t_runblock_count` / `_fill` (../native/rld_codec.cpp, the port's copy of
+the JAX package's builder).
 """
 
 from __future__ import annotations
@@ -44,10 +57,14 @@ import torch
 from .. import native
 from .rank import ASIZE, FLIP, KEY, U32, extend, extend_c, needs_int64, popcount32, rank1a, rebase_mega, set_intv
 
-__all__ = ["RunBlockIndex", "rank1a", "extend", "extend_c", "set_intv", "choose_S", "build_runblock_np", "runs_from_dense"]
+__all__ = ["RunBlockIndex", "rank1a", "extend", "extend_c", "set_intv", "choose_S", "build_runblock_np", "runs_from_dense",
+           "pack_escapes"]
 
 RB_R = 64  # run records per row
 RB_COLS = 40
+SUB = 128  # symbols per escape sub-row
+SUB_WORDS = 16  # int32 words per escape sub-row: 3 of counts, a pad, 3 planes x 4
+PACK_WORDS = 1 << 22  # int64 words of temporaries per chunk of `pack_escapes`
 S_CHOICES = (8192, 4096, 2048, 1024, 512, 256)
 
 
@@ -59,7 +76,7 @@ def default_mega_shift(S: int) -> int:
 @dataclass(frozen=True)
 class RunBlockIndex:
     rows: torch.Tensor  # (nb, 40) int32
-    esc: torch.Tensor  # (max(n_esc, 1), 3 * S / 32) int32 keyed bit-planes
+    esc: torch.Tensor  # (max(n_esc, 1), S / 128, 16) int32 escape sub-rows (`pack_escapes`)
     acc: torch.Tensor  # (7,) int32 | int64
     n: int
     S: int
@@ -98,7 +115,8 @@ class RunBlockIndex:
 
     @classmethod
     def from_np(cls, d: dict, device) -> "RunBlockIndex":
-        """Upload the pieces that `build_runblock_np` returns."""
+        """Upload the pieces that `build_runblock_np` returns, the escape
+        planes packed into sub-rows on the device."""
         S, n, rows = int(d["S"]), int(d["n"]), d["rows"]
         if S not in S_CHOICES or rows.shape != ((n + S - 1) // S, RB_COLS) or d["esc"].shape[1:] != (3 * S // 32,):
             raise ValueError(f"inconsistent rb rows: S {S}, n {n}, rows {rows.shape}, esc {d['esc'].shape}")
@@ -108,7 +126,7 @@ class RunBlockIndex:
             raise ValueError("an escape row index points past the escape table")
         return cls(
             rows=torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(device),
-            esc=torch.from_numpy(np.ascontiguousarray(d["esc"], np.int32)).to(device),
+            esc=pack_escapes(d["esc"], S, device),
             acc=torch.from_numpy(np.asarray(d["acc"], np.int64 if d["int64"] else np.int32)).to(device),
             n=n,
             S=S,
@@ -157,21 +175,46 @@ def run_counts_keyed(recs: torch.Tensor, off: torch.Tensor, S: int) -> torch.Ten
 
 
 def dense_counts_keyed(esc: torch.Tensor, esc_i: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
-    """Counts per KEYED symbol below off (M,) int64 in [0, 32W] in escape
-    rows esc_i (M,) of esc (n_esc, 3W) int32 keyed bit-planes: (M, 6) int64.
-    In chunks of lanes, so the (lanes, W) temporaries stay ~2^24 words."""
-    W = esc.shape[-1] // 3
-    wi = torch.arange(W, device=off.device)
-    out = torch.empty(off.shape + (ASIZE,), dtype=torch.int64, device=off.device)
-    step = max(1, (1 << 24) // W)
-    for a in range(0, off.numel(), step):
-        p = (esc[esc_i[a : a + step]].long() & U32).unflatten(-1, (3, W))  # (m, plane, W)
-        mask = (1 << (off[a : a + step, None] - 32 * wi).clamp(0, 32)) - 1  # (m, W); 32 gives all ones
-        for kc in range(ASIZE):
-            eq = mask
-            for pl in range(3):
-                eq = eq & (p[:, pl] ^ int(FLIP[kc, pl]))
-            out[a : a + step, kc] = popcount32(eq).sum(-1)
+    """Counts per KEYED symbol below off (M,) int64 in [0, S] in escape rows
+    esc_i (M,) of the packed escape table esc (n_esc, S/128, 16): (M, 6)
+    int64, from ONE sub-row each, as the card ranks them (csrc/rb.cuh).  The
+    sub-row is off's, and S/128 - 1 at off = S; its counts before it plus
+    the plane bits below off in it."""
+    j = (off >> 7).clamp(max=esc.shape[1] - 1)
+    sub = esc[esc_i, j].long() & U32  # (M, 16)
+    out = torch.stack([sub[:, w // 2] >> (16 * (w % 2)) & 0xFFFF for w in range(ASIZE)], dim=-1)
+    p = sub[:, 4:].unflatten(-1, (3, 4))  # (M, plane, word)
+    rem = off - (j << 7)  # [0, 128]
+    mask = (1 << (rem[:, None] - 32 * torch.arange(4, device=off.device)).clamp(0, 32)) - 1  # 32 gives all ones
+    for kc in range(ASIZE):
+        eq = mask
+        for pl in range(3):
+            eq = eq & (p[:, pl] ^ int(FLIP[kc, pl]))
+        out[:, kc] += popcount32(eq).sum(-1)
+    return out
+
+
+def pack_escapes(planes: np.ndarray, S: int, device) -> torch.Tensor:
+    """The escape table as the rank reads it: (n_esc, S/128, 16) int32
+    sub-rows (module docstring) from the cache's (n_esc, 3 S/32) keyed
+    bit-planes, built on `device` with torch ops in chunks of rows, so the
+    temporaries stay ~PACK_WORDS words and the planes never sit whole on the
+    device."""
+    W4 = S // SUB
+    if planes.shape[1:] != (3 * S // 32,):
+        raise ValueError(f"escape planes {planes.shape} are not 3 x {S // 32} words a row")
+    out = torch.empty((len(planes), W4, SUB_WORDS), dtype=torch.int32, device=device)
+    step = max(1, PACK_WORDS // (3 * S // 32))
+    flip = torch.as_tensor(FLIP, device=device)
+    for a in range(0, len(planes), step):
+        p = torch.from_numpy(np.ascontiguousarray(planes[a : a + step], np.int32)).to(device).unflatten(1, (3, W4, 4))
+        out[a : a + step, :, 4:] = p.permute(0, 2, 1, 3).flatten(2)
+        w = p.long() & U32  # (m, plane, sub-row, word)
+        cnt = torch.stack([popcount32((w[:, 0] ^ flip[kc, 0]) & (w[:, 1] ^ flip[kc, 1]) & (w[:, 2] ^ flip[kc, 2])).sum(-1)
+                           for kc in range(ASIZE)], dim=-1)  # (m, sub-row, 6) keyed counts in each sub-row
+        before = cnt.cumsum(1) - cnt
+        out[a : a + step, :, :3] = (before[..., 0::2] | (before[..., 1::2] << 16)).int()
+        out[a : a + step, :, 3] = 0
     return out
 
 
@@ -196,14 +239,16 @@ def _split_counts(lens: np.ndarray, S: int, n: int) -> np.ndarray:
 
 
 def choose_S(lens: np.ndarray, n: int) -> tuple[int, dict]:
-    """The block size of fewest bytes (160 B rows + 3S/8 B per escape);
-    returns (S, {S: (bytes, escape share)})."""
+    """The block size of fewest bytes in the JAX package's rule (160 B rows
+    + 3S/8 B per escape, the cache's format); returns (S, {S: (bytes, escape
+    share, bytes on the device)}), the last with the S/2 B escapes of
+    `pack_escapes`."""
     lens = np.ascontiguousarray(lens, np.int64)
     stats = {}
     for S in S_CHOICES:
         cnt = _split_counts(lens, S, n)
         n_esc = int((cnt > RB_R).sum())
-        stats[S] = (len(cnt) * 160 + n_esc * (3 * S // 8), n_esc / max(len(cnt), 1))
+        stats[S] = (len(cnt) * 160 + n_esc * (3 * S // 8), n_esc / max(len(cnt), 1), len(cnt) * 160 + max(n_esc, 1) * S // 2)
     return min(S_CHOICES, key=lambda s: stats[s][0]), stats  # a tie keeps the larger S, as the JAX package does
 
 

@@ -256,8 +256,9 @@ def gather_sweep(device, gen: torch.Generator) -> list[dict]:
     return recs
 
 
-def latency_sweep(device, gen: torch.Generator) -> list[dict]:
-    """ns per dependent step from each table of LAT_TABLES, read whole first
+def latency_sweep(device, gen: torch.Generator, tables=LAT_TABLES) -> list[dict]:
+    """ns per dependent step from each (label, rows, cols) table of `tables`
+    (default LAT_TABLES), read whole first
     (a table that fits the L2 may then stay there): 32 lanes of
     LAT_ITERS `dep` steps, new random starts in each of LAT_REPS launches
     (queued back to back: each adds its launch gap, a few us, to 64 steps).
@@ -266,7 +267,7 @@ def latency_sweep(device, gen: torch.Generator) -> list[dict]:
     ~sqrt(nb) rows and chains merge, and from then on it re-reads rows that
     L1 or L2 already hold."""
     recs = []
-    for label, rows, cols in LAT_TABLES:
+    for label, rows, cols in tables:
         tab = random_table(rows, cols, device, gen)
         starts = [random_starts(32, rows, device, gen) for _ in range(LAT_REPS)]
         for s in starts:

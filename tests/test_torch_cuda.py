@@ -51,6 +51,17 @@ def random_intervals(rng, n, size):
     return np.stack([lo, hi, s], axis=1).astype(np.int64)
 
 
+def edge_intervals(n, S):
+    """Bi-intervals (lo, lo, s) whose ends both sit at multiples of 128 plus
+    or minus 1 (the rb escape sub-rows' edges), or at block edges (offset 0
+    of one block, offset S of the one before), in [0, n]."""
+    sub = np.arange(0, n + 1, 128)
+    edges = np.unique(np.clip(np.concatenate([sub - 1, sub, sub + 1, np.arange(0, n + 1, S), [0, n]]), 0, n))
+    lo = np.repeat(edges, 3)
+    hi = edges[np.clip(np.searchsorted(edges, lo) + np.tile([0, 1, 5], len(edges)), 0, len(edges) - 1)]
+    return np.stack([lo, lo, hi - lo], axis=1).astype(np.int64)
+
+
 def flat_of(qs):
     """Reads as (flat uint8, seq_off int64) CPU tensors."""
     flat, seq_off = smem.pack_reads(qs)
@@ -129,12 +140,38 @@ def test_smem_kernel_matches_plain(corpus, corpus_index, cuda_device, M, layout)
     assert_same_mems(mk.cpu().numpy(), nk.cpu().numpy(), mp.numpy(), np_.numpy(), M)
 
 
+def check_rb_on_card(f, cpu, gpu, device, reads, min_len):
+    """The rb kernels against the plain rank on the card's index: rank1a at
+    every k in [0, n], extend_c on intervals with both ends at sub-row and
+    block edges, and smem_tgc on the reads' lanes (64 + 32): rows, counts,
+    START logs and trips."""
+    k = torch.arange(f.n + 1)
+    assert torch.equal(rank.rank1a_cuda(gpu, k.to(device)).cpu(), rank.rank1a(cpu, k).to(cpu.dtype))
+    ik = torch.from_numpy(edge_intervals(f.n, cpu.S)).to(cpu.dtype)
+    c = torch.from_numpy(np.random.default_rng(12).integers(0, 6, len(ik))).int()
+    for back in (torch.zeros(len(ik), dtype=torch.bool), torch.ones(len(ik), dtype=torch.bool)):
+        got = rank.extend_c_cuda(gpu, ik.to(device), c.to(device), back.to(device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), rank.extend_c(cpu, ik, c, back).to(cpu.dtype))
+    flat, seq_off = flat_of(reads)
+    lanes = smem.chunk_lanes(seq_off, 64, 32)
+    kw = dict(min_occ=1, min_len=min_len, max_mems=8, log_len=16, trips=True)
+    got = smem.smem_tgc_cuda(gpu, flat.to(device), seq_off.to(device), lanes.to(device), **kw)
+    torch.cuda.synchronize()
+    want = smem.smem_tgc_cuda(cpu, flat, seq_off, lanes, **kw)
+    assert_same_mems(got.mems.cpu().numpy(), got.n_mem.cpu().numpy(), want.mems.numpy(), want.n_mem.numpy(), 8)
+    assert_same_mems(got.log.cpu().numpy()[..., None], got.n_log.cpu().numpy(), want.log.numpy()[..., None],
+                     want.n_log.numpy(), 16)
+    assert torch.equal(got.trips.cpu(), want.trips)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,int64", [(8192, False), (1024, True)])
 def test_smem_kernel_run_coded_rows(cuda_device, S, int64):
     """rb rows where run-coded blocks dominate (150 near-identical copies; at
-    S = 8192 one block of 110 escapes): the record scan, and at S = 8192 the
-    wrapped record ends (F4), under the SMEM kernel."""
+    S = 8192 one block of 110 escapes): the record loads, and at S = 8192
+    the wrapped record ends (F4), under the SMEM kernels and the rank
+    kernels at sub-row and block edges."""
     rng = np.random.default_rng(11)
     base = rng.integers(1, 5, 3000).astype(np.uint8)
     parts = []
@@ -159,8 +196,23 @@ def test_smem_kernel_run_coded_rows(cuda_device, S, int64):
     torch.cuda.synchronize()
     mp, np_ = smem.smem_tg_plain(cpu, flat, seq_off, min_occ=1, min_len=19, max_mems=16)[:2]
     assert_same_mems(mk.cpu().numpy(), nk.cpu().numpy(), mp.numpy(), np_.numpy(), 16)
-    k = torch.arange(f.n + 1)
-    assert torch.equal(rank.rank1a_cuda(gpu, k.to(cuda_device)).cpu(), rank.rank1a(cpu, k).to(cpu.dtype))
+    check_rb_on_card(f, cpu, gpu, cuda_device, qs[:40], 19)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [256, 8192])
+@pytest.mark.parametrize("int64", [False, True])
+def test_rb_kernels_all_escape_rows(cuda_device, S, int64):
+    """rb rows where every block is an escape (a random sequence, both
+    strands): each rank reads one escape sub-row, under the rank kernels and
+    smem_tgc."""
+    rng = np.random.default_rng(5)
+    seq = rng.integers(1, 5, 40000).astype(np.uint8)
+    f = DenseFMIndex.from_bwt(gsa_bwt(np.concatenate([seq, [0], revcomp(seq), [0]]).astype(np.uint8)))
+    kw = dict(S=S, int64=int64, mega_shift=1 if int64 else None, cache=None)
+    cpu, gpu = runblock.RunBlockIndex.from_dense(f, "cpu", **kw), runblock.RunBlockIndex.from_dense(f, cuda_device, **kw)
+    assert cpu.n_esc == cpu.rows.shape[0] and torch.equal(gpu.esc.cpu(), cpu.esc)
+    check_rb_on_card(f, cpu, gpu, cuda_device, cut_reads(f, rng, 8, (300, 2001), 0.01), 15)
 
 
 def cut_reads(f, rng, n, lens, err):
