@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch / CUDA port (ropebwt3_tpu_torch).
 
 Drives the port's entry points on one CUDA card: `build` (and `merge`) of
-bench.py's genomes and of its short reads, `mem -l31` on the workload
+bench.py's genomes and of its short reads, `hapdiv` of a 17th haplotype
+against bench.py's index, `mem -l31` on the workload
 of bench.py (16 x 2 Mbp genomes at 1% divergence, indexed double strand:
 ~64 M symbols, ~48 MB of dense occ rows; 100,000 x 150 bp reads at 1% error)
 plus 200 reads of 5-20 kb, once on the default rows (the main path) and once
@@ -90,6 +91,14 @@ it.  Phases:
             its host work piece by piece
   mem-rb    the second path: `mem -l31 --occ=rb`, counts reset before and
             read after; BED byte-equal to native, >= 1 rb32 smem_tgc launch
+  hapdiv    K8 (csrc/hapdiv.cu, one warp a window) on bench.py's index: a
+            17th haplotype (genome 0 at 1% substitutions, 2 Mbp, 39,998
+            windows of 101 at step 50); per dense layout the kernel vs
+            hapdiv_plain on the card, exact, on 960 of its windows, 64 with
+            an insertion and 16 at -A 100 (all flagged), timed beside the
+            bytes bound and the chain floor; then the hapdiv path, `hapdiv`
+            through cli.main (counts reset before, read after), byte-equal to
+            `python -m ropebwt3_tpu hapdiv`
 
 Any failure exits non-zero.  The last line is {"ok": true, "device": ...}.
 Run from the repository root: python3 chip_smoke.py
@@ -141,6 +150,12 @@ N64 = (1 << 32) + (1 << 31)  # rank64: 6,442,450,944 symbols, a multiple of 8192
 # run side by side
 RB_ROUNDS = 2
 DEVICE = "cuda"
+# [hapdiv]: a 17th haplotype (genome 0 at 1% substitutions) at `hapdiv`'s
+# -a101 -w50; the kernel's check takes HAPDIV_CHECK of its windows, then
+# HAPDIV_INS windows with four T's inserted at the middle (where flags
+# arise), and HAPDIV_BIG windows scored -A 100, which every aligning window
+# flags (a score past 4095)
+HAPDIV_K, HAPDIV_STEP, HAPDIV_CHECK, HAPDIV_INS, HAPDIV_BIG = 101, 50, 960, 64, 16
 
 
 def fail(msg: str):
@@ -1053,6 +1068,137 @@ def check_construct(cli, dev, card: str, fa: str, fmd: str, many_fa: str, many_f
     return out
 
 
+class RowCount:
+    """A dense index for the plain versions that marks every occ row (and
+    megablock base) their ranks read: the bytes a kernel on the same
+    positions must load at least once."""
+
+    def __init__(self, idx):
+        import torch
+
+        self.idx = idx
+        self.rows = torch.zeros(idx.occf.shape[0], dtype=torch.bool, device=idx.device)
+
+    def __getattr__(self, name):
+        return getattr(self.idx, name)
+
+    def rank1a(self, k):
+        self.rows[k.flatten().long() >> 6] = True
+        return self.idx.rank1a(k)
+
+    def bytes(self) -> int:
+        import torch
+
+        rows = self.rows.nonzero().flatten()
+        mega = torch.unique(rows >> self.idx.mega_shift).numel() * 48 if self.idx.int64 else 0
+        return rows.numel() * 48 + mega + nbytes(self.idx.acc)
+
+
+def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -> dict:
+    """K8 (csrc/hapdiv.cu) on bench.py's index: a 17th haplotype, genome 0
+    at 1% substitutions from the seed, cut into `hapdiv`'s windows.  Per
+    dense layout the kernel against hapdiv_plain on the card, exact (the
+    four arrays, and the trips of the windows not flagged) on HAPDIV_CHECK
+    of them, HAPDIV_INS insertion windows and HAPDIV_BIG windows at -A 100
+    (all flagged); times, the bytes bound (the rows the plain version's
+    ranks read) and the chain floor (the longest window's trips at the 48 MB
+    table's ns a step).  Then `hapdiv` through cli.main on the whole
+    haplotype, counts reset before and read after, byte-equal to `python -m
+    ropebwt3_tpu hapdiv`.  Returns the per-layout records and the path's."""
+    import torch
+
+    from ropebwt3_tpu_torch.align import hapdiv
+    from ropebwt3_tpu_torch.nt6 import char2nt6
+    from ropebwt3_tpu_torch.seqio import read_seqs
+
+    rng = np.random.default_rng(SEED + 10)
+    g0 = char2nt6(next(iter(read_seqs(fa))).seq)
+    hap = g0.copy()
+    mut = rng.random(len(hap)) < DIVERGENCE
+    hap[mut] = rng.integers(1, 5, int(mut.sum()))
+    hap_fa = os.path.join(WORK, "hap17.fa")
+    with open(hap_fa, "wb") as fh:
+        fh.write(b">hap17\n" + np.frombuffer(b"$ACGTN", dtype=np.uint8)[hap].tobytes() + b"\n")
+    K = HAPDIV_K
+    offs = np.arange(0, len(hap) - K + 1, HAPDIV_STEP)
+    wins = hap[offs[:, None] + np.arange(K)].astype(np.int32)
+    ins = []
+    for st in rng.integers(0, len(g0) - K, HAPDIV_INS):
+        w = g0[st : st + K].astype(np.int32)
+        ins.append(np.concatenate([w[: K // 2], [4, 4, 4, 4], w[K // 2 :]])[:K])
+    check = np.concatenate([wins[np.linspace(0, len(wins) - 1, HAPDIV_CHECK).astype(np.int64)], np.stack(ins)]).astype(np.int32)
+    seqs = torch.from_numpy(check).to(dev)
+    big = torch.from_numpy(wins[:HAPDIV_BIG]).to(dev)
+    full = torch.from_numpy(wins[: hapdiv.LANES]).to(dev)
+    res = {}
+    for lay in ("dense32", "dense64"):
+        x = idxs[lay]
+        got = hapdiv.hapdiv_cuda(x, seqs, K, trips=True)
+        counted = RowCount(x)
+        t0 = time.perf_counter()
+        want = hapdiv.hapdiv_plain(counted, seqs, K, trips=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ok = ~want[3]
+        err = max(max_abs(a, b) for a, b in zip(got[:4], want[:4]))
+        if err or not torch.equal(got[4][ok], want[4][ok]):
+            fail(f"hapdiv {lay}: the kernel differs from hapdiv_plain by {err} (trips equal: "
+                 f"{torch.equal(got[4][ok], want[4][ok])})")
+        gb = hapdiv.hapdiv_cuda(x, big, K, match=100)
+        wb = hapdiv.hapdiv_plain(x, big, K, match=100)
+        if not all(torch.equal(a, b) for a, b in zip(gb, wb)) or not bool(gb[3].all()):
+            fail(f"hapdiv {lay}: at -A 100 the kernel gives {gb[3].tolist()} flags, the plain version {wb[3].tolist()}")
+        arch = torch.empty((len(check), K, hapdiv.N_BEST, 2), dtype=torch.int32, device=dev)
+        ms = cuda_ms(lambda: hapdiv.launch_hapdiv(x, seqs, K, arch=arch), 3)
+        del arch
+        arch = torch.empty((full.shape[0], K, hapdiv.N_BEST, 2), dtype=torch.int32, device=dev)
+        full_ms = cuda_ms(lambda: hapdiv.launch_hapdiv(x, full, K, arch=arch), 2)
+        del arch
+        io_bytes = nbytes(seqs, *got[:4])
+        trips = int(got[4][ok].max())
+        res[lay] = dict(err=err, ms=ms, plain_ms=plain_ms, n_win=len(check), n_bad=int(want[3].sum()),
+                        n_bad_ins=int(want[3][HAPDIV_CHECK:].sum()), rows_bytes=counted.bytes(),
+                        bound_ms=bound_ms(counted.bytes() + io_bytes), max_trips=trips, mean_trips=float(got[4][ok].float().mean()),
+                        chain_floor_ms=trips * ns[LAT_48MB] / 1e6, full_ms=full_ms, full_windows=full.shape[0])
+        r = res[lay]
+        say(f"[hapdiv] {lay}: hapdiv_cuda exact vs hapdiv_plain on {r['n_win']} windows ({HAPDIV_CHECK} of the "
+            f"haplotype, {HAPDIV_INS} with an insertion; {r['n_bad']} flagged, {r['n_bad_ins']} of them insertion "
+            f"windows; trips of the others equal) and on {HAPDIV_BIG} at -A 100 (all flagged); kernel {ms:.4f} ms vs "
+            f"plain {plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['rows_bytes']} B of rows read); chain floor "
+            f"{r['chain_floor_ms']:.4f} ms (longest window {trips} trips, mean {r['mean_trips']:.1f}, at "
+            f"{ns[LAT_48MB]} ns); a batch of {r['full_windows']} windows {full_ms:.3f} ms ({card})")
+    del seqs, big, full
+
+    # the hapdiv path: the reference first (its run times the native DP)
+    ref_out, port_out = os.path.join(WORK, "hapdiv_ref.txt"), os.path.join(WORK, "hapdiv_port.txt")
+    with open(ref_out, "wb") as out:
+        ref_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "hapdiv", fmd, hap_fa], stdout=out)
+    want = open(ref_out, "rb").read()
+    hapdiv.hapdiv_cuda.launches.clear()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with open(port_out, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["hapdiv", fmd, hap_fa])
+    port_s = time.perf_counter() - t0
+    launches = dict(hapdiv.hapdiv_cuda.launches)
+    sys.stderr.write(err.getvalue())
+    if rc != 0:
+        fail(f"ropebwt3_tpu_torch hapdiv exited {rc}")
+    got = open(port_out, "rb").read()
+    if got != want:
+        fail(f"port hapdiv differs from `python -m ropebwt3_tpu hapdiv`: {first_diff(got, want)}")
+    m = re.search(r"(\d+) hapdiv launches \(dense32\); (\d+) of (\d+) windows flagged bad", err.getvalue())
+    if launches.get("dense32", 0) < 1 or m is None or int(m.group(1)) != launches["dense32"] or int(m.group(3)) != len(wins):
+        fail(f"hapdiv path: launches {launches}, log {m and m.group(0)}, {len(wins)} windows")
+    path = dict(launches=launches, port_s=port_s, ref_s=ref_s, n_win=len(wins), n_bad=int(m.group(2)),
+                lines=want.count(b"\n"))
+    say(f"[hapdiv] path `hapdiv` on the haplotype ({len(hap)} bp, {len(wins)} windows of {K} at step {HAPDIV_STEP}): "
+        f"stdout byte-equal to `python -m ropebwt3_tpu hapdiv` ({path['lines']} lines); launches {launches}; "
+        f"{path['n_bad']} windows flagged ({path['n_bad'] / len(wins):.4%}), rerun on the native DP; port "
+        f"in-process {port_s:.3f} s, reference (native DP, {os.cpu_count()} host cores) {ref_s:.3f} s ({card})")
+    return dict(res=res, path=path)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu_torch")) or not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu")):
         fail("run chip_smoke.py from a checkout of the repository")
@@ -1441,6 +1587,11 @@ def main() -> None:
         + f" ({card})"
     )
 
+    # ---- hapdiv ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    hd = check_hapdiv(cli, dev, card, fa, fmd, idxs, ns)
+    say(f"[hapdiv] phase in {time.perf_counter() - t0:.3f} s")
+
     def path_launches(kernel: str, layout: str) -> tuple[int, str | None]:
         for path, p in paths.items():
             if p["layout"] == layout and kernel in ("smem_tg", "smem_tgc"):
@@ -1534,6 +1685,19 @@ def main() -> None:
             "input": r["input"], "longest_walk": r["longest"], "native_merges_s": r["many_native_merges_s"],
             **{k: r[k] for k in k6_keys},
             **({"build_path_merges": con["merges16"]} if layout == "dense32" else {}),
+        })
+    for layout in ("dense32", "dense64"):
+        r, n = hd["res"][layout], hd["path"]["launches"].get(layout, 0)
+        entries.append({
+            "name": f"hapdiv_{layout}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/hapdiv.cu + occ.cuh",
+            "replaces": "ropebwt3_tpu/align/hapdiv_jax.py:401 (hapdiv_device)", "launches": n,
+            "path": "hapdiv" if n else None, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["chain_floor_ms"],
+            "input": f"{r['n_win']} windows of {HAPDIV_K} (haplotype and insertion windows)", "n_bad": r["n_bad"],
+            "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"],
+            "full_batch_ms": r["full_ms"], "full_batch_windows": r["full_windows"],
+            **({"path_windows": hd["path"]["n_win"], "path_bad": hd["path"]["n_bad"], "path_port_s": hd["path"]["port_s"],
+                "path_reference_s": hd["path"]["ref_s"]} if n else {}),
         })
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """`python -m ropebwt3_tpu_torch`: ropebwt3's command line for the commands
-the port owns: `build`, `merge`, `plain2fmd`, `mem`, `ssa`, `stat` and
-`version`.
+the port owns: `build`, `merge`, `plain2fmd`, `mem`, `hapdiv`, `ssa`,
+`stat` and `version`.
 
 `build [--device=cuda|cpu] [options] in.fa...` reads each file in batches
 of -m symbols (each record then its reverse complement, 0-terminated),
@@ -20,19 +20,30 @@ would pass 75% of the card's memory, ops/smem.py `resolve_occ`), and writes
 the BED from the engine's flat (counts, rows), with `-c`, `--gap`, `--cov`
 and `-p`, byte-equal to `python -m ropebwt3_tpu mem --engine=native`.
 
+`hapdiv [--device=cuda|cpu] [--engine=auto|native] [options] idx.fmd
+seqs...` (and `mem -a/-w`, which run it) counts the haplotypes at each edit
+distance of every -a-mer at step -w of each sequence: the windows, batched
+across sequences, go through the hapdiv DP on the device (align/hapdiv.py:
+the kernel of csrc/hapdiv.cu, or its plain version with --device=cpu), the
+windows it flags rerun on the native DP (native/bwasw_core.cpp), and the
+rows are written byte-equal to `python -m ropebwt3_tpu hapdiv`, whose engine
+is the native DP; `--engine=native` runs the native DP alone.
+
 `ssa [--device=cuda|cpu] [-s INT] [-o FILE] [-t INT] idx.fmd` walks every
 sequence on the device's dense occ rows (ssa_ops.py) and writes the SSA
 file byte-equal to `python -m ropebwt3_tpu ssa`; `-t` is accepted and
 unused, as the JAX package's own walk ignores it.
 
-With the default `--device=cuda` and no CUDA, `build`, `merge`, `mem` and
-`ssa` exit non-zero; they never go on on the CPU unasked.  Every other
-command, and every option that the port's engines do not run, is refused
+With the default `--device=cuda` and no CUDA, `build`, `merge`, `mem`,
+`hapdiv` and `ssa` exit non-zero; they never go on on the CPU unasked.
+Every other command, and every option that the port's engines do not run, is refused
 with one `ERROR:` line that names the ROADMAP queue item porting it
 (`refusal`); `python -m ropebwt3_tpu` runs them.  The option parsers, the
 usage texts, the index loader and the writers are copies of
 ropebwt3_tpu/cli.py's (main_build, _dump_index, main_merge, main_plain2fmd,
-main_search, _run_mem's flat path, main_ssa, main_stat).
+main_search, _run_mem's flat path, main_ssa, main_stat).  The copies of
+align/cli_hooks.py, align/bwasw.py and native/bwasw_core.cpp that `hapdiv`
+runs are under align/ and native/.
 """
 
 from __future__ import annotations
@@ -51,16 +62,16 @@ from .nt6 import NT6_TABLE, char2nt6, nt6_to_str, revcomp
 from .seqio import batch_nt6_flat, iter_flat_batches, read_batch_nt6, read_seqs, read_sid
 
 REF_VERSION = "3.10-r281"  # ropebwt3 version whose formats and outputs are matched
-OWNED = ("build", "merge", "plain2fmd", "mem", "ssa", "stat", "version")
+OWNED = ("build", "merge", "plain2fmd", "mem", "hapdiv", "ssa", "stat", "version")
 # main_search's short and long options (ropebwt3_tpu/cli.py:1022-1029)
 _SEARCH_OPTS = "Ll:c:t:K:MdN:A:B:O:E:C:m:k:uj:ey:a:w:p:bg:"
 _LONG_OPTS = ["no-ssa", "seq", "gap=", "cov", "old-mem", "all-e2e", "no-kalloc", "dbg-dawg", "dbg-sw", "dbg-qname",
               "dbg-bt", "engine=", "mesh=", "occ="]
 # the ROADMAP queue 1 item that ports each command or engine the port refuses
-_ENGINE_ITEM = {"sw": "item 11 (sw scoring DP)", "hapdiv": "item 10 (hapdiv DP)",
+_ENGINE_ITEM = {"sw": "item 11 (sw scoring DP)", "hapdiv": "item 10 (its remainder: the hybrid and server engines)",
                 "search": "items 4, 10 and 11 (use `mem`, `sw` or `hapdiv`)"}
-_COMMAND_ITEM = {**_ENGINE_ITEM, "get": "item 16", "suffix": "item 17", "kount": "item 18", "fa2line": "item 19",
-                 "fa2kmer": "item 20"}
+_COMMAND_ITEM = {"sw": _ENGINE_ITEM["sw"], "search": _ENGINE_ITEM["search"], "get": "item 16", "suffix": "item 17",
+                 "kount": "item 18", "fa2line": "item 19", "fa2kmer": "item 20"}
 
 
 def atoi(s: str) -> int:
@@ -216,6 +227,20 @@ Options:
   -K NUM      query batch size [100m]
   --device=STR  cuda (the kernels) or cpu (the plain PyTorch engine) [cuda]
   --occ=STR     device occ rows: auto, dense, rb (run-block compressed) [auto]""",
+    "hapdiv": """Usage: python -m ropebwt3_tpu_torch hapdiv [options] <idx.fmr> <seq.fa> [...]
+Options:
+  -a INT      annotate sliding INT-mers [101]
+  -w INT      k-mer step size for annotation [50]
+  -N INT      keep up to INT hits per DAWG node [25]
+  -m INT      min alignment score [30]
+  -A INT      match score [1]
+  -B INT      mismatch penalty [3]
+  -O INT      gap open penalty [5]
+  -E INT      gap extension penalty; a k-long gap costs O+k*E [2]
+  -y INT      ignore secondary hits scored INT lower than the best [-1]
+  -L          one sequence per line in the input
+  --device=STR  cuda (the kernel) or cpu (the plain PyTorch version) [cuda]
+  --engine=STR  DP engine: auto (the device) or native (the host DP) [auto]""",
     "ssa": """Usage: python -m ropebwt3_tpu_torch ssa [options] <in.fmd>
 Options:
   -t INT     number of threads [4]
@@ -224,7 +249,7 @@ Options:
   --device=STR  cuda or cpu [cuda]""",
     "stat": "Usage: python -m ropebwt3_tpu_torch stat [-M] <idx.fmd>",
 }
-_USAGE_STDOUT_LINES = {"build": 0, "merge": 4, "plain2fmd": 1, "mem": 1, "ssa": 0, "stat": 1}
+_USAGE_STDOUT_LINES = {"build": 0, "merge": 4, "plain2fmd": 1, "mem": 1, "hapdiv": 1, "ssa": 0, "stat": 1}
 
 
 def _usage(cmd: str) -> int:
@@ -314,8 +339,9 @@ def load_index(fn: str, load_ssa: bool = False, load_sid: bool = False) -> Dense
 def refusal(argv: list[str]) -> str | None:
     """Why the port refuses `argv`, or None.  `serve`, `--mesh` on any
     command and `sw` / `hapdiv` / `search` with `--engine=jax|hybrid|server`
-    would reach the JAX package's device code; every other command that
-    the port does not own is a ROADMAP queue 1 item of its own."""
+    would reach the JAX package's device code (`hapdiv` runs the port's own
+    device engine with `--engine=auto`); every other command that the port
+    does not own is a ROADMAP queue 1 item of its own."""
     cmd, rest = argv[0], argv[1:]
     if cmd == "serve":
         return "serve (the resident JAX engine server) is not ported: ROADMAP queue 1 item 13"
@@ -674,7 +700,7 @@ def main_mem(argv: list[str], device: str) -> int:
     except KetoptUnknown:
         return 1
     is_line, min_len, min_occ, max_pos, min_gap_len, write_cov = False, 19, 1, 0, 0, False
-    occ, batch_size, other = "auto", 100_000_000, None
+    occ, batch_size, other, algo = "auto", 100_000_000, None, "mem"
     for o, a in opts:
         if o == "-L":
             is_line = True
@@ -694,12 +720,14 @@ def main_mem(argv: list[str], device: str) -> int:
             if a not in ("auto", "dense", "rb"):
                 raise getopt.GetoptError(f"invalid --occ value '{a}' (auto|dense|rb)")
             occ = a
-        elif o == "-d":  # mem -d, -a and -w run sw and hapdiv (ropebwt3_tpu/cli.py:1053-1058)
-            other = f"mem {o} runs sw: ROADMAP queue 1 {_ENGINE_ITEM['sw']}", o
+        elif o == "-d":  # mem -d, -a and -w run sw and hapdiv, the last one given (ropebwt3_tpu/cli.py:1053-1058)
+            algo, other = "sw", (f"mem {o} runs sw: ROADMAP queue 1 {_ENGINE_ITEM['sw']}", o)
         elif o in ("-a", "-w"):
-            other = f"mem {o} runs hapdiv: ROADMAP queue 1 {_ENGINE_ITEM['hapdiv']}", o
+            algo = "hapdiv"
         elif o == "--old-mem":
-            other = "mem --old-mem (the original MEM algorithm) is not ported: ROADMAP queue 1 item 4", o
+            algo, other = "mem", ("mem --old-mem (the original MEM algorithm) is not ported: ROADMAP queue 1 item 4", o)
+    if algo == "hapdiv":
+        return main_hapdiv(argv, device, "mem")
     if len(args) < 2:
         return _usage("mem")
     if other:
@@ -718,6 +746,63 @@ def main_mem(argv: list[str], device: str) -> int:
              smem_tgc_cuda.launches[lay] + smem_tg_cuda.launches[lay], lay, smem_tgc_cuda.launches[lay],
              smem_tg_cuda.launches[lay], eng.n_rerun, eng.n_unmerged, func="mem")
     return ret
+
+
+def main_hapdiv(argv: list[str], device: str, cmd: str = "hapdiv") -> int:
+    """`hapdiv`, or `mem -a/-w` (cmd "mem"), parsed as ropebwt3_tpu/cli.py
+    main_search parses them (:1043-1056, 1137-1140): `hapdiv` sets end_len 1
+    and e2e, `mem` keeps -k's end_len."""
+    from .align.cli_hooks import run_hapdiv_cli
+
+    try:
+        opts, args = ketopt(argv, _SEARCH_OPTS, _LONG_OPTS, strict=True)
+    except KetoptUnknown:
+        return 1
+    is_line, k, w, max_pos, min_gap_len, engine = False, 101, 50, 0, 0, "auto"
+    sw_opts = {
+        "n_best": 25, "min_sc": 30, "match": 1, "mis": 3, "gap_open": 5, "gap_ext": 2, "end_len": 11,
+        "min_mem_len": 0, "e2e_drop": -1, "r2cache_size": 0x10000, "max_pos": 0, "e2e": False, "keep_rs": False,
+    }
+    for o, a in opts:
+        if o == "-L":
+            is_line = True
+        elif o == "-a":
+            k = atoi(a)
+        elif o == "-w":
+            w = atoi(a)
+        elif o in ("-g", "--all-e2e", "-e"):  # sw's output modes; they set e2e all the same
+            sw_opts["e2e"], sw_opts["end_len"] = True, 1
+        elif o == "-p":
+            max_pos = sw_opts["max_pos"] = atoi(a)
+        elif o in ("-N", "-A", "-B", "-O", "-E", "-m", "-k", "-j", "-y"):
+            sw_opts[{"-N": "n_best", "-A": "match", "-B": "mis", "-O": "gap_open", "-E": "gap_ext", "-m": "min_sc",
+                     "-k": "end_len", "-j": "min_mem_len", "-y": "e2e_drop"}[o]] = atoi(a)
+        elif o == "-C":
+            sw_opts["r2cache_size"] = parse_num(a)
+        elif o == "--gap":
+            min_gap_len = parse_num(a)
+        elif o == "--engine":
+            engine = a
+        elif o == "--occ" and a not in ("auto", "dense", "rb"):
+            raise getopt.GetoptError(f"invalid --occ value '{a}' (auto|dense|rb)")
+        elif o.startswith("--dbg-"):
+            return _err(f"{cmd} {o} (the DP's debug streams) is not ported: ROADMAP queue 1 item 22; "
+                        f"`python -m ropebwt3_tpu {cmd} {o}` runs it")
+    if cmd == "hapdiv":
+        sw_opts["end_len"], sw_opts["e2e"] = 1, True
+    if min_gap_len > 0:
+        max_pos = 0
+    if len(args) < 2:
+        return _usage(cmd)
+    if engine not in ("auto", "native"):
+        return _err(f"invalid --engine '{engine}' (auto|native)")
+    load_all = cmd == "mem" and max_pos > 0
+    f = load_index(args[0], load_ssa=load_all, load_sid=load_all)
+    if max_pos > 0 and (f.ssa is None or f.sid is None):
+        return _err("failed to load suffix array samples or sequence names/lengths")
+    if not f.is_symmetric():
+        return _err("BWT doesn't contain both strands")
+    return run_hapdiv_cli(f, args[1:], is_line, sw_opts, k, w, device=None if engine == "native" else device)
 
 
 def record_batches(fn: str, is_line: bool, batch_size: int):
@@ -879,7 +964,8 @@ def main(argv: list[str] | None = None) -> int:
 
                 if not torch.cuda.is_available():
                     return _err("CUDA is not available; pass --device=cpu to run the plain PyTorch engine")
-            ret = {"build": main_build, "merge": main_merge, "mem": main_mem, "ssa": main_ssa}[cmd](rest, device)
+            ret = {"build": main_build, "merge": main_merge, "mem": main_mem, "hapdiv": main_hapdiv,
+                   "ssa": main_ssa}[cmd](rest, device)
     except (IndexLoadError, CapacityError, getopt.GetoptError) as e:
         ret = _err(str(e))
     except BrokenPipeError:

@@ -1,9 +1,10 @@
 """The port's native host code, built with g++ on first use and loaded with
 ctypes: the FMD decoder and encoder, run expansion, dense tables and
-run-block row builder (rld_codec.cpp) and the sampled-suffix-array
-multi-locate that
-`mem -p` runs (locate.cpp).  Both are copies of the functions the port
-calls from ropebwt3_tpu/native, compiled into one library.
+run-block row builder (rld_codec.cpp), the sampled-suffix-array
+multi-locate that `mem -p` runs (locate.cpp) and the hapdiv DP that `hapdiv`
+reruns flagged windows on, or runs alone with `--engine=native`
+(bwasw_core.cpp).  All are copies of the functions the port calls from
+ropebwt3_tpu/native, compiled into one library.
 
 The library lands in `../_build/` (gitignored), keyed on a hash of the
 sources, the flags and the machine, since `-march=native` code must never
@@ -20,7 +21,7 @@ import platform
 import subprocess
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_DIR, f) for f in ("rld_codec.cpp", "locate.cpp")]
+SOURCES = [os.path.join(_DIR, f) for f in ("rld_codec.cpp", "locate.cpp", "bwasw_core.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
@@ -34,6 +35,7 @@ _ENTRIES = {
     "rb3t_runblock_count": (None, [_V, _I64, _I64, _V]),
     "rb3t_runblock_fill": (None, [_V, _V, _I64, _I64, _I64, _I64, _V, _V, _V]),
     "rb3t_ssa_multi_batch": (None, [_V, _V, _V, _V, _I64, _I32, _I32, _V, _V, _I64, _V, _V, _V, _V, _V, _V, _V, _I32]),
+    "rb3t_hapdiv_batch": (None, [_V, _V, _V, _V, _I64, _V, _V, _I64, _I64, _I32, _V, _V]),
 }
 
 _lib = None

@@ -1,0 +1,974 @@
+// The port's native hapdiv DP: the BWA-SW DP core over the dense host index
+// (index/dense.py), copied from ropebwt3_tpu/native/bwasw_core.cpp, lines
+// 1-927 (the rank, the khashl candidate set, the klib heap, the DP engine
+// and the hapdiv annotation) and its entry point rb3t_hapdiv_batch.  The
+// sw half (query BWT, DAWG, full backtrack, hit blobs) is left out until
+// the port takes `sw`.  The port passes no packed one-line records
+// ("pline"): they change speed only, never a count.
+//
+// Exact re-implementation of the reference bwa-sw.c:329-526, including
+// khashl bucket iteration order, klib heap semantics and quickselect, so the
+// hapdiv counts stay byte-identical to the reference binary.  The port's
+// device engine (align/hapdiv.py) reruns here the windows its kernel flags.
+//
+#include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <thread>
+#include <unordered_map>
+#include <utility>
+#include <vector>
+
+#if defined(__AVX2__)
+#include <immintrin.h>
+#endif
+#include <x86intrin.h>  // __rdtsc for the env-gated DP phase profile
+
+namespace {
+
+constexpr int BLOCK_SHIFT = 6;   // index/dense.py BLOCK = 64
+constexpr int SUPER_SHIFT = 16;  // index/dense.py SUPER = 1 << 16
+constexpr uint32_t SW_F_UNSET = 0x3FFFFFFu;
+constexpr uint32_t U32MAX = 0xFFFFFFFFu;
+constexpr int SW_FROM_H = 0, SW_FROM_E = 1, SW_FROM_F = 2;
+constexpr int SW_FROM_OPEN = 0, SW_FROM_EXT = 1;
+
+struct Opt {
+  int32_t flag, n_best, min_sc, end_len, match, mis, e2e_drop, gap_open, gap_ext, min_mem_len;
+};
+
+static Opt opt_from(const int32_t* o) {
+  return Opt{o[0], o[1], o[2], o[3], o[4], o[5], o[6], o[7], o[8], o[9]};
+}
+
+constexpr int RB3_SWF_E2E = 1;
+
+// ---- packed one-line rank record ("pline") -------------------------------
+// ONE 64-byte record covering 128 symbols: three 128-bit symbol bit-planes
+// (48 B; plane words p[0..1]=bit0, p[2..3]=bit1, p[4..5]=bit2 of each nt6
+// symbol) + six uint16 within-super counts at the record start (12 B) + pad.
+// rank1a then touches a SINGLE random cache line (plus the L3-resident
+// occ_super row) instead of the two-to-three lines of the split/fused
+// layouts — the random-line footprint that bounds every LF-walk at >=640M
+// indexes is halved, and same-block pair ranks double their hit range
+// (128 vs 64 symbols).  Pure layout change: every count is identical to the
+// split layout, so outputs cannot move.  (Round-4 lever; the reference's
+// analog is rld0's small delta-coded blocks, rld0.c:107-204.)
+struct PlRec {
+  uint64_t p[6];
+  uint16_t cnt[6];
+  uint32_t pad;
+};
+static_assert(sizeof(PlRec) == 64, "pline record must be one cache line");
+constexpr int PL_SHIFT = 7;  // 128 symbols per record
+
+struct Fmi {
+  const uint8_t* bwt;
+  const uint16_t* occ_block;  // [n_blocks+1][6] counts in [super_start, block_start)
+  const int64_t* occ_super;   // [n_supers+1][6] counts before superblock
+  const int64_t* acc;         // [7]
+  int64_t n;
+  // optional fused layout: per block one 128-byte record [64B symbols |
+  // 12B uint16 within-super counts | pad] — rank touches ONE random memory
+  // region instead of two (bwt line + occ row); occ_super stays separate
+  // (tiny, cache-resident).  Built by rb3t_fused_build.
+  const uint8_t* fused = nullptr;
+  // optional pline layout (PlRec above), preferred over `fused` when set.
+  const PlRec* pline = nullptr;
+};
+
+static inline void pl_masks(int off, uint64_t& m0, uint64_t& m1) {
+  m0 = off >= 64 ? ~0ull : ((1ull << off) - 1);
+  m1 = off <= 64 ? 0ull : (off >= 128 ? ~0ull : ((1ull << (off - 64)) - 1));
+}
+
+// add counts of symbols 0..5 over the first `off` positions of the record
+static inline void pl_add(const PlRec* r, int off, int64_t out[6]) {
+  uint64_t m0, m1;
+  pl_masks(off, m0, m1);
+  for (int w = 0; w < 2; ++w) {
+    uint64_t m = w ? m1 : m0;
+    if (!m) break;
+    uint64_t p0 = r->p[w], p1 = r->p[2 + w], p2 = r->p[4 + w];
+    uint64_t n2 = ~p2 & m, y2 = p2 & m, n1 = ~p1, n0 = ~p0;
+    out[0] += (int64_t)__builtin_popcountll(n2 & n1 & n0);
+    out[1] += (int64_t)__builtin_popcountll(n2 & n1 & p0);
+    out[2] += (int64_t)__builtin_popcountll(n2 & p1 & n0);
+    out[3] += (int64_t)__builtin_popcountll(n2 & p1 & p0);
+    out[4] += (int64_t)__builtin_popcountll(y2 & n1 & n0);
+    out[5] += (int64_t)__builtin_popcountll(y2 & n1 & p0);  // 6/7 never occur
+  }
+}
+
+// count of one symbol c over the first `off` positions of the record
+static inline int64_t pl_count1(const PlRec* r, int off, int c) {
+  uint64_t m0, m1;
+  pl_masks(off, m0, m1);
+  int64_t out = 0;
+  for (int w = 0; w < 2; ++w) {
+    uint64_t m = w ? m1 : m0;
+    if (!m) break;
+    uint64_t e = (c & 1 ? r->p[w] : ~r->p[w]) & (c & 2 ? r->p[2 + w] : ~r->p[2 + w]) &
+                 (c & 4 ? r->p[4 + w] : ~r->p[4 + w]);
+    out += (int64_t)__builtin_popcountll(e & m);
+  }
+  return out;
+}
+
+// the symbol stored at record offset `off` (LF walks: symbol + rank from the
+// SAME cache line)
+static inline int pl_sym(const PlRec* r, int off) {
+  int w = off >> 6, b = off & 63;
+  return (int)(((r->p[w] >> b) & 1) | (((r->p[2 + w] >> b) & 1) << 1) |
+               (((r->p[4 + w] >> b) & 1) << 2));
+}
+
+struct Cell {  // bwa-sw.c:39-45 sw_cell_t analog (align/bwasw.py Cell)
+  int64_t lo, hi, lo_rc;
+  int32_t H, E, F, rlen, qlen;
+  uint32_t H_from_pos, E_from_pos, F_from_off;
+  uint8_t H_from, E_from, F_from, F_off_set, flt;
+};
+
+static inline Cell cell_zero() {
+  Cell c;
+  std::memset(&c, 0, sizeof(c));
+  return c;
+}
+
+// ---- khashl semantics (align/khashl_compat.py) ---------------------------
+
+static inline uint32_t kh_hash_u64(uint64_t x) {
+  x ^= x >> 30;
+  x *= 0xBF58476D1CE4E5B9ULL;
+  x ^= x >> 27;
+  x *= 0x94D049BB133111EBULL;
+  x ^= x >> 31;
+  return (uint32_t)x;
+}
+static inline uint32_t cell_hash(const Cell& c) {
+  return kh_hash_u64((uint64_t)c.lo) + kh_hash_u64((uint64_t)c.hi);
+}
+static inline bool cell_eq(const Cell& a, const Cell& b) { return a.lo == b.lo && a.hi == b.hi; }
+static inline uint32_t h2b(uint32_t h, int bits) { return (h * 2654435769u) >> (32 - bits); }
+static inline uint32_t kh_max_count(uint32_t cap) { return (cap >> 1) + (cap >> 2); }
+
+struct CellSet {
+  int bits = 0;
+  uint32_t count = 0;
+  std::vector<Cell> keys;
+  std::vector<uint8_t> used;
+  // occupied bucket ids, any order.  The top-n/rebuild phases only need the
+  // MULTISET of (H<<32|bucket) packed keys — selection and sort are by
+  // value, so iteration order here is unobservable; keeping the list saves
+  // the full-table scan per node (topn was ~16% of sw).  Rebuilt on resize
+  // (rehash reassigns bucket ids).
+  std::vector<uint32_t> live;
+
+  uint32_t n_buckets() const { return keys.empty() ? 0u : (1u << bits); }
+  uint32_t end() const { return n_buckets(); }
+
+  void clear() {
+    count = 0;
+    live.clear();
+    std::fill(used.begin(), used.end(), 0);
+  }
+
+  // Reset to the same geometry a fresh `CellSet(); resize(want)` would
+  // produce, but WITHOUT freeing the buffers.  The bucket count (and so
+  // the tie-breaking iteration order) is bit-identical: bits is computed
+  // exactly like resize() on an empty set; only heap reuse differs.
+  void reset(uint32_t want_buckets) {
+    uint32_t x = want_buckets;
+    int j = 0;
+    while (x >> 1) {
+      x >>= 1;
+      ++j;
+    }
+    if (want_buckets & (want_buckets - 1)) ++j;
+    bits = j > 2 ? j : 2;
+    uint32_t new_n = 1u << bits;
+    keys.resize(new_n);  // vector::resize keeps capacity on shrink
+    used.assign(new_n, 0);
+    live.clear();
+    count = 0;
+  }
+
+  void resize(uint32_t new_n_buckets) {
+    uint32_t x = new_n_buckets;
+    int j = 0;
+    while (x >> 1) {
+      x >>= 1;
+      ++j;
+    }
+    if (new_n_buckets & (new_n_buckets - 1)) ++j;
+    int new_bits = j > 2 ? j : 2;
+    uint32_t new_n = 1u << new_bits;
+    if (count > kh_max_count(new_n)) return;
+    std::vector<uint8_t> new_used(new_n, 0);
+    uint32_t nb = n_buckets();
+    if (nb < new_n) keys.resize(new_n);
+    uint32_t mask = new_n - 1;
+    for (uint32_t j2 = 0; j2 < nb; ++j2) {
+      if (!used[j2]) continue;
+      Cell key = keys[j2];
+      used[j2] = 0;
+      for (;;) {  // kick-out rehash
+        uint32_t i = h2b(cell_hash(key), new_bits);
+        while (new_used[i]) i = (i + 1) & mask;
+        new_used[i] = 1;
+        if (i < nb && used[i]) {
+          std::swap(keys[i], key);
+          used[i] = 0;
+        } else {
+          keys[i] = key;
+          break;
+        }
+      }
+    }
+    if (nb > new_n) keys.resize(new_n);
+    used.swap(new_used);
+    bits = new_bits;
+    live.clear();
+    for (uint32_t j2 = 0; j2 < new_n; ++j2)
+      if (used[j2]) live.push_back(j2);
+  }
+
+  // returns (bucket, absent); on absent the key is stored
+  std::pair<uint32_t, bool> put(const Cell& key) {
+    uint32_t nb = n_buckets();
+    if (count >= kh_max_count(nb)) {
+      resize(nb + 1);
+      nb = 1u << bits;
+    }
+    uint32_t mask = nb - 1;
+    uint32_t i = h2b(cell_hash(key), bits), last = i;
+    while (used[i] && !cell_eq(keys[i], key)) {
+      i = (i + 1) & mask;
+      if (i == last) break;
+    }
+    if (!used[i]) {
+      keys[i] = key;
+      used[i] = 1;
+      ++count;
+      live.push_back(i);
+      return {i, true};
+    }
+    return {i, false};
+  }
+
+  uint32_t get(const Cell& key) const {
+    uint32_t nb = n_buckets();
+    if (nb == 0) return 0;
+    uint32_t mask = nb - 1;
+    uint32_t i = h2b(cell_hash(key), bits), last = i;
+    while (used[i] && !cell_eq(keys[i], key)) {
+      i = (i + 1) & mask;
+      if (i == last) return nb;
+    }
+    return used[i] ? i : nb;
+  }
+};
+
+// ---- klib heap on (score<<32 | id) with reversed comparator --------------
+// (ks_heap* of khashl_compat.py; heap[0] is the MIN packed value)
+
+static void heapup(std::vector<uint64_t>& h) {
+  size_t k = h.size() - 1;
+  uint64_t tmp = h[k];
+  while (k) {
+    size_t i = (k - 1) >> 1;
+    if (tmp > h[i]) break;
+    h[k] = h[i];
+    k = i;
+  }
+  h[k] = tmp;
+}
+
+static void heapdown(std::vector<uint64_t>& h, size_t i, size_t n) {
+  size_t k = i;
+  uint64_t tmp = h[i];
+  for (;;) {
+    k = (k << 1) + 1;
+    if (k >= n) break;
+    if (k != n - 1 && h[k] > h[k + 1]) ++k;
+    if (h[k] > tmp) break;
+    h[i] = h[k];
+    i = k;
+  }
+  h[i] = tmp;
+}
+
+static void heapsort_desc(std::vector<uint64_t>& h) {  // descending by packed value
+  for (size_t i = h.size(); i-- > 1;) {
+    std::swap(h[0], h[i]);
+    heapdown(h, 0, i);
+  }
+}
+
+static int heap_insert1(std::vector<uint64_t>& h, uint32_t maxn, int64_t score, uint32_t id) {
+  uint64_t x = ((uint64_t)score << 32) | id;
+  if (h.size() < maxn) {
+    h.push_back(x);
+    heapup(h);
+    return 1;
+  }
+  if (x > h[0]) {
+    h[0] = x;
+    heapdown(h, 0, h.size());
+    return 1;
+  }
+  return 0;
+}
+
+// klib ks_ksmall with lt = (a > b): k-th LARGEST (quickselect); signed
+// indices so `high = hh - 1` can go negative exactly like the Python spec.
+static int32_t ksmall_gt(std::vector<int32_t>& a, int64_t kk) {
+  int64_t low = 0, high = (int64_t)a.size() - 1, k = kk;
+  for (;;) {
+    if (high <= low) return a[k];
+    if (high == low + 1) {
+      if (a[high] > a[low]) std::swap(a[low], a[high]);
+      return a[k];
+    }
+    int64_t mid = low + (high - low) / 2;
+    if (a[high] > a[mid]) std::swap(a[mid], a[high]);
+    if (a[high] > a[low]) std::swap(a[low], a[high]);
+    if (a[low] > a[mid]) std::swap(a[mid], a[low]);
+    std::swap(a[mid], a[low + 1]);
+    int64_t ll = low + 1, hh = high;
+    for (;;) {
+      do ++ll; while (a[ll] > a[low]);
+      do --hh; while (a[low] > a[hh]);
+      if (hh < ll) break;
+      std::swap(a[ll], a[hh]);
+    }
+    std::swap(a[low], a[hh]);
+    if (hh <= k) low = ll;
+    if (hh >= k) high = hh - 1;
+  }
+}
+
+// ---- dense rank / bidirectional extend (index/dense.py semantics) --------
+
+struct RankCache {  // direct-mapped pos -> occ[6]; pure speed, no output effect
+  // 2^16 entries/thread (3.5 MB) by default; RB3T_RANK_CBITS overrides
+  // (read per construction so A/B harnesses can vary it within a process).
+  // Interleaved best-of-5 at 640M/100k reads: 14:1.93s 16:1.87s 18:2.46s
+  // 20:2.24s — 16 optimal, larger caches lose to their own misses.
+  uint32_t mask;
+  bool pair_rank;  // same-block fused rank2a (RB3T_NO_PAIR_RANK disables)
+  std::vector<int64_t> pos;
+  std::vector<int64_t> occ;
+  // default_bits is per-engine: the sw/hapdiv DP row extends hit a small
+  // working set and a 2^12-entry (L2-resident) cache measures 19% faster
+  // than 2^16 at 1.34G (round 4); the SMEM walk still wants 2^16
+  // (round-3 sweep).  RB3T_RANK_CBITS overrides both.
+  explicit RankCache(int default_bits = 16) {
+    pair_rank = getenv("RB3T_NO_PAIR_RANK") == nullptr;
+    rebits(default_bits);
+  }
+
+  // re-size to a new per-workload default; an explicit RB3T_RANK_CBITS
+  // still wins (the A/B-harness contract).  Round-5 sweep: hapdiv's DP
+  // optimum is 2^13 (1.64 vs 1.68 s at 2^12 on 10k@1.34G) while sw
+  // prefers 2^12 — rb3t_hapdiv_batch calls rebits(13) per engine.
+  void rebits(int default_bits) {
+    const char* e = getenv("RB3T_RANK_CBITS");
+    int b = e ? atoi(e) : default_bits;
+    b = b < 10 ? 10 : (b > 22 ? 22 : b);
+    mask = (1u << b) - 1;
+    pos.assign((size_t)1 << b, -1);
+    occ.assign(((size_t)1 << b) * 6, 0);
+  }
+};
+
+// In-block symbol counts over positions < off of a 64-byte block (the bwt
+// buffer is zero-padded one full block past n, index/dense.py:43-49, so the
+// full-width load never runs off the end).
+static inline void inblock_add(const uint8_t* blk, int off, int64_t out[6]) {
+#if defined(__AVX512BW__)
+  __m512i v = _mm512_loadu_si512((const void*)blk);
+  __mmask64 m = off >= 64 ? ~(__mmask64)0 : (((__mmask64)1 << off) - 1);
+  for (int c = 0; c < 6; ++c)
+    out[c] += (int64_t)_mm_popcnt_u64(_mm512_mask_cmpeq_epi8_mask(m, v, _mm512_set1_epi8((char)c)));
+#elif defined(__AVX2__)
+  __m256i v0 = _mm256_loadu_si256((const __m256i*)blk);
+  __m256i v1 = _mm256_loadu_si256((const __m256i*)(blk + 32));
+  uint64_t m = off >= 64 ? ~(uint64_t)0 : (((uint64_t)1 << off) - 1);
+  for (int c = 0; c < 6; ++c) {
+    __m256i t = _mm256_set1_epi8((char)c);
+    uint64_t bits = (uint32_t)_mm256_movemask_epi8(_mm256_cmpeq_epi8(v0, t)) |
+                    ((uint64_t)(uint32_t)_mm256_movemask_epi8(_mm256_cmpeq_epi8(v1, t)) << 32);
+    out[c] += (int64_t)_mm_popcnt_u64(bits & m);
+  }
+#else
+  for (int i = 0; i < off; ++i) ++out[blk[i]];
+#endif
+}
+
+static void rank1a(const Fmi& f, int64_t k, int64_t out[6], RankCache& rc) {
+  if (k > f.n) k = f.n;
+  uint32_t slot = kh_hash_u64((uint64_t)k) & rc.mask;
+  if (rc.pos[slot] == k) {
+    std::memcpy(out, &rc.occ[(size_t)slot * 6], 6 * sizeof(int64_t));
+    return;
+  }
+  const int64_t* sup = f.occ_super + (size_t)(k >> SUPER_SHIFT) * 6;
+  if (f.pline) {
+    const PlRec* rec = f.pline + (size_t)(k >> PL_SHIFT);
+    for (int c = 0; c < 6; ++c) out[c] = sup[c] + rec->cnt[c];
+    pl_add(rec, (int)(k & ((1 << PL_SHIFT) - 1)), out);
+  } else if (f.fused) {
+    const uint8_t* rec = f.fused + ((size_t)(k >> BLOCK_SHIFT) << 7);
+    const uint16_t* blk = (const uint16_t*)(rec + 64);
+    for (int c = 0; c < 6; ++c) out[c] = sup[c] + blk[c];
+    inblock_add(rec, (int)(k & ((1 << BLOCK_SHIFT) - 1)), out);
+  } else {
+    const uint16_t* blk = f.occ_block + (size_t)(k >> BLOCK_SHIFT) * 6;
+    for (int c = 0; c < 6; ++c) out[c] = sup[c] + blk[c];
+    inblock_add(f.bwt + ((k >> BLOCK_SHIFT) << BLOCK_SHIFT), (int)(k & ((1 << BLOCK_SHIFT) - 1)), out);
+  }
+  rc.pos[slot] = k;
+  std::memcpy(&rc.occ[(size_t)slot * 6], out, 6 * sizeof(int64_t));
+}
+
+// Prefetch the cache-line streams rank1a(k) will touch.
+static inline void prefetch_rank(const Fmi& f, int64_t k) {
+  if (k > f.n) k = f.n;
+  __builtin_prefetch(f.occ_super + (size_t)(k >> SUPER_SHIFT) * 6);
+  if (f.pline) {
+    __builtin_prefetch(f.pline + (size_t)(k >> PL_SHIFT));  // one line total
+    return;
+  }
+  if (f.fused) {
+    const uint8_t* rec = f.fused + ((size_t)(k >> BLOCK_SHIFT) << 7);
+    __builtin_prefetch(rec);
+    __builtin_prefetch(rec + 64);  // symbols tail + counts
+    return;
+  }
+  __builtin_prefetch(f.occ_block + (size_t)(k >> BLOCK_SHIFT) * 6);
+  const uint8_t* b = f.bwt + ((k >> BLOCK_SHIFT) << BLOCK_SHIFT);
+  __builtin_prefetch(b);
+  __builtin_prefetch(b + 63);  // 64-byte blocks may straddle two lines
+}
+
+struct Ext {
+  int64_t lo[6], rc[6], sz[6];
+};
+
+// backward extend with the exact complement-order prefix sums of rld_extend
+// (rld0.c:486-502; index/dense.py DenseFMIndex.extend with is_back=True)
+// rank1a at two positions in the SAME block: one base fetch (super + block
+// row), two in-block counts — small intervals (the deep extends that
+// dominate SMEM/sw) put both endpoints in one 64-symbol block most of the
+// time, halving the random memory traffic of the extend.  Bit-identical.
+static void rank1a_pair_sameblk(const Fmi& f, int64_t k1, int64_t k2, int64_t* o1, int64_t* o2, RankCache& rc) {
+  uint32_t s1 = kh_hash_u64((uint64_t)k1) & rc.mask;
+  uint32_t s2 = kh_hash_u64((uint64_t)k2) & rc.mask;
+  bool h1 = rc.pos[s1] == k1, h2 = rc.pos[s2] == k2;
+  if (h1 && h2) {
+    std::memcpy(o1, &rc.occ[(size_t)s1 * 6], 6 * sizeof(int64_t));
+    std::memcpy(o2, &rc.occ[(size_t)s2 * 6], 6 * sizeof(int64_t));
+    return;
+  }
+  const int64_t* sup = f.occ_super + (size_t)(k1 >> SUPER_SHIFT) * 6;
+  int64_t base[6];
+  const uint8_t* blk_sym;
+  if (f.pline) {
+    const PlRec* rec = f.pline + (size_t)(k1 >> PL_SHIFT);
+    for (int c = 0; c < 6; ++c) base[c] = sup[c] + rec->cnt[c];
+    std::memcpy(o1, base, sizeof(base));
+    pl_add(rec, (int)(k1 & ((1 << PL_SHIFT) - 1)), o1);
+    std::memcpy(o2, base, sizeof(base));
+    pl_add(rec, (int)(k2 & ((1 << PL_SHIFT) - 1)), o2);
+    rc.pos[s1] = k1;
+    std::memcpy(&rc.occ[(size_t)s1 * 6], o1, 6 * sizeof(int64_t));
+    rc.pos[s2] = k2;
+    std::memcpy(&rc.occ[(size_t)s2 * 6], o2, 6 * sizeof(int64_t));
+    return;
+  }
+  if (f.fused) {
+    const uint8_t* rec = f.fused + ((size_t)(k1 >> BLOCK_SHIFT) << 7);
+    const uint16_t* blk = (const uint16_t*)(rec + 64);
+    for (int c = 0; c < 6; ++c) base[c] = sup[c] + blk[c];
+    blk_sym = rec;
+  } else {
+    const uint16_t* blk = f.occ_block + (size_t)(k1 >> BLOCK_SHIFT) * 6;
+    for (int c = 0; c < 6; ++c) base[c] = sup[c] + blk[c];
+    blk_sym = f.bwt + ((k1 >> BLOCK_SHIFT) << BLOCK_SHIFT);
+  }
+  std::memcpy(o1, base, sizeof(base));
+  inblock_add(blk_sym, (int)(k1 & ((1 << BLOCK_SHIFT) - 1)), o1);
+  std::memcpy(o2, base, sizeof(base));
+  inblock_add(blk_sym, (int)(k2 & ((1 << BLOCK_SHIFT) - 1)), o2);
+  rc.pos[s1] = k1;
+  std::memcpy(&rc.occ[(size_t)s1 * 6], o1, 6 * sizeof(int64_t));
+  rc.pos[s2] = k2;
+  std::memcpy(&rc.occ[(size_t)s2 * 6], o2, 6 * sizeof(int64_t));
+}
+
+static void extend_back(const Fmi& f, int64_t lo, int64_t lo_rc, int64_t size, Ext& e, RankCache& rc) {
+  int64_t tk[6], tl[6];
+  int64_t hi = lo + size;
+  int64_t k1 = lo > f.n ? f.n : lo, k2 = hi > f.n ? f.n : hi;
+  const int bs = f.pline ? PL_SHIFT : BLOCK_SHIFT;  // pline doubles the pair range
+  if (rc.pair_rank && (k1 >> bs) == (k2 >> bs)) {
+    rank1a_pair_sameblk(f, k1, k2, tk, tl, rc);
+    goto have_ranks;
+  }
+  rank1a(f, lo, tk, rc);
+  rank1a(f, lo + size, tl, rc);
+have_ranks:
+  for (int c = 0; c < 6; ++c) {
+    e.sz[c] = tl[c] - tk[c];
+    e.lo[c] = f.acc[c] + tk[c];
+  }
+  int64_t o = lo_rc;
+  e.rc[0] = o;
+  o += e.sz[0]; e.rc[4] = o;
+  o += e.sz[4]; e.rc[3] = o;
+  o += e.sz[3]; e.rc[2] = o;
+  o += e.sz[2]; e.rc[1] = o;
+  o += e.sz[1]; e.rc[5] = o;
+}
+
+// ---- DP engine (align/bwasw.py sw_core_multi, one window) ----------------
+
+struct Dawg {
+  int32_t n_node;
+  const int32_t* c;        // edge symbol into node (root: unused)
+  const int32_t* pre_off;  // [n_node+1]
+  const int32_t* pre;      // flattened predecessor ids
+};
+
+struct Engine {
+  Fmi f;
+  Opt o;
+  // A/B knob for the DP rank prefetch-ahead (RB3T_DP_PREFETCH=0 disables)
+  bool dp_prefetch = [] { const char* e = getenv("RB3T_DP_PREFETCH"); return !e || atoi(e) != 0; }();
+  // RB3T_DP_STATS=1: rdtsc cycle counters per DP phase, printed by the batch
+  // entry points — profiling aid only (gprofng misses our worker threads)
+  static inline bool stats_on() { static bool v = [] { const char* e = getenv("RB3T_DP_STATS"); return e && atoi(e) != 0; }(); return v; }
+  uint64_t cyc[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // HE-loop (incl. extends), prune, topn, closure, rebuild, extends, dawggen, backtrack
+  CellSet h;
+  std::vector<std::vector<Cell>> rows;
+  std::vector<std::pair<int64_t, int64_t>> fpar;
+  std::vector<uint64_t> heap;
+  std::vector<Cell> fstack;
+  std::vector<Cell> row0;
+  std::vector<int32_t> ks_a;  // pruning-bound scratch (pooled: per-node realloc was ~2% of sw)
+  RankCache cache{12};
+  int64_t best_pos = 0;
+  int32_t best_score = 0;
+
+  std::pair<uint32_t, int> update_candset(const Cell& p) {  // bwa-sw.c:265-284
+    auto pr = h.put(p);
+    uint32_t itr = pr.first;
+    if (!pr.second) {
+      Cell& q = h.keys[itr];
+      q.rlen = std::max(q.rlen, p.rlen);
+      q.qlen = std::max(q.qlen, p.qlen);
+      int changed = 0;
+      if (q.E < p.E) {
+        q.E = p.E;
+        q.E_from = p.E_from;
+        q.E_from_pos = p.E_from_pos;
+        changed |= 1 << 1;
+      }
+      if (q.F < p.F) {
+        q.F = p.F;
+        q.F_from = p.F_from;
+        changed |= 1 << 2;
+      }
+      if (q.H < p.H) {
+        q.H = p.H;
+        q.H_from = p.H_from;
+        changed |= 1 << 0;
+        if (p.H_from == SW_FROM_H) q.H_from_pos = p.H_from_pos;
+      }
+      return {itr, changed};
+    }
+    return {itr, 7};
+  }
+
+  void track_F(std::vector<Cell>& row) {  // bwa-sw.c:301-324
+    h.clear();
+    for (size_t j = 0; j < row.size(); ++j) {
+      Cell r = row[j];
+      r.H = (int32_t)j;  // reuse H as index
+      h.put(r);
+    }
+    for (Cell& p : row) {
+      if (p.F == 0 || p.F_from_off == SW_F_UNSET) continue;
+      Cell key = cell_zero();
+      key.lo = fpar[p.F_from_off].first;
+      key.hi = fpar[p.F_from_off].second;
+      uint32_t k = h.get(key);
+      if (k != h.end()) {
+        p.F_from_off = (uint32_t)h.keys[k].H;
+        p.F_off_set = 1;
+      } else {
+        p.F_from_off = SW_F_UNSET;
+      }
+    }
+  }
+
+  static void cell_dedup(std::vector<Cell>& row) {  // bwa-sw.c:197-216
+    if (row.size() <= 1) return;
+    std::vector<size_t> a = {0};
+    for (size_t i = 1; i < row.size(); ++i) {
+      Cell& p = row[i];
+      bool contained = false;
+      for (size_t j : a) {
+        const Cell& q = row[j];
+        if (q.lo_rc <= p.lo_rc && q.lo_rc + (q.hi - q.lo) >= p.lo_rc + (p.hi - p.lo)) {
+          contained = true;
+          break;
+        }
+        if (q.lo <= p.lo && q.hi >= p.hi) {
+          contained = true;
+          break;
+        }
+      }
+      if (!contained) a.push_back(i);
+      else p.flt = 1;
+    }
+  }
+
+  void run(const Dawg& g) {
+    int n_col = o.n_best;
+    // capacity-preserving resets: rows.assign(n_node, {}) freed every row's
+    // buffer per window (1M+ reallocs over a 10k-window batch) and the
+    // fresh CellSet freed its table; geometry (and so tie-break order) is
+    // unchanged — only the heap traffic goes away
+    if ((int32_t)rows.size() < g.n_node) rows.resize(g.n_node);
+    for (int32_t ri = 0; ri < g.n_node; ++ri) rows[ri].clear();
+    fpar.clear();
+    h.reset((uint32_t)o.n_best * 4);
+    best_pos = 0;
+    best_score = 0;
+    Cell root = cell_zero();
+    root.hi = f.acc[6];
+    rows[0].push_back(root);
+    Cell last_p = root;  // reference keeps the last visited predecessor cell
+
+    const bool st = stats_on();
+    uint64_t t0 = 0;
+    for (int32_t i = 1; i < g.n_node; ++i) {
+      if (st) t0 = __rdtsc();
+      h.clear();
+      int32_t max_min_sc = 0;
+      int32_t np = g.pre_off[i + 1] - g.pre_off[i];
+      const int32_t* pre = g.pre + g.pre_off[i];
+      if (np > 1) {  // k-smallest pruning bound (bwa-sw.c:368-386)
+        size_t n_cell = 0;
+        for (int32_t pj = 0; pj < np; ++pj) n_cell += rows[pre[pj]].size();
+        if (n_cell > (size_t)o.n_best) {
+          ks_a.clear();
+          for (int32_t pj = 0; pj < np; ++pj)
+            for (const Cell& cc : rows[pre[pj]]) ks_a.push_back(cc.H);
+          max_min_sc = ksmall_gt(ks_a, o.n_best);
+        }
+        max_min_sc -= std::max(o.gap_open + o.gap_ext, o.mis);
+        if (max_min_sc < 0) max_min_sc = 0;
+      }
+      if (st) cyc[1] += __rdtsc() - t0;
+      int32_t tc = g.c[i];
+
+      // H and E from predecessor rows (bwa-sw.c:388-426)
+      if (st) t0 = __rdtsc();
+      for (int32_t pj = 0; pj < np; ++pj) {
+        int32_t pid = pre[pj];
+        std::vector<Cell>& prow = rows[pid];
+        if (dp_prefetch)
+          for (size_t k2 = 0; k2 < prow.size(); ++k2) {
+            // overlap ALL the row's extend rank misses up front: cells
+            // extend independently, so their lines can stream while the
+            // hash/heap work of earlier cells runs (distance-1 lookahead
+            // measured only +5%; whole-row gives the LFBs real depth).
+            // Pure speed, no ordering effect.
+            prefetch_rank(f, prow[k2].lo > f.n ? f.n : prow[k2].lo);
+            int64_t nh = prow[k2].hi > f.n ? f.n : prow[k2].hi;
+            prefetch_rank(f, nh);
+          }
+        for (size_t k = 0; k < prow.size(); ++k) {
+          const Cell p = prow[k];
+          last_p = p;
+          if (p.H + o.match < max_min_sc) continue;
+          Ext e;
+          uint64_t te = st ? __rdtsc() : 0;
+          extend_back(f, p.lo, p.lo_rc, p.hi - p.lo, e, cache);
+          if (st) cyc[5] += __rdtsc() - te;
+          Cell r = cell_zero();
+          r.F_from_off = SW_F_UNSET;
+          r.H_from = SW_FROM_H;
+          r.H_from_pos = (uint32_t)((int64_t)pid * n_col + (int64_t)k);
+          r.E_from_pos = U32MAX;
+          for (int c = 1; c < 6; ++c) {
+            int32_t sc = (c == tc && c != 5) ? o.match : -o.mis;
+            if (e.sz[c] == 0) continue;
+            if (p.H + sc <= 0 || p.H + sc < max_min_sc) continue;
+            if (c != tc && p.qlen < o.end_len) continue;
+            r.lo = e.lo[c];
+            r.hi = e.lo[c] + e.sz[c];
+            r.lo_rc = e.rc[c];
+            r.H = p.H + sc;
+            r.rlen = p.rlen + 1;
+            r.qlen = p.qlen + 1;
+            update_candset(r);
+          }
+          if (p.H - o.gap_open > p.E) {
+            r.E_from = SW_FROM_OPEN;
+            r.E = p.H - o.gap_open;
+          } else {
+            r.E_from = SW_FROM_EXT;
+            r.E = p.E;
+          }
+          r.E -= o.gap_ext;
+          if (r.E > 0 && r.E >= max_min_sc && p.qlen >= o.end_len) {
+            // only lo/hi updated; lo_rc keeps the stale value (bwa-sw.c:418)
+            r.lo = p.lo;
+            r.hi = p.hi;
+            r.H = r.E;
+            r.H_from = SW_FROM_E;
+            r.E_from_pos = (uint32_t)((int64_t)pid * n_col + (int64_t)k);
+            r.H_from_pos = U32MAX;
+            r.rlen = p.rlen;
+            r.qlen = p.qlen + 1;
+            update_candset(r);
+          }
+        }
+      }
+
+      if (st) cyc[0] += __rdtsc() - t0;
+      if (h.count == 0) {
+        rows[i].clear();
+        continue;
+      }
+
+      // top-n selection (bwa-sw.c:428-443).  The klib heap kept the top
+      // n_best packed keys (H<<32 | bucket) — keys are UNIQUE (bucket ids
+      // distinct), so the kept set and its heapsort_desc order equal a
+      // plain descending sort of the top n_best keys; the heap layout
+      // itself is unobservable (only heap[0] = min and the final sorted
+      // order are read).  nth_element + sort replaces per-insert sifting.
+      if (st) t0 = __rdtsc();
+      heap.clear();
+      for (uint32_t itr : h.live) heap.push_back(((uint64_t)(uint32_t)h.keys[itr].H << 32) | itr);
+      if ((int64_t)heap.size() > (int64_t)o.n_best) {
+        std::nth_element(heap.begin(), heap.begin() + o.n_best, heap.end(), std::greater<uint64_t>());
+        heap.resize(o.n_best);
+      }
+      std::sort(heap.begin(), heap.end(), std::greater<uint64_t>());
+      row0.clear();
+      for (uint64_t x : heap) row0.push_back(h.keys[(uint32_t)x]);
+      std::reverse(heap.begin(), heap.end());  // sorted ascending = valid heap
+      if (st) { cyc[2] += __rdtsc() - t0; t0 = __rdtsc(); }
+
+      // F (deletion) closure DFS (bwa-sw.c:445-483)
+      size_t fpar_base = fpar.size();
+      uint32_t n_fpar = 0;
+      bool closure_changed = false;  // any candset mutation (incl. rlen/qlen max-merge)
+      fstack.clear();
+      if (last_p.qlen >= o.end_len)
+        for (size_t j = row0.size(); j-- > 0;)
+          if (row0[j].H > o.gap_open + o.gap_ext) fstack.push_back(row0[j]);
+      if (dp_prefetch)
+        for (size_t fi = fstack.size(); fi-- > 0;) {  // seed prefetch: stack pops right-to-left
+          prefetch_rank(f, fstack[fi].lo > f.n ? f.n : fstack[fi].lo);
+          if (fstack.size() - fi >= 4) break;
+        }
+      while (!fstack.empty()) {
+        Cell z = fstack.back();
+        fstack.pop_back();
+        if (dp_prefetch && !fstack.empty()) {
+          const Cell& nz = fstack.back();
+          prefetch_rank(f, nz.lo > f.n ? f.n : nz.lo);
+          int64_t nh = nz.hi > f.n ? f.n : nz.hi;
+          prefetch_rank(f, nh);
+        }
+        int64_t minv = heap.size() < (size_t)o.n_best ? 0 : (int64_t)(heap[0] >> 32);
+        Cell r = cell_zero();
+        r.H_from_pos = r.E_from_pos = U32MAX;
+        r.F_from_off = SW_F_UNSET;
+        if (z.H - o.gap_open > z.F) {
+          r.F_from = SW_FROM_OPEN;
+          r.F = z.H - o.gap_open;
+        } else {
+          r.F_from = SW_FROM_EXT;
+          r.F = z.F;
+        }
+        r.F -= o.gap_ext;
+        r.H = r.F;
+        r.H_from = SW_FROM_F;
+        r.rlen = z.rlen + 1;
+        r.qlen = z.qlen;
+        if (r.H <= minv) continue;
+        Ext e;
+        extend_back(f, z.lo, z.lo_rc, z.hi - z.lo, e, cache);
+        closure_changed = true;  // update_candset below may mutate rlen/qlen even when scores don't move
+        for (int c = 1; c < 6; ++c) {
+          if (e.sz[c] == 0) continue;
+          r.lo = e.lo[c];
+          r.hi = e.lo[c] + e.sz[c];
+          r.lo_rc = e.rc[c];
+          auto uc = update_candset(r);
+          if (uc.second & (1 << 2)) {  // q->F updated
+            heap_insert1(heap, o.n_best, r.H, U32MAX);
+            fpar.emplace_back(z.lo, z.hi);
+            h.keys[uc.first].F_from = r.F_from;
+            h.keys[uc.first].F_from_off = (uint32_t)(fpar_base + n_fpar);
+            ++n_fpar;
+            // compares against the heap min captured at pop time (bwa-sw.c:453,476)
+            if (r.H - o.gap_ext > minv) fstack.push_back(h.keys[uc.first]);
+          }
+        }
+      }
+
+      if (st) { cyc[3] += __rdtsc() - t0; t0 = __rdtsc(); }
+      // rebuild heap/row, track F, best, dedup.  If the closure never
+      // reached a candset update, h is untouched since the selection and
+      // the rebuild would reproduce row0 exactly — skip it (common case:
+      // score spreads under gap_open+2*gap_ext leave the closure empty).
+      if (!closure_changed) {
+        rows[i].swap(row0);
+      } else {
+        heap.clear();
+        for (uint32_t itr : h.live) heap.push_back(((uint64_t)(uint32_t)h.keys[itr].H << 32) | itr);
+        if ((int64_t)heap.size() > (int64_t)o.n_best) {
+          std::nth_element(heap.begin(), heap.begin() + o.n_best, heap.end(), std::greater<uint64_t>());
+          heap.resize(o.n_best);
+        }
+        std::sort(heap.begin(), heap.end(), std::greater<uint64_t>());
+        rows[i].clear();
+        for (uint64_t x : heap) rows[i].push_back(h.keys[(uint32_t)x]);
+      }
+      if (n_fpar > 0) track_F(rows[i]);
+      if (rows[i][0].H > best_score) {
+        best_score = rows[i][0].H;
+        best_pos = (int64_t)i * n_col;
+      }
+      if (i == g.n_node - 1) cell_dedup(rows[i]);
+      if (st) cyc[4] += __rdtsc() - t0;
+    }
+  }
+};
+
+// ---- hapdiv annotation (sw_backtrack want_anno; bwa-sw.c:218-259) --------
+
+static int ref_base(const int64_t* acc, int64_t lo) {
+  for (int c = 1; c < 7; ++c)
+    if (acc[c] > lo) return c - 1;
+  return 5;
+}
+
+// length-only backtrack returning the edit distance (bwa-sw.c:60-115 walk)
+static int backtrack_ed(const Opt& o, const Fmi& f, const Dawg& g,
+                        const std::vector<std::vector<Cell>>& rows, int64_t pos) {
+  int n_col = o.n_best;
+  int last = 0, ed = 0;
+  while (pos > 0) {
+    int64_t r = pos / n_col;
+    const Cell& p = rows[r][pos % n_col];
+    int x = p.H_from | (p.E_from << 2) | (p.F_from << 3);
+    int state = last == 0 ? (x & 3) : last;
+    int ext = (state == 1 || state == 2) ? (x >> (state + 1)) & 1 : 0;
+    int c = ref_base(f.acc, p.lo);
+    if (state == SW_FROM_H) {
+      pos = p.H_from_pos;
+      ed += (c != g.c[r]);
+    } else if (state == SW_FROM_E) {
+      pos = p.E_from_pos;
+      ++ed;
+    } else {
+      pos = r * n_col + p.F_from_off;
+      ++ed;
+    }
+    last = ((state == 1 || state == 2) && ext) ? state : 0;
+  }
+  return ed;
+}
+
+// one hapdiv window over its linear-chain DAWG (dawg.c:230-250 layout:
+// node j>=1 carries seq[k-j], single predecessor j-1)
+static void hapdiv_one(Engine& eng, const uint8_t* seq, int64_t k, int64_t* out10) {
+  std::vector<int32_t> cbuf((size_t)k + 1), pre((size_t)k), pre_off((size_t)k + 2);
+  cbuf[0] = -1;
+  pre_off[0] = pre_off[1] = 0;
+  for (int64_t j = 1; j <= k; ++j) {
+    cbuf[j] = seq[k - j];
+    pre[j - 1] = (int32_t)(j - 1);
+    pre_off[j + 1] = (int32_t)j;
+  }
+  Dawg g{(int32_t)(k + 1), cbuf.data(), pre_off.data(), pre.data()};
+  eng.run(g);
+  out10[0] = eng.best_score;
+  int64_t n_al = 0, max_ed = 0;
+  int64_t n_hap[7] = {0, 0, 0, 0, 0, 0, 0};
+  const std::vector<Cell>& prow = eng.rows[k];
+  if (!prow.empty()) {
+    int32_t H0 = prow[0].H;
+    for (size_t idx = 0; idx < prow.size(); ++idx) {
+      const Cell& q = prow[idx];
+      if (q.flt || q.H_from != SW_FROM_H || q.H < eng.o.min_sc) continue;
+      if (eng.o.e2e_drop >= 0 && H0 - q.H > eng.o.e2e_drop) continue;
+      ++n_al;
+      uint64_t tb = Engine::stats_on() ? __rdtsc() : 0;
+      int ed = backtrack_ed(eng.o, eng.f, g, eng.rows, (int64_t)k * eng.o.n_best + (int64_t)idx);
+      if (Engine::stats_on()) eng.cyc[7] += __rdtsc() - tb;
+      if (ed > max_ed) max_ed = ed;
+      n_hap[ed < 6 ? ed : 6] += q.hi - q.lo;
+    }
+  }
+  out10[1] = n_al;
+  out10[2] = max_ed;
+  for (int i = 0; i < 7; ++i) out10[3 + i] = n_hap[i];
+}
+
+}  // namespace
+
+extern "C" {
+
+// Batched hapdiv windows (equal length k, nt6-coded), threaded.
+// out[w*10] = [best_score, n_al, max_ed, n_hap[0..6]]
+void rb3t_hapdiv_batch(const uint8_t* bwt, const uint16_t* occ_block, const int64_t* occ_super,
+                       const int64_t* acc, int64_t n, const int32_t* opt9, const uint8_t* seqs,
+                       int64_t n_win, int64_t k, int32_t n_threads, int64_t* out,
+                       const uint8_t* pline) {
+  Fmi f{bwt, occ_block, occ_super, acc, n, nullptr, (const PlRec*)pline};
+  Opt o = opt_from(opt9);
+  if (n_threads < 1) n_threads = 1;
+  // dynamic claiming (out rows are per-window; schedule can't reorder them)
+  std::atomic<int64_t> cursor(0);
+  std::atomic<uint64_t> agg[8] = {{0}, {0}, {0}, {0}, {0}, {0}, {0}, {0}};
+  auto work = [&]() {
+    Engine eng;
+    eng.f = f;
+    eng.o = o;
+    eng.cache.rebits(13);  // hapdiv DP cache optimum (see RankCache::rebits)
+    for (;;) {
+      int64_t w = cursor.fetch_add(1, std::memory_order_relaxed);
+      if (w >= n_win) break;
+      hapdiv_one(eng, seqs + w * k, k, out + w * 10);
+    }
+    for (int i = 0; i < 8; ++i) agg[i] += eng.cyc[i];
+  };
+  if (n_threads == 1 || n_win < 2) {
+    work();
+  } else {
+    std::vector<std::thread> th;
+    for (int32_t t = 0; t < n_threads && t < n_win; ++t) th.emplace_back(work);
+    for (std::thread& t : th) t.join();
+  }
+  if (Engine::stats_on()) {
+    static const char* nm[8] = {"HE-loop", "prune", "topn", "closure", "rebuild", "extends", "dawggen", "backtrack"};
+    for (int i = 0; i < 8; ++i)
+      fprintf(stderr, "[dp-stats] %-9s %12.3f Gcyc\n", nm[i], (double)agg[i].load() / 1e9);
+  }
+}
+
+}  // extern "C"

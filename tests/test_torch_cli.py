@@ -1,7 +1,8 @@
 """`python -m ropebwt3_tpu_torch` against `python -m ropebwt3_tpu` on the
 corpus: `build` (every output format and input option, several merges,
 `-S` then `-i`), `merge` and `plain2fmd` output byte for byte, `mem` stdout
-byte for byte against `--engine=native`, the `ssa` file byte for byte; and
+byte for byte against `--engine=native`, `hapdiv` and `mem -a/-w` stdout
+byte for byte, the `ssa` file byte for byte; and
 the options that would reach the JAX package's device code refused with jax
 unimportable."""
 
@@ -243,6 +244,32 @@ def test_ssa_without_cuda_exits_nonzero(corpus_fmd, tmp_path):
         pytest.skip("this host has a CUDA card")
     r = _run("ropebwt3_tpu_torch", ["ssa", "-o", str(tmp_path / "x.ssa"), str(corpus_fmd)])
     assert r.returncode != 0 and b"CUDA" in r.stderr and not (tmp_path / "x.ssa").exists()
+
+
+@pytest.mark.parametrize("cmd,device_engine", [
+    (["hapdiv"], True), (["mem", "-a51", "-w20"], True), (["hapdiv", "--engine=native"], False)],
+    ids=["hapdiv", "mem-a51-w20", "native"])
+def test_hapdiv_matches_reference(corpus, corpus_fmd, cmd, device_engine):
+    """`hapdiv` and `mem -a/-w` (whose -k end_len stays 11) through the
+    port's device engine on the CPU (the plain version, flagged windows on
+    the native DP), or its native DP alone, with jax unimportable: stdout
+    byte-equal to `python -m ropebwt3_tpu`, whose engine is the native DP."""
+    files = [str(corpus_fmd), str(corpus / "reads.fa")]
+    want = _run("ropebwt3_tpu", cmd + files)
+    got = _run_without_jax(cmd + ["--device=cpu"] + files)
+    assert want.returncode == 0, want.stderr.decode()
+    assert got.returncode == 0, got.stderr.decode()
+    assert want.stdout.count(b"\n") >= 60 and got.stdout == want.stdout
+    assert (b"0 hapdiv launches (dense32)" in got.stderr) == device_engine
+
+
+def test_hapdiv_without_cuda_exits_nonzero(corpus, corpus_fmd):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    r = _run("ropebwt3_tpu_torch", ["hapdiv", str(corpus_fmd), str(corpus / "reads.fa")])
+    assert r.returncode != 0 and not r.stdout
+    lines = r.stderr.decode().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("ERROR: ") and "CUDA" in lines[0]
 
 
 @pytest.mark.parametrize("argv,why", [

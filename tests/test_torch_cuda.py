@@ -68,6 +68,32 @@ def flat_of(qs):
     return torch.from_numpy(flat), torch.from_numpy(seq_off)
 
 
+HAPDIV_W = 32
+
+
+def make_windows(gen: list[np.ndarray], K: int, err: float, crafted_start: int, seed: int) -> np.ndarray:
+    """W windows (W, K) int32: HAPDIV_W - 1 cut from random genomes with
+    substitutions, insertions and deletions, each at a third of `err`, then
+    the crafted one."""
+    rng = np.random.default_rng(seed)
+    wins = []
+    for _ in range(HAPDIV_W - 1):
+        g = gen[int(rng.integers(0, len(gen)))]
+        st = int(rng.integers(0, len(g) - 2 * K))
+        out = []
+        for x in g[st : st + 2 * K]:
+            u = rng.random()
+            if u < err / 3:  # deletion
+                continue
+            if u < 2 * err / 3:  # insertion before x
+                out.append(int(rng.integers(1, 5)))
+            out.append(int(rng.integers(1, 5)) if u >= 2 * err / 3 and u < err else int(x))
+        wins.append(out[:K])
+    g0 = gen[0][crafted_start : crafted_start + K].astype(np.int32)
+    wins.append(np.concatenate([g0[: K // 2], np.full(4, 4, np.int32), g0[K // 2 :]])[:K])
+    return np.asarray(wins, dtype=np.int32)
+
+
 def make_index(layout, f, device):
     """The index of `layout` on `device`, int64 megablocks shrunk so the
     corpus index spans several."""
@@ -460,3 +486,28 @@ def test_merge_rank_segments_match_plain(corpus, corpus_index, cuda_device, layo
     assert torch.equal(got, want) and torch.equal(seg, pseg)
     with pytest.raises(ValueError):
         tmerge.merge_rank_cuda(idx, rec.clone(), m2, S=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("K,n_best", [(51, 25), (101, 25), (51, 16), (31, 48)])
+def test_hapdiv_kernel_matches_plain(corpus, corpus_index, cuda_device, layout, K, n_best):
+    """K8 (csrc/hapdiv.cu, one warp a window) against hapdiv_plain on the
+    card, exact: the four arrays on every window, `bad` included, and the
+    trips of the windows not flagged; make_windows' windows (substitutions
+    and indels, one crafted to be flagged) and a low-complexity run."""
+    from ropebwt3_tpu_torch.align import hapdiv
+
+    gen = [char2nt6(rec.seq) for rec in read_seqs(str(corpus / "genomes.fa"))]
+    wins = np.concatenate([make_windows(gen, K, 0.06, 3883, seed=K + n_best), np.ones((1, K), np.int32)])
+    x = make_index(layout, corpus_index, cuda_device)
+    seqs = torch.from_numpy(wins).to(cuda_device)
+    before = hapdiv.hapdiv_cuda.launches[layout]
+    got = hapdiv.hapdiv_cuda(x, seqs, K, n_best=n_best, trips=True)
+    assert hapdiv.hapdiv_cuda.launches[layout] == before + 1
+    want = hapdiv.hapdiv_plain(x, seqs, K, n_best=n_best, trips=True)
+    for a, b in zip(got[:4], want[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ok = ~got[3]
+    assert torch.equal(got[4][ok], want[4][ok])  # trips: the rounds of a flagged window stop at its flag
+    assert bool(got[3].any()) and bool(ok.any())
