@@ -3,7 +3,7 @@
 
 Drives the port's entry points on one CUDA card: `build` (and `merge`) of
 bench.py's genomes and of its short reads, `hapdiv` of a 17th haplotype
-against bench.py's index, `mem -l31` on the workload
+against bench.py's index, `sw` of its short reads, `mem -l31` on the workload
 of bench.py (16 x 2 Mbp genomes at 1% divergence, indexed double strand:
 ~64 M symbols, ~48 MB of dense occ rows; 100,000 x 150 bp reads at 1% error)
 plus 200 reads of 5-20 kb, once on the default rows (the main path) and once
@@ -99,6 +99,16 @@ it.  Phases:
             bytes bound and the chain floor; then the hapdiv path, `hapdiv`
             through cli.main (counts reset before, read after), byte-equal to
             `python -m ropebwt3_tpu hapdiv`
+  sw        K9 (csrc/sw.cu, one warp a read) on bench.py's index: per dense
+            layout the kernel vs sw_plain on the card, exact, on the first
+            128 short reads the card takes (general DAWGs) and 64 (-e), 16
+            of each at -A 100 (all flagged), timed
+            beside the bytes bound and the chain floor, and a launch of
+            4,096 reads; then the sw paths through cli.main (counts reset
+            before, read after): `sw` on the first 10,000 short reads and
+            `sw --all-e2e -b` on the first 1,000, byte-equal to `python -m
+            ropebwt3_tpu sw`, with the shares of reads on the card, flagged
+            and sent to the host, and the wall time by piece
 
 Any failure exits non-zero.  The last line is {"ok": true, "device": ...}.
 Run from the repository root: python3 chip_smoke.py
@@ -156,6 +166,12 @@ DEVICE = "cuda"
 # arise), and HAPDIV_BIG windows scored -A 100, which every aligning window
 # flags (a score past 4095)
 HAPDIV_K, HAPDIV_STEP, HAPDIV_CHECK, HAPDIV_INS, HAPDIV_BIG = 101, 50, 960, 64, 16
+# [sw]: K9's check takes the first SW_CHECK reads (general DAWGs) and the
+# first SW_CHECK_E2E (-e) of bench.py's short reads that the card takes; the
+# sw path runs `sw` on the first SW_PATH of them, `sw --all-e2e -b` on the
+# first SW_E2E_PATH; SW_BIG of the check's reads are scored -A 100, which
+# flags every one (a score past 4095)
+SW_CHECK, SW_CHECK_E2E, SW_PATH, SW_E2E_PATH, SW_BIG = 128, 64, 10_000, 1_000, 16
 
 
 def fail(msg: str):
@@ -1199,6 +1215,135 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
     return dict(res=res, path=path)
 
 
+SW_LOG = re.compile(r"(\d+) sw launches \(dense32\); (\d+) of (\d+) reads on the card, (\d+) flagged bad and (\d+) of a DAWG")
+SW_PIECES = re.compile(r"wall seconds by piece[^:]*: (.*)")
+
+
+def sw_path(cli, argv: list[str], fa: str, fmd: str, tag: str) -> dict:
+    """`sw <argv>` on `fa` through cli.main, launch counts reset before and
+    read after, its stdout byte-equal to `python -m ropebwt3_tpu sw <argv>`
+    (the reference first: its run times the native engine).  Returns the
+    counts, shares, pieces and times."""
+    from ropebwt3_tpu_torch.align import sw
+
+    ref_out, port_out = os.path.join(WORK, "sw", f"{tag}_ref.txt"), os.path.join(WORK, "sw", f"{tag}_port.txt")
+    with open(ref_out, "wb") as out:
+        ref_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "sw", *argv, fmd, fa], stdout=out)
+    want = open(ref_out, "rb").read()
+    sw.sw_cuda.launches.clear()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with open(port_out, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["sw", *argv, fmd, fa])
+    port_s = time.perf_counter() - t0
+    launches = dict(sw.sw_cuda.launches)
+    sys.stderr.write(err.getvalue())
+    if rc != 0:
+        fail(f"ropebwt3_tpu_torch sw {' '.join(argv)} exited {rc}")
+    got = open(port_out, "rb").read()
+    if got != want:
+        fail(f"port sw {' '.join(argv)} differs from `python -m ropebwt3_tpu sw`: {first_diff(got, want)}")
+    m, p = SW_LOG.search(err.getvalue()), SW_PIECES.search(err.getvalue())
+    if launches.get("dense32", 0) < 1 or m is None or p is None or int(m.group(1)) != launches["dense32"]:
+        fail(f"sw path {' '.join(argv)}: launches {launches}, log {m and m.group(0)}")
+    n_card, n_reads, n_bad, n_shape = (int(m.group(i)) for i in (2, 3, 4, 5))
+    pieces = {k: float(v) for k, v in (x.rsplit(" ", 1) for x in p.group(1).split(", "))}
+    return dict(launches=launches, port_s=port_s, ref_s=ref_s, n_reads=n_reads, card_share=n_card / n_reads,
+                bad_share=n_bad / n_reads, shape_share=n_shape / n_reads, pieces=pieces, lines=want.count(b"\n"))
+
+
+def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict:
+    """K9 (csrc/sw.cu) on bench.py's index.  Per mode (general DAWGs, -e) and
+    dense layout the kernel against sw_plain on the card, exact (bad,
+    best_sc and best_pos of every read, the archive and the trips of those
+    not flagged) on the first SW_CHECK / SW_CHECK_E2E short reads the card
+    takes; the launch timed, and one of LANES reads; the bytes bound (the
+    rows the plain version's ranks read, the DAWGs in, the archive out) and
+    the chain floor (the longest read's trips at the 48 MB table's ns).
+    Then the sw paths through cli.main, byte-equal to the reference, with
+    the index's SSA and sequence lengths beside it so PAF carries positions."""
+    import gzip
+    import shutil
+
+    import torch
+
+    from ropebwt3_tpu_torch.align import bwasw, sw
+
+    shutil.copyfile(os.path.join(WORK, "ssa_bench_ref.ssa"), fmd + ".ssa")  # the [ssa] phase's reference, -s 8
+    with gzip.open(fmd + ".len.gz", "wt") as fh:
+        fh.write("".join(f"g{g}\t{GENOME_LEN}\n" for g in range(N_GENOMES)))
+    path_fa = write_fasta(os.path.join(WORK, "sw", "reads.fa"), reads[:SW_PATH])
+    e2e_fa = write_fasta(os.path.join(WORK, "sw", "reads_e2e.fa"), reads[:SW_E2E_PATH])
+    f = cli.load_index(fmd)
+    res = {}
+    for mode, n_check in (("general", SW_CHECK), ("e2e", SW_CHECK_E2E)):
+        opt = bwasw.SwOpt(flag=bwasw.RB3_SWF_E2E if mode == "e2e" else 0, end_len=1 if mode == "e2e" else 11)
+        flat, seq_off = bwasw.flat_reads(reads[:SW_PATH])
+        ok, n_node, max_pre, node_c, pre = bwasw.sw_stage(opt, f, flat, seq_off, sw.NC_MAX, sw.P_MAX)
+        elig = np.flatnonzero(ok & (n_node <= sw.NC_MAX) & (max_pre <= sw.P_MAX))
+
+        def dawgs(sel):
+            NC, P = int(n_node[sel].max()), max(1, int(max_pre[sel].max()))
+            return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (node_c[sel, :NC], pre[sel, :NC, :P], n_node[sel])]
+
+        check, full = dawgs(elig[:n_check]), dawgs(elig[: sw.LANES])
+        kw = dict(end_len=opt.end_len)
+        for lay in ("dense32", "dense64"):
+            x = idxs[lay]
+            got = sw.sw_cuda(x, *check, trips=True, **kw)
+            counted = RowCount(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = sw.sw_plain(counted, *check, trips=True, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            okr = ~want[6]
+            rows = torch.repeat_interleave(okr, check[2].long())
+            err = max(max(max_abs(a, b) for a, b in zip(got[4:7], want[4:7])),
+                      max(max_abs(a[rows], b[rows]) for a, b in zip(got[:4], want[:4])))
+            if err or not torch.equal(got[7][okr], want[7][okr]):
+                fail(f"sw {mode} {lay}: the kernel differs from sw_plain by {err} (trips equal: "
+                     f"{torch.equal(got[7][okr], want[7][okr])})")
+            big = [t[:SW_BIG] for t in check]  # scored -A 100, every read passes 4095 and is flagged
+            gb, wb = sw.sw_cuda(x, *big, match=100, **kw), sw.sw_plain(x, *big, match=100, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(gb[4:7], wb[4:7])) or not bool(gb[6].all()):
+                fail(f"sw {mode} {lay}: at -A 100 the kernel gives {gb[6].tolist()} flags, the plain version "
+                     f"{wb[6].tolist()}")
+
+            def timed(args, reps):
+                arows = sw.arch_rows(args[2])
+                scratch = torch.empty((int(arows[-1]), sw.N_BEST, 4), dtype=torch.int64, device=dev)
+                ms = cuda_ms(lambda: sw.launch_sw(x, *args, rows=arows, scratch=scratch, **kw), reps)
+                del scratch
+                return ms
+
+            ms, full_ms = timed(check, 3), timed(full, 2)
+            io_bytes = nbytes(*check, *got[:7])
+            trips = int(got[7][okr].max())
+            r = res[f"{mode}_{lay}"] = dict(
+                err=err, ms=ms, plain_ms=plain_ms, n_reads=len(check[2]), n_bad=int(want[6].sum()),
+                NC=check[0].shape[1], P=check[1].shape[2], rows_bytes=counted.bytes(), io_bytes=io_bytes,
+                bound_ms=bound_ms(counted.bytes() + io_bytes), max_trips=trips, mean_trips=float(got[7][okr].float().mean()),
+                chain_floor_ms=trips * ns[LAT_48MB] / 1e6, full_ms=full_ms, full_reads=len(full[2]))
+            say(f"[sw] {mode} {lay}: sw_cuda exact vs sw_plain on {r['n_reads']} reads (NC {r['NC']}, P {r['P']}; "
+                f"{r['n_bad']} flagged; trips of the others equal) and on {SW_BIG} at -A 100 (all flagged); kernel {ms:.4f} ms vs plain {plain_ms:.1f} ms; bound "
+                f"{r['bound_ms']:.4f} ms ({r['rows_bytes']} B of rows read, {io_bytes} B in and out); chain floor "
+                f"{r['chain_floor_ms']:.4f} ms (longest read {trips} trips, mean {r['mean_trips']:.1f}, at "
+                f"{ns[LAT_48MB]} ns); a launch of {r['full_reads']} reads {full_ms:.3f} ms ({card})")
+        del check, full
+
+    path = sw_path(cli, [], path_fa, fmd, "sw")
+    e2e = sw_path(cli, ["--all-e2e", "-b"], e2e_fa, fmd, "e2e")
+    for name, p, fa_n in (("sw", path, SW_PATH), ("sw --all-e2e -b", e2e, SW_E2E_PATH)):
+        say(f"[sw] path `{name}` on the first {fa_n} short reads ({p['n_reads']} DP reads): stdout byte-equal to "
+            f"`python -m ropebwt3_tpu {name}` ({p['lines']} lines); launches {p['launches']}; reads on the card "
+            f"{p['card_share']:.4%}, flagged {p['bad_share']:.4%}, sent to the host for their DAWG "
+            f"{p['shape_share']:.4%}; port in-process {p['port_s']:.3f} s (by piece: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in p["pieces"].items())
+            + f"), reference (native engine, {os.cpu_count()} host cores, a subprocess) {p['ref_s']:.3f} s ({card})")
+    return dict(res=res, path=path, e2e=e2e)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu_torch")) or not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu")):
         fail("run chip_smoke.py from a checkout of the repository")
@@ -1592,6 +1737,11 @@ def main() -> None:
     hd = check_hapdiv(cli, dev, card, fa, fmd, idxs, ns)
     say(f"[hapdiv] phase in {time.perf_counter() - t0:.3f} s")
 
+    # ---- sw --------------------------------------------------------------------
+    t0 = time.perf_counter()
+    swr = check_sw(cli, dev, card, fmd, reads, idxs, ns)
+    say(f"[sw] phase in {time.perf_counter() - t0:.3f} s")
+
     def path_launches(kernel: str, layout: str) -> tuple[int, str | None]:
         for path, p in paths.items():
             if p["layout"] == layout and kernel in ("smem_tg", "smem_tgc"):
@@ -1698,6 +1848,19 @@ def main() -> None:
             "full_batch_ms": r["full_ms"], "full_batch_windows": r["full_windows"],
             **({"path_windows": hd["path"]["n_win"], "path_bad": hd["path"]["n_bad"], "path_port_s": hd["path"]["port_s"],
                 "path_reference_s": hd["path"]["ref_s"]} if n else {}),
+        })
+    for layout in ("dense32", "dense64"):
+        r, e = swr["res"][f"general_{layout}"], swr["res"][f"e2e_{layout}"]
+        n = swr["path"]["launches"].get(layout, 0) + swr["e2e"]["launches"].get(layout, 0)
+        entries.append({
+            "name": f"sw_{layout}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/sw.cu + dp.cuh + occ.cuh",
+            "replaces": "ropebwt3_tpu/align/sw_jax.py:122 (sw_device)", "launches": n,
+            "path": "sw, sw --all-e2e -b" if n else None, "max_abs_err": max(r["err"], e["err"]), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "chain_floor_ms": r["chain_floor_ms"], "input": f"{r['n_reads']} short reads' general DAWGs (NC {r['NC']}, P {r['P']})",
+            "n_bad": r["n_bad"], "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"],
+            "full_batch_ms": r["full_ms"], "full_batch_reads": r["full_reads"], "e2e": e,
+            **({"path_sw": swr["path"], "path_all_e2e": swr["e2e"]} if n else {}),
         })
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,21 +1,28 @@
-"""The `hapdiv` driver: windows of each sequence, batched across sequences,
-through the DP, and the run-length merged rows written as search.c writes
-them.  A copy of ropebwt3_tpu/align/cli_hooks.py's `_iter_named`,
-`_opt_from_dict` and `run_hapdiv_cli`, with the port's device engine
-(align/hapdiv.py) in place of the JAX one and without the JAX package's
+"""The `sw` and `hapdiv` command loops.  `sw`: reads in batches through the sw
+engine, hits written as PAF or (--all-e2e, -g) as QS/QH records, as
+search.c writes them.  `hapdiv`: windows of each sequence, batched across
+sequences, through the DP, and the run-length merged rows.  A copy of
+ropebwt3_tpu/align/cli_hooks.py's `_iter_named`, `_opt_from_dict`,
+`_pos_stranded`, `write_paf`, `write_all_hits`, `_emit_sw`, `run_sw_cli`
+and `run_hapdiv_cli`, with the port's device engines (align/sw.py,
+align/hapdiv.py) in place of the JAX ones and without the JAX package's
 hybrid pool, mesh and resident server."""
 
 from __future__ import annotations
 
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import log
-from ..nt6 import char2nt6
+from ..nt6 import char2nt6, revcomp
 from ..seqio import iter_flat_batches, read_seqs
-from .bwasw import RB3_SWF_E2E, RB3_SWF_HAPDIV, RB3_SWF_KEEP_RS, HapDiv, SwOpt, rb3_hapdiv_multi
+from .bwasw import RB3_SWF_E2E, RB3_SWF_HAPDIV, RB3_SWF_KEEP_RS, HapDiv, SwOpt, rb3_hapdiv_multi, rb3_sw_batch
 
 NATIVE_CAP = 16384  # windows a native DP call
+SW_BATCH = 4096  # reads an sw engine call
+_CIG = "MIDNSHP=X"
+_NT = "$ACGTN"
 
 
 def _iter_named(fn: str, is_line: bool):
@@ -49,6 +56,161 @@ def _opt_from_dict(d: dict) -> SwOpt:
     if d["keep_rs"]:
         o.flag |= RB3_SWF_KEEP_RS
     return o
+
+
+def _pos_stranded(sid, pos_entry, rlen):
+    psid, ppos = pos_entry
+    clen = int(sid.lens[psid >> 1])
+    if (psid & 1) == 0:
+        st, en = ppos, ppos + rlen
+    else:
+        st, en = clen - (ppos + rlen), clen - ppos
+    return clen, st, en
+
+
+def write_paf(out, f, h, name: str, qlen: int, keep_rs: bool) -> None:
+    line = [f"{name}\t{qlen}\t{h.qoff[0]}\t{h.qoff[0] + h.qlen}"]
+    if h.n_pos > 0:
+        psid, ppos = h.pos[0]
+        if f.sid is not None:
+            clen, st, en = _pos_stranded(f.sid, h.pos[0], h.rlen)
+            line.append(f"\t{'+-'[psid & 1]}\t{f.sid.names[psid >> 1]}\t{clen}\t{st}\t{en}")
+        else:
+            line.append(f"\t+\t{psid}\t*\t{ppos}\t{ppos + h.rlen}")
+    else:
+        line.append(f"\t*\t*\t{h.rlen}\t*\t*")
+    line.append(f"\t{h.mlen}\t{h.blen}\t0")
+    line.append(f"\tAS:i:{h.score}\tqh:i:{h.n_qoff}\trh:i:{h.hi - h.lo}\tcg:Z:")
+    line.append("".join(f"{c >> 4}{_CIG[c & 0xF]}" for c in h.cigar))
+    line.append(f"\tcs:Z:{h.cs}")
+    if keep_rs:
+        line.append("\trs:Z:" + "".join(_NT[c] for c in h.rseq))
+    if h.n_pos > 1:
+        tag = "ap" if f.sid is not None else "aq"
+        line.append(f"\t{tag[0]}{tag[1]}:Z:")
+        for pe in h.pos[1:]:
+            psid, ppos = pe
+            if f.sid is not None:
+                _, st, _ = _pos_stranded(f.sid, pe, h.rlen)
+                line.append(f"{f.sid.names[psid >> 1]},{'+-'[psid & 1]},{st};")
+            else:
+                line.append(f"{psid},{ppos};")
+    out.write("".join(line) + "\n")
+
+
+def write_all_hits(out, name: str, qlen: int, hits, strand: str, max_all_out: int) -> None:
+    if max_all_out <= 0:
+        max_all_out = 1 << 62
+    tot = sum(h.hi - h.lo for h in hits)
+    n_out = 0
+    for h in hits:
+        n_out += h.hi - h.lo
+        if n_out >= max_all_out:
+            break
+    out.write(f"QS\t{name}\t{qlen}\t{len(hits)}\t{strand}\t{n_out}\t{tot}\n")
+    n_out = 0
+    for h in hits:
+        out.write(f"QH\t{h.hi - h.lo}\t{h.score}\t{h.blen - h.mlen}\t{h.cs}\n")
+        n_out += h.hi - h.lo
+        if n_out >= max_all_out:
+            break
+    out.write("//\n")
+
+
+def _emit_sw(out, f, sw_opts, name, q, hits, minus_hits) -> None:
+    if sw_opts["write_all"]:
+        write_all_hits(out, name, len(q), hits, "+", sw_opts["max_all_out"])
+        if sw_opts["both_dir"]:
+            write_all_hits(out, name, len(q), minus_hits, "-", sw_opts["max_all_out"])
+    else:
+        if hits:
+            for h in hits:
+                write_paf(out, f, h, name, len(q), sw_opts["keep_rs"])
+        elif sw_opts["write_unmap"]:
+            out.write(f"{name}\t{len(q)}\t*\t*\t*\t*\t*\t*\t*\t0\t0\t0\n")
+
+
+def run_sw_cli(f, files, is_line, sw_opts, device=None) -> int:
+    """sw of every read of `files`: on `device` ("cuda" or "cpu") through the
+    device engine (align/sw.py), or on the native engine alone when None.
+    Batches of SW_BATCH reads; the engine runs one batch ahead of the
+    writer."""
+    from ..cli import seq_openable
+
+    opt = _opt_from_dict(sw_opts)
+    out = sys.stdout
+    if sw_opts["write_all"]:
+        out.write("CC\tQS  queryName  queryLen  numHap\n")
+        out.write("CC\tQH  refCount   score     editDist   cs   strand   nOut   totAln\n")
+        out.write("CC\n")
+    both = sw_opts["write_all"] and sw_opts["both_dir"]
+    dev_engine = None
+    if device is not None:
+        from .sw import SwDeviceEngine
+
+        dev_engine = SwDeviceEngine(f, opt, device)
+
+    def _sw_batch(qs):
+        return rb3_sw_batch(opt, f, qs) if dev_engine is None else dev_engine.run(qs)
+
+    def compute(batch):
+        qs = [q for _, q in batch]
+        if both:
+            allh = _sw_batch(qs + [revcomp(q) for q in qs])
+            return allh[: len(qs)], allh[len(qs) :]
+        return _sw_batch(qs), [None] * len(qs)
+
+    write_s = 0.0
+
+    def emit(batch, fwd, rev):
+        nonlocal write_s
+        t0 = time.perf_counter()
+        for (name, q), hits, mh in zip(batch, fwd, rev):
+            _emit_sw(out, f, sw_opts, name, q, hits, mh)
+        write_s += time.perf_counter() - t0
+
+    # pipeline like hapdiv: the engine (GIL-released native code, the card)
+    # of batch i+1 overlaps batch i's PAF emit
+    _ex = ThreadPoolExecutor(1)
+    inflight: list = []
+
+    def flush(batch):
+        inflight.append((batch, _ex.submit(compute, batch)))
+        while len(inflight) > 1:
+            b0, fut = inflight.pop(0)
+            emit(b0, *fut.result())
+
+    batch: list = []
+    seq_id = 0
+    for fn in files:
+        if not seq_openable(fn):
+            # search.c:571-575: report and stop processing further files
+            print(f"ERROR: failed to load the sequence file '{fn}'", file=sys.stderr)
+            break
+        for name0, q in _iter_named(fn, is_line):
+            seq_id += 1
+            batch.append((name0 if name0 else f"seq{seq_id}", q))
+            if len(batch) >= SW_BATCH:
+                flush(batch)
+                batch = []
+    if batch:
+        flush(batch)
+    while inflight:
+        b0, fut = inflight.pop(0)
+        emit(b0, *fut.result())
+    _ex.shutdown()
+    if dev_engine is not None:
+        from .sw import sw_cuda
+
+        e = dev_engine
+        lay = e.idx.layout if e.idx is not None else "dense32"
+        log.info("%d sw launches (%s); %d of %d reads on the card, %d flagged bad and %d of a DAWG the card does not "
+                 "take, both rerun on the native engine", sw_cuda.launches[lay], lay, e.n_card, e.n_reads, e.n_bad,
+                 e.n_shape, func="sw")
+        log.info("wall seconds by piece (the engine's overlap the writer's): %s, write %.3f",
+                 ", ".join(f"{k} {e.seconds[k]:.3f}" for k in ("stage", "card", "finish", "native", "positions")),
+                 write_s, func="sw")
+    return 0
 
 
 def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None) -> int:

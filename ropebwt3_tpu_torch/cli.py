@@ -1,6 +1,6 @@
 """`python -m ropebwt3_tpu_torch`: ropebwt3's command line for the commands
-the port owns: `build`, `merge`, `plain2fmd`, `mem`, `hapdiv`, `ssa`,
-`stat` and `version`.
+the port owns: `build`, `merge`, `plain2fmd`, `mem`, `sw`, `hapdiv`,
+`search`, `ssa`, `stat` and `version`.
 
 `build [--device=cuda|cpu] [options] in.fa...` reads each file in batches
 of -m symbols (each record then its reverse complement, 0-terminated),
@@ -29,21 +29,32 @@ windows it flags rerun on the native DP (native/bwasw_core.cpp), and the
 rows are written byte-equal to `python -m ropebwt3_tpu hapdiv`, whose engine
 is the native DP; `--engine=native` runs the native DP alone.
 
+`sw [--device=cuda|cpu] [--engine=auto|native] [options] idx.fmd reads...`
+(and `mem -d`, which runs it) aligns each read to the index with BWA-SW:
+the reads, 4,096 a batch, are staged natively (the -j prefilter and each
+read's DAWG), scored on the device (align/sw.py: the kernel of csrc/sw.cu,
+or its plain version with --device=cpu), their hits taken from the archive
+by the native backtrack, and the reads the device does not take or flags
+rerun on the native engine; PAF, or --all-e2e / -g records, byte-equal to
+`python -m ropebwt3_tpu sw`, whose engine is the native one;
+`--engine=native` runs the native engine alone.  `search` runs `mem`,
+`hapdiv` or `sw` by its options, as ropebwt3_tpu/cli.py main_search does.
+
 `ssa [--device=cuda|cpu] [-s INT] [-o FILE] [-t INT] idx.fmd` walks every
 sequence on the device's dense occ rows (ssa_ops.py) and writes the SSA
 file byte-equal to `python -m ropebwt3_tpu ssa`; `-t` is accepted and
 unused, as the JAX package's own walk ignores it.
 
 With the default `--device=cuda` and no CUDA, `build`, `merge`, `mem`,
-`hapdiv` and `ssa` exit non-zero; they never go on on the CPU unasked.
+`sw`, `hapdiv`, `search` and `ssa` exit non-zero; they never go on on the CPU unasked.
 Every other command, and every option that the port's engines do not run, is refused
 with one `ERROR:` line that names the ROADMAP queue item porting it
 (`refusal`); `python -m ropebwt3_tpu` runs them.  The option parsers, the
 usage texts, the index loader and the writers are copies of
 ropebwt3_tpu/cli.py's (main_build, _dump_index, main_merge, main_plain2fmd,
 main_search, _run_mem's flat path, main_ssa, main_stat).  The copies of
-align/cli_hooks.py, align/bwasw.py and native/bwasw_core.cpp that `hapdiv`
-runs are under align/ and native/.
+align/cli_hooks.py, align/bwasw.py and native/bwasw_core.cpp that `sw` and
+`hapdiv` run are under align/ and native/.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ import getopt
 import os
 import re
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -62,16 +74,24 @@ from .nt6 import NT6_TABLE, char2nt6, nt6_to_str, revcomp
 from .seqio import batch_nt6_flat, iter_flat_batches, read_batch_nt6, read_seqs, read_sid
 
 REF_VERSION = "3.10-r281"  # ropebwt3 version whose formats and outputs are matched
-OWNED = ("build", "merge", "plain2fmd", "mem", "hapdiv", "ssa", "stat", "version")
+OWNED = ("build", "merge", "plain2fmd", "mem", "sw", "hapdiv", "search", "ssa", "stat", "version")
 # main_search's short and long options (ropebwt3_tpu/cli.py:1022-1029)
 _SEARCH_OPTS = "Ll:c:t:K:MdN:A:B:O:E:C:m:k:uj:ey:a:w:p:bg:"
 _LONG_OPTS = ["no-ssa", "seq", "gap=", "cov", "old-mem", "all-e2e", "no-kalloc", "dbg-dawg", "dbg-sw", "dbg-qname",
               "dbg-bt", "engine=", "mesh=", "occ="]
 # the ROADMAP queue 1 item that ports each command or engine the port refuses
-_ENGINE_ITEM = {"sw": "item 11 (sw scoring DP)", "hapdiv": "item 10 (its remainder: the hybrid and server engines)",
-                "search": "items 4, 10 and 11 (use `mem`, `sw` or `hapdiv`)"}
-_COMMAND_ITEM = {"sw": _ENGINE_ITEM["sw"], "search": _ENGINE_ITEM["search"], "get": "item 16", "suffix": "item 17",
-                 "kount": "item 18", "fa2line": "item 19", "fa2kmer": "item 20"}
+_ENGINE_ITEM = {"sw": "item 11 (its remainder: the hybrid and server engines)",
+                "hapdiv": "item 10 (its remainder: the hybrid and server engines)",
+                "search": "items 10 and 11 (their remainders: the hybrid and server engines)"}
+_COMMAND_ITEM = {"get": "item 16", "suffix": "item 17", "kount": "item 18", "fa2line": "item 19", "fa2kmer": "item 20"}
+# sw's scoring options (ropebwt3_tpu/cli.py _SW_SCORING)
+_SW_SCORING = """  -N INT      keep up to INT hits per DAWG node [25]
+  -m INT      min alignment score [30]
+  -A INT      match score [1]
+  -B INT      mismatch penalty [3]
+  -O INT      gap open penalty [5]
+  -E INT      gap extension penalty; a k-long gap costs O+k*E [2]
+  -y INT      ignore secondary hits scored INT lower than the best [-1]"""
 
 
 def atoi(s: str) -> int:
@@ -227,6 +247,23 @@ Options:
   -K NUM      query batch size [100m]
   --device=STR  cuda (the kernels) or cpu (the plain PyTorch engine) [cuda]
   --occ=STR     device occ rows: auto, dense, rb (run-block compressed) [auto]""",
+    "sw": f"""Usage: python -m ropebwt3_tpu_torch sw [options] <idx.fmr> <seq.fa> [...]
+Options:
+{_SW_SCORING}
+  -e          end-to-end mode (forcing -k to 1)
+  -j INT      min MEM length to initiate alignment [0]
+  -k INT      require INT-mer match at the end of alignment [11]
+  -b          align both strands (effective with --all-e2e)
+  -u          write unmapped queries to PAF
+  --seq       write reference sequence to the rs tag
+  --all-e2e   write all end-to-end hits in a compact format (forcing -e)
+  -g INT      cap the number of --all-e2e output to INT (forcing --all-e2e)
+  --no-ssa    ignore the sampled suffix array
+  -p INT      output up to INT positions [0]
+  -L          one sequence per line in the input
+  --device=STR  cuda (the kernel) or cpu (the plain PyTorch version) [cuda]
+  --engine=STR  DP engine: auto (the device) or native (the host DP) [auto]""",
+    "search": "Usage: python -m ropebwt3_tpu_torch search [options] <idx.fmr> <seq.fa> [...]",
     "hapdiv": """Usage: python -m ropebwt3_tpu_torch hapdiv [options] <idx.fmr> <seq.fa> [...]
 Options:
   -a INT      annotate sliding INT-mers [101]
@@ -249,7 +286,8 @@ Options:
   --device=STR  cuda or cpu [cuda]""",
     "stat": "Usage: python -m ropebwt3_tpu_torch stat [-M] <idx.fmd>",
 }
-_USAGE_STDOUT_LINES = {"build": 0, "merge": 4, "plain2fmd": 1, "mem": 1, "hapdiv": 1, "ssa": 0, "stat": 1}
+_USAGE_STDOUT_LINES = {"build": 0, "merge": 4, "plain2fmd": 1, "mem": 1, "sw": 1, "search": 1, "hapdiv": 1, "ssa": 0,
+                       "stat": 1}
 
 
 def _usage(cmd: str) -> int:
@@ -339,9 +377,9 @@ def load_index(fn: str, load_ssa: bool = False, load_sid: bool = False) -> Dense
 def refusal(argv: list[str]) -> str | None:
     """Why the port refuses `argv`, or None.  `serve`, `--mesh` on any
     command and `sw` / `hapdiv` / `search` with `--engine=jax|hybrid|server`
-    would reach the JAX package's device code (`hapdiv` runs the port's own
-    device engine with `--engine=auto`); every other command that the port
-    does not own is a ROADMAP queue 1 item of its own."""
+    would reach the JAX package's device code (`sw` and `hapdiv` run the
+    port's own device engines with `--engine=auto`); every other command
+    that the port does not own is a ROADMAP queue 1 item of its own."""
     cmd, rest = argv[0], argv[1:]
     if cmd == "serve":
         return "serve (the resident JAX engine server) is not ported: ROADMAP queue 1 item 13"
@@ -692,7 +730,9 @@ def main_plain2fmd(argv: list[str]) -> int:
 # ---------------------------------------------------------------------------
 
 
-def main_mem(argv: list[str], device: str) -> int:
+def main_mem(argv: list[str], device: str, cmd: str = "mem") -> int:
+    """`mem`, or `search` (cmd "search"): SMEMs, or with -d sw and with
+    -a/-w hapdiv, the last of them given (ropebwt3_tpu/cli.py:1053-1058)."""
     from .ops.smem import BatchedSmemTG, smem_tg_cuda, smem_tgc_cuda
 
     try:
@@ -720,18 +760,20 @@ def main_mem(argv: list[str], device: str) -> int:
             if a not in ("auto", "dense", "rb"):
                 raise getopt.GetoptError(f"invalid --occ value '{a}' (auto|dense|rb)")
             occ = a
-        elif o == "-d":  # mem -d, -a and -w run sw and hapdiv, the last one given (ropebwt3_tpu/cli.py:1053-1058)
-            algo, other = "sw", (f"mem {o} runs sw: ROADMAP queue 1 {_ENGINE_ITEM['sw']}", o)
+        elif o == "-d":
+            algo, other = "sw", None
         elif o in ("-a", "-w"):
-            algo = "hapdiv"
+            algo, other = "hapdiv", None
         elif o == "--old-mem":
-            algo, other = "mem", ("mem --old-mem (the original MEM algorithm) is not ported: ROADMAP queue 1 item 4", o)
+            algo, other = "mem", f"{cmd} --old-mem (the original MEM algorithm) is not ported: ROADMAP queue 1 item 4"
     if algo == "hapdiv":
-        return main_hapdiv(argv, device, "mem")
+        return main_hapdiv(argv, device, cmd)
+    if algo == "sw":
+        return main_sw(argv, device, cmd)
     if len(args) < 2:
-        return _usage("mem")
+        return _usage(cmd)
     if other:
-        return _err(f"{other[0]}; `python -m ropebwt3_tpu mem {other[1]}` runs it")
+        return _err(f"{other}; `python -m ropebwt3_tpu {cmd} --old-mem` runs it")
     if min_gap_len > 0:
         max_pos = 0
     f = load_index(args[0], load_ssa=max_pos > 0, load_sid=max_pos > 0)
@@ -748,61 +790,110 @@ def main_mem(argv: list[str], device: str) -> int:
     return ret
 
 
-def main_hapdiv(argv: list[str], device: str, cmd: str = "hapdiv") -> int:
-    """`hapdiv`, or `mem -a/-w` (cmd "mem"), parsed as ropebwt3_tpu/cli.py
-    main_search parses them (:1043-1056, 1137-1140): `hapdiv` sets end_len 1
-    and e2e, `mem` keeps -k's end_len."""
-    from .align.cli_hooks import run_hapdiv_cli
-
+def _search_args(argv: list[str], cmd: str):
+    """main_search's parse (ropebwt3_tpu/cli.py:1031-1132) for the sw and
+    hapdiv options: a namespace of them, or an exit code (an unknown option,
+    a `--dbg-*` refused).  `--gap` > 0 zeroes max_pos, not sw_opts' copy."""
     try:
         opts, args = ketopt(argv, _SEARCH_OPTS, _LONG_OPTS, strict=True)
     except KetoptUnknown:
         return 1
-    is_line, k, w, max_pos, min_gap_len, engine = False, 101, 50, 0, 0, "auto"
-    sw_opts = {
+    a = SimpleNamespace(args=args, is_line=False, k=101, w=50, max_pos=0, min_gap_len=0, no_ssa=False, engine="auto")
+    a.sw_opts = {
         "n_best": 25, "min_sc": 30, "match": 1, "mis": 3, "gap_open": 5, "gap_ext": 2, "end_len": 11,
         "min_mem_len": 0, "e2e_drop": -1, "r2cache_size": 0x10000, "max_pos": 0, "e2e": False, "keep_rs": False,
+        "write_all": False, "max_all_out": 0, "both_dir": False, "write_unmap": False,
     }
-    for o, a in opts:
+    for o, v in opts:
         if o == "-L":
-            is_line = True
+            a.is_line = True
         elif o == "-a":
-            k = atoi(a)
+            a.k = atoi(v)
         elif o == "-w":
-            w = atoi(a)
-        elif o in ("-g", "--all-e2e", "-e"):  # sw's output modes; they set e2e all the same
-            sw_opts["e2e"], sw_opts["end_len"] = True, 1
+            a.w = atoi(v)
+        elif o == "-g":
+            a.sw_opts.update(max_all_out=atoi(v), write_all=True, e2e=True, end_len=1)
+            a.no_ssa = True
         elif o == "-p":
-            max_pos = sw_opts["max_pos"] = atoi(a)
+            a.max_pos = a.sw_opts["max_pos"] = atoi(v)
         elif o in ("-N", "-A", "-B", "-O", "-E", "-m", "-k", "-j", "-y"):
-            sw_opts[{"-N": "n_best", "-A": "match", "-B": "mis", "-O": "gap_open", "-E": "gap_ext", "-m": "min_sc",
-                     "-k": "end_len", "-j": "min_mem_len", "-y": "e2e_drop"}[o]] = atoi(a)
+            a.sw_opts[{"-N": "n_best", "-A": "match", "-B": "mis", "-O": "gap_open", "-E": "gap_ext", "-m": "min_sc",
+                       "-k": "end_len", "-j": "min_mem_len", "-y": "e2e_drop"}[o]] = atoi(v)
         elif o == "-C":
-            sw_opts["r2cache_size"] = parse_num(a)
+            a.sw_opts["r2cache_size"] = parse_num(v)
+        elif o == "-e":
+            a.sw_opts.update(e2e=True, end_len=1)
+        elif o == "-u":
+            a.sw_opts["write_unmap"] = True
+        elif o == "-b":
+            a.sw_opts["both_dir"] = True
+        elif o == "--no-ssa":
+            a.no_ssa = True
+        elif o == "--seq":
+            a.sw_opts["keep_rs"] = True
         elif o == "--gap":
-            min_gap_len = parse_num(a)
+            a.min_gap_len = parse_num(v)
+        elif o == "--all-e2e":
+            a.sw_opts.update(write_all=True, e2e=True, end_len=1)
+            a.no_ssa = True
         elif o == "--engine":
-            engine = a
-        elif o == "--occ" and a not in ("auto", "dense", "rb"):
-            raise getopt.GetoptError(f"invalid --occ value '{a}' (auto|dense|rb)")
+            a.engine = v
+        elif o == "--occ" and v not in ("auto", "dense", "rb"):
+            raise getopt.GetoptError(f"invalid --occ value '{v}' (auto|dense|rb)")
         elif o.startswith("--dbg-"):
             return _err(f"{cmd} {o} (the DP's debug streams) is not ported: ROADMAP queue 1 item 22; "
                         f"`python -m ropebwt3_tpu {cmd} {o}` runs it")
-    if cmd == "hapdiv":
-        sw_opts["end_len"], sw_opts["e2e"] = 1, True
-    if min_gap_len > 0:
-        max_pos = 0
-    if len(args) < 2:
+    if a.min_gap_len > 0:
+        a.max_pos = 0
+    return a
+
+
+def _search_index(a, cmd: str, load_all: bool):
+    """The index of a search command, or an exit code: usage with too few
+    arguments, an engine the port does not run, or an index that cannot
+    serve the options."""
+    if len(a.args) < 2:
         return _usage(cmd)
-    if engine not in ("auto", "native"):
-        return _err(f"invalid --engine '{engine}' (auto|native)")
-    load_all = cmd == "mem" and max_pos > 0
-    f = load_index(args[0], load_ssa=load_all, load_sid=load_all)
-    if max_pos > 0 and (f.ssa is None or f.sid is None):
+    if a.engine not in ("auto", "native"):
+        return _err(f"invalid --engine '{a.engine}' (auto|native)")
+    f = load_index(a.args[0], load_ssa=load_all, load_sid=load_all)
+    if a.max_pos > 0 and (f.ssa is None or f.sid is None):
         return _err("failed to load suffix array samples or sequence names/lengths")
     if not f.is_symmetric():
         return _err("BWT doesn't contain both strands")
-    return run_hapdiv_cli(f, args[1:], is_line, sw_opts, k, w, device=None if engine == "native" else device)
+    return f
+
+
+def main_sw(argv: list[str], device: str, cmd: str = "sw") -> int:
+    """`sw`, or `mem -d` / `search -d` (cmd "mem" / "search"): `sw` and
+    `search` load the SSA unless --no-ssa, `mem` only with -p
+    (ropebwt3_tpu/cli.py:1134-1145)."""
+    from .align.cli_hooks import run_sw_cli
+
+    a = _search_args(argv, cmd)
+    if isinstance(a, int):
+        return a
+    f = _search_index(a, cmd, a.max_pos > 0 if cmd == "mem" else not a.no_ssa)
+    if isinstance(f, int):
+        return f
+    return run_sw_cli(f, a.args[1:], a.is_line, a.sw_opts, device=None if a.engine == "native" else device)
+
+
+def main_hapdiv(argv: list[str], device: str, cmd: str = "hapdiv") -> int:
+    """`hapdiv`, or `mem -a/-w` / `search -a/-w` (cmd "mem" / "search"):
+    `hapdiv` sets end_len 1 and e2e, the others keep -k's end_len
+    (ropebwt3_tpu/cli.py:1137-1140)."""
+    from .align.cli_hooks import run_hapdiv_cli
+
+    a = _search_args(argv, cmd)
+    if isinstance(a, int):
+        return a
+    if cmd == "hapdiv":
+        a.sw_opts["end_len"], a.sw_opts["e2e"] = 1, True
+    f = _search_index(a, cmd, cmd == "mem" and a.max_pos > 0)
+    if isinstance(f, int):
+        return f
+    return run_hapdiv_cli(f, a.args[1:], a.is_line, a.sw_opts, a.k, a.w, device=None if a.engine == "native" else device)
 
 
 def record_batches(fn: str, is_line: bool, batch_size: int):
@@ -964,8 +1055,11 @@ def main(argv: list[str] | None = None) -> int:
 
                 if not torch.cuda.is_available():
                     return _err("CUDA is not available; pass --device=cpu to run the plain PyTorch engine")
-            ret = {"build": main_build, "merge": main_merge, "mem": main_mem, "hapdiv": main_hapdiv,
-                   "ssa": main_ssa}[cmd](rest, device)
+            if cmd == "search":
+                ret = main_mem(rest, device, "search")
+            else:
+                ret = {"build": main_build, "merge": main_merge, "mem": main_mem, "sw": main_sw, "hapdiv": main_hapdiv,
+                       "ssa": main_ssa}[cmd](rest, device)
     except (IndexLoadError, CapacityError, getopt.GetoptError) as e:
         ret = _err(str(e))
     except BrokenPipeError:

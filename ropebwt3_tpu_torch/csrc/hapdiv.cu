@@ -28,16 +28,23 @@
 // Every `bad` condition of hapdiv_device is raised in the same order of
 // work; once raised the window stops.
 //
-// The text up to the kernel compiles with g++ given a header that defines
-// the CUDA keywords: `hapdiv_window` then runs one window on the host with
-// one lane (lanes = 1).
+// The khashl probe, the extends and the top-N selection are csrc/dp.cuh's,
+// shared with sw.cu.  The text up to the kernel compiles with g++ given a
+// header that defines the CUDA keywords: `hapdiv_window` then runs one
+// window on the host with one lane (lanes = 1).
 
 #include <stdint.h>
 
-#include "occ.cuh"
+#include "dp.cuh"
 
 namespace rb3c {
 namespace hapdiv {
+
+using dp::EMPTY;
+using dp::extend5;
+using dp::key_of;
+using dp::probe;
+using dp::top_n;
 
 constexpr int NMAX = 48;    // n_best limit (SCAP: the stack starts with the row's cells)
 constexpr int NBMAX = 256;  // khashl buckets at n_best 48 (nb_params)
@@ -47,7 +54,6 @@ constexpr int ROUND_CAP = 1024;
 constexpr int UNSET = 0x3FFFFFF;
 constexpr int PNONE = 0xFFFF;
 constexpr int FROM_H = 0, FROM_E = 1, FROM_F = 2, FROM_OPEN = 0, FROM_EXT = 1;
-constexpr unsigned long long EMPTY = ~0ULL;
 
 struct Opt {
   int n_best, min_sc, end_len, match, mis, gap_open, gap_ext;
@@ -77,57 +83,6 @@ struct State {
   int n_row, count, bad, trips;  // trips: dependent extend rounds (a node's row, each closure pop)
 };
 
-__device__ __forceinline__ uint32_t splitmix32(uint64_t x) {  // kh_hash_uint64
-  x ^= x >> 30;
-  x *= 0xBF58476D1CE4E5B9ULL;
-  x ^= x >> 27;
-  x *= 0x94D049BB133111EBULL;
-  x ^= x >> 31;
-  return (uint32_t)x;
-}
-
-__device__ __forceinline__ int home_bucket(unsigned long long key, int nb_bits) {
-  const uint32_t h = splitmix32(key >> 32) + splitmix32(key & 0xffffffffULL);
-  return (int)((uint32_t)(h * 2654435769u) >> (32 - nb_bits));
-}
-
-template <typename T>
-__device__ __forceinline__ unsigned long long key_of(T lo, T hi) {
-  return ((unsigned long long)lo << 32) | (unsigned long long)hi;
-}
-
-// The bucket holding key, or the first empty one from its home (a linear
-// probe; the table is never full: count < maxc < nb).
-template <typename T>
-__device__ __forceinline__ int probe(const State<T>& s, unsigned long long key, const Opt& o) {
-  int b = home_bucket(key, o.nb_bits);
-  for (int i = 0; i < o.nb && s.tkey[b] != EMPTY && s.tkey[b] != key; ++i) b = (b + 1) & (o.nb - 1);
-  return b;
-}
-
-// Backward extension of (lo, lorc, size) by every symbol c = 1..5: out
-// (backward lo, forward lo, size) as ops/rank.py extend gives them.
-template <class L>
-__device__ __forceinline__ void extend5(const L& ix, typename L::T lo, typename L::T lorc, typename L::T size,
-                                        typename L::T olo[5], typename L::T orc[5], typename L::T osz[5]) {
-  using T = typename L::T;
-  T tk[6], tl[6], sz[6];
-  ix.rank6(lo, tk);
-  ix.rank6(lo + size, tl);
-#pragma unroll
-  for (int c = 0; c < 6; ++c) sz[c] = tl[c] - tk[c];
-#pragma unroll
-  for (int c = 1; c < 6; ++c) {
-    T pre = 0;
-#pragma unroll
-    for (int p = 0; p < 6; ++p)
-      if (comp6(p) < comp6(c)) pre += sz[p];
-    olo[c - 1] = ix.acc(c) + tk[c];
-    orc[c - 1] = lorc + pre;
-    osz[c - 1] = sz[c];
-  }
-}
-
 // A row candidate into the table (sw_update_candset, bwa-sw.c:265-284): a
 // new key takes the next bucket of the probe; an old one keeps its running
 // maxes, the From fields of the first attainment.  False when the window
@@ -150,23 +105,6 @@ __device__ bool add_cand(State<T>& s, const Opt& o, unsigned long long key, T lo
   if (E > s.tE[b]) s.tE[b] = E, s.tEf[b] = (unsigned char)Ef, s.tEpos[b] = Epos;
   if (q > s.tq[b]) s.tq[b] = q;
   return true;
-}
-
-// rowb[0..n_row) = the N best occupied buckets by (H << 32 | bucket),
-// descending: a bucket's place is the number of occupied ones above it.
-template <typename T>
-__device__ void top_n(State<T>& s, const Opt& o, int lane, int lanes) {
-  int n = 0;
-  for (int b = lane; b < o.nb; b += lanes) {
-    if (s.tkey[b] == EMPTY) continue;
-    const long long x = ((long long)s.tH[b] << 32) | b;
-    int rank = 0;
-    for (int b2 = 0; b2 < o.nb; ++b2)
-      rank += s.tkey[b2] != EMPTY && (((long long)s.tH[b2] << 32) | b2) > x;
-    if (rank < o.n_best) s.rowb[rank] = b;
-  }
-  for (int b = 0; b < o.nb; ++b) n += s.tkey[b] != EMPTY;
-  if (lane == 0) s.n_row = n < o.n_best ? n : o.n_best;
 }
 
 // The F-closure (bwa-sw.c:445-483) of one node on lane 0, as

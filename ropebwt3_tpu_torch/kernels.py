@@ -14,8 +14,8 @@ returns `cudaGetLastError()` after its launch; `launch` raises on non-zero,
 The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
-`RunBlockIndex`); ssa_gen's walk, merge_rank and the hapdiv DP (one warp a
-window) in the two dense ones.
+`RunBlockIndex`); ssa_gen's walk, merge_rank, the hapdiv DP (one warp a
+window) and the sw DP (one warp a read) in the two dense ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
 them: rows, escape sub-rows, megablock bases, acc, the megablock shift and
 log2 of the block size.  ssa_gen's finish pass comes in the two dense
@@ -53,6 +53,7 @@ for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_ssa_finish_{_lay}"] = [_V, _I64, _I64, _I64, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _V, _V]
     _ENTRIES[f"rb3c_hapdiv_{_lay}"] = [*_TABLES, _V, _I64, *[_I32] * 8, _V, _V, _V, _V, _V, _V, _V]
+    _ENTRIES[f"rb3c_sw_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 8, *[_V] * 10]
 _ENTRIES["rb3c_ssa_jump"] = [_V, _I64, _I32, _V]
 _ENTRIES["rb3c_sa_keys"] = [_V, _I64, _I64, _I32, _V, _V]
 _ENTRIES["rb3c_sa_flags"] = [_V, _V, _I64, _V, _V]

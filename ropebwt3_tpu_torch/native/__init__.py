@@ -1,10 +1,13 @@
 """The port's native host code, built with g++ on first use and loaded with
 ctypes: the FMD decoder and encoder, run expansion, dense tables and
 run-block row builder (rld_codec.cpp), the sampled-suffix-array
-multi-locate that `mem -p` runs (locate.cpp) and the hapdiv DP that `hapdiv`
-reruns flagged windows on, or runs alone with `--engine=native`
-(bwasw_core.cpp).  All are copies of the functions the port calls from
-ropebwt3_tpu/native, compiled into one library.
+multi-locate that `mem -p` and `sw` run (locate.cpp), and the BWA-SW engine
+(bwasw_core.cpp): the hapdiv DP and the full sw path, which `hapdiv` and
+`sw` rerun flagged windows and reads on or run alone with
+`--engine=native`, and the staging and finish of the device sw engine.
+They are copies of the functions the port calls from ropebwt3_tpu/native,
+and two entry points of the port's own built from them, compiled into one
+library.
 
 The library lands in `../_build/` (gitignored), keyed on a hash of the
 sources, the flags and the machine, since `-march=native` code must never
@@ -36,6 +39,11 @@ _ENTRIES = {
     "rb3t_runblock_fill": (None, [_V, _V, _I64, _I64, _I64, _I64, _V, _V, _V]),
     "rb3t_ssa_multi_batch": (None, [_V, _V, _V, _V, _I64, _I32, _I32, _V, _V, _I64, _V, _V, _V, _V, _V, _V, _V, _I32]),
     "rb3t_hapdiv_batch": (None, [_V, _V, _V, _V, _I64, _V, _V, _I64, _I64, _I32, _V, _V]),
+    "rb3t_sw_batch": (_V, [_V, _V, _V, _V, _I64, _V, _V, _V, _I64, _I32, ctypes.POINTER(_I64), _V]),
+    "rb3t_sw_stage": (None, [_V, _V, _V, _V, _I64, _V, _V, _V, _I64, _I32, _I32, _I32, _V, _V, _V, _V, _V]),
+    "rb3t_sw_finish": (_V, [_V, _V, _V, _V, _I64, _V, _V, _V, _V, _I64, _I32, _V, _V, _V, _V, _V, _V, _V,
+                            ctypes.POINTER(_I64)]),
+    "rb3t_buf_free": (None, [_V]),
 }
 
 _lib = None

@@ -1,15 +1,19 @@
-// The port's native hapdiv DP: the BWA-SW DP core over the dense host index
-// (index/dense.py), copied from ropebwt3_tpu/native/bwasw_core.cpp, lines
+// The port's native BWA-SW engine: the DP core over the dense host index
+// (index/dense.py), copied from ropebwt3_tpu/native/bwasw_core.cpp: lines
 // 1-927 (the rank, the khashl candidate set, the klib heap, the DP engine
-// and the hapdiv annotation) and its entry point rb3t_hapdiv_batch.  The
-// sw half (query BWT, DAWG, full backtrack, hit blobs) is left out until
-// the port takes `sw`.  The port passes no packed one-line records
-// ("pline"): they change speed only, never a count.
+// and the hapdiv annotation), the query BWT and prefix DAWG with the -j
+// prefilter (:929-1244), the full backtrack, sw_read and the hit blobs
+// (:1532-1724), and the entry points rb3t_hapdiv_batch, rb3t_sw_batch and
+// rb3t_buf_free.  The port passes no packed one-line records ("pline"):
+// they change speed only, never a count.  Two entry points are the port's
+// own, built from the copied code: rb3t_sw_stage and rb3t_sw_finish, the
+// host halves of the device sw engine (align/sw.py).
 //
 // Exact re-implementation of the reference bwa-sw.c:329-526, including
 // khashl bucket iteration order, klib heap semantics and quickselect, so the
-// hapdiv counts stay byte-identical to the reference binary.  The port's
-// device engine (align/hapdiv.py) reruns here the windows its kernel flags.
+// hapdiv counts and the PAF stay byte-identical to the reference binary.
+// The port's device engines (align/hapdiv.py, align/sw.py) rerun here the
+// windows and reads their kernels flag.
 //
 #include <algorithm>
 #include <atomic>
@@ -929,6 +933,592 @@ static void hapdiv_one(Engine& eng, const uint8_t* seq, int64_t k, int64_t* out1
   for (int i = 0; i < 7; ++i) out10[3 + i] = n_hap[i];
 }
 
+// ---- query BWT + prefix DAWG (align/bwtl.py; dawg.c:15-255) --------------
+
+// ---- pooled scratch for query-BWT/DAWG construction ----------------------
+// dawg_gen was ~9% of sw e2e (round-5 phase profile): the comparator-sort
+// prefix doubling plus three unordered_maps (a node allocation per insert)
+// plus a vector-of-vectors predecessor build.  All replaced with pooled
+// buffers, counting-radix doubling, and one open-addressing map with a
+// packed (deg, cnt, id) value.  Output-invariant: the SA of a string is
+// unique, and the map is only ever addressed by key (never iterated).
+struct DawgPools {
+  std::vector<int32_t> sa, rnk, tmp, cnt, sa2;
+  std::vector<uint8_t> s8, sbuf;
+  // map: key = lo<<32|hi, value = deg<<42 | cnt<<21 | id (each < 2^21;
+  // node counts cap at ~2x the 32 KB max read length)
+  std::vector<uint64_t> mk;
+  std::vector<int64_t> mv;
+  std::vector<uint8_t> mu;
+  uint32_t mmask = 0;
+  size_t mn = 0;
+  std::vector<uint64_t> stack, edges;
+  std::vector<int32_t> cur;
+
+  void map_reset(size_t expect) {
+    size_t cap = 64;
+    while (cap < expect * 2) cap <<= 1;
+    if (mk.size() < cap) {
+      mk.resize(cap);
+      mv.resize(cap);
+      mu.assign(cap, 0);
+    } else {
+      cap = mk.size();
+      std::fill(mu.begin(), mu.end(), 0);
+    }
+    mmask = (uint32_t)cap - 1;
+    mn = 0;
+  }
+
+  void map_grow() {
+    size_t cap = mk.size() * 2;
+    std::vector<uint64_t> ok;
+    ok.swap(mk);
+    std::vector<int64_t> ov;
+    ov.swap(mv);
+    std::vector<uint8_t> ou;
+    ou.swap(mu);
+    mk.resize(cap);
+    mv.resize(cap);
+    mu.assign(cap, 0);
+    mmask = (uint32_t)cap - 1;
+    for (size_t j = 0; j < ok.size(); ++j) {
+      if (!ou[j]) continue;
+      uint32_t i = (uint32_t)kh_hash_u64(ok[j]) & mmask;
+      while (mu[i]) i = (i + 1) & mmask;
+      mu[i] = 1;
+      mk[i] = ok[j];
+      mv[i] = ov[j];
+    }
+  }
+
+  int64_t* map_find(uint64_t k) {
+    uint32_t i = (uint32_t)kh_hash_u64(k) & mmask;
+    while (mu[i]) {
+      if (mk[i] == k) return &mv[i];
+      i = (i + 1) & mmask;
+    }
+    return nullptr;
+  }
+
+  int64_t& map_get(uint64_t k, bool& absent) {
+    if (mn * 4 >= mk.size() * 3) map_grow();
+    uint32_t i = (uint32_t)kh_hash_u64(k) & mmask;
+    while (mu[i]) {
+      if (mk[i] == k) {
+        absent = false;
+        return mv[i];
+      }
+      i = (i + 1) & mmask;
+    }
+    mu[i] = 1;
+    mk[i] = k;
+    mv[i] = 0;
+    ++mn;
+    absent = true;
+    return mv[i];
+  }
+};
+
+static DawgPools& dpool() {
+  static thread_local DawgPools p;
+  return p;
+}
+
+// counting-radix prefix doubling into P.sa; the SA of a string is unique,
+// so this matches the previous comparator-sort version (and
+// construct/sa.suffix_array_doubling) exactly
+static void suffix_array_pooled(const uint8_t* s, int32_t n, DawgPools& P) {
+  P.sa.resize(n);
+  P.rnk.resize(n);
+  P.tmp.resize(n);
+  P.sa2.resize(n);
+  P.cnt.assign((size_t)std::max(n + 1, 257), 0);
+  for (int32_t i = 0; i < n; ++i) ++P.cnt[s[i] + 1];
+  for (int32_t v = 1; v < 257; ++v) P.cnt[v] += P.cnt[v - 1];
+  for (int32_t i = 0; i < n; ++i) P.sa[P.cnt[s[i]]++] = i;
+  P.rnk[P.sa[0]] = 0;
+  for (int32_t i = 1; i < n; ++i) P.rnk[P.sa[i]] = P.rnk[P.sa[i - 1]] + (s[P.sa[i]] != s[P.sa[i - 1]] ? 1 : 0);
+  for (int32_t k = 1; P.rnk[P.sa[n - 1]] != n - 1; k <<= 1) {
+    // order by second key (rank[i+k]; absent ranks smallest)
+    int32_t p2 = 0;
+    for (int32_t i = n - k; i < n; ++i)
+      if (i >= 0) P.sa2[p2++] = i;
+    for (int32_t i = 0; i < n; ++i)
+      if (P.sa[i] >= k) P.sa2[p2++] = P.sa[i] - k;
+    // stable counting sort by first key
+    std::fill(P.cnt.begin(), P.cnt.begin() + n + 1, 0);
+    for (int32_t i = 0; i < n; ++i) ++P.cnt[P.rnk[i] + 1];
+    for (int32_t v = 1; v <= n; ++v) P.cnt[v] += P.cnt[v - 1];
+    for (int32_t i = 0; i < n; ++i) P.sa[P.cnt[P.rnk[P.sa2[i]]]++] = P.sa2[i];
+    P.tmp[P.sa[0]] = 0;
+    for (int32_t i = 1; i < n; ++i) {
+      int32_t a = P.sa[i - 1], b = P.sa[i];
+      int32_t ra = a + k < n ? P.rnk[a + k] : -1;
+      int32_t rb = b + k < n ? P.rnk[b + k] : -1;
+      P.tmp[b] = P.tmp[a] + ((P.rnk[a] != P.rnk[b] || ra != rb) ? 1 : 0);
+    }
+    std::copy(P.tmp.begin(), P.tmp.begin() + n, P.rnk.begin());
+  }
+}
+
+struct Bwtl {  // align/bwtl.py Bwtl (dawg.c:15-103 rb3_bwtl_t)
+  int32_t seq_len = 0;
+  std::vector<int32_t> sa;   // [n+1], sa[0] = n
+  std::vector<uint8_t> bwt;  // [n] 2-bit symbols, $ removed
+  std::vector<int32_t> occ;  // checkpoints every 16
+  int32_t acc[5] = {0, 0, 0, 0, 0};
+  int32_t primary = 0;
+
+  void rank1a(int32_t k, int32_t cnt[4]) const {
+    if (k > primary) --k;  // $ is not in bwt
+    int32_t blk = k >> 4;
+    for (int c = 0; c < 4; ++c) cnt[c] = occ[blk * 4 + c];
+    for (int32_t i = blk << 4; i < k; ++i) ++cnt[bwt[i]];
+  }
+};
+
+static void bwtl_gen_cpp(const uint8_t* seq, int32_t n, Bwtl& q) {
+  DawgPools& P = dpool();
+  P.s8.resize(n);
+  uint8_t* s8 = P.s8.data();
+  for (int32_t i = 0; i < n; ++i) s8[i] = seq[i] == 5 ? 1 : seq[i];  // ambiguous -> A
+  q.seq_len = n;
+  q.sa.assign(n + 1, 0);
+  q.sa[0] = n;
+  if (n > 0) {
+    suffix_array_pooled(s8, n, P);
+    for (int32_t i = 0; i < n; ++i) q.sa[i + 1] = P.sa[i];
+  }
+  q.primary = 0;
+  for (int32_t i = 0; i <= n; ++i)
+    if (q.sa[i] == 0) {
+      q.primary = i;
+      break;
+    }
+  P.sbuf.assign(n + 1, 0);
+  std::vector<uint8_t>& s = P.sbuf;
+  for (int32_t i = 0; i <= n; ++i)
+    if (q.sa[i] != 0) s[i] = s8[q.sa[i] - 1] - 1;
+  s.erase(s.begin() + q.primary);  // drop the $ column
+  q.bwt.assign(s.begin(), s.begin() + n);
+  int32_t occ_len = (n + 16) / 16 * 4;
+  q.occ.assign(occ_len, 0);
+  int32_t c[4] = {0, 0, 0, 0};
+  for (int32_t i = 0; i < n; ++i) {
+    if (i % 16 == 0)
+      for (int j = 0; j < 4; ++j) q.occ[(i / 16) * 4 + j] = c[j];
+    ++c[s[i]];
+  }
+  if (n % 16 == 0 && (n / 16) * 4 < occ_len)
+    for (int j = 0; j < 4; ++j) q.occ[(n / 16) * 4 + j] = c[j];
+  q.acc[0] = 1;
+  for (int j = 0; j < 4; ++j) q.acc[j + 1] = q.acc[j] + c[j];
+}
+
+struct DawgOwned {
+  int32_t n_node = 0;
+  std::vector<int32_t> c;
+  std::vector<int32_t> lo, hi;  // query SA interval per node; hi = -1 for linear
+  std::vector<int32_t> pre_off, pre;
+  Dawg view() const { return Dawg{n_node, c.data(), pre_off.data(), pre.data()}; }
+};
+
+static void dawg_gen_cpp(const Bwtl& q, DawgOwned& g) {  // dawg.c:109-228
+  // same three passes as before, on the pooled packed map (deg/cnt/id in
+  // one value; see DawgPools) — the map is only addressed by key, so the
+  // emitted node order and predecessor order are unchanged
+  DawgPools& P = dpool();
+  const uint64_t root_key = (uint64_t)(uint32_t)(q.seq_len + 1);  // lo=0, hi=len+1
+  P.map_reset((size_t)q.seq_len * 2 + 16);
+  {
+    bool ab;
+    P.map_get(root_key, ab);  // deg 0
+  }
+  P.stack.assign(1, root_key);
+  int32_t rlo4[4], rhi4[4];
+  const int64_t DEG1 = (int64_t)1 << 42, CNT1 = (int64_t)1 << 21;
+  const int64_t MASK21 = ((int64_t)1 << 21) - 1;
+  // pass 1: in-degrees via DFS over distinct SA intervals
+  while (!P.stack.empty()) {
+    uint64_t x = P.stack.back();
+    P.stack.pop_back();
+    q.rank1a((int32_t)(x >> 32), rlo4);
+    q.rank1a((int32_t)(x & 0xFFFFFFFFu), rhi4);
+    for (int c = 3; c >= 0; --c) {
+      int32_t lo = q.acc[c] + rlo4[c], hi = q.acc[c] + rhi4[c];
+      if (lo == hi) continue;
+      uint64_t key = ((uint64_t)(uint32_t)lo << 32) | (uint32_t)hi;
+      bool absent;
+      int64_t& v = P.map_get(key, absent);
+      v += DEG1;
+      if (absent) P.stack.push_back(key);
+    }
+  }
+  // pass 2: emit nodes in topological order
+  g.c.assign(1, 0);
+  g.lo.assign(1, 0);
+  g.hi.assign(1, q.seq_len + 1);
+  P.stack.assign(1, root_key);
+  while (!P.stack.empty()) {
+    uint64_t x = P.stack.back();
+    P.stack.pop_back();
+    q.rank1a((int32_t)(x >> 32), rlo4);
+    q.rank1a((int32_t)(x & 0xFFFFFFFFu), rhi4);
+    for (int c = 3; c >= 0; --c) {
+      int32_t lo = q.acc[c] + rlo4[c], hi = q.acc[c] + rhi4[c];
+      if (lo == hi) continue;
+      uint64_t key = ((uint64_t)(uint32_t)lo << 32) | (uint32_t)hi;
+      int64_t& v = *P.map_find(key);
+      v += CNT1;
+      if (((v >> 21) & MASK21) == (v >> 42)) {
+        v = (v & ~MASK21) | (int64_t)g.c.size();
+        g.lo.push_back(lo);
+        g.hi.push_back(hi);
+        g.c.push_back(c + 1);
+        P.stack.push_back(key);
+      }
+    }
+  }
+  g.n_node = (int32_t)g.c.size();
+  // pass 3: predecessors, in (node, symbol) scan order like the Python
+  // spec — collect (target, source) pairs in scan order, then a counting
+  // fill reproduces pres[target].push_back(source) exactly
+  P.edges.clear();
+  g.pre_off.assign(g.n_node + 1, 0);
+  for (int32_t i = 0; i < g.n_node; ++i) {
+    q.rank1a(g.lo[i], rlo4);
+    q.rank1a(g.hi[i], rhi4);
+    for (int c = 0; c < 4; ++c) {
+      int32_t lo = q.acc[c] + rlo4[c], hi = q.acc[c] + rhi4[c];
+      if (lo == hi) continue;
+      uint64_t key = ((uint64_t)(uint32_t)lo << 32) | (uint32_t)hi;
+      int32_t t = (int32_t)(*P.map_find(key) & MASK21);
+      P.edges.push_back(((uint64_t)(uint32_t)t << 32) | (uint32_t)i);
+      ++g.pre_off[t + 1];
+    }
+  }
+  for (int32_t t = 1; t <= g.n_node; ++t) g.pre_off[t] += g.pre_off[t - 1];
+  g.pre.resize(P.edges.size());
+  P.cur.assign(g.pre_off.begin(), g.pre_off.begin() + g.n_node);
+  for (uint64_t e : P.edges) g.pre[P.cur[(int32_t)(e >> 32)]++] = (int32_t)(uint32_t)e;
+}
+
+static void dawg_linear(const uint8_t* seq, int32_t n, DawgOwned& g) {  // dawg.c:230-250
+  g.n_node = n + 1;
+  g.c.assign(n + 1, 0);
+  g.c[0] = -1;
+  g.lo.assign(n + 1, 0);
+  g.hi.assign(n + 1, -1);
+  g.lo[0] = n;
+  g.pre_off.assign(n + 2, 0);
+  g.pre.assign(n > 0 ? n : 0, 0);
+  for (int32_t j = 1; j <= n; ++j) {
+    g.lo[j] = n - j;
+    g.c[j] = seq[n - j];
+    g.pre[j - 1] = j - 1;
+    g.pre_off[j + 1] = j;
+  }
+}
+
+// ---- SMEM-present prefilter (fm-index.c:530-538; ops/smem_ref.py) --------
+
+static bool smem_present_cpp(const Fmi& f, RankCache& rc, const uint8_t* q, int32_t n, int32_t min_len) {
+  int32_t x = 0;
+  while (x < n) {
+    if (n - x < min_len) return false;
+    int c0 = q[x + min_len - 1];
+    int comp0 = (c0 >= 1 && c0 <= 4) ? 5 - c0 : c0;
+    int64_t ik_lo = f.acc[c0], ik_rc = f.acc[comp0], ik_sz = f.acc[c0 + 1] - f.acc[c0];
+    int32_t i = x + min_len - 2;
+    Ext e;
+    while (i >= x) {
+      extend_back(f, ik_lo, ik_rc, ik_sz, e, rc);
+      int c = q[i];
+      if (e.sz[c] < 1) break;
+      ik_lo = e.lo[c];
+      ik_rc = e.rc[c];
+      ik_sz = e.sz[c];
+      --i;
+    }
+    if (i >= x) {
+      x = i + 1;
+      continue;
+    }
+    return true;
+  }
+  return false;
+}
+
+// ---- full backtrack (align/bwasw.py _backtrack1*, _cs_core) --------------
+
+struct Hit {
+  int32_t score = 0, qlen = 0, rlen = 0, mlen = 0, blen = 0;
+  int64_t lo = 0, hi = 0;
+  std::vector<uint32_t> cigar;
+  std::vector<uint8_t> rseq;  // one entry per reference-consuming step (rlen total)
+  std::vector<int32_t> qoff;
+  std::string cs;
+};
+
+static int backtrack1_fill(const Opt& o, const Fmi& f, const DawgOwned& g,
+                           const std::vector<std::vector<Cell>>& rows, int64_t pos, Hit& hit) {
+  int n_col = o.n_best;
+  int last = 0, last_op = -1, ed = 0;
+  hit.score = rows[pos / n_col][pos % n_col].H;
+  hit.rlen = hit.qlen = 0;
+  hit.cigar.clear();
+  hit.rseq.clear();
+  while (pos > 0) {
+    int64_t r = pos / n_col;
+    const Cell& p = rows[r][pos % n_col];
+    int x = p.H_from | (p.E_from << 2) | (p.F_from << 3);
+    int state = last == 0 ? (x & 3) : last;
+    int ext = (state == 1 || state == 2) ? (x >> (state + 1)) & 1 : 0;
+    int c = ref_base(f.acc, p.lo);
+    int op = state;
+    if (state == SW_FROM_H) {
+      op = (c == g.c[r]) ? 7 : 8;
+      pos = p.H_from_pos;
+      ed += op == 8;
+    } else if (state == SW_FROM_E) {
+      pos = p.E_from_pos;
+      ++ed;
+    } else {
+      pos = r * n_col + p.F_from_off;
+      ++ed;
+    }
+    // sw_push_state writes rseq[rlen] BEFORE bumping rlen (bwa-sw.c:63): an
+    // insertion (op 1) leaves rlen unchanged, so its base is overwritten by
+    // the next reference-consuming op and never lands in rseq
+    if ((int64_t)hit.rseq.size() == hit.rlen) hit.rseq.push_back((uint8_t)c);
+    else hit.rseq[hit.rlen] = (uint8_t)c;
+    if (last_op == op) hit.cigar.back() += 1u << 4;
+    else hit.cigar.push_back((1u << 4) | (uint32_t)op);
+    if (op == 7 || op == 8) {
+      ++hit.qlen;
+      ++hit.rlen;
+    } else if (op == 1) {
+      ++hit.qlen;
+    } else if (op == 2) {
+      ++hit.rlen;
+    }
+    last_op = op;
+    last = ((state == 1 || state == 2) && ext) ? state : 0;
+  }
+  hit.rseq.resize(hit.rlen);  // drop a trailing insertion's write
+  return ed;
+}
+
+static const char CS_CH[] = "$acgtn";
+
+static void cs_core(Hit& hit, const uint8_t* qseq) {
+  std::string out;
+  int64_t x = 0, y = hit.qoff.empty() ? 0 : hit.qoff[0];
+  for (uint32_t cval : hit.cigar) {
+    int op = cval & 0xF;
+    int64_t ln = cval >> 4;
+    if (op == 7) {
+      out += ':';
+      out += std::to_string(ln);
+      x += ln;
+      y += ln;
+    } else if (op == 8) {
+      for (int64_t i = 0; i < ln; ++i) {
+        out += '*';
+        out += CS_CH[qseq[y + i]];
+        out += CS_CH[hit.rseq[x + i]];
+      }
+      x += ln;
+      y += ln;
+    } else if (op == 1) {
+      out += '+';
+      for (int64_t i = 0; i < ln; ++i) out += CS_CH[qseq[y + i]];
+      y += ln;
+    } else if (op == 2) {
+      out += '-';
+      for (int64_t i = 0; i < ln; ++i) out += CS_CH[hit.rseq[x + i]];
+      x += ln;
+    }
+  }
+  hit.cs = std::move(out);
+}
+
+static void backtrack1(const Opt& o, const Fmi& f, const DawgOwned& g, const Bwtl* qb,
+                       const std::vector<std::vector<Cell>>& rows, const uint8_t* qseq,
+                       int64_t pos, Hit& hit) {
+  int n_col = o.n_best;
+  int64_t r = pos / n_col;
+  const Cell& q = rows[r][pos % n_col];
+  hit.lo = q.lo;
+  hit.hi = q.hi;
+  hit.qoff.clear();
+  if (g.hi[r] >= 0)
+    for (int32_t k = g.lo[r]; k < g.hi[r]; ++k) hit.qoff.push_back(qb->sa[k]);
+  else
+    hit.qoff.push_back(g.lo[r]);
+  backtrack1_fill(o, f, g, rows, pos, hit);
+  cs_core(hit, qseq);
+  hit.mlen = hit.blen = 0;
+  for (uint32_t cval : hit.cigar) {
+    int op = cval & 0xF;
+    int32_t ln = (int32_t)(cval >> 4);
+    hit.blen += ln;
+    if (op == 7) hit.mlen += ln;
+  }
+}
+
+// ---- one full sw read (rb3_sw: prefilter + DAWG + DP + backtrack) --------
+
+// Whether a read can have hits at all: the -j prefilter (sw_read, rb3_sw)
+static bool prefilter_pass(const Opt& o, const Fmi& f, RankCache& rc, const uint8_t* seq, int32_t n) {
+  return !(o.min_mem_len > 0 && o.min_mem_len > o.end_len) || smem_present_cpp(f, rc, seq, n, o.min_mem_len);
+}
+
+// The read's DAWG: the linear chain for e2e, else the prefix DAWG of its
+// query BWT `qb` (which the backtrack reads for qoff)
+static void make_dawg(const Opt& o, const uint8_t* seq, int32_t n, Bwtl& qb, DawgOwned& g) {
+  if (o.flag & RB3_SWF_E2E) {
+    dawg_linear(seq, n, g);
+  } else {
+    bwtl_gen_cpp(seq, n, qb);
+    dawg_gen_cpp(qb, g);
+  }
+}
+
+// The hits of a scored read (sw_read's tail): every kept FROM_H cell of the
+// last row for e2e, else one hit from best_pos.
+static void select_hits(const Opt& o, const Fmi& f, const DawgOwned& g, const Bwtl& qb,
+                        const std::vector<std::vector<Cell>>& rows, const uint8_t* seq, int64_t best_pos,
+                        std::vector<Hit>& hits) {
+  int n_col = o.n_best;
+  if (o.flag & RB3_SWF_E2E) {
+    const std::vector<Cell>& prow = rows[g.n_node - 1];
+    if (prow.empty()) return;
+    int32_t H0 = prow[0].H;
+    for (size_t i = 0; i < prow.size(); ++i) {
+      const Cell& q = prow[i];
+      if (q.flt || q.H_from != SW_FROM_H || q.H < o.min_sc) continue;
+      if (o.e2e_drop >= 0 && H0 - q.H > o.e2e_drop) continue;
+      hits.emplace_back();
+      backtrack1(o, f, g, &qb, rows, seq, (int64_t)(g.n_node - 1) * n_col + (int64_t)i, hits.back());
+    }
+  } else {
+    hits.emplace_back();
+    backtrack1(o, f, g, &qb, rows, seq, best_pos, hits.back());
+  }
+}
+
+static void sw_read(Engine& eng, const uint8_t* seq, int32_t n, std::vector<Hit>& hits) {
+  const Opt& o = eng.o;
+  hits.clear();
+  if (!prefilter_pass(o, eng.f, eng.cache, seq, n)) return;
+  DawgOwned g;
+  Bwtl qb;
+  const bool st = Engine::stats_on();
+  uint64_t tg = st ? __rdtsc() : 0;
+  make_dawg(o, seq, n, qb, g);
+  if (st) eng.cyc[6] += __rdtsc() - tg;
+  eng.run(g.view());
+  if (eng.best_score < o.min_sc) return;
+  uint64_t tb = st ? __rdtsc() : 0;
+  select_hits(o, eng.f, g, qb, eng.rows, seq, eng.best_pos, hits);
+  if (st) eng.cyc[7] += __rdtsc() - tb;
+}
+
+// ---- hit blob serialization ----------------------------------------------
+
+static void put_i64(std::string& s, int64_t v) { s.append((const char*)&v, 8); }
+static void put_bytes(std::string& s, const void* p, size_t n) { s.append((const char*)p, n); }
+static void pad8(std::string& s) {
+  while (s.size() & 7) s.push_back(0);
+}
+
+static void serialize_hits(const std::vector<Hit>& hits, std::string& b) {
+  put_i64(b, (int64_t)hits.size());
+  for (const Hit& h : hits) {
+    put_i64(b, h.score);
+    put_i64(b, h.qlen);
+    put_i64(b, h.rlen);
+    put_i64(b, h.mlen);
+    put_i64(b, h.blen);
+    put_i64(b, h.lo);
+    put_i64(b, h.hi);
+    put_i64(b, (int64_t)h.cigar.size());
+    put_i64(b, (int64_t)h.qoff.size());
+    put_i64(b, (int64_t)h.rseq.size());
+    put_i64(b, (int64_t)h.cs.size());
+    put_bytes(b, h.cigar.data(), h.cigar.size() * 4);
+    put_bytes(b, h.qoff.data(), h.qoff.size() * 4);
+    put_bytes(b, h.rseq.data(), h.rseq.size());
+    put_bytes(b, h.cs.data(), h.cs.size());
+    pad8(b);
+  }
+}
+
+// [n_reads+1 int64 blob offsets][the blobs], malloc'd (rb3t_buf_free)
+static uint8_t* pack_blobs(const std::vector<std::string>& blobs, int64_t* out_len) {
+  const int64_t n_reads = (int64_t)blobs.size();
+  std::vector<int64_t> offs(n_reads + 1);
+  int64_t total = 0;
+  for (int64_t r = 0; r < n_reads; ++r) {
+    offs[r] = total;
+    total += (int64_t)blobs[r].size();
+  }
+  offs[n_reads] = total;
+  int64_t head = (n_reads + 1) * 8;
+  uint8_t* buf = (uint8_t*)std::malloc((size_t)(head + total));
+  if (!buf) {
+    *out_len = 0;
+    return nullptr;
+  }
+  std::memcpy(buf, offs.data(), (size_t)head);
+  uint8_t* p = buf + head;
+  for (int64_t r = 0; r < n_reads; ++r) {
+    std::memcpy(p, blobs[r].data(), blobs[r].size());
+    p += blobs[r].size();
+  }
+  *out_len = head + total;
+  return buf;
+}
+
+// n_threads workers (at most one an item) each run work(cursor), claiming
+// items from the shared cursor until none are left
+template <class Work>
+static void run_workers(int64_t n_items, int32_t n_threads, Work work) {
+  std::atomic<int64_t> cursor(0);
+  if (n_threads <= 1 || n_items < 2) {
+    work(cursor);
+    return;
+  }
+  std::vector<std::thread> th;
+  for (int32_t t = 0; t < n_threads && t < n_items; ++t) th.emplace_back([&]() { work(cursor); });
+  for (std::thread& t : th) t.join();
+}
+
+// ---- the device engine's host halves (align/sw.py SwDeviceEngine) --------
+
+// Cell j of an archive row as the host backtrack's Cell (rebuild_rows,
+// sw_jax.py:609-643): E and F as indicator values, flt 0, rlen and qlen 0
+// (the walk reads neither), the 5-bit F_from_off and the 16-bit positions
+// with their "unset" codes; lo, hi and lo_rc as uint32.
+static Cell arch_cell(uint32_t lo, uint32_t hi, uint32_t rc, int64_t w) {
+  Cell c = cell_zero();
+  c.lo = lo, c.hi = hi, c.lo_rc = rc;
+  c.H = (int32_t)((w >> 1) & 0xFFF);
+  c.H_from = (uint8_t)((w >> 13) & 3);
+  c.E_from = (uint8_t)((w >> 15) & 1);
+  c.F_from = (uint8_t)((w >> 16) & 1);
+  c.F_off_set = (uint8_t)((w >> 17) & 1);
+  c.F_from_off = c.F_off_set ? (uint32_t)((w >> 18) & 0x1F) : SW_F_UNSET;
+  const uint32_t hp = (uint32_t)((w >> 23) & 0xFFFF), ep = (uint32_t)((w >> 39) & 0xFFFF);
+  c.H_from_pos = hp != 0xFFFF ? hp : U32MAX;
+  c.E_from_pos = ep != 0xFFFF ? ep : U32MAX;
+  c.E = c.E_from_pos != U32MAX;
+  c.F = c.F_off_set;
+  return c;
+}
+
 }  // namespace
 
 extern "C" {
@@ -941,34 +1531,137 @@ void rb3t_hapdiv_batch(const uint8_t* bwt, const uint16_t* occ_block, const int6
                        const uint8_t* pline) {
   Fmi f{bwt, occ_block, occ_super, acc, n, nullptr, (const PlRec*)pline};
   Opt o = opt_from(opt9);
-  if (n_threads < 1) n_threads = 1;
   // dynamic claiming (out rows are per-window; schedule can't reorder them)
-  std::atomic<int64_t> cursor(0);
   std::atomic<uint64_t> agg[8] = {{0}, {0}, {0}, {0}, {0}, {0}, {0}, {0}};
-  auto work = [&]() {
+  run_workers(n_win, n_threads, [&](std::atomic<int64_t>& cursor) {
     Engine eng;
     eng.f = f;
     eng.o = o;
     eng.cache.rebits(13);  // hapdiv DP cache optimum (see RankCache::rebits)
-    for (;;) {
-      int64_t w = cursor.fetch_add(1, std::memory_order_relaxed);
-      if (w >= n_win) break;
+    for (int64_t w; (w = cursor.fetch_add(1, std::memory_order_relaxed)) < n_win;)
       hapdiv_one(eng, seqs + w * k, k, out + w * 10);
-    }
     for (int i = 0; i < 8; ++i) agg[i] += eng.cyc[i];
-  };
-  if (n_threads == 1 || n_win < 2) {
-    work();
-  } else {
-    std::vector<std::thread> th;
-    for (int32_t t = 0; t < n_threads && t < n_win; ++t) th.emplace_back(work);
-    for (std::thread& t : th) t.join();
-  }
+  });
   if (Engine::stats_on()) {
     static const char* nm[8] = {"HE-loop", "prune", "topn", "closure", "rebuild", "extends", "dawggen", "backtrack"};
     for (int i = 0; i < 8; ++i)
       fprintf(stderr, "[dp-stats] %-9s %12.3f Gcyc\n", nm[i], (double)agg[i].load() / 1e9);
   }
 }
+
+
+// Batched full sw reads (prefilter + DAWG + DP + backtrack), threaded.
+// seqs: concatenated nt6 reads, seq_off: [n_reads+1] offsets.  Returns a
+// malloc'd buffer: [n_reads+1 int64 blob offsets][per-read hit blobs]
+// (layout in serialize_hits); caller frees with rb3t_buf_free.
+uint8_t* rb3t_sw_batch(const uint8_t* bwt, const uint16_t* occ_block, const int64_t* occ_super,
+                       const int64_t* acc, int64_t n, const int32_t* opt10, const uint8_t* seqs,
+                       const int64_t* seq_off, int64_t n_reads, int32_t n_threads,
+                       int64_t* out_len, const uint8_t* pline) {
+  Fmi f{bwt, occ_block, occ_super, acc, n, nullptr, (const PlRec*)pline};
+  Opt o = opt_from(opt10);
+  std::vector<std::string> blobs(n_reads);
+  // dynamic claiming (blobs are per-read; schedule can't reorder output)
+  std::atomic<uint64_t> agg[8] = {{0}, {0}, {0}, {0}, {0}, {0}, {0}, {0}};
+  run_workers(n_reads, n_threads, [&](std::atomic<int64_t>& cursor) {
+    Engine eng;
+    eng.f = f;
+    eng.o = o;
+    std::vector<Hit> hits;
+    for (int64_t r; (r = cursor.fetch_add(1, std::memory_order_relaxed)) < n_reads;) {
+      sw_read(eng, seqs + seq_off[r], (int32_t)(seq_off[r + 1] - seq_off[r]), hits);
+      serialize_hits(hits, blobs[r]);
+    }
+    for (int i = 0; i < 8; ++i) agg[i] += eng.cyc[i];
+  });
+  if (Engine::stats_on()) {
+    static const char* nm[8] = {"HE-loop", "prune", "topn", "closure", "rebuild", "extends", "dawggen", "backtrack"};
+    for (int i = 0; i < 8; ++i)
+      fprintf(stderr, "[dp-stats] %-9s %12.3f Gcyc\n", nm[i], (double)agg[i].load() / 1e9);
+  }
+  return pack_blobs(blobs, out_len);
+}
+
+// The device engine's staging: for each read, the -j prefilter's verdict
+// (pass[r]), and for a read that passes, its DAWG's n_node and largest
+// in-degree; a DAWG of at most ncap nodes and in-degree pcap also lands in
+// node_c (n_reads, ncap) int32 (each node's edge symbol, the root's 0) and
+// pre (n_reads, ncap, pcap) int32 (its predecessors, -1 after the last), the
+// arrays sw_jax.py _run_bucket stages.  Rows of other reads are not written.
+void rb3t_sw_stage(const uint8_t* bwt, const uint16_t* occ_block, const int64_t* occ_super, const int64_t* acc,
+                   int64_t n, const int32_t* opt10, const uint8_t* seqs, const int64_t* seq_off, int64_t n_reads,
+                   int32_t n_threads, int32_t ncap, int32_t pcap, uint8_t* pass, int32_t* n_node, int32_t* max_pre,
+                   int32_t* node_c, int32_t* pre) {
+  const Fmi f{bwt, occ_block, occ_super, acc, n, nullptr, nullptr};
+  const Opt o = opt_from(opt10);
+  run_workers(n_reads, n_threads, [&](std::atomic<int64_t>& cursor) {
+    RankCache rc{12};
+    DawgOwned g;
+    Bwtl qb;
+    for (int64_t r; (r = cursor.fetch_add(1, std::memory_order_relaxed)) < n_reads;) {
+      const uint8_t* seq = seqs + seq_off[r];
+      const int32_t len = (int32_t)(seq_off[r + 1] - seq_off[r]);
+      n_node[r] = max_pre[r] = 0;
+      pass[r] = prefilter_pass(o, f, rc, seq, len);
+      if (!pass[r]) continue;
+      make_dawg(o, seq, len, qb, g);
+      int32_t mp = 0;
+      for (int32_t i = 0; i < g.n_node; ++i) mp = std::max(mp, g.pre_off[i + 1] - g.pre_off[i]);
+      n_node[r] = g.n_node, max_pre[r] = mp;
+      if (g.n_node > ncap || mp > pcap) continue;
+      int32_t* nc = node_c + r * (int64_t)ncap;
+      int32_t* pr = pre + r * (int64_t)ncap * pcap;
+      for (int32_t i = 0; i < ncap; ++i) {
+        nc[i] = i < g.n_node ? std::max(g.c[i], 0) : 0;
+        const int32_t deg = i < g.n_node ? g.pre_off[i + 1] - g.pre_off[i] : 0;
+        for (int32_t p = 0; p < pcap; ++p) pr[(int64_t)i * pcap + p] = p < deg ? g.pre[g.pre_off[i] + p] : -1;
+      }
+    }
+  });
+}
+
+// The device engine's finish: m reads scored on the card, read sel[i] of
+// seqs / seq_off, its archive rows from row arch_row[i] of arch_lo, arch_hi,
+// arch_rc (uint32 bits as int32) and arch_w (int64; sw_jax.py _pack_arch),
+// n_best cells a row, one row a node of its DAWG.  For a read whose best_sc
+// reaches min_sc: the rows rebuilt, the last row's containment dedup
+// (Engine::cell_dedup), the DAWG and query BWT made again and the backtrack
+// of sw_read; the hits serialized as rb3t_sw_batch does.
+uint8_t* rb3t_sw_finish(const uint8_t* bwt, const uint16_t* occ_block, const int64_t* occ_super, const int64_t* acc,
+                        int64_t n, const int32_t* opt10, const uint8_t* seqs, const int64_t* seq_off,
+                        const int64_t* sel, int64_t m, int32_t n_threads, const int32_t* arch_lo,
+                        const int32_t* arch_hi, const int32_t* arch_rc, const int64_t* arch_w,
+                        const int64_t* arch_row, const int32_t* best_sc, const int32_t* best_pos, int64_t* out_len) {
+  const Fmi f{bwt, occ_block, occ_super, acc, n, nullptr, nullptr};
+  const Opt o = opt_from(opt10);
+  std::vector<std::string> blobs(m);
+  run_workers(m, n_threads, [&](std::atomic<int64_t>& cursor) {
+    std::vector<std::vector<Cell>> rows;
+    std::vector<Hit> hits;
+    DawgOwned g;
+    Bwtl qb;
+    for (int64_t i; (i = cursor.fetch_add(1, std::memory_order_relaxed)) < m;) {
+      hits.clear();
+      if (best_sc[i] >= o.min_sc) {
+        const uint8_t* seq = seqs + seq_off[sel[i]];
+        make_dawg(o, seq, (int32_t)(seq_off[sel[i] + 1] - seq_off[sel[i]]), qb, g);
+        if ((int32_t)rows.size() < g.n_node) rows.resize(g.n_node);
+        for (int32_t r = 0; r < g.n_node; ++r) {
+          rows[r].clear();
+          const int64_t base = (arch_row[i] + r) * (int64_t)o.n_best;
+          for (int32_t j = 0; j < o.n_best && (arch_w[base + j] & 1); ++j)
+            rows[r].push_back(arch_cell((uint32_t)arch_lo[base + j], (uint32_t)arch_hi[base + j],
+                                        (uint32_t)arch_rc[base + j], arch_w[base + j]));
+        }
+        Engine::cell_dedup(rows[g.n_node - 1]);
+        select_hits(o, f, g, qb, rows, seq, best_pos[i], hits);
+      }
+      serialize_hits(hits, blobs[i]);
+    }
+  });
+  return pack_blobs(blobs, out_len);
+}
+
+void rb3t_buf_free(void* p) { std::free(p); }
 
 }  // extern "C"

@@ -94,6 +94,43 @@ def make_windows(gen: list[np.ndarray], K: int, err: float, crafted_start: int, 
     return np.asarray(wins, dtype=np.int32)
 
 
+def sw_reads(gen: list[np.ndarray], n: int, seed: int) -> list[np.ndarray]:
+    """n reads cut from genome 0 as tests/test_sw_jax.py:25-48 cuts them:
+    150, 90 and 45 bp with substitutions, N bases, tandem repeats that merge
+    DAWG nodes and 4-bp deletions that exercise the F closure."""
+    rng = np.random.default_rng(seed)
+    base = gen[0]
+    out = []
+    for i in range(n):
+        L = [150, 90, 45][i % 3]
+        st = int(rng.integers(0, len(base) - L))
+        r = base[st : st + L].copy()
+        mut = rng.random(L) < [0.02, 0.05, 0.0][i % 3]
+        r[mut] = rng.integers(1, 5, int(mut.sum()))
+        if i % 6 == 0:
+            r[4:6] = 5  # N bases
+        if i % 8 == 0:
+            r = np.tile(r[: L // 3], 3)[:L]  # repeats: DAWG node merges
+        if i % 5 == 2:
+            r = np.delete(r, slice(20, 24))  # deletion: exercises the F closure
+        out.append(r)
+    return out
+
+
+def sw_dawgs(f, opt, reads: list[np.ndarray]) -> tuple:
+    """The DAWGs of the reads the card takes (the port's native staging), as
+    sw_cuda takes them: node_c (W, NC), pre (W, NC, P), n_node (W,) int32 CPU
+    tensors, NC and P the largest n_node and in-degree; and the reads' ids."""
+    from ropebwt3_tpu_torch.align import bwasw, sw
+
+    flat, seq_off = bwasw.flat_reads(reads)
+    ok, n_node, max_pre, node_c, pre = bwasw.sw_stage(opt, f, flat, seq_off, sw.NC_MAX, sw.P_MAX)
+    sel = np.flatnonzero(ok & (n_node <= sw.NC_MAX) & (max_pre <= sw.P_MAX))
+    NC, P = int(n_node[sel].max()), int(max_pre[sel].max())
+    arrays = (node_c[sel, :NC], pre[sel, :NC, :P], n_node[sel])
+    return (*(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays), sel)
+
+
 def make_index(layout, f, device):
     """The index of `layout` on `device`, int64 megablocks shrunk so the
     corpus index spans several."""
@@ -511,3 +548,51 @@ def test_hapdiv_kernel_matches_plain(corpus, corpus_index, cuda_device, layout, 
     ok = ~got[3]
     assert torch.equal(got[4][ok], want[4][ok])  # trips: the rounds of a flagged window stop at its flag
     assert bool(got[3].any()) and bool(ok.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("e2e,n_best", [(False, 25), (True, 25), (False, 16)])
+def test_sw_kernel_matches_plain(corpus, corpus_index, cuda_device, layout, e2e, n_best):
+    """K9 (csrc/sw.cu, one warp a read) against sw_plain on the card, exact:
+    bad, best_sc and best_pos on every read, the archive and the trips of the
+    reads not flagged; sw_reads' reads, general DAWGs (in-degree up to 6) and
+    the linear ones of -e."""
+    from ropebwt3_tpu_torch.align import bwasw, sw
+
+    gen = [char2nt6(rec.seq) for rec in read_seqs(str(corpus / "genomes.fa"))]
+    opt = bwasw.SwOpt(flag=bwasw.RB3_SWF_E2E if e2e else 0, end_len=1 if e2e else 11, n_best=n_best)
+    node_c, pre, n_node, _ = sw_dawgs(corpus_index, opt, sw_reads(gen, 24, seed=n_best + e2e))
+    x = make_index(layout, corpus_index, cuda_device)
+    args = [t.to(cuda_device) for t in (node_c, pre, n_node)]
+    kw = dict(n_best=n_best, end_len=opt.end_len, trips=True)
+    before = sw.sw_cuda.launches[layout]
+    got = sw.sw_cuda(x, *args, **kw)
+    assert sw.sw_cuda.launches[layout] == before + 1
+    want = sw.sw_plain(x, *args, **kw)
+    for a, b in zip(got[4:7], want[4:7]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ok = ~got[6]
+    rows = torch.repeat_interleave(ok, args[2].long())
+    for a, b in zip(got[:4], want[:4]):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a[rows], b[rows])
+    assert torch.equal(got[7][ok], want[7][ok])  # trips: the rounds of a flagged read stop at its flag
+    assert bool(ok.any())
+
+
+@pytest.mark.cuda
+def test_sw_engine_on_card_matches_native(corpus, corpus_index, cuda_device):
+    """SwDeviceEngine on the card (K9, the native finish, native reruns of
+    the flagged reads) gives the native engine's hits, hit for hit."""
+    from ropebwt3_tpu_torch.align import bwasw, sw
+
+    gen = [char2nt6(rec.seq) for rec in read_seqs(str(corpus / "genomes.fa"))]
+    reads = sw_reads(gen, 48, seed=5)
+    opt = bwasw.SwOpt()
+    eng = sw.SwDeviceEngine(corpus_index, opt, device=cuda_device)
+    before = sw.sw_cuda.launches["dense32"]
+    got = eng.run(reads)
+    assert sw.sw_cuda.launches["dense32"] == before + 1 and eng.n_card > 0
+    want = bwasw.rb3_sw_batch(opt, corpus_index, reads)
+    sig = [[[(h.score, h.lo, h.hi, h.cigar, h.cs, h.qoff) for h in hs] for hs in out] for out in (got, want)]
+    assert sig[0] == sig[1] and any(sig[0])

@@ -120,9 +120,9 @@ def test_stat_matches(indexes):
 
 
 @pytest.mark.parametrize("argv,item", [(["suffix", "x.fmd", "y.fa"], "item 17"), (["get", "x.fmd", "0"], "item 16"),
-                                       (["sw", "x.fmd", "y.fa"], "item 11"),
-                                       (["mem", "--device=cpu", "-d", "x.fmd", "y.fa"], "item 11"),
-                                       (["mem", "--device=cpu", "-a51", "-d", "x.fmd", "y.fa"], "item 11"),
+                                       (["kount", "x.fmd", "y.fa"], "item 18"),
+                                       (["sw", "--device=cpu", "--dbg-dawg", "x.fmd", "y.fa"], "item 22"),
+                                       (["mem", "--device=cpu", "-d", "--old-mem", "x.fmd", "y.fa"], "item 4"),
                                        (["hapdiv", "--device=cpu", "--dbg-sw", "x.fmd", "y.fa"], "item 22")])
 def test_refused_command_names_roadmap_item(argv, item):
     """A command the port does not own: one ERROR line naming its ROADMAP

@@ -1,6 +1,6 @@
 """The port never imports jax, and imports nothing of the JAX package: not
 when its modules are imported, not while its CLI runs `build`, `merge`,
-`plain2fmd`, `mem`, `ssa`, `hapdiv` and `stat`, and not in its sources or
+`plain2fmd`, `mem`, `ssa`, `hapdiv`, `sw`, `search` and `stat`, and not in its sources or
 chip_smoke.py.  Also read from the sources: each C entry point's ctypes
 argument list (kernels.py) matches its signature in csrc/."""
 
@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
 def test_cli_commands_import_no_jax_package(corpus, corpus_fmd, tmp_path):
     """`build` (-d, and plain text with two batches), `merge`, `plain2fmd`,
     `mem` (with -p: the native locate), `ssa`, `hapdiv` (the plain DP, the
-    native DP for flagged windows) and `stat` through the port's
+    native DP for flagged windows), `sw` (the native staging; -j151 leaves
+    no read to score), `search` (running mem) and `stat` through the port's
     CLI on the CPU leave no jax and no ropebwt3_tpu module loaded."""
     fmd, reads, fa = str(corpus_fmd), str(corpus / "reads.fa"), str(corpus / "genomes.fa")
     built, plain = str(tmp_path / "b.fmd"), str(tmp_path / "b.txt")
@@ -54,11 +55,13 @@ def test_cli_commands_import_no_jax_package(corpus, corpus_fmd, tmp_path):
         f"    rcs.append(main(['mem', '--device=cpu', '-l21', '-p3', {fmd!r}, {reads!r}]))\n"
         f"    rcs.append(main(['ssa', '--device=cpu', '-o', {str(tmp_path / 'x.ssa')!r}, {fmd!r}]))\n"
         f"    rcs.append(main(['hapdiv', '--device=cpu', '-a31', '-w60', {fmd!r}, {reads!r}]))\n"
+        f"    rcs.append(main(['sw', '--device=cpu', '-j151', {fmd!r}, {reads!r}]))\n"
+        f"    rcs.append(main(['search', '--device=cpu', '-l21', {fmd!r}, {reads!r}]))\n"
         f"    rcs.append(main(['stat', {fmd!r}]))\n"
         f"print(rcs, {FORBIDDEN})\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
-    assert r.returncode == 0 and r.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0] []", r.stdout + r.stderr
+    assert r.returncode == 0 and r.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0, 0, 0] []", r.stdout + r.stderr
     assert open(built, "rb").read() == open(fmd, "rb").read()  # the port's FMD is the JAX package's
 
 
