@@ -96,15 +96,18 @@ it.  Phases:
             windows of 101 at step 50); per dense layout the kernel vs
             hapdiv_plain on the card, exact, on 960 of its windows, 64 with
             an insertion and 16 at -A 100 (all flagged), timed beside the
-            bytes bound and the chain floor; then the hapdiv path, `hapdiv`
+            bytes bound and the chain floor; resident blocks an SM at
+            n_best 25 and 48 and the phase split of the timing-only twin
+            (ropebwt3_tpu_torch.dp_time); then the hapdiv path, `hapdiv`
             through cli.main (counts reset before, read after), byte-equal to
-            `python -m ropebwt3_tpu hapdiv`
+            `python -m ropebwt3_tpu hapdiv`, and its wall time by piece
   sw        K9 (csrc/sw.cu, one warp a read) on bench.py's index: per dense
             layout the kernel vs sw_plain on the card, exact, on the first
             128 short reads the card takes (general DAWGs) and 64 (-e), 16
             of each at -A 100 (all flagged), timed
             beside the bytes bound and the chain floor, and a launch of
-            4,096 reads; then the sw paths through cli.main (counts reset
+            4,096 reads; resident blocks an SM and the phase split as in
+            [hapdiv]; then the sw paths through cli.main (counts reset
             before, read after): `sw` on the first 10,000 short reads and
             `sw --all-e2e -b` on the first 1,000, byte-equal to `python -m
             ropebwt3_tpu sw`, with the shares of reads on the card, flagged
@@ -1110,6 +1113,30 @@ class RowCount:
         return rows.numel() * 48 + mega + nbytes(self.idx.acc)
 
 
+PIECES_LOG = re.compile(r"wall seconds by piece[^:]*: (.*)")
+
+
+def pieces_of(stderr: str, what: str) -> dict:
+    """The engine's `wall seconds by piece` log line as {piece: seconds}."""
+    p = PIECES_LOG.search(stderr)
+    if p is None:
+        fail(f"{what}: no `wall seconds by piece` line in its log")
+    return {k: float(v) for k, v in (x.rsplit(" ", 1) for x in p.group(1).split(", "))}
+
+
+def dp_card_lines(dp_time, kind: str, lay: str, split: dict) -> tuple[dict, str]:
+    """K8's or K9's occupancy at n_best 25 and 48 and its phase split, as a
+    record and as words for the phase's line."""
+    occ = {n: dp_time.occupancy(kind, lay, n) for n in (25, 48)}
+    if any(o is None for o in occ.values()) or split is None:
+        fail(f"{kind} {lay}: the occupancy query or the timing-only kernel is missing")
+    words = ("; ".join(f"at n_best {n} {o['blocks_per_sm']} blocks an SM ({o['smem_bytes']} B of shared memory, "
+                       f"{o['regs']} registers a thread)" for n, o in occ.items())
+             + "; phase split (lane 0's clock64 laps, summed over the unflagged): "
+             + ", ".join(f"{p} {v:.1%}" for p, v in split["share"].items() if p != "hpos_scan"))
+    return {"occupancy": occ, "split": split}, words
+
+
 def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -> dict:
     """K8 (csrc/hapdiv.cu) on bench.py's index: a 17th haplotype, genome 0
     at 1% substitutions from the seed, cut into `hapdiv`'s windows.  Per
@@ -1118,11 +1145,14 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
     of them, HAPDIV_INS insertion windows and HAPDIV_BIG windows at -A 100
     (all flagged); times, the bytes bound (the rows the plain version's
     ranks read) and the chain floor (the longest window's trips at the 48 MB
-    table's ns a step).  Then `hapdiv` through cli.main on the whole
-    haplotype, counts reset before and read after, byte-equal to `python -m
-    ropebwt3_tpu hapdiv`.  Returns the per-layout records and the path's."""
+    table's ns a step); resident blocks an SM and the phase split of the
+    timing-only twin on the 16,384-window batch.  Then `hapdiv` through
+    cli.main on the whole haplotype, counts reset before and read after,
+    byte-equal to `python -m ropebwt3_tpu hapdiv`, with its wall time by
+    piece.  Returns the per-layout records and the path's."""
     import torch
 
+    from ropebwt3_tpu_torch import dp_time
     from ropebwt3_tpu_torch.align import hapdiv
     from ropebwt3_tpu_torch.nt6 import char2nt6
     from ropebwt3_tpu_torch.seqio import read_seqs
@@ -1176,6 +1206,8 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
                         n_bad_ins=int(want[3][HAPDIV_CHECK:].sum()), rows_bytes=counted.bytes(),
                         bound_ms=bound_ms(counted.bytes() + io_bytes), max_trips=trips, mean_trips=float(got[4][ok].float().mean()),
                         chain_floor_ms=trips * ns[LAT_48MB] / 1e6, full_ms=full_ms, full_windows=full.shape[0])
+        rec, words = dp_card_lines(dp_time, "hapdiv", lay, dp_time.timed_hapdiv(x, full, K))
+        res[lay].update(rec)
         r = res[lay]
         say(f"[hapdiv] {lay}: hapdiv_cuda exact vs hapdiv_plain on {r['n_win']} windows ({HAPDIV_CHECK} of the "
             f"haplotype, {HAPDIV_INS} with an insertion; {r['n_bad']} flagged, {r['n_bad_ins']} of them insertion "
@@ -1183,6 +1215,7 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
             f"plain {plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['rows_bytes']} B of rows read); chain floor "
             f"{r['chain_floor_ms']:.4f} ms (longest window {trips} trips, mean {r['mean_trips']:.1f}, at "
             f"{ns[LAT_48MB]} ns); a batch of {r['full_windows']} windows {full_ms:.3f} ms ({card})")
+        say(f"[hapdiv] {lay}: {words} ({card})")
     del seqs, big, full
 
     # the hapdiv path: the reference first (its run times the native DP)
@@ -1207,16 +1240,16 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
     if launches.get("dense32", 0) < 1 or m is None or int(m.group(1)) != launches["dense32"] or int(m.group(3)) != len(wins):
         fail(f"hapdiv path: launches {launches}, log {m and m.group(0)}, {len(wins)} windows")
     path = dict(launches=launches, port_s=port_s, ref_s=ref_s, n_win=len(wins), n_bad=int(m.group(2)),
-                lines=want.count(b"\n"))
+                lines=want.count(b"\n"), pieces=pieces_of(err.getvalue(), "hapdiv path"))
     say(f"[hapdiv] path `hapdiv` on the haplotype ({len(hap)} bp, {len(wins)} windows of {K} at step {HAPDIV_STEP}): "
         f"stdout byte-equal to `python -m ropebwt3_tpu hapdiv` ({path['lines']} lines); launches {launches}; "
         f"{path['n_bad']} windows flagged ({path['n_bad'] / len(wins):.4%}), rerun on the native DP; port "
-        f"in-process {port_s:.3f} s, reference (native DP, {os.cpu_count()} host cores) {ref_s:.3f} s ({card})")
+        f"in-process {port_s:.3f} s (by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in path["pieces"].items())
+        + f"), reference (native DP, {os.cpu_count()} host cores) {ref_s:.3f} s ({card})")
     return dict(res=res, path=path)
 
 
 SW_LOG = re.compile(r"(\d+) sw launches \(dense32\); (\d+) of (\d+) reads on the card, (\d+) flagged bad and (\d+) of a DAWG")
-SW_PIECES = re.compile(r"wall seconds by piece[^:]*: (.*)")
 
 
 def sw_path(cli, argv: list[str], fa: str, fmd: str, tag: str) -> dict:
@@ -1243,11 +1276,11 @@ def sw_path(cli, argv: list[str], fa: str, fmd: str, tag: str) -> dict:
     got = open(port_out, "rb").read()
     if got != want:
         fail(f"port sw {' '.join(argv)} differs from `python -m ropebwt3_tpu sw`: {first_diff(got, want)}")
-    m, p = SW_LOG.search(err.getvalue()), SW_PIECES.search(err.getvalue())
-    if launches.get("dense32", 0) < 1 or m is None or p is None or int(m.group(1)) != launches["dense32"]:
+    m = SW_LOG.search(err.getvalue())
+    if launches.get("dense32", 0) < 1 or m is None or int(m.group(1)) != launches["dense32"]:
         fail(f"sw path {' '.join(argv)}: launches {launches}, log {m and m.group(0)}")
     n_card, n_reads, n_bad, n_shape = (int(m.group(i)) for i in (2, 3, 4, 5))
-    pieces = {k: float(v) for k, v in (x.rsplit(" ", 1) for x in p.group(1).split(", "))}
+    pieces = pieces_of(err.getvalue(), f"sw path {' '.join(argv)}")
     return dict(launches=launches, port_s=port_s, ref_s=ref_s, n_reads=n_reads, card_share=n_card / n_reads,
                 bad_share=n_bad / n_reads, shape_share=n_shape / n_reads, pieces=pieces, lines=want.count(b"\n"))
 
@@ -1259,14 +1292,19 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
     not flagged) on the first SW_CHECK / SW_CHECK_E2E short reads the card
     takes; the launch timed, and one of LANES reads; the bytes bound (the
     rows the plain version's ranks read, the DAWGs in, the archive out) and
-    the chain floor (the longest read's trips at the 48 MB table's ns).
-    Then the sw paths through cli.main, byte-equal to the reference, with
-    the index's SSA and sequence lengths beside it so PAF carries positions."""
+    the chain floor (the longest read's trips at the 48 MB table's ns);
+    resident blocks an SM and the phase split of the timing-only twin on
+    the LANES-read launch (general DAWGs).  Then the sw paths through
+    cli.main, byte-equal to the reference, with the index's SSA and
+    sequence lengths beside it so PAF carries positions, and their wall
+    time by piece (the card's: upload, scratch allocation, K9 with the
+    archive's allocation, download)."""
     import gzip
     import shutil
 
     import torch
 
+    from ropebwt3_tpu_torch import dp_time
     from ropebwt3_tpu_torch.align import bwasw, sw
 
     shutil.copyfile(os.path.join(WORK, "ssa_bench_ref.ssa"), fmd + ".ssa")  # the [ssa] phase's reference, -s 8
@@ -1325,11 +1363,17 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
                 NC=check[0].shape[1], P=check[1].shape[2], rows_bytes=counted.bytes(), io_bytes=io_bytes,
                 bound_ms=bound_ms(counted.bytes() + io_bytes), max_trips=trips, mean_trips=float(got[7][okr].float().mean()),
                 chain_floor_ms=trips * ns[LAT_48MB] / 1e6, full_ms=full_ms, full_reads=len(full[2]))
+            words = None
+            if mode == "general":
+                rec, words = dp_card_lines(dp_time, "sw", lay, dp_time.timed_sw(x, full, kw))
+                r.update(rec)
             say(f"[sw] {mode} {lay}: sw_cuda exact vs sw_plain on {r['n_reads']} reads (NC {r['NC']}, P {r['P']}; "
                 f"{r['n_bad']} flagged; trips of the others equal) and on {SW_BIG} at -A 100 (all flagged); kernel {ms:.4f} ms vs plain {plain_ms:.1f} ms; bound "
                 f"{r['bound_ms']:.4f} ms ({r['rows_bytes']} B of rows read, {io_bytes} B in and out); chain floor "
                 f"{r['chain_floor_ms']:.4f} ms (longest read {trips} trips, mean {r['mean_trips']:.1f}, at "
                 f"{ns[LAT_48MB]} ns); a launch of {r['full_reads']} reads {full_ms:.3f} ms ({card})")
+            if words:
+                say(f"[sw] {lay}: {words} ({card})")
         del check, full
 
     path = sw_path(cli, [], path_fa, fmd, "sw")
@@ -1845,7 +1889,8 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["chain_floor_ms"],
             "input": f"{r['n_win']} windows of {HAPDIV_K} (haplotype and insertion windows)", "n_bad": r["n_bad"],
             "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"],
-            "full_batch_ms": r["full_ms"], "full_batch_windows": r["full_windows"],
+            "full_batch_ms": r["full_ms"], "full_batch_windows": r["full_windows"], "occupancy": r["occupancy"],
+            "phase_split": r["split"],
             **({"path_windows": hd["path"]["n_win"], "path_bad": hd["path"]["n_bad"], "path_port_s": hd["path"]["port_s"],
                 "path_reference_s": hd["path"]["ref_s"]} if n else {}),
         })
@@ -1859,7 +1904,8 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "chain_floor_ms": r["chain_floor_ms"], "input": f"{r['n_reads']} short reads' general DAWGs (NC {r['NC']}, P {r['P']})",
             "n_bad": r["n_bad"], "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"],
-            "full_batch_ms": r["full_ms"], "full_batch_reads": r["full_reads"], "e2e": e,
+            "full_batch_ms": r["full_ms"], "full_batch_reads": r["full_reads"], "occupancy": r["occupancy"],
+            "phase_split": r["split"], "e2e": e,
             **({"path_sw": swr["path"], "path_all_e2e": swr["e2e"]} if n else {}),
         })
     say(json.dumps({"kernels": entries}))

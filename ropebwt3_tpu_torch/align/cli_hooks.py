@@ -200,7 +200,7 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None) -> int:
         emit(b0, *fut.result())
     _ex.shutdown()
     if dev_engine is not None:
-        from .sw import sw_cuda
+        from .sw import SwDeviceEngine, sw_cuda
 
         e = dev_engine
         lay = e.idx.layout if e.idx is not None else "dense32"
@@ -208,7 +208,7 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None) -> int:
                  "take, both rerun on the native engine", sw_cuda.launches[lay], lay, e.n_card, e.n_reads, e.n_bad,
                  e.n_shape, func="sw")
         log.info("wall seconds by piece (the engine's overlap the writer's): %s, write %.3f",
-                 ", ".join(f"{k} {e.seconds[k]:.3f}" for k in ("stage", "card", "finish", "native", "positions")),
+                 ", ".join(f"{k} {e.seconds[k]:.3f}" for k in SwDeviceEngine.PIECES),
                  write_s, func="sw")
     return 0
 
@@ -247,6 +247,7 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None) -> int:
     _inflight: list = []  # [(pend, future)]
 
     def _emit(done_pend, rs):
+        t0 = time.perf_counter()
         pos = 0
         for name, offs in done_pend:
             results = []
@@ -266,6 +267,8 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None) -> int:
                     row = f"{name}\t{off0}\t{off_last + k}\t{n_al}\t{max_ed}\t" + "\t".join(str(x) for x in n_hap)
                     out.write(row + "\n")
                     i0 = i1
+        if dev_engine is not None:
+            dev_engine.seconds["write"] += time.perf_counter() - t0
 
     def flush():
         nonlocal pend, wins
@@ -286,10 +289,13 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None) -> int:
             name = name0 if name0 else f"seq{seq_id}"
             if len(q) < k:
                 continue
+            t0 = time.perf_counter()
             offs = list(range(0, len(q) - k + 1, w))
             pend.append((name, offs))
             n_win += len(offs)
             wins.extend(q[j : j + k] for j in offs)
+            if dev_engine is not None:
+                dev_engine.seconds["cut"] += time.perf_counter() - t0
             if len(wins) >= CAP:
                 flush()
     flush()
@@ -303,4 +309,6 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None) -> int:
         lay = dev_engine.idx.layout if dev_engine.idx is not None else "dense32"
         log.info("%d hapdiv launches (%s); %d of %d windows flagged bad, rerun on the native DP",
                  hapdiv_cuda.launches[lay], lay, dev_engine.n_bad, n_win, func="hapdiv")
+        log.info("wall seconds by piece (the engine's overlap the cut and the write): %s",
+                 ", ".join(f"{p} {dev_engine.seconds[p]:.3f}" for p in HapdivDeviceEngine.PIECES), func="hapdiv")
     return 0

@@ -25,6 +25,7 @@ kernel: it reaches no count and no flag (only sw's hits read it).
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 
 import numpy as np
@@ -473,18 +474,29 @@ class HapdivDeviceEngine:
     (the kernel on a CUDA device, the plain version on the CPU), LANES a
     call, with the windows it flags `bad` rerun on the native DP; the
     options and lengths the packed words cannot hold go to the native DP
-    whole (hapdiv_jax.py:303-398)."""
+    whole (hapdiv_jax.py:303-398).  `seconds` sums each piece's wall time
+    over the runs (PIECES): the rows' build and upload, the windows' cut
+    (the CLI's staging and the stack here), their upload, the kernel, the
+    download, the results' unpacking, the native rerun and the CLI's write."""
+
+    PIECES = ("rows", "cut", "upload", "kernel", "download", "unpack", "native", "write")
 
     def __init__(self, f, opt: SwOpt, device="cuda"):
         self.f, self.opt, self.device = f, opt, torch.device(device)
         self.idx = None  # built on first use: the rows cost seconds
         self.n_bad = 0
+        self.seconds = Counter()
         self.supported = (
             f.n < (1 << 32)
             and 2 <= opt.n_best <= SCAP
             and opt.e2e_drop < 0
             and (opt.flag & (RB3_SWF_E2E | RB3_SWF_HAPDIV)) == (RB3_SWF_E2E | RB3_SWF_HAPDIV)
         )
+
+    def _lap(self, piece: str, t0: float) -> float:
+        t = time.perf_counter()
+        self.seconds[piece] += t - t0
+        return t
 
     def run(self, wins: list[np.ndarray]) -> list[HapDiv]:
         """One HapDiv a window (a window with no alignment gives the
@@ -494,24 +506,34 @@ class HapdivDeviceEngine:
         K = len(wins[0])
         if not (self.supported and 1 <= K <= MAX_K and all(len(w) == K for w in wins)):
             return [r if r is not None else HapDiv() for r in rb3_hapdiv_multi(self.opt, self.f, wins)]
+        t = time.perf_counter()
         if self.idx is None:
             self.idx = OccIndex.from_dense(self.f, self.device)
+            t = self._lap("rows", t)
         o = self.opt
         arr = torch.from_numpy(np.stack(wins).astype(np.int32))
+        t = self._lap("cut", t)
         out: list = [None] * len(wins)
         bad_idx: list[int] = []
         for c0 in range(0, len(wins), LANES):
             chunk = arr[c0 : c0 + LANES].to(self.device)
+            t = self._lap("upload", t)
             got = hapdiv_cuda(self.idx, chunk, K, o.n_best, o.min_sc, o.end_len, o.match, o.mis, o.gap_open, o.gap_ext)
-            n_al, max_ed, n_hap, bad = (t.cpu().tolist() for t in got)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t = self._lap("kernel", t)
+            n_al, max_ed, n_hap, bad = (a.cpu().tolist() for a in got)
+            t = self._lap("download", t)
             for i in range(len(chunk)):
                 if bad[i]:
                     bad_idx.append(c0 + i)
                 else:
                     out[c0 + i] = HapDiv(n_al[i], max_ed[i], n_hap[i])
+            t = self._lap("unpack", t)
         if bad_idx:
             self.n_bad += len(bad_idx)
             redo = rb3_hapdiv_multi(self.opt, self.f, [wins[i] for i in bad_idx])
             for i, r in zip(bad_idx, redo):
                 out[i] = r if r is not None else HapDiv()
+            self._lap("native", t)
         return out

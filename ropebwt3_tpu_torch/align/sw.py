@@ -419,15 +419,16 @@ def sw_plain(idx: OccIndex, node_c: torch.Tensor, pre: torch.Tensor, n_node: tor
 
 def sw_cuda(idx: OccIndex, node_c: torch.Tensor, pre: torch.Tensor, n_node: torch.Tensor, n_best: int = N_BEST,
             min_sc: int = 30, end_len: int = 11, match: int = 1, mis: int = 3, gap_open: int = 5, gap_ext: int = 2,
-            trips: bool = False):
+            trips: bool = False, scratch: torch.Tensor | None = None):
     """The sw DP of the DAWGs (node_c, pre, n_node) through the kernel of
     csrc/sw.cu in the index's layout (dense32 or dense64), one warp a read:
-    the arrays of sw_plain.  A CPU tensor takes the plain version."""
+    the arrays of sw_plain.  `scratch` goes to launch_sw.  A CPU tensor
+    takes the plain version."""
     _check(idx, node_c, pre, n_node, n_best)
     opt = (n_best, min_sc, end_len, match, mis, gap_open, gap_ext, trips)
     if node_c.device.type == "cpu":
         return sw_plain(idx, node_c, pre, n_node, *opt)
-    return launch_sw(idx, node_c, pre, n_node, *opt)
+    return launch_sw(idx, node_c, pre, n_node, *opt, scratch=scratch)
 
 
 def launch_sw(idx: OccIndex, node_c: torch.Tensor, pre: torch.Tensor, n_node: torch.Tensor, n_best: int = N_BEST,
@@ -472,8 +473,12 @@ class SwDeviceEngine:
     backtrack, natively); the flagged and the other reads rerun on the
     native engine (rb3_sw_batch); then every hit's positions in one locate
     (sw_jax.py:702-766).  Options the card does not take send every read to
-    the native engine.  `seconds` sums each piece's wall time over the runs:
-    stage, card (upload, kernel, download), finish, native, positions."""
+    the native engine.  `seconds` sums each piece's wall time over the runs
+    (PIECES): stage, the card's upload, alloc (the carried rows' scratch),
+    kernel (with the archive's allocation) and download, finish, native,
+    positions."""
+
+    PIECES = ("stage", "upload", "alloc", "kernel", "download", "finish", "native", "positions")
 
     def __init__(self, f, opt: SwOpt, device="cuda"):
         self.f, self.opt, self.device = f, opt, torch.device(device)
@@ -505,11 +510,19 @@ class SwDeviceEngine:
         for c0 in range(0, len(card), LANES):
             sel = card[c0 : c0 + LANES]
             NC, P = int(n_node[sel].max()), max(1, int(max_pre[sel].max()))
-            got = sw_cuda(self.idx, *(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in
-                                      (node_c[sel, :NC], pre[sel, :NC, :P], n_node[sel])),
-                          o.n_best, o.min_sc, o.end_len, o.match, o.mis, o.gap_open, o.gap_ext)
+            dawg = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                    for a in (node_c[sel, :NC], pre[sel, :NC, :P], n_node[sel])]
+            t = self._lap("upload", t)
+            scratch = torch.empty((int(n_node[sel].sum()), o.n_best, 4), dtype=torch.int64, device=self.device)
+            t = self._lap("alloc", t)
+            got = sw_cuda(self.idx, *dawg, o.n_best, o.min_sc, o.end_len, o.match, o.mis, o.gap_open, o.gap_ext,
+                          scratch=scratch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t = self._lap("kernel", t)
             lo, hi, rc, w, best_sc, best_pos, bad = (a.cpu().numpy() for a in got)
-            t = self._lap("card", t)
+            del scratch
+            t = self._lap("download", t)
             rows = np.zeros(len(sel) + 1, np.int64)
             np.cumsum(n_node[sel], out=rows[1:])
             done = np.flatnonzero(~bad)

@@ -11,6 +11,9 @@ is built or loaded when this module is imported; `lib()` does it.
 Every entry point takes PyTorch's current CUDA stream, allocates nothing, and
 returns `cudaGetLastError()` after its launch; `launch` raises on non-zero,
 `call` returns the code (the shared-memory capacity probe reports a refusal).
+The queries `rb3c_smem_optin` and `rb3c_occupancy_*` (the DP kernels'
+resident blocks an SM) take no stream; the DP kernels' `rb3c_timed_*` twins
+also write lane 0's phase clocks (ropebwt3_tpu_torch/dp_time.py reads both).
 The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
@@ -54,6 +57,11 @@ for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _V, _V]
     _ENTRIES[f"rb3c_hapdiv_{_lay}"] = [*_TABLES, _V, _I64, *[_I32] * 8, _V, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_sw_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 8, *[_V] * 10]
+    # the DP kernels' timing-only twins (lane 0's phase clocks, clk last)
+    _ENTRIES[f"rb3c_timed_hapdiv_{_lay}"] = [*_TABLES, _V, _I64, *[_I32] * 8, *[_V] * 8]
+    _ENTRIES[f"rb3c_timed_sw_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 8, *[_V] * 11]
+    for _k in ("hapdiv", "sw"):  # no stream: attributes of the kernel at an n_best
+        _ENTRIES[f"rb3c_occupancy_{_k}_{_lay}"] = [_I32, _V, _V, _V]
 _ENTRIES["rb3c_ssa_jump"] = [_V, _I64, _I32, _V]
 _ENTRIES["rb3c_sa_keys"] = [_V, _I64, _I64, _I32, _V, _V]
 _ENTRIES["rb3c_sa_flags"] = [_V, _V, _I64, _V, _V]

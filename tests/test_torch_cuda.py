@@ -35,6 +35,37 @@ def corpus_index(corpus):
     return DenseFMIndex.from_bwt(gsa_bwt(np.concatenate(parts)))
 
 
+def low_complexity_genomes(seed: int = 11, n: int = 4, length: int = 6000) -> list[np.ndarray]:
+    """n genomes of tandem repeats: runs of 150-600 bp of a motif of 1-6
+    random bases, at 1% substitutions, so one interval extends to many
+    repeats of itself (long probe chains, keys that repeat within a node)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        parts, size = [], 0
+        while size < length:
+            motif = rng.integers(1, 5, int(rng.integers(1, 7)))
+            run = np.tile(motif, 600 // len(motif) + 1)[: int(rng.integers(150, 600))]
+            parts.append(run)
+            size += len(run)
+        g = np.concatenate(parts)[:length].astype(np.uint8)
+        mut = rng.random(length) < 0.01
+        g[mut] = rng.integers(1, 5, int(mut.sum()))
+        out.append(g)
+    return out
+
+
+@pytest.fixture(scope="module")
+def low_complexity():
+    """low_complexity_genomes and their double-strand index, laid out as
+    corpus_index's."""
+    gen = low_complexity_genomes()
+    parts = []
+    for s in gen:
+        parts += [s, np.zeros(1, np.uint8), revcomp(s), np.zeros(1, np.uint8)]
+    return gen, DenseFMIndex.from_bwt(gsa_bwt(np.concatenate(parts)))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -525,47 +556,76 @@ def test_merge_rank_segments_match_plain(corpus, corpus_index, cuda_device, layo
         tmerge.merge_rank_cuda(idx, rec.clone(), m2, S=7)
 
 
+# the cases of the DP kernels' card tests: the corpus (the ids of the first
+# cases), a low-complexity index and its windows or reads, and -A 100
+# (every window or read that aligns passes the 12-bit score field)
+DP_CASES = [pytest.param(51, 25, "corpus", id="51-25"), pytest.param(101, 25, "corpus", id="101-25"),
+            pytest.param(51, 16, "corpus", id="51-16"), pytest.param(31, 48, "corpus", id="31-48"),
+            pytest.param(51, 25, "low_complexity", id="51-25-low_complexity"),
+            pytest.param(31, 48, "low_complexity", id="31-48-low_complexity"),
+            pytest.param(51, 25, "match100", id="51-25-match100")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["dense32", "dense64"])
-@pytest.mark.parametrize("K,n_best", [(51, 25), (101, 25), (51, 16), (31, 48)])
-def test_hapdiv_kernel_matches_plain(corpus, corpus_index, cuda_device, layout, K, n_best):
+@pytest.mark.parametrize("K,n_best,kind", DP_CASES)
+def test_hapdiv_kernel_matches_plain(corpus, corpus_index, low_complexity, cuda_device, layout, K, n_best, kind):
     """K8 (csrc/hapdiv.cu, one warp a window) against hapdiv_plain on the
     card, exact: the four arrays on every window, `bad` included, and the
     trips of the windows not flagged; make_windows' windows (substitutions
-    and indels, one crafted to be flagged) and a low-complexity run."""
+    and indels, one crafted to be flagged: an insertion) and a
+    low-complexity run, on the corpus or on a low-complexity index (long
+    probe chains, wraps, keys repeated in a node), or scored -A 100 (the
+    12-bit score flag)."""
     from ropebwt3_tpu_torch.align import hapdiv
 
     gen = [char2nt6(rec.seq) for rec in read_seqs(str(corpus / "genomes.fa"))]
+    f = corpus_index
+    if kind == "low_complexity":
+        gen, f = low_complexity
     wins = np.concatenate([make_windows(gen, K, 0.06, 3883, seed=K + n_best), np.ones((1, K), np.int32)])
-    x = make_index(layout, corpus_index, cuda_device)
+    x = make_index(layout, f, cuda_device)
     seqs = torch.from_numpy(wins).to(cuda_device)
+    kw = dict(n_best=n_best, trips=True, match=100 if kind == "match100" else 1)
     before = hapdiv.hapdiv_cuda.launches[layout]
-    got = hapdiv.hapdiv_cuda(x, seqs, K, n_best=n_best, trips=True)
+    got = hapdiv.hapdiv_cuda(x, seqs, K, **kw)
     assert hapdiv.hapdiv_cuda.launches[layout] == before + 1
-    want = hapdiv.hapdiv_plain(x, seqs, K, n_best=n_best, trips=True)
+    want = hapdiv.hapdiv_plain(x, seqs, K, **kw)
     for a, b in zip(got[:4], want[:4]):
         assert a.dtype == b.dtype and torch.equal(a, b)
     ok = ~got[3]
     assert torch.equal(got[4][ok], want[4][ok])  # trips: the rounds of a flagged window stop at its flag
-    assert bool(got[3].any()) and bool(ok.any())
+    assert bool(got[3].any()) if kind == "match100" else bool(ok.any()) and (kind != "corpus" or bool(got[3].any()))
+
+
+SW_CASES = [pytest.param(False, 25, "corpus", id="False-25"), pytest.param(True, 25, "corpus", id="True-25"),
+            pytest.param(False, 16, "corpus", id="False-16"), pytest.param(False, 48, "corpus", id="False-48"),
+            pytest.param(False, 25, "low_complexity", id="False-25-low_complexity"),
+            pytest.param(True, 48, "low_complexity", id="True-48-low_complexity"),
+            pytest.param(False, 25, "match100", id="False-25-match100")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["dense32", "dense64"])
-@pytest.mark.parametrize("e2e,n_best", [(False, 25), (True, 25), (False, 16)])
-def test_sw_kernel_matches_plain(corpus, corpus_index, cuda_device, layout, e2e, n_best):
+@pytest.mark.parametrize("e2e,n_best,kind", SW_CASES)
+def test_sw_kernel_matches_plain(corpus, corpus_index, low_complexity, cuda_device, layout, e2e, n_best, kind):
     """K9 (csrc/sw.cu, one warp a read) against sw_plain on the card, exact:
     bad, best_sc and best_pos on every read, the archive and the trips of the
     reads not flagged; sw_reads' reads, general DAWGs (in-degree up to 6) and
-    the linear ones of -e."""
+    the linear ones of -e, on the corpus or cut from a low-complexity index
+    (long probe chains, wraps, keys repeated in a node), or scored -A 100
+    (the 12-bit score flag)."""
     from ropebwt3_tpu_torch.align import bwasw, sw
 
     gen = [char2nt6(rec.seq) for rec in read_seqs(str(corpus / "genomes.fa"))]
+    f = corpus_index
+    if kind == "low_complexity":
+        gen, f = low_complexity
     opt = bwasw.SwOpt(flag=bwasw.RB3_SWF_E2E if e2e else 0, end_len=1 if e2e else 11, n_best=n_best)
-    node_c, pre, n_node, _ = sw_dawgs(corpus_index, opt, sw_reads(gen, 24, seed=n_best + e2e))
-    x = make_index(layout, corpus_index, cuda_device)
+    node_c, pre, n_node, _ = sw_dawgs(f, opt, sw_reads(gen, 24, seed=n_best + e2e))
+    x = make_index(layout, f, cuda_device)
     args = [t.to(cuda_device) for t in (node_c, pre, n_node)]
-    kw = dict(n_best=n_best, end_len=opt.end_len, trips=True)
+    kw = dict(n_best=n_best, end_len=opt.end_len, trips=True, match=100 if kind == "match100" else 1)
     before = sw.sw_cuda.launches[layout]
     got = sw.sw_cuda(x, *args, **kw)
     assert sw.sw_cuda.launches[layout] == before + 1
@@ -577,7 +637,7 @@ def test_sw_kernel_matches_plain(corpus, corpus_index, cuda_device, layout, e2e,
     for a, b in zip(got[:4], want[:4]):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a[rows], b[rows])
     assert torch.equal(got[7][ok], want[7][ok])  # trips: the rounds of a flagged read stop at its flag
-    assert bool(ok.any())
+    assert bool(got[6].any()) if kind == "match100" else bool(ok.any())
 
 
 @pytest.mark.cuda

@@ -371,6 +371,15 @@ struct uint4 { unsigned x, y, z, w; };
 struct longlong2 { long long x, y; };
 template <typename T> static inline T __ldg(const T* p) { return *p; }
 static inline int __popc(unsigned v) { return __builtin_popcount(v); }
+// the warp collectives of csrc/dp.cuh for one lane
+static inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
+template <typename V> static inline V __shfl_sync(unsigned, V v, int) { return v; }
+template <typename V> static inline V __shfl_xor_sync(unsigned, V v, int) { return v; }
+template <typename V> static inline unsigned __match_any_sync(unsigned, V) { return 1u; }
+static inline void __syncwarp(unsigned = 0xffffffffu) {}
+static inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
+static inline int __clz(unsigned v) { return v ? __builtin_clz(v) : 32; }
+static inline unsigned atomicOr(unsigned* p, unsigned v) { const unsigned o = *p; *p = o | v; return o; }
 #include "rb.cuh"
 template <typename T>
 static void rank_all(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift, int block_shift,

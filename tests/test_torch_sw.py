@@ -122,19 +122,16 @@ def sw_host(tmp_path_factory):
     """csrc/sw.cu's `sw_read` built for the host with g++: one lane a read."""
     src = HOST_SHIM.split('#include "rb.cuh"')[0] + '#include <memory>\n#include "sw.cu"\n'
     src += r"""
-template <class L>
+template <class L, int NB>
 static void run(const L& ix, const int* node_c, const int* pre, const int* n_node, const int64_t* rows, int64_t W,
-                int NC, int P, int n_best, int end_len, int match, int mis, int go, int ge, long long* scratch, int* lo,
-                int* hi, int* rc, long long* w, int* best_sc, int* best_pos, uint8_t* bad, int* trips) {
-  int nb_bits = 2;
-  while ((1 << nb_bits) < 4 * n_best) ++nb_bits;
-  const int nb = 1 << nb_bits;
-  const rb3c::sw::Opt o{n_best, end_len, match, mis, go, ge, nb_bits, nb, (nb >> 1) + (nb >> 2), max(go + ge, mis)};
-  auto s = std::make_unique<rb3c::sw::State<typename L::T>>();
+                int NC, int P, int n_best, int end_len, long long* scratch, int* lo, int* hi, int* rc, long long* w,
+                int* best_sc, int* best_pos, uint8_t* bad, int* trips) {
+  const rb3c::sw::Opt o = rb3c::sw::make_opt(n_best, end_len, 1, 3, 5, 2);
+  auto s = std::make_unique<rb3c::sw::State<typename L::T, NB>>();
   for (int64_t r = 0; r < W; ++r) {
     const int64_t c0 = rows[r] * n_best;
-    rb3c::sw::sw_read(ix, *s, node_c + r * NC, pre + r * NC * P, n_node[r], P, o, scratch + c0 * 4, lo + c0, hi + c0,
-                      rc + c0, w + c0, best_sc + r, best_pos + r, bad + r, trips + r, 0, 1);
+    rb3c::sw::sw_read<1, false>(ix, *s, node_c + r * NC, pre + r * NC * P, n_node[r], P, o, scratch + c0 * 4, lo + c0,
+                                hi + c0, rc + c0, w + c0, best_sc + r, best_pos + r, bad + r, trips + r, 0, nullptr);
   }
 }
 #define ENTRY(name, L)                                                                                              \
@@ -142,8 +139,13 @@ static void run(const L& ix, const int* node_c, const int* pre, const int* n_nod
                        const int* node_c, const int* pre, const int* n_node, const int64_t* rows, int64_t W, int NC,  \
                        int P, int n_best, int end_len, long long* scratch, int* lo, int* hi, int* rc, long long* w,  \
                        int* best_sc, int* best_pos, uint8_t* bad, int* trips) {                                     \
-    run(L{rb3c::Tables{rt, esc, mega, acc, ms, bs}}, node_c, pre, n_node, rows, W, NC, P, n_best, end_len, 1, 3, 5, \
-        2, scratch, lo, hi, rc, w, best_sc, best_pos, bad, trips);                                                  \
+    const L ix{rb3c::Tables{rt, esc, mega, acc, ms, bs}};                                                          \
+    if (n_best <= 32)                                                                                              \
+      run<L, 128>(ix, node_c, pre, n_node, rows, W, NC, P, n_best, end_len, scratch, lo, hi, rc, w, best_sc,       \
+                  best_pos, bad, trips);                                                                           \
+    else                                                                                                           \
+      run<L, 256>(ix, node_c, pre, n_node, rows, W, NC, P, n_best, end_len, scratch, lo, hi, rc, w, best_sc,       \
+                  best_pos, bad, trips);                                                                           \
   }
 ENTRY(sw_dense32, rb3c::Dense<int>)
 ENTRY(sw_dense64, rb3c::Dense<int64_t>)
