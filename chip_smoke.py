@@ -19,13 +19,16 @@ it.  Phases:
             index build (cached under .bench/torch_smoke/); the four layouts'
             rows on the card, with the rb escapes packed into 64-B sub-rows
             (pack_escapes timed alone) and each layout's B/sym
-  construct `build` on the card (csrc/sa_round.cu K7, csrc/merge_rank.cu K6):
-            bench.py's genomes in one batch, then with -m 16M (three merges
-            of 8 sequences of 2 M steps: the build path, counts reset before
-            and read after), then the 100,000 short reads with -m 12M, each
-            FMD byte-equal to the repo's index build; K7 round by round (the
-            passes, and torch.sort alone on the same keys) against its plain
-            passes on the card, sa and BWT exact; K6 on each -m 16M merge and
+  construct `build` on the card (csrc/sa_round.cu and csrc/sa_sort.cu K7,
+            csrc/merge_rank.cu K6): bench.py's genomes in one batch (its
+            peak card memory at or under SA_BYTES_PER_SYMBOL), then with
+            -m 16M (three merges of 8 sequences of 2 M steps: the build
+            path, counts reset before and read after), then the 100,000
+            short reads with -m 12M, each FMD byte-equal to the repo's index
+            build; K7 round by round (sa_time.timed_rounds: the passes, the
+            hand sort over the round's live bits, and torch.sort of the same
+            keys) against its plain passes on the card, each round's rank
+            and sort permutation, the final sa and BWT exact; K6 on each -m 16M merge and
             on the short reads' first merge (80,000 sequences; dense32 and
             dense64, megablocks of 2^20 symbols) at the derived stride, its
             ins exact against merge_rank_chunked_plain on the card (segment
@@ -188,21 +191,16 @@ def say(msg: str) -> None:
 def make_corpus(work: str, n_genomes: int, genome_len: int, n_reads: int, n_long: int, seed: int) -> tuple[str, str, list[np.ndarray]]:
     """genomes.fa and reads.fa under `work` (short reads first, then the long
     ones), made from `seed`; returns their paths and the reads as nt6."""
+    from ropebwt3_tpu_torch import corpus
+
     os.makedirs(work, exist_ok=True)
     rng = np.random.default_rng(seed)
-    base = rng.integers(1, 5, genome_len).astype(np.uint8)
+    base, gens = corpus.genomes(rng, n_genomes, genome_len)
     alpha = np.frombuffer(b"$ACGTN", dtype=np.uint8)
     fa, reads_fa = os.path.join(work, "genomes.fa"), os.path.join(work, "reads.fa")
     with open(fa, "wb") as fh:
-        for g in range(n_genomes):
-            s = base.copy()
-            mut = rng.random(genome_len) < DIVERGENCE
-            s[mut] = rng.integers(1, 5, int(mut.sum()))
-            fh.write(b">g%d\n" % g + alpha[s].tobytes() + b"\n")
-    starts = rng.integers(0, genome_len - READ_LEN, n_reads)
-    short = base[starts[:, None] + np.arange(READ_LEN)]
-    short = np.where(rng.random(short.shape) < READ_ERR, rng.integers(1, 5, short.shape), short).astype(np.uint8)
-    reads = list(short)
+        fh.write(b"".join(b">g%d\n" % g + alpha[s].tobytes() + b"\n" for g, s in enumerate(gens)))
+    reads = list(corpus.short_reads(rng, base, n_reads))
     for _ in range(n_long):
         ln = int(rng.integers(*LONG_LEN))
         st = int(rng.integers(0, genome_len - ln))
@@ -765,51 +763,6 @@ def longest_walk(seq: np.ndarray) -> int:
     return int(np.diff(np.concatenate([[-1], ends])).max())
 
 
-def timed_rounds(sa, seq_d, passes) -> tuple[list[dict], object, object, float]:
-    """construct/sa.py's rounds (packed keys) pass by pass, with CUDA events
-    around each pass, the library sort and the scan: (per round ms, sa, bwt,
-    the final gather's ms)."""
-    import torch
-
-    keys, flags, scatter, to_bwt = passes
-    n = seq_d.numel()
-    rank = sa.initial_ranks(seq_d)
-    k, rounds = 1, []
-    while True:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-        t0 = time.perf_counter()
-        ev[0].record()
-        key = keys(rank, k, True)
-        ev[1].record()
-        key_s, perm = torch.sort(key)
-        ev[2].record()
-        del key
-        neq = flags(key_s, None)
-        ev[3].record()
-        del key_s
-        nr = torch.cumsum(neq, 0)
-        ev[4].record()
-        del neq
-        done = int(nr[-1]) == n - 1
-        ev[5].record()
-        if not done:
-            scatter(perm, nr, rank)
-        ev[6].record()
-        ev[6].synchronize()
-        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
-        rounds.append(dict(k=k, keys=ms[0], sort=ms[1], flags=ms[2], scan=ms[3], scatter=ms[5],
-                           wall=(time.perf_counter() - t0) * 1e3))
-        if done:
-            break
-        k *= 2
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    bwt = to_bwt(seq_d, perm)
-    b.record()
-    b.synchronize()
-    return rounds, perm, bwt, a.elapsed_time(b)
-
-
 def k6_ms(merge, idx, rec, m2: int, S: int, reps: int) -> tuple[float, object, object]:
     """K6's mean ms over `reps` launches at stride S, each into its own ins
     (allocated beforehand, as merge_rank_cuda's allocation takes no card
@@ -904,7 +857,7 @@ def log_merge_s(stderr: str) -> list[float]:
     return [t - stamps[i - 1][0] for i, (t, msg) in enumerate(stamps) if msg.startswith("merged the partial BWT") and i]
 
 
-def check_construct(cli, dev, card: str, fa: str, fmd: str, many_fa: str, many_fmd: str) -> dict:
+def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: str, many_fmd: str) -> dict:
     """[construct]: `build` on the card, its FMDs byte-equal to the repo's
     own (native SA-IS) index build; K7 and K6 against their plain versions
     on the card; `merge` byte-equal to the JAX package's.  Returns the
@@ -946,38 +899,56 @@ def check_construct(cli, dev, card: str, fa: str, fmd: str, many_fa: str, many_f
     t_enc = time.perf_counter() - t0
     if data != open(fmd, "rb").read():
         fail("[construct] gsa_bwt's BWT of bench.py's batch, encoded, differs from the index build's FMD")
-    # 4. K7 against its plain passes on the card, pass by pass
-    rounds, perm, bwt_k, bwt_ms = timed_rounds(sa, seq_d, sa.CUDA)
-    prounds, pperm, bwt_p, pbwt_ms = timed_rounds(sa, seq_d, sa.PLAIN)
-    k7_err = max(max_abs(perm, pperm), max_abs(bwt_k, bwt_p))
-    if k7_err or len(rounds) != len(prounds) or not np.array_equal(bwt_k.cpu().numpy(), bwt_host):
-        fail(f"[construct] K7 kernels vs plain passes: sa/bwt off by {k7_err}, {len(rounds)} vs {len(prounds)} rounds")
-    del perm, pperm, bwt_k, bwt_p
+    if peak > sa.SA_BYTES_PER_SYMBOL * n:
+        fail(f"[construct] `build -do` of one batch peaked at {peak / n:.2f} B a symbol, above SA_BYTES_PER_SYMBOL "
+             f"{sa.SA_BYTES_PER_SYMBOL}")
+    # 4. K7 against its plain passes on the card, round by round: each round's
+    # rank and sort permutation (both sorts stable), then the final SA and BWT
+    kept = []
+    kt = sa_time.timed_rounds(seq_d, sa.CUDA, on_round=lambda i, r, p: kept.append((r.clone(), p.clone())))
+    errs = []
 
-    def passes_ms(rs, last):
-        return sum(r["keys"] + r["flags"] + r["scatter"] for r in rs) + last
+    def same_round(i, r, p):
+        errs.append((max_abs(kept[i][0], r), max_abs(kept[i][1], p)) if i < len(kept) else (-1, -1))
+        kept[i] = None
 
-    nr = len(rounds)
-    k7 = dict(rounds=nr, per_round=rounds, ms=passes_ms(rounds, bwt_ms), plain=passes_ms(prounds, pbwt_ms),
-              sort_ms=sum(r["sort"] for r in rounds), scan_ms=sum(r["scan"] for r in rounds),
-              total_ms=sum(r["wall"] for r in rounds) + bwt_ms, err=k7_err,
-              # keys 16 B, flags 16 B, scatter 24 B a symbol (not in the last round), the gather 10 B
-              bound=bound_ms(n * (32 * nr + 24 * (nr - 1) + 10)), peak_b_per_sym=peak / n,
+    pt = sa_time.timed_rounds(seq_d, sa.PLAIN, on_round=same_round, library=False)
+    rank_err = max((e[0] for e in errs), default=0)
+    sort_err = max([e[1] for e in errs] + [max_abs(kt["sa"], pt["sa"])])
+    k7_err = max(rank_err, sort_err, max_abs(kt["bwt"], pt["bwt"]))
+    rounds, nr = kt["rounds"], len(kt["rounds"])
+    if k7_err or nr != len(pt["rounds"]) or len(errs) != nr - 1 or \
+            not np.array_equal(kt["bwt"].cpu().numpy(), bwt_host):
+        fail(f"[construct] K7 kernels vs plain passes: ranks off by {rank_err}, sort permutations by {sort_err}, "
+             f"sa/bwt by {k7_err}, {nr} vs {len(pt['rounds'])} rounds")
+    if any(r["sorted_keys_equal_library"] is False for r in rounds):
+        fail("[construct] sa_sort's sorted keys differ from torch.sort's of the same keys")
+    del kept, kt["sa"], pt["sa"], kt["bwt"], pt["bwt"]
+    ks, ps = sa_time.summary(n, kt), sa_time.summary(n, pt)
+    k7 = dict(rounds=nr, per_round=rounds, ms=ks["passes_ms"], plain=ps["passes_ms"], sort_ms=ks["sort_ms"],
+              sort_plain_ms=ps["sort_ms"], library_sort_ms=ks["library_sort_ms"], scan_ms=ks["scan_ms"],
+              total_ms=ks["total_ms"], err=k7_err, rank_err=rank_err, sort_err=sort_err, bound=ks["passes_bound_ms"],
+              sort_bound=ks["sort_bound_ms"], k7_bound=ks["k7_bound_ms"], int64_bound=ks["int64_passes_bound_ms"],
+              bits=ks["bits"], digit_passes=ks["digit_passes"], peak_b_per_sym=peak / n,
               input=f"bench.py's batch: {n} symbols, one batch, {nr} rounds")
     say(f"[construct] `build -do` of bench.py's genomes (one batch, n={n}): FMD byte-equal to the repo's index build; "
         f"port in-process {one_s:.3f} s (read {t_read:.3f} s, upload + sort + download {t_sort:.3f} s, FMD encode "
         f"{t_enc:.3f} s), one-shot `python -m ropebwt3_tpu_torch build -do` {sub_s:.3f} s, fresh `python -m "
         f"ropebwt3_tpu build -do` (native SA-IS, {os.cpu_count()} host cores) {ref_s:.3f} s; peak card memory {peak} B "
-        f"({peak / n:.2f} B a symbol) ({card})")
-    say(f"[construct] K7 on bench.py's batch: {nr} rounds, card ms per round (keys / torch.sort / flags / cumsum / "
-        f"scatter; wall): " + "; ".join(
-            f"k={r['k']}: {r['keys']:.3f}/{r['sort']:.3f}/{r['flags']:.3f}/{r['scan']:.3f}/{r['scatter']:.3f}; "
-            f"{r['wall']:.3f}" for r in rounds)
-        + f"; final gather {bwt_ms:.3f} ms; total {k7['total_ms']:.3f} ms, of it torch.sort {k7['sort_ms']:.3f} ms, "
-        f"the four passes {k7['ms']:.3f} ms (plain passes on the card {k7['plain']:.3f} ms; sa and BWT exact); "
-        f"passes' bound (bytes) {k7['bound']:.4f} ms ({card})")
+        f"({peak / n:.2f} B a symbol, SA_BYTES_PER_SYMBOL {sa.SA_BYTES_PER_SYMBOL}) ({card})")
+    say(f"[construct] K7 on bench.py's batch: {nr} rounds, live bits / digit passes and card ms per round (keys / "
+        f"sa_sort / torch.sort of the same keys / flags / cumsum / scatter; wall): " + "; ".join(
+            f"k={r['k']} {r['bits']}b/{r['digit_passes']}p: {r['keys']:.3f}/{r['sort']:.3f}/{r['library_sort']:.3f}/"
+            f"{r['flags']:.3f}/{r['scan']:.3f}/{r['scatter']:.3f}; {r['wall']:.3f}" for r in rounds)
+        + f"; final gather {kt['bwt_ms']:.3f} ms; total {k7['total_ms']:.3f} ms, of it sa_sort {k7['sort_ms']:.3f} ms "
+        f"({k7['digit_passes']} digit passes; torch.sort of the same keys {k7['library_sort_ms']:.3f} ms, "
+        f"sa_sort_plain on the card {k7['sort_plain_ms']:.3f} ms), cumsum {k7['scan_ms']:.3f} ms, the four passes "
+        f"{k7['ms']:.3f} ms (plain passes on the card {k7['plain']:.3f} ms); each round's rank and sort permutation, "
+        f"and the final sa and BWT, exact; bounds (bytes): passes {k7['bound']:.4f} ms (int64 passes, the parent's "
+        f"figure, {k7['int64_bound']:.4f} ms), sa_sort {k7['sort_bound']:.4f} ms, K7 in all {k7['k7_bound']:.4f} ms "
+        f"({card})")
     del seq_d
-    out["sa_round"] = k7
+    out["sa_round"], out["sa_bytes_per_symbol"] = k7, sa.SA_BYTES_PER_SYMBOL
 
     # 2. the same genomes with -m 16M: three merges, the build path
     port16 = os.path.join(WORK, "construct_port_m16.fmd")
@@ -986,9 +957,9 @@ def check_construct(cli, dev, card: str, fa: str, fmd: str, many_fa: str, many_f
     path_s, path_err = cli_run(cli, ["build", "-m", CONSTRUCT_M, "-do", port16, fa])
     out["path"] = dict(sa=dict(sa.SA_LAUNCHES), merge=dict(merge.merge_rank_cuda.launches), s=path_s)
     same_file(port16, fmd, f"port `build -m {CONSTRUCT_M} -do` vs the one-batch index build")
-    if min(out["path"]["sa"].get(p, 0) for p in ("sa_keys", "sa_flags", "sa_scatter", "sa_bwt")) < 1 or \
+    if min(out["path"]["sa"].get(p, 0) for p in ("sa_keys", "sa_sort", "sa_flags", "sa_scatter", "sa_bwt")) < 1 or \
             out["path"]["merge"].get("dense32", 0) < 1:
-        fail(f"[construct] the build path launched {out['path']} (every sa_round pass and merge_rank_dense32 expected)")
+        fail(f"[construct] the build path launched {out['path']} (every sa_round pass, sa_sort and merge_rank_dense32 expected)")
     ref16 = os.path.join(WORK, "construct_ref_m16.fmd")
     ref16_s, ref16_err = run([sys.executable, "-m", "ropebwt3_tpu", "build", "-m", CONSTRUCT_M, "-do", ref16, fa])
     same_file(ref16, fmd, f"`python -m ropebwt3_tpu build -m {CONSTRUCT_M} -do`")
@@ -1397,11 +1368,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import ropebwt3_tpu_torch
-    from ropebwt3_tpu_torch import cli, kernels, probe, ssa_ops
+    from ropebwt3_tpu_torch import cli, corpus, kernels, probe, sa_time, ssa_ops
     from ropebwt3_tpu_torch.ops import rank, runblock, smem
 
     if os.path.dirname(os.path.abspath(ropebwt3_tpu_torch.__file__)) != os.path.join(ROOT, "ropebwt3_tpu_torch"):
         fail(f"imported ropebwt3_tpu_torch from {ropebwt3_tpu_torch.__file__}, not from this checkout")
+    if (N_GENOMES, GENOME_LEN, DIVERGENCE, N_READS, READ_LEN, READ_ERR, SEED) != (
+            corpus.N_GENOMES, corpus.GENOME_LEN, corpus.DIVERGENCE, corpus.N_READS, corpus.READ_LEN, corpus.READ_ERR,
+            corpus.SEED):
+        fail("the corpus constants differ from ropebwt3_tpu_torch/corpus.py's, which sa_time and dp_time use")
     dev = torch.device(DEVICE)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True
@@ -1461,7 +1436,7 @@ def main() -> None:
     # ---- construct -----------------------------------------------------------
     t0 = time.perf_counter()
     many_fa = write_fasta(os.path.join(WORK, "many", "reads.fa"), reads[:N_READS])
-    con = check_construct(cli, dev, card, fa, fmd, many_fa, build_index(many_fa))
+    con = check_construct(cli, sa_time, dev, card, fa, fmd, many_fa, build_index(many_fa))
     say(f"[construct] phase in {time.perf_counter() - t0:.3f} s")
 
     # ---- rank ----------------------------------------------------------------
@@ -1859,12 +1834,21 @@ def main() -> None:
     k7, path = con["sa_round"], con["path"]
     entries.append({
         "name": "sa_round", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/sa_round.cu",
-        "replaces": "ropebwt3_tpu/construct/sa_jax.py:23-48 (_round, _initial)", "launches": sum(path["sa"].values()),
-        "path": f"build -m {CONSTRUCT_M}", "launches_by_pass": path["sa"], "max_abs_err": k7["err"], "ms": k7["ms"],
-        "plain_ms": k7["plain"], "bound_ms": k7["bound"], "bound_by": "bytes", "library_ms": k7["sort_ms"],
-        "library": "torch.sort of the same keys, every round", "input": k7["input"], "rounds": k7["rounds"],
+        "replaces": "ropebwt3_tpu/construct/sa_jax.py:23-48 (_round, _initial)",
+        "launches": sum(v for p, v in path["sa"].items() if p != "sa_sort"), "path": f"build -m {CONSTRUCT_M}",
+        "launches_by_pass": path["sa"], "max_abs_err": k7["rank_err"], "ms": k7["ms"], "plain_ms": k7["plain"],
+        "bound_ms": k7["bound"], "bound_by": "bytes", "library_ms": None, "input": k7["input"], "rounds": k7["rounds"],
         "per_round_ms": k7["per_round"], "cumsum_ms": k7["scan_ms"], "k7_total_ms": k7["total_ms"],
-        "peak_card_bytes_per_symbol": k7["peak_b_per_sym"],
+        "k7_bound_ms": k7["k7_bound"], "int64_passes_bound_ms": k7["int64_bound"],
+        "peak_card_bytes_per_symbol": k7["peak_b_per_sym"], "sa_bytes_per_symbol": con["sa_bytes_per_symbol"],
+    })
+    entries.append({
+        "name": "sa_sort", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/sa_sort.cu",
+        "replaces": "ropebwt3_tpu/construct/sa_jax.py:23-48 (_round's lax.sort)",
+        "launches": path["sa"].get("sa_sort", 0), "path": f"build -m {CONSTRUCT_M}", "max_abs_err": k7["sort_err"],
+        "ms": k7["sort_ms"], "plain_ms": k7["sort_plain_ms"], "bound_ms": k7["sort_bound"], "bound_by": "bytes",
+        "library_ms": k7["library_sort_ms"], "library": "torch.sort of the same keys, every round",
+        "input": k7["input"], "live_bits_per_round": k7["bits"], "digit_passes": k7["digit_passes"],
     })
     k6_keys = ("S", "lanes", "meet_median", "meet_p99", "meet_max", "never_met", "longest_segment",
                "longest_hand_over", "chunked_plain_ms", "native_walk_s")

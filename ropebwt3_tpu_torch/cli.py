@@ -470,7 +470,7 @@ def _launch_summary() -> str:
 def main_build(argv: list[str], device: str) -> int:
     import torch
 
-    from .construct.sa import SA_BYTES_PER_SYMBOL, gsa_bwt
+    from .construct.sa import PACKED_MAX, SA_BYTES_PER_SYMBOL, bytes_per_symbol, gsa_bwt
     from .formats.fmr import write_fmr
 
     opts, args = ketopt(argv, "l:n:m:t:2sri:LFRo:dbTS:p:e")
@@ -526,8 +526,9 @@ def main_build(argv: list[str], device: str) -> int:
             log.info("auto batch size %d for ~%d input symbols (pass -m to override)", batch_size, est, func="main_build")
     budget, capped = card_bytes(dev), False
     if budget is not None:
-        # half the card for a batch's suffix sort, the rest for the index
-        cap = budget // (2 * (SA_BYTES_PER_SYMBOL + 1))
+        # half the card for a batch's suffix sort, the rest for the index;
+        # batches stay on the packed path, which SA_BYTES_PER_SYMBOL sizes
+        cap = min(budget // (2 * (SA_BYTES_PER_SYMBOL + 1)), PACKED_MAX - 1)
         capped = cap < batch_size
         batch_size = min(batch_size, cap)
         log.info("batch size %d symbols (the card has %d B; the suffix sort takes %d B a symbol)", batch_size, budget,
@@ -577,7 +578,7 @@ def main_build(argv: list[str], device: str) -> int:
                 continue
             n1 = 0 if bwt is None else bwt.numel()
             budget = card_bytes(dev)
-            if budget is not None and (SA_BYTES_PER_SYMBOL + 1) * len(seq) + n1 > budget:
+            if budget is not None and (bytes_per_symbol(len(seq)) + 1) * len(seq) + n1 > budget:
                 raise CapacityError(f"a batch of {len(seq)} symbols does not fit the card beside an index of {n1} "
                                     f"symbols ({budget} B); lower -m")
             b2 = gsa_bwt(seq, dev)[0]

@@ -38,13 +38,11 @@ import time
 import numpy as np
 import torch
 
-from . import cli, kernels, probe
+from . import cli, corpus, kernels, probe
 from .align import bwasw, hapdiv, sw
+from .corpus import DIVERGENCE, SEED
 from .ops.rank import OccIndex
 
-N_GENOMES, GENOME_LEN, DIVERGENCE = 16, 2_000_000, 0.01
-N_READS, READ_LEN, READ_ERR = 100_000, 150, 0.01
-SEED = 20260817
 HAPDIV_K, HAPDIV_STEP = 101, 50  # hapdiv -a101 -w50
 SW_READS = 10_000  # the reads staged for K9 (chip_smoke's `sw` path)
 HAPDIV_SIZES, SW_SIZES = (1024, 16384), (128, 4096)
@@ -68,16 +66,8 @@ def make_workload(work: str) -> tuple[str, np.ndarray, list[np.ndarray]]:
     chip_smoke.py makes bench.py's corpus."""
     os.makedirs(work, exist_ok=True)
     rng = np.random.default_rng(SEED)
-    base = rng.integers(1, 5, GENOME_LEN).astype(np.uint8)
-    gens = []
-    for _ in range(N_GENOMES):
-        s = base.copy()
-        mut = rng.random(GENOME_LEN) < DIVERGENCE
-        s[mut] = rng.integers(1, 5, int(mut.sum()))
-        gens.append(s)
-    starts = rng.integers(0, GENOME_LEN - READ_LEN, N_READS)
-    short = base[starts[:, None] + np.arange(READ_LEN)]
-    short = np.where(rng.random(short.shape) < READ_ERR, rng.integers(1, 5, short.shape), short).astype(np.uint8)
+    base, gens = corpus.genomes(rng)
+    short = corpus.short_reads(rng, base)
     fa, fmd = os.path.join(work, "genomes.fa"), os.path.join(work, "idx.fmd")
     if not os.path.exists(fmd):
         alpha = np.frombuffer(b"$ACGTN", dtype=np.uint8)

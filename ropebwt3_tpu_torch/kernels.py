@@ -11,8 +11,8 @@ is built or loaded when this module is imported; `lib()` does it.
 Every entry point takes PyTorch's current CUDA stream, allocates nothing, and
 returns `cudaGetLastError()` after its launch; `launch` raises on non-zero,
 `call` returns the code (the shared-memory capacity probe reports a refusal).
-The queries `rb3c_smem_optin` and `rb3c_occupancy_*` (the DP kernels'
-resident blocks an SM) take no stream; the DP kernels' `rb3c_timed_*` twins
+The queries `rb3c_smem_optin`, `rb3c_occupancy_*` (the DP kernels'
+resident blocks an SM) and `rb3c_sa_sort_status_len` take no stream; the DP kernels' `rb3c_timed_*` twins
 also write lane 0's phase clocks (ropebwt3_tpu_torch/dp_time.py reads both).
 The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
@@ -24,7 +24,8 @@ them: rows, escape sub-rows, megablock bases, acc, the megablock shift and
 log2 of the block size.  ssa_gen's finish pass comes in the two dense
 widths and its pointer-jumping pass in one; neither reads the index.  The
 probes of csrc/probe.cu take a plain int32 table (probe.py); the suffix
-sort's passes of csrc/sa_round.cu take plain arrays (construct/sa.py).
+sort's passes of csrc/sa_round.cu and its radix sort, csrc/sa_sort.cu, take
+plain arrays (construct/sa.py).
 """
 
 from __future__ import annotations
@@ -63,10 +64,13 @@ for _lay in LAYOUTS[:2]:
     for _k in ("hapdiv", "sw"):  # no stream: attributes of the kernel at an n_best
         _ENTRIES[f"rb3c_occupancy_{_k}_{_lay}"] = [_I32, _V, _V, _V]
 _ENTRIES["rb3c_ssa_jump"] = [_V, _I64, _I32, _V]
-_ENTRIES["rb3c_sa_keys"] = [_V, _I64, _I64, _I32, _V, _V]
+_ENTRIES["rb3c_sa_keys"] = [_V, _I64, _I64, _V, _V]
+_ENTRIES["rb3c_sa_keys_packed"] = [_V, _I64, _I64, _I32, _I32, _V, _V]
 _ENTRIES["rb3c_sa_flags"] = [_V, _V, _I64, _V, _V]
-_ENTRIES["rb3c_sa_scatter"] = [_V, _V, _I64, _V, _V]
-_ENTRIES["rb3c_sa_bwt"] = [_V, _V, _I64, _V, _V]
+_ENTRIES["rb3c_sa_flags_packed"] = [_V, _I64, _I32, _V, _V]
+_ENTRIES["rb3c_sa_sort"] = [_V, _V, _V, _V, _V, _I64, _I32, _I32, _V, _V, _I64, _V]
+for _name in ("rb3c_sa_scatter", "rb3c_sa_scatter_packed", "rb3c_sa_bwt", "rb3c_sa_bwt_packed"):
+    _ENTRIES[_name] = [_V, _V, _I64, _V, _V]
 for _name in ("rb3c_probe_smem_gather", "rb3c_probe_hbm_gather"):
     _ENTRIES[_name] = [_V, _I32, _I32, _I32, _V, _I32, _I32, _V, _V]
 _ENTRIES["rb3c_probe_smem_capacity"] = [_I32, _V, _V]
@@ -133,6 +137,8 @@ def lib() -> ctypes.CDLL:
             fn = getattr(dll, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        dll.rb3c_sa_sort_status_len.argtypes = [_I64]  # no stream: a size
+        dll.rb3c_sa_sort_status_len.restype = ctypes.c_int64
         dll.rb3c_error_string.argtypes = [ctypes.c_int]
         dll.rb3c_error_string.restype = ctypes.c_char_p
         _lib = dll

@@ -133,6 +133,31 @@ def test_build_sorted_beyond_the_card_names_the_cap(monkeypatch, capsys, corpus,
     assert f"batches of at most {cap} symbols" in err[0] and f"~{size} symbols" in err[0] and "-m" not in err[0], err
 
 
+@pytest.mark.parametrize("budget", [10**9, 48 * 16_002])
+def test_build_sizes_wide_batches_apart(monkeypatch, capsys, corpus, tmp_path, budget):
+    """With the packed path's limit lowered to 5,000 symbols, the card's
+    batch cap stays below it, and a batch past it (one genome, both strands:
+    16,002 symbols) is sized at WIDE_BYTES_PER_SYMBOL: a budget that holds
+    it builds the same FMD as an uncapped build; one that holds it only at
+    SA_BYTES_PER_SYMBOL stops with one ERROR line."""
+    fa = str(corpus / "genomes.fa")
+    want = tmp_path / "want.fmd"
+    assert tcli.main(["build", "--device=cpu", "-do", str(want), fa]) == 0
+    capsys.readouterr()
+    monkeypatch.setattr(tsa, "PACKED_MAX", 5_000)
+    monkeypatch.setattr(tcli, "card_bytes", lambda dev: budget)
+    out = tmp_path / "x.fmd"
+    rc = tcli.main(["build", "--device=cpu", "-do", str(out), fa])
+    err = capsys.readouterr().err
+    assert "batch size 4999 symbols" in err and tsa.bytes_per_symbol(16_002) == tsa.WIDE_BYTES_PER_SYMBOL
+    if budget > (tsa.WIDE_BYTES_PER_SYMBOL + 1) * 16_002 * 8:
+        assert rc == 0 and out.read_bytes() == want.read_bytes()
+    else:
+        assert (tsa.SA_BYTES_PER_SYMBOL + 1) * 16_002 < budget
+        lines = [ln for ln in err.splitlines() if not ln.startswith("[M::")]
+        assert rc == 1 and not out.exists() and len(lines) == 1 and lines[0].startswith("ERROR: a batch of"), lines
+
+
 def test_merge_into_refuses_past_merge_bytes(monkeypatch, corpus):
     """`_merge_into` checks merge_bytes, which counts OccIndex.from_bwt's
     temporaries, against the card's budget: one byte short stops it with a

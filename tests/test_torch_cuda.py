@@ -479,8 +479,66 @@ def test_sa_round_kernels_match_plain(corpus, cuda_device, monkeypatch, wide):
     pbwt, psa = tsa.gsa_bwt_plain(torch.from_numpy(seq).to(cuda_device))
     assert torch.equal(sa, psa) and torch.equal(bwt, pbwt)
     assert np.array_equal(bwt.cpu().numpy(), gsa_bwt(seq, backend="native"))
-    for name in ("sa_keys", "sa_flags", "sa_scatter", "sa_bwt"):
+    for name in ("sa_keys", "sa_flags", "sa_scatter", "sa_bwt") + (() if wide else ("sa_sort",)):
         assert tsa.SA_LAUNCHES[name] > before.get(name, 0), name
+    if wide:  # two torch.sort calls a round, not the hand sort
+        assert tsa.SA_LAUNCHES["sa_sort"] == before.get("sa_sort", 0)
+
+
+# above one tile a block on every SM, twice: tiles wait on tiles of another wave
+SORT_SIZES = (1, 255, 3841, 10007, 2 * 132 * 3840 + 17)
+
+
+def sort_keys(bits: int, word: int, size: int) -> torch.Tensor:
+    """Keys of `bits` live bits in `word`-bit words, many ties, numpy-seeded."""
+    rng = np.random.default_rng(bits * 100_003 + size + word)
+    hi = np.uint64((1 << bits) - 1)
+    pool = rng.integers(0, np.iinfo(np.uint64).max, size // 4 + 1, dtype=np.uint64, endpoint=True) & hi
+    u = pool[rng.integers(0, pool.size, size)]
+    u[rng.integers(0, size)] = hi
+    return torch.from_numpy(u.astype(np.uint32).view(np.int32) if word == 32 else u.view(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SORT_SIZES)
+@pytest.mark.parametrize("bits,word", [(1, 32), (7, 32), (8, 32), (12, 32), (31, 32), (32, 32), (12, 64), (32, 64),
+                                       (33, 64), (52, 64), (64, 64)])
+def test_sa_sort_matches_plain(cuda_device, bits, word, size):
+    """csrc/sa_sort.cu against sa_sort_plain on the card, exact (both are
+    stable): the sorted keys and the int32 permutation, one launch."""
+    key = sort_keys(bits, word, size).to(cuda_device)
+    before = tsa.SA_LAUNCHES["sa_sort"]
+    key_s, perm = tsa.sa_sort_cuda(key, bits)
+    torch.cuda.synchronize()
+    want_s, want = tsa.sa_sort_plain(key, bits)
+    assert perm.dtype == torch.int32 and torch.equal(perm, want) and torch.equal(key_s, want_s)
+    assert tsa.SA_LAUNCHES["sa_sort"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["equal", "descending"])
+@pytest.mark.parametrize("word", [32, 64])
+def test_sa_sort_edge_keys(cuda_device, kind, word):
+    """All-equal keys (every digit nonzero) keep their order; descending keys
+    reverse; the keys sorted in place of a SortSpace's first buffer, twice
+    over one space, give the same; a key in its second buffer is refused."""
+    n = SORT_SIZES[-1]
+    dt = torch.int32 if word == 32 else torch.int64
+    if kind == "equal":
+        bits, key = 24, torch.full((n,), 0x9A5C3F, dtype=dt, device=cuda_device)
+        want = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    else:
+        bits, key = n.bit_length(), torch.arange(n - 1, -1, -1, dtype=dt, device=cuda_device)
+        want = torch.arange(n - 1, -1, -1, dtype=torch.int32, device=cuda_device)
+    space = tsa.SortSpace(n, cuda_device)
+    for _ in range(2):
+        into = space.key(0, word == 32)
+        into.copy_(key)
+        key_s, perm = tsa.sa_sort_cuda(into, bits, space)
+        torch.cuda.synchronize()
+        assert torch.equal(perm, want) and torch.equal(key_s, key[want.long()])
+    with pytest.raises(ValueError):
+        tsa.sa_sort_cuda(space.key(1, word == 32), bits, space)
 
 
 @pytest.mark.cuda
