@@ -3,7 +3,9 @@
 
 Drives the port's entry points on one CUDA card: `build` (and `merge`) of
 bench.py's genomes and of its short reads, `hapdiv` of a 17th haplotype
-against bench.py's index, `sw` of its short reads, `mem -l31` on the workload
+against bench.py's index, `sw` of its short reads, `get`, `suffix`, `kount`,
+the host converters and `tools`, `serve` with `mem`, `hapdiv` and `sw`
+through it, `mem -l31` on the workload
 of bench.py (16 x 2 Mbp genomes at 1% divergence, indexed double strand:
 ~64 M symbols, ~48 MB of dense occ rows; 100,000 x 150 bp reads at 1% error)
 plus 200 reads of 5-20 kb, once on the default rows (the main path) and once
@@ -115,6 +117,27 @@ it.  Phases:
             `sw --all-e2e -b` on the first 1,000, byte-equal to `python -m
             ropebwt3_tpu sw`, with the shares of reads on the card, flagged
             and sent to the host, and the wall time by piece
+  utils     `get` of the 32 sequences (from their sentinel rows), 0, n - 1
+            and n; `suffix` of all the reads; `kount -k 11 -m 8` (a frontier
+            of ~2.6 M 11-mers, at least 10^6 required) through cli.main,
+            counts reset before and read after; `fa2line` and `fa2kmer` of
+            the genomes and `python -m ropebwt3_tpu_torch.tools call` on
+            `sw --all-e2e` of 1,000 101-mers of the 17th haplotype, as
+            subprocesses; each byte-equal to `python -m ropebwt3_tpu`.  K11
+            (csrc/walk.cu retrieve_walk, dense32 and dense64) against
+            retrieve_chunk_plain on the card, exact, on the get lanes and
+            4,096 random ones for 2,048 steps, then the whole get walk timed
+            beside its bound, chain floor and the JAX package's native walk
+            (a subprocess); K12 (suffix_walk, four layouts) against
+            suffix_plain on the card, exact, on all the reads, timed beside
+            its bound and chain floor
+  serve     `python -m ropebwt3_tpu_torch serve --daemon` on bench.py's
+            index; one-shot `mem -l31`, and `hapdiv` and `sw` with
+            `--engine=server`, as subprocesses answered by it: stdout
+            byte-equal to the references of [mem], [hapdiv] and [sw], the
+            route marker on stderr, each timed beside the local one-shot
+            port and the native reference; then `serve --stop`, after which
+            its process, socket and pid file must be gone
 
 Any failure exits non-zero.  The last line is {"ok": true, "device": ...}.
 Run from the repository root: python3 chip_smoke.py
@@ -1359,7 +1382,378 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
     return dict(res=res, path=path, e2e=e2e)
 
 
+# [utils]: `kount` at -k KOUNT_K -m KOUNT_M (the frontier of 11-mers seen
+# at least 8 times: ~2.6 M nodes on bench.py's index, at least 10^6);
+# K11's check takes the `get` walk's first K11_CHECK_LAUNCHES launches
+# (a layout the walk does not run on, at K11_OFF_PATH_STEPS steps each);
+# `tools call` at TOOLS_HAP haplotypes on the 1,000 101-mers of the 17th
+# haplotype's first TOOLS_BP bases
+KOUNT_K, KOUNT_M, KOUNT_MIN_NODES = 11, 8, 1_000_000
+K11_CHECK_LAUNCHES, K11_OFF_PATH_STEPS, TOOLS_HAP, TOOLS_BP = 2, 1 << 12, 16, 50_050
+MEMO_CHUNK = 1 << 23  # positions LfMemo ranks on the card at a time
+# `python -m ropebwt3_tpu get` (the same cli.main), with the time spent in
+# DenseFMIndex.retrieve (its native rb3t_retrieve walk) summed on stderr;
+# a subprocess: this script imports nothing of the JAX package
+GET_REFERENCE = ("import sys, time\nfrom ropebwt3_tpu.cli import main\nfrom ropebwt3_tpu.index.dense import DenseFMIndex\n"
+                 "walk, spent = DenseFMIndex.retrieve, []\n\n\ndef timed(self, k):\n    t0 = time.perf_counter()\n"
+                 "    try:\n        return walk(self, k)\n    finally:\n        spent.append(time.perf_counter() - t0)\n\n\n"
+                 "DenseFMIndex.retrieve = timed\nrc = main(sys.argv[1:])\n"
+                 "print(f'native walks {len(spent)} {sum(spent)}', file=sys.stderr)\nsys.exit(rc)\n")
+SERVE_READY_S = 300  # seconds for `serve --daemon` to answer
+
+
+def same_output(argv: list[str], port_out: str, tag: str, ref: list[str] | None = None) -> tuple[float, bytes, str]:
+    """`python -m ropebwt3_tpu <argv>` (or `ref <argv>`) in a subprocess
+    (its wall seconds) against the port's output already in `port_out`;
+    fails unless byte-equal.  Returns (seconds, the reference's bytes, its
+    stderr)."""
+    ref_out = os.path.join(WORK, "utils", f"{tag}_ref.out")
+    with open(ref_out, "wb") as out:
+        ref_s, ref_err = run((ref or [sys.executable, "-m", "ropebwt3_tpu"]) + argv, stdout=out)
+    want, got = open(ref_out, "rb").read(), open(port_out, "rb").read()
+    if got != want:
+        fail(f"port {' '.join(argv[:1])} differs from `python -m ropebwt3_tpu {' '.join(argv[:1])}`: {first_diff(got, want)}")
+    return ref_s, want, ref_err
+
+
+class LfMemo:
+    """ops/rank.py `lf` of a dense index x for the plain retrieve walk: the
+    plain rank1a and sym_at (OccIndex's) of every position, computed once
+    on the card, MEMO_CHUNK positions at a time, and looked up on the host,
+    so retrieve_chunk_plain over it takes x's LF steps at a lookup each.
+    It marks the occ rows (and megablock bases) its steps read, as RowCount
+    does."""
+
+    def __init__(self, x, n: int):
+        import torch
+
+        dt = torch.int32 if n < (1 << 31) else torch.int64
+        self.x, self.acc = x, x.acc.cpu()
+        self.occ, self.sym = torch.empty((n, 6), dtype=dt), torch.empty(n, dtype=torch.uint8)
+        for s in range(0, n, MEMO_CHUNK):
+            k = torch.arange(s, min(n, s + MEMO_CHUNK), device=x.device)
+            self.occ[s : s + len(k)] = x.rank1a(k).to(dt).cpu()
+            self.sym[s : s + len(k)] = x.sym_at(k).to(torch.uint8).cpu()
+        self.rows = torch.zeros(x.occf.shape[0], dtype=torch.bool)
+
+    def sym_at(self, k):
+        self.rows[k >> 6] = True
+        return self.sym[k].long()
+
+    def rank1a(self, k):
+        return self.occ[k].long()
+
+    def bytes(self) -> int:
+        import torch
+
+        rows = self.rows.nonzero().flatten()
+        mega = torch.unique(rows >> self.x.mega_shift).numel() * 48 if self.x.int64 else 0
+        return rows.numel() * 48 + mega + nbytes(self.acc)
+
+
+def port_path(cli, argv: list[str], tag: str, counters) -> tuple[float, str, str]:
+    """`argv` on DEVICE through the port's cli.main in this process (a host
+    command takes no --device), the launch counts of `counters` reset
+    before; fails unless rc 0.  Returns (wall seconds, stdout file,
+    stderr)."""
+    port_out = os.path.join(WORK, "utils", f"{tag}_port.out")
+    os.makedirs(os.path.dirname(port_out), exist_ok=True)
+    for c in counters:
+        c.launches.clear()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with open(port_out, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([argv[0], *([f"--device={DEVICE}"] if argv[0] not in ("fa2kmer", "fa2line") else []), *argv[1:]])
+    port_s = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    if rc != 0:
+        fail(f"ropebwt3_tpu_torch {' '.join(argv[:1])} exited {rc}")
+    return port_s, port_out, err.getvalue()
+
+
+def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict) -> dict:
+    """`get`, `suffix` and `kount` through cli.main on bench.py's index
+    (counts reset before, read after), `fa2line` and `fa2kmer` of the
+    genomes and `tools call` on `sw --all-e2e` of a haplotype's k-mers
+    (subprocesses), each byte-equal to `python -m ropebwt3_tpu`.  K11
+    (dense32, dense64) against retrieve_chunk_plain on the card, exact, at
+    the `get` walk's shape (its first launches, resumed), and the whole walk
+    timed beside its bound, its chain floor and the JAX package's native
+    walk (timed inside the `get` reference); occ_rank1a at the width of
+    kount's widest launch; K12 (four layouts) against suffix_plain on the
+    card, exact, on all the reads, timed beside its bound and chain floor."""
+    import torch
+
+    from ropebwt3_tpu_torch.ops import rank, smem, walk
+
+    f = cli.load_index(fmd)
+    res = {}
+    # ---- get: the 32 sequences from their sentinel rows, 0 again, n - 1, n
+    ks = list(range(int(f.acc[1]))) + [0, f.n - 1, f.n]
+    argv = ["get", fmd, *map(str, ks)]
+    port_s, port_out, err = port_path(cli, argv, "get", [walk.retrieve_chunk_cuda])
+    get_pieces = pieces_of(err, "get")
+    get_launches = dict(walk.retrieve_chunk_cuda.launches)
+    if get_launches.get("dense32", 0) < 1 or f"{get_launches.get('dense32', 0)} retrieve_walk launches (dense32)" not in err:
+        fail(f"get: no dense32 retrieve_walk launch ({get_launches})")
+    ref_s, want, ref_err = same_output(argv, port_out, "get", [sys.executable, "-c", GET_REFERENCE])
+    valid = [k for k in ks if 0 <= k < f.n]
+    lens = [len(ln) for ln in want.split(b"\n")[1::2]]
+    m = re.search(r"native walks (\d+) ([0-9.e-]+)", ref_err)
+    if m is None or int(m.group(1)) != len(valid):
+        fail(f"get: the reference did not time its {len(valid)} native walks: {ref_err[-500:]}")
+    native_walk = float(m.group(2)) / len(valid)
+    steps = max(1, min(walk.CHUNK_STEPS, walk.CHUNK_BYTES // len(valid)))  # the get path's launch (ops/walk.py _retrieve)
+    chunks = max(lens) // steps + 1
+    if get_launches["dense32"] != chunks:
+        fail(f"get: {get_launches['dense32']} retrieve_walk launches, {chunks} expected")
+    say(f"[utils] get of {len(ks)} positions ({len(valid)} walks, longest {max(lens)} steps): stdout byte-equal to "
+        f"`python -m ropebwt3_tpu get`; launches {get_launches}; port in-process {port_s:.3f} s, reference "
+        f"{ref_s:.3f} s (a subprocess), its native walks {native_walk:.3f} s a walk (the mean of {len(valid)}, "
+        f"timed inside it); port by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in get_pieces.items()) + f" ({card})")
+    for lay in ("dense32", "dense64"):
+        # K11 at the get walk's shape: its first K11_CHECK_LAUNCHES launches
+        # (the valid lanes, `steps` steps each, each resuming from the last
+        # one's k and done), each against retrieve_chunk_plain over LfMemo;
+        # a layout the path does not launch on this index at K11_OFF_PATH_STEPS
+        x = idxs[lay]
+        csteps = steps if get_launches.get(lay) else min(steps, K11_OFF_PATH_STEPS)
+        t0 = time.perf_counter()
+        memo = LfMemo(x, f.n)
+        memo_s = time.perf_counter() - t0
+        k0 = torch.tensor(valid, dtype=torch.int64, device=dev)
+        k, done = k0.clone(), torch.zeros(len(valid), dtype=torch.uint8, device=dev)
+        kp, dp = k.to("cpu", copy=True), done.to("cpu", copy=True)
+        err, plain_s, written = 0, 0.0, 0
+        for _ in range(K11_CHECK_LAUNCHES):
+            out, n = walk.retrieve_chunk_cuda(x, k, done, csteps)
+            t0 = time.perf_counter()
+            wout, wn = walk.retrieve_chunk_plain(memo, kp, dp, csteps)
+            plain_s += time.perf_counter() - t0
+            out, n = out.cpu(), n.cpu()
+            ok = torch.arange(csteps)[:, None] < n[None, :].long()
+            err = max(err, max_abs(out[ok], wout[ok]), max_abs(n, wn), max_abs(k.cpu(), kp), max_abs(done.cpu(), dp))
+            written += int(wn.sum())
+        if err:
+            fail(f"retrieve_walk {lay}: off by {err} against retrieve_chunk_plain on the get walk's first "
+                 f"{K11_CHECK_LAUNCHES} launches")
+        wk, wd = k0.clone(), torch.zeros(len(valid), dtype=torch.uint8, device=dev)
+        wbuf, wcnt = torch.empty((steps, len(valid)), dtype=torch.uint8, device=dev), torch.empty(
+            len(valid), dtype=torch.int32, device=dev)
+
+        def launches(count: int, n_steps: int, wk=wk, wd=wd, x=x, wbuf=wbuf, wcnt=wcnt) -> None:
+            wk.copy_(k0)
+            wd.zero_()
+            for _ in range(count):
+                walk.launch_retrieve(x, wk, wd, n_steps, wbuf, wcnt)
+
+        ms = cuda_ms(lambda: launches(K11_CHECK_LAUNCHES, csteps), 2)
+        # the whole `get` walk, chunk after chunk, twice (the spread); the 32
+        # walks from the sentinel rows pass every row of the BWT once, so
+        # every 48-B row (and megablock base) is read; each symbol is
+        # written once
+        walk_ms = []
+        for _ in range(2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            launches(chunks, steps)
+            b.record()
+            b.synchronize()
+            walk_ms.append(a.elapsed_time(b))
+        if not bool(wd.all()):
+            fail(f"retrieve_walk {lay}: the get walk did not end in {chunks} launches")
+        rows = (f.n + 63) // 64
+        mega = (((rows - 1) >> x.mega_shift) + 1) * 48 if x.int64 else 0
+        where = "the get walk's first" if csteps == steps else "the get walk's lanes (not its layout here), the first"
+        res[f"retrieve_walk_{lay}"] = r = dict(
+            err=err, ms=ms, plain_ms=plain_s * 1e3, plain_memo_ms=memo_s * 1e3,
+            bound_ms=bound_ms(memo.bytes() + K11_CHECK_LAUNCHES * nbytes(k0, wd, wcnt) + written),
+            chain_floor_ms=K11_CHECK_LAUNCHES * csteps * ns[LAT_48MB] / 1e6, lanes=len(valid), steps=csteps,
+            check_launches=K11_CHECK_LAUNCHES, where=where, launches=get_launches.get(lay, 0), walk_ms=walk_ms,
+            walk_launches=chunks,
+            walk_bound_ms=bound_ms(rows * 48 + mega + sum(lens) + 2 * nbytes(wk)),
+            walk_chain_floor_ms=max(lens) * ns[LAT_48MB] / 1e6, walk_steps=sum(lens), native_walk_s_a_walk=native_walk,
+            get_port_s=port_s, get_reference_s=ref_s, get_pieces=get_pieces)
+        say(f"[utils] {lay}: retrieve_walk exact vs retrieve_chunk_plain on {where} {K11_CHECK_LAUNCHES} "
+            f"launches ({len(valid)} lanes x {csteps} steps each, resumed) ({r['ms']:.3f} ms vs plain "
+            f"{r['plain_ms']:.1f} ms over its memo of every position's lf, built in {r['plain_memo_ms']:.1f} ms; bound "
+            f"{r['bound_ms']:.4f} ms, chain floor {r['chain_floor_ms']:.3f} ms); the whole get walk ({sum(lens)} steps, "
+            f"{chunks} launches) {walk_ms[0]:.3f} / {walk_ms[1]:.3f} ms, bound {r['walk_bound_ms']:.4f} ms, chain floor "
+            f"{r['walk_chain_floor_ms']:.3f} ms ({max(lens)} steps at {ns[LAT_48MB]} ns); the native walk "
+            f"{native_walk * 1e3:.3f} ms a walk ({card})")
+        del memo
+
+    # ---- suffix: every read
+    argv = ["suffix", fmd, reads_fa]
+    port_s, port_out, err = port_path(cli, argv, "suffix", [walk.suffix_cuda])
+    sfx_launches = dict(walk.suffix_cuda.launches)
+    sfx_pieces = pieces_of(err, "suffix")
+    if sfx_launches.get("dense32", 0) < 1 or f"{sfx_launches['dense32']} suffix_walk launches (dense32)" not in err:
+        fail(f"suffix: no dense32 suffix_walk launch ({sfx_launches})")
+    ref_s, want, _ = same_output(argv, port_out, "suffix")
+    say(f"[utils] suffix of {len(reads)} reads: stdout byte-equal to `python -m ropebwt3_tpu suffix`; launches "
+        f"{sfx_launches}; port in-process {port_s:.3f} s (by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                                                             sfx_pieces.items())
+        + f"), reference {ref_s:.3f} s ({card})")
+    flat, off = (torch.from_numpy(a).to(dev) for a in smem.pack_reads(reads))
+    rlen = off[1:] - off[:-1]
+    for lay, x in idxs.items():
+        is_rb = lay.startswith("rb")
+        got = walk.suffix_cuda(x, flat, off)
+        counted = SectorCount(x, [x]) if is_rb else RowCount(x)
+        t0 = time.perf_counter()
+        want_t = walk.suffix_plain(counted, flat, off)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs(a, b) for a, b in zip(got, want_t))
+        if err:
+            fail(f"suffix_walk {lay}: off by {err} against suffix_plain")
+        start, last = torch.empty_like(got[0]), torch.empty_like(got[1])
+        ms = probe.queued_ms([lambda x=x: walk.launch_suffix(x, flat, off, start, last)] * 3)
+        steps = int((rlen - got[0] + (got[0] > 0).long()).max())  # the longest read's steps: its matched symbols and the step that fails
+        table = counted.bytes()[0] if is_rb else counted.bytes()
+        res[f"suffix_walk_{lay}"] = r = dict(
+            err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(table + nbytes(flat, off, *got)), table_bytes=table,
+            chain_floor_ms=steps * (RB_ROUNDS * ns[lay] if is_rb else ns[LAT_48MB]) / 1e6, longest_steps=steps,
+            launches=sfx_launches.get(lay, 0), suffix_port_s=port_s, suffix_reference_s=ref_s, suffix_pieces=sfx_pieces)
+        say(f"[utils] {lay}: suffix_walk exact vs suffix_plain on {len(reads)} reads; {ms:.4f} ms vs plain "
+            f"{plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms ({table} B of tables read), chain floor "
+            f"{r['chain_floor_ms']:.4f} ms (longest read {steps} steps) ({card})")
+        del counted
+
+    # ---- kount, then occ_rank1a at the width of its widest launch
+    argv = ["kount", "-k", str(KOUNT_K), "-m", str(KOUNT_M), fmd]
+    port_s, port_out, err = port_path(cli, argv, "kount", [rank.rank1a_cuda])
+    kount_launches = dict(rank.rank1a_cuda.launches)
+    kount_pieces = pieces_of(err, "kount")
+    ref_s, want, _ = same_output(argv, port_out, "kount")
+    nodes = want.count(b"\n")
+    m = re.search(r"occ_rank1a launches \(dense32\), the widest of (\d+) positions", err)
+    if nodes < KOUNT_MIN_NODES or kount_launches.get("dense32", 0) != KOUNT_K or m is None:
+        fail(f"kount: {nodes} k-mers (at least {KOUNT_MIN_NODES} wanted), occ_rank1a launches {kount_launches}")
+    width = int(m.group(1))
+    x = idxs["dense32"]
+    rng = np.random.default_rng(SEED + 20)
+    kw = torch.from_numpy(np.concatenate([[0, f.n], boundaries(f.n, 64, 4096), rng.integers(0, f.n + 1, width)])[
+        :width].astype(np.int64)).to(dev)
+    got = rank.rank1a_cuda(x, kw)
+    width_err = max_abs(got, rank.rank1a(x, kw).to(x.dtype))
+    if width_err:
+        fail(f"occ_rank1a dense32: off by {width_err} against the plain rank1a at kount's width {width}")
+    res["kount"] = dict(nodes=nodes, launches=kount_launches, port_s=port_s, reference_s=ref_s, pieces=kount_pieces,
+                        widest_launch=width, widest_err=width_err, widest_ms=cuda_ms(lambda: rank.rank1a_cuda(x, kw), 5),
+                        widest_plain_ms=cuda_ms(lambda: rank.rank1a(x, kw), 2),
+                        widest_bound_ms=bound_ms(table_bytes(rank, x, kw) + nbytes(kw, got)))
+    r = res["kount"]
+    say(f"[utils] kount -k {KOUNT_K} -m {KOUNT_M}: stdout byte-equal to `python -m ropebwt3_tpu kount` ({nodes} "
+        f"k-mers: the last level's frontier); occ_rank1a launches {kount_launches}, the widest of {width} positions; "
+        f"port in-process {port_s:.3f} s (by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in kount_pieces.items())
+        + f"), reference {ref_s:.3f} s; occ_rank1a dense32 exact vs plain at that width, {r['widest_ms']:.4f} ms vs "
+        f"plain {r['widest_plain_ms']:.4f} ms, bound {r['widest_bound_ms']:.4f} ms ({card})")
+    del kw, got
+
+    # ---- host commands, as subprocesses.  `call` takes `sw --all-e2e` of
+    # k-mers named `ctg:start-end`, as fa2kmer writes them (on the [sw]
+    # phase's reads both packages raise the k8 script's "Bug!"): 101-mers at
+    # step 50 of the 17th haplotype's first TOOLS_BP bases, cut and aligned
+    # by the port in this process (fa2kmer and `sw --all-e2e` match the JAX
+    # package above and in [sw]); both packages' `call` read that file
+    head = os.path.join(WORK, "utils", "hap17_head.fa")
+    with open(os.path.join(WORK, "hap17.fa"), "rb") as fh:
+        name, seq = fh.readline(), fh.readline()
+    with open(head, "wb") as fh:
+        fh.write(name + seq[:TOOLS_BP] + b"\n")
+    _, kmers, _ = port_path(cli, ["fa2kmer", "-k101", "-w50", head], "hap17_kmers", [])
+    _, sw_e2e, _ = port_path(cli, ["sw", "--all-e2e", fmd, kmers], "hap17_kmers_e2e", [])
+    for tag, argv, module in (("fa2line", ["fa2line", fa], "ropebwt3_tpu_torch"),
+                              ("fa2kmer", ["fa2kmer", fa], "ropebwt3_tpu_torch"),
+                              ("tools_call", ["call", str(TOOLS_HAP), sw_e2e], "ropebwt3_tpu_torch.tools")):
+        port_out = os.path.join(WORK, "utils", f"{tag}_port.out")
+        with open(port_out, "wb") as out:
+            port_s, _ = run([sys.executable, "-m", module, *argv], stdout=out)
+        ref_out = os.path.join(WORK, "utils", f"{tag}_ref.out")
+        with open(ref_out, "wb") as out:
+            ref_s, _ = run([sys.executable, "-m", module.replace("ropebwt3_tpu_torch", "ropebwt3_tpu"), *argv], stdout=out)
+        got, want = open(port_out, "rb").read(), open(ref_out, "rb").read()
+        if got != want or not got:
+            fail(f"port {tag} differs from the JAX package's: {first_diff(got, want)}")
+        res[tag] = dict(port_s=port_s, reference_s=ref_s, bytes=len(got))
+        say(f"[utils] {module} {' '.join(argv[:1])}: stdout byte-equal ({len(got)} B); port {port_s:.3f} s, "
+            f"reference {ref_s:.3f} s (subprocesses) ({card})")
+    return res
+
+
+def check_serve(card: str, fmd: str, reads_fa: str, mem_one_shot_s: float, mem_native_s: float, hd: dict, swr: dict) -> dict:
+    """`serve --daemon` on bench.py's index; one-shot `mem -l31`, and
+    `hapdiv` and `sw` with `--engine=server`, as subprocesses answered by
+    it, stdout byte-equal to the reference outputs of [mem], [hapdiv] and
+    [sw], with the route marker on stderr; each timed beside the native
+    reference and the local port: mem's one-shot process ([mem]'s), hapdiv's
+    and sw's in-process path ([hapdiv]'s, [sw]'s: a one-shot process adds
+    the start that mem's shows); then `serve --stop`, after which the
+    server's process, socket and pid file must be gone."""
+    from ropebwt3_tpu_torch import server
+
+    port = [sys.executable, "-m", "ropebwt3_tpu_torch"]
+    hap_fa, sw_fa = os.path.join(WORK, "hap17.fa"), os.path.join(WORK, "sw", "reads.fa")
+    on = f"--device={DEVICE}"
+    reqs = [("mem", ["mem", on, f"-l{MIN_LEN}", fmd, reads_fa], os.path.join(WORK, "native.bed"), mem_native_s),
+            ("hapdiv", ["hapdiv", on, "--engine=server", fmd, hap_fa], os.path.join(WORK, "hapdiv_ref.txt"),
+             hd["path"]["ref_s"]),
+            ("sw", ["sw", on, "--engine=server", fmd, sw_fa], os.path.join(WORK, "sw", "sw_ref.txt"),
+             swr["path"]["ref_s"])]
+    local = {"mem": ("one-shot", mem_one_shot_s), "hapdiv": ("in-process", hd["path"]["port_s"]),
+             "sw": ("in-process", swr["path"]["port_s"])}
+    os.makedirs(os.path.join(WORK, "serve"), exist_ok=True)
+    t0 = time.perf_counter()
+    run(port + ["serve", on, "--daemon", fmd])
+    while server.server_device(fmd) != DEVICE:
+        if time.perf_counter() - t0 > SERVE_READY_S:
+            run(port + ["serve", "--stop", fmd])
+            fail(f"serve --daemon did not answer in {SERVE_READY_S} s: {open(server.log_path(fmd)).read()[-2000:]}")
+        time.sleep(0.2)
+    ready_s = time.perf_counter() - t0
+    pid = int(open(server.pid_path(fmd)).read())
+    res = dict(ready_s=ready_s, requests={})
+    try:
+        for name, argv, ref, ref_s in reqs:
+            out = os.path.join(WORK, "serve", f"{name}_served.out")
+            with open(out, "wb") as fh:
+                served_s, err = run(port + argv, stdout=fh)
+            got, want = open(out, "rb").read(), open(ref, "rb").read()
+            if got != want:
+                fail(f"{name} through the server differs from the reference: {first_diff(got, want)}")
+            m = re.search(re.escape(server.MARKER) + r" \(([0-9.]+) s on the server\)", err)
+            if m is None:
+                fail(f"{name}: no `{server.MARKER}` on stderr: {err[-1000:]}")
+            on_server = float(m.group(1))
+            how, local_s = local[name]
+            res["requests"][name] = dict(served_s=served_s, on_server_s=on_server, client_s=served_s - on_server,
+                                         **{f"local_{how.replace('-', '_')}_s": local_s}, reference_s=ref_s)
+            say(f"[serve] `{' '.join(argv[:3])}` through the server: stdout byte-equal, marker on stderr; one-shot "
+                f"{served_s:.3f} s (on the server {on_server:.3f} s, the client's process and transfer "
+                f"{served_s - on_server:.3f} s), local {how} port {local_s:.3f} s, native reference {ref_s:.3f} s "
+                f"({card})")
+    finally:
+        run(port + ["serve", "--stop", fmd])
+    gone = not server.alive(pid) and not os.path.exists(server.sock_path(fmd)) and not os.path.exists(server.pid_path(fmd))
+    if not gone:
+        fail(f"serve --stop left pid {pid} alive ({server.alive(pid)}) or its socket / pid file")
+    say(f"[serve] server ready {ready_s:.3f} s after `serve --daemon`; `serve --stop` ended it (pid {pid}), socket and "
+        f"pid file gone ({card})")
+    return res
+
+
 def main() -> None:
+    clock = [time.perf_counter()] * 2  # the start, the last phase's end
+    phase_s = {}
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - clock[1]
+        clock[1] = now
+        say(f"[{name}] phase in {phase_s[name]:.3f} s ({now - clock[0]:.3f} s since the start)")
+
     if not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu_torch")) or not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu")):
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, ROOT)
@@ -1389,6 +1783,7 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels.lib()
     say(f"[build] kernels built and loaded in {time.perf_counter() - t0:.3f} s ({kernels.build()})")
+    phase_done("build")
 
     # ---- corpus --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1432,12 +1827,12 @@ def main() -> None:
     say("[corpus] escape pack (pack_escapes: cache planes to 64-B sub-rows, on the card): " + "; ".join(
         f"{name} {p['ms']:.3f} ms for {p['esc_rows']} escape rows ({p['cache_bytes']} B of planes -> {p['card_bytes']} B "
         f"of sub-rows), {p['b_per_sym']:.4f} B/sym on the card" for name, p in rb_pack.items()) + f" ({card})")
+    phase_done("corpus")
 
     # ---- construct -----------------------------------------------------------
-    t0 = time.perf_counter()
     many_fa = write_fasta(os.path.join(WORK, "many", "reads.fa"), reads[:N_READS])
     con = check_construct(cli, sa_time, dev, card, fa, fmd, many_fa, build_index(many_fa))
-    say(f"[construct] phase in {time.perf_counter() - t0:.3f} s")
+    phase_done("construct")
 
     # ---- rank ----------------------------------------------------------------
     rng = np.random.default_rng(SEED + 1)
@@ -1457,6 +1852,7 @@ def main() -> None:
             f"vs plain {r['rank_plain']:.4f} ms; occ_extend_c {r['ext_ms']:.4f} ms vs plain {r['ext_plain']:.4f} ms ({card})"
         )
         del r["got"]
+    phase_done("rank")
 
     # ---- rank64 --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1494,6 +1890,7 @@ def main() -> None:
         f"vs plain {r64['ext_plain']:.4f} ms ({card})"
     )
     del x64, ik64
+    phase_done("rank64")
 
     # ---- probe ---------------------------------------------------------------
     probe_res = check_probes(probe, dev)
@@ -1540,6 +1937,7 @@ def main() -> None:
         + f" ({ns[LAT_L2]} ns a step); -m {CONSTRUCT_M} merges "
         + ", ".join(f"{m['chain_floor_ms']:.3f} ms (K6 {m['ms']:.3f} ms)" for m in con["merges16"])
         + f" ({ns[LAT_48MB]} ns a step) ({card})")
+    phase_done("probe")
 
     # ---- smem ----------------------------------------------------------------
     args = dict(min_occ=1, min_len=MIN_LEN, max_mems=MAX_MEMS)
@@ -1653,9 +2051,11 @@ def main() -> None:
                     f"smem_tgc {smem_res[name]['tgc_ms']:.4f} ms" for name in ("rb32", "rb64"))
         + f"; dense32 smem_tgc {smem_res['dense32']['tgc_ms']:.4f} ms ({card})")
     del sc, chains, aflat, aoff, alanes, ref
+    phase_done("smem")
 
     # ---- ssa -----------------------------------------------------------------
     ssa_res, ssa_path = check_ssa(cli, ssa_ops, probe, rank, dev, card, f, fmd, idxs, reads, ns)
+    phase_done("ssa")
 
     # ---- mem: the main path, then --occ=rb --------------------------------------
     # the reference output first, untimed: that run also builds the JAX
@@ -1750,16 +2150,23 @@ def main() -> None:
                     f"{smem_res[name]['tg_ms']:.4f} ms" for name, x in idxs.items())
         + f" ({card})"
     )
+    phase_done("mem")
 
     # ---- hapdiv ----------------------------------------------------------------
-    t0 = time.perf_counter()
     hd = check_hapdiv(cli, dev, card, fa, fmd, idxs, ns)
-    say(f"[hapdiv] phase in {time.perf_counter() - t0:.3f} s")
+    phase_done("hapdiv")
 
     # ---- sw --------------------------------------------------------------------
-    t0 = time.perf_counter()
     swr = check_sw(cli, dev, card, fmd, reads, idxs, ns)
-    say(f"[sw] phase in {time.perf_counter() - t0:.3f} s")
+    phase_done("sw")
+
+    # ---- utils -------------------------------------------------------------------
+    ut = check_utils(cli, probe, dev, card, fa, fmd, reads_fa, reads, idxs, ns)
+    phase_done("utils")
+
+    # ---- serve -------------------------------------------------------------------
+    sv = check_serve(card, fmd, reads_fa, sub_s, native_s, hd, swr)
+    phase_done("serve")
 
     def path_launches(kernel: str, layout: str) -> tuple[int, str | None]:
         for path, p in paths.items():
@@ -1806,9 +2213,16 @@ def main() -> None:
         for kern, err, ms, plain, bound in (("occ_rank1a", o["rank_err"], o["rank_ms"], o["rank_plain"], o["rank_bound"]),
                                             ("occ_extend_c", o["ext_err"], o["ext_ms"], o["ext_plain"], o["ext_bound"])):
             n, path = path_launches(kern, name)
+            kount = {}
+            if kern == "occ_rank1a" and ut["kount"]["launches"].get(name, 0):
+                kt = ut["kount"]
+                n, path = n + kt["launches"][name], "kount"
+                err = max(err, kt["widest_err"])
+                kount = {f"kount_{k}": kt[k] for k in ("widest_launch", "widest_err", "widest_ms", "widest_plain_ms",
+                                                        "widest_bound_ms")}
             e = {"name": f"{kern}_{name}", "route": "cuda", "source": src, "replaces": rep, "launches": n, "path": path,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-                 "library_ms": None, "input": f"{N_CHECK} on the bench index"}
+                 "library_ms": None, "input": f"{N_CHECK} on the bench index", **kount}
             if name == "rb64":
                 key = "rank" if kern == "occ_rank1a" else "ext"
                 e.update({"rank64_ms": r64[f"{key}_ms"], "rank64_plain_ms": r64[f"{key}_plain"],
@@ -1892,7 +2306,33 @@ def main() -> None:
             "phase_split": r["split"], "e2e": e,
             **({"path_sw": swr["path"], "path_all_e2e": swr["e2e"]} if n else {}),
         })
-    say(json.dumps({"kernels": entries}))
+    walk_src = "ropebwt3_tpu_torch/csrc/walk.cu + "
+    for layout in ("dense32", "dense64"):
+        r = ut[f"retrieve_walk_{layout}"]
+        entries.append({
+            "name": f"retrieve_walk_{layout}", "route": "cuda", "source": walk_src + "occ.cuh",
+            "replaces": "ropebwt3_tpu/index/dense.py:244 (DenseFMIndex.retrieve: a host walk, no TPU kernel)",
+            "launches": r["launches"], "path": "get" if r["launches"] else None, "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "chain_floor_ms": r["chain_floor_ms"],
+            "input": f"{r['where']} {r['check_launches']} launches: {r['lanes']} lanes x {r['steps']} steps each",
+            **{k: r[k] for k in ("plain_memo_ms", "walk_ms", "walk_launches", "walk_bound_ms", "walk_chain_floor_ms",
+                                 "walk_steps", "native_walk_s_a_walk", "get_port_s", "get_reference_s", "get_pieces")},
+        })
+    for layout in LAYOUTS:
+        r = ut[f"suffix_walk_{layout}"]
+        entries.append({
+            "name": f"suffix_walk_{layout}", "route": "cuda",
+            "source": walk_src + ("rb.cuh" if layout.startswith("rb") else "occ.cuh"),
+            "replaces": "ropebwt3_tpu/cli.py:799-829 (main_suffix's flush: host numpy over rank1a_fast, no TPU kernel)",
+            "launches": r["launches"], "path": "suffix" if r["launches"] else None, "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "chain_floor_ms": r["chain_floor_ms"], "input": f"{len(reads)} reads (the main path's)",
+            "longest_steps": r["longest_steps"], "table_bytes": r["table_bytes"],
+            **({k: r[k] for k in ("suffix_port_s", "suffix_reference_s", "suffix_pieces")} if r["launches"] else {}),
+        })
+    say(json.dumps({"kernels": entries, "utils": {k: ut[k] for k in ("kount", "fa2line", "fa2kmer", "tools_call")},
+                    "serve": sv, "phase_s": phase_s}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 
 

@@ -1,9 +1,10 @@
 """ropebwt3_tpu_torch — the PyTorch / CUDA port of ropebwt3_tpu.
 
-The port runs `build` and `merge` (index construction), `mem` (SMEM
-finding) and `ssa` on an NVIDIA Hopper card: the BWT and its occ rows live
-on the device as torch tensors and hand-written CUDA kernels (csrc/) sort,
-merge and walk them.  It stands on its own host layer: the index formats,
+The port runs ropebwt3's commands (`build`, `merge`, `mem`, `sw`,
+`hapdiv`, `ssa`, `get`, `suffix`, `kount`, ...) on an NVIDIA Hopper card:
+the BWT and its occ rows live on the device as torch tensors and
+hand-written CUDA kernels (csrc/) sort, merge, search and walk them;
+`serve` (server.py) keeps them resident between commands.  It stands on its own host layer: the index formats,
 the dense host index and its sidecar, the sequence readers, the native host
 code and the CLI pieces it runs are copies of the JAX package's modules under
 the same names (formats/, index/, seqio, nt6, bufio, log, native/).  It

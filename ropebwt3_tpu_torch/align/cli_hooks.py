@@ -130,11 +130,11 @@ def _emit_sw(out, f, sw_opts, name, q, hits, minus_hits) -> None:
             out.write(f"{name}\t{len(q)}\t*\t*\t*\t*\t*\t*\t*\t0\t0\t0\n")
 
 
-def run_sw_cli(f, files, is_line, sw_opts, device=None) -> int:
+def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None) -> int:
     """sw of every read of `files`: on `device` ("cuda" or "cpu") through the
-    device engine (align/sw.py), or on the native engine alone when None.
-    Batches of SW_BATCH reads; the engine runs one batch ahead of the
-    writer."""
+    device engine (align/sw.py), over `rows` (a prebuilt OccIndex of f on
+    it) when given, or on the native engine alone when None.  Batches of
+    SW_BATCH reads; the engine runs one batch ahead of the writer."""
     from ..cli import seq_openable
 
     opt = _opt_from_dict(sw_opts)
@@ -148,7 +148,7 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None) -> int:
     if device is not None:
         from .sw import SwDeviceEngine
 
-        dev_engine = SwDeviceEngine(f, opt, device)
+        dev_engine = SwDeviceEngine(f, opt, device, idx=rows)
 
     def _sw_batch(qs):
         return rb3_sw_batch(opt, f, qs) if dev_engine is None else dev_engine.run(qs)
@@ -213,10 +213,11 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None) -> int:
     return 0
 
 
-def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None) -> int:
+def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None) -> int:
     """hapdiv of every k-mer at step w of each sequence of `files`: on
-    `device` ("cuda" or "cpu") through the device engine, or on the native
-    DP alone when None."""
+    `device` ("cuda" or "cpu") through the device engine, over `rows` (a
+    prebuilt OccIndex of f on it) when given, or on the native DP alone when
+    None."""
     from ..cli import seq_openable
 
     opt = _opt_from_dict(sw_opts)
@@ -231,7 +232,7 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None) -> int:
     if device is not None:
         from .hapdiv import LANES, HapdivDeviceEngine
 
-        dev_engine = HapdivDeviceEngine(f, opt, device)
+        dev_engine = HapdivDeviceEngine(f, opt, device, idx=rows)
         CAP = LANES
 
     def _compute(batch_wins):

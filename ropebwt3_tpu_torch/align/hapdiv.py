@@ -481,9 +481,9 @@ class HapdivDeviceEngine:
 
     PIECES = ("rows", "cut", "upload", "kernel", "download", "unpack", "native", "write")
 
-    def __init__(self, f, opt: SwOpt, device="cuda"):
+    def __init__(self, f, opt: SwOpt, device="cuda", idx: OccIndex | None = None):
         self.f, self.opt, self.device = f, opt, torch.device(device)
-        self.idx = None  # built on first use: the rows cost seconds
+        self.idx = idx  # f's rows on the device, or None: built on first use (they cost seconds)
         self.n_bad = 0
         self.seconds = Counter()
         self.supported = (

@@ -480,9 +480,9 @@ class SwDeviceEngine:
 
     PIECES = ("stage", "upload", "alloc", "kernel", "download", "finish", "native", "positions")
 
-    def __init__(self, f, opt: SwOpt, device="cuda"):
+    def __init__(self, f, opt: SwOpt, device="cuda", idx: OccIndex | None = None):
         self.f, self.opt, self.device = f, opt, torch.device(device)
-        self.idx = None  # built on first use: the rows cost seconds
+        self.idx = idx  # f's rows on the device, or None: built on first use (they cost seconds)
         self.n_reads = self.n_card = self.n_bad = self.n_shape = 0
         self.seconds = Counter()
         self.supported = f.n < (1 << 32) and 2 <= opt.n_best <= SCAP and not (opt.flag & RB3_SWF_HAPDIV)

@@ -1,6 +1,7 @@
-"""`python -m ropebwt3_tpu_torch`: ropebwt3's command line for the commands
-the port owns: `build`, `merge`, `plain2fmd`, `mem`, `sw`, `hapdiv`,
-`search`, `ssa`, `stat` and `version`.
+"""`python -m ropebwt3_tpu_torch`: ropebwt3's command line in the port:
+`build`, `merge`, `plain2fmd`, `mem`, `sw`, `hapdiv`, `search`, `ssa`,
+`stat`, `get`, `suffix`, `kount`, `fa2line`, `fa2kmer`, `serve` and
+`version`.
 
 `build [--device=cuda|cpu] [options] in.fa...` reads each file in batches
 of -m symbols (each record then its reverse complement, 0-terminated),
@@ -45,16 +46,35 @@ sequence on the device's dense occ rows (ssa_ops.py) and writes the SSA
 file byte-equal to `python -m ropebwt3_tpu ssa`; `-t` is accepted and
 unused, as the JAX package's own walk ignores it.
 
-With the default `--device=cuda` and no CUDA, `build`, `merge`, `mem`,
-`sw`, `hapdiv`, `search` and `ssa` exit non-zero; they never go on on the CPU unasked.
-Every other command, and every option that the port's engines do not run, is refused
-with one `ERROR:` line that names the ROADMAP queue item porting it
-(`refusal`); `python -m ropebwt3_tpu` runs them.  The option parsers, the
-usage texts, the index loader and the writers are copies of
-ropebwt3_tpu/cli.py's (main_build, _dump_index, main_merge, main_plain2fmd,
-main_search, _run_mem's flat path, main_ssa, main_stat).  The copies of
-align/cli_hooks.py, align/bwasw.py and native/bwasw_core.cpp that `sw` and
-`hapdiv` run are under align/ and native/.
+`get [--device=cuda|cpu] idx.fmd INT...` walks LF from each valid k on the
+device's dense rows (ops/walk.py retrieve_cuda, K11 of csrc/walk.cu, all k
+in one walk); `suffix [--device=cuda|cpu] [-L] idx.fmd reads...` runs each
+batch's backward searches at once (suffix_cuda, K12); `kount
+[--device=cuda|cpu] [-k INT] [-m INT] idx.fmd...` expands the k-mer trie a
+level at a time with one occ_rank1a launch a level and index, its frontier
+on the device.  `fa2line` and `fa2kmer` run on the host.  The stdout of each
+is byte-equal to `python -m ropebwt3_tpu`'s.
+
+`serve [--device=cuda|cpu] [--engine=auto|native] [--warm=...]
+[--warm-hapdiv=...] [--warm-sw=...] [--daemon] [--stop] idx.fmd` keeps the
+index and one set of occ rows resident (server.py).  `mem` goes to a server that holds its index on its device
+when one answers; `mem`, `sw` and `hapdiv` with `--engine=server` go to one
+or fail with one ERROR line; `search`, and `sw` and `hapdiv` on auto, stay
+here.  That choice is made before torch is imported, so a request that a
+server answers never imports it.  RB3TPU_AUTO_SERVE=1 starts a server in the
+background when none answers `mem`.
+
+With the default `--device=cuda` and no CUDA, every command that runs on
+the device exits non-zero; none goes on on the CPU unasked.  `--mesh`,
+`--engine=jax|hybrid` and the `--dbg-*` streams are refused with one
+`ERROR:` line that names the ROADMAP queue item porting them (`refusal`);
+`python -m ropebwt3_tpu` runs them.  The option parsers, the usage texts,
+the index loader and the writers are copies of ropebwt3_tpu/cli.py's
+(main_build, _dump_index, main_merge, main_plain2fmd, main_search, _run_mem's
+flat path, main_ssa, main_stat, main_get, main_suffix, main_kount,
+main_fa2line, main_fa2kmer).  The copies of align/cli_hooks.py,
+align/bwasw.py and native/bwasw_core.cpp that `sw` and `hapdiv` run are
+under align/ and native/.
 """
 
 from __future__ import annotations
@@ -63,6 +83,8 @@ import getopt
 import os
 import re
 import sys
+import time
+from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -70,20 +92,20 @@ import numpy as np
 from . import log
 from .bufio import write_all
 from .index.dense import DenseFMIndex
-from .nt6 import NT6_TABLE, char2nt6, nt6_to_str, revcomp
+from .nt6 import COMP_TABLE, NT6_TABLE, char2nt6, nt6_to_str, revcomp
 from .seqio import batch_nt6_flat, iter_flat_batches, read_batch_nt6, read_seqs, read_sid
 
 REF_VERSION = "3.10-r281"  # ropebwt3 version whose formats and outputs are matched
-OWNED = ("build", "merge", "plain2fmd", "mem", "sw", "hapdiv", "search", "ssa", "stat", "version")
+OWNED = ("build", "merge", "plain2fmd", "mem", "sw", "hapdiv", "search", "ssa", "stat", "get", "suffix", "kount",
+         "fa2line", "fa2kmer", "serve", "version")
 # main_search's short and long options (ropebwt3_tpu/cli.py:1022-1029)
 _SEARCH_OPTS = "Ll:c:t:K:MdN:A:B:O:E:C:m:k:uj:ey:a:w:p:bg:"
 _LONG_OPTS = ["no-ssa", "seq", "gap=", "cov", "old-mem", "all-e2e", "no-kalloc", "dbg-dawg", "dbg-sw", "dbg-qname",
               "dbg-bt", "engine=", "mesh=", "occ="]
-# the ROADMAP queue 1 item that ports each command or engine the port refuses
-_ENGINE_ITEM = {"sw": "item 11 (its remainder: the hybrid and server engines)",
-                "hapdiv": "item 10 (its remainder: the hybrid and server engines)",
-                "search": "items 10 and 11 (their remainders: the hybrid and server engines)"}
-_COMMAND_ITEM = {"get": "item 16", "suffix": "item 17", "kount": "item 18", "fa2line": "item 19", "fa2kmer": "item 20"}
+# the ROADMAP queue 1 item that ports each engine the port refuses
+_ENGINE_ITEM = {"sw": "item 11 (its remainder: the hybrid engine)",
+                "hapdiv": "item 10 (its remainder: the hybrid engine)",
+                "search": "items 10 and 11 (their remainders: the hybrid engine)"}
 # sw's scoring options (ropebwt3_tpu/cli.py _SW_SCORING)
 _SW_SCORING = """  -N INT      keep up to INT hits per DAWG node [25]
   -m INT      min alignment score [30]
@@ -285,9 +307,28 @@ Options:
   -o FILE    output to file [stdout]
   --device=STR  cuda or cpu [cuda]""",
     "stat": "Usage: python -m ropebwt3_tpu_torch stat [-M] <idx.fmd>",
+    "get": "Usage: python -m ropebwt3_tpu_torch get <idx.fmr> <int> [...]",
+    "suffix": """Usage: python -m ropebwt3_tpu_torch suffix [options] <idx.fmr> <seq.fa> [...]
+Options:
+  -L        one sequence per line in the input
+  --device=STR  cuda (the kernel) or cpu (the plain PyTorch version) [cuda]""",
+    "kount": """Usage: python -m ropebwt3_tpu_torch kount [options] <in1.fmd> [in2.fmd [...]]
+Options:
+  -k INT       k-mer length [51]
+  -m INT       min k-mer occurrence [100]
+  --device=STR  cuda or cpu [cuda]""",
+    "fa2line": """Usage: python -m ropebwt3_tpu_torch fa2line [options] <seq.fa> [...]
+Options:
+  -R        no reverse strand""",
+    "fa2kmer": """Usage: python -m ropebwt3_tpu_torch fa2kmer [options] <seq.fa> [...]
+Options:
+  -k INT      k-mer size [151]
+  -w INT      step size [50]""",
 }
+# get, stat and plain2fmd print their usage on stdout, build, ssa and kount
+# on stderr, the rest their first line on stdout (ropebwt3_tpu/cli.py:275-281)
 _USAGE_STDOUT_LINES = {"build": 0, "merge": 4, "plain2fmd": 1, "mem": 1, "sw": 1, "search": 1, "hapdiv": 1, "ssa": 0,
-                       "stat": 1}
+                       "stat": 1, "get": 1, "suffix": 1, "kount": 0, "fa2line": 1, "fa2kmer": 1}
 
 
 def _usage(cmd: str) -> int:
@@ -375,14 +416,16 @@ def load_index(fn: str, load_ssa: bool = False, load_sid: bool = False) -> Dense
 
 
 def refusal(argv: list[str]) -> str | None:
-    """Why the port refuses `argv`, or None.  `serve`, `--mesh` on any
-    command and `sw` / `hapdiv` / `search` with `--engine=jax|hybrid|server`
-    would reach the JAX package's device code (`sw` and `hapdiv` run the
-    port's own device engines with `--engine=auto`); every other command
-    that the port does not own is a ROADMAP queue 1 item of its own."""
+    """Why the port refuses `argv`, or None: `--mesh` on any command, and
+    `sw` / `hapdiv` / `search` with `--engine=jax|hybrid`, would reach the
+    JAX package's device code (`sw` and `hapdiv` run the port's own device
+    engines with `--engine=auto`, a resident server's with `--engine=server`);
+    `search` never goes to a server."""
     cmd, rest = argv[0], argv[1:]
+    if cmd not in OWNED:
+        return f"unknown command '{cmd}'"
     if cmd == "serve":
-        return "serve (the resident JAX engine server) is not ported: ROADMAP queue 1 item 13"
+        return None  # server.py parses its own options
     # parsed as the commands parse them: ketopt takes `--name X`, `--name=X`
     # and unambiguous prefixes (no other long option of any command starts
     # with `m` or `e`); the last value wins
@@ -390,12 +433,47 @@ def refusal(argv: list[str]) -> str | None:
     if "--mesh" in given:
         return f"{cmd} --mesh is not ported (multi-GPU): ROADMAP queue 1 item 12"
     engine = given.get("--engine", "auto")
-    if cmd in _ENGINE_ITEM and engine in ("jax", "hybrid", "server"):
+    if cmd in _ENGINE_ITEM and engine in ("jax", "hybrid"):
         return f"{cmd} --engine={engine} runs the JAX package's device engine, not ported: ROADMAP queue 1 {_ENGINE_ITEM[cmd]}"
-    if cmd in _COMMAND_ITEM:
-        return f"{cmd} is not ported: ROADMAP queue 1 {_COMMAND_ITEM[cmd]}; `python -m ropebwt3_tpu {cmd}` runs it"
-    if cmd not in OWNED:
-        return f"unknown command '{cmd}'"
+    if cmd == "search" and engine == "server":
+        return "search never goes to a server: `--engine=server` takes mem, sw and hapdiv"
+    return None
+
+
+def route(cmd: str, rest: list[str]) -> int | None:
+    """Send `cmd rest` to a resident server (server.py) where it belongs:
+    `mem`, `sw` or `hapdiv` with `--engine=server` (one ERROR line when no
+    server answers for the index on the request's device), and `mem` on auto
+    (its SMEM path, not -d or -a/-w) when one answers; RB3TPU_AUTO_SERVE=1
+    starts one in the background for `mem` when none does.  Returns the
+    server's exit code, or None to run here.  Imports no torch."""
+    from . import server
+
+    device, argv = _split_device(rest)
+    opts, args = ketopt(argv, _SEARCH_OPTS, _LONG_OPTS)  # the command's own parse reports what is wrong
+    engine, algo = "auto", cmd
+    for o, a in opts:
+        if o == "--engine":
+            engine = a
+        elif o == "-d" and cmd == "mem":
+            algo = "sw"
+        elif o in ("-a", "-w") and cmd == "mem":
+            algo = "hapdiv"
+    if len(args) < 2 or not (engine == "server" or (engine == "auto" and algo == "mem")):
+        return None
+    got = server.server_device(args[0])
+    if got == device:
+        try:
+            return server.client_run(args[0], rest, cmd)
+        except OSError as e:
+            if engine == "server":
+                return _err(f"server request failed: {e}")
+            return None
+    if engine == "server":
+        if got is None:
+            return _err(f"no server for '{args[0]}' (start one: python -m ropebwt3_tpu_torch serve {args[0]})")
+        return _err(f"the server for '{args[0]}' runs on {got}, not {device}")
+    server.maybe_autospawn(args[0], device)
     return None
 
 
@@ -731,9 +809,11 @@ def main_plain2fmd(argv: list[str]) -> int:
 # ---------------------------------------------------------------------------
 
 
-def main_mem(argv: list[str], device: str, cmd: str = "mem") -> int:
+def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int:
     """`mem`, or `search` (cmd "search"): SMEMs, or with -d sw and with
-    -a/-w hapdiv, the last of them given (ropebwt3_tpu/cli.py:1053-1058)."""
+    -a/-w hapdiv, the last of them given (ropebwt3_tpu/cli.py:1053-1058).
+    `served`: a resident server's EngineCache (server.py), whose index and
+    occ rows the request runs on."""
     from .ops.smem import BatchedSmemTG, smem_tg_cuda, smem_tgc_cuda
 
     try:
@@ -768,21 +848,22 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem") -> int:
         elif o == "--old-mem":
             algo, other = "mem", f"{cmd} --old-mem (the original MEM algorithm) is not ported: ROADMAP queue 1 item 4"
     if algo == "hapdiv":
-        return main_hapdiv(argv, device, cmd)
+        return main_hapdiv(argv, device, cmd, served)
     if algo == "sw":
-        return main_sw(argv, device, cmd)
+        return main_sw(argv, device, cmd, served)
     if len(args) < 2:
         return _usage(cmd)
     if other:
         return _err(f"{other}; `python -m ropebwt3_tpu {cmd} --old-mem` runs it")
     if min_gap_len > 0:
         max_pos = 0
-    f = load_index(args[0], load_ssa=max_pos > 0, load_sid=max_pos > 0)
+    f = _index(args[0], max_pos > 0, served)
     if max_pos > 0 and (f.ssa is None or f.sid is None):
         return _err("failed to load suffix array samples or sequence names/lengths")
     if not f.is_symmetric():
         return _err("BWT doesn't contain both strands")
-    eng = BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ)
+    rows = None if served is None else served.mem_rows(occ)
+    eng = BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ, rows=rows)
     ret = _run_mem(f, eng, args[1:], is_line, batch_size, min_gap_len, write_cov, max_pos)
     lay = eng.idx.layout
     log.info("%d smem_tg launches (%s): %d chunked, %d one-thread; %d reads rerun on the card, %d unmerged",
@@ -849,15 +930,24 @@ def _search_args(argv: list[str], cmd: str):
     return a
 
 
-def _search_index(a, cmd: str, load_all: bool):
+def _index(fn: str, load_all: bool, served):
+    """load_index(fn) with the SSA and sequence lengths when `load_all`, or
+    the resident server's copy of them (server.py EngineCache.index)."""
+    if served is not None:
+        return served.index(fn, load_all)
+    return load_index(fn, load_ssa=load_all, load_sid=load_all)
+
+
+def _search_index(a, cmd: str, load_all: bool, served=None):
     """The index of a search command, or an exit code: usage with too few
     arguments, an engine the port does not run, or an index that cannot
-    serve the options."""
+    serve the options (a server's EngineCache.ENGINES include its own)."""
     if len(a.args) < 2:
         return _usage(cmd)
-    if a.engine not in ("auto", "native"):
-        return _err(f"invalid --engine '{a.engine}' (auto|native)")
-    f = load_index(a.args[0], load_ssa=load_all, load_sid=load_all)
+    engines = ("auto", "native") if served is None else served.ENGINES
+    if a.engine not in engines:
+        return _err(f"invalid --engine '{a.engine}' ({'|'.join(engines)})")
+    f = _index(a.args[0], load_all, served)
     if a.max_pos > 0 and (f.ssa is None or f.sid is None):
         return _err("failed to load suffix array samples or sequence names/lengths")
     if not f.is_symmetric():
@@ -865,7 +955,16 @@ def _search_index(a, cmd: str, load_all: bool):
     return f
 
 
-def main_sw(argv: list[str], device: str, cmd: str = "sw") -> int:
+def _dp_engine(a, device: str, served) -> dict:
+    """run_sw_cli / run_hapdiv_cli's engine arguments: none for the native
+    engines (--engine=native), else the device; on a resident server its
+    EngineCache.dp_engine decides."""
+    if served is not None:
+        return served.dp_engine(a.engine)
+    return {} if a.engine == "native" else {"device": device}
+
+
+def main_sw(argv: list[str], device: str, cmd: str = "sw", served=None) -> int:
     """`sw`, or `mem -d` / `search -d` (cmd "mem" / "search"): `sw` and
     `search` load the SSA unless --no-ssa, `mem` only with -p
     (ropebwt3_tpu/cli.py:1134-1145)."""
@@ -874,13 +973,13 @@ def main_sw(argv: list[str], device: str, cmd: str = "sw") -> int:
     a = _search_args(argv, cmd)
     if isinstance(a, int):
         return a
-    f = _search_index(a, cmd, a.max_pos > 0 if cmd == "mem" else not a.no_ssa)
+    f = _search_index(a, cmd, a.max_pos > 0 if cmd == "mem" else not a.no_ssa, served)
     if isinstance(f, int):
         return f
-    return run_sw_cli(f, a.args[1:], a.is_line, a.sw_opts, device=None if a.engine == "native" else device)
+    return run_sw_cli(f, a.args[1:], a.is_line, a.sw_opts, **_dp_engine(a, device, served))
 
 
-def main_hapdiv(argv: list[str], device: str, cmd: str = "hapdiv") -> int:
+def main_hapdiv(argv: list[str], device: str, cmd: str = "hapdiv", served=None) -> int:
     """`hapdiv`, or `mem -a/-w` / `search -a/-w` (cmd "mem" / "search"):
     `hapdiv` sets end_len 1 and e2e, the others keep -k's end_len
     (ropebwt3_tpu/cli.py:1137-1140)."""
@@ -891,10 +990,10 @@ def main_hapdiv(argv: list[str], device: str, cmd: str = "hapdiv") -> int:
         return a
     if cmd == "hapdiv":
         a.sw_opts["end_len"], a.sw_opts["e2e"] = 1, True
-    f = _search_index(a, cmd, cmd == "mem" and a.max_pos > 0)
+    f = _search_index(a, cmd, cmd == "mem" and a.max_pos > 0, served)
     if isinstance(f, int):
         return f
-    return run_hapdiv_cli(f, a.args[1:], a.is_line, a.sw_opts, a.k, a.w, device=None if a.engine == "native" else device)
+    return run_hapdiv_cli(f, a.args[1:], a.is_line, a.sw_opts, a.k, a.w, **_dp_engine(a, device, served))
 
 
 def record_batches(fn: str, is_line: bool, batch_size: int):
@@ -1030,6 +1129,279 @@ def main_stat(argv: list[str]) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# get, suffix, kount (ropebwt3_tpu/cli.py:757-770, 790-920)
+# ---------------------------------------------------------------------------
+
+SUFFIX_BATCH = 1 << 26  # symbols of reads a suffix_walk launch
+
+
+def _lap(sec: Counter, piece: str, t0: float) -> float:
+    """Add the seconds since t0 to sec[piece]; return now."""
+    t = time.perf_counter()
+    sec[piece] += t - t0
+    return t
+
+
+def _log_pieces(sec: Counter, func: str) -> None:
+    log.info("wall seconds by piece: %s", ", ".join(f"{k} {v:.3f}" for k, v in sec.items()), func=func)
+
+
+def dense_rows(fs: list[DenseFMIndex], device: str) -> list:
+    """The dense occ rows (`OccIndex.from_dense`, width from n) of each
+    index on `device`; on the card, after a check that they all fit it."""
+    import torch
+
+    from .ops.rank import OccIndex
+
+    dev = torch.device(device)
+    budget = card_bytes(dev)
+    need = sum(48 * len(f.occ_block) for f in fs)
+    if budget is not None and need > budget:
+        raise CapacityError(f"the occ rows of {len(fs)} index(es) need ~{need} B of the card, which has {budget} B")
+    try:
+        return [OccIndex.from_dense(f, dev) for f in fs]
+    except torch.OutOfMemoryError as e:
+        raise CapacityError(f"out of card memory: {str(e).splitlines()[0]}") from e
+
+
+def main_get(argv: list[str], device: str) -> int:
+    """Each k of the arguments in [0, n) (C atol: garbage is 0), its
+    sequence decoded by one LF walk of all of them at once (retrieve_cuda)."""
+    from .ops.walk import retrieve_chunk_cuda, retrieve_cuda
+
+    opts, args = ketopt(argv, "")
+    if len(args) < 2:
+        _usage("get")
+        return 0
+    sec, t0 = Counter(), time.perf_counter()
+    f = load_index(args[0])
+    ks = [atoi(s) for s in args[1:]]
+    valid = [k for k in ks if 0 <= k < f.n]
+    if not valid:
+        return 0
+    t0 = _lap(sec, "load", t0)
+    idx = dense_rows([f], device)[0]
+    t0 = _lap(sec, "rows", t0)
+    seqs, ends = retrieve_cuda(idx, valid)
+    t0 = _lap(sec, "walk", t0)
+    out, i = [], 0
+    for k in ks:
+        if 0 <= k < f.n:
+            out.append(f">{k} {ends[i]}\n{nt6_to_str(seqs[i])}\n")
+            i += 1
+    write_all(sys.stdout, "".join(out))
+    _lap(sec, "write", t0)
+    log.info("%d retrieve_walk launches (%s)", retrieve_chunk_cuda.launches[idx.layout], idx.layout, func="get")
+    _log_pieces(sec, "get")
+    return 0
+
+
+def main_suffix(argv: list[str], device: str) -> int:
+    """Per read: name, where its longest suffix matching the index starts,
+    its length and the last non-empty interval's size; the reads of each
+    batch searched at once (suffix_cuda)."""
+    import torch
+
+    from .ops.walk import suffix_cuda
+
+    opts, args = ketopt(argv, "L")
+    is_line = any(o == "-L" for o, _ in opts)
+    if len(args) < 2:
+        _usage("suffix")
+        return 0
+    sec, t0 = Counter(), time.perf_counter()
+    f = load_index(args[0])
+    t0 = _lap(sec, "load", t0)
+    idx = dense_rows([f], device)[0]
+    t0 = _lap(sec, "rows", t0)
+    rec_num = 0
+    for fn in args[1:]:
+        if not seq_openable(fn):
+            # the reference crashes here (main.c main_suffix has no NULL
+            # check); the JAX package reports it and goes on
+            print(f"ERROR: failed to open file '{fn}'", file=sys.stderr)
+            continue
+        batches = iter_flat_batches(fn, is_line, SUFFIX_BATCH)
+        for names, flat, offs in batches if batches is not None else record_batches(fn, is_line, SUFFIX_BATCH):
+            t0 = _lap(sec, "read", t0)
+            start, last = suffix_cuda(idx, torch.from_numpy(np.ascontiguousarray(flat, np.uint8)).to(idx.device),
+                                      torch.from_numpy(np.asarray(offs, np.int64)).to(idx.device))
+            start, last = start.tolist(), last.tolist()
+            t0 = _lap(sec, "search", t0)
+            lines = []
+            for name, st, ln, sz in zip(names, start, np.diff(offs).tolist(), last):
+                rec_num += 1
+                lines.append(f"{name if name else f'seq{rec_num}'}\t{st}\t{ln}\t{sz}\n")
+            write_all(sys.stdout, "".join(lines))
+            t0 = _lap(sec, "write", t0)
+    log.info("%d suffix_walk launches (%s)", suffix_cuda.launches[idx.layout], idx.layout, func="suffix")
+    _log_pieces(sec, "suffix")
+    return 0
+
+
+def main_kount(argv: list[str], device: str) -> int:
+    """The k-mers of length -k that occur at least -m times in any of the
+    indexes, with their counts in each, as ropebwt3_tpu/cli.py main_kount
+    expands them: the trie a level at a time, one occ_rank1a launch of the
+    frontier's (k, l) a level and index, the frontier kept on the device; the
+    lines sorted into the reference's DFS order at the end."""
+    import torch
+
+    from .ops.rank import rank1a_cuda
+
+    opts, args = ketopt(argv, "k:m:")
+    depth, min_occ = 51, 100
+    for o, a in opts:
+        if o == "-k":
+            depth = atoi(a)
+        elif o == "-m":
+            min_occ = atoi(a)
+    if not args:
+        return _usage("kount")
+    sec, t0 = Counter(), time.perf_counter()
+    fs = [load_index(fn) for fn in args]
+    if depth <= 0:
+        return 0
+    t0 = _lap(sec, "load", t0)
+    idxs = dense_rows(fs, device)
+    t0 = _lap(sec, "rows", t0)
+    dev = idxs[0].device
+    accs = [x.acc.long() for x in idxs]
+    ks = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in idxs]
+    ls = [torch.full((1,), x.n, dtype=torch.int64, device=dev) for x in idxs]
+    chars = torch.zeros((1, 0), dtype=torch.uint8, device=dev)  # (nodes, level) chosen symbols
+    leaf_occ, widest = None, 0
+    for d in range(depth):
+        widest = max(widest, 2 * len(ks[0]))
+        rr = [rank1a_cuda(x, torch.cat([k, l])).long() for x, k, l in zip(idxs, ks, ls)]
+        oks = [r[: len(r) // 2] for r in rr]
+        occ = [r[len(r) // 2 :] - ok for r, ok in zip(rr, oks)]  # (nodes, 6) each
+        keep = occ[0][:, 1:5] >= min_occ
+        for o in occ[1:]:
+            keep |= o[:, 1:5] >= min_occ  # a branch lives when any index reaches min_occ
+        node_i, a_i = keep.nonzero(as_tuple=True)
+        a = a_i + 1
+        chars = torch.cat([chars[node_i], a[:, None].to(torch.uint8)], dim=1)
+        if d == depth - 1:
+            leaf_occ = torch.stack([o[node_i, a] for o in occ], dim=1)
+            break
+        for i in range(len(idxs)):
+            ks[i] = accs[i][a] + oks[i][node_i, a]
+            ls[i] = ks[i] + occ[i][node_i, a]
+        if len(node_i) == 0:
+            return 0
+    if leaf_occ is None or len(chars) == 0:
+        return 0
+    log.info("%d occ_rank1a launches (%s), the widest of %d positions", sum(rank1a_cuda.launches.values()),
+             idxs[0].layout, widest, func="kount")
+    chars, leaf_occ = chars.cpu().numpy(), leaf_occ.cpu().numpy()
+    t0 = _lap(sec, "levels", t0)
+    # the reference's DFS order: children are pushed ascending and popped
+    # off a stack (descending) at every internal level, while the last level
+    # prints ascending; np.lexsort's last key is the primary one
+    keys = [chars[:, depth - 1]] + [-(chars[:, j].astype(np.int16)) for j in range(depth - 2, -1, -1)]
+    order = np.lexsort(keys)
+    strs = np.frombuffer(b"$ACGTN", np.uint8)[chars[:, ::-1]]
+    t0 = _lap(sec, "sort", t0)
+    write_all(sys.stdout, "".join(strs[i].tobytes().decode() + "\t" + "\t".join(str(int(c)) for c in leaf_occ[i]) + "\n"
+                                  for i in order))
+    _lap(sec, "write", t0)
+    _log_pieces(sec, "kount")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# fa2line, fa2kmer (host only; ropebwt3_tpu/cli.py:922-1015)
+# ---------------------------------------------------------------------------
+
+
+def main_fa2line(argv: list[str]) -> int:
+    opts, args = ketopt(argv, "R")
+    no_rev = any(o == "-R" for o, _ in opts)
+    if not args:
+        _usage("fa2line")
+        return 0
+    tab = np.frombuffer(b"\nACGTX", dtype=np.uint8)
+    for fn in args:
+        if not seq_openable(fn):
+            print(f"ERROR: failed to open file '{fn}'", file=sys.stderr)
+            continue
+        fb = iter_flat_batches(fn, False, 1 << 26)
+        if fb is not None:
+            for _names, bflat, boffs in fb:
+                nrec = len(boffs) - 1
+                if nrec and len(bflat) >= (nrec << 8):
+                    # long records: two whole-buffer maps and a slice a
+                    # record (record i's rc line is a window of the reversed
+                    # buffer)
+                    fwd = tab[bflat]
+                    parts: list[bytes] = []
+                    if no_rev:
+                        for i in range(nrec):
+                            parts += [fwd[boffs[i] : boffs[i + 1]].tobytes(), b"\n"]
+                    else:
+                        crev = tab[COMP_TABLE[bflat]][::-1]
+                        T = len(bflat)
+                        for i in range(nrec):
+                            parts += [fwd[boffs[i] : boffs[i + 1]].tobytes(), b"\n",
+                                      crev[T - boffs[i + 1] : T - boffs[i]].tobytes(), b"\n"]
+                    write_all(sys.stdout.buffer, b"".join(parts))
+                    continue
+                # the [fwd, 0][, rc, 0] construction layout is the fa2line
+                # output under the "\nACGTX" map (separators = line breaks)
+                _, seq = batch_nt6_flat(bflat, boffs, True, not no_rev)
+                write_all(sys.stdout.buffer, tab[seq].tobytes())
+            continue
+        for rec in read_seqs(fn, False):
+            s = char2nt6(rec.seq)
+            sys.stdout.buffer.write(tab[s].tobytes() + b"\n")
+            if not no_rev:
+                sys.stdout.buffer.write(tab[revcomp(s)].tobytes() + b"\n")
+    return 0
+
+
+def main_fa2kmer(argv: list[str]) -> int:
+    try:
+        opts, args = ketopt(argv, "k:w:", strict=True)
+    except KetoptUnknown:
+        return 1
+    kmer, step = 151, 50
+    for o, a in opts:
+        if o == "-k":
+            kmer = atoi(a)
+        elif o == "-w":
+            step = atoi(a)
+    if not args:
+        _usage("fa2kmer")
+        return 0
+    if step <= 0:
+        # the reference walks i += step unguarded and faults on a negative
+        # seq[i] read (main.c fa2kmer loop); this must not hang
+        print(f"ERROR: step size must be positive, got {step}", file=sys.stderr)
+        return 1
+    for fn in args:
+        if not seq_openable(fn):
+            print(f"ERROR: failed to open file '{fn}'", file=sys.stderr)
+            continue
+        buf: list[bytes] = []
+        for rec in read_seqs(fn, False):
+            seq, L = rec.seq, len(rec.seq)
+            name = (rec.name or "").encode()
+            i = 0
+            while i < L:
+                en = L if i + step + kmer > L else i + kmer
+                buf.append(b">%s:%d-%d\n%s\n" % (name, i + 1, en, seq[i:en]))
+                if en == L:
+                    break
+                i += step
+            if len(buf) >= 65536:
+                write_all(sys.stdout.buffer, b"".join(buf))
+                buf.clear()
+        write_all(sys.stdout.buffer, b"".join(buf))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -1042,11 +1414,15 @@ def main(argv: list[str] | None = None) -> int:
     if cmd == "version":
         print(REF_VERSION)
         return 0
+    if cmd == "serve":
+        from .server import main_serve
+
+        return main_serve(rest)
     try:
-        if cmd == "stat":
-            ret = main_stat(rest)
-        elif cmd == "plain2fmd":
-            ret = main_plain2fmd(rest)
+        if cmd in ("mem", "sw", "hapdiv") and (ret := route(cmd, rest)) is not None:
+            pass  # answered by a resident server, before any torch import
+        elif cmd in ("stat", "plain2fmd", "fa2line", "fa2kmer"):
+            ret = {"stat": main_stat, "plain2fmd": main_plain2fmd, "fa2line": main_fa2line, "fa2kmer": main_fa2kmer}[cmd](rest)
         else:
             device, rest = _split_device(rest)
             if device not in ("cuda", "cpu"):
@@ -1060,7 +1436,7 @@ def main(argv: list[str] | None = None) -> int:
                 ret = main_mem(rest, device, "search")
             else:
                 ret = {"build": main_build, "merge": main_merge, "mem": main_mem, "sw": main_sw, "hapdiv": main_hapdiv,
-                       "ssa": main_ssa}[cmd](rest, device)
+                       "ssa": main_ssa, "get": main_get, "suffix": main_suffix, "kount": main_kount}[cmd](rest, device)
     except (IndexLoadError, CapacityError, getopt.GetoptError) as e:
         ret = _err(str(e))
     except BrokenPipeError:

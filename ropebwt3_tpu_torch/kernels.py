@@ -17,7 +17,8 @@ also write lane 0's phase clocks (ropebwt3_tpu_torch/dp_time.py reads both).
 The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
-`RunBlockIndex`); ssa_gen's walk, merge_rank, the hapdiv DP (one warp a
+`RunBlockIndex`), and so does `suffix`'s backward search (csrc/walk.cu);
+ssa_gen's walk, merge_rank, `get`'s LF walk, the hapdiv DP (one warp a
 window) and the sw DP (one warp a read) in the two dense ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
 them: rows, escape sub-rows, megablock bases, acc, the megablock shift and
@@ -52,7 +53,9 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_occ_extend_c_{_lay}"] = [*_TABLES, _V, _V, _V, _I64, _V, _V]
     _ENTRIES[f"rb3c_smem_tg_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I32, _I32, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_TABLES, _V, _V, _V, _I64, _I32, _I32, _I32, _I32, _V, _V, _V, _V, _V, _V]
+    _ENTRIES[f"rb3c_suffix_walk_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
 for _lay in LAYOUTS[:2]:
+    _ENTRIES[f"rb3c_retrieve_walk_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_walk_{_lay}"] = [*_TABLES, _I64, _I32, _I32, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_finish_{_lay}"] = [_V, _I64, _I64, _I64, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _V, _V]

@@ -461,16 +461,16 @@ class BatchedSmemTG:
     MEMs of one batch with `smem_tg` (one chunked launch, plus the reruns it
     needs).  `occ` picks the rows: dense, rb (run-block compressed, from the
     `.rb.npz` cache when it is fresh) or auto (`resolve_occ`); the width
-    follows n.  `n_rerun` and `n_unmerged` add up over batches."""
+    follows n.  `rows`, f's rows already on `device` (a resident server's),
+    stand in for building them.  `n_rerun` and `n_unmerged` add up over
+    batches."""
 
     def __init__(self, f: DenseFMIndex, min_occ: int = 1, min_len: int = 19, max_mems: int = MAX_MEMS, *, device,
-                 occ: str = "auto"):
-        if resolve_occ(occ, f.n, device) == "rb":
-            self.idx = RunBlockIndex.from_dense(f, device)
-            s = f"S {self.idx.S}, {self.idx.n_esc} escape blocks, "
-        else:
-            self.idx = OccIndex.from_dense(f, device)
-            s = ""
+                 occ: str = "auto", rows: OccIndex | RunBlockIndex | None = None):
+        if rows is None:
+            rows = RunBlockIndex.from_dense(f, device) if resolve_occ(occ, f.n, device) == "rb" else OccIndex.from_dense(f, device)
+        self.idx = rows
+        s = f"S {rows.S}, {rows.n_esc} escape blocks, " if rows.layout.startswith("rb") else ""
         log.info("occ layout %s (%s%s rows): %d bytes on %s", self.idx.layout, s, "int64" if self.idx.int64 else "int32",
                  self.idx.nbytes, self.idx.device, func="mem")
         self.min_occ = int(min_occ)

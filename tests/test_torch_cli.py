@@ -300,11 +300,11 @@ def test_hapdiv_without_cuda_exits_nonzero(corpus, corpus_fmd):
 @pytest.mark.parametrize("argv,why", [
     (["sw", "--engine=jax"], b"sw --engine=jax"),
     (["hapdiv", "--engine", "hybrid"], b"hapdiv --engine=hybrid"),
-    (["search", "--engine=server"], b"search --engine=server"),
+    (["sw", "--engine=hybrid"], b"sw --engine=hybrid"),
+    (["search", "--eng=hybrid", "-l21"], b"search --engine=hybrid"),
     (["ssa", "--mesh=2"], b"ssa --mesh"),
     (["mem", "--device=cpu", "--mesh", "2x1", "-l21"], b"mem --mesh"),
     (["build", "--mesh=4", "-do", "x.fmd"], b"build --mesh"),
-    (["serve"], b"serve"),
 ])
 def test_refuses_jax_device_options(corpus_fmd, argv, why):
     """One ERROR line naming the option and the ROADMAP item, no traceback."""
@@ -313,6 +313,26 @@ def test_refuses_jax_device_options(corpus_fmd, argv, why):
     lines = r.stderr.decode().splitlines()
     assert len(lines) == 1 and lines[0].startswith("ERROR: ") and why.decode() in lines[0], lines
     assert "ROADMAP queue 1 item" in lines[0] and "Traceback" not in r.stderr.decode()
+
+
+def test_search_never_goes_to_a_server(corpus, corpus_fmd):
+    """`search --engine=server`: one ERROR line (the JAX package runs it
+    here; `--engine=server` routes mem, sw and hapdiv only)."""
+    r = _run_without_jax(["search", "--device=cpu", "--engine=server", "-l21", str(corpus_fmd), str(corpus / "reads.fa")])
+    lines = r.stderr.decode().splitlines()
+    assert r.returncode == 1 and not r.stdout and len(lines) == 1
+    assert lines[0] == "ERROR: search never goes to a server: `--engine=server` takes mem, sw and hapdiv"
+
+
+@pytest.mark.parametrize("argv", [["serve"], ["serve", "--engine=jax", "x.fmd"], ["serve", "--device=tpu", "x.fmd"]])
+def test_serve_usage_and_bad_options(argv):
+    """`serve` without an index prints its usage; `--engine=jax` (the JAX
+    package's engine) and an unknown device are one ERROR line; none starts
+    a server or imports jax."""
+    r = _run_without_jax(argv)
+    lines = r.stderr.decode().splitlines()
+    assert r.returncode == 1 and not r.stdout and len(lines) == 1 and "Traceback" not in r.stderr.decode()
+    assert lines[0].startswith("Usage: python -m ropebwt3_tpu_torch serve" if len(argv) == 1 else "ERROR: ")
 
 
 def test_host_commands_pass_without_jax(corpus_fmd):

@@ -714,3 +714,63 @@ def test_sw_engine_on_card_matches_native(corpus, corpus_index, cuda_device):
     want = bwasw.rb3_sw_batch(opt, corpus_index, reads)
     sig = [[[(h.score, h.lo, h.hi, h.cigar, h.cs, h.qoff) for h in hs] for hs in out] for out in (got, want)]
     assert sig[0] == sig[1] and any(sig[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("steps", [1 << 16, 100])
+def test_retrieve_walk_matches_plain(corpus_index, cuda_device, layout, steps):
+    """K11 (csrc/walk.cu retrieve_walk) against retrieve_chunk_plain on the
+    card, chunk by chunk (each lane's symbols and count, k and done flag),
+    from 0, n - 1, a sentinel row and 61 seeded positions, in chunks of
+    `steps`; then the whole walk (retrieve_cuda) against the JAX package's
+    DenseFMIndex.retrieve."""
+    from ropebwt3_tpu_torch.ops import walk
+
+    f = corpus_index
+    x = make_index(layout, f, cuda_device)
+    rng = np.random.default_rng(21)
+    ks = [0, f.n - 1, int(np.flatnonzero(f.bwt[: f.n] == 0)[0]), *rng.integers(0, f.n, 61).tolist()]
+    k = torch.tensor(ks, dtype=torch.int64, device=cuda_device)
+    done = torch.zeros(len(ks), dtype=torch.uint8, device=cuda_device)
+    kp, dp = k.clone(), done.clone()
+    before, chunks = walk.retrieve_chunk_cuda.launches[layout], 0
+    while not bool(done.all()):
+        out, n = walk.retrieve_chunk_cuda(x, k, done, steps)
+        wout, wn = walk.retrieve_chunk_plain(x, kp, dp, steps)
+        torch.cuda.synchronize()
+        chunks += 1
+        assert torch.equal(n, wn) and torch.equal(k, kp) and torch.equal(done, dp)
+        valid = torch.arange(steps, device=cuda_device)[:, None] < n[None, :].long()
+        assert torch.equal(out[valid], wout[valid])
+    assert walk.retrieve_chunk_cuda.launches[layout] == before + chunks and chunks >= (2 if steps == 100 else 1)
+    seqs, ends = walk.retrieve_cuda(x, ks)
+    for k0, s, e in zip(ks, seqs, ends):
+        want, wend = f.retrieve(k0)
+        assert np.array_equal(s, want) and int(e) == wend
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_suffix_walk_matches_plain(corpus, corpus_index, cuda_device, layout):
+    """K12 (csrc/walk.cu suffix_walk) against suffix_plain on the card and
+    on the CPU: the corpus reads, pieces of them with N's, an empty read,
+    one of a lone N and whole matches of the genomes; one launch."""
+    from ropebwt3_tpu_torch.ops import walk
+
+    reads = [char2nt6(r.seq) for r in read_seqs(str(corpus / "reads.fa"))]
+    gen = [char2nt6(r.seq) for r in read_seqs(str(corpus / "genomes.fa"))]
+    rng = np.random.default_rng(22)
+    qs = reads + [np.where(rng.random(len(r)) < 0.02, 5, r).astype(np.uint8) for r in reads]
+    qs += [np.zeros(0, np.uint8), np.full(1, 5, np.uint8), gen[0][:2000], gen[3][5000:5300]]
+    flat, off = flat_of(qs)
+    x = make_index(layout, corpus_index, cuda_device)
+    before = walk.suffix_cuda.launches[layout]
+    got = walk.suffix_cuda(x, flat.to(cuda_device), off.to(cuda_device))
+    torch.cuda.synchronize()
+    assert walk.suffix_cuda.launches[layout] == before + 1
+    want = walk.suffix_plain(x, flat.to(cuda_device), off.to(cuda_device))
+    cpu = walk.suffix_plain(make_index(layout, corpus_index, "cpu"), flat, off)
+    for a, b, c in zip(got, want, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert int(got[0][-4]) == 0 and int(got[0][-3]) == 1 and int(got[1][-3]) == 0 and int(got[0][-2]) == 0

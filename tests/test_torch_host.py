@@ -119,14 +119,16 @@ def test_stat_matches(indexes):
     assert want.stdout and got.stdout == want.stdout
 
 
-@pytest.mark.parametrize("argv,item", [(["suffix", "x.fmd", "y.fa"], "item 17"), (["get", "x.fmd", "0"], "item 16"),
-                                       (["kount", "x.fmd", "y.fa"], "item 18"),
+@pytest.mark.parametrize("argv,item", [(["search", "--device=cpu", "--old-mem", "x.fmd", "y.fa"], "item 4"),
+                                       (["sw", "--device=cpu", "--dbg-bt", "x.fmd", "y.fa"], "item 22"),
+                                       (["mem", "--device=cpu", "-a31", "--dbg-qname", "x.fmd", "y.fa"], "item 22"),
                                        (["sw", "--device=cpu", "--dbg-dawg", "x.fmd", "y.fa"], "item 22"),
                                        (["mem", "--device=cpu", "-d", "--old-mem", "x.fmd", "y.fa"], "item 4"),
                                        (["hapdiv", "--device=cpu", "--dbg-sw", "x.fmd", "y.fa"], "item 22")])
 def test_refused_command_names_roadmap_item(argv, item):
-    """A command the port does not own: one ERROR line naming its ROADMAP
-    queue 1 item and the JAX package's command, exit 1, nothing run."""
+    """An option the port does not run (the port owns every command now):
+    one ERROR line naming its ROADMAP queue 1 item and the JAX package's
+    command, exit 1, nothing run."""
     r = _run_without_jax(argv)
     assert r.returncode == 1 and not r.stdout
     lines = r.stderr.decode().splitlines()

@@ -1,7 +1,8 @@
 """The port never imports jax, and imports nothing of the JAX package: not
 when its modules are imported, not while its CLI runs `build`, `merge`,
-`plain2fmd`, `mem`, `ssa`, `hapdiv`, `sw`, `search` and `stat`, and not in its sources or
-chip_smoke.py.  Also read from the sources: each C entry point's ctypes
+`plain2fmd`, `mem`, `ssa`, `hapdiv`, `sw`, `search`, `stat`, `get`, `suffix`,
+`kount`, `fa2line` and `fa2kmer`, and not in its sources or chip_smoke.py;
+a request for a server imports no torch.  Also read from the sources: each C entry point's ctypes
 argument list (kernels.py) matches its signature in csrc/."""
 
 import os
@@ -63,6 +64,30 @@ def test_cli_commands_import_no_jax_package(corpus, corpus_fmd, tmp_path):
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert r.returncode == 0 and r.stdout.strip() == "[0, 0, 0, 0, 0, 0, 0, 0, 0, 0] []", r.stdout + r.stderr
     assert open(built, "rb").read() == open(fmd, "rb").read()  # the port's FMD is the JAX package's
+
+
+def test_utils_import_no_jax_package(corpus, corpus_fmd):
+    """`get`, `suffix`, `kount` (on the CPU), `fa2line`, `fa2kmer` and a
+    `mem --engine=server` with no server through the port's CLI leave no jax
+    and no ropebwt3_tpu module loaded; the last imports no torch either."""
+    fmd, reads = str(corpus_fmd), str(corpus / "reads.fa")
+    code = (
+        "import contextlib, io, sys\n"
+        "from ropebwt3_tpu_torch.cli import main\n"
+        "rcs = []\n"
+        "out = io.TextIOWrapper(io.BytesIO())\n"
+        "with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):\n"
+        f"    rcs.append(main(['mem', '--engine=server', {fmd!r}, {reads!r}]))\n"
+        "    rcs.append('torch' in sys.modules)\n"
+        f"    rcs.append(main(['get', '--device=cpu', {fmd!r}, '7']))\n"
+        f"    rcs.append(main(['suffix', '--device=cpu', {fmd!r}, {reads!r}]))\n"
+        f"    rcs.append(main(['kount', '--device=cpu', '-k4', '-m2', {fmd!r}]))\n"
+        f"    rcs.append(main(['fa2line', {reads!r}]))\n"
+        f"    rcs.append(main(['fa2kmer', {reads!r}]))\n"
+        f"print(rcs, {FORBIDDEN})\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert r.returncode == 0 and r.stdout.strip() == "[1, False, 0, 0, 0, 0, 0] []", r.stdout + r.stderr
 
 
 def test_sources_import_no_jax_package():
