@@ -124,13 +124,15 @@ it.  Phases:
             the genomes and `python -m ropebwt3_tpu_torch.tools call` on
             `sw --all-e2e` of 1,000 101-mers of the 17th haplotype, as
             subprocesses; each byte-equal to `python -m ropebwt3_tpu`.  K11
-            (csrc/walk.cu retrieve_walk, dense32 and dense64) against
-            retrieve_chunk_plain on the card, exact, on the get lanes and
-            4,096 random ones for 2,048 steps, then the whole get walk timed
-            beside its bound, chain floor and the JAX package's native walk
-            (a subprocess); K12 (suffix_walk, four layouts) against
-            suffix_plain on the card, exact, on all the reads, timed beside
-            its bound and chain floor
+            (csrc/walk.cu retrieve_seg, dense32 and dense64: segments ranked
+            by ssa_gen.cu's pointer jumping) against retrieve_seg_plain on
+            the card over the whole get walk, symbols, end rows and segment
+            records exact (one plain walk, on dense32 rows), each pass timed
+            (CUDA events) beside the heads-only walk (one thread a walk, on
+            dense32), its bound, its chain floor and the JAX package's native
+            walk (a subprocess); K12
+            (suffix_walk, four layouts) against suffix_plain on the card,
+            exact, on all the reads, timed beside its bound and chain floor
   serve     `python -m ropebwt3_tpu_torch serve --daemon` on bench.py's
             index; one-shot `mem -l31`, and `hapdiv` and `sw` with
             `--engine=server`, as subprocesses answered by it: stdout
@@ -1384,13 +1386,11 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
 
 # [utils]: `kount` at -k KOUNT_K -m KOUNT_M (the frontier of 11-mers seen
 # at least 8 times: ~2.6 M nodes on bench.py's index, at least 10^6);
-# K11's check takes the `get` walk's first K11_CHECK_LAUNCHES launches
-# (a layout the walk does not run on, at K11_OFF_PATH_STEPS steps each);
-# `tools call` at TOOLS_HAP haplotypes on the 1,000 101-mers of the 17th
-# haplotype's first TOOLS_BP bases
+# K11's passes timed K11_REPS times at the derived stride; `tools call` at
+# TOOLS_HAP haplotypes on the 1,000 101-mers of the 17th haplotype's first
+# TOOLS_BP bases
 KOUNT_K, KOUNT_M, KOUNT_MIN_NODES = 11, 8, 1_000_000
-K11_CHECK_LAUNCHES, K11_OFF_PATH_STEPS, TOOLS_HAP, TOOLS_BP = 2, 1 << 12, 16, 50_050
-MEMO_CHUNK = 1 << 23  # positions LfMemo ranks on the card at a time
+K11_REPS, TOOLS_HAP, TOOLS_BP = 3, 16, 50_050
 # `python -m ropebwt3_tpu get` (the same cli.main), with the time spent in
 # DenseFMIndex.retrieve (its native rb3t_retrieve walk) summed on stderr;
 # a subprocess: this script imports nothing of the JAX package
@@ -1416,41 +1416,6 @@ def same_output(argv: list[str], port_out: str, tag: str, ref: list[str] | None 
     return ref_s, want, ref_err
 
 
-class LfMemo:
-    """ops/rank.py `lf` of a dense index x for the plain retrieve walk: the
-    plain rank1a and sym_at (OccIndex's) of every position, computed once
-    on the card, MEMO_CHUNK positions at a time, and looked up on the host,
-    so retrieve_chunk_plain over it takes x's LF steps at a lookup each.
-    It marks the occ rows (and megablock bases) its steps read, as RowCount
-    does."""
-
-    def __init__(self, x, n: int):
-        import torch
-
-        dt = torch.int32 if n < (1 << 31) else torch.int64
-        self.x, self.acc = x, x.acc.cpu()
-        self.occ, self.sym = torch.empty((n, 6), dtype=dt), torch.empty(n, dtype=torch.uint8)
-        for s in range(0, n, MEMO_CHUNK):
-            k = torch.arange(s, min(n, s + MEMO_CHUNK), device=x.device)
-            self.occ[s : s + len(k)] = x.rank1a(k).to(dt).cpu()
-            self.sym[s : s + len(k)] = x.sym_at(k).to(torch.uint8).cpu()
-        self.rows = torch.zeros(x.occf.shape[0], dtype=torch.bool)
-
-    def sym_at(self, k):
-        self.rows[k >> 6] = True
-        return self.sym[k].long()
-
-    def rank1a(self, k):
-        return self.occ[k].long()
-
-    def bytes(self) -> int:
-        import torch
-
-        rows = self.rows.nonzero().flatten()
-        mega = torch.unique(rows >> self.x.mega_shift).numel() * 48 if self.x.int64 else 0
-        return rows.numel() * 48 + mega + nbytes(self.acc)
-
-
 def port_path(cli, argv: list[str], tag: str, counters) -> tuple[float, str, str]:
     """`argv` on DEVICE through the port's cli.main in this process (a host
     command takes no --device), the launch counts of `counters` reset
@@ -1471,17 +1436,31 @@ def port_path(cli, argv: list[str], tag: str, counters) -> tuple[float, str, str
     return port_s, port_out, err.getvalue()
 
 
+def retrieve_passes(walk, x, k, m: int, S: int) -> tuple[list[float], tuple]:
+    """K11's walk of the ks `k` at stride S with CUDA events around each
+    pass: (ms of passes 1-4, the walk's result)."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    out = walk.launch_retrieve(x, k, m, S, marks=ev)
+    torch.cuda.synchronize()
+    return [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), ev[3].elapsed_time(ev[4]),
+            ev[4].elapsed_time(ev[5])], out
+
+
 def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict) -> dict:
     """`get`, `suffix` and `kount` through cli.main on bench.py's index
     (counts reset before, read after), `fa2line` and `fa2kmer` of the
     genomes and `tools call` on `sw --all-e2e` of a haplotype's k-mers
     (subprocesses), each byte-equal to `python -m ropebwt3_tpu`.  K11
-    (dense32, dense64) against retrieve_chunk_plain on the card, exact, at
-    the `get` walk's shape (its first launches, resumed), and the whole walk
-    timed beside its bound, its chain floor and the JAX package's native
-    walk (timed inside the `get` reference); occ_rank1a at the width of
-    kount's widest launch; K12 (four layouts) against suffix_plain on the
-    card, exact, on all the reads, timed beside its bound and chain floor."""
+    (dense32, dense64) against retrieve_seg_plain on the card over the
+    whole `get` walk, symbols, end rows and segment records exact, each
+    pass timed beside the heads-only walk (dense32), its bound, its chain
+    floor and the JAX package's native walk (timed inside the `get`
+    reference);
+    occ_rank1a at the width of kount's widest launch; K12 (four layouts)
+    against suffix_plain on the card, exact, on all the reads, timed beside
+    its bound and chain floor."""
     import torch
 
     from ropebwt3_tpu_torch.ops import rank, smem, walk
@@ -1489,99 +1468,84 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
     f = cli.load_index(fmd)
     res = {}
     # ---- get: the 32 sequences from their sentinel rows, 0 again, n - 1, n
-    ks = list(range(int(f.acc[1]))) + [0, f.n - 1, f.n]
+    m = int(f.acc[1])
+    ks = list(range(m)) + [0, f.n - 1, f.n]
     argv = ["get", fmd, *map(str, ks)]
-    port_s, port_out, err = port_path(cli, argv, "get", [walk.retrieve_chunk_cuda])
+    port_s, port_out, err = port_path(cli, argv, "get", [walk.retrieve_cuda])
     get_pieces = pieces_of(err, "get")
-    get_launches = dict(walk.retrieve_chunk_cuda.launches)
-    if get_launches.get("dense32", 0) < 1 or f"{get_launches.get('dense32', 0)} retrieve_walk launches (dense32)" not in err:
-        fail(f"get: no dense32 retrieve_walk launch ({get_launches})")
+    get_launches = dict(walk.retrieve_cuda.launches)
+    if get_launches.get("dense32", 0) != 1 or "1 retrieve_seg walks (dense32)" not in err:
+        fail(f"get: not one dense32 retrieve_seg walk ({get_launches})")
     ref_s, want, ref_err = same_output(argv, port_out, "get", [sys.executable, "-c", GET_REFERENCE])
     valid = [k for k in ks if 0 <= k < f.n]
     lens = [len(ln) for ln in want.split(b"\n")[1::2]]
-    m = re.search(r"native walks (\d+) ([0-9.e-]+)", ref_err)
-    if m is None or int(m.group(1)) != len(valid):
+    mt = re.search(r"native walks (\d+) ([0-9.e-]+)", ref_err)
+    if mt is None or int(mt.group(1)) != len(valid):
         fail(f"get: the reference did not time its {len(valid)} native walks: {ref_err[-500:]}")
-    native_walk = float(m.group(2)) / len(valid)
-    steps = max(1, min(walk.CHUNK_STEPS, walk.CHUNK_BYTES // len(valid)))  # the get path's launch (ops/walk.py _retrieve)
-    chunks = max(lens) // steps + 1
-    if get_launches["dense32"] != chunks:
-        fail(f"get: {get_launches['dense32']} retrieve_walk launches, {chunks} expected")
+    native_walk = float(mt.group(2)) / len(valid)
+    S = walk.walk_stride(f.n, m, len(valid), dev)
+    heads = walk.heads_only(f.n)
     say(f"[utils] get of {len(ks)} positions ({len(valid)} walks, longest {max(lens)} steps): stdout byte-equal to "
-        f"`python -m ropebwt3_tpu get`; launches {get_launches}; port in-process {port_s:.3f} s, reference "
+        f"`python -m ropebwt3_tpu get`; walks {get_launches} at S {S}; port in-process {port_s:.3f} s, reference "
         f"{ref_s:.3f} s (a subprocess), its native walks {native_walk:.3f} s a walk (the mean of {len(valid)}, "
         f"timed inside it); port by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in get_pieces.items()) + f" ({card})")
+    # K11 over the whole get walk: the kernel's symbols, end rows and records
+    # in both layouts against one retrieve_seg_plain on the card (dense32
+    # rows: the walk is the layout's function, and the plain walk takes ~12
+    # s); the passes timed K11_REPS times; on dense32, the heads-only walk
+    # (one thread a walk) in the same call
+    k, _ = walk.check_retrieve(idxs["dense32"], valid, S, kernel=True)
+    t0 = time.perf_counter()
+    w_seqs, w_ends, w_rec = walk.retrieve_seg_plain(idxs["dense32"], valid, S)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    length, d, nxt, term = w_rec.cpu()
+    terms, lmax, _, _, _ = walk._layout(d[: len(valid)], nxt[: len(valid)], term[: len(valid)], f.n)
+    j = torch.searchsorted(terms, term).clamp(max=terms.numel() - 1)
+    writes = (nxt < 0) & (terms[j] == term) & (d - length < lmax[j]) & (length > 0)
+    longest1, longest3 = int(length.max()), int(length[writes].max())
+    n_seg = walk.segments(f.n, m, len(valid), S)
     for lay in ("dense32", "dense64"):
-        # K11 at the get walk's shape: its first K11_CHECK_LAUNCHES launches
-        # (the valid lanes, `steps` steps each, each resuming from the last
-        # one's k and done), each against retrieve_chunk_plain over LfMemo;
-        # a layout the path does not launch on this index at K11_OFF_PATH_STEPS
         x = idxs[lay]
-        csteps = steps if get_launches.get(lay) else min(steps, K11_OFF_PATH_STEPS)
-        t0 = time.perf_counter()
-        memo = LfMemo(x, f.n)
-        memo_s = time.perf_counter() - t0
-        k0 = torch.tensor(valid, dtype=torch.int64, device=dev)
-        k, done = k0.clone(), torch.zeros(len(valid), dtype=torch.uint8, device=dev)
-        kp, dp = k.to("cpu", copy=True), done.to("cpu", copy=True)
-        err, plain_s, written = 0, 0.0, 0
-        for _ in range(K11_CHECK_LAUNCHES):
-            out, n = walk.retrieve_chunk_cuda(x, k, done, csteps)
-            t0 = time.perf_counter()
-            wout, wn = walk.retrieve_chunk_plain(memo, kp, dp, csteps)
-            plain_s += time.perf_counter() - t0
-            out, n = out.cpu(), n.cpu()
-            ok = torch.arange(csteps)[:, None] < n[None, :].long()
-            err = max(err, max_abs(out[ok], wout[ok]), max_abs(n, wn), max_abs(k.cpu(), kp), max_abs(done.cpu(), dp))
-            written += int(wn.sum())
-        if err:
-            fail(f"retrieve_walk {lay}: off by {err} against retrieve_chunk_plain on the get walk's first "
-                 f"{K11_CHECK_LAUNCHES} launches")
-        wk, wd = k0.clone(), torch.zeros(len(valid), dtype=torch.uint8, device=dev)
-        wbuf, wcnt = torch.empty((steps, len(valid)), dtype=torch.uint8, device=dev), torch.empty(
-            len(valid), dtype=torch.int32, device=dev)
-
-        def launches(count: int, n_steps: int, wk=wk, wd=wd, x=x, wbuf=wbuf, wcnt=wcnt) -> None:
-            wk.copy_(k0)
-            wd.zero_()
-            for _ in range(count):
-                walk.launch_retrieve(x, wk, wd, n_steps, wbuf, wcnt)
-
-        ms = cuda_ms(lambda: launches(K11_CHECK_LAUNCHES, csteps), 2)
-        # the whole `get` walk, chunk after chunk, twice (the spread); the 32
-        # walks from the sentinel rows pass every row of the BWT once, so
-        # every 48-B row (and megablock base) is read; each symbol is
-        # written once
-        walk_ms = []
-        for _ in range(2):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            launches(chunks, steps)
-            b.record()
-            b.synchronize()
-            walk_ms.append(a.elapsed_time(b))
-        if not bool(wd.all()):
-            fail(f"retrieve_walk {lay}: the get walk did not end in {chunks} launches")
+        seqs, ends, rec = walk.launch_retrieve(x, k, m, S)
+        torch.cuda.synchronize()
+        err = max([max_abs(rec, w_rec), int(np.abs(ends - w_ends).max())]
+                  + [int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max()) if len(a) == len(b) else 1 << 30
+                     for a, b in zip(seqs, w_seqs) if len(a) or len(b)])
+        if err or [len(s_) for s_ in seqs] != lens:
+            fail(f"retrieve_seg {lay}: off by {err} against retrieve_seg_plain over the get walk at S {S}")
+        runs = [retrieve_passes(walk, x, k, m, S)[0] for _ in range(K11_REPS)]
+        heads_note = ""
+        if lay == "dense32":
+            head_passes, (h_seqs, h_ends, _) = retrieve_passes(walk, x, k, m, heads)
+            if any(not np.array_equal(a, b) for a, b in zip(h_seqs, seqs)) or not np.array_equal(h_ends, ends):
+                fail(f"retrieve_seg {lay}: the heads-only walk gives other symbols than S {S}")
+            heads_note = (f"; heads-only walk {sum(head_passes):.3f} ms (passes 1-4: "
+                          f"{', '.join(f'{p:.3f}' for p in head_passes)}), chain floor "
+                          f"{2 * max(lens) * ns[LAT_48MB] / 1e6:.3f} ms")
+            del h_seqs
         rows = (f.n + 63) // 64
         mega = (((rows - 1) >> x.mega_shift) + 1) * 48 if x.int64 else 0
-        where = "the get walk's first" if csteps == steps else "the get walk's lanes (not its layout here), the first"
-        res[f"retrieve_walk_{lay}"] = r = dict(
-            err=err, ms=ms, plain_ms=plain_s * 1e3, plain_memo_ms=memo_s * 1e3,
-            bound_ms=bound_ms(memo.bytes() + K11_CHECK_LAUNCHES * nbytes(k0, wd, wcnt) + written),
-            chain_floor_ms=K11_CHECK_LAUNCHES * csteps * ns[LAT_48MB] / 1e6, lanes=len(valid), steps=csteps,
-            check_launches=K11_CHECK_LAUNCHES, where=where, launches=get_launches.get(lay, 0), walk_ms=walk_ms,
-            walk_launches=chunks,
-            walk_bound_ms=bound_ms(rows * 48 + mega + sum(lens) + 2 * nbytes(wk)),
-            walk_chain_floor_ms=max(lens) * ns[LAT_48MB] / 1e6, walk_steps=sum(lens), native_walk_s_a_walk=native_walk,
-            get_port_s=port_s, get_reference_s=ref_s, get_pieces=get_pieces)
-        say(f"[utils] {lay}: retrieve_walk exact vs retrieve_chunk_plain on {where} {K11_CHECK_LAUNCHES} "
-            f"launches ({len(valid)} lanes x {csteps} steps each, resumed) ({r['ms']:.3f} ms vs plain "
-            f"{r['plain_ms']:.1f} ms over its memo of every position's lf, built in {r['plain_memo_ms']:.1f} ms; bound "
-            f"{r['bound_ms']:.4f} ms, chain floor {r['chain_floor_ms']:.3f} ms); the whole get walk ({sum(lens)} steps, "
-            f"{chunks} launches) {walk_ms[0]:.3f} / {walk_ms[1]:.3f} ms, bound {r['walk_bound_ms']:.4f} ms, chain floor "
-            f"{r['walk_chain_floor_ms']:.3f} ms ({max(lens)} steps at {ns[LAT_48MB]} ns); the native walk "
+        totals = [sum(p) for p in runs]
+        res[f"retrieve_seg_{lay}"] = r = dict(
+            err=err, S=S, n_seg=n_seg, rounds=walk.jump_rounds(n_seg, len(valid)), ms=sum(totals) / len(totals),
+            walk_ms=totals, pass_ms=runs, plain_ms=plain_ms, plain_rows="dense32",
+            bound_ms=bound_ms(rows * 48 + mega + sum(lens) + 2 * nbytes(k)),
+            chain_floor_ms=(longest1 + longest3) * ns[LAT_48MB] / 1e6, longest_pass1=longest1,
+            longest_pass3=longest3, walk_steps=sum(lens), lanes=len(valid), launches=get_launches.get(lay, 0),
+            native_walk_s_a_walk=native_walk, get_port_s=port_s, get_reference_s=ref_s, get_pieces=get_pieces)
+        if lay == "dense32":
+            r.update(heads_only_ms=sum(head_passes), heads_only_pass_ms=head_passes,
+                     heads_only_chain_floor_ms=2 * max(lens) * ns[LAT_48MB] / 1e6)
+        say(f"[utils] {lay}: retrieve_seg exact vs retrieve_seg_plain over the whole get walk ({len(valid)} heads, "
+            f"{sum(lens)} symbols; S {S}, {n_seg} segments, {r['rounds']} jump rounds; symbols, end rows and "
+            f"segment records): kernel " + " / ".join(f"{t:.4f}" for t in totals) + " ms (passes 1-4: "
+            + "; ".join(", ".join(f"{p:.4f}" for p in run) for run in runs) + f"); plain on the card (dense32 rows) "
+            f"{plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms; chain floor {r['chain_floor_ms']:.4f} ms (longest "
+            f"segment {longest1} + {longest3} steps at {ns[LAT_48MB]} ns){heads_note}; the native walk "
             f"{native_walk * 1e3:.3f} ms a walk ({card})")
-        del memo
+        del seqs, rec
+    del w_seqs, w_rec
 
     # ---- suffix: every read
     argv = ["suffix", fmd, reads_fa]
@@ -2308,16 +2272,16 @@ def main() -> None:
         })
     walk_src = "ropebwt3_tpu_torch/csrc/walk.cu + "
     for layout in ("dense32", "dense64"):
-        r = ut[f"retrieve_walk_{layout}"]
+        r = ut[f"retrieve_seg_{layout}"]
         entries.append({
-            "name": f"retrieve_walk_{layout}", "route": "cuda", "source": walk_src + "occ.cuh",
+            "name": f"retrieve_seg_{layout}", "route": "cuda", "source": walk_src + "ssa_gen.cu (rb3c_ssa_jump) + occ.cuh",
             "replaces": "ropebwt3_tpu/index/dense.py:244 (DenseFMIndex.retrieve: a host walk, no TPU kernel)",
             "launches": r["launches"], "path": "get" if r["launches"] else None, "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "chain_floor_ms": r["chain_floor_ms"],
-            "input": f"{r['where']} {r['check_launches']} launches: {r['lanes']} lanes x {r['steps']} steps each",
-            **{k: r[k] for k in ("plain_memo_ms", "walk_ms", "walk_launches", "walk_bound_ms", "walk_chain_floor_ms",
-                                 "walk_steps", "native_walk_s_a_walk", "get_port_s", "get_reference_s", "get_pieces")},
+            "input": f"the whole get walk: {r['lanes']} heads, {r['walk_steps']} symbols, S {r['S']}",
+            **{k: v for k, v in r.items() if k not in ("err", "ms", "plain_ms", "bound_ms", "chain_floor_ms", "launches",
+                                                      "lanes", "walk_steps")},
         })
     for layout in LAYOUTS:
         r = ut[f"suffix_walk_{layout}"]

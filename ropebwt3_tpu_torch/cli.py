@@ -1167,8 +1167,9 @@ def dense_rows(fs: list[DenseFMIndex], device: str) -> list:
 
 def main_get(argv: list[str], device: str) -> int:
     """Each k of the arguments in [0, n) (C atol: garbage is 0), its
-    sequence decoded by one LF walk of all of them at once (retrieve_cuda)."""
-    from .ops.walk import retrieve_chunk_cuda, retrieve_cuda
+    sequence decoded by one LF walk of all of them at once (retrieve_cuda:
+    segments, forward symbols, one download)."""
+    from .ops.walk import retrieve_cuda
 
     opts, args = ketopt(argv, "")
     if len(args) < 2:
@@ -1192,7 +1193,7 @@ def main_get(argv: list[str], device: str) -> int:
             i += 1
     write_all(sys.stdout, "".join(out))
     _lap(sec, "write", t0)
-    log.info("%d retrieve_walk launches (%s)", retrieve_chunk_cuda.launches[idx.layout], idx.layout, func="get")
+    log.info("%d retrieve_seg walks (%s)", retrieve_cuda.launches[idx.layout], idx.layout, func="get")
     _log_pieces(sec, "get")
     return 0
 

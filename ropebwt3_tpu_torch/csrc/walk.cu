@@ -5,20 +5,45 @@
 // behind it; ropebwt3_tpu/cli.py main_suffix's flush, :799-829, over
 // rank1a_fast).  The plain PyTorch versions are ops/walk.py's.
 //
-// K11 retrieve_walk (dense rows, Dense<T>::lf_step of occ.cuh): one thread
-// per queried k.  A lane steps LF from its k, writing each symbol it reads,
-// until it reads symbol 0 (the sentinel); k then stays at the row that holds
-// it, as the reference leaves it (fm-index.c:552-567).  The walk is
-// resumable: a launch takes at most `steps` steps a lane into out (steps,
-// m) (step s of lane t at s * m + t, so the lanes of a warp write
-// neighbouring bytes), writes the count it took, and keeps each lane's k
-// and a done flag for the next launch; the host appends the chunks and
-// reverses them.  Bound on the card: a walk is a chain of dependent 48-B
-// row loads (one LF step each: the symbol and its count come from one
-// row), so a 2 Mbp sequence takes ~2 M x the card's dependent-load latency
-// (~0.5 us at a 48 MB table) whatever the lanes around it do; a few walks
-// leave the card idle.  This kernel is the simple, right one; cutting a
-// walk into segments that meet, as K5 (ssa_gen.cu) does, is rework.
+// K11 retrieve_seg (dense rows, Dense<T>::lf_step of occ.cuh).  A walk from
+// k reads B[k], steps k = LF(k), and so on until it reads symbol 0 (the
+// sentinel); it prints what it read, reversed, and the row that holds the
+// sentinel (fm-index.c:552-567).  On a `$`-free LF cycle (a BWT string
+// given to plain2fmd can have one) the reference stops after n symbols
+// (rb3t_retrieve's max_len), so the walk prints the cycle's symbols from k,
+// repeated, and ends at LF^n(k).  Bound on the card: a walk is a chain of
+// dependent 48-B row loads (~0.53 us each at a 48 MB table); one thread a
+// walk leaves a pangenome's few 2 M-step walks at one chain each with the
+// card idle.  So, as K5 (ssa_gen.cu) does, the walks are cut into
+// segments and the cut is mended by list ranking; with q heads (the queried
+// ks) and m = acc[1]:
+//   pass 1 (retrieve_seg_walk): one thread per segment.  Segments 0..q-1
+//     start at the ks; segment q + j, S = 2^shift, at row m + j S.  A
+//     segment walks LF until it reads a `$` (term = that row, nxt = -1), or
+//     steps onto a start row m + j S (nxt = q + j), or, a head only, back
+//     onto its own start (nxt = itself: a cycle with no start row on it).
+//     d = len = the symbols it read.  Every walk stops within n steps.
+//   pass 2 (ssa_gen.cu's rb3c_ssa_jump, reused as it is): pointer jumping
+//     over (d, nxt, term); then d is each segment's symbols up to its walk's
+//     `$` and term that `$`'s row.  A head still with nxt >= 0 lies on a
+//     `$`-free cycle.
+//   pass 3 (retrieve_seg_write): a walk's symbols, forward, are its
+//     sequence's from the start, so a segment's step t lands at d - 1 - t
+//     whichever head reaches it.  The host gives each distinct end row of
+//     the heads one buffer, sized to its longest head (terms sorted, with
+//     lmax and base); each segment whose term is one of them, and whose
+//     symbols reach below lmax, walks again and writes those below lmax.
+//     Overlapping writes (heads on a start row, nested ks) write one byte.
+//   pass 4 (retrieve_seg_cycle, for cycle heads only): one thread a cycle
+//     head walks one lap (P steps) writing the last P bytes of its n-byte
+//     buffer, then n mod P steps more to its end row LF^n(k); a grid-stride
+//     copy tiles the lap over the rest.  One thread a lap: a cycle of P rows
+//     is a P-step chain, and the lap is walked twice (passes 1 and 4) when
+//     no start row lies on it.  `build` never writes such an index.
+// The starts are strided in BWT order, so a segment's length is geometric
+// with mean S and passes 1 and 3 take ~S ln(segments) steps each.  With no
+// strided starts (the wrapper's S > n - m) pass 1 is the one-thread-per-
+// walk design, and pass 2 has no round.
 //
 // K12 suffix_walk (every layout): one thread per read, from its last
 // symbol down.  A step ranks both ends of the interval, k and l, with all
@@ -37,6 +62,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int64_t kTileBlocks = 132 * 16;  // the tile's grid-stride blocks
 
 unsigned grid_of(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
@@ -46,28 +72,114 @@ __device__ __forceinline__ T pick6(const T v[6], int c) {
   return c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : c == 3 ? v[3] : c == 4 ? v[4] : v[5];
 }
 
+__device__ __forceinline__ int64_t thread_id() { return blockIdx.x * (int64_t)blockDim.x + threadIdx.x; }
+
+// Segment g's start row: a head's k, or the strided row m + (g - q) S
+__device__ __forceinline__ int64_t seg_start(const int64_t* ks, int64_t q, int64_t m, int shift, int64_t g) {
+  return g < q ? ks[g] : m + ((g - q) << shift);
+}
+
 template <class L>
-__global__ void retrieve_walk(const L ix, int64_t* __restrict__ k, uint8_t* __restrict__ done, int64_t m, int steps,
-                              uint8_t* __restrict__ out, int* __restrict__ n_out) {
+__global__ void retrieve_seg_walk(const L ix, const int64_t* __restrict__ ks, int64_t q, int64_t m, int shift,
+                                  int64_t n_seg, int64_t* __restrict__ seg, int64_t* __restrict__ len) {
   using T = typename L::T;
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= m) return;
-  int s = 0;
-  if (!done[t]) {
-    T kk = (T)k[t];
-    for (; s < steps; ++s) {
-      T nk;
-      const int c = ix.lf_step(kk, nk);
-      if (c == 0) {
-        done[t] = 1;
-        break;
-      }
-      out[(int64_t)s * m + t] = (uint8_t)c;
-      kk = nk;
+  const int64_t g = thread_id();
+  if (g >= n_seg) return;
+  const int64_t smask = (int64_t(1) << shift) - 1;
+  const bool strided = n_seg > q;
+  const T k0 = (T)seg_start(ks, q, m, shift, g);
+  T k = k0, nk = 0;
+  int64_t t = 0, nxt = -1, term = -1;
+  for (;;) {
+    if (ix.lf_step(k, nk) == 0) {  // k holds the sentinel
+      term = (int64_t)k;
+      break;
     }
-    k[t] = kk;
+    ++t;
+    const int64_t r = (int64_t)nk - m;  // >= 0: nk >= acc[1] = m for c != 0
+    if (strided && (r & smask) == 0) {
+      nxt = q + (r >> shift);
+      break;
+    }
+    if (nk == k0) {  // a head back at its start: a cycle with no start row
+      nxt = g;
+      break;
+    }
+    k = nk;
   }
-  n_out[t] = s;
+  seg[g] = t;
+  seg[n_seg + g] = nxt;
+  seg[2 * n_seg + g] = term;
+  len[g] = t;
+}
+
+// Pass 3 over pass 2's records seg (3, n_seg): the heads' end rows terms (u,)
+// ascending, each with its buffer's length lmax and offset base in out.
+template <class L>
+__global__ void retrieve_seg_write(const L ix, const int64_t* __restrict__ ks, int64_t q, int64_t m, int shift,
+                                   int64_t n_seg, const int64_t* __restrict__ seg, const int64_t* __restrict__ len,
+                                   const int64_t* __restrict__ terms, const int64_t* __restrict__ lmax,
+                                   const int64_t* __restrict__ base, int64_t u, uint8_t* __restrict__ out) {
+  using T = typename L::T;
+  const int64_t g = thread_id();
+  if (g >= n_seg || seg[n_seg + g] >= 0) return;  // on a `$`-free cycle
+  const int64_t term = seg[2 * n_seg + g];
+  int64_t lo = 0, hi = u;  // the first terms[i] >= term
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (terms[mid] < term)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  if (lo == u || terms[lo] != term) return;  // no head ends there
+  const int64_t d = seg[g], n_sym = len[g], cap = lmax[lo];
+  if (d - n_sym >= cap) return;  // every symbol past the longest head
+  uint8_t* o = out + base[lo];
+  T k = (T)seg_start(ks, q, m, shift, g), nk = 0;
+  for (int64_t t = 0; t < n_sym; ++t) {
+    const int c = ix.lf_step(k, nk);
+    const int64_t pos = d - 1 - t;
+    if (pos < cap) o[pos] = (uint8_t)c;
+    k = nk;
+  }
+}
+
+// Pass 4, walk: cycle head heads[i] writes its lap into out[i n + n - P ..
+// i n + n) and records P and its end row LF^n(k).
+template <class L>
+__global__ void retrieve_seg_cycle(const L ix, const int64_t* __restrict__ ks, const int64_t* __restrict__ heads,
+                                   int64_t n_cyc, int64_t n, uint8_t* __restrict__ out, int64_t* __restrict__ period,
+                                   int64_t* __restrict__ end) {
+  using T = typename L::T;
+  const int64_t i = thread_id();
+  if (i >= n_cyc) return;
+  uint8_t* o = out + i * n + n - 1;
+  const T k0 = (T)ks[heads[i]];
+  T k = k0, nk = 0;
+  int64_t p = 0;
+  do {
+    o[-p] = (uint8_t)ix.lf_step(k, nk);
+    ++p;
+    k = nk;
+  } while (k != k0);
+  for (int64_t s = n % p; s > 0; --s) {
+    ix.lf_step(k, nk);
+    k = nk;
+  }
+  period[i] = p;
+  end[i] = (int64_t)k;
+}
+
+// Pass 4, tile: position x < n - P of a cycle buffer copies the lap's byte
+// at the same phase, n - 1 - (n - 1 - x) mod P.
+__global__ void retrieve_seg_tile(int64_t n_cyc, int64_t n, uint8_t* __restrict__ out,
+                                  const int64_t* __restrict__ period) {
+  const int64_t total = n_cyc * n;
+  for (int64_t j = thread_id(); j < total; j += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i = j / n, x = j - i * n, p = period[i];
+    if (x < n - p) out[j] = out[i * n + n - 1 - (n - 1 - x) % p];
+  }
 }
 
 template <class L>
@@ -99,18 +211,57 @@ __global__ void suffix_walk(const L ix, const uint8_t* __restrict__ q, const int
 
 extern "C" {
 
-// K11: k (m,) int64 in [0, n) and done (m,) uint8 in and out; out (steps,
-// m) uint8 and n_out (m,) int32 out (a done lane writes 0 steps).
-#define RB3C_RETRIEVE_WALK(name, L)                                                                                  \
-  int rb3c_retrieve_walk_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc,             \
-                                int mega_shift, int block_shift, int64_t* k, uint8_t* done, int64_t m, int steps,  \
-                                uint8_t* out, int* n_out, void* stream) {                                          \
+// K11 pass 1: ks (q,) int64 in [0, n); segments the q heads, then (n_seg >
+// q) the rows m + j 2^shift; seg (3, n_seg) int64 out (d, nxt, term: buffer
+// 0 of rb3c_ssa_jump's pair) and len (n_seg,) int64 (pass 1's d).
+#define RB3C_RETRIEVE_SEG_WALK(name, L)                                                                             \
+  int rb3c_retrieve_seg_walk_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc,         \
+                                    int mega_shift, int block_shift, const int64_t* ks, int64_t q, int64_t m,     \
+                                    int shift, int64_t n_seg, int64_t* seg, int64_t* len, void* stream) {         \
     const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                       \
-    retrieve_walk<L><<<grid_of(m), kThreads, 0, (cudaStream_t)stream>>>(ix, k, done, m, steps, out, n_out);        \
+    retrieve_seg_walk<L><<<grid_of(n_seg), kThreads, 0, (cudaStream_t)stream>>>(ix, ks, q, m, shift, n_seg, seg,  \
+                                                                                len);                             \
     return (int)cudaGetLastError();                                                                                 \
   }
-RB3C_RETRIEVE_WALK(dense32, rb3c::Dense<int>)
-RB3C_RETRIEVE_WALK(dense64, rb3c::Dense<int64_t>)
+RB3C_RETRIEVE_SEG_WALK(dense32, rb3c::Dense<int>)
+RB3C_RETRIEVE_SEG_WALK(dense64, rb3c::Dense<int64_t>)
+
+// K11 pass 3: seg (3, n_seg) pass 2's result, len pass 1's; terms, lmax and
+// base (u,) int64 (terms ascending); out the symbol buffer.
+#define RB3C_RETRIEVE_SEG_WRITE(name, L)                                                                            \
+  int rb3c_retrieve_seg_write_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc,        \
+                                     int mega_shift, int block_shift, const int64_t* ks, int64_t q, int64_t m,    \
+                                     int shift, int64_t n_seg, const int64_t* seg, const int64_t* len,            \
+                                     const int64_t* terms, const int64_t* lmax, const int64_t* base, int64_t u,   \
+                                     uint8_t* out, void* stream) {                                                \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                       \
+    retrieve_seg_write<L><<<grid_of(n_seg), kThreads, 0, (cudaStream_t)stream>>>(ix, ks, q, m, shift, n_seg, seg, \
+                                                                                 len, terms, lmax, base, u, out); \
+    return (int)cudaGetLastError();                                                                                 \
+  }
+RB3C_RETRIEVE_SEG_WRITE(dense32, rb3c::Dense<int>)
+RB3C_RETRIEVE_SEG_WRITE(dense64, rb3c::Dense<int64_t>)
+
+// K11 pass 4: heads (n_cyc,) int64 the cycle heads' segment ids; out (n_cyc,
+// n) uint8, period and end (n_cyc,) int64 out.  Two launches: the laps, then
+// the tile.
+#define RB3C_RETRIEVE_SEG_CYCLE(name, L)                                                                            \
+  int rb3c_retrieve_seg_cycle_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc,        \
+                                     int mega_shift, int block_shift, const int64_t* ks, const int64_t* heads,     \
+                                     int64_t n_cyc, int64_t n, uint8_t* out, int64_t* period, int64_t* end,       \
+                                     void* stream) {                                                               \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                       \
+    retrieve_seg_cycle<L><<<grid_of(n_cyc), kThreads, 0, (cudaStream_t)stream>>>(ix, ks, heads, n_cyc, n, out,    \
+                                                                                 period, end);                    \
+    const cudaError_t err = cudaGetLastError();                                                                     \
+    if (err != cudaSuccess) return (int)err;                                                                        \
+    const int64_t blocks = (n_cyc * n + kThreads - 1) / kThreads;                                                   \
+    retrieve_seg_tile<<<(unsigned)(blocks < kTileBlocks ? blocks : kTileBlocks), kThreads, 0,                      \
+                        (cudaStream_t)stream>>>(n_cyc, n, out, period);                                             \
+    return (int)cudaGetLastError();                                                                                 \
+  }
+RB3C_RETRIEVE_SEG_CYCLE(dense32, rb3c::Dense<int>)
+RB3C_RETRIEVE_SEG_CYCLE(dense64, rb3c::Dense<int64_t>)
 
 // K12: reads q (flat uint8 nt6 codes 0..5) at off (R + 1,) int64; start and
 // last (R,) int64 out.

@@ -18,12 +18,14 @@ The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
 `RunBlockIndex`), and so does `suffix`'s backward search (csrc/walk.cu);
-ssa_gen's walk, merge_rank, `get`'s LF walk, the hapdiv DP (one warp a
-window) and the sw DP (one warp a read) in the two dense ones.
+ssa_gen's walk, merge_rank, `get`'s LF walk (its three walking passes),
+the hapdiv DP (one warp a window) and the sw DP (one warp a read) in the
+two dense ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
 them: rows, escape sub-rows, megablock bases, acc, the megablock shift and
 log2 of the block size.  ssa_gen's finish pass comes in the two dense
-widths and its pointer-jumping pass in one; neither reads the index.  The
+widths and its pointer-jumping pass in one; neither reads the index (`get`
+ranks its segments with that same pointer-jumping pass).  The
 probes of csrc/probe.cu take a plain int32 table (probe.py); the suffix
 sort's passes of csrc/sa_round.cu and its radix sort, csrc/sa_sort.cu, take
 plain arrays (construct/sa.py).
@@ -55,7 +57,9 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_TABLES, _V, _V, _V, _I64, _I32, _I32, _I32, _I32, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_suffix_walk_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
 for _lay in LAYOUTS[:2]:
-    _ENTRIES[f"rb3c_retrieve_walk_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _V, _V, _V]
+    _ENTRIES[f"rb3c_retrieve_seg_walk_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V]
+    _ENTRIES[f"rb3c_retrieve_seg_write_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V, _V, _V, _I64, _V, _V]
+    _ENTRIES[f"rb3c_retrieve_seg_cycle_{_lay}"] = [*_TABLES, _V, _V, _I64, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_walk_{_lay}"] = [*_TABLES, _I64, _I32, _I32, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_finish_{_lay}"] = [_V, _I64, _I64, _I64, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _V, _V]

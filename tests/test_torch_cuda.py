@@ -66,6 +66,17 @@ def low_complexity():
     return gen, DenseFMIndex.from_bwt(gsa_bwt(np.concatenate(parts)))
 
 
+def cyclic_bwt_index(seed):
+    """A random BWT string of 200-800 nt6 symbols with one to three `$`:
+    its LF is a permutation, and the rows on its cycles without a `$` walk
+    forever (`get` stops them after n symbols, as the reference does)."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(200, 800))
+    bwt = rng.integers(1, 6, n).astype(np.uint8)
+    bwt[rng.choice(n, int(rng.integers(1, 4)), replace=False)] = 0
+    return DenseFMIndex.from_bwt(bwt)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -717,37 +728,44 @@ def test_sw_engine_on_card_matches_native(corpus, corpus_index, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", ["corpus", "cyclic"])
+@pytest.mark.parametrize("S", [8, 256, "heads"])
 @pytest.mark.parametrize("layout", ["dense32", "dense64"])
-@pytest.mark.parametrize("steps", [1 << 16, 100])
-def test_retrieve_walk_matches_plain(corpus_index, cuda_device, layout, steps):
-    """K11 (csrc/walk.cu retrieve_walk) against retrieve_chunk_plain on the
-    card, chunk by chunk (each lane's symbols and count, k and done flag),
-    from 0, n - 1, a sentinel row and 61 seeded positions, in chunks of
-    `steps`; then the whole walk (retrieve_cuda) against the JAX package's
-    DenseFMIndex.retrieve."""
+def test_retrieve_seg_matches_plain(corpus_index, cuda_device, layout, S, which):
+    """K11 (csrc/walk.cu retrieve_seg: passes 1, 3 and 4, with ssa_gen.cu's
+    pointer jumping) against retrieve_seg_plain on the card at stride S:
+    each k's symbols and end row and the segment records (4, n_seg), one
+    launch a walk; then the whole walk at the derived stride against the
+    JAX package's DenseFMIndex.retrieve.  The corpus index: every sentinel
+    row, 0, n - 1, a `$` row, a duplicate, a strided start row and 40
+    seeded rows; a random BWT string: every row, `$`-free cycles among
+    them."""
     from ropebwt3_tpu_torch.ops import walk
 
-    f = corpus_index
+    f = corpus_index if which == "corpus" else cyclic_bwt_index(4)
     x = make_index(layout, f, cuda_device)
-    rng = np.random.default_rng(21)
-    ks = [0, f.n - 1, int(np.flatnonzero(f.bwt[: f.n] == 0)[0]), *rng.integers(0, f.n, 61).tolist()]
-    k = torch.tensor(ks, dtype=torch.int64, device=cuda_device)
-    done = torch.zeros(len(ks), dtype=torch.uint8, device=cuda_device)
-    kp, dp = k.clone(), done.clone()
-    before, chunks = walk.retrieve_chunk_cuda.launches[layout], 0
-    while not bool(done.all()):
-        out, n = walk.retrieve_chunk_cuda(x, k, done, steps)
-        wout, wn = walk.retrieve_chunk_plain(x, kp, dp, steps)
-        torch.cuda.synchronize()
-        chunks += 1
-        assert torch.equal(n, wn) and torch.equal(k, kp) and torch.equal(done, dp)
-        valid = torch.arange(steps, device=cuda_device)[:, None] < n[None, :].long()
-        assert torch.equal(out[valid], wout[valid])
-    assert walk.retrieve_chunk_cuda.launches[layout] == before + chunks and chunks >= (2 if steps == 100 else 1)
+    m = int(f.acc[1])
+    S = walk.heads_only(f.n) if S == "heads" else S
+    if which == "corpus":
+        rng = np.random.default_rng(21)
+        ks = [*range(m), 0, f.n - 1, int(np.flatnonzero(f.bwt[: f.n] == 0)[0]), 5, 5, m + 3 * min(S, 64),
+              *rng.integers(0, f.n, 40).tolist()]
+    else:
+        ks = list(range(f.n))
+    k, _ = walk.check_retrieve(x, ks, S, kernel=True)
+    before = walk.retrieve_cuda.launches[layout]
+    seqs, ends, rec = walk.launch_retrieve(x, k, m, S)
+    torch.cuda.synchronize()
+    assert walk.retrieve_cuda.launches[layout] == before + 1
+    want = walk.retrieve_seg_plain(x, ks, S)
+    assert all(np.array_equal(a, b) for a, b in zip(seqs, want[0])) and np.array_equal(ends, want[1])
+    assert torch.equal(rec, want[2])
+    if which == "cyclic":
+        assert bool((rec[2][: len(ks)] >= 0).any())
     seqs, ends = walk.retrieve_cuda(x, ks)
     for k0, s, e in zip(ks, seqs, ends):
-        want, wend = f.retrieve(k0)
-        assert np.array_equal(s, want) and int(e) == wend
+        w, wend = f.retrieve(k0)
+        assert np.array_equal(s, w) and int(e) == wend
 
 
 @pytest.mark.cuda

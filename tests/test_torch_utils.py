@@ -15,6 +15,7 @@ from ropebwt3_tpu_torch.nt6 import char2nt6
 from ropebwt3_tpu_torch.ops.rank import OccIndex
 
 from .test_torch_cli import _in_process, _run, corpus_fmd  # noqa: F401  (fixture reuse)
+from .test_torch_walk import one_thread  # noqa: F401  (autouse here too: the plain walks are lock-step)
 
 
 @pytest.fixture(scope="module")
@@ -134,38 +135,22 @@ def test_device_utils_without_cuda_exit_nonzero(corpus, corpus_fmd, cmd):  # noq
 
 
 def test_retrieve_plain_matches_jax(port_index, jax_index):
-    """retrieve_plain (lock-step LF over ops/rank.py `lf`) against the JAX
-    package's DenseFMIndex.retrieve (its native walk) at seeded positions,
-    0, n - 1 and a sentinel row, in one walk; and again in chunks of 300
-    steps, which must give the same sequences and end rows."""
+    """retrieve_plain (the heads-only case of retrieve_seg_plain: one
+    lock-step lane a k over ops/rank.py `lf`) against the JAX package's
+    DenseFMIndex.retrieve (its native walk) at seeded positions, 0, n - 1
+    and a sentinel row, in one walk; retrieve_cuda on a CPU index (the
+    plain version at the derived stride) gives the same."""
     f = port_index
     rng = np.random.default_rng(5)
     ks = [0, f.n - 1, _dollar(f), *rng.integers(0, f.n, 12).tolist()]
     want = [jax_index.retrieve(k) for k in ks]
     idx = OccIndex.from_dense(f, "cpu")
-    for steps in (walk.CHUNK_STEPS, 300):
-        seqs, ends = walk._retrieve(idx, ks, lambda *a: walk.retrieve_chunk_plain(*a[:3], min(a[3], steps)))
-        for (ws, wk), s, e in zip(want, seqs, ends):
-            assert np.array_equal(s, ws) and int(e) == wk
+    seqs, ends = walk.retrieve_plain(idx, ks)
+    for (ws, wk), s, e in zip(want, seqs, ends):
+        assert np.array_equal(s, ws) and int(e) == wk
     assert max(len(s) for s in seqs) > 300 and len(seqs[2]) == 0
     seqs2, ends2 = walk.retrieve_cuda(idx, ks)  # a CPU index: the plain version
     assert all(np.array_equal(a, b) for a, b in zip(seqs, seqs2)) and np.array_equal(ends, ends2)
-
-
-def test_retrieve_chunk_checks_its_inputs(port_index):
-    """F2: positions outside [0, n) on a live lane, rb rows and bad dtypes
-    are refused before any walk."""
-    idx = OccIndex.from_dense(port_index, "cpu")
-    done = torch.zeros(2, dtype=torch.uint8)
-    for k in ([0, port_index.n], [-1, 0]):
-        with pytest.raises(ValueError):
-            walk.retrieve_chunk_cuda(idx, torch.tensor(k), done.clone(), 8)
-    walk.retrieve_chunk_cuda(idx, torch.tensor([0, -1]), torch.tensor([0, 1], dtype=torch.uint8), 8)  # a done lane's k is free
-    with pytest.raises(ValueError):
-        walk.retrieve_chunk_cuda(idx, torch.tensor([0, 1], dtype=torch.int32), done.clone(), 8)
-    rb = runblock.RunBlockIndex.from_dense(port_index, "cpu", S=256)
-    with pytest.raises(ValueError):
-        walk.retrieve_chunk_cuda(rb, torch.tensor([0, 1]), done.clone(), 8)
 
 
 def _suffix_reads(corpus, rng):
