@@ -62,14 +62,19 @@ it.  Phases:
             the same sweep on a table of each rb layout's size gives the rb
             chain floors' step
   smem      per layout: smem_tg (one thread per read) vs smem_tg_plain on the
-            card, 4,096 reads, exact; smem_tgc (one thread per lane) vs the
-            plain lanes on the main path's lanes of 64 long reads and 2,048
-            short ones (rows, counts, START logs, trips), exact; then on the
-            main path's batch the chunked engine (smem_tgc, stitch, reruns)
-            must equal the one-thread kernel's rows and counts (rerun with a
-            buffer of the true counts) and dense32's; times of both kernels,
-            n_unmerged, trip counts, the roofline bound and the chain floor;
-            on dense32 also a sweep of the chunk size.  On rb rows the bytes
+            card, 4,096 reads, exact; smem_tgc (the lanes taken heaviest first
+            from a queue) vs the plain lanes on the main path's lanes of 64
+            long reads and 2,048 short ones (rows, counts, START logs,
+            trips), exact; then on the main path's
+            batch the chunked engine (smem_tgc, stitch, reruns) must equal
+            the one-thread kernel's rows and counts (rerun with a buffer of
+            the true counts) and dense32's; times of both kernels and of the
+            long reads' lanes alone, n_unmerged, trip counts, the ns a trip
+            of the longest lane, the share of trips whose two ranks fall in
+            one dense row, smem_tgc's registers and resident threads, the roofline bound
+            and the chain floor; on dense32 also a sweep of the chunk size;
+            with --parent TREE, smem_time from TREE and from this tree, A B B
+            A, their lanes and rows equal.  On rb rows the bytes
             bound counts the 32-B sectors that the plain twin's ranks read
             (on the main path's batch: its lanes on the dense32 rows, the
             same positions), and the chain floor takes two dependent load
@@ -142,7 +147,10 @@ it.  Phases:
             its process, socket and pid file must be gone
 
 Any failure exits non-zero.  The last line is {"ok": true, "device": ...}.
-Run from the repository root: python3 chip_smoke.py
+Run from the repository root: python3 chip_smoke.py [--parent TREE]
+(TREE: another checkout, e.g. the parent commit's, whose K1 [smem] times
+beside this one's; it needs this tree's smem_time.py and corpus.py if it
+lacks them).
 """
 
 from __future__ import annotations
@@ -225,14 +233,7 @@ def make_corpus(work: str, n_genomes: int, genome_len: int, n_reads: int, n_long
     fa, reads_fa = os.path.join(work, "genomes.fa"), os.path.join(work, "reads.fa")
     with open(fa, "wb") as fh:
         fh.write(b"".join(b">g%d\n" % g + alpha[s].tobytes() + b"\n" for g, s in enumerate(gens)))
-    reads = list(corpus.short_reads(rng, base, n_reads))
-    for _ in range(n_long):
-        ln = int(rng.integers(*LONG_LEN))
-        st = int(rng.integers(0, genome_len - ln))
-        r = base[st : st + ln].copy()
-        err = rng.random(ln) < READ_ERR
-        r[err] = rng.integers(1, 5, int(err.sum()))
-        reads.append(r)
+    reads = list(corpus.short_reads(rng, base, n_reads)) + corpus.long_reads(rng, base, n_long)
     with open(reads_fa, "wb") as fh:
         fh.write(b"".join(b">r%d\n" % i + alpha[r].tobytes() + b"\n" for i, r in enumerate(reads)))
     return fa, reads_fa, reads
@@ -748,6 +749,44 @@ def serial_answer(smem, x, flat, seq_off) -> tuple:
     width = one.mems.shape[1]
     filled = torch.arange(width, device=flat.device) < one.n_mem.long()[:, None]
     return one.n_mem.long(), one.mems[filled], one.trips
+
+
+def smem_occupancy(kernels, layout: str, sms: int) -> dict:
+    """smem_tgc's resident blocks an SM, registers and local bytes a thread
+    in `layout` (rb3c_occupancy_smem_tg_*), and its resident threads."""
+    import ctypes
+
+    v = [ctypes.c_int(0) for _ in range(3)]
+    err = getattr(kernels.lib(), f"rb3c_occupancy_smem_tg_{layout}")(1, *(ctypes.byref(x) for x in v))
+    if err:
+        fail(f"smem_tgc {layout} occupancy query: CUDA error {err}")
+    return dict(blocks_per_sm=v[0].value, local_bytes=v[1].value, regs=v[2].value,
+                resident_threads=v[0].value * 256 * sms)
+
+
+def parent_ab(parent: str, card: str) -> list[dict]:
+    """`python -m ropebwt3_tpu_torch.smem_time` (K1 on the main path's batch)
+    from the parent tree and from this one, in turns A, B, B, A: the two
+    kernels' lanes must agree (digests) and the engine's rows too."""
+    work = os.path.join(WORK, "smem_time")
+    runs = []
+    for tag, tree in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
+        r = subprocess.run([sys.executable, "-m", "ropebwt3_tpu_torch.smem_time", work, tag], cwd=tree,
+                           capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT)
+        if r.returncode != 0:
+            fail(f"smem_time in {tree} exited {r.returncode}: {r.stderr[-2000:]}")
+        runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    for key in ("all", "long", "short"):
+        if len({d[lay][key]["lanes_digest"] for d in runs for lay in ("dense32", "rb32")}) != 1:
+            fail(f"smem_time: the parent's and this tree's smem_tgc lanes ({key}) differ")
+    if len({d[lay]["engine"]["rows_digest"] for d in runs for lay in ("dense32", "rb32")}) != 1:
+        fail("smem_time: the parent's and this tree's engine rows differ")
+    say("[smem] K1 A B B A against the parent tree (smem_time; smem_tgc ms on the main path's batch: all / long lanes "
+        "alone / short reads alone): " + "; ".join(
+            f"{d['tag']} dense32 " + " / ".join(f"{d['dense32'][k]['ms']:.4f}" for k in ("all", "long", "short"))
+            + " rb32 " + " / ".join(f"{d['rb32'][k]['ms']:.4f}" for k in ("all", "long", "short"))
+            + f" engine {min(d['dense32']['engine']['wall_ms']):.3f} ms" for d in runs) + f" ({card})")
+    return runs
 
 
 def cli_run(cli, argv: list[str]) -> tuple[float, str]:
@@ -1708,7 +1747,10 @@ def check_serve(card: str, fmd: str, reads_fa: str, mem_one_shot_s: float, mem_n
     return res
 
 
-def main() -> None:
+def main(argv: list[str]) -> None:
+    if argv and (len(argv) != 2 or argv[0] != "--parent"):
+        fail("usage: python3 chip_smoke.py [--parent TREE]")
+    parent = os.path.abspath(argv[1]) if argv else None
     clock = [time.perf_counter()] * 2  # the start, the last phase's end
     phase_s = {}
 
@@ -1731,10 +1773,10 @@ def main() -> None:
 
     if os.path.dirname(os.path.abspath(ropebwt3_tpu_torch.__file__)) != os.path.join(ROOT, "ropebwt3_tpu_torch"):
         fail(f"imported ropebwt3_tpu_torch from {ropebwt3_tpu_torch.__file__}, not from this checkout")
-    if (N_GENOMES, GENOME_LEN, DIVERGENCE, N_READS, READ_LEN, READ_ERR, SEED) != (
+    if (N_GENOMES, GENOME_LEN, DIVERGENCE, N_READS, READ_LEN, READ_ERR, SEED, N_LONG, LONG_LEN) != (
             corpus.N_GENOMES, corpus.GENOME_LEN, corpus.DIVERGENCE, corpus.N_READS, corpus.READ_LEN, corpus.READ_ERR,
-            corpus.SEED):
-        fail("the corpus constants differ from ropebwt3_tpu_torch/corpus.py's, which sa_time and dp_time use")
+            corpus.SEED, corpus.N_LONG, corpus.LONG_LEN):
+        fail("the corpus constants differ from ropebwt3_tpu_torch/corpus.py's, which sa_time, dp_time and smem_time use")
     dev = torch.device(DEVICE)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True
@@ -1912,9 +1954,15 @@ def main() -> None:
     sflat, soff = on_card(reads[:N_SMEM])
     cflat, coff = on_card(reads[:N_TGC_SHORT] + reads[N_READS : N_READS + N_TGC_LONG])
     clanes = smem.chunk_lanes(coff)
+    corder = smem.lane_order(clanes, coff)
     aflat, aoff = on_card(reads)
     alanes = smem.chunk_lanes(aoff)
+    aorder = smem.lane_order(alanes, aoff)
+    lflat, loff = on_card(reads[N_READS:])  # the long reads' lanes alone
+    llanes = smem.chunk_lanes(loff)
+    lorder = smem.lane_order(llanes, loff)
     n_short = N_READS * READ_LEN
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     smem_res, ref, sweep = {}, None, []
     for name, x in idxs.items():
         # rb: the tables' bytes are the sectors the plain twin's ranks read;
@@ -1935,7 +1983,7 @@ def main() -> None:
                  bound=bound_ms((sc1.bytes()[0] if is_rb else x.nbytes) + nbytes(sflat, soff) + nbytes(k1.n_mem)
                                 + int(k1.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * k1.mems.element_size()),
                  floor=int(k1.trips.max()) * step / 1e6,
-                 cms=probe.queued_ms([lambda: smem.launch_tgc(x, cflat, coff, clanes, **args)] * 10),
+                 cms=probe.queued_ms([lambda: smem.launch_tgc(x, cflat, coff, clanes, corder, **args)] * 10),
                  cplain=wall_ms(lambda: smem.smem_tg_plain(x, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args)),
                  cbound=bound_ms((scc.bytes()[0] if is_rb else x.nbytes) + nbytes(cflat, coff, clanes, kc.n_mem, kc.n_log)
                                  + int(kc.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * kc.mems.element_size()
@@ -1951,10 +1999,13 @@ def main() -> None:
             ref = (counts, rows.long())
         elif not (torch.equal(counts, ref[0]) and torch.equal(rows.long(), ref[1])):
             fail(f"smem {name}: rows on the main path's batch differ from the dense32 kernels'")
-        lane_trips = smem.launch_tgc(x, aflat, aoff, alanes, trips=True, **args).trips
+        lane_trips = smem.launch_tgc(x, aflat, aoff, alanes, aorder, trips=True, **args).trips
         r.update(
-            n_unmerged=out.n_unmerged, n_rerun=out.n_rerun, n_mems=int(counts.sum()), lanes=alanes.shape[0],
-            tgc_ms=probe.queued_ms([lambda: smem.launch_tgc(x, aflat, aoff, alanes, **args)] * 3),
+            n_unmerged=out.n_unmerged, n_whole=out.n_whole, n_rerun=out.n_rerun, n_mems=int(counts.sum()),
+            lanes=alanes.shape[0],
+            tgc_ms=probe.queued_ms([lambda: smem.launch_tgc(x, aflat, aoff, alanes, aorder, **args)] * 3),
+            long_ms=probe.queued_ms([lambda: smem.launch_tgc(x, lflat, loff, llanes, lorder, **args)] * 3),
+            occupancy=smem_occupancy(kernels, name, sms),
             tg_ms=probe.queued_ms([lambda: smem.launch_tg(x, aflat, aoff, **args)] * 3),
             short_ms=probe.queued_ms([lambda: smem.launch_tg(x, aflat[:n_short], aoff[: N_READS + 1], **args)] * 3),
             engine_ms=wall_ms(lambda: smem.smem_tg(x, aflat, aoff, **args)),
@@ -1964,6 +2015,7 @@ def main() -> None:
         )
         for key, trips in (("tgc", r["lane_trips"]), ("tg", r["read_trips"])):
             r[f"{key}_floor"] = (trips * step / 1e6,) if is_rb else (trips * ns[LAT_L2] / 1e6, trips * ns[LAT_48MB] / 1e6)
+        r["ns_per_trip"], r["long_ns_per_trip"] = (r[k] * 1e6 / r["lane_trips"] for k in ("tgc_ms", "long_ms"))
         smem_res[name] = r
         say(
             f"[smem] {name}: smem_tg exact on {N_SMEM} reads ({int(k1.n_mem.sum())} MEMs) {r['ms']:.4f} ms vs plain "
@@ -1973,11 +2025,16 @@ def main() -> None:
         say(
             f"[smem] {name} main path's batch ({len(reads)} reads, {r['lanes']} lanes of {smem.CHUNK} + {smem.MARGIN}): "
             f"chunked engine rows equal to the one-thread kernel's ({r['n_mems']} MEMs) and dense32's; smem_tgc "
-            f"{r['tgc_ms']:.4f} ms, engine (launch, stitch, reruns) {r['engine_ms']:.4f} ms, n_unmerged {out.n_unmerged}, "
+            f"{r['tgc_ms']:.4f} ms, engine (launch, stitch, reruns) {r['engine_ms']:.4f} ms, n_unmerged {out.n_unmerged} "
+            f"(whole {out.n_whole}), "
             f"n_rerun {out.n_rerun}; one-thread smem_tg {r['tg_ms']:.4f} ms, its {N_READS} short reads alone "
             f"{r['short_ms']:.4f} ms; trips: longest lane {r['lane_trips']} (all lanes {r['lane_trips_sum']}), longest "
             f"read {r['read_trips']} (all reads {r['read_trips_sum']}); roofline bound (the whole tables) "
-            f"{r['batch_bound']:.4f} ms; chain floor smem_tgc "
+            f"{r['batch_bound']:.4f} ms; the long reads' {llanes.shape[0]} lanes alone {r['long_ms']:.4f} ms; ns a "
+            f"trip of the longest lane {r['ns_per_trip']:.1f} (alone {r['long_ns_per_trip']:.1f}); smem_tgc "
+            f"{r['occupancy']['regs']} registers, "
+            f"{r['occupancy']['blocks_per_sm']} blocks an SM ({r['occupancy']['resident_threads']} threads resident); "
+            f"chain floor smem_tgc "
             + " / ".join(f"{v:.4f}" for v in r["tgc_floor"]) + " ms, smem_tg " + " / ".join(f"{v:.4f}" for v in r["tg_floor"])
             + (f" ms ({RB_ROUNDS} rounds a trip at {ns[name]} ns)" if is_rb else f" ms (at {ns[LAT_L2]} / {ns[LAT_48MB]} ns a step)")
             + f"; lanes' check: smem_tgc {r['cms']:.4f} ms, bound {r['cbound']:.4f} ms, chain floor {r['cfloor']:.4f} ms ({card})"
@@ -1985,18 +2042,20 @@ def main() -> None:
         if name == "dense32":
             for C in CHUNK_SWEEP:
                 lanes = smem.chunk_lanes(aoff, C, C // 2)
+                order = smem.lane_order(lanes, aoff)
                 o = smem.smem_tg(x, aflat, aoff, chunk=C, margin=C // 2, **args)
                 if not (torch.equal(o.counts, counts) and torch.equal(o.rows, rows)):
                     fail(f"smem dense32: chunk {C} gives other rows than the one-thread kernel")
-                t = smem.launch_tgc(x, aflat, aoff, lanes, trips=True, **args).trips
-                sweep.append(dict(chunk=C, margin=C // 2, lanes=lanes.shape[0], n_unmerged=o.n_unmerged,
+                t = smem.launch_tgc(x, aflat, aoff, lanes, order, trips=True, **args).trips
+                sweep.append(dict(chunk=C, margin=C // 2, lanes=lanes.shape[0], n_unmerged=o.n_unmerged, n_whole=o.n_whole,
                                   max_trips=int(t.max()), sum_trips=int(t.sum()),
-                                  ms=probe.queued_ms([lambda lanes=lanes: smem.launch_tgc(x, aflat, aoff, lanes, **args)] * 3),
+                                  ms=probe.queued_ms([lambda lanes=lanes, order=order:
+                                                      smem.launch_tgc(x, aflat, aoff, lanes, order, **args)] * 3),
                                   engine_ms=wall_ms(lambda C=C: smem.smem_tg(x, aflat, aoff, chunk=C, margin=C // 2, **args))))
             say("[smem] dense32 chunk sweep (exact at each): " + "; ".join(
                 f"C {w['chunk']} W {w['margin']}: {w['lanes']} lanes, smem_tgc {w['ms']:.4f} ms, engine "
                 f"{w['engine_ms']:.4f} ms, longest lane {w['max_trips']} trips (all {w['sum_trips']}), n_unmerged "
-                f"{w['n_unmerged']}" for w in sweep) + f" ({card})")
+                f"{w['n_unmerged']} (rerun at twice the margin; whole {w['n_whole']})" for w in sweep) + f" ({card})")
         del k1, kc, out, rows
     # the main path's batch: the sectors its ranks read in the rb tables,
     # from the plain twin's lanes on the dense32 rows (the same positions)
@@ -2005,6 +2064,9 @@ def main() -> None:
     chains = smem.smem_tg_plain(sc, aflat, aoff, lanes=alanes, log_len=smem.LOG_LEN, **args)
     if int(chains.trips.max()) != smem_res["dense32"]["lane_trips"]:
         fail("smem: the plain twin's lanes on the main path's batch take other trips than smem_tgc")
+    # the trips whose two ranks fall in one 64-symbol dense row (both loads
+    # then read one row: the second from L1 or the first's miss in flight)
+    smem_res["dense32"]["one_row_share"] = int(chains.one_row.sum()) / int(chains.trips.sum())
     for name, b in zip(("rb32", "rb64"), sc.bytes()):
         r = smem_res[name]
         r["batch_sector_bytes"] = b
@@ -2013,8 +2075,11 @@ def main() -> None:
         + "; ".join(f"{name} {smem_res[name]['batch_sector_bytes']} B of {idxs[name].nbytes} B, bound "
                     f"{smem_res[name]['batch_sector_bound']:.4f} ms, chain floor {smem_res[name]['tgc_floor'][0]:.4f} ms, "
                     f"smem_tgc {smem_res[name]['tgc_ms']:.4f} ms" for name in ("rb32", "rb64"))
-        + f"; dense32 smem_tgc {smem_res['dense32']['tgc_ms']:.4f} ms ({card})")
-    del sc, chains, aflat, aoff, alanes, ref
+        + f"; dense32 smem_tgc {smem_res['dense32']['tgc_ms']:.4f} ms; trips whose two ranks fall in one dense row "
+        f"{smem_res['dense32']['one_row_share']:.4f} ({card})")
+    del sc, chains, aflat, aoff, alanes, aorder, lflat, loff, llanes, lorder, ref
+    if parent:  # K1 of a parent tree beside this one's, A B B A, on the main path's batch
+        smem_ab = parent_ab(parent, card)
     phase_done("smem")
 
     # ---- ssa -----------------------------------------------------------------
@@ -2049,7 +2114,7 @@ def main() -> None:
         if launches["smem_tgc"].get(layout, 0) < 1:
             fail(f"{path}: no {layout} smem_tgc launch ({launches})")
         m = re.search(rf"(\d+) smem_tg launches \({layout}\): (\d+) chunked, (\d+) one-thread; (\d+) reads rerun on "
-                      rf"the card, (\d+) unmerged", err.getvalue())
+                      rf"the card, (\d+) unmerged, (\d+) whole", err.getvalue())
         if m is None or int(m.group(2)) != launches["smem_tgc"][layout]:
             fail(f"{path}: the port's mem did not report its engine counts for {layout}")
         got_bed = open(port_bed, "rb").read()
@@ -2059,10 +2124,11 @@ def main() -> None:
         if n_lines < N_READS:
             fail(f"only {n_lines} BED lines for {N_READS + N_LONG} reads")
         paths[path] = dict(launches=launches, layout=layout, port_s=port_s, n_rerun=int(m.group(4)),
-                           n_unmerged=int(m.group(5)))
+                           n_unmerged=int(m.group(5)), n_whole=int(m.group(6)))
         say(
             f"[{path}] `{' '.join(argv[:-2])}`: BED byte-equal to --engine=native ({n_lines} lines); launches {launches}; "
-            f"n_rerun {m.group(4)}, n_unmerged {m.group(5)} (of {N_LONG} long reads); port in-process {port_s:.3f} s "
+            f"n_rerun {m.group(4)}, n_unmerged {m.group(5)}, rerun whole {m.group(6)} (of {N_LONG} long reads); port "
+            f"in-process {port_s:.3f} s "
             f"({n_all / port_s:.1f} reads/s)"
         )
 
@@ -2164,8 +2230,16 @@ def main() -> None:
             "bound_by": "bytes", "library_ms": None, "chain_floor_ms": s["cfloor"],
             "input": f"the lanes ({smem.CHUNK} + {smem.MARGIN}) of {N_TGC_SHORT} short and {N_TGC_LONG} long reads",
             "main_path_batch_ms": s["tgc_ms"], "main_path_batch_engine_ms": s["engine_ms"],
+            "main_path_batch_long_lanes_ms": s["long_ms"], "main_path_batch_ns_per_trip": s["ns_per_trip"],
+            "main_path_batch_long_lanes_ns_per_trip": s["long_ns_per_trip"],
+            **({"one_row_share": s["one_row_share"]} if "one_row_share" in s else {}),
+            "occupancy": s["occupancy"],
+            **({"parent_ab": [{"tag": d["tag"], **{lay: {k: d[lay][k]["ms"] for k in ("all", "long", "short")}
+                                                   for lay in ("dense32", "rb32")}} for d in smem_ab]}
+               if parent and name in ("dense32", "rb32") else {}),
             "main_path_batch_bound_ms": s["batch_bound"], "main_path_batch_chain_floor_ms": s["tgc_floor"],
-            "main_path_batch_longest_lane_trips": s["lane_trips"], "n_unmerged": s["n_unmerged"], "n_rerun": s["n_rerun"],
+            "main_path_batch_longest_lane_trips": s["lane_trips"], "n_unmerged": s["n_unmerged"], "n_whole": s["n_whole"],
+            "n_rerun": s["n_rerun"],
             **({"chunk_sweep": sweep} if name == "dense32" else {}), **rb,
             **({"main_path_batch_sector_bytes": s["batch_sector_bytes"], "main_path_batch_sector_bound_ms":
                 s["batch_sector_bound"]} if rb else {}),
@@ -2301,4 +2375,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -866,9 +866,9 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
     eng = BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ, rows=rows)
     ret = _run_mem(f, eng, args[1:], is_line, batch_size, min_gap_len, write_cov, max_pos)
     lay = eng.idx.layout
-    log.info("%d smem_tg launches (%s): %d chunked, %d one-thread; %d reads rerun on the card, %d unmerged",
+    log.info("%d smem_tg launches (%s): %d chunked, %d one-thread; %d reads rerun on the card, %d unmerged, %d whole",
              smem_tgc_cuda.launches[lay] + smem_tg_cuda.launches[lay], lay, smem_tgc_cuda.launches[lay],
-             smem_tg_cuda.launches[lay], eng.n_rerun, eng.n_unmerged, func="mem")
+             smem_tg_cuda.launches[lay], eng.n_rerun, eng.n_unmerged, eng.n_whole, func="mem")
     return ret
 
 

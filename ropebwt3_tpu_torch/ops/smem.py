@@ -19,10 +19,13 @@ serial answer:
   m_0 = 0; m_t = the first START x >= m_{t-1} logged by both lane t-1 and
   lane t; lane t contributes its emits with st in [m_t, m_{t+1}).
 
-A read with a boundary where the two lanes never meet is rerun whole by one
-thread (`n_unmerged`); a read whose lane buffers overflow (more than
-max_mems emits) is rerun through the same kernel with a buffer of the true
-count (`n_rerun`).  Both reruns are launches of the card's kernels.
+A read with a boundary where the two lanes never meet (`n_unmerged`) is
+rerun as chunk lanes with twice the margin, and whole by one thread only if
+its lanes still do not meet (`n_whole`); a read whose lane buffers overflow
+(more than max_mems emits) is rerun through the same kernel with a buffer
+of the true count (`n_rerun`).  Every rerun is a launch of the card's
+kernels.  The stitch holds for any margin: m_t >= m_{t-1} by construction,
+so a margin past the next chunk's start keeps the ranges in lane order.
 
 `smem_tg_plain` is a lock-step lane loop in PyTorch, the plain version of
 the CUDA kernels (csrc/smem_tg.cu) that `smem_tg_cuda` (one thread per read)
@@ -57,15 +60,16 @@ MAX_MEMS = 64  # MEM buffer rows per chain, the JAX engine's default
 # CHUNK: a window's forward extension runs to the end of its MEM, past the
 # lane's stop, and BACK2 walks back over it, so where long MEMs overlap (a
 # read against many similar genomes) single windows cost thousands of
-# extensions.  Measured on bench.py's batch on an H100 (PERF.md; exact at each):
-# CHUNK 512 / MARGIN 256 5.5 ms, 256 / 128 4.1 ms with no read rerun whole,
-# 128 / 64 and 64 / 32 3.8 and 3.3 ms but 4 and 714 reads whose lanes did not
-# meet inside the margin, rerun whole (the engine 148 and 215 ms).  MARGIN <
-# CHUNK keeps the stitched ranges in lane order.
+# extensions.  Measured on bench.py's batch on an H100 (PERF.md; exact at
+# each; smem_tgc, then the engine): CHUNK 1024 / MARGIN 512 7.4 / 12.4 ms,
+# 512 / 256 5.1 / 9.7 ms, 256 / 128 3.9 / 7.3 ms, 128 / 64 3.5 / 41 ms (4 reads
+# whose lanes did not meet, all resolved at twice the margin) and 64 / 32
+# 3.0 / 224 ms (714, 10 of them rerun whole): the stitch and the reruns cost
+# more than the shorter lanes save.
 CHUNK, MARGIN = 256, 128
-# START log entries per lane: one per 3 symbols of a lane's span.  A fuller
-# log drops the rest; a boundary whose meeting point it dropped reruns the
-# read whole.
+# START log entries per lane at MARGIN: one per 3 symbols of a lane's span.
+# A fuller log drops the rest; a boundary whose meeting point it dropped
+# does not meet.
 LOG_LEN = 128
 NO_STOP = (1 << 31) - 1  # x_stop of a lane that runs to its read's end
 
@@ -78,13 +82,15 @@ class Chains(NamedTuple):
     log: torch.Tensor | None  # (L, log_len) int32 START log: each START x, then END = read length + 1
     n_log: torch.Tensor | None  # (L,) int32 TRUE log counts; entries past log_len are dropped
     trips: torch.Tensor | None  # (L,) int32 extensions (dependent steps), where asked
+    one_row: torch.Tensor | None = None  # (L,) int32 extensions whose two ranks fall in one dense row (plain only)
 
 
 class SmemOut(NamedTuple):
     counts: torch.Tensor  # (R,) int64 MEMs per read
     rows: torch.Tensor  # (sum(counts), 5) in read order, then emit order
     n_rerun: int  # reads rerun for a MEM buffer overflow
-    n_unmerged: int  # reads whose lanes never met, rerun whole by one thread
+    n_unmerged: int  # reads whose lanes never met, rerun with twice the margin
+    n_whole: int  # of those, reads whose lanes did not meet at twice the margin either, rerun whole
 
 
 def pack_reads(queries: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
@@ -107,8 +113,8 @@ def chunk_lanes(seq_off: torch.Tensor, chunk: int = CHUNK, margin: int = MARGIN)
     """Lanes of reads cut at multiples of `chunk`: lane t of a read starts at
     t * chunk and stops at (t + 1) * chunk + margin, the last one at the
     read's end.  (L, 3) int64 (read, x0, x_stop), a read's lanes in order."""
-    if not 0 <= margin < chunk:
-        raise ValueError(f"need 0 <= margin < chunk, got {margin}, {chunk}")
+    if chunk < 1 or margin < 0:
+        raise ValueError(f"need chunk >= 1 and margin >= 0, got {chunk}, {margin}")
     dev = seq_off.device
     n_lanes = ((seq_off.diff() + chunk - 1) // chunk).clamp(min=1)
     read = torch.repeat_interleave(torch.arange(n_lanes.numel(), device=dev), n_lanes)
@@ -116,6 +122,15 @@ def chunk_lanes(seq_off: torch.Tensor, chunk: int = CHUNK, margin: int = MARGIN)
     t = torch.arange(read.numel(), device=dev) - first[read]
     stop = torch.where(t == n_lanes[read] - 1, NO_STOP, (t + 1) * chunk + margin)
     return torch.stack([read, t * chunk, stop], dim=1)
+
+
+def lane_order(lanes: torch.Tensor, seq_off: torch.Tensor) -> torch.Tensor:
+    """The order smem_tgc takes the lanes in: heaviest first by span (x_stop -
+    x0, x_stop cut at the read's end), ties in lane order.  (L,) int64, on
+    the lanes' device."""
+    read = lanes[:, 0]
+    span = torch.minimum(lanes[:, 2], seq_off[read + 1] - seq_off[read]) - lanes[:, 1]
+    return torch.sort(span, descending=True, stable=True).indices
 
 
 def _check_args(idx, flat: torch.Tensor, seq_off: torch.Tensor, min_len: int, max_mems: int) -> None:
@@ -145,6 +160,15 @@ def _check_lanes(lanes: torch.Tensor, seq_off: torch.Tensor, log_len: int) -> No
             raise ValueError("lanes: read ids, starts and stops out of range")
 
 
+def _check_order(order: torch.Tensor, lanes: torch.Tensor) -> None:
+    L = lanes.shape[0]
+    if order.dtype != torch.int64 or order.dim() != 1 or order.numel() != L or order.device != lanes.device:
+        raise ValueError("order must be (L,) int64 on the lanes' device")
+    if L and (int(order.min()) < 0 or int(order.max()) >= L
+              or not bool((torch.bincount(order, minlength=L) == 1).all())):
+        raise ValueError("order must be a permutation of the lanes")
+
+
 def _emit(mems, n_mem, m, st, en, ik) -> None:
     """Append (st, en, size, lo, lo_rc) to the masked lanes' buffers; past
     the last slot the last slot is overwritten, and n_mem keeps counting."""
@@ -172,7 +196,8 @@ def smem_tg_plain(
     """SMEM-TG for every lane (default: one per read, `read_lanes`), all
     lanes in lock-step: each trip resolves the transitions that need no rank,
     then extends every live lane by one symbol.  The CUDA kernels' state
-    machine, START log and trip count."""
+    machine, START log and trip count, and the count of extensions whose
+    two ranks fall in one 64-symbol row of dense rows (0 on rb rows)."""
     _check_args(idx, flat, seq_off, min_len, max_mems)
     if lanes is None:
         lanes = read_lanes(seq_off)
@@ -184,6 +209,8 @@ def smem_tg_plain(
     logt = torch.zeros((L, log_len), dtype=torch.int32, device=dev)
     n_log = torch.zeros(L, dtype=torch.int64, device=dev)
     trips = torch.zeros(L, dtype=torch.int64, device=dev)
+    one_row = torch.zeros(L, dtype=torch.int64, device=dev)
+    dense = idx.layout.startswith("dense")
     base = seq_off[lanes[:, 0]]
     qlen = seq_off[lanes[:, 0] + 1] - base
     x_stop = lanes[:, 2]
@@ -227,6 +254,9 @@ def smem_tg_plain(
         c = sym(torch.where(fw, j, i))
         c = torch.where(fw & (c >= 1) & (c <= 4), 5 - c, c)
         ok = extend_c(idx, torch.where(live[:, None], ik, 0), c, ~fw)
+        if dense:
+            prim = torch.where(fw, ik[:, 1], ik[:, 0])
+            one_row += live & ((prim >> 6) == ((prim + ik[:, 2]) >> 6))
         succ = ok[:, 2] >= min_occ
         m = b1 & succ
         ik = torch.where(m[:, None], ok, ik)
@@ -251,7 +281,7 @@ def smem_tg_plain(
         m = b2 & ~succ
         x = torch.where(m, i + 1, x)
         ph = torch.where(m, PH_START, ph)
-    return Chains(mems, n_mem.int(), logt, n_log.int(), trips.int())
+    return Chains(mems, n_mem.int(), logt, n_log.int(), trips.int(), one_row.int())
 
 
 def smem_tg_cuda(
@@ -292,23 +322,30 @@ smem_tg_cuda.launches = Counter()
 
 def smem_tgc_cuda(
     idx, flat: torch.Tensor, seq_off: torch.Tensor, lanes: torch.Tensor, *, min_occ: int, min_len: int,
-    max_mems: int, log_len: int = LOG_LEN, trips: bool = False,
+    max_mems: int, log_len: int = LOG_LEN, trips: bool = False, order: torch.Tensor | None = None,
 ) -> Chains:
     """One chain per lane (read, x0, x_stop) through the smem_tgc kernel of
-    the index's layout, one thread each, with its START log.  A CPU tensor
-    takes `smem_tg_plain`."""
+    the index's layout, with its START log: a grid of resident blocks whose
+    threads take the lanes in `order` (default `lane_order`, heaviest
+    first), each lane's outputs at its own index.  A CPU tensor takes
+    `smem_tg_plain`, which runs every lane at once (the order is checked,
+    not used)."""
+    if order is not None:
+        _check_order(order, lanes)
     if flat.device.type == "cpu":
         ch = smem_tg_plain(idx, flat, seq_off, min_occ=min_occ, min_len=min_len, max_mems=max_mems, lanes=lanes,
                            log_len=log_len)
-        return ch if trips else ch._replace(trips=None)
+        return ch._replace(trips=ch.trips if trips else None, one_row=None)
     _check_args(idx, flat, seq_off, min_len, max_mems)
     _check_lanes(lanes, seq_off, log_len)
-    return launch_tgc(idx, flat.contiguous(), seq_off.contiguous(), lanes.contiguous(), min_occ=min_occ,
-                      min_len=min_len, max_mems=max_mems, log_len=log_len, trips=trips)
+    lanes, seq_off = lanes.contiguous(), seq_off.contiguous()
+    order = lane_order(lanes, seq_off) if order is None else order.contiguous()
+    return launch_tgc(idx, flat.contiguous(), seq_off, lanes, order, min_occ=min_occ, min_len=min_len,
+                      max_mems=max_mems, log_len=log_len, trips=trips)
 
 
-def launch_tgc(idx, flat, seq_off, lanes, *, min_occ: int, min_len: int, max_mems: int, log_len: int = LOG_LEN,
-               trips: bool = False) -> Chains:
+def launch_tgc(idx, flat, seq_off, lanes, order, *, min_occ: int, min_len: int, max_mems: int,
+               log_len: int = LOG_LEN, trips: bool = False) -> Chains:
     """`smem_tgc_cuda` on contiguous CUDA tensors that its checks have
     passed, counting the launch (for timing loops, as `launch_tg`)."""
     L = lanes.shape[0]
@@ -319,10 +356,12 @@ def launch_tgc(idx, flat, seq_off, lanes, *, min_occ: int, min_len: int, max_mem
     n_log = torch.empty(L, dtype=torch.int32, device=dev)
     tr = torch.empty(L, dtype=torch.int32, device=dev) if trips else None
     if L:
+        nxt = torch.empty(1, dtype=torch.int64, device=dev)  # the queue's counter
         kernels.launch(
             f"rb3c_smem_tgc_{idx.layout}", dev, *idx.kernel_tables(), flat.data_ptr(), seq_off.data_ptr(),
-            lanes.data_ptr(), L, int(min_occ), int(min_len), int(max_mems), int(log_len), mems.data_ptr(),
-            n_mem.data_ptr(), logt.data_ptr(), n_log.data_ptr(), tr.data_ptr() if trips else None,
+            lanes.data_ptr(), order.data_ptr(), L, int(min_occ), int(min_len), int(max_mems), int(log_len),
+            mems.data_ptr(), n_mem.data_ptr(), logt.data_ptr(), n_log.data_ptr(), tr.data_ptr() if trips else None,
+            nxt.data_ptr(),
         )
         smem_tgc_cuda.launches[idx.layout] += 1
     return Chains(mems, n_mem, logt, n_log, tr)
@@ -407,22 +446,26 @@ def smem_tg(
 ) -> SmemOut:
     """Every read's MEMs, exact: one smem_tgc launch over the chunk lanes,
     `stitch`, then reruns on the card until every read came out whole
-    (unresolved reads one thread each; overflowed ones through the kernel
-    that gave them, with a buffer of their true count)."""
+    (unresolved reads as lanes with twice the margin, then one thread each;
+    overflowed ones through the kernel that gave them, with a buffer of
+    their true count).  A lane's START log takes log_len entries at `margin`
+    and grows with its span at twice the margin."""
     R = seq_off.numel() - 1
     dev = flat.device
     kw = dict(min_occ=min_occ, min_len=min_len)
-    todo = [(None, max_mems, True)]  # (read ids, None: all; buffer rows; chunked)
-    parts, n_rerun, n_unmerged = [], 0, 0
+    # (read ids, None: all; buffer rows; pass: 0 lanes at margin, 1 at twice the margin, 2 one thread a read)
+    todo = [(None, max_mems, 0)]
+    parts, n_rerun, unmet = [], 0, [0, 0]
     while todo:
-        ids, M, chunked = todo.pop()
+        ids, M, p = todo.pop()
         if ids is None:
             f, o, ids = flat, seq_off, torch.arange(R, device=dev)
         else:
             f, o = _subset(flat, seq_off, ids)
-        if chunked:
-            lanes = chunk_lanes(o, chunk, margin)
-            ch = smem_tgc_cuda(idx, f, o, lanes, max_mems=M, log_len=log_len, **kw)
+        if p < 2:
+            W = margin << p
+            lanes = chunk_lanes(o, chunk, W)
+            ch = smem_tgc_cuda(idx, f, o, lanes, max_mems=M, log_len=log_len * (chunk + W) // (chunk + margin), **kw)
         else:
             lanes = read_lanes(o)
             ch = smem_tg_cuda(idx, f, o, max_mems=M, **kw)
@@ -430,14 +473,14 @@ def smem_tg(
         ok = ~unres & (need == 0)
         parts.append((ids[ok], counts[ok], rows))
         if bool(unres.any()):
-            todo.append((ids[unres], max_mems, False))
-            n_unmerged += int(unres.sum())
+            todo.append((ids[unres], max_mems, p + 1))
+            unmet[p] += int(unres.sum())
         over = ~unres & (need > 0)
         if bool(over.any()):
-            todo.append((ids[over], int(need[over].max()), chunked))
+            todo.append((ids[over], int(need[over].max()), p))
             n_rerun += int(over.sum())
     counts, rows = _place(R, parts, idx.dtype, dev)
-    return SmemOut(counts, rows, n_rerun, n_unmerged)
+    return SmemOut(counts, rows, n_rerun, *unmet)
 
 
 def resolve_occ(occ: str, n: int, device) -> str:
@@ -478,6 +521,7 @@ class BatchedSmemTG:
         self.max_mems = int(max_mems)
         self.n_rerun = 0
         self.n_unmerged = 0
+        self.n_whole = 0
 
     def run_flat(self, flat: np.ndarray, seq_off: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """(counts (R,) int64, rows (sum(counts), 5)) of the reads
@@ -489,4 +533,5 @@ class BatchedSmemTG:
                       min_occ=self.min_occ, min_len=self.min_len, max_mems=self.max_mems)
         self.n_rerun += out.n_rerun
         self.n_unmerged += out.n_unmerged
+        self.n_whole += out.n_whole
         return out.counts.cpu().numpy(), out.rows.cpu().numpy()

@@ -60,6 +60,7 @@ def main(argv: list[str]) -> int:
     flat = torch.from_numpy(np.ascontiguousarray(flat, np.uint8)).to(dev)
     off = torch.from_numpy(np.ascontiguousarray(off, np.int64)).to(dev)
     lanes = smem.chunk_lanes(off)
+    order = smem.lane_order(lanes, off)
     k = torch.from_numpy(np.random.default_rng(1).integers(0, f.n + 1, N_RANK)).to(dev)
     args = dict(min_occ=1, min_len=MIN_LEN, max_mems=MAX_MEMS)
     kernels.lib()
@@ -77,7 +78,7 @@ def main(argv: list[str]) -> int:
         launch_rank()
         if not torch.equal(got.long(), rank.rank1a(x, k)):
             fail(f"{name}: occ_rank1a differs from the plain rank")
-        c = smem.launch_tgc(x, flat, off, lanes, **args)
+        c = smem.launch_tgc(x, flat, off, lanes, order, **args)
         filled = torch.arange(MAX_MEMS, device=dev) < c.n_mem.clamp(max=MAX_MEMS)[:, None]  # the slots written
         mine = (c.n_mem, c.mems[filled].long())
         if ref is None:
@@ -86,7 +87,7 @@ def main(argv: list[str]) -> int:
             fail(f"{name}: smem_tgc's rows differ from dense32's")
         out[name] = dict(S=getattr(x, "S", 64), n_esc=getattr(x, "n_esc", 0), table_bytes=x.nbytes,
                          rank_ms=probe.queued_ms([launch_rank] * 10),
-                         tgc_ms=probe.queued_ms([lambda x=x: smem.launch_tgc(x, flat, off, lanes, **args)] * 5))
+                         tgc_ms=probe.queued_ms([lambda x=x: smem.launch_tgc(x, flat, off, lanes, order, **args)] * 5))
     del idxs, ref
     for occ in ("dense", "rb"):
         out[f"mem_{occ}_s"] = mem_s(["mem", f"-l{MIN_LEN}", f"--occ={occ}", argv[0], argv[1]])

@@ -363,9 +363,10 @@ def test_chunked_kernel_matches_plain(corpus_index, cuda_device, layout):
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_chunked_reruns_on_card(corpus_index, cuda_device, layout):
     """Reads whose lanes do not meet (a 2-symbol margin at 5% error) rerun
-    whole through smem_tg, and reads whose lanes overflow a 4-row buffer
-    rerun through smem_tgc with a buffer of their true count: launches of
-    the card's kernels, with the CPU's answer."""
+    through smem_tgc at a 4-symbol margin, then whole through smem_tg, and
+    reads whose lanes overflow a 4-row buffer rerun through smem_tgc with a
+    buffer of their true count: launches of the card's kernels, with the
+    CPU's answer."""
     reads = cut_reads(corpus_index, np.random.default_rng(5), 4, (1000, 2001), 0.05)
     flat, seq_off = flat_of(reads)
     cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
@@ -376,9 +377,74 @@ def test_chunked_reruns_on_card(corpus_index, cuda_device, layout):
         assert torch.equal(out_gpu.counts.cpu(), out_cpu.counts) and torch.equal(out_gpu.rows.cpu(), out_cpu.rows)
         assert out_gpu[2:] == out_cpu[2:]
         if "margin" in kw:
-            assert out_gpu.n_unmerged >= 1 and smem.smem_tg_cuda.launches[layout] > one
+            assert out_gpu.n_whole >= 1 and smem.smem_tg_cuda.launches[layout] > one
+            assert smem.smem_tgc_cuda.launches[layout] >= chunked + 2
         else:
             assert out_gpu.n_rerun >= 1 and smem.smem_tgc_cuda.launches[layout] >= chunked + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("case", ["shuffled", "tiny", "three"])
+def test_smem_tgc_queue_matches_plain(corpus, corpus_index, cuda_device, layout, case):
+    """smem_tgc's grid of resident blocks taking lanes from its queue: the
+    lanes in a shuffled order, 300,000 tiny lanes (more than the resident
+    threads, so threads take many lanes each) and 3 lanes (fewer threads
+    than a block): every lane's rows, counts, START log and trips equal the
+    plain version's, each at its own index."""
+    rng = np.random.default_rng(31)
+    if case == "tiny":
+        reads = [char2nt6(r.seq) for r in read_seqs(str(corpus / "reads.fa"))]
+        qs = [reads[i % len(reads)][: int(n)] for i, n in enumerate(rng.integers(15, 40, 300_000))]
+    else:
+        qs = cut_reads(corpus_index, rng, 6 if case == "shuffled" else 2, (300, 2001), 0.01)
+    flat, seq_off = flat_of(qs)
+    lanes = smem.chunk_lanes(seq_off, 64, 32)
+    if case == "three":
+        lanes = lanes[:3]
+    order = torch.from_numpy(rng.permutation(lanes.shape[0])) if case == "shuffled" else None
+    gpu = make_index(layout, corpus_index, cuda_device)
+    flat, seq_off, lanes = flat.to(cuda_device), seq_off.to(cuda_device), lanes.to(cuda_device)
+    kw = dict(min_occ=1, min_len=15, max_mems=8, log_len=16)
+    got = smem.smem_tgc_cuda(gpu, flat, seq_off, lanes, order=None if order is None else order.to(cuda_device),
+                             trips=True, **kw)
+    torch.cuda.synchronize()
+    want = smem.smem_tg_plain(gpu, flat, seq_off, lanes=lanes, **kw)  # the plain lanes, on the card
+    assert_same_mems(got.mems.cpu().numpy(), got.n_mem.cpu().numpy(), want.mems.cpu().numpy(), want.n_mem.cpu().numpy(), 8)
+    assert_same_mems(got.log.cpu().numpy()[..., None], got.n_log.cpu().numpy(), want.log.cpu().numpy()[..., None],
+                     want.n_log.cpu().numpy(), 16)
+    assert torch.equal(got.trips, want.trips)
+
+
+def row_edge_intervals(n, mega_syms):
+    """Bi-intervals (k, k, s) whose far end k + s sits one before, at and one
+    past a 64-symbol row edge (k in the row before, in the same row, or
+    rows back), with s = 0, with k + s = n, and across megablock edges of
+    mega_syms symbols, all in [0, n]."""
+    out = []
+    for e in list(range(64, n, 64 * 37)) + list(range(mega_syms, n, mega_syms)) + [n - n % 64]:
+        for end in (e - 1, e, e + 1):
+            for k in (end, end - 1, end - 2, e - 64, e - 65, e - 1000):
+                if 0 <= k <= end <= n:
+                    out.append((k, k, end - k))
+    out += [(k, k, 0) for k in (0, 63, 64, n - 1, n)] + [(k, k, n - k) for k in (0, n - 1, n - 64, n - 65, n)]
+    return np.array(out, dtype=np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_occ_extend_c_at_row_edges(corpus_index, cuda_device, layout):
+    """occ_extend_c, whose two ranks take one dense row when they share one
+    (rank6_pair), at k + s on either side of a row edge, at s = 0, at
+    k + s = n and across int64 megablock edges, both directions and every
+    symbol: equal to the plain extend_c."""
+    cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
+    ik = torch.from_numpy(np.repeat(row_edge_intervals(corpus_index.n, 64 << 6), 6, axis=0)).to(cpu.dtype)
+    c = torch.arange(6, dtype=torch.int32).repeat(ik.shape[0] // 6)
+    for back in (torch.zeros(len(ik), dtype=torch.bool), torch.ones(len(ik), dtype=torch.bool)):
+        got = rank.extend_c_cuda(gpu, ik.to(cuda_device), c.to(cuda_device), back.to(cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), rank.extend_c(cpu, ik, c, back).to(cpu.dtype))
 
 
 def short_seqs_index(m, seed=9, lo=20, hi=200):
