@@ -137,7 +137,13 @@ it.  Phases:
             dense32), its bound, its chain floor and the JAX package's native
             walk (a subprocess); K12
             (suffix_walk, four layouts) against suffix_plain on the card,
-            exact, on all the reads, timed beside its bound and chain floor
+            exact, on all the reads, timed beside its bound and chain floor;
+            kount's level rank on kount's own frontiers (kount_time: every
+            level, A B C C B A, occ_rank1a of the node-major and of the
+            symbol-major cat([k, l]) and kount_rank, csrc/kount.cu, each
+            beside its bound), and at the widest level kount_rank against
+            kount_rank_plain on the card, dense32 and dense64, exact, there
+            and on as many random unsorted (k, l)
   serve     `python -m ropebwt3_tpu_torch serve --daemon` on bench.py's
             index; one-shot `mem -l31`, and `hapdiv` and `sw` with
             `--engine=server`, as subprocesses answered by it: stdout
@@ -1496,13 +1502,14 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
     whole `get` walk, symbols, end rows and segment records exact, each
     pass timed beside the heads-only walk (dense32), its bound, its chain
     floor and the JAX package's native walk (timed inside the `get`
-    reference);
-    occ_rank1a at the width of kount's widest launch; K12 (four layouts)
-    against suffix_plain on the card, exact, on all the reads, timed beside
-    its bound and chain floor."""
+    reference); K12 (four layouts) against suffix_plain on the card, exact,
+    on all the reads, timed beside its bound and chain floor; kount's level
+    rank on every level of its frontier (kount_time.levels) and kount_rank
+    against kount_rank_plain at the widest level, dense32 and dense64."""
     import torch
 
-    from ropebwt3_tpu_torch.ops import rank, smem, walk
+    from ropebwt3_tpu_torch import kount_time
+    from ropebwt3_tpu_torch.ops import kount, rank, smem, walk
 
     f = cli.load_index(fmd)
     res = {}
@@ -1624,36 +1631,69 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
             f"{r['chain_floor_ms']:.4f} ms (longest read {steps} steps) ({card})")
         del counted
 
-    # ---- kount, then occ_rank1a at the width of its widest launch
+    # ---- kount; then its level rank on its own frontiers (dense32, kount's
+    # rows): every level timed A B C C B A by kount_time (occ_rank1a of the
+    # node-major cat([k, l]), occ_rank1a of the symbol-major one, kount_rank);
+    # at the widest level kount_rank against kount_rank_plain on the card,
+    # dense32 and dense64, and on random unsorted (k, l) at that width
     argv = ["kount", "-k", str(KOUNT_K), "-m", str(KOUNT_M), fmd]
-    port_s, port_out, err = port_path(cli, argv, "kount", [rank.rank1a_cuda])
-    kount_launches = dict(rank.rank1a_cuda.launches)
+    port_s, port_out, err = port_path(cli, argv, "kount", [kount.kount_rank_cuda, rank.rank1a_cuda])
+    kount_launches, rank_launches = dict(kount.kount_rank_cuda.launches), dict(rank.rank1a_cuda.launches)
     kount_pieces = pieces_of(err, "kount")
     ref_s, want, _ = same_output(argv, port_out, "kount")
     nodes = want.count(b"\n")
-    m = re.search(r"occ_rank1a launches \(dense32\), the widest of (\d+) positions", err)
-    if nodes < KOUNT_MIN_NODES or kount_launches.get("dense32", 0) != KOUNT_K or m is None:
-        fail(f"kount: {nodes} k-mers (at least {KOUNT_MIN_NODES} wanted), occ_rank1a launches {kount_launches}")
-    width = int(m.group(1))
+    m = re.search(r"(\d+) kount_rank launches \(dense32\), the widest of (\d+) nodes", err)
+    if nodes < KOUNT_MIN_NODES or kount_launches != {"dense32": KOUNT_K} or sum(rank_launches.values()) or m is None \
+            or int(m.group(1)) != KOUNT_K:
+        fail(f"kount: {nodes} k-mers (at least {KOUNT_MIN_NODES} wanted), kount_rank launches {kount_launches} "
+             f"({KOUNT_K} dense32 wanted), occ_rank1a launches {rank_launches} (none wanted)")
+    width = int(m.group(2))
     x = idxs["dense32"]
+    levels, frontiers = kount_time.levels(x, KOUNT_K, KOUNT_M, log=lambda line: say(f"[utils] kount {line} ({card})"))
+    w = max(range(len(levels)), key=lambda d: levels[d]["nodes"])
+    if levels[w]["nodes"] != width:
+        fail(f"kount's widest level has {levels[w]['nodes']} nodes here and {width} in the kount run")
+    kw, lw, chars = frontiers[w]
+    perm = kount_time.node_major(chars)
     rng = np.random.default_rng(SEED + 20)
-    kw = torch.from_numpy(np.concatenate([[0, f.n], boundaries(f.n, 64, 4096), rng.integers(0, f.n + 1, width)])[
-        :width].astype(np.int64)).to(dev)
-    got = rank.rank1a_cuda(x, kw)
-    width_err = max_abs(got, rank.rank1a(x, kw).to(x.dtype))
-    if width_err:
-        fail(f"occ_rank1a dense32: off by {width_err} against the plain rank1a at kount's width {width}")
-    res["kount"] = dict(nodes=nodes, launches=kount_launches, port_s=port_s, reference_s=ref_s, pieces=kount_pieces,
-                        widest_launch=width, widest_err=width_err, widest_ms=cuda_ms(lambda: rank.rank1a_cuda(x, kw), 5),
-                        widest_plain_ms=cuda_ms(lambda: rank.rank1a(x, kw), 2),
-                        widest_bound_ms=bound_ms(table_bytes(rank, x, kw) + nbytes(kw, got)))
-    r = res["kount"]
+    ra, rb = rng.integers(0, f.n + 1, (2, width))
+    mean = {v: sum(t) / len(t) for v, t in levels[w]["ms"].items()}
+    res["kount"] = kr = dict(nodes=nodes, launches=kount_launches, occ_rank1a_launches=rank_launches, port_s=port_s,
+                             reference_s=ref_s, pieces=kount_pieces, widest_level=w, widest_nodes=width, levels=levels,
+                             widest_ms=mean, widest_bound_ms=levels[w]["bound_ms"])
+    for lay in ("dense32", "dense64"):
+        xi = idxs[lay]
+        k, l = kw.to(xi.dtype), lw.to(xi.dtype)
+        got = kount.kount_rank_cuda(xi, k, l)
+        t0 = time.perf_counter()
+        want_t = kount.kount_rank_plain(xi, k, l)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_abs(a, b) for a, b in zip(got, want_t))
+        rk, rl = (torch.from_numpy(v).to(dev, xi.dtype) for v in (np.minimum(ra, rb), np.maximum(ra, rb)))
+        rand_err = max(max_abs(a, b) for a, b in zip(kount.kount_rank_cuda(xi, rk, rl), kount.kount_rank_plain(xi, rk, rl)))
+        if err or rand_err:
+            fail(f"kount_rank {lay}: off by {err} on kount's widest level, by {rand_err} on random (k, l), against "
+                 f"kount_rank_plain")
+        ok, size = (torch.empty_like(t) for t in got)
+        st = kount_time.level_stats(xi, k, l, perm)
+        ms = mean["C"] if lay == "dense32" else probe.queued_ms(
+            [lambda: kount.launch_kount_rank(xi, k, l, ok, size)] * kount_time.REPS)
+        kr[lay] = dict(err=err, random_err=rand_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(st["bytes"]["C"]),
+                       rows=st["rows"], row_fetches=st["warp_rows"]["C"])
+        say(f"[utils] kount_rank {lay}: exact vs kount_rank_plain on kount's widest level ({width} nodes, level {w}) "
+            f"and on {width} random unsorted (k, l); {ms:.4f} ms vs plain {plain_ms:.1f} ms, bound "
+            f"{kr[lay]['bound_ms']:.4f} ms ({st['rows']} rows, {st['warp_rows']['C']} row fetches) ({card})")
+        del got, want_t, rk, rl, ok, size
     say(f"[utils] kount -k {KOUNT_K} -m {KOUNT_M}: stdout byte-equal to `python -m ropebwt3_tpu kount` ({nodes} "
-        f"k-mers: the last level's frontier); occ_rank1a launches {kount_launches}, the widest of {width} positions; "
-        f"port in-process {port_s:.3f} s (by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in kount_pieces.items())
-        + f"), reference {ref_s:.3f} s; occ_rank1a dense32 exact vs plain at that width, {r['widest_ms']:.4f} ms vs "
-        f"plain {r['widest_plain_ms']:.4f} ms, bound {r['widest_bound_ms']:.4f} ms ({card})")
-    del kw, got
+        f"k-mers: the last level's frontier); kount_rank launches {kount_launches}, occ_rank1a none, the widest of "
+        f"{width} nodes; port in-process {port_s:.3f} s (by piece: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in kount_pieces.items()) + f"), reference {ref_s:.3f} s; widest level: "
+        f"occ_rank1a node-major {mean['A']:.4f} ms, symbol-major {mean['B']:.4f} ms (bound "
+        f"{levels[w]['bound_ms']['A']:.4f}), kount_rank {mean['C']:.4f} ms (bound {levels[w]['bound_ms']['C']:.4f}); "
+        f"all {len(levels)} levels: " + ", ".join(f"{v} {sum(sum(lv['ms'][v]) / 2 for lv in levels):.4f}" for v in "ABC")
+        + f" ms ({card})")
+    del frontiers, kw, lw
 
     # ---- host commands, as subprocesses.  `call` takes `sw --all-e2e` of
     # k-mers named `ctg:start-end`, as fa2kmer writes them (on the [sw]
@@ -2251,16 +2291,10 @@ def main(argv: list[str]) -> None:
         for kern, err, ms, plain, bound in (("occ_rank1a", o["rank_err"], o["rank_ms"], o["rank_plain"], o["rank_bound"]),
                                             ("occ_extend_c", o["ext_err"], o["ext_ms"], o["ext_plain"], o["ext_bound"])):
             n, path = path_launches(kern, name)
-            kount = {}
-            if kern == "occ_rank1a" and ut["kount"]["launches"].get(name, 0):
-                kt = ut["kount"]
-                n, path = n + kt["launches"][name], "kount"
-                err = max(err, kt["widest_err"])
-                kount = {f"kount_{k}": kt[k] for k in ("widest_launch", "widest_err", "widest_ms", "widest_plain_ms",
-                                                        "widest_bound_ms")}
             e = {"name": f"{kern}_{name}", "route": "cuda", "source": src, "replaces": rep, "launches": n, "path": path,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-                 "library_ms": None, "input": f"{N_CHECK} on the bench index", **kount}
+                 "library_ms": None, "input": f"{N_CHECK} on the bench index",
+                 **({"kount_launches": ut["kount"]["occ_rank1a_launches"].get(name, 0)} if kern == "occ_rank1a" else {})}
             if name == "rb64":
                 key = "rank" if kern == "occ_rank1a" else "ext"
                 e.update({"rank64_ms": r64[f"{key}_ms"], "rank64_plain_ms": r64[f"{key}_plain"],
@@ -2343,6 +2377,24 @@ def main(argv: list[str]) -> None:
             "full_batch_ms": r["full_ms"], "full_batch_reads": r["full_reads"], "occupancy": r["occupancy"],
             "phase_split": r["split"], "e2e": e,
             **({"path_sw": swr["path"], "path_all_e2e": swr["e2e"]} if n else {}),
+        })
+    kt = ut["kount"]
+    for layout in ("dense32", "dense64"):
+        r, n = kt[layout], kt["launches"].get(layout, 0)
+        entries.append({
+            "name": f"kount_rank_{layout}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/kount.cu + occ.cuh",
+            "replaces": "ropebwt3_tpu/cli.py:886 (main_kount's rank1a_fast of each level: host numpy, no TPU kernel)",
+            "launches": n, "path": "kount" if n else None, "max_abs_err": max(r["err"], r["random_err"]), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "input": f"kount -k {KOUNT_K} -m {KOUNT_M}'s widest level ({kt['widest_nodes']} nodes, level "
+                     f"{kt['widest_level']}) and as many random (k, l)",
+            "rows": r["rows"], "row_fetches": r["row_fetches"],
+            **({"occ_rank1a_widest_node_major_ms": kt["widest_ms"]["A"],
+                "occ_rank1a_widest_symbol_major_ms": kt["widest_ms"]["B"],
+                "occ_rank1a_widest_bound_ms": kt["widest_bound_ms"]["A"],
+                "levels": [{"level": lv["level"], "nodes": lv["nodes"], "rows": lv["rows"], "ms": lv["ms"],
+                            "bound_ms": lv["bound_ms"], "row_fetches": lv["warp_rows"]} for lv in kt["levels"]]}
+               if layout == "dense32" else {}),
         })
     walk_src = "ropebwt3_tpu_torch/csrc/walk.cu + "
     for layout in ("dense32", "dense64"):

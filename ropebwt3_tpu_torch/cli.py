@@ -51,9 +51,10 @@ device's dense rows (ops/walk.py retrieve_cuda, K11 of csrc/walk.cu, all k
 in one walk); `suffix [--device=cuda|cpu] [-L] idx.fmd reads...` runs each
 batch's backward searches at once (suffix_cuda, K12); `kount
 [--device=cuda|cpu] [-k INT] [-m INT] idx.fmd...` expands the k-mer trie a
-level at a time with one occ_rank1a launch a level and index, its frontier
-on the device.  `fa2line` and `fa2kmer` run on the host.  The stdout of each
-is byte-equal to `python -m ropebwt3_tpu`'s.
+level at a time with one kount_rank launch a level and index (ops/kount.py,
+csrc/kount.cu), its frontier on the device in BWT order.  `fa2line` and
+`fa2kmer` run on the host.  The stdout of each is byte-equal to `python -m
+ropebwt3_tpu`'s.
 
 `serve [--device=cuda|cpu] [--engine=auto|native] [--warm=...]
 [--warm-hapdiv=...] [--warm-sw=...] [--daemon] [--stop] idx.fmd` keeps the
@@ -1244,12 +1245,11 @@ def main_suffix(argv: list[str], device: str) -> int:
 def main_kount(argv: list[str], device: str) -> int:
     """The k-mers of length -k that occur at least -m times in any of the
     indexes, with their counts in each, as ropebwt3_tpu/cli.py main_kount
-    expands them: the trie a level at a time, one occ_rank1a launch of the
-    frontier's (k, l) a level and index, the frontier kept on the device; the
-    lines sorted into the reference's DFS order at the end."""
-    import torch
-
-    from .ops.rank import rank1a_cuda
+    expands them: the trie a level at a time (ops/kount.py kount_levels:
+    one kount_rank launch of the frontier's (k, l) a level and index, the
+    frontier kept on the device in BWT order); the lines sorted into the
+    reference's DFS order at the end."""
+    from .ops.kount import kount_levels, kount_rank_cuda
 
     opts, args = ketopt(argv, "k:m:")
     depth, min_occ = 51, 100
@@ -1267,36 +1267,13 @@ def main_kount(argv: list[str], device: str) -> int:
     t0 = _lap(sec, "load", t0)
     idxs = dense_rows(fs, device)
     t0 = _lap(sec, "rows", t0)
-    dev = idxs[0].device
-    accs = [x.acc.long() for x in idxs]
-    ks = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in idxs]
-    ls = [torch.full((1,), x.n, dtype=torch.int64, device=dev) for x in idxs]
-    chars = torch.zeros((1, 0), dtype=torch.uint8, device=dev)  # (nodes, level) chosen symbols
-    leaf_occ, widest = None, 0
-    for d in range(depth):
-        widest = max(widest, 2 * len(ks[0]))
-        rr = [rank1a_cuda(x, torch.cat([k, l])).long() for x, k, l in zip(idxs, ks, ls)]
-        oks = [r[: len(r) // 2] for r in rr]
-        occ = [r[len(r) // 2 :] - ok for r, ok in zip(rr, oks)]  # (nodes, 6) each
-        keep = occ[0][:, 1:5] >= min_occ
-        for o in occ[1:]:
-            keep |= o[:, 1:5] >= min_occ  # a branch lives when any index reaches min_occ
-        node_i, a_i = keep.nonzero(as_tuple=True)
-        a = a_i + 1
-        chars = torch.cat([chars[node_i], a[:, None].to(torch.uint8)], dim=1)
-        if d == depth - 1:
-            leaf_occ = torch.stack([o[node_i, a] for o in occ], dim=1)
-            break
-        for i in range(len(idxs)):
-            ks[i] = accs[i][a] + oks[i][node_i, a]
-            ls[i] = ks[i] + occ[i][node_i, a]
-        if len(node_i) == 0:
-            return 0
-    if leaf_occ is None or len(chars) == 0:
+    widths = []
+    last = kount_levels(idxs, depth, min_occ, on_level=lambda d, ks, ls, chars: widths.append(len(ks[0])))
+    if last is None or len(last[0]) == 0:
         return 0
-    log.info("%d occ_rank1a launches (%s), the widest of %d positions", sum(rank1a_cuda.launches.values()),
-             idxs[0].layout, widest, func="kount")
-    chars, leaf_occ = chars.cpu().numpy(), leaf_occ.cpu().numpy()
+    log.info("%d kount_rank launches (%s), the widest of %d nodes", sum(kount_rank_cuda.launches.values()),
+             idxs[0].layout, max(widths), func="kount")
+    chars, leaf_occ = (t.cpu().numpy() for t in last)
     t0 = _lap(sec, "levels", t0)
     # the reference's DFS order: children are pushed ascending and popped
     # off a stack (descending) at every internal level, while the last level

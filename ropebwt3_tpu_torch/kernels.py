@@ -19,8 +19,8 @@ thread per lane of a chunked read) come in one variant per occ layout: dense32 a
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
 `RunBlockIndex`), and so does `suffix`'s backward search (csrc/walk.cu);
 ssa_gen's walk, merge_rank, `get`'s LF walk (its three walking passes),
-the hapdiv DP (one warp a window) and the sw DP (one warp a read) in the
-two dense ones.
+`kount`'s level rank (csrc/kount.cu), the hapdiv DP (one warp a window)
+and the sw DP (one warp a read) in the two dense ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
 them: rows, escape sub-rows, megablock bases, acc, the megablock shift and
 log2 of the block size.  ssa_gen's finish pass comes in the two dense
@@ -64,6 +64,7 @@ for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_ssa_walk_{_lay}"] = [*_TABLES, _I64, _I32, _I32, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_finish_{_lay}"] = [_V, _I64, _I64, _I64, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _V, _V]
+    _ENTRIES[f"rb3c_kount_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_hapdiv_{_lay}"] = [*_TABLES, _V, _I64, *[_I32] * 8, _V, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_sw_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 8, *[_V] * 10]
     # the DP kernels' timing-only twins (lane 0's phase clocks, clk last)

@@ -19,7 +19,7 @@ from ropebwt3_tpu.ssa_ops import ssa_gen_native
 from ropebwt3_tpu_torch import probe, ssa_ops
 from ropebwt3_tpu_torch.construct import merge as tmerge
 from ropebwt3_tpu_torch.construct import sa as tsa
-from ropebwt3_tpu_torch.ops import rank, runblock, smem
+from ropebwt3_tpu_torch.ops import kount, rank, runblock, smem
 
 LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
 
@@ -445,6 +445,38 @@ def test_occ_extend_c_at_row_edges(corpus_index, cuda_device, layout):
         got = rank.extend_c_cuda(gpu, ik.to(cuda_device), c.to(cuda_device), back.to(cuda_device))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), rank.extend_c(cpu, ik, c, back).to(cpu.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frontier", "random", "edges", "empty"])
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+def test_kount_rank_kernel_matches_plain(corpus_index, cuda_device, layout, case):
+    """kount_rank (csrc/kount.cu) equals kount_rank_plain exactly: on every
+    level of the corpus's `kount -k 8 -m 2` frontier (symbol-major, as
+    kount ranks it), on random unsorted (k, l), on the edges 0 and n and
+    both sides of every row edge, and on N = 0 (no launch); one count a
+    launch."""
+    cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
+    n, rng = corpus_index.n, np.random.default_rng(23)
+    if case == "frontier":
+        pairs = []
+        kount.kount_levels([cpu], 8, 2, on_level=lambda d, ks, ls, chars: pairs.append((ks[0], ls[0])))
+    elif case == "random":
+        a, b = rng.integers(0, n + 1, (2, 200_000))
+        pairs = [tuple(torch.from_numpy(v).to(cpu.dtype) for v in (np.minimum(a, b), np.maximum(a, b)))]
+    elif case == "edges":
+        e = torch.from_numpy(np.unique(np.clip(np.concatenate([np.arange(0, n + 1, 64) + d for d in (-1, 0, 1)]
+                                                              + [[0, n]]), 0, n))).to(cpu.dtype)
+        pairs = [(e, torch.full_like(e, n)), (torch.zeros_like(e), e), (e, e)]
+    else:
+        pairs = [(torch.zeros(0, dtype=cpu.dtype), torch.zeros(0, dtype=cpu.dtype))]
+    kount.kount_rank_cuda.launches.clear()
+    for k, l in pairs:
+        ok, size = kount.kount_rank_cuda(gpu, k.to(cuda_device), l.to(cuda_device))
+        torch.cuda.synchronize()
+        want_ok, want_size = kount.kount_rank_plain(cpu, k, l)
+        assert torch.equal(ok.cpu(), want_ok) and torch.equal(size.cpu(), want_size)
+    assert kount.kount_rank_cuda.launches[layout] == sum(1 for k, _ in pairs if len(k))
 
 
 def short_seqs_index(m, seed=9, lo=20, hi=200):

@@ -99,11 +99,14 @@ def second_fmd(corpus, tmp_path_factory):
 
 
 @pytest.mark.parametrize("opts,two", [(["-k", "6", "-m", "20"], False), (["-k5", "-m3"], True), (["-k", "1"], False),
-                                      (["-k", "0"], False), (["-k", "4", "-m", "1000000"], False), ([], False)])
+                                      (["-k", "0"], False), (["-k", "4", "-m", "1000000"], False), ([], False),
+                                      (["-k", "3", "-m", "4294967299"], False), (["-k", "3", "-m", "-5"], False)])
 def test_kount_matches_reference(corpus_fmd, second_fmd, opts, two):  # noqa: F811
     """One index and two (a branch lives when either reaches -m), -k 1,
     -k 0, -m above every count, and the defaults (-k 51 -m 100: nothing in
-    the corpus reaches 100)."""
+    the corpus reaches 100); -m 2^32 + 3 (no count reaches it; compared
+    with int32 counts as it is, it would wrap to 3) and -m below 0 (every
+    branch lives)."""
     idxs = [str(corpus_fmd)] + ([str(second_fmd)] if two else [])
     rc, got, want = _same(["kount", *opts, *idxs])
     assert rc == 0 and got == want
