@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (ropebwt3_tpu_torch).
 
-Drives the port's entry points on one CUDA card: `build` (and `merge`) of
+Drives the port's entry points on one CUDA card (and `mem`, `sw` and
+`hapdiv` over meshes of it): `build` (and `merge`) of
 bench.py's genomes and of its short reads, `hapdiv` of a 17th haplotype
 against bench.py's index, `sw` of its short reads, `get`, `suffix`, `kount`,
 the host converters and `tools`, `serve` with `mem`, `hapdiv` and `sw`
@@ -151,6 +152,24 @@ it.  Phases:
             route marker on stderr, each timed beside the local one-shot
             port and the native reference; then `serve --stop`, after which
             its process, socket and pid file must be gone
+  mesh      K10's port (parallel/, csrc/occ.cuh Sharded): per layout the
+            rows sharded over a 2x4 mesh whose eight slots are this card;
+            smem_tg_sh_* and smem_tgc_sh_* vs their plain version
+            (smem_tg_plain over rank6_sharded_plain, on the card) on 512
+            reads and on the lanes of 128 short + 4 long reads, exact, the
+            other seven views' kernels equal; on the main path's batch
+            smem_tgc sharded beside unsharded, A B B A, lane trips equal;
+            dense32 and rb32 through the mesh engine (the batch split over
+            the eight views) equal to the unsharded engine; `mem
+            --mesh=1x1` (and --occ=rb) through cli.main, counts reset
+            before and read after, and as a subprocess, and `mem
+            --mesh=2x1` under torchrun (two gloo processes on this card):
+            BED byte-equal to native; `hapdiv` of the 17th haplotype and
+            `sw` of the 10,000 reads over [this card] x 2 (through the API:
+            the CLI maps N to N cards), byte-equal to [hapdiv]'s and [sw]'s
+            unsharded runs; with two cards or more, `mem --mesh=2x1` and
+            `1x2` on real cards and the peer-access result, else a line
+            that says they were skipped
 
 Any failure exits non-zero.  The last line is {"ok": true, "device": ...}.
 Run from the repository root: python3 chip_smoke.py [--parent TREE]
@@ -217,6 +236,13 @@ HAPDIV_K, HAPDIV_STEP, HAPDIV_CHECK, HAPDIV_INS, HAPDIV_BIG = 101, 50, 960, 64, 
 # first SW_E2E_PATH; SW_BIG of the check's reads are scored -A 100, which
 # flags every one (a score past 4095)
 SW_CHECK, SW_CHECK_E2E, SW_PATH, SW_E2E_PATH, SW_BIG = 128, 64, 10_000, 1_000, 16
+# [mesh]: a MESH_DP x MESH_IDX mesh whose slots are all this card; the
+# sharded kernels' check takes MESH_TG reads (one thread each) and the lanes
+# of MESH_TGC_SHORT short + MESH_TGC_LONG long reads; the main path's batch
+# times smem_tgc sharded and not, A B B A, MESH_REPS launches each
+MESH_DP, MESH_IDX, MESH_TG, MESH_TGC_SHORT, MESH_TGC_LONG, MESH_REPS = 2, 4, 512, 128, 4, 3
+MESH_REPLACES = ("ropebwt3_tpu/parallel/mesh.py:132 (rank1a_local, its psum over idx in extend_sharded_c :211) "
+                 "inside ropebwt3_tpu/parallel/smem_sharded.py:34 (smem_sharded_fn); K1 ropebwt3_tpu/ops/smem_pallas.py:91")
 
 
 def fail(msg: str):
@@ -757,13 +783,14 @@ def serial_answer(smem, x, flat, seq_off) -> tuple:
     return one.n_mem.long(), one.mems[filled], one.trips
 
 
-def smem_occupancy(kernels, layout: str, sms: int) -> dict:
-    """smem_tgc's resident blocks an SM, registers and local bytes a thread
-    in `layout` (rb3c_occupancy_smem_tg_*), and its resident threads."""
+def smem_occupancy(kernels, layout: str, sms: int, chunked: int = 1) -> dict:
+    """smem_tgc's (or with chunked 0 smem_tg's) resident blocks an SM,
+    registers and local bytes a thread in `layout`
+    (rb3c_occupancy_smem_tg_*), and its resident threads."""
     import ctypes
 
     v = [ctypes.c_int(0) for _ in range(3)]
-    err = getattr(kernels.lib(), f"rb3c_occupancy_smem_tg_{layout}")(1, *(ctypes.byref(x) for x in v))
+    err = getattr(kernels.lib(), f"rb3c_occupancy_smem_tg_{layout}")(chunked, *(ctypes.byref(x) for x in v))
     if err:
         fail(f"smem_tgc {layout} occupancy query: CUDA error {err}")
     return dict(blocks_per_sm=v[0].value, local_bytes=v[1].value, regs=v[2].value,
@@ -1787,6 +1814,246 @@ def check_serve(card: str, fmd: str, reads_fa: str, mem_one_shot_s: float, mem_n
     return res
 
 
+def dp_mesh_path(cli, cmd: str, fa: str, fmd: str, devices: list, want_fn: str) -> dict:
+    """`hapdiv` / `sw` on `fa` with the windows or reads split over `devices`
+    (`--mesh=N` through the API: the CLI maps N to N cards), launch counts
+    reset before and read after; stdout byte-equal to the unsharded port's
+    run in `want_fn` ([hapdiv] / [sw])."""
+    from ropebwt3_tpu_torch.align import cli_hooks, hapdiv, sw
+
+    counted = hapdiv.hapdiv_cuda if cmd == "hapdiv" else sw.sw_cuda
+    a = cli._search_args([fmd, fa], cmd)
+    if cmd == "hapdiv":
+        a.sw_opts["end_len"], a.sw_opts["e2e"] = 1, True
+    f = cli._search_index(a, cmd, cmd == "sw" and not a.no_ssa)
+    counted.launches.clear()
+    err, out_fn = io.StringIO(), os.path.join(WORK, f"{cmd}_mesh.txt")
+    t0 = time.perf_counter()
+    with open(out_fn, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        if cmd == "hapdiv":
+            rc = cli_hooks.run_hapdiv_cli(f, a.args[1:], a.is_line, a.sw_opts, a.k, a.w, device=DEVICE, mesh=devices)
+        else:
+            rc = cli_hooks.run_sw_cli(f, a.args[1:], a.is_line, a.sw_opts, device=DEVICE, mesh=devices)
+    port_s = time.perf_counter() - t0
+    launches = dict(counted.launches)
+    sys.stderr.write(err.getvalue())
+    if rc != 0:
+        fail(f"[mesh] {cmd} over {devices} exited {rc}")
+    got, want = open(out_fn, "rb").read(), open(want_fn, "rb").read()
+    if got != want:
+        fail(f"[mesh] {cmd} over {len(devices)} devices differs from the unsharded run: {first_diff(got, want)}")
+    if launches.get("dense32", 0) < len(devices):
+        fail(f"[mesh] {cmd} over {len(devices)} devices launched {launches}")
+    return dict(launches=launches, port_s=port_s, lines=want.count(b"\n"))
+
+
+def mesh_cli(cli, counters, argv: list[str], want: bytes, lay: str) -> dict:
+    """`mem` with `--mesh` through cli.main, launch counts reset before and
+    read after: its BED byte-equal to native, smem_tgc of `lay` launched."""
+    port_bed = os.path.join(WORK, "port_mesh.bed")
+    for counted in counters:
+        counted.launches.clear()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with open(port_bed, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    port_s = time.perf_counter() - t0
+    launches = {c.__name__: dict(c.launches) for c in counters}
+    sys.stderr.write(err.getvalue())
+    if rc != 0:
+        fail(f"ropebwt3_tpu_torch {' '.join(argv)} exited {rc}")
+    got = open(port_bed, "rb").read()
+    if got != want:
+        fail(f"[mesh] {' '.join(argv[:-2])}: BED differs from --engine=native: {first_diff(got, want)}")
+    if launches["smem_tgc_cuda"].get(lay, 0) < 1:
+        fail(f"[mesh] {' '.join(argv[:-2])}: no {lay} smem_tgc launch ({launches})")
+    return dict(launches=launches, port_s=port_s)
+
+
+def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict,
+               smem_res: dict, want_bed: bytes) -> dict:
+    """[mesh]: the SMEM kernels over rows sharded on a 2x4 mesh of this card
+    (csrc/occ.cuh Sharded; parallel/mesh.py), per layout: smem_tg_sh and
+    smem_tgc_sh against their plain version (smem_tg_plain over
+    rank6_sharded_plain, on the card) on a subset of the reads, exact, the
+    other seven views' kernels equal; on the main path's batch smem_tgc
+    sharded beside unsharded, A B B A, their lane trips equal; dense32 and
+    rb32 through the mesh engine (the batch split over the eight views)
+    equal to the unsharded engine.  Then `mem --mesh=1x1` (and --occ=rb)
+    through cli.main and as a subprocess, and `mem --mesh=2x1` under
+    torchrun, two processes on this card: BED byte-equal to native;
+    `hapdiv` of the 17th haplotype and `sw` of the 10,000 reads over
+    [this card] x 2, byte-equal to the unsharded runs; with two cards or
+    more, `mem --mesh=2x1` and `1x2` on real cards."""
+    import torch
+
+    from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
+    from ropebwt3_tpu_torch.parallel.smem_sharded import smem_mesh
+
+    mesh = make_mesh(MESH_DP, MESH_IDX, [dev] * (MESH_DP * MESH_IDX))
+    args = dict(min_occ=1, min_len=MIN_LEN, max_mems=MAX_MEMS)
+
+    def on_card(rs):
+        return tuple(torch.from_numpy(a).to(dev) for a in smem.pack_reads(rs))
+
+    sflat, soff = on_card(reads[:MESH_TG])
+    cflat, coff = on_card(reads[:MESH_TGC_SHORT] + reads[N_READS : N_READS + MESH_TGC_LONG])
+    clanes = smem.chunk_lanes(coff)
+    corder = smem.lane_order(clanes, coff)
+    flat_np, off_np = smem.pack_reads(reads)
+    aflat, aoff = torch.from_numpy(flat_np).to(dev), torch.from_numpy(off_np).to(dev)
+    alanes = smem.chunk_lanes(aoff)
+    aorder = smem.lane_order(alanes, aoff)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {}
+    for name, x in idxs.items():
+        t0 = time.perf_counter()
+        sh = ShardedRows(x, mesh)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        v = sh.views[-1]  # dp row 1, shard column 3
+        is_rb = name.startswith("rb")
+        step = RB_ROUNDS * ns[name] if is_rb else ns[LAT_48MB]
+        sc1, scc = (SectorCount(v, [x]), SectorCount(v, [x])) if is_rb else (v, v)
+        k1 = smem.smem_tg_cuda(v, sflat, soff, trips=True, **args)
+        t0 = time.perf_counter()
+        want1 = smem.smem_tg_plain(sc1, sflat, soff, **args)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        err1 = chains_err(k1, want1, MAX_MEMS, f"[mesh] smem_tg_{v.layout}")
+        kc = smem.smem_tgc_cuda(v, cflat, coff, clanes, trips=True, **args)
+        t0 = time.perf_counter()
+        wantc = smem.smem_tg_plain(scc, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args)
+        torch.cuda.synchronize()
+        cplain = (time.perf_counter() - t0) * 1e3
+        errc = chains_err(kc, wantc, MAX_MEMS, f"[mesh] smem_tgc_{v.layout}")
+        if err1 or errc:
+            fail(f"[mesh] {v.layout}: smem_tg off by {err1}, smem_tgc off by {errc} against the plain version")
+        for w in sh.views[:-1]:  # every dp row and shard column: the same chains
+            e = chains_err(smem.smem_tgc_cuda(w, cflat, coff, clanes, trips=True, **args), kc, MAX_MEMS,
+                           f"[mesh] smem_tgc_{v.layout} on view {w.dp_row}/{w.device}")
+            if e:
+                fail(f"[mesh] {v.layout}: the views' kernels differ by {e}")
+        tables = (sc1.bytes()[0] if is_rb else v.nbytes)
+        ctables = (scc.bytes()[0] if is_rb else v.nbytes)
+        del sc1, scc, want1, wantc
+        r = dict(err=err1, cerr=errc, shard_s=shard_s, nb_local=sh.nb_local, nbytes=sh.nbytes, plain=plain, cplain=cplain,
+                 ms=probe.queued_ms([lambda: smem.launch_tg(v, sflat, soff, **args)] * 10),
+                 bound=bound_ms(tables + nbytes(sflat, soff, k1.n_mem)
+                                + int(k1.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * k1.mems.element_size()),
+                 floor=int(k1.trips.max()) * step / 1e6,
+                 cms=probe.queued_ms([lambda: smem.launch_tgc(v, cflat, coff, clanes, corder, **args)] * 10),
+                 cbound=bound_ms(ctables + nbytes(cflat, coff, clanes, kc.n_mem, kc.n_log)
+                                 + int(kc.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * kc.mems.element_size()
+                                 + int(kc.n_log.clamp(max=smem.LOG_LEN).sum()) * 4),
+                 cfloor=int(kc.trips.max()) * step / 1e6,
+                 occupancy=smem_occupancy(kernels, v.layout, sms),
+                 tg_occupancy=smem_occupancy(kernels, v.layout, sms, chunked=0))
+        # the main path's batch: sharded beside unsharded smem_tgc, A B B A
+        tu = smem.launch_tgc(x, aflat, aoff, alanes, aorder, trips=True, **args).trips
+        ts = smem.launch_tgc(v, aflat, aoff, alanes, aorder, trips=True, **args).trips
+        if not torch.equal(tu, ts):
+            fail(f"[mesh] {v.layout}: lane trips on the main path's batch differ from {name}'s")
+        abba = []
+        for idx in (x, v, v, x):
+            abba.append(probe.queued_ms([lambda idx=idx: smem.launch_tgc(idx, aflat, aoff, alanes, aorder, **args)]
+                                        * MESH_REPS))
+        r.update(batch_ms=(abba[1], abba[2]), batch_unsharded_ms=(abba[0], abba[3]), lane_trips=int(ts.max()),
+                 batch_floor=int(ts.max()) * step / 1e6,
+                 batch_bound=smem_res[name].get("batch_sector_bound", smem_res[name]["batch_bound"]))
+        if name in ("dense32", "rb32"):  # the mesh engine: the batch over all eight views
+            before = smem.smem_tgc_cuda.launches[v.layout]
+            t0 = time.perf_counter()
+            out = smem_mesh(sh.views, flat_np, off_np, **args)
+            r["engine_ms"] = (time.perf_counter() - t0) * 1e3
+            r["engine_launches"] = smem.smem_tgc_cuda.launches[v.layout] - before
+            t0 = time.perf_counter()
+            want = smem.smem_tg(x, aflat, aoff, **args)
+            torch.cuda.synchronize()
+            r["engine_unsharded_ms"] = (time.perf_counter() - t0) * 1e3
+            if not (np.array_equal(out.counts, want.counts.cpu().numpy())
+                    and np.array_equal(out.rows, want.rows.cpu().numpy())):
+                fail(f"[mesh] {v.layout}: the mesh engine's rows on the main path's batch differ from {name}'s")
+            if r["engine_launches"] < len(sh.views):
+                fail(f"[mesh] {v.layout}: the mesh engine launched smem_tgc {r['engine_launches']} times")
+            r["n_mems"] = int(out.counts.sum())
+        res[name] = r
+        o = r["occupancy"]
+        say(f"[mesh] {v.layout} over a {mesh.dp}x{mesh.idx} mesh of {dev} ({sh.nb} rows, {sh.nb_local} a slab; sharded "
+            f"in {shard_s:.3f} s): smem_tg exact vs plain on {MESH_TG} reads {r['ms']:.4f} ms (plain {plain:.1f} ms, "
+            f"bound {r['bound']:.4f}, chain floor {r['floor']:.4f}); smem_tgc exact vs plain on the lanes of "
+            f"{MESH_TGC_SHORT} short + {MESH_TGC_LONG} long reads ({clanes.shape[0]} lanes; rows, counts, START logs, "
+            f"trips; the other 7 views equal) {r['cms']:.4f} ms (plain {cplain:.1f} ms, bound {r['cbound']:.4f}, chain "
+            f"floor {r['cfloor']:.4f}); main path's batch smem_tgc A B B A {name} {abba[0]:.4f}, {v.layout} "
+            f"{abba[1]:.4f} / {abba[2]:.4f}, {name} {abba[3]:.4f} ms (lane trips equal, longest {r['lane_trips']}, "
+            f"chain floor {r['batch_floor']:.4f} ms); smem_tgc {o['regs']} registers, {o['blocks_per_sm']} blocks an "
+            f"SM, smem_tg {r['tg_occupancy']['regs']} / {r['tg_occupancy']['blocks_per_sm']}"
+            + (f"; the mesh engine on the batch ({r['engine_launches']} smem_tgc launches, {r['n_mems']} MEMs) equal "
+               f"to {name}'s: {r['engine_ms']:.1f} ms wall vs {r['engine_unsharded_ms']:.1f}" if "engine_ms" in r else "")
+            + f" ({card})")
+        del sh, v, k1, kc
+    del sflat, soff, cflat, coff, aflat, aoff, alanes, aorder
+
+    # (c) mem --mesh=1x1 through cli.main (the path: counts reset and read) and as a subprocess
+    counters = (smem.smem_tg_cuda, smem.smem_tgc_cuda)
+    paths = {}
+    for extra, lay in (([], "sh_dense32"), (["--occ=rb"], "sh_rb32")):
+        argv = ["mem", "--mesh=1x1", f"-l{MIN_LEN}", *extra, fmd, reads_fa]
+        paths[lay] = mesh_cli(cli, counters, argv, want_bed, lay)
+        say(f"[mesh] path `{' '.join(argv[:-2])}` through cli.main: BED byte-equal to --engine=native; launches "
+            f"{paths[lay]['launches']}; in-process {paths[lay]['port_s']:.3f} s ({card})")
+    sub_bed = os.path.join(WORK, "port_mesh_subprocess.bed")
+    with open(sub_bed, "wb") as out:
+        sub_s, sub_err = run([sys.executable, "-m", "ropebwt3_tpu_torch", "mem", "--mesh=1x1", f"-l{MIN_LEN}", fmd,
+                              reads_fa], stdout=out)
+    if open(sub_bed, "rb").read() != want_bed:
+        fail("[mesh] `python -m ropebwt3_tpu_torch mem --mesh=1x1` BED differs from --engine=native")
+    say(f"[mesh] `python -m ropebwt3_tpu_torch mem --mesh=1x1 -l{MIN_LEN}`: BED byte-equal, {sub_s:.3f} s; stderr: "
+        + " | ".join(ln for ln in sub_err.strip().splitlines() if "smem_tg launches" in ln or "occ layout" in ln))
+
+    # (d) two processes under torchrun on this card, dp 2
+    tr_bed = os.path.join(WORK, "port_mesh_torchrun.bed")
+    with open(tr_bed, "wb") as out:
+        tr_s, tr_err = run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2", "-m",
+                            "ropebwt3_tpu_torch", "mem", "--mesh=2x1", f"-l{MIN_LEN}", fmd, reads_fa], stdout=out)
+    if open(tr_bed, "rb").read() != want_bed:
+        fail(f"[mesh] torchrun mem --mesh=2x1 BED differs from --engine=native: "
+             f"{first_diff(open(tr_bed, 'rb').read(), want_bed)}; stderr {tr_err[-1500:]}")
+    n_launch = len(re.findall(r"smem_tg launches \(sh_dense32\): [1-9]", tr_err))
+    if n_launch != 2:
+        fail(f"[mesh] torchrun mem --mesh=2x1: {n_launch} processes report sh_dense32 launches: {tr_err[-1500:]}")
+    say(f"[mesh] `torchrun --standalone --nproc_per_node=2 -m ropebwt3_tpu_torch mem --mesh=2x1 -l{MIN_LEN}` on this "
+        f"card (gloo): BED of process 0 byte-equal to --engine=native, both processes launched sh_dense32; "
+        f"{tr_s:.3f} s (one process: {sub_s:.3f} s) ({card})")
+
+    # (e) hapdiv and sw over [this card] x 2
+    dps = {}
+    for cmd, fa, want_fn in (("hapdiv", os.path.join(WORK, "hap17.fa"), os.path.join(WORK, "hapdiv_port.txt")),
+                             ("sw", os.path.join(WORK, "sw", "reads.fa"), os.path.join(WORK, "sw", "sw_port.txt"))):
+        dps[cmd] = dp_mesh_path(cli, cmd, fa, fmd, [dev, dev], want_fn)
+        say(f"[mesh] `{cmd}` with the work split over [{dev}] x 2 (rows uploaded once): stdout byte-equal to the "
+            f"unsharded run ({dps[cmd]['lines']} lines); launches {dps[cmd]['launches']}; {dps[cmd]['port_s']:.3f} s "
+            f"({card})")
+
+    # (f) real cards, where the machine has them
+    real = {}
+    if torch.cuda.device_count() >= 2:
+        for spec in ("2x1", "1x2"):
+            bed = os.path.join(WORK, f"port_mesh_{spec}.bed")
+            with open(bed, "wb") as out:
+                s_, e_ = run([sys.executable, "-m", "ropebwt3_tpu_torch", "mem", f"--mesh={spec}", f"-l{MIN_LEN}", fmd,
+                              reads_fa], stdout=out)
+            if open(bed, "rb").read() != want_bed:
+                fail(f"[mesh] mem --mesh={spec} on {torch.cuda.device_count()} cards: BED differs from native")
+            peer = re.search(r"(peer access[^)]*|no peer access[^)]*)\)", e_)
+            real[spec] = dict(s=s_, peer=peer.group(1) if peer else None)
+            say(f"[mesh] `mem --mesh={spec}` on real cards: BED byte-equal, {s_:.3f} s; {real[spec]['peer']} ({card})")
+    else:
+        say(f"[mesh] real --mesh=2x1 and 1x2 skipped: this machine has {torch.cuda.device_count()} card (peer access "
+            "and scaling across cards unmeasured)")
+    return dict(res=res, paths=paths, sub_s=sub_s, torchrun_s=tr_s, dp=dps, real=real)
+
+
 def main(argv: list[str]) -> None:
     if argv and (len(argv) != 2 or argv[0] != "--parent"):
         fail("usage: python3 chip_smoke.py [--parent TREE]")
@@ -2238,6 +2505,10 @@ def main(argv: list[str]) -> None:
     sv = check_serve(card, fmd, reads_fa, sub_s, native_s, hd, swr)
     phase_done("serve")
 
+    # ---- mesh --------------------------------------------------------------------
+    ms_ = check_mesh(cli, smem, kernels, probe, dev, card, fmd, reads_fa, reads, idxs, ns, smem_res, want)
+    phase_done("mesh")
+
     def path_launches(kernel: str, layout: str) -> tuple[int, str | None]:
         for path, p in paths.items():
             if p["layout"] == layout and kernel in ("smem_tg", "smem_tgc"):
@@ -2421,7 +2692,30 @@ def main(argv: list[str]) -> None:
             "longest_steps": r["longest_steps"], "table_bytes": r["table_bytes"],
             **({k: r[k] for k in ("suffix_port_s", "suffix_reference_s", "suffix_pieces")} if r["launches"] else {}),
         })
-    say(json.dumps({"kernels": entries, "utils": {k: ut[k] for k in ("kount", "fa2line", "fa2kmer", "tools_call")},
+    for name in LAYOUTS:
+        r, lay = ms_["res"][name], f"sh_{name}"
+        path = ms_["paths"].get(lay)
+        mesh_in = f"a {MESH_DP}x{MESH_IDX} mesh of one card"
+        for kern in ("smem_tg", "smem_tgc"):
+            n = path["launches"][f"{kern}_cuda"].get(lay, 0) if path else 0
+            tgc = kern == "smem_tgc"
+            e = {"name": f"{kern}_{lay}", "route": "cuda", "source": smem_src + " + occ.cuh (Sharded) + parallel/mesh.py",
+                 "replaces": MESH_REPLACES, "launches": n, "path": f"mem --mesh=1x1{' --occ=rb' if lay == 'sh_rb32' else ''}"
+                 if n else None, "max_abs_err": r["cerr" if tgc else "err"], "ms": r["cms" if tgc else "ms"],
+                 "plain_ms": r["cplain" if tgc else "plain"], "bound_ms": r["cbound" if tgc else "bound"],
+                 "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["cfloor" if tgc else "floor"],
+                 "input": (f"the lanes ({smem.CHUNK} + {smem.MARGIN}) of {MESH_TGC_SHORT} short and {MESH_TGC_LONG} long "
+                           f"reads, {mesh_in}" if tgc else f"{MESH_TG} x {READ_LEN} bp reads, one thread each, {mesh_in}"),
+                 "occupancy": r["occupancy" if tgc else "tg_occupancy"], "nb_local": r["nb_local"]}
+            if tgc:
+                e.update(main_path_batch_ms=r["batch_ms"], main_path_batch_unsharded_ms=r["batch_unsharded_ms"],
+                         main_path_batch_bound_ms=r["batch_bound"], main_path_batch_chain_floor_ms=r["batch_floor"],
+                         main_path_batch_longest_lane_trips=r["lane_trips"],
+                         **({"mesh_engine_ms": r["engine_ms"], "unsharded_engine_ms": r["engine_unsharded_ms"],
+                             "mesh_engine_launches": r["engine_launches"]} if "engine_ms" in r else {}))
+            entries.append(e)
+    say(json.dumps({"kernels": entries, "mesh": {k: ms_[k] for k in ("sub_s", "torchrun_s", "dp", "real")},
+                    "utils": {k: ut[k] for k in ("kount", "fa2line", "fa2kmer", "tools_call")},
                     "serve": sv, "phase_s": phase_s}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 

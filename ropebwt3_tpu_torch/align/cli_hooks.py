@@ -6,13 +6,19 @@ ropebwt3_tpu/align/cli_hooks.py's `_iter_named`, `_opt_from_dict`,
 `_pos_stranded`, `write_paf`, `write_all_hits`, `_emit_sw`, `run_sw_cli`
 and `run_hapdiv_cli`, with the port's device engines (align/sw.py,
 align/hapdiv.py) in place of the JAX ones and without the JAX package's
-hybrid pool, mesh and resident server."""
+hybrid pool and resident server.  `--mesh=N` splits each batch over N
+devices (`MeshEngines`; align/hapdiv_jax.py:313-341 and sw_jax.py:686-692
+place the windows and reads over `dp` with the tables replicated), and under
+torchrun each process takes its share (parallel/launch.py `DistList`)."""
 
 from __future__ import annotations
 
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 from .. import log
 from ..nt6 import char2nt6, revcomp
@@ -130,11 +136,78 @@ def _emit_sw(out, f, sw_opts, name, q, hits, minus_hits) -> None:
             out.write(f"{name}\t{len(q)}\t*\t*\t*\t*\t*\t*\t*\t0\t0\t0\n")
 
 
-def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None) -> int:
+class MeshEngines:
+    """One DP engine a device of `devices` (`--mesh=N`: the first device of
+    each dp row), made by `make(device, idx)`, over f's dense rows
+    replicated: one copy a distinct device, so [cuda:0] * 2 uploads once.
+    `run` splits the items (sw's reads, hapdiv's windows) into contiguous
+    shares by count, one a device, runs each on its engine (a thread a
+    distinct device) and returns the results in input order; the engines'
+    counts add up, and so do their seconds in `seconds` after each run."""
+
+    def __init__(self, f, devices, make):
+        from ..ops.rank import OccIndex
+
+        rows = {}
+        for d in devices:
+            rows.setdefault(str(d), OccIndex.from_dense(f, d))
+        self.engines = [make(d, rows[str(d)]) for d in devices]
+        self.seconds = Counter()
+
+    def run(self, items: list) -> list:
+        n = len(self.engines)
+        cuts = np.arange(n + 1) * len(items) // n
+        by_dev: dict[str, list[int]] = {}
+        for j, e in enumerate(self.engines):
+            by_dev.setdefault(str(e.device), []).append(j)
+        res: dict[int, list] = {}
+        before = [Counter(e.seconds) for e in self.engines]
+
+        def run(js):
+            for j in js:
+                res[j] = self.engines[j].run(items[cuts[j] : cuts[j + 1]])
+
+        if len(by_dev) == 1:
+            run(range(n))
+        else:
+            with ThreadPoolExecutor(len(by_dev)) as ex:
+                for fut in [ex.submit(run, js) for js in by_dev.values()]:
+                    fut.result()
+        for e, b in zip(self.engines, before):
+            self.seconds.update(e.seconds - b)
+        return [r for j in range(n) for r in res[j]]
+
+    @property
+    def idx(self):
+        return self.engines[0].idx
+
+    def __getattr__(self, name):  # n_bad, n_card, n_reads, n_shape: summed
+        if name.startswith("n_"):
+            return sum(getattr(e, name) for e in self.engines)
+        raise AttributeError(name)
+
+
+def _device_engine(cls, f, opt, device, rows, mesh):
+    """The CLI's DP engine: cls on `device`, over `rows` when given, or over
+    the devices of `mesh` (MeshEngines); under torchrun, each process on its
+    share (parallel/launch.py DistList)."""
+    if mesh is None:
+        eng = cls(f, opt, device, idx=rows)
+    else:
+        eng = MeshEngines(f, mesh, lambda d, idx: cls(f, opt, d, idx=idx))
+        log.info("%s over %d devices (%s), the rows replicated on %d", cls.__name__, len(mesh),
+                 ", ".join(str(d) for d in mesh), len({str(d) for d in mesh}), func="mesh")
+    from ..parallel.launch import DistList, world
+
+    return DistList(eng) if world()[1] > 1 else eng
+
+
+def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None, mesh=None) -> int:
     """sw of every read of `files`: on `device` ("cuda" or "cpu") through the
     device engine (align/sw.py), over `rows` (a prebuilt OccIndex of f on
-    it) when given, or on the native engine alone when None.  Batches of
-    SW_BATCH reads; the engine runs one batch ahead of the writer."""
+    it) when given, on the devices of `mesh` (a list, one a share) when
+    given, or on the native engine alone when None.  Batches of SW_BATCH
+    reads; the engine runs one batch ahead of the writer."""
     from ..cli import seq_openable
 
     opt = _opt_from_dict(sw_opts)
@@ -148,7 +221,7 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None) -> int:
     if device is not None:
         from .sw import SwDeviceEngine
 
-        dev_engine = SwDeviceEngine(f, opt, device, idx=rows)
+        dev_engine = _device_engine(SwDeviceEngine, f, opt, device, rows, mesh)
 
     def _sw_batch(qs):
         return rb3_sw_batch(opt, f, qs) if dev_engine is None else dev_engine.run(qs)
@@ -213,11 +286,11 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None) -> int:
     return 0
 
 
-def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None) -> int:
+def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None, mesh=None) -> int:
     """hapdiv of every k-mer at step w of each sequence of `files`: on
     `device` ("cuda" or "cpu") through the device engine, over `rows` (a
-    prebuilt OccIndex of f on it) when given, or on the native DP alone when
-    None."""
+    prebuilt OccIndex of f on it) when given, on the devices of `mesh` (a
+    list, one a share) when given, or on the native DP alone when None."""
     from ..cli import seq_openable
 
     opt = _opt_from_dict(sw_opts)
@@ -232,7 +305,7 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None) -> 
     if device is not None:
         from .hapdiv import LANES, HapdivDeviceEngine
 
-        dev_engine = HapdivDeviceEngine(f, opt, device, idx=rows)
+        dev_engine = _device_engine(HapdivDeviceEngine, f, opt, device, rows, mesh)
         CAP = LANES
 
     def _compute(batch_wins):

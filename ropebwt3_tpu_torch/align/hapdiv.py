@@ -462,7 +462,7 @@ def launch_hapdiv(idx: OccIndex, seqs: torch.Tensor, K: int, n_best: int = N_BES
         kernels.launch(f"rb3c_hapdiv_{idx.layout}", dev, *idx.kernel_tables(), seqs.data_ptr(), W, K, *opt,
                        arch.data_ptr(), n_al.data_ptr(), max_ed.data_ptr(), n_hap.data_ptr(), bad.data_ptr(),
                        n_trips.data_ptr() if trips else None)
-        hapdiv_cuda.launches[idx.layout] += 1
+        kernels.count(hapdiv_cuda.launches, idx.layout)
     return (n_al, max_ed, n_hap, bad, n_trips) if trips else (n_al, max_ed, n_hap, bad)
 
 

@@ -456,7 +456,7 @@ def launch_sw(idx: OccIndex, node_c: torch.Tensor, pre: torch.Tensor, n_node: to
                        mis, gap_open, gap_ext, scratch.data_ptr(), lo.data_ptr(), hi.data_ptr(), rc.data_ptr(),
                        w.data_ptr(), best_sc.data_ptr(), best_pos.data_ptr(), bad.data_ptr(),
                        n_trips.data_ptr() if trips else None)
-        sw_cuda.launches[idx.layout] += 1
+        kernels.count(sw_cuda.launches, idx.layout)
     out = (lo, hi, rc, w, best_sc, best_pos, bad)
     return (*out, n_trips) if trips else out
 

@@ -65,8 +65,17 @@ here.  That choice is made before torch is imported, so a request that a
 server answers never imports it.  RB3TPU_AUTO_SERVE=1 starts a server in the
 background when none answers `mem`.
 
+`mem --mesh=DPxIDX` shards the occ rows over IDX devices and splits each
+batch's reads over all DP x IDX of them (parallel/); `sw`, `hapdiv` and
+`search --mesh=N` split each batch's reads or windows over N devices, the
+rows replicated.  The devices are cuda:0 .. (one a mesh slot; too few cards
+is one ERROR line), or the CPU with --device=cpu.  Under torchrun the spec
+is global: each process runs its dp share on its own devices, joins a gloo
+group, and process 0 writes all output (parallel/launch.py).
+
 With the default `--device=cuda` and no CUDA, every command that runs on
-the device exits non-zero; none goes on on the CPU unasked.  `--mesh`,
+the device exits non-zero; none goes on on the CPU unasked.  `--mesh` on
+the other commands, an idx axis across processes,
 `--engine=jax|hybrid` and the `--dbg-*` streams are refused with one
 `ERROR:` line that names the ROADMAP queue item porting them (`refusal`);
 `python -m ropebwt3_tpu` runs them.  The option parsers, the usage texts,
@@ -94,6 +103,7 @@ from . import log
 from .bufio import write_all
 from .index.dense import DenseFMIndex
 from .nt6 import COMP_TABLE, NT6_TABLE, char2nt6, nt6_to_str, revcomp
+from .parallel import MeshError
 from .seqio import batch_nt6_flat, iter_flat_batches, read_batch_nt6, read_seqs, read_sid
 
 REF_VERSION = "3.10-r281"  # ropebwt3 version whose formats and outputs are matched
@@ -269,6 +279,8 @@ Options:
   -L          one sequence per line in the input
   -K NUM      query batch size [100m]
   --device=STR  cuda (the kernels) or cpu (the plain PyTorch engine) [cuda]
+  --mesh=DPxIDX shard over a device mesh: reads over all DP x IDX devices,
+                occ rows over IDX devices (e.g. --mesh=4x2) []
   --occ=STR     device occ rows: auto, dense, rb (run-block compressed) [auto]""",
     "sw": f"""Usage: python -m ropebwt3_tpu_torch sw [options] <idx.fmr> <seq.fa> [...]
 Options:
@@ -285,7 +297,9 @@ Options:
   -p INT      output up to INT positions [0]
   -L          one sequence per line in the input
   --device=STR  cuda (the kernel) or cpu (the plain PyTorch version) [cuda]
-  --engine=STR  DP engine: auto (the device) or native (the host DP) [auto]""",
+  --engine=STR  DP engine: auto (the device) or native (the host DP) [auto]
+  --mesh=N      run the device DP data-parallel over N devices (reads over
+                the dp axis, tables replicated) []""",
     "search": "Usage: python -m ropebwt3_tpu_torch search [options] <idx.fmr> <seq.fa> [...]",
     "hapdiv": """Usage: python -m ropebwt3_tpu_torch hapdiv [options] <idx.fmr> <seq.fa> [...]
 Options:
@@ -300,7 +314,9 @@ Options:
   -y INT      ignore secondary hits scored INT lower than the best [-1]
   -L          one sequence per line in the input
   --device=STR  cuda (the kernel) or cpu (the plain PyTorch version) [cuda]
-  --engine=STR  DP engine: auto (the device) or native (the host DP) [auto]""",
+  --engine=STR  DP engine: auto (the device) or native (the host DP) [auto]
+  --mesh=N      run the device DP data-parallel over N devices (windows over
+                the dp axis, tables replicated) []""",
     "ssa": """Usage: python -m ropebwt3_tpu_torch ssa [options] <in.fmd>
 Options:
   -t INT     number of threads [4]
@@ -416,12 +432,17 @@ def load_index(fn: str, load_ssa: bool = False, load_sid: bool = False) -> Dense
 # ---------------------------------------------------------------------------
 
 
+MESH_CMDS = ("mem", "sw", "hapdiv", "search")  # the commands the port's --mesh takes
+MESH_REMAINDER = "ROADMAP queue 1 item 12 (its remainder: ssa, build and merge)"
+
+
 def refusal(argv: list[str]) -> str | None:
-    """Why the port refuses `argv`, or None: `--mesh` on any command, and
-    `sw` / `hapdiv` / `search` with `--engine=jax|hybrid`, would reach the
-    JAX package's device code (`sw` and `hapdiv` run the port's own device
-    engines with `--engine=auto`, a resident server's with `--engine=server`);
-    `search` never goes to a server."""
+    """Why the port refuses `argv`, or None: `--mesh` on a command other
+    than mem, sw, hapdiv and search, and `sw` / `hapdiv` / `search` with
+    `--engine=jax|hybrid`, would reach the JAX package's device code (`sw`
+    and `hapdiv` run the port's own device engines with `--engine=auto`, a
+    resident server's with `--engine=server`); `search` never goes to a
+    server."""
     cmd, rest = argv[0], argv[1:]
     if cmd not in OWNED:
         return f"unknown command '{cmd}'"
@@ -431,8 +452,8 @@ def refusal(argv: list[str]) -> str | None:
     # and unambiguous prefixes (no other long option of any command starts
     # with `m` or `e`); the last value wins
     given = dict(ketopt(rest, "", ["mesh=", "engine="])[0])
-    if "--mesh" in given:
-        return f"{cmd} --mesh is not ported (multi-GPU): ROADMAP queue 1 item 12"
+    if "--mesh" in given and cmd not in MESH_CMDS:
+        return f"{cmd} --mesh is not ported (multi-GPU): {MESH_REMAINDER}"
     engine = given.get("--engine", "auto")
     if cmd in _ENGINE_ITEM and engine in ("jax", "hybrid"):
         return f"{cmd} --engine={engine} runs the JAX package's device engine, not ported: ROADMAP queue 1 {_ENGINE_ITEM[cmd]}"
@@ -452,15 +473,17 @@ def route(cmd: str, rest: list[str]) -> int | None:
 
     device, argv = _split_device(rest)
     opts, args = ketopt(argv, _SEARCH_OPTS, _LONG_OPTS)  # the command's own parse reports what is wrong
-    engine, algo = "auto", cmd
+    engine, algo, mesh = "auto", cmd, False
     for o, a in opts:
         if o == "--engine":
             engine = a
+        elif o == "--mesh":
+            mesh = True
         elif o == "-d" and cmd == "mem":
             algo = "sw"
         elif o in ("-a", "-w") and cmd == "mem":
             algo = "hapdiv"
-    if len(args) < 2 or not (engine == "server" or (engine == "auto" and algo == "mem")):
+    if len(args) < 2 or not (engine == "server" or (engine == "auto" and algo == "mem" and not mesh)):
         return None
     got = server.server_device(args[0])
     if got == device:
@@ -822,7 +845,7 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
     except KetoptUnknown:
         return 1
     is_line, min_len, min_occ, max_pos, min_gap_len, write_cov = False, 19, 1, 0, 0, False
-    occ, batch_size, other, algo = "auto", 100_000_000, None, "mem"
+    occ, batch_size, other, algo, mesh_spec = "auto", 100_000_000, None, "mem", None
     for o, a in opts:
         if o == "-L":
             is_line = True
@@ -848,6 +871,8 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
             algo, other = "hapdiv", None
         elif o == "--old-mem":
             algo, other = "mem", f"{cmd} --old-mem (the original MEM algorithm) is not ported: ROADMAP queue 1 item 4"
+        elif o == "--mesh":
+            mesh_spec = a
     if algo == "hapdiv":
         return main_hapdiv(argv, device, cmd, served)
     if algo == "sw":
@@ -858,19 +883,46 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
         return _err(f"{other}; `python -m ropebwt3_tpu {cmd} --old-mem` runs it")
     if min_gap_len > 0:
         max_pos = 0
+    mesh = _cli_mesh(mesh_spec, device, served, "mem")
     f = _index(args[0], max_pos > 0, served)
     if max_pos > 0 and (f.ssa is None or f.sid is None):
         return _err("failed to load suffix array samples or sequence names/lengths")
     if not f.is_symmetric():
         return _err("BWT doesn't contain both strands")
     rows = None if served is None else served.mem_rows(occ)
-    eng = BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ, rows=rows)
+    eng = BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ, rows=rows, mesh=mesh)
+    if mesh is not None:
+        from .parallel.launch import DistMem, world
+
+        eng = DistMem(eng) if world()[1] > 1 else eng
     ret = _run_mem(f, eng, args[1:], is_line, batch_size, min_gap_len, write_cov, max_pos)
     lay = eng.idx.layout
     log.info("%d smem_tg launches (%s): %d chunked, %d one-thread; %d reads rerun on the card, %d unmerged, %d whole",
              smem_tgc_cuda.launches[lay] + smem_tg_cuda.launches[lay], lay, smem_tgc_cuda.launches[lay],
              smem_tg_cuda.launches[lay], eng.n_rerun, eng.n_unmerged, eng.n_whole, func="mem")
     return ret
+
+
+def _cli_mesh(spec: str | None, device: str, served, func: str, engine: str = "auto"):
+    """This process's mesh for `--mesh=spec` (parallel/launch.py
+    `local_mesh`; under torchrun it joins the process group), or None: no
+    spec, or one that the engine ignores, with the JAX package's warning
+    (ropebwt3_tpu/align/cli_hooks.py:133-142): a host engine
+    (`--engine=native`) or a resident server's engine answers."""
+    if not spec:
+        return None
+    if served is not None or engine == "server":
+        sys.stderr.write(f"[W::{func}] --mesh={spec} ignored: the resident server's engine answers (serve takes no "
+                         "--mesh)\n")
+        return None
+    if engine == "native":
+        sys.stderr.write(f"[W::{func}] --mesh={spec} ignored with --engine=native (host engine)\n")
+        return None
+    from .parallel import launch
+
+    mesh = launch.local_mesh(spec, device)
+    launch.init()
+    return mesh
 
 
 def _search_args(argv: list[str], cmd: str):
@@ -881,7 +933,8 @@ def _search_args(argv: list[str], cmd: str):
         opts, args = ketopt(argv, _SEARCH_OPTS, _LONG_OPTS, strict=True)
     except KetoptUnknown:
         return 1
-    a = SimpleNamespace(args=args, is_line=False, k=101, w=50, max_pos=0, min_gap_len=0, no_ssa=False, engine="auto")
+    a = SimpleNamespace(args=args, is_line=False, k=101, w=50, max_pos=0, min_gap_len=0, no_ssa=False, engine="auto",
+                        mesh=None)
     a.sw_opts = {
         "n_best": 25, "min_sc": 30, "match": 1, "mis": 3, "gap_open": 5, "gap_ext": 2, "end_len": 11,
         "min_mem_len": 0, "e2e_drop": -1, "r2cache_size": 0x10000, "max_pos": 0, "e2e": False, "keep_rs": False,
@@ -921,6 +974,8 @@ def _search_args(argv: list[str], cmd: str):
             a.no_ssa = True
         elif o == "--engine":
             a.engine = v
+        elif o == "--mesh":
+            a.mesh = v
         elif o == "--occ" and v not in ("auto", "dense", "rb"):
             raise getopt.GetoptError(f"invalid --occ value '{v}' (auto|dense|rb)")
         elif o.startswith("--dbg-"):
@@ -956,13 +1011,17 @@ def _search_index(a, cmd: str, load_all: bool, served=None):
     return f
 
 
-def _dp_engine(a, device: str, served) -> dict:
+def _dp_engine(a, device: str, served, func: str) -> dict:
     """run_sw_cli / run_hapdiv_cli's engine arguments: none for the native
-    engines (--engine=native), else the device; on a resident server its
-    EngineCache.dp_engine decides."""
+    engines (--engine=native), else the device, and with --mesh the devices
+    of its dp rows (one each; the rows replicated); on a resident server
+    its EngineCache.dp_engine decides."""
+    mesh = _cli_mesh(a.mesh, device, served, func, a.engine)
     if served is not None:
         return served.dp_engine(a.engine)
-    return {} if a.engine == "native" else {"device": device}
+    if a.engine == "native":
+        return {}
+    return {"device": device} if mesh is None else {"device": device, "mesh": [row[0] for row in mesh.grid]}
 
 
 def main_sw(argv: list[str], device: str, cmd: str = "sw", served=None) -> int:
@@ -977,7 +1036,7 @@ def main_sw(argv: list[str], device: str, cmd: str = "sw", served=None) -> int:
     f = _search_index(a, cmd, a.max_pos > 0 if cmd == "mem" else not a.no_ssa, served)
     if isinstance(f, int):
         return f
-    return run_sw_cli(f, a.args[1:], a.is_line, a.sw_opts, **_dp_engine(a, device, served))
+    return run_sw_cli(f, a.args[1:], a.is_line, a.sw_opts, **_dp_engine(a, device, served, "sw"))
 
 
 def main_hapdiv(argv: list[str], device: str, cmd: str = "hapdiv", served=None) -> int:
@@ -994,7 +1053,7 @@ def main_hapdiv(argv: list[str], device: str, cmd: str = "hapdiv", served=None) 
     f = _search_index(a, cmd, cmd == "mem" and a.max_pos > 0, served)
     if isinstance(f, int):
         return f
-    return run_hapdiv_cli(f, a.args[1:], a.is_line, a.sw_opts, a.k, a.w, **_dp_engine(a, device, served))
+    return run_hapdiv_cli(f, a.args[1:], a.is_line, a.sw_opts, a.k, a.w, **_dp_engine(a, device, served, "hapdiv"))
 
 
 def record_batches(fn: str, is_line: bool, batch_size: int):
@@ -1024,8 +1083,10 @@ def _run_mem(f, eng, files: list[str], is_line: bool, batch_size: int, min_gap_l
             break
         batches = iter_flat_batches(fn, is_line, batch_size)
         for names, flat, offs in batches if batches is not None else record_batches(fn, is_line, batch_size):
-            counts, rows = eng.run_flat(flat, offs)
-            seq_id = write_bed(sys.stdout, f, names, offs, counts, rows, seq_id, min_gap_len, write_cov, max_pos)
+            got = eng.run_flat(flat, offs)
+            if got is None:  # a process of a torchrun job other than 0: process 0 writes
+                continue
+            seq_id = write_bed(sys.stdout, f, names, offs, *got, seq_id, min_gap_len, write_cov, max_pos)
     return 0
 
 
@@ -1389,6 +1450,14 @@ def main(argv: list[str] | None = None) -> int:
     if why := refusal(argv):
         return _err(why)
     cmd, rest = argv[0], argv[1:]
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # a torchrun job: only process 0 owns stdout; raw fd 1 goes to
+        # stderr in every process, so the connection banner gloo prints at
+        # its first collective stays out of the output (ropebwt3_tpu/cli.py main)
+        sys.stdout.flush()
+        out_fd = os.dup(1) if int(os.environ.get("RANK", "0")) == 0 else None
+        os.dup2(2, 1)
+        sys.stdout = os.fdopen(out_fd, "w") if out_fd is not None else open(os.devnull, "w")
     if cmd == "version":
         print(REF_VERSION)
         return 0
@@ -1415,10 +1484,13 @@ def main(argv: list[str] | None = None) -> int:
             else:
                 ret = {"build": main_build, "merge": main_merge, "mem": main_mem, "sw": main_sw, "hapdiv": main_hapdiv,
                        "ssa": main_ssa, "get": main_get, "suffix": main_suffix, "kount": main_kount}[cmd](rest, device)
-    except (IndexLoadError, CapacityError, getopt.GetoptError) as e:
+    except (IndexLoadError, CapacityError, getopt.GetoptError, MeshError) as e:
         ret = _err(str(e))
     except BrokenPipeError:
         ret = 0
+    finally:
+        if (launch := sys.modules.get(f"{__package__}.parallel.launch")) is not None:
+            launch.finish()
     if ret == 0 and len(argv) > 1:
         log.footer(argv, REF_VERSION)
     return ret

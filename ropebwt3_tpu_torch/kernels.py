@@ -18,6 +18,9 @@ The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
 `RunBlockIndex`), and so does `suffix`'s backward search (csrc/walk.cu);
+the SMEM kernels also in one per layout sharded on a mesh (sh_dense32 ..
+sh_rb64, parallel/mesh.py `ShardView`: a shard description in place of the
+tables), beside `rb3c_enable_peer` (peer access between the mesh's cards);
 ssa_gen's walk, merge_rank, `get`'s LF walk (its three walking passes),
 `kount`'s level rank (csrc/kount.cu), the hapdiv DP (one warp a window)
 and the sw DP (one warp a read) in the two dense ones.
@@ -38,12 +41,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
+SHARDED_LAYOUTS = tuple(f"sh_{lay}" for lay in LAYOUTS)
 
 _V, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _TABLES = [_V, _V, _V, _V, _I32, _I32]  # rows, esc, mega, acc, mega_shift, log2 block
@@ -57,6 +62,14 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 4, *[_V] * 7]
     _ENTRIES[f"rb3c_suffix_walk_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_occupancy_smem_tg_{_lay}"] = [_I32, _V, _V, _V]  # no stream: smem_tgc (1) or smem_tg (0)
+# the SMEM kernels over rows sharded on a mesh (parallel/mesh.py): the
+# shard description (n_shards, 3) int64 on the host, n_shards, the real row
+# count, then mega, acc and the shifts, in place of the six tables
+_SH_TABLES = [_V, _I32, _I64, _V, _V, _I32, _I32]
+for _lay in SHARDED_LAYOUTS:
+    _ENTRIES[f"rb3c_smem_tg_{_lay}"] = [*_SH_TABLES, *_ENTRIES[f"rb3c_smem_tg_{_lay[3:]}"][len(_TABLES):]]
+    _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_SH_TABLES, *_ENTRIES[f"rb3c_smem_tgc_{_lay[3:]}"][len(_TABLES):]]
+    _ENTRIES[f"rb3c_occupancy_smem_tg_{_lay}"] = [_I32, _V, _V, _V]
 for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_retrieve_seg_walk_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_retrieve_seg_write_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V, _V, _V, _I64, _V, _V]
@@ -84,8 +97,16 @@ for _name in ("rb3c_probe_smem_gather", "rb3c_probe_hbm_gather"):
     _ENTRIES[_name] = [_V, _I32, _I32, _I32, _V, _I32, _I32, _V, _V]
 _ENTRIES["rb3c_probe_smem_capacity"] = [_I32, _V, _V]
 _ENTRIES["rb3c_smem_optin"] = [_I32]  # no stream: a device attribute
+_ENTRIES["rb3c_enable_peer"] = [_V, _I32, _V, _V]  # no stream
 
 _lib = None
+_COUNT = threading.Lock()
+
+
+def count(counter, key: str) -> None:
+    """counter[key] += 1, under a lock: a mesh launches from one thread a card."""
+    with _COUNT:
+        counter[key] += 1
 
 
 def _sources() -> list[str]:
@@ -165,6 +186,23 @@ def call(name: str, device, *args) -> int:
 
 def error_string(err: int) -> str:
     return lib().rb3c_error_string(err).decode()
+
+
+def enable_peer(devices) -> None:
+    """Peer access between every two distinct CUDA devices of `devices`
+    (rb3c_enable_peer), so that a kernel on one reads tensors on the others.
+    Raises if a pair cannot reach each other or a call fails: no fallback."""
+    ids = sorted({d.index for d in devices})
+    if len(ids) < 2:
+        return
+    arr = (ctypes.c_int * len(ids))(*ids)
+    a, b = ctypes.c_int(-1), ctypes.c_int(-1)
+    err = lib().rb3c_enable_peer(arr, len(ids), ctypes.byref(a), ctypes.byref(b))
+    if err == -1:
+        raise RuntimeError(f"cuda:{a.value} cannot reach cuda:{b.value} (cudaDeviceCanAccessPeer is 0): the mesh's "
+                           "shards must lie on cards that reach each other")
+    if err != 0:
+        raise RuntimeError(f"rb3c_enable_peer: CUDA error {err}: {error_string(err)}")
 
 
 def launch(name: str, device, *args) -> None:

@@ -229,8 +229,14 @@ class OccIndex:
 
     def rank1a(self, k: torch.Tensor) -> torch.Tensor:
         k = k.long()
+        return self.rank_row(k, self.occf[k >> 6])
+
+    def rank_row(self, k: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+        """rank1a of int64 k from its row (..., 12) as gathered, the
+        megablock base taken at k's global row k >> 6: sharded rows
+        (parallel/mesh.py) gather it from the slab that owns it."""
         bi = k >> 6
-        row = self.occf[bi].long()
+        row = row.long()
         base = row[..., 6:12]
         if self.int64:  # uint32 megablock-relative: reinterpret, never sign-extend
             base = self.mega[bi >> self.mega_shift] + (base & U32)

@@ -58,7 +58,7 @@ from .. import native
 from .rank import ASIZE, FLIP, KEY, U32, extend, extend_c, needs_int64, popcount32, rank1a, rebase_mega, set_intv
 
 __all__ = ["RunBlockIndex", "rank1a", "extend", "extend_c", "set_intv", "choose_S", "build_runblock_np", "runs_from_dense",
-           "pack_escapes"]
+           "pack_escapes", "shard_layout"]
 
 RB_R = 64  # run records per row
 RB_COLS = 40
@@ -148,17 +148,33 @@ class RunBlockIndex:
 
     def rank1a(self, k: torch.Tensor) -> torch.Tensor:
         k = k.long()
+        return self.rank_row(k, self.rows[self.block_and_offset(k)[0]])
+
+    def rank_row(self, k: torch.Tensor, row: torch.Tensor, sub: torch.Tensor | None = None) -> torch.Tensor:
+        """rank1a of int64 k from its row (..., 40) as gathered, the offset
+        and the megablock base taken at k's global row; an escape block from
+        `sub`, its sub-rows (..., 16) as `escape_sub_rows` gathers them (any
+        value where the row is run-coded), or else from this table's
+        escapes.  Sharded rows (parallel/mesh.py) gather both from the slab
+        that owns the row."""
         bi, off = self.block_and_offset(k)
-        row = self.rows[bi]  # (..., 40)
         base = row[..., :6].long()
         if self.int64:  # uint32 megablock-relative: reinterpret, never sign-extend
             base = self.mega[bi >> self.mega_shift] + (base & U32)
         esc_i = row[..., 6].long()
         occk = run_counts_keyed(row[..., 8:], off, self.S)
         m = esc_i >= 0
-        if bool(m.any()):
+        if sub is not None:
+            occk = torch.where(m[..., None], sub_counts_keyed(sub, off, self.S // SUB), occk)
+        elif bool(m.any()):
             occk[m] = dense_counts_keyed(self.esc, esc_i[m], off[m])
         return base + occk[..., torch.as_tensor(KEY, dtype=torch.int64, device=k.device)]
+
+    def escape_sub_rows(self, esc_i: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+        """The sub-row (..., 16) of escape esc_i (clamped into this table)
+        that holds offset off, S/128 - 1 at off = S."""
+        j = (off >> 7).clamp(max=self.esc.shape[1] - 1)
+        return self.esc[esc_i.clamp(0, self.esc.shape[0] - 1), j]
 
 
 def run_counts_keyed(recs: torch.Tensor, off: torch.Tensor, S: int) -> torch.Tensor:
@@ -181,16 +197,24 @@ def dense_counts_keyed(esc: torch.Tensor, esc_i: torch.Tensor, off: torch.Tensor
     sub-row is off's, and S/128 - 1 at off = S; its counts before it plus
     the plane bits below off in it."""
     j = (off >> 7).clamp(max=esc.shape[1] - 1)
-    sub = esc[esc_i, j].long() & U32  # (M, 16)
-    out = torch.stack([sub[:, w // 2] >> (16 * (w % 2)) & 0xFFFF for w in range(ASIZE)], dim=-1)
-    p = sub[:, 4:].unflatten(-1, (3, 4))  # (M, plane, word)
+    return sub_counts_keyed(esc[esc_i, j], off, esc.shape[1])
+
+
+def sub_counts_keyed(sub: torch.Tensor, off: torch.Tensor, W4: int) -> torch.Tensor:
+    """Counts per KEYED symbol below off (...,) in [0, S] from the escape
+    sub-row sub (..., 16) that holds it (`dense_counts_keyed`), S = 128 W4:
+    its counts before it plus the plane bits below off in it.  (..., 6) int64."""
+    j = (off >> 7).clamp(max=W4 - 1)
+    sub = sub.long() & U32
+    out = torch.stack([sub[..., w // 2] >> (16 * (w % 2)) & 0xFFFF for w in range(ASIZE)], dim=-1)
+    p = sub[..., 4:].unflatten(-1, (3, 4))  # (..., plane, word)
     rem = off - (j << 7)  # [0, 128]
-    mask = (1 << (rem[:, None] - 32 * torch.arange(4, device=off.device)).clamp(0, 32)) - 1  # 32 gives all ones
+    mask = (1 << (rem[..., None] - 32 * torch.arange(4, device=off.device)).clamp(0, 32)) - 1  # 32 gives all ones
     for kc in range(ASIZE):
         eq = mask
         for pl in range(3):
-            eq = eq & (p[:, pl] ^ int(FLIP[kc, pl]))
-        out[:, kc] += popcount32(eq).sum(-1)
+            eq = eq & (p[..., pl, :] ^ int(FLIP[kc, pl]))
+        out[..., kc] += popcount32(eq).sum(-1)
     return out
 
 
@@ -216,6 +240,31 @@ def pack_escapes(planes: np.ndarray, S: int, device) -> torch.Tensor:
         out[a : a + step, :, :3] = (before[..., 0::2] | (before[..., 1::2] << 16)).int()
         out[a : a + step, :, 3] = 0
     return out
+
+
+def shard_layout(rows: torch.Tensor, n_idx: int) -> tuple[int, list[tuple[torch.Tensor, torch.Tensor]]]:
+    """The rb rows (nb, 40) cut for an n_idx-way shard of the block axis
+    (parallel/mesh.py ShardedRows; the counterpart of the JAX package's
+    runblock.shard_layout_np for the port's escape sub-rows): the rows pad
+    to a multiple of n_idx with pad rows of no escape (col 6 = -1, never
+    ranked: the owner of a rank clamps to the last real row), and are cut
+    into slabs of nb_local rows; each slab numbers its escape rows from 0,
+    in row order, and carries only their sub-rows.  Returns (nb_local, one
+    (slab (nb_local, 40) int32, the global escape ids it carries (m,) int64)
+    a shard), on the rows' device."""
+    nb = rows.shape[0]
+    nb_local = -(-nb // n_idx)
+    pad = torch.zeros((nb_local * n_idx - nb, RB_COLS), dtype=rows.dtype, device=rows.device)
+    pad[:, 6] = -1
+    full = torch.cat([rows, pad])
+    out = []
+    for s in range(n_idx):
+        slab = full[s * nb_local : (s + 1) * nb_local].clone()
+        has = slab[:, 6] >= 0
+        ids = slab[has, 6].long()
+        slab[has, 6] = torch.arange(ids.numel(), dtype=slab.dtype, device=slab.device)
+        out.append((slab, ids))
+    return nb_local, out
 
 
 # ---------------------------------------------------------------------------

@@ -210,7 +210,7 @@ def smem_tg_plain(
     n_log = torch.zeros(L, dtype=torch.int64, device=dev)
     trips = torch.zeros(L, dtype=torch.int64, device=dev)
     one_row = torch.zeros(L, dtype=torch.int64, device=dev)
-    dense = idx.layout.startswith("dense")
+    dense = "dense" in idx.layout
     base = seq_off[lanes[:, 0]]
     qlen = seq_off[lanes[:, 0] + 1] - base
     x_stop = lanes[:, 2]
@@ -313,7 +313,7 @@ def launch_tg(idx, flat, seq_off, *, min_occ: int, min_len: int, max_mems: int, 
             int(min_occ), int(min_len), int(max_mems), mems.data_ptr(), n_mem.data_ptr(),
             tr.data_ptr() if trips else None,
         )
-        smem_tg_cuda.launches[idx.layout] += 1
+        kernels.count(smem_tg_cuda.launches, idx.layout)
     return Chains(mems, n_mem, None, None, tr)
 
 
@@ -363,7 +363,7 @@ def launch_tgc(idx, flat, seq_off, lanes, order, *, min_occ: int, min_len: int, 
             mems.data_ptr(), n_mem.data_ptr(), logt.data_ptr(), n_log.data_ptr(), tr.data_ptr() if trips else None,
             nxt.data_ptr(),
         )
-        smem_tgc_cuda.launches[idx.layout] += 1
+        kernels.count(smem_tgc_cuda.launches, idx.layout)
     return Chains(mems, n_mem, logt, n_log, tr)
 
 
@@ -505,17 +505,30 @@ class BatchedSmemTG:
     needs).  `occ` picks the rows: dense, rb (run-block compressed, from the
     `.rb.npz` cache when it is fresh) or auto (`resolve_occ`); the width
     follows n.  `rows`, f's rows already on `device` (a resident server's),
-    stand in for building them.  `n_rerun` and `n_unmerged` add up over
+    stand in for building them.  With `mesh` (parallel/mesh.py Mesh) the
+    rows are sharded over its idx axis (auto decided per shard) and each
+    batch's reads are split over all its devices (parallel/smem_sharded.py);
+    `device` is then unused.  `n_rerun` and `n_unmerged` add up over
     batches."""
 
     def __init__(self, f: DenseFMIndex, min_occ: int = 1, min_len: int = 19, max_mems: int = MAX_MEMS, *, device,
-                 occ: str = "auto", rows: OccIndex | RunBlockIndex | None = None):
-        if rows is None:
-            rows = RunBlockIndex.from_dense(f, device) if resolve_occ(occ, f.n, device) == "rb" else OccIndex.from_dense(f, device)
-        self.idx = rows
-        s = f"S {rows.S}, {rows.n_esc} escape blocks, " if rows.layout.startswith("rb") else ""
-        log.info("occ layout %s (%s%s rows): %d bytes on %s", self.idx.layout, s, "int64" if self.idx.int64 else "int32",
-                 self.idx.nbytes, self.idx.device, func="mem")
+                 occ: str = "auto", rows: OccIndex | RunBlockIndex | None = None, mesh=None):
+        self.sharded = None
+        if mesh is not None:
+            from ..parallel.mesh import ShardedRows
+
+            if rows is not None:
+                raise ValueError("BatchedSmemTG takes prebuilt rows or a mesh, not both")
+            self.sharded = ShardedRows.from_dense(f, mesh, occ)
+            self.idx = self.sharded.views[0]
+            log.info("occ layout %s (%s)", self.idx.layout, self.sharded.describe(), func="mem")
+        else:
+            if rows is None:
+                rows = RunBlockIndex.from_dense(f, device) if resolve_occ(occ, f.n, device) == "rb" else OccIndex.from_dense(f, device)
+            self.idx = rows
+            s = f"S {rows.S}, {rows.n_esc} escape blocks, " if rows.layout.startswith("rb") else ""
+            log.info("occ layout %s (%s%s rows): %d bytes on %s", self.idx.layout, s, "int64" if self.idx.int64 else "int32",
+                     self.idx.nbytes, self.idx.device, func="mem")
         self.min_occ = int(min_occ)
         self.min_len = int(min_len)
         self.max_mems = int(max_mems)
@@ -527,6 +540,15 @@ class BatchedSmemTG:
         """(counts (R,) int64, rows (sum(counts), 5)) of the reads
         flat[seq_off[r]:seq_off[r+1]], as the native engine's flat call
         returns them."""
+        if self.sharded is not None:
+            from ..parallel.smem_sharded import smem_mesh
+
+            out = smem_mesh(self.sharded.views, flat, seq_off, min_occ=self.min_occ, min_len=self.min_len,
+                            max_mems=self.max_mems)
+            self.n_rerun += out.n_rerun
+            self.n_unmerged += out.n_unmerged
+            self.n_whole += out.n_whole
+            return out.counts, out.rows
         dev = self.idx.device
         out = smem_tg(self.idx, torch.from_numpy(np.ascontiguousarray(flat, np.uint8)).to(dev),
                       torch.from_numpy(np.ascontiguousarray(seq_off, np.int64)).to(dev),

@@ -1,0 +1,8 @@
+"""The port's mesh (K10): occ rows sharded over the `idx` axis and read where
+they lie (mesh.py, csrc/occ.cuh Sharded), reads and windows split over every
+device (smem_sharded.py, align/cli_hooks.py), and dp across processes
+through torch.distributed (launch.py)."""
+
+
+class MeshError(ValueError):
+    """A mesh that cannot be built as asked: one ERROR line on the CLI."""

@@ -1,0 +1,135 @@
+"""dp across processes: the CLI under `torchrun`.
+
+Port of ropebwt3_tpu/parallel/launch.py (`init_distributed`, `global_mesh`,
+`to_host`).  torchrun sets WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR and
+MASTER_PORT; the CLI then joins a gloo process group (`init`).  The only
+traffic is the host-side gather of each batch's outputs, and gloo lets two
+processes share one card, which NCCL refuses.  The `--mesh` spec is global,
+as the JAX package's is: dp divides by WORLD_SIZE and each process runs
+dp / WORLD_SIZE x idx on its own devices (`local_mesh`).  Each process takes
+its contiguous share of every batch (`DistMem`, `DistList`); process 0
+writes all output in input order, the others none (ropebwt3_tpu/cli.py
+main: only process 0 owns stdout).  An idx axis across processes is
+refused: the rows of one dp row stay in one process.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .mesh import MeshError, cli_devices, make_mesh, parse_mesh
+
+IDX_ACROSS = ("ROADMAP queue 1 item 12 (its remainder: ssa, build and merge --mesh, and an idx axis across "
+              "processes)")
+
+
+def world() -> tuple[int, int, int]:
+    """(rank, world size, processes on this node) from torchrun's environment; (0, 1, 1) without it."""
+    size = int(os.environ.get("WORLD_SIZE", "1"))
+    return int(os.environ.get("RANK", "0")), size, int(os.environ.get("LOCAL_WORLD_SIZE", str(size)))
+
+
+def local_mesh(spec: str, device: str):
+    """This process's share of the global `--mesh` spec: a (dp / world) x
+    idx mesh of its devices (`mesh.cli_devices`).  MeshError when dp does
+    not divide by the processes, or when an idx axis would span them."""
+    dp, idx = parse_mesh(spec)
+    rank, size, local_world = world()
+    if dp % size:
+        if dp * idx % size == 0:
+            raise MeshError(f"--mesh={spec} over {size} processes puts an idx axis across processes: not ported, "
+                            f"{IDX_ACROSS}")
+        raise MeshError(f"--mesh={spec}: dp ({dp}) must be a multiple of the {size} processes")
+    local_dp = dp // size
+    local_rank = int(os.environ.get("LOCAL_RANK", str(rank)))
+    return make_mesh(local_dp, idx, cli_devices(device, local_dp * idx, local_rank, local_world))
+
+
+def init() -> None:
+    """Join the gloo process group of a torchrun job (env:// rendezvous);
+    nothing without one or once joined."""
+    import torch.distributed as dist
+
+    if world()[1] > 1 and not dist.is_initialized():
+        dist.init_process_group("gloo")
+
+
+def finish() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def share(cuts: np.ndarray) -> tuple[int, int]:
+    """This process's [a, b) of a batch cut into one share a process."""
+    rank = world()[0]
+    return int(cuts[rank]), int(cuts[rank + 1])
+
+
+def gather(obj) -> list | None:
+    """Every process's obj at process 0, in rank order (None elsewhere);
+    process 0 returns only once every process has sent its share."""
+    import torch.distributed as dist
+
+    rank, size, _ = world()
+    if size == 1:
+        return [obj]
+    out = [None] * size if rank == 0 else None
+    dist.gather_object(obj, out, dst=0)
+    return out
+
+
+def all_gather(obj) -> list:
+    """Every process's obj on every process, in rank order."""
+    import torch.distributed as dist
+
+    size = world()[1]
+    if size == 1:
+        return [obj]
+    out = [None] * size
+    dist.all_gather_object(out, obj)
+    return out
+
+
+class DistMem:
+    """A `mem` engine (`run_flat(flat, seq_off)`) over the processes: each
+    runs `eng` on its share of the batch's reads (parallel/smem_sharded.py
+    `split_reads` over the processes), and process 0 gets every share's
+    (counts, rows) in read order; the others get None."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    def __getattr__(self, name):
+        return getattr(self.eng, name)
+
+    def run_flat(self, flat: np.ndarray, seq_off: np.ndarray):
+        from .smem_sharded import split_reads
+
+        a, b = share(split_reads(seq_off, world()[1]))
+        got = gather(self.eng.run_flat(flat[seq_off[a] : seq_off[b]], seq_off[a : b + 1] - seq_off[a]))
+        if got is None:
+            return None
+        return np.concatenate([g[0] for g in got]), np.concatenate([g[1] for g in got])
+
+
+class DistList:
+    """A DP engine (`run(items)` -> one result an item: sw's reads, hapdiv's
+    windows) over the processes: each runs `eng` on its contiguous share of
+    the items (by count), and every process gets all results in input order
+    (only process 0 writes them)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    def __getattr__(self, name):
+        return getattr(self.eng, name)
+
+    def run(self, items: list) -> list:
+        size = world()[1]
+        cuts = np.arange(size + 1) * len(items) // size
+        a, b = share(cuts)
+        return [r for part in all_gather(self.eng.run(items[a:b])) for r in part]

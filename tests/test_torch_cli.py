@@ -303,7 +303,7 @@ def test_hapdiv_without_cuda_exits_nonzero(corpus, corpus_fmd):
     (["sw", "--engine=hybrid"], b"sw --engine=hybrid"),
     (["search", "--eng=hybrid", "-l21"], b"search --engine=hybrid"),
     (["ssa", "--mesh=2"], b"ssa --mesh"),
-    (["mem", "--device=cpu", "--mesh", "2x1", "-l21"], b"mem --mesh"),
+    (["merge", "--device=cpu", "--mesh", "2x1"], b"merge --mesh"),
     (["build", "--mesh=4", "-do", "x.fmd"], b"build --mesh"),
 ])
 def test_refuses_jax_device_options(corpus_fmd, argv, why):

@@ -890,3 +890,103 @@ def test_suffix_walk_matches_plain(corpus, corpus_index, cuda_device, layout):
     for a, b, c in zip(got, want, cpu):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
     assert int(got[0][-4]) == 0 and int(got[0][-3]) == 1 and int(got[1][-3]) == 0 and int(got[0][-2]) == 0
+
+
+def n_index(seed: int = 7, n_seq: int = 4, length: int = 2047):
+    """n_seq mutated copies of a random genome with N runs, double strand:
+    n = n_seq x 2 x (length + 1); 4 x 2047 gives 16,384, which S = 256
+    divides, and 257 dense rows, which four shards cut unevenly."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(1, 5, length).astype(np.uint8)
+    parts = []
+    for _ in range(n_seq):
+        s = base.copy()
+        mut = rng.random(length) < 0.02
+        s[mut] = rng.integers(1, 5, int(mut.sum()))
+        for st in rng.integers(0, length - 8, 3):
+            s[st : st + int(rng.integers(1, 8))] = 5
+        parts += [s, np.zeros(1, np.uint8), revcomp(s), np.zeros(1, np.uint8)]
+    return DenseFMIndex.from_bwt(gsa_bwt(np.concatenate(parts)))
+
+
+def sharded_index(layout, f, device):
+    """make_index's layout, rb at S = 256 (which n_index's n is a multiple of)."""
+    if layout == "rb32":
+        return runblock.RunBlockIndex.from_dense(f, device, S=256, cache=None)
+    return make_index(layout, f, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_sharded_kernels_match_plain(cuda_device, layout):
+    """smem_tg_sh_* and smem_tgc_sh_* (csrc/occ.cuh Sharded) over a 2x4 mesh
+    of one card against their plain version (smem_tg_plain over
+    rank6_sharded_plain, on the CPU) and against the unsharded kernels: rows,
+    counts, START logs and trips, exact, on every view; reads with N runs
+    rank at k = n, which S divides on rb rows (F1); one launch counted each."""
+    from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
+
+    f = n_index()
+    rng = np.random.default_rng(31)
+    reads = cut_reads(f, rng, 20, (60, 1500), 0.02) + [np.full(40, 5, np.uint8), np.zeros(0, np.uint8)]
+    flat, off = flat_of(reads)
+    lanes = smem.chunk_lanes(off, 64, 32)
+    gpu = sharded_index(layout, f, cuda_device)
+    sh = ShardedRows(gpu, make_mesh(2, 4, [cuda_device] * 8))
+    cpu = ShardedRows(sharded_index(layout, f, "cpu"), make_mesh(2, 4, ["cpu"] * 8))
+    assert sh.nb % 4 or layout.startswith("rb")  # dense: an uneven tail
+    kw = dict(min_occ=1, min_len=19, max_mems=8)
+    d_flat, d_off, d_lanes = flat.to(cuda_device), off.to(cuda_device), lanes.to(cuda_device)
+    want1 = smem.smem_tg_plain(cpu.views[0], flat, off, **kw)
+    wantc = smem.smem_tg_plain(cpu.views[0], flat, off, lanes=lanes, log_len=16, **kw)
+    base1 = smem.smem_tg_cuda(gpu, d_flat, d_off, trips=True, **kw)
+    for v in sh.views:
+        n1, nc = smem.smem_tg_cuda.launches[v.layout], smem.smem_tgc_cuda.launches[v.layout]
+        got1 = smem.smem_tg_cuda(v, d_flat, d_off, trips=True, **kw)
+        gotc = smem.smem_tgc_cuda(v, d_flat, d_off, d_lanes, log_len=16, trips=True, **kw)
+        torch.cuda.synchronize()
+        assert smem.smem_tg_cuda.launches[v.layout] == n1 + 1 and smem.smem_tgc_cuda.launches[v.layout] == nc + 1
+        for got, want in ((got1, want1), (gotc, wantc), (got1, base1)):
+            assert_same_mems(got.mems.cpu().numpy(), got.n_mem.cpu().numpy(), want.mems.cpu().numpy(),
+                             want.n_mem.cpu().numpy(), 8)
+            assert torch.equal(got.trips.cpu(), want.trips.cpu())
+        assert_same_mems(gotc.log.cpu().numpy()[..., None], gotc.n_log.cpu().numpy(), wantc.log.numpy()[..., None],
+                         wantc.n_log.numpy(), 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "rb32"])
+def test_sharded_engine_matches_unsharded(cuda_device, layout):
+    """The engine over a 2x4 mesh of one card (smem_mesh: the reads split
+    over the eight views, each running the chunked engine and its reruns)
+    equals the unsharded engine, and launches only the sharded kernels."""
+    from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
+    from ropebwt3_tpu_torch.parallel.smem_sharded import smem_mesh
+
+    f = n_index()
+    reads = cut_reads(f, np.random.default_rng(8), 40, (20, 2000), 0.02)
+    flat, off = smem.pack_reads(reads)
+    gpu = sharded_index(layout, f, cuda_device)
+    sh = ShardedRows(gpu, make_mesh(2, 4, [cuda_device] * 8))
+    want = smem.smem_tg(gpu, torch.from_numpy(flat).to(cuda_device), torch.from_numpy(off).to(cuda_device),
+                        min_occ=1, min_len=19)
+    before = smem.smem_tgc_cuda.launches["sh_" + layout]
+    got = smem_mesh(sh.views, flat, off, min_occ=1, min_len=19)
+    assert smem.smem_tgc_cuda.launches["sh_" + layout] == before + 8
+    assert np.array_equal(got.counts, want.counts.cpu().numpy()) and np.array_equal(got.rows, want.rows.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_sharded_kernel_occupancy(cuda_device):
+    """Each sharded SMEM kernel reports its registers and resident blocks,
+    and the peer-access entry accepts a mesh of one card."""
+    import ctypes
+
+    from ropebwt3_tpu_torch import kernels
+
+    kernels.enable_peer([cuda_device, cuda_device])
+    for lay in kernels.SHARDED_LAYOUTS:
+        b, loc, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        assert getattr(kernels.lib(), f"rb3c_occupancy_smem_tg_{lay}")(1, ctypes.byref(b), ctypes.byref(loc),
+                                                                      ctypes.byref(regs)) == 0
+        assert b.value >= 1 and regs.value > 0

@@ -104,8 +104,9 @@ def test_sources_import_no_jax_package():
 def test_kernel_argtypes_match_the_c_signatures():
     """Without argtypes of the right length ctypes passes a pointer or an
     int64 as a 32-bit int: every `int rb3c_*(...)` of csrc/*.cu (the
-    `##name` ones for each layout kernels.py lists) takes as many arguments
-    as kernels.py declares, stream included."""
+    `##name` ones for each layout kernels.py lists, after the fixed part
+    of the name: rb3c_smem_tg_sh_##name is the sharded dense32 ..) takes as
+    many arguments as kernels.py declares, stream included."""
     from ropebwt3_tpu_torch import kernels
 
     seen = set()
@@ -114,7 +115,7 @@ def test_kernel_argtypes_match_the_c_signatures():
             continue
         text = open(os.path.join(kernels.CSRC, fn)).read().replace("\\\n", " ")
         for name, macro, params in re.findall(r"\bint (rb3c_\w+?)(##name)?\(([^)]*)\)\s*\{", text):
-            names = [k for k in kernels._ENTRIES if k.startswith(name)] if macro else [name]
+            names = [k for k in kernels._ENTRIES if k.startswith(name) and k[len(name):] in kernels.LAYOUTS] if macro else [name]
             assert names, name
             for k in names:
                 assert len(kernels._ENTRIES[k]) == params.count(",") + 1, (k, params)
