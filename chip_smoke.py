@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (ropebwt3_tpu_torch).
 
-Drives the port's entry points on one CUDA card (and `mem`, `sw` and
-`hapdiv` over meshes of it): `build` (and `merge`) of
+Drives the port's entry points on one CUDA card (and `mem`, `sw`,
+`hapdiv`, `ssa` and `build` over meshes of it): `build` (and `merge`) of
 bench.py's genomes and of its short reads, `hapdiv` of a 17th haplotype
 against bench.py's index, `sw` of its short reads, `get`, `suffix`, `kount`,
 the host converters and `tools`, `serve` with `mem`, `hapdiv` and `sw`
@@ -167,9 +167,21 @@ it.  Phases:
             BED byte-equal to native; `hapdiv` of the 17th haplotype and
             `sw` of the 10,000 reads over [this card] x 2 (through the API:
             the CLI maps N to N cards), byte-equal to [hapdiv]'s and [sw]'s
-            unsharded runs; with two cards or more, `mem --mesh=2x1` and
-            `1x2` on real cards and the peer-access result, else a line
-            that says they were skipped
+            unsharded runs; `ssa` over a 2x4 mesh of this card on bench.py's
+            index (K5's pass 1 by range, each range exact against the plain
+            pass 1 on the card, the SSA byte-equal to `python -m ropebwt3_tpu
+            ssa`, the range launches and the walk timed beside the unsharded
+            ones, A B B A) and `ssa --mesh=1x1` through cli.main; `build -m
+            16M` of bench.py's genomes with each merge's rank over a 2x4 mesh
+            of this card (merge_rank_sh_dense32 exact against
+            merge_rank_chunked_plain over rank6_sharded_plain on the card and
+            the unsharded K6, segment records too, timed beside it A B B A,
+            registers and blocks an SM; the FMD byte-equal), sh_dense64 on
+            the short reads' first merge, and `build -m 16M --mesh=1x1`
+            through cli.main; `ssa --mesh=2x1` under torchrun, each process
+            writing its own file, both byte-equal; with two cards or more,
+            `mem`, `ssa` and `build --mesh=2x1` and `1x2` on real cards and
+            the peer-access result, else a line that says they were skipped
 
 Any failure exits non-zero.  The last line is {"ok": true, "device": ...}.
 Run from the repository root: python3 chip_smoke.py [--parent TREE]
@@ -241,6 +253,8 @@ SW_CHECK, SW_CHECK_E2E, SW_PATH, SW_E2E_PATH, SW_BIG = 128, 64, 10_000, 1_000, 1
 # of MESH_TGC_SHORT short + MESH_TGC_LONG long reads; the main path's batch
 # times smem_tgc sharded and not, A B B A, MESH_REPS launches each
 MESH_DP, MESH_IDX, MESH_TG, MESH_TGC_SHORT, MESH_TGC_LONG, MESH_REPS = 2, 4, 512, 128, 4, 3
+MERGE_MESH_REPLACES = ("ropebwt3_tpu/parallel/merge_sharded.py:28 (merge_rank_sharded_fn: K6's window step, B1's rows "
+                       "over idx with a psum, lanes over dp), driven by merge_rank_sharded :67")
 MESH_REPLACES = ("ropebwt3_tpu/parallel/mesh.py:132 (rank1a_local, its psum over idx in extend_sharded_c :211) "
                  "inside ropebwt3_tpu/parallel/smem_sharded.py:34 (smem_sharded_fn); K1 ropebwt3_tpu/ops/smem_pallas.py:91")
 
@@ -1870,8 +1884,211 @@ def mesh_cli(cli, counters, argv: list[str], want: bytes, lay: str) -> dict:
     return dict(launches=launches, port_s=port_s)
 
 
+def mesh_ssa(cli, probe, dev, card: str, f, fmd: str, x, mesh, lat: float) -> dict:
+    """[mesh] (g): `ssa` over a 2x4 mesh of this card on bench.py's index
+    (ssa_ops.ssa_gen_mesh: the rows once, K5's pass 1 by range, the shares
+    merged, passes 2 and 3 once): each range's pass 1 exact against the
+    plain pass 1 over every segment on the card (its slots, those its
+    segments wrote, and its columns of the records); the SSA byte-equal to
+    `python -m ropebwt3_tpu ssa`'s file of [ssa], eight range launches;
+    the range launches timed beside one pass 1 over every segment, and the
+    mesh's walk beside the unsharded walk, A B B A; then `ssa --mesh=1x1`
+    through cli.main (the path: counts reset before, read after)."""
+    import torch
+
+    from ropebwt3_tpu_torch import ssa_ops
+    from ropebwt3_tpu_torch.formats.ssa import write_ssa_bytes
+    from ropebwt3_tpu_torch.parallel.mesh import replicate, split_segments
+
+    ref_fn = os.path.join(WORK, "ssa_bench_ref.ssa")
+    ref = open(ref_fn, "rb").read()
+    m, ss = int(f.acc[1]), SSA_SHIFT
+    S = ssa_ops.walk_stride(f.n, m, dev)
+    n_seg, n_ssa = ssa_ops.segments(f.n, m, S), ssa_ops.n_slots(x, m, ss)
+    cuts = split_segments(n_seg, len(mesh.devices))
+    ranges = list(zip(cuts, cuts[1:]))
+
+    def share():
+        return (torch.zeros(n_ssa, dtype=x.dtype, device=dev), torch.full((n_ssa,), -1, dtype=torch.int32, device=dev),
+                torch.full((ssa_ops.SEG_ROWS, n_seg), ssa_ops.LOW, dtype=torch.int64, device=dev))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pl, plane, prec = ssa_ops.ssa_walk_plain(x, m, ss, S, 0, n_seg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, bufs = 0, []
+    for g0, g1 in ranges:
+        b = share()
+        ssa_ops.launch_walk_range(x, m, ss, S, g0, g1, *b)
+        mine = (plane >= g0) & (plane < g1)
+        want_rec = torch.full_like(prec, ssa_ops.LOW)
+        want_rec[:, g0:g1] = prec[:, g0:g1]
+        err = max(err, max_abs(b[1], torch.where(mine, plane, -1)), max_abs(b[0], torch.where(mine, pl, 0)),
+                  max_abs(b[2], want_rec))
+        bufs.append(b)
+    if err:
+        fail(f"[mesh] ssa_gen's pass 1 by range differs from the plain pass 1 by up to {err}")
+    ssa_ops.ssa_gen_mesh.launches.clear()
+    t0 = time.perf_counter()
+    data = write_ssa_bytes(ssa_ops.ssa_gen_mesh(f, ss, mesh))
+    api_s = time.perf_counter() - t0
+    api_launches = ssa_ops.ssa_gen_mesh.launches["dense32"]
+    if data != ref or api_launches != len(ranges):
+        fail(f"[mesh] ssa_gen_mesh over {mesh}: SSA differs from `python -m ropebwt3_tpu ssa` ({data != ref}) or "
+             f"{api_launches} range launches")
+    reps = replicate(x, mesh.devices)
+    full = share()
+    k5 = {"unsharded": lambda: ssa_ops.launch_walk(x, m, ss, S), "mesh": lambda: ssa_ops.walk_mesh(reps, m, ss, S)}
+    abba = [probe.queued_ms([k5[k]] * 3) for k in ("unsharded", "mesh", "mesh", "unsharded")]
+    ranges_ms = probe.queued_ms([lambda: [ssa_ops.launch_walk_range(x, m, ss, S, g0, g1, *b)
+                                          for (g0, g1), b in zip(ranges, bufs)]] * 3)
+    pass1_ms = probe.queued_ms([lambda: ssa_ops.launch_walk_range(x, m, ss, S, 0, n_seg, *full)] * 3)
+    longest = [int(prec[0, g0:g1].max()) for g0, g1 in ranges]
+    # the path: `ssa --mesh=1x1` through cli.main
+    port_fn = os.path.join(WORK, "ssa_bench_mesh.ssa")
+    ssa_ops.ssa_gen_mesh.launches.clear()
+    path_s, path_err = cli_run(cli, ["ssa", "--mesh=1x1", "-o", port_fn, fmd])
+    launches = dict(ssa_ops.ssa_gen_mesh.launches)
+    same_file(port_fn, ref_fn, "`ssa --mesh=1x1` vs `python -m ropebwt3_tpu ssa`")
+    if launches.get("dense32", 0) < 1 or f"{launches['dense32']} ssa_gen range launches (dense32)" not in path_err:
+        fail(f"[mesh] `ssa --mesh=1x1`: no dense32 range launch counted ({launches})")
+    r = dict(S=S, n_seg=n_seg, ranges=len(ranges), err=err, plain_ms=plain_ms, ms=ranges_ms, pass1_ms=pass1_ms,
+             walk_abba_ms=abba, api_s=api_s, api_launches=api_launches, launches=launches, path_s=path_s,
+             longest_segment_by_range=longest, chain_floor_ms=max(longest) * lat / 1e6,
+             bound_ms=bound_ms(x.nbytes + n_ssa * (x.dtype.itemsize + 4) + 8 * ssa_ops.SEG_ROWS * n_seg))
+    say(f"[mesh] `ssa` over a {mesh.dp}x{mesh.idx} mesh of {dev} (the API: {mesh}): SSA byte-equal to `python -m "
+        f"ropebwt3_tpu ssa`, {api_launches} range launches, {api_s:.3f} s; S {S}, {n_seg} segments in {len(ranges)} "
+        f"ranges, each range's pass 1 exact vs the plain pass 1 on the card ({plain_ms:.1f} ms); the {len(ranges)} "
+        f"range launches {ranges_ms:.4f} ms vs one pass 1 over every segment {pass1_ms:.4f} ms; the walk A B B A "
+        f"unsharded {abba[0]:.4f}, mesh {abba[1]:.4f} / {abba[2]:.4f}, unsharded {abba[3]:.4f} ms; longest segment "
+        f"by range {longest} (chain floor {r['chain_floor_ms']:.4f} ms at {lat:.1f} ns); bound {r['bound_ms']:.4f} ms; "
+        f"path `ssa --mesh=1x1` through cli.main: file byte-equal, launches {launches}, {path_s:.3f} s ({card})")
+    return r
+
+
+def mesh_merge(merge, idx, b2, mesh, reps: int, lat: float) -> dict:
+    """One merge of B2's BWT b2 into B1 (its rows idx) with B1's rows sharded
+    over `mesh` (merge_rank_mesh: merge_rank_sh_<layout> by range, each pass
+    a launch): ins and segment records exact against merge_rank_chunked_plain
+    over rank6_sharded_plain on the card and against the unsharded K6; the
+    16 range launches timed on buffers made beforehand, and the mesh's whole
+    merge rank (its buffers, launches and merges) beside the unsharded K6,
+    A B B A.  Returns ins and the record."""
+    import torch
+
+    from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, split_segments
+
+    views = ShardedRows(idx, mesh).views
+    lay = views[0].layout
+    acc2, rec = merge.lf2_packed(b2)
+    m2, n2 = int(acc2[1]), rec.numel()
+    S = merge.stride(n2, idx.device)
+    first, n_seg = merge.segments(n2, m2, S)
+    before = merge.merge_rank_cuda.launches[lay]
+    ins, seg = merge.merge_rank_mesh(views, rec, m2, S)
+    launches = merge.merge_rank_cuda.launches[lay] - before
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pins, pseg = merge.merge_rank_chunked_plain(views[-1], rec.clone(), m2, S)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    uins, useg = merge.launch_merge_rank(idx, rec, torch.empty_like(rec), m2, S)
+    err = max(max_abs(ins, pins), max_abs(ins, uins))
+    if err or not (torch.equal(seg, pseg) and torch.equal(seg, useg)) or launches != 2 * len(views):
+        fail(f"[mesh] merge_rank_{lay} (n1={idx.n}, n2={n2}, S={S}) differs from the plain version over "
+             f"rank6_sharded_plain or the unsharded K6 by {err}, or its records differ, or {launches} launches")
+    cuts = split_segments(n_seg, len(views))
+    bufs = [(torch.empty_like(rec), torch.empty_like(seg)) for _ in views]
+    order = [(v, g0, g1, b) for v, g0, g1, b in zip(views, cuts, cuts[1:], bufs)]
+
+    def ranges():
+        for v, g0, g1, (x, sg) in order:
+            merge.launch_merge_range(v, rec, x, m2, S, sg, g0, g1, merge.WALK)
+        for v, g0, g1, (x, _) in order:
+            merge.launch_merge_range(v, rec, x, m2, S, seg, g0, g1, merge.HAND_OVER)
+
+    k6 = {"unsharded": lambda: merge.launch_merge_rank(idx, rec, torch.empty_like(rec), m2, S),
+          "mesh": lambda: merge.launch_merge_mesh(views, rec, m2, S)}
+    abba = [cuda_ms(k6[k], reps) for k in ("unsharded", "mesh", "mesh", "unsharded")]
+    _, length, _, _, hand = (t.cpu().numpy() for t in seg)
+    return ins, dict(
+        layout=lay, n1=idx.n, n2=n2, m2=m2, S=S, lanes=n_seg, ranges=len(views), err=err, plain_ms=plain_ms,
+        ms=cuda_ms(ranges, reps), merge_rank_abba_ms=abba, check_launches=launches,
+        longest_segment=int(length.max()), longest_hand_over=int(hand.max()),
+        chain_floor_ms=(int(length.max()) + int(hand.max())) * lat / 1e6,
+        bound_ms=bound_ms(views[0].nbytes + 16 * n2 + 8 * merge.SEG_ROWS * n_seg))
+
+
+def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, mesh, ns: dict) -> dict:
+    """[mesh] (h): `build -m 16M` of bench.py's genomes with each merge's rank
+    over a 2x4 mesh of this card (through the API: the CLI maps 2x4 to eight
+    cards), FMD byte-equal to the one-batch index build; each merge held by
+    `mesh_merge`; sh_dense64 on the short reads' first merge, as [construct]
+    runs dense64; registers and blocks an SM of both passes, sharded and
+    not; then `build -m 16M --mesh=1x1` through cli.main (the path: counts
+    reset before, read after)."""
+    import ctypes
+
+    import torch
+
+    from ropebwt3_tpu_torch.construct import merge, sa
+    from ropebwt3_tpu_torch.formats.fmd import encode_runs
+    from ropebwt3_tpu_torch.ops.rank import OccIndex
+
+    merges, bwt = [], None
+    t0 = time.perf_counter()
+    for seq in host_batches(fa, cli.parse_num(CONSTRUCT_M)):
+        b2 = sa.gsa_bwt(seq, dev)[0]
+        if bwt is None:
+            bwt = b2
+            continue
+        ins, r = mesh_merge(merge, OccIndex.from_bwt(bwt), b2, mesh, 3, ns[LAT_48MB])
+        merges.append(r)
+        bwt = merge.merge_apply(bwt, b2, ins)
+    if encode_runs(*cli._runs_of_bwt(bwt.cpu().numpy())) != open(fmd, "rb").read():
+        fail(f"[mesh] `build -m {CONSTRUCT_M}` with the merge rank over {mesh}: FMD differs from the index build")
+    api_s = time.perf_counter() - t0
+    del bwt, b2
+    s1, s2 = host_batches(many_fa, cli.parse_num(MANY_M))[:2]
+    b1 = sa.gsa_bwt(s1, dev)[0]
+    _, r64 = mesh_merge(merge, OccIndex.from_bwt(b1, int64=True, mega_shift=DENSE64_SHIFT), sa.gsa_bwt(s2, dev)[0],
+                        mesh, 5, ns[LAT_L2])
+    occupancy = {}
+    for lay in ("dense32", "sh_dense32", "dense64", "sh_dense64"):
+        for hand_over in (0, 1):
+            b, loc, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            if getattr(kernels.lib(), f"rb3c_occupancy_merge_rank_{lay}")(hand_over, ctypes.byref(b), ctypes.byref(loc),
+                                                                           ctypes.byref(regs)):
+                fail(f"rb3c_occupancy_merge_rank_{lay} failed")
+            occupancy[f"{lay}_{'hand_over' if hand_over else 'walk'}"] = dict(regs=regs.value, blocks_per_sm=b.value,
+                                                                              local_bytes=loc.value)
+    port = os.path.join(WORK, "construct_port_mesh.fmd")
+    merge.merge_rank_cuda.launches.clear()
+    path_s, _ = cli_run(cli, ["build", "-m", CONSTRUCT_M, "--mesh=1x1", "-do", port, fa])
+    launches = dict(merge.merge_rank_cuda.launches)
+    same_file(port, fmd, f"`build -m {CONSTRUCT_M} --mesh=1x1 -do` vs the index build")
+    if launches.get("sh_dense32", 0) < 1 or launches.get("dense32", 0):
+        fail(f"[mesh] `build -m {CONSTRUCT_M} --mesh=1x1` launched {launches} (sh_dense32 only expected)")
+    for r in merges + [r64]:
+        a = r["merge_rank_abba_ms"]
+        say(f"[mesh] merge_rank_{r['layout']} (n1={r['n1']}, n2={r['n2']}, m2={r['m2']}, S {r['S']}, {r['lanes']} "
+            f"segments in {r['ranges']} ranges) over a {mesh.dp}x{mesh.idx} mesh of {dev}: ins and records exact vs "
+            f"merge_rank_chunked_plain over rank6_sharded_plain on the card ({r['plain_ms']:.1f} ms) and vs the "
+            f"unsharded K6; the {2 * r['ranges']} range launches {r['ms']:.4f} ms; the mesh's merge rank A B B A "
+            f"unsharded {a[0]:.4f}, mesh {a[1]:.4f} / {a[2]:.4f}, unsharded {a[3]:.4f} ms; longest segment "
+            f"{r['longest_segment']}, hand-over {r['longest_hand_over']} (chain floor {r['chain_floor_ms']:.4f} ms); "
+            f"bound {r['bound_ms']:.4f} ms ({card})")
+    say(f"[mesh] `build -m {CONSTRUCT_M}` of bench.py's genomes with the merge rank over a {mesh.dp}x{mesh.idx} mesh "
+        f"of {dev} (the API): FMD byte-equal to the index build, {api_s:.3f} s; K6 registers / blocks an SM (walk, "
+        "hand-over): " + ", ".join(f"{k} {v['regs']} / {v['blocks_per_sm']}" for k, v in occupancy.items())
+        + f"; path `build -m {CONSTRUCT_M} --mesh=1x1 -do` through cli.main: FMD byte-equal, launches {launches}, "
+        f"{path_s:.3f} s ({card})")
+    return dict(merges=merges, dense64=r64, occupancy=occupancy, api_s=api_s, path_s=path_s, launches=launches)
+
+
 def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict,
-               smem_res: dict, want_bed: bytes) -> dict:
+               smem_res: dict, want_bed: bytes, f, genomes_fa: str, many_fa: str) -> dict:
     """[mesh]: the SMEM kernels over rows sharded on a 2x4 mesh of this card
     (csrc/occ.cuh Sharded; parallel/mesh.py), per layout: smem_tg_sh and
     smem_tgc_sh against their plain version (smem_tg_plain over
@@ -1883,8 +2100,11 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
     through cli.main and as a subprocess, and `mem --mesh=2x1` under
     torchrun, two processes on this card: BED byte-equal to native;
     `hapdiv` of the 17th haplotype and `sw` of the 10,000 reads over
-    [this card] x 2, byte-equal to the unsharded runs; with two cards or
-    more, `mem --mesh=2x1` and `1x2` on real cards."""
+    [this card] x 2, byte-equal to the unsharded runs; `ssa` (`mesh_ssa`) and
+    `build -m 16M` (`mesh_build`) over a 2x4 mesh of this card, and `ssa
+    --mesh=2x1` under torchrun, each process's file byte-equal; with two
+    cards or more, `mem`, `ssa` and `build --mesh=2x1` and `1x2` on real
+    cards."""
     import torch
 
     from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
@@ -2035,6 +2255,24 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
             f"unsharded run ({dps[cmd]['lines']} lines); launches {dps[cmd]['launches']}; {dps[cmd]['port_s']:.3f} s "
             f"({card})")
 
+    # (g) ssa and (h) build over a 2x4 mesh of this card
+    ssa_r = mesh_ssa(cli, probe, dev, card, f, fmd, idxs["dense32"], mesh, ns[LAT_48MB])
+    build_r = mesh_build(cli, kernels, dev, card, genomes_fa, fmd, many_fa, mesh, ns)
+
+    # (i) ssa under torchrun: two processes on this card, dp 2, each writes its own file
+    outs = [os.path.join(WORK, f"ssa_torchrun_p{r}") for r in range(2)]
+    cmd = (f"exec {sys.executable} -m ropebwt3_tpu_torch ssa --mesh=2x1 -o {WORK}/ssa_torchrun_p$RANK.ssa {fmd} "
+           f"> {WORK}/ssa_torchrun_p$RANK.out")
+    trs_s, trs_err = run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+                          "--no-python", "bash", "-c", cmd])
+    for r, o in enumerate(outs):
+        same_file(o + ".ssa", os.path.join(WORK, "ssa_bench_ref.ssa"), f"torchrun `ssa --mesh=2x1`, process {r}")
+    if open(outs[1] + ".out", "rb").read() or len(re.findall(r"[1-9]\d* ssa_gen range launches \(dense32\)", trs_err)) != 2:
+        fail(f"[mesh] torchrun ssa --mesh=2x1: process 1 wrote stdout, or not both processes launched: {trs_err[-1500:]}")
+    say(f"[mesh] `torchrun --standalone --nproc_per_node=2 -m ropebwt3_tpu_torch ssa --mesh=2x1 -o pRANK.ssa` on this "
+        f"card (gloo): both files byte-equal to `python -m ropebwt3_tpu ssa`'s, process 1's stdout empty, both "
+        f"processes launched their range; {trs_s:.3f} s ({card})")
+
     # (f) real cards, where the machine has them
     real = {}
     if torch.cuda.device_count() >= 2:
@@ -2046,12 +2284,20 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
             if open(bed, "rb").read() != want_bed:
                 fail(f"[mesh] mem --mesh={spec} on {torch.cuda.device_count()} cards: BED differs from native")
             peer = re.search(r"(peer access[^)]*|no peer access[^)]*)\)", e_)
-            real[spec] = dict(s=s_, peer=peer.group(1) if peer else None)
-            say(f"[mesh] `mem --mesh={spec}` on real cards: BED byte-equal, {s_:.3f} s; {real[spec]['peer']} ({card})")
+            out_ssa, out_fmd = os.path.join(WORK, f"ssa_mesh_{spec}.ssa"), os.path.join(WORK, f"build_mesh_{spec}.fmd")
+            ssa_s, _ = run([sys.executable, "-m", "ropebwt3_tpu_torch", "ssa", f"--mesh={spec}", "-o", out_ssa, fmd])
+            same_file(out_ssa, os.path.join(WORK, "ssa_bench_ref.ssa"), f"`ssa --mesh={spec}` on real cards")
+            build_s, _ = run([sys.executable, "-m", "ropebwt3_tpu_torch", "build", "-m", CONSTRUCT_M, f"--mesh={spec}",
+                              "-do", out_fmd, genomes_fa])
+            same_file(out_fmd, fmd, f"`build -m {CONSTRUCT_M} --mesh={spec}` on real cards")
+            real[spec] = dict(s=s_, peer=peer.group(1) if peer else None, ssa_s=ssa_s, build_s=build_s)
+            say(f"[mesh] `mem`, `ssa`, `build -m {CONSTRUCT_M}` with --mesh={spec} on real cards: byte-equal, {s_:.3f} / "
+                f"{ssa_s:.3f} / {build_s:.3f} s; {real[spec]['peer']} ({card})")
     else:
-        say(f"[mesh] real --mesh=2x1 and 1x2 skipped: this machine has {torch.cuda.device_count()} card (peer access "
-            "and scaling across cards unmeasured)")
-    return dict(res=res, paths=paths, sub_s=sub_s, torchrun_s=tr_s, dp=dps, real=real)
+        say(f"[mesh] real --mesh=2x1 and 1x2 (mem, ssa, build) skipped: this machine has {torch.cuda.device_count()} "
+            "card (peer access and scaling across cards unmeasured)")
+    return dict(res=res, paths=paths, sub_s=sub_s, torchrun_s=tr_s, dp=dps, real=real, ssa=ssa_r, build=build_r,
+                torchrun_ssa_s=trs_s)
 
 
 def main(argv: list[str]) -> None:
@@ -2506,7 +2752,8 @@ def main(argv: list[str]) -> None:
     phase_done("serve")
 
     # ---- mesh --------------------------------------------------------------------
-    ms_ = check_mesh(cli, smem, kernels, probe, dev, card, fmd, reads_fa, reads, idxs, ns, smem_res, want)
+    ms_ = check_mesh(cli, smem, kernels, probe, dev, card, fmd, reads_fa, reads, idxs, ns, smem_res, want, f, fa,
+                     many_fa)
     phase_done("mesh")
 
     def path_launches(kernel: str, layout: str) -> tuple[int, str | None]:
@@ -2714,7 +2961,34 @@ def main(argv: list[str]) -> None:
                          **({"mesh_engine_ms": r["engine_ms"], "unsharded_engine_ms": r["engine_unsharded_ms"],
                              "mesh_engine_launches": r["engine_launches"]} if "engine_ms" in r else {}))
             entries.append(e)
-    say(json.dumps({"kernels": entries, "mesh": {k: ms_[k] for k in ("sub_s", "torchrun_s", "dp", "real")},
+    mb, g = ms_["build"], ms_["ssa"]
+    for lay in ("dense32", "dense64"):
+        rs = mb["merges"] if lay == "dense32" else [mb["dense64"]]
+        n = mb["launches"].get(f"sh_{lay}", 0)
+        entries.append({
+            "name": f"merge_rank_sh_{lay}", "route": "cuda",
+            "source": "ropebwt3_tpu_torch/csrc/merge_rank.cu + occ.cuh (Sharded) + construct/merge.py merge_rank_mesh",
+            "replaces": MERGE_MESH_REPLACES, "launches": n,
+            "path": f"build -m {CONSTRUCT_M} --mesh=1x1" if n else None, "max_abs_err": max(r["err"] for r in rs),
+            "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"], "bound_ms": rs[0]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "chain_floor_ms": rs[0]["chain_floor_ms"],
+            "input": (f"the {len(rs)} merges of `build -m {CONSTRUCT_M}` (ms, bounds: the first)" if lay == "dense32"
+                      else f"the short reads' first merge (-m {MANY_M})") + f", {MESH_DP}x{MESH_IDX} mesh of one card",
+            "merges": rs, "occupancy": {k: v for k, v in mb["occupancy"].items() if lay in k},
+        })
+    entries.append({
+        "name": "ssa_gen_mesh_dense32", "route": "cuda",
+        "source": "ropebwt3_tpu_torch/csrc/ssa_gen.cu (pass 1 over a range) + ssa_ops.py walk_mesh",
+        "replaces": "ropebwt3_tpu/ssa_ops.py:163-199 (the mesh branch of ssa_gen_device)",
+        "launches": g["launches"].get("dense32", 0), "path": "ssa --mesh=1x1" if g["launches"] else None,
+        "max_abs_err": g["err"], "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "chain_floor_ms": g["chain_floor_ms"],
+        "input": f"bench.py's index, {g['n_seg']} segments in {g['ranges']} ranges (S {g['S']}), {MESH_DP}x{MESH_IDX} "
+                 "mesh of one card; ms: the range launches of pass 1",
+        **{k: g[k] for k in ("pass1_ms", "walk_abba_ms", "longest_segment_by_range", "api_s", "path_s")},
+    })
+    say(json.dumps({"kernels": entries, "mesh": {k: ms_[k] for k in ("sub_s", "torchrun_s", "dp", "real",
+                                                                     "torchrun_ssa_s")},
                     "utils": {k: ut[k] for k in ("kount", "fa2line", "fa2kmer", "tools_call")},
                     "serve": sv, "phase_s": phase_s}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -44,7 +44,12 @@ rerun on the native engine; PAF, or --all-e2e / -g records, byte-equal to
 `ssa [--device=cuda|cpu] [-s INT] [-o FILE] [-t INT] idx.fmd` walks every
 sequence on the device's dense occ rows (ssa_ops.py) and writes the SSA
 file byte-equal to `python -m ropebwt3_tpu ssa`; `-t` is accepted and
-unused, as the JAX package's own walk ignores it.
+unused, as the JAX package's own walk ignores it.  With `--mesh=DPxIDX`
+the rows go to every device of the mesh and the walk's segments are split
+over all of them (ssa_ops.py ssa_gen_mesh); `build --mesh=DPxIDX` runs each
+merge's rank with B1's rows sharded over IDX devices and its segments split
+over all of them (construct/merge.py merge_rank_mesh).  Either output is
+byte-equal to the same command without `--mesh`.
 
 `get [--device=cuda|cpu] idx.fmd INT...` walks LF from each valid k on the
 device's dense rows (ops/walk.py retrieve_cuda, K11 of csrc/walk.cu, all k
@@ -68,17 +73,19 @@ background when none answers `mem`.
 `mem --mesh=DPxIDX` shards the occ rows over IDX devices and splits each
 batch's reads over all DP x IDX of them (parallel/); `sw`, `hapdiv` and
 `search --mesh=N` split each batch's reads or windows over N devices, the
-rows replicated.  The devices are cuda:0 .. (one a mesh slot; too few cards
-is one ERROR line), or the CPU with --device=cpu.  Under torchrun the spec
-is global: each process runs its dp share on its own devices, joins a gloo
-group, and process 0 writes all output (parallel/launch.py).
+rows replicated; `ssa` and `build` take it as above.  The devices are
+cuda:0 .. (one a mesh slot; too few cards is one ERROR line), or the CPU
+with --device=cpu.  Under torchrun the spec is global: each process runs
+its dp share on its own devices and joins a gloo group; process 0 writes
+all output (parallel/launch.py), and with `ssa` and `build` every process
+writes its own `-o` file.  The other commands skip `--mesh`, and fa2kmer
+stops at it (`ERROR: unknown option`), as the JAX package's do.
 
 With the default `--device=cuda` and no CUDA, every command that runs on
-the device exits non-zero; none goes on on the CPU unasked.  `--mesh` on
-the other commands, an idx axis across processes,
-`--engine=jax|hybrid` and the `--dbg-*` streams are refused with one
-`ERROR:` line that names the ROADMAP queue item porting them (`refusal`);
-`python -m ropebwt3_tpu` runs them.  The option parsers, the usage texts,
+the device exits non-zero; none goes on on the CPU unasked.  An idx axis
+across processes, `--engine=jax|hybrid` and the `--dbg-*` streams are
+refused with one `ERROR:` line that names the ROADMAP queue item porting
+them (`refusal`, `launch.local_mesh`); `python -m ropebwt3_tpu` runs them.  The option parsers, the usage texts,
 the index loader and the writers are copies of ropebwt3_tpu/cli.py's
 (main_build, _dump_index, main_merge, main_plain2fmd, main_search, _run_mem's
 flat path, main_ssa, main_stat, main_get, main_suffix, main_kount,
@@ -261,7 +268,9 @@ Options:
     -T          output the index in the Newick format (for debugging)
     -S FILE     save the current index to FILE after each input file []
   Device:
-    --device=STR  cuda (the kernels) or cpu (the plain PyTorch versions) [cuda]""",
+    --device=STR  cuda (the kernels) or cpu (the plain PyTorch versions) [cuda]
+    --mesh=DPxIDX  run the merge rank phase over a device mesh: its segments
+                over all DP x IDX devices, occ rows over IDX devices []""",
     "merge": """Usage: python -m ropebwt3_tpu_torch merge [options] <base.fmr> <other1.fmr> [...]
 Options:
   -t INT     number of threads [1]
@@ -322,7 +331,9 @@ Options:
   -t INT     number of threads [4]
   -s INT     sample rate one SA per 2**INT bases [8]
   -o FILE    output to file [stdout]
-  --device=STR  cuda or cpu [cuda]""",
+  --device=STR  cuda or cpu [cuda]
+  --mesh=DPxIDX  generate on a device mesh: the LF walk's segments over all
+                 DP x IDX devices, the occ rows on each []""",
     "stat": "Usage: python -m ropebwt3_tpu_torch stat [-M] <idx.fmd>",
     "get": "Usage: python -m ropebwt3_tpu_torch get <idx.fmr> <int> [...]",
     "suffix": """Usage: python -m ropebwt3_tpu_torch suffix [options] <idx.fmr> <seq.fa> [...]
@@ -432,17 +443,14 @@ def load_index(fn: str, load_ssa: bool = False, load_sid: bool = False) -> Dense
 # ---------------------------------------------------------------------------
 
 
-MESH_CMDS = ("mem", "sw", "hapdiv", "search")  # the commands the port's --mesh takes
-MESH_REMAINDER = "ROADMAP queue 1 item 12 (its remainder: ssa, build and merge)"
-
-
 def refusal(argv: list[str]) -> str | None:
-    """Why the port refuses `argv`, or None: `--mesh` on a command other
-    than mem, sw, hapdiv and search, and `sw` / `hapdiv` / `search` with
-    `--engine=jax|hybrid`, would reach the JAX package's device code (`sw`
+    """Why the port refuses `argv`, or None: `sw` / `hapdiv` / `search` with
+    `--engine=jax|hybrid` would reach the JAX package's device code (`sw`
     and `hapdiv` run the port's own device engines with `--engine=auto`, a
     resident server's with `--engine=server`); `search` never goes to a
-    server."""
+    server.  `--mesh` is each command's own: mem, sw, hapdiv, search, build
+    and ssa take it, fa2kmer (a strict parse) stops at it, and the others
+    skip it, as the JAX package's commands do."""
     cmd, rest = argv[0], argv[1:]
     if cmd not in OWNED:
         return f"unknown command '{cmd}'"
@@ -450,11 +458,8 @@ def refusal(argv: list[str]) -> str | None:
         return None  # server.py parses its own options
     # parsed as the commands parse them: ketopt takes `--name X`, `--name=X`
     # and unambiguous prefixes (no other long option of any command starts
-    # with `m` or `e`); the last value wins
-    given = dict(ketopt(rest, "", ["mesh=", "engine="])[0])
-    if "--mesh" in given and cmd not in MESH_CMDS:
-        return f"{cmd} --mesh is not ported (multi-GPU): {MESH_REMAINDER}"
-    engine = given.get("--engine", "auto")
+    # with `e`); the last value wins
+    engine = dict(ketopt(rest, "", ["engine="])[0]).get("--engine", "auto")
     if cmd in _ENGINE_ITEM and engine in ("jax", "hybrid"):
         return f"{cmd} --engine={engine} runs the JAX package's device engine, not ported: ROADMAP queue 1 {_ENGINE_ITEM[cmd]}"
     if cmd == "search" and engine == "server":
@@ -544,21 +549,31 @@ def _to_device(bwt: np.ndarray, dev):
     return torch.from_numpy(np.ascontiguousarray(bwt, dtype=np.uint8)).to(dev)
 
 
-def _merge_into(bwt, seq2, dev):
+def _merge_into(bwt, seq2, dev, mesh=None):
     """B2 (a uint8 BWT, host or device) merged into the device BWT `bwt`,
-    on B1's rows built where it lies; the check comes first, so a merge
-    that would not fit the card stops with one error, never on the host."""
-    from .construct.merge import merge_bytes, merge_plain
-    from .ops.rank import OccIndex
+    on B1's rows built where it lies (with `mesh`, whose first device is
+    dev: those rows sharded over it, parallel/mesh.py ShardedRows, and the
+    merge rank's segments split over its devices); the check comes first,
+    so a merge that would not fit a card stops with one error, never on
+    the host."""
+    import torch
 
-    n1, n2 = bwt.numel(), len(seq2)
-    budget = card_bytes(dev)
-    if budget is not None:
-        need = merge_bytes(n1, n2, int((seq2 == 0).sum()))
-        if need > budget:
-            raise CapacityError(f"merging {n2} symbols into an index of {n1} needs ~{need} B of the card, which "
-                                f"has {budget} B")
-    return merge_plain(OccIndex.from_bwt(bwt), bwt, seq2)
+    from .construct.merge import merge_bytes, merge_mesh_bytes, merge_plain
+    from .ops.rank import OccIndex
+    from .parallel.mesh import ShardedRows
+
+    n1, n2, m2 = bwt.numel(), len(seq2), int((seq2 == 0).sum())
+    need = {str(dev): merge_bytes(n1, n2, m2)} if mesh is None else merge_mesh_bytes(n1, n2, m2, mesh)
+    for d, b in need.items():
+        budget = card_bytes(torch.device(d))
+        if budget is not None and b > budget:
+            raise CapacityError(f"merging {n2} symbols into an index of {n1} needs ~{b} B of {d}, which has {budget} B")
+    rows = OccIndex.from_bwt(bwt)
+    if mesh is not None:
+        sharded = ShardedRows(rows, mesh)
+        log.info("merge rank over %s", sharded.describe(), func="merge")
+        rows = sharded.views
+    return merge_plain(rows, bwt, seq2)
 
 
 def _launch_summary() -> str:
@@ -575,9 +590,9 @@ def main_build(argv: list[str], device: str) -> int:
     from .construct.sa import PACKED_MAX, SA_BYTES_PER_SYMBOL, bytes_per_symbol, gsa_bwt
     from .formats.fmr import write_fmr
 
-    opts, args = ketopt(argv, "l:n:m:t:2sri:LFRo:dbTS:p:e")
+    opts, args = ketopt(argv, "l:n:m:t:2sri:LFRo:dbTS:p:e", ["mesh="])
     fmt, batch_size, user_m, is_line, is_for, is_rev = "plain", 7_000_000_000, False, False, True, True
-    fn_in = fn_tmp = out_fn = None
+    fn_in = fn_tmp = out_fn = mesh_spec = None
     sort_order = 0
     for o, a in opts:
         # -t, -p, -l, -n and -2 are taken and change nothing, as in the JAX
@@ -603,11 +618,16 @@ def main_build(argv: list[str], device: str) -> int:
             fmt = {"-d": "fmd", "-b": "fmr", "-T": "tree", "-e": "bre"}[o]
         elif o == "-S":
             fn_tmp = a
+        elif o == "--mesh":
+            mesh_spec = a
     if not args and fn_in is None:
         return _usage("build")
     if not (is_for or is_rev):
         return _err("-F and -R leave no strand to index")
-    dev = torch.device(device)
+    # --mesh: each merge's rank over the mesh (B1's rows over its idx axis,
+    # the segments over all its devices); the batches on its first device
+    mesh = _cli_mesh(mesh_spec, device, None, "main_build")
+    dev = torch.device(device) if mesh is None else mesh.devices[0]
     bwt = None  # the BWT built so far, on the device
     if fn_in is not None:
         if sort_order != 0:
@@ -685,7 +705,7 @@ def main_build(argv: list[str], device: str) -> int:
                                     f"symbols ({budget} B); lower -m")
             b2 = gsa_bwt(seq, dev)[0]
             log.info("constructed partial BWT for %d symbols", len(b2), func="main_build")
-            bwt = b2 if bwt is None else _merge_into(bwt, b2, dev)
+            bwt = b2 if bwt is None else _merge_into(bwt, b2, dev, mesh)
             if n1:
                 log.info("merged the partial BWT for %d symbols", len(b2), func="main_build")
     except torch.OutOfMemoryError as e:
@@ -1159,19 +1179,29 @@ def _mem_line(f, nm: str, st: int, en: int, sz: int, pos: list[tuple[int, int]])
 
 def main_ssa(argv: list[str], device: str) -> int:
     from .formats.ssa import write_ssa
-    from .ops.rank import OccIndex
-    from .ssa_ops import ssa_gen, ssa_gen_cuda
+    from .ops.rank import OccIndex, needs_int64
+    from .ssa_ops import ssa_gen, ssa_gen_cuda, ssa_gen_mesh
 
-    opts, args = ketopt(argv, "t:s:o:")
-    ssa_shift, out_fn = 8, None
+    opts, args = ketopt(argv, "t:s:o:", ["mesh="])
+    ssa_shift, out_fn, mesh_spec = 8, None, None
     for o, a in opts:
         if o == "-s":
             ssa_shift = atoi(a)
+        elif o == "--mesh":
+            mesh_spec = a
         elif o == "-o":
             out_fn = a
     if not args:
         return _usage("ssa")
+    mesh = _cli_mesh(mesh_spec, device, None, "ssa")
     f = load_index(args[0])
+    if mesh is not None:
+        # the rows once a device, the walk's segments over all the mesh's
+        # devices; under torchrun every process writes its own -o file
+        write_ssa(out_fn if out_fn else "-", ssa_gen_mesh(f, ssa_shift, mesh))
+        log.info("%d ssa_gen range launches (%s) over a %s", sum(ssa_gen_mesh.launches.values()),
+                 "dense64" if needs_int64(f.n) else "dense32", mesh, func="ssa")
+        return 0
     idx = OccIndex.from_dense(f, device)
     write_ssa(out_fn if out_fn else "-", ssa_gen(f, ssa_shift, occ=idx))
     log.info("%d ssa_gen launches (%s)", sum(ssa_gen_cuda.launches.values()), idx.layout, func="ssa")

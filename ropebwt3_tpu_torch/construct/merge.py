@@ -20,7 +20,11 @@ as the JAX package reformulates it (fm-index.c:143-175, 279-303):
      the merged array so no temporary is a full int64 array.
 `merge_plain` runs the three on B1's dense rows (ops/rank.py OccIndex) and
 returns the merged BWT, on B1's device; its rows come from
-`OccIndex.from_bwt` when the next merge needs them.
+`OccIndex.from_bwt` when the next merge needs them.  Over a mesh (`build
+--mesh`), B1's rows are sharded over its idx axis and the segments of the
+merge rank split over all its devices (`merge_rank_mesh`, the port of
+ropebwt3_tpu/parallel/merge_sharded.py; `merge_mesh_bytes` counts what it
+puts on each device).
 
 Capacity: a merge holds B1 (1 B a symbol), its rows (0.75 B) and B2 (1 B)
 throughout; beside them, in turn, `OccIndex.from_bwt`'s temporaries (1.5 B
@@ -42,6 +46,8 @@ import torch
 
 from .. import kernels
 from ..ops.rank import ASIZE, OccIndex, from_bwt_temp_bytes
+from ..parallel import launch
+from ..parallel.mesh import ShardView
 
 APPLY_CHUNK = 1 << 25  # merged positions per chunk of merge_apply
 # The segment stride S of the merge rank: a power of two, short enough to
@@ -84,9 +90,12 @@ def lf2_packed(seq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return acc2, lf2 << 3 | seq.long()
 
 
-def check_merge(idx: OccIndex, rec: torch.Tensor, m2: int) -> None:
-    if not isinstance(idx, OccIndex):
-        raise TypeError(f"the merge rank takes dense occ rows (OccIndex), not {type(idx).__name__}")
+def check_merge(idx, rec: torch.Tensor, m2: int) -> None:
+    """B1's dense rows (an OccIndex, or a ShardView of them on a mesh), the
+    records on their device, 0 <= m2 <= n2, and rows that count n symbols."""
+    if not (isinstance(idx, OccIndex) or isinstance(idx, ShardView) and not idx.rows.is_rb):
+        raise TypeError(f"the merge rank takes dense occ rows (OccIndex or their ShardView), not "
+                        f"{getattr(idx, 'layout', type(idx).__name__)}")
     if rec.dtype != torch.int64 or rec.dim() != 1 or rec.device != idx.device or not rec.is_contiguous():
         raise ValueError("rec must be a contiguous 1-D int64 tensor on the index's device")
     if not 0 <= m2 <= rec.numel():
@@ -138,25 +147,35 @@ def merge_rank_plain(idx: OccIndex, rec: torch.Tensor, m2: int) -> torch.Tensor:
     return rec
 
 
-def merge_rank_chunked_plain(idx: OccIndex, rec: torch.Tensor, m2: int, S: int) -> tuple[torch.Tensor, torch.Tensor]:
+def merge_rank_chunked_plain(idx, rec: torch.Tensor, m2: int, S: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's two passes, each over all its lanes in lock-step: rec
     becomes ins, in place.  Returns (rec, seg), seg (5, n_seg) int64 as the
-    kernel fills it."""
+    kernel fills it.  idx: an OccIndex or, over a mesh, a dense ShardView
+    (its rank `rank6_sharded_plain`)."""
     check_merge(idx, rec, m2)
+    n_seg = segments(rec.numel(), m2, S)[1]
+    seg = torch.full((SEG_ROWS, n_seg), -1, dtype=torch.int64, device=rec.device)
+    merge_walk_plain(idx, rec, rec, m2, S, seg, 0, n_seg)
+    merge_hand_over_plain(idx, rec, rec, m2, S, seg, 0, n_seg)
+    return rec, seg
+
+
+def merge_walk_plain(idx, rec: torch.Tensor, ins: torch.Tensor, m2: int, S: int, seg: torch.Tensor, g0: int,
+                     g1: int) -> None:
+    """Pass 1 over the segments [g0, g1), in lock-step: each lane walks its
+    segment and writes ins from its meeting step on (ins may be rec: each
+    position is read before it is written, by its one writer) and its
+    columns of seg (5, n_seg), hand 0."""
     n2, dev = rec.numel(), rec.device
-    first, n_seg = segments(n2, m2, S)
+    first = segments(n2, m2, S)[0]
     acc = idx.acc.long()
-    seg = torch.full((SEG_ROWS, n_seg), -1, dtype=torch.int64, device=dev)
-    seg[4] = 0
+    seg[4, g0:g1] = 0
 
     def lf1(ka, c):
         return acc[c] + idx.rank1a(ka).gather(-1, c[:, None])[:, 0]
 
-    def is_start(kb):
-        return (kb >= m2) & (kb % S == 0)
-
-    # pass 1: one lane a segment, lo and hi from [acc1[1], acc1[1]] or [0, n1]
-    g = torch.arange(n_seg, dtype=torch.int64, device=dev)
+    # one lane a segment, lo and hi from [acc1[1], acc1[1]] or [0, n1]
+    g = torch.arange(g0, g1, dtype=torch.int64, device=dev)
     kb = torch.where(g < m2, g, (first + g - m2) * S)
     lo = torch.where(g < m2, acc[1], 0)
     hi = torch.where(g < m2, acc[1], idx.n)
@@ -166,13 +185,13 @@ def merge_rank_chunked_plain(idx: OccIndex, rec: torch.Tensor, m2: int, S: int) 
         r = rec[kb]
         c = r & 7
         met = lo == hi
-        rec[kb[met]] = lo[met]
+        ins[kb[met]] = lo[met]
         t += 1
         kb = torch.where(c == 0, -1, r >> 3)
         lohi = lf1(torch.cat([lo, hi]), c.repeat(2))  # a `$` lane's step is dropped
         lo, hi = torch.where(c == 0, lo, lohi[: g.numel()]), torch.where(c == 0, hi, lohi[g.numel() :])
         meet = torch.where(~met & (lo == hi), t, meet)
-        done = (c == 0) | is_start(kb)
+        done = (c == 0) | ((kb >= m2) & (kb % S == 0))
         if done.any():
             d = g[done]
             seg[0, d], seg[1, d], seg[2, d] = meet[done], t[done], kb[done]
@@ -180,9 +199,20 @@ def merge_rank_chunked_plain(idx: OccIndex, rec: torch.Tensor, m2: int, S: int) 
             keep = ~done
             g, kb, lo, hi, meet, t = g[keep], kb[keep], lo[keep], hi[keep], meet[keep], t[keep]
 
-    # pass 2: each segment whose end is exact writes on through the unmet
-    # prefixes of the segments after it
-    g = torch.nonzero((seg[2] >= 0) & (seg[3] >= 0))[:, 0]
+
+def merge_hand_over_plain(idx, rec: torch.Tensor, ins: torch.Tensor, m2: int, S: int, seg: torch.Tensor, g0: int,
+                          g1: int) -> None:
+    """Pass 2 over the segments [g0, g1), once every segment's pass 1 is in
+    seg: each whose end is exact writes on through the unmet prefixes of
+    the segments after it (any segment's meeting step is read), and its
+    hand in seg."""
+    first = segments(rec.numel(), m2, S)[0]
+    acc = idx.acc.long()
+
+    def is_start(kb):
+        return (kb >= m2) & (kb % S == 0)
+
+    g = g0 + torch.nonzero((seg[2, g0:g1] >= 0) & (seg[3, g0:g1] >= 0))[:, 0]
     kb, ka = seg[2, g], seg[3, g]
     mt = seg[0, m2 + kb // S - first]
     t, steps = torch.zeros_like(g), torch.zeros_like(g)
@@ -196,10 +226,10 @@ def merge_rank_chunked_plain(idx: OccIndex, rec: torch.Tensor, m2: int, S: int) 
             break
         r = rec[kb]
         c = r & 7
-        rec[kb] = ka
+        ins[kb] = ka
         steps += 1
         t += 1
-        kb, ka = r >> 3, lf1(ka, c)
+        kb, ka = r >> 3, acc[c] + idx.rank1a(ka).gather(-1, c[:, None])[:, 0]
         # into the next segment, unless this one met on its last step (its
         # own lane hands over)
         move = (c != 0) & is_start(kb) & (t != mt)
@@ -207,7 +237,6 @@ def merge_rank_chunked_plain(idx: OccIndex, rec: torch.Tensor, m2: int, S: int) 
             mt = torch.where(move, seg[0, torch.where(move, m2 + kb // S - first, 0)], mt)
             t = torch.where(move, 0, t)
         stop = (c == 0) | (t == mt)
-    return rec, seg
 
 
 def merge_rank_cuda(idx: OccIndex, rec: torch.Tensor, m2: int, S: int | None = None) -> torch.Tensor:
@@ -250,6 +279,102 @@ def launch_merge_rank(idx: OccIndex, rec: torch.Tensor, ins: torch.Tensor, m2: i
 
 merge_rank_cuda.launches = Counter()
 
+WALK, HAND_OVER = 1, 2  # the passes of merge_rank_sh_* (csrc/merge_rank.cu)
+LOW = -(1 << 63)  # a segment record no share wrote: below every written value
+
+
+def merge_rank_mesh(views: list, rec: torch.Tensor, m2: int, S: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The merge rank over a mesh (the port of ropebwt3_tpu/parallel/
+    merge_sharded.py merge_rank_sharded_fn): `views` are the ShardViews of
+    B1's dense rows sharded over the mesh's idx axis (parallel/mesh.py
+    ShardedRows), one a device, and each takes a contiguous range of the
+    segments (this process's share under torchrun, launch.segment_ranges).
+    The stride S and the segments are the whole B2's (`stride` on the first
+    view's device), not a share's.  Pass 1 runs on every view over its range
+    into its own ins (-1 where unwritten) and segment records; the records
+    are gathered onto every device (a hand-over reads the meeting step of a
+    successor another range holds); pass 2 runs over the same ranges; the
+    shares merge by a max onto the first view's device (launch.merge_shares:
+    each position has one writer).  The records go once onto each distinct
+    device.  On CUDA views each pass of a range is one launch of
+    merge_rank_sh_<layout>, counted; on the CPU the plain passes run over
+    the view's rank (rank6_sharded_plain).  Returns (ins, seg): ins (n2,)
+    int64 apart from rec, seg (5, n_seg) as merge_rank_chunked_plain's."""
+    check_merge(views[0], rec, m2)
+    if any(v.rows is not views[0].rows for v in views):
+        raise ValueError("the views must be one ShardedRows' (one a device of its mesh)")
+    S = stride(rec.numel(), views[0].device) if S is None else S
+    if views[0].device.type == "cuda" and S & (S - 1):
+        raise ValueError(f"the kernel takes a power-of-two stride, not {S}")
+    return launch_merge_mesh(views, rec, m2, S)
+
+
+def launch_merge_mesh(views: list, rec: torch.Tensor, m2: int, S: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`merge_rank_mesh` on views and records that it has checked, at the
+    stride S: no read back to the host on one device, so timing loops call
+    this."""
+    dev, n2 = views[0].device, rec.numel()
+    n_seg = segments(n2, m2, S)[1]
+    ranges = launch.segment_ranges(n_seg, len(views))
+    recs = {}
+    for v in views:
+        if str(v.device) not in recs:
+            recs[str(v.device)] = rec.to(v.device)
+    ins = [torch.full((n2,), -1, dtype=torch.int64, device=v.device) for v in views]
+
+    def run(passes, segs):
+        for v, (g0, g1), x, sg in zip(views, ranges, ins, segs):
+            r = recs[str(v.device)]
+            if v.device.type == "cpu":
+                (merge_walk_plain if passes == WALK else merge_hand_over_plain)(v, r, x, m2, S, sg, g0, g1)
+            else:
+                launch_merge_range(v, r, x, m2, S, sg, g0, g1, passes)
+
+    segs = [torch.full((SEG_ROWS, n_seg), LOW, dtype=torch.int64, device=v.device) for v in views]
+    run(WALK, segs)
+    full = launch.merge_shares(segs)
+    del segs
+    fulls = {str(dev): full}  # every range's records, once on every device
+    for v in views:
+        if str(v.device) not in fulls:
+            fulls[str(v.device)] = full.to(v.device)
+    run(HAND_OVER, [fulls[str(v.device)] for v in views])
+    seg = launch.merge_shares(list(fulls.values()))  # each device's hand-over counts
+    return launch.merge_shares(ins), seg
+
+
+def launch_merge_range(view, rec: torch.Tensor, ins: torch.Tensor, m2: int, S: int, seg: torch.Tensor, g0: int,
+                       g1: int, passes: int) -> None:
+    """One launch of merge_rank_sh_<layout> on the view's card, counted:
+    `passes` (WALK, HAND_OVER or both) over the segments [g0, g1) of seg (5,
+    n_seg), at the power-of-two stride S; nothing for an empty range."""
+    first, n_seg = segments(rec.numel(), m2, S)
+    if g1 > g0:
+        kernels.launch(f"rb3c_merge_rank_{view.layout}", view.device, *view.kernel_tables(), rec.data_ptr(),
+                       ins.data_ptr(), m2, S.bit_length() - 1, first, n_seg, g0, g1, passes, seg.data_ptr())
+        kernels.count(merge_rank_cuda.launches, view.layout)
+
+
+def merge_mesh_bytes(n1: int, n2: int, m2: int, mesh) -> dict[str, int]:
+    """Card bytes a merge over `mesh` (parallel/mesh.py Mesh) holds on each
+    distinct device at its peak, str(device) -> bytes: on the first, the
+    merge's own (`merge_bytes`: B1, its rows, B2, the records, merge_apply's
+    positions); on each, the slabs of B1's rows it holds (ShardedRows: 48 B
+    a row, one copy a (device, slab)), the records (the first device's are
+    merge_bytes'), an ins and the segment records for each mesh slot on it,
+    and the gathered records."""
+    n_seg = segments(n2, m2, MIN_STRIDE)[1]
+    nb_local = -(-(n1 // 64 + 2) // mesh.idx)
+    slabs = {(str(d), s) for row in mesh.grid for s, d in enumerate(row)}
+    first = str(mesh.devices[0])
+    out: dict[str, int] = {}
+    for d in map(str, mesh.devices):
+        if d not in out:
+            out[d] = (merge_bytes(n1, n2, m2) if d == first else 8 * n2) + 8 * SEG_ROWS * n_seg + 48 * nb_local * sum(
+                dd == d for dd, _ in slabs)
+        out[d] += 8 * n2 + 8 * SEG_ROWS * n_seg
+    return out
+
 
 def merge_apply(bwt1: torch.Tensor, seq2: torch.Tensor, ins: torch.Tensor) -> torch.Tensor:
     """The merged BWT: B2[i] at ins[i] + i, B1 in order in the other places
@@ -272,17 +397,21 @@ def merge_apply(bwt1: torch.Tensor, seq2: torch.Tensor, ins: torch.Tensor) -> to
     return merged
 
 
-def merge_plain(idx: OccIndex, bwt1: torch.Tensor, seq2: torch.Tensor | np.ndarray) -> torch.Tensor:
+def merge_plain(idx, bwt1: torch.Tensor, seq2: torch.Tensor | np.ndarray) -> torch.Tensor:
     """Merge the plain partial BWT seq2 (B2) into B1, given as its BWT bwt1
-    and its dense rows idx, on idx's device; returns the merged BWT."""
+    and its dense rows idx (an OccIndex, or the list of a mesh's ShardViews
+    of them: the merge rank then runs over the mesh, `merge_rank_mesh`), on
+    the rows' (first) device; returns the merged BWT."""
+    mesh = isinstance(idx, list)
+    home = idx[0] if mesh else idx
     if isinstance(seq2, np.ndarray):
         seq2 = torch.from_numpy(np.ascontiguousarray(seq2, dtype=np.uint8))
-    seq2 = seq2.to(idx.device)
-    if bwt1.device != idx.device or bwt1.numel() != idx.n or bwt1.dtype != torch.uint8 or seq2.dtype != torch.uint8:
+    seq2 = seq2.to(home.device)
+    if bwt1.device != home.device or bwt1.numel() != home.n or bwt1.dtype != torch.uint8 or seq2.dtype != torch.uint8:
         raise ValueError("bwt1 must be the uint8 BWT of idx's rows, on its device, and seq2 a uint8 BWT")
     if not seq2.numel():
         return bwt1.clone()
     acc2, rec = lf2_packed(seq2)
-    ins = merge_rank_cuda(idx, rec, int(acc2[1]))
+    ins = merge_rank_mesh(idx, rec, int(acc2[1]))[0] if mesh else merge_rank_cuda(idx, rec, int(acc2[1]))
     del rec  # apart from ins on the card: freed before merge_apply's peak
     return merge_apply(bwt1, seq2, ins)

@@ -46,16 +46,31 @@
 // ins is written apart from the records: the native walk writes it over
 // them, but on the card a write to the line just read runs ~5x slower
 // (PERF.md).
-// Instantiated for the dense rows, int32 and int64 (occ.cuh Dense<T>).
+//
+// A mesh (construct/merge.py merge_rank_mesh; the port of
+// ropebwt3_tpu/parallel/merge_sharded.py merge_rank_sharded_fn, whose lanes
+// run over `dp` and whose ranks a psum over `idx` makes whole) runs each
+// pass over a range [g0, g1) of the segments on each device, B1's rows
+// sharded over `idx` (occ.cuh Sharded<Dense<T>>: a rank loads its row from
+// the slab that owns it, so no collective runs inside a step).  Between
+// the passes the host gathers every range's segment records onto every
+// device: a hand-over reads the meeting step of a successor that another
+// range walked.  Each ins position and each record has one writer
+// globally, so the shares merge by a max over ins initialised to -1.
+// Instantiated for the dense rows, int32 and int64 (occ.cuh Dense<T>), and
+// for them sharded.
+//
+// The text up to `#ifdef __CUDACC__` compiles with g++ given a header that
+// defines the CUDA keywords (tests/test_torch_runblock.py HOST_SHIM):
+// `walk_segment` and `hand_over` then run one segment on the host.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "occ.cuh"
 
-namespace {
+namespace rb3c {
+namespace merge {
 
-constexpr int kThreads = 128;
 constexpr int64_t kNever = INT64_MAX;
 
 struct Seg {
@@ -75,11 +90,10 @@ struct Walk {
   __device__ __forceinline__ int64_t seg_of(int64_t kb) const { return m2 + (kb >> shift) - first; }
 };
 
+// Pass 1 of segment g, 0 <= g < n_seg.
 template <class L>
-__global__ void merge_walk(const L ix, const Walk w, const Seg seg) {
+__device__ __forceinline__ void walk_segment(const L& ix, const Walk& w, const Seg& seg, int64_t g) {
   using T = typename L::T;
-  const int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (g >= w.n_seg) return;
   const bool sentinel = g < w.m2;
   int64_t kb = sentinel ? g : (w.first + (g - w.m2)) << w.shift;
   T lo = sentinel ? ix.acc(1) : (T)0, hi = sentinel ? lo : ix.acc(6);  // acc1[6] = n1
@@ -116,11 +130,10 @@ __global__ void merge_walk(const L ix, const Walk w, const Seg seg) {
   seg.hand[g] = 0;  // pass 2, if it runs, counts its writes here
 }
 
+// Pass 2 of segment g, 0 <= g < n_seg, once every segment's pass 1 is done.
 template <class L>
-__global__ void merge_hand_over(const L ix, const Walk w, const Seg seg) {
+__device__ __forceinline__ void hand_over(const L& ix, const Walk& w, const Seg& seg, int64_t g) {
   using T = typename L::T;
-  const int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (g >= w.n_seg) return;
   int64_t kb = seg.end_pos[g], steps = 0;
   const int64_t ka0 = seg.end_ka[g];
   if (kb >= 0 && ka0 >= 0) {
@@ -145,12 +158,54 @@ __global__ void merge_hand_over(const L ix, const Walk w, const Seg seg) {
   seg.hand[g] = steps;
 }
 
+}  // namespace merge
+}  // namespace rb3c
+
+#ifdef __CUDACC__
+
+#include <cuda_runtime.h>
+
+namespace {
+
+using rb3c::merge::Seg;
+using rb3c::merge::Walk;
+
+constexpr int kThreads = 128;
+constexpr int kWalk = 1, kHandOver = 2;  // the passes an entry point runs
+
 template <class L>
-int merge_rank(const L& ix, const Walk& w, const Seg& seg, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((w.n_seg + kThreads - 1) / kThreads);
-  merge_walk<L><<<grid, kThreads, 0, stream>>>(ix, w, seg);
-  if (w.n_seg > w.m2) merge_hand_over<L><<<grid, kThreads, 0, stream>>>(ix, w, seg);
+__global__ void merge_walk(const L ix, const Walk w, const Seg seg, int64_t g0, int64_t g1) {
+  const int64_t g = g0 + blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (g < g1) rb3c::merge::walk_segment(ix, w, seg, g);
+}
+
+template <class L>
+__global__ void merge_hand_over(const L ix, const Walk w, const Seg seg, int64_t g0, int64_t g1) {
+  const int64_t g = g0 + blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (g < g1) rb3c::merge::hand_over(ix, w, seg, g);
+}
+
+template <class L>
+int merge_rank(const L& ix, const Walk& w, const Seg& seg, int64_t g0, int64_t g1, int passes, cudaStream_t stream) {
+  if (g1 <= g0) return (int)cudaGetLastError();
+  const unsigned grid = (unsigned)((g1 - g0 + kThreads - 1) / kThreads);
+  if (passes & kWalk) merge_walk<L><<<grid, kThreads, 0, stream>>>(ix, w, seg, g0, g1);
+  if ((passes & kHandOver) && w.n_seg > w.m2) merge_hand_over<L><<<grid, kThreads, 0, stream>>>(ix, w, seg, g0, g1);
   return (int)cudaGetLastError();
+}
+
+// resident blocks an SM, local (stack and spill) bytes and registers a thread of a kernel
+template <typename K>
+int occupancy(K k, int* blocks, int* local, int* regs) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, k);
+  if (e != cudaSuccess) return (int)e;
+  *local = (int)a.localSizeBytes, *regs = a.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, 0);
+}
+
+Seg seg_rows(int64_t* seg, int64_t n_seg) {
+  return Seg{seg, seg + n_seg, seg + 2 * n_seg, seg + 3 * n_seg, seg + 4 * n_seg};
 }
 
 }  // namespace
@@ -160,17 +215,46 @@ extern "C" {
 // rec (n2,) int64 records; ins (n2,) int64 out, apart from rec.
 // Segments: the m2 sentinel rows, then the multiples of S = 2^shift from
 // first * S (first = ceil(m2 / S)) below n2; seg (5, n_seg) int64 out.
-// m2 >= 1 (the wrapper launches nothing for m2 == 0).
+// m2 >= 1 (the wrapper launches nothing for m2 == 0).  Both passes over
+// every segment.  _occupancy_ gives pass 1's (hand_over 0) or pass 2's
+// resident blocks an SM, local bytes and registers a thread.
 #define RB3C_MERGE_RANK(name, L)                                                                                    \
   int rb3c_merge_rank_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift, \
                              int block_shift, const int64_t* rec, int64_t* ins, int64_t m2, int shift,               \
                              int64_t first, int64_t n_seg, int64_t* seg, void* stream) {                            \
     const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                        \
     const Walk w{rec, ins, m2, first, n_seg, shift};                                                                 \
-    const Seg s{seg, seg + n_seg, seg + 2 * n_seg, seg + 3 * n_seg, seg + 4 * n_seg};                                \
-    return merge_rank<L>(ix, w, s, (cudaStream_t)stream);                                                           \
+    return merge_rank<L>(ix, w, seg_rows(seg, n_seg), 0, n_seg, kWalk | kHandOver, (cudaStream_t)stream);           \
+  }                                                                                                                  \
+  int rb3c_occupancy_merge_rank_##name(int hand_over, int* blocks, int* local, int* regs) {                         \
+    return hand_over ? occupancy(merge_hand_over<L>, blocks, local, regs)                                           \
+                     : occupancy(merge_walk<L>, blocks, local, regs);                                               \
   }
 RB3C_MERGE_RANK(dense32, rb3c::Dense<int>)
 RB3C_MERGE_RANK(dense64, rb3c::Dense<int64_t>)
 
+// The same over B1's rows sharded on a mesh (occ.cuh Sharded): the tables
+// are the shard description as rb3c_smem_tg_sh_* take it (smem_tg.cu), and
+// `passes` (1: pass 1, 2: pass 2, 3: both) runs over the segments
+// [g0, g1) of seg (5, n_seg), whose other columns the passes only read.
+#define RB3C_MERGE_RANK_SH(name, L)                                                                                 \
+  int rb3c_merge_rank_sh_##name(const int64_t* desc, int n_shards, int64_t nb, const int64_t* mega, const void* acc, \
+                                int mega_shift, int block_shift, const int64_t* rec, int64_t* ins, int64_t m2,       \
+                                int shift, int64_t first, int64_t n_seg, int64_t g0, int64_t g1, int passes,        \
+                                int64_t* seg, void* stream) {                                                       \
+    rb3c::Sharded<L> ix;                                                                                             \
+    if (!rb3c::make_sharded(desc, n_shards, nb, mega, acc, mega_shift, block_shift, &ix) || g0 < 0 || g1 > n_seg)   \
+      return (int)cudaErrorInvalidValue;                                                                             \
+    const Walk w{rec, ins, m2, first, n_seg, shift};                                                                 \
+    return merge_rank<rb3c::Sharded<L>>(ix, w, seg_rows(seg, n_seg), g0, g1, passes, (cudaStream_t)stream);        \
+  }                                                                                                                  \
+  int rb3c_occupancy_merge_rank_sh_##name(int hand_over, int* blocks, int* local, int* regs) {                      \
+    return hand_over ? occupancy(merge_hand_over<rb3c::Sharded<L>>, blocks, local, regs)                            \
+                     : occupancy(merge_walk<rb3c::Sharded<L>>, blocks, local, regs);                                \
+  }
+RB3C_MERGE_RANK_SH(dense32, rb3c::Dense<int>)
+RB3C_MERGE_RANK_SH(dense64, rb3c::Dense<int64_t>)
+
 }  // extern "C"
+
+#endif  // __CUDACC__

@@ -200,7 +200,11 @@ struct Dense {
 // indexed load); a chain of compares summed into an index for an indexed
 // load of the pointer, and a tree of selects, each measured slower (PERF.md
 // §6).  No shortcut for one shard or for shards on one card: every rank
-// goes through the table.
+// goes through the table.  On dense L, the merge rank (merge_rank.cu, the
+// port of ropebwt3_tpu/parallel/merge_sharded.py merge_rank_sharded_fn)
+// takes a rank in two halves, as Dense does: `load_row` picks the shard of
+// the global row by the same chain (rows only) and loads it from that
+// shard's slab; `rank1` is L's, its megablock base read at the global row.
 constexpr int kMaxShards = 8;
 
 template <class L>
@@ -226,6 +230,20 @@ struct Sharded {
       ts.esc = in ? esc[j] : ts.esc;
     }
     L{ts}.rank6(k, occ);
+  }
+
+  // Global row bi (0 <= bi < nb) from the slab of its shard: dense L only.
+  __device__ __forceinline__ void load_row(int64_t bi, int4& a, int4& b, int4& c) const {
+    Tables ts = t;
+    ts.rows = rows[0];
+#pragma unroll
+    for (int j = 1; j < kMaxShards; ++j) ts.rows = bi >= start[j] ? rows[j] : ts.rows;
+    L{ts}.load_row(bi, a, b, c);
+  }
+
+  // occ_c(k) from k's row as load_row gives it: dense L only.
+  __device__ __forceinline__ T rank1(T k, int c, const int4& a, const int4& b, const int4& c4) const {
+    return L{t}.rank1(k, c, a, b, c4);
   }
 };
 

@@ -40,6 +40,14 @@
 // With no strided starts (the wrapper's S > n - m) pass 1 is the
 // one-thread-per-sequence walk, and pass 2 has no round.
 //
+// On a mesh (the mesh branch of ropebwt3_tpu/ssa_ops.py ssa_gen_device,
+// :163-199: lanes over `dp`, the tables replicated, the slots merged by a
+// pmax) pass 1 runs over a range [g0, g1) of the segments on each device
+// of the mesh, each with its own slots and records; every slot and record
+// has one writer globally, so the shares merge by a max (ssa_lane -1 and
+// the records INT64_MIN where unwritten), and passes 2 and 3 run once,
+// on the mesh's first device, over the merged ones (ssa_ops.py walk_mesh).
+//
 // Instantiated for the dense layouts only (rb rows: later work).  ssa_l,
 // death_l and final_k are in the layout's T; ssa_lane and lane_of int32
 // (segment ids below 2^31: the wrapper checks); the segment records int64.
@@ -65,11 +73,11 @@ __device__ __forceinline__ int64_t thread_id() { return blockIdx.x * (int64_t)bl
 unsigned grid_of(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 template <class L>
-__global__ void ssa_walk(const L ix, int64_t m, int ss, int shift, int64_t n_seg, typename L::T* __restrict__ ssa_l,
-                         int* __restrict__ ssa_lane, const Segs s) {
+__global__ void ssa_walk(const L ix, int64_t m, int ss, int shift, int64_t n_seg, int64_t g0, int64_t g1,
+                         typename L::T* __restrict__ ssa_l, int* __restrict__ ssa_lane, const Segs s) {
   using T = typename L::T;
-  const int64_t g = thread_id();
-  if (g >= n_seg) return;
+  const int64_t g = g0 + thread_id();
+  if (g >= g1) return;
   const int64_t mask = (int64_t(1) << ss) - 1;
   const int64_t smask = (int64_t(1) << shift) - 1;
   const bool strided = n_seg > m;
@@ -151,18 +159,21 @@ __global__ void ssa_finish_slots(const Segs s, const int* __restrict__ lane_of, 
 
 extern "C" {
 
-// Pass 1.  Segments: the m sentinel rows, then (n_seg > m) the rows
-// m + j * 2^shift; seg (3, n_seg) int64 out: d, nxt, term.  ssa_l (n_ssa,)
-// T and ssa_lane (n_ssa,) int32, as the caller initialises them (0 and -1):
-// a sampled slot gets its step and segment.  m >= 1.
+// Pass 1 over the segments [g0, g1) of n_seg (a walk: 0, n_seg; a mesh
+// gives each device a range, ssa_ops.py walk_mesh, and merges the shares).
+// Segments: the m sentinel rows, then (n_seg > m) the rows m + j * 2^shift;
+// seg (3, n_seg) int64 out in the range's columns: d, nxt, term.  ssa_l
+// (n_ssa,) T and ssa_lane (n_ssa,) int32, as the caller initialises them (0
+// and -1): a sampled slot gets its step and segment.  m >= 1.
 #define RB3C_SSA_WALK(name, L)                                                                                       \
   int rb3c_ssa_walk_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift,    \
-                           int block_shift, int64_t m, int ss, int shift, int64_t n_seg, void* ssa_l, int* ssa_lane, \
-                           int64_t* seg, void* stream) {                                                            \
+                           int block_shift, int64_t m, int ss, int shift, int64_t n_seg, int64_t g0, int64_t g1,    \
+                           void* ssa_l, int* ssa_lane, int64_t* seg, void* stream) {                                \
     const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                       \
-    ssa_walk<L><<<grid_of(n_seg), kThreads, 0, (cudaStream_t)stream>>>(ix, m, ss, shift, n_seg,                    \
-                                                                       static_cast<L::T*>(ssa_l), ssa_lane,        \
-                                                                       segs_at(seg, n_seg));                       \
+    if (g1 > g0)                                                                                                    \
+      ssa_walk<L><<<grid_of(g1 - g0), kThreads, 0, (cudaStream_t)stream>>>(ix, m, ss, shift, n_seg, g0, g1,        \
+                                                                          static_cast<L::T*>(ssa_l), ssa_lane,     \
+                                                                          segs_at(seg, n_seg));                    \
     return (int)cudaGetLastError();                                                                                 \
   }
 RB3C_SSA_WALK(dense32, rb3c::Dense<int>)

@@ -11,8 +11,8 @@ is built or loaded when this module is imported; `lib()` does it.
 Every entry point takes PyTorch's current CUDA stream, allocates nothing, and
 returns `cudaGetLastError()` after its launch; `launch` raises on non-zero,
 `call` returns the code (the shared-memory capacity probe reports a refusal).
-The queries `rb3c_smem_optin`, `rb3c_occupancy_*` (the SMEM and DP kernels'
-resident blocks an SM) and `rb3c_sa_sort_status_len` take no stream; the DP kernels' `rb3c_timed_*` twins
+The queries `rb3c_smem_optin`, `rb3c_occupancy_*` (the SMEM, DP and
+merge-rank kernels' resident blocks an SM) and `rb3c_sa_sort_status_len` take no stream; the DP kernels' `rb3c_timed_*` twins
 also write lane 0's phase clocks (ropebwt3_tpu_torch/dp_time.py reads both).
 The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
@@ -21,7 +21,9 @@ dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
 the SMEM kernels also in one per layout sharded on a mesh (sh_dense32 ..
 sh_rb64, parallel/mesh.py `ShardView`: a shard description in place of the
 tables), beside `rb3c_enable_peer` (peer access between the mesh's cards);
-ssa_gen's walk, merge_rank, `get`'s LF walk (its three walking passes),
+ssa_gen's walk (its pass 1 over a range of the segments), merge_rank (and
+merge_rank_sh_*, B1's rows sharded on a mesh: a range of segments and the
+passes to run), `get`'s LF walk (its three walking passes),
 `kount`'s level rank (csrc/kount.cu), the hapdiv DP (one warp a window)
 and the sw DP (one warp a read) in the two dense ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
@@ -74,9 +76,13 @@ for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_retrieve_seg_walk_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_retrieve_seg_write_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V, _V, _V, _I64, _V, _V]
     _ENTRIES[f"rb3c_retrieve_seg_cycle_{_lay}"] = [*_TABLES, _V, _V, _I64, _I64, _V, _V, _V, _V]
-    _ENTRIES[f"rb3c_ssa_walk_{_lay}"] = [*_TABLES, _I64, _I32, _I32, _I64, _V, _V, _V, _V]
+    _ENTRIES[f"rb3c_ssa_walk_{_lay}"] = [*_TABLES, _I64, _I32, _I32, _I64, _I64, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_finish_{_lay}"] = [_V, _I64, _I64, _I64, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _V, _V]
+    # K6 over B1's rows sharded on a mesh: a range of segments, the passes to run
+    _ENTRIES[f"rb3c_merge_rank_sh_{_lay}"] = [*_SH_TABLES, _V, _V, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _V, _V]
+    for _sh in ("", "sh_"):  # no stream: pass 1's (0) or pass 2's (1) attributes
+        _ENTRIES[f"rb3c_occupancy_merge_rank_{_sh}{_lay}"] = [_I32, _V, _V, _V]
     _ENTRIES[f"rb3c_kount_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_hapdiv_{_lay}"] = [*_TABLES, _V, _I64, *[_I32] * 8, _V, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_sw_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 8, *[_V] * 10]

@@ -9,8 +9,11 @@ as the JAX package's is: dp divides by WORLD_SIZE and each process runs
 dp / WORLD_SIZE x idx on its own devices (`local_mesh`).  Each process takes
 its contiguous share of every batch (`DistMem`, `DistList`); process 0
 writes all output in input order, the others none (ropebwt3_tpu/cli.py
-main: only process 0 owns stdout).  An idx axis across processes is
-refused: the rows of one dp row stay in one process.
+main: only process 0 owns stdout).  `ssa` and `build` split a walk's
+segments instead (`segment_ranges`), and every process gets every share's
+slots, records and ins (`merge_shares`), finishes the work and writes its
+own `-o` file, as the JAX package's processes do.  An idx axis across
+processes is refused: the rows of one dp row stay in one process.
 """
 
 from __future__ import annotations
@@ -19,10 +22,9 @@ import os
 
 import numpy as np
 
-from .mesh import MeshError, cli_devices, make_mesh, parse_mesh
+from .mesh import MeshError, cli_devices, make_mesh, parse_mesh, split_segments
 
-IDX_ACROSS = ("ROADMAP queue 1 item 12 (its remainder: ssa, build and merge --mesh, and an idx axis across "
-              "processes)")
+IDX_ACROSS = "ROADMAP queue 1 item 12 (its remainder: an idx axis across processes)"
 
 
 def world() -> tuple[int, int, int]:
@@ -91,6 +93,40 @@ def all_gather(obj) -> list:
         return [obj]
     out = [None] * size
     dist.all_gather_object(out, obj)
+    return out
+
+
+def segment_ranges(n_seg: int, n_local: int) -> list[tuple[int, int]]:
+    """This process's ranges [g0, g1) of a walk's n_seg segments, one for
+    each of its n_local mesh slots: the segments cut into world x n_local
+    contiguous ranges (mesh.split_segments), this process's in rank order."""
+    rank, size, _ = world()
+    cuts = split_segments(n_seg, size * n_local)[rank * n_local :]
+    return [(cuts[j], cuts[j + 1]) for j in range(n_local)]
+
+
+def merge_shares(parts: list):
+    """The elementwise max of `parts`, tensors of one shape that hold the
+    shares of one result, each position written in one share (elsewhere a
+    value below any written one: -1, or INT64_MIN), on the device of
+    parts[0] (reused): across devices, after every card's stream has run
+    what wrote its parts; across the processes, by an all-reduce over gloo."""
+    import torch
+
+    out = parts[0]
+    cards = {p.device for p in parts if p.device.type == "cuda"}
+    if len(cards) > 1:
+        for d in cards:
+            torch.cuda.synchronize(d)
+    for p in parts[1:]:
+        if p is not out:
+            torch.maximum(out, p.to(out.device), out=out)
+    if world()[1] > 1:
+        import torch.distributed as dist
+
+        host = out.cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.MAX)
+        out.copy_(host)
     return out
 
 

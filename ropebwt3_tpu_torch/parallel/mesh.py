@@ -276,6 +276,23 @@ def rank6_sharded_plain(view: ShardView, k: torch.Tensor) -> torch.Tensor:
     return view.home.rank_row(k, row, sub)
 
 
+def split_segments(n_seg: int, parts: int) -> list[int]:
+    """Cut points (parts + 1) of n_seg segments into `parts` contiguous
+    ranges, [cuts[j], cuts[j + 1]), as even as whole segments allow."""
+    return [j * n_seg // parts for j in range(parts + 1)]
+
+
+def replicate(idx: OccIndex, devices) -> list[OccIndex]:
+    """The dense rows `idx` on each of `devices` (one entry a mesh slot), one
+    copy a distinct device: `ssa --mesh`'s tables, which the JAX package
+    replicates over its mesh (ropebwt3_tpu/ssa_ops.py:175-176)."""
+    copies = {str(idx.device): idx}
+    for d in map(torch.device, devices):
+        if str(d) not in copies:
+            copies[str(d)] = replace(idx, occf=_copy(idx.occf, d), acc=_copy(idx.acc, d), mega=_copy(idx.mega, d))
+    return [copies[str(torch.device(d))] for d in devices]
+
+
 def cli_devices(device: str, need: int, rank: int = 0, local_world: int = 1) -> list[torch.device]:
     """The devices of one process's share of a mesh on the CLI: `need` of
     them, [cpu] * need with --device=cpu; on the card cuda:first ..
@@ -296,4 +313,4 @@ def cli_devices(device: str, need: int, rank: int = 0, local_world: int = 1) -> 
 
 
 __all__ = ["MAX_SHARDS", "Mesh", "MeshError", "ShardView", "ShardedRows", "block_of", "cli_devices", "make_mesh",
-           "parse_mesh", "rank6_sharded_plain"]
+           "parse_mesh", "rank6_sharded_plain", "replicate", "split_segments"]

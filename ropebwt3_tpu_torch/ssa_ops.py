@@ -17,6 +17,10 @@ defines it.  All take the dense occ rows of ops/rank.py `OccIndex` (dense32
 or dense64): the symbol at k comes from the rows' bit-planes, so no BWT
 array goes to the device.
 
+`ssa_gen_mesh` (`ssa --mesh`) splits the segments over the devices of a
+mesh: pass 1 of each range on its device, the shares merged, passes 2 and
+3 once (`walk_mesh`; the port of the mesh branch of ssa_gen_device).
+
 `ssa_multi_batch` is the host side of `mem -p`: the native batched
 multi-locate (native/locate.cpp), as ropebwt3_tpu/ssa_ops.py runs it.
 """
@@ -30,10 +34,12 @@ import numpy as np
 import torch
 
 from . import kernels, native
-from .construct.merge import LANES_PER_SM, sm_count, stride
+from .construct.merge import LANES_PER_SM, LOW, sm_count, stride
 from .formats.ssa import SSA
 from .index.dense import DenseFMIndex
 from .ops.rank import OccIndex, lf
+from .parallel import launch
+from .parallel.mesh import replicate
 
 MAX_SHIFT = 62  # positions are int64; a larger -s samples nothing past row m
 SEG_ROWS = 3  # per segment: d, nxt, term (csrc/ssa_gen.cu)
@@ -170,7 +176,7 @@ def ssa_gen_plain(idx: OccIndex, m: int, ssa_shift: int) -> tuple[torch.Tensor, 
     return ssa_l[:n_ssa], ssa_lane[:n_ssa], death_l, final_k
 
 
-def ssa_gen_seg_plain(idx: OccIndex, m: int, ssa_shift: int,
+def ssa_gen_seg_plain(idx, m: int, ssa_shift: int,
                       S: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's three passes at stride S (any positive int), each over
     all its segments in lock-step: the four arrays of `ssa_gen_plain` (int64
@@ -178,18 +184,29 @@ def ssa_gen_seg_plain(idx: OccIndex, m: int, ssa_shift: int,
     (4, n_seg) int64: pass 1's length of each segment, then d, nxt and term
     after pass 2, the three rows the kernel leaves."""
     check_walk(idx, m, ssa_shift, S)
+    ssa_l, ssa_lane, rec = ssa_walk_plain(idx, m, ssa_shift, S, 0, segments(idx.n, m, S))
+    length = rec[0].clone()
+    *out, rec = ssa_finish_plain(m, ssa_l, ssa_lane, rec)
+    return *out, torch.cat([length[None], rec])
+
+
+def ssa_walk_plain(idx: OccIndex, m: int, ssa_shift: int, S: int, g0: int,
+                   g1: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass 1 over the segments [g0, g1), in lock-step: (ssa_l (n_ssa,)
+    int64 with 0 and ssa_lane (n_ssa,) int32 with -1 where no segment of the
+    range hit, the records (3, n_seg) int64, d, nxt and term in the range's
+    columns and LOW in the others), as the kernel's pass 1 fills them."""
     dev = idx.device
     n_ssa, n_seg = n_slots(idx, m, ssa_shift), segments(idx.n, m, S)
     mask = (1 << ssa_shift) - 1
     # slot n_ssa is the dummy that non-hit segments scatter into
     ssa_l = torch.zeros(n_ssa + 1, dtype=torch.int64, device=dev)
     ssa_lane = torch.full((n_ssa + 1,), -1, dtype=torch.int32, device=dev)
-    seg_ids = torch.arange(n_seg, dtype=torch.int64, device=dev)
-    d, nxt, term = torch.zeros_like(seg_ids), torch.full_like(seg_ids, -1), torch.full_like(seg_ids, -1)
-
-    # pass 1: a strided start row that is sampled takes step 0; each segment
-    # walks to a `$` step or to the next start row
-    g = seg_ids
+    rec = torch.full((SEG_ROWS, n_seg), LOW, dtype=torch.int64, device=dev)
+    rec[1:, g0:g1] = -1
+    # a strided start row that is sampled takes step 0; each segment walks
+    # to a `$` step or to the next start row
+    g = torch.arange(g0, g1, dtype=torch.int64, device=dev)
     r0 = (g - m) * S
     hit = (g >= m) & ((r0 & mask) == 0)
     ssa_lane[r0[hit] >> ssa_shift] = g[hit].int()
@@ -209,30 +226,39 @@ def ssa_gen_seg_plain(idx: OccIndex, m: int, ssa_shift: int,
         if not bool(done.any()):
             k = nk
             continue
-        d[g[done]] = t
-        term[g[end]] = nk[end]
-        nxt[g[at_start]] = m + r[at_start] // S
+        rec[0, g[done]] = t
+        rec[2, g[end]] = nk[end]
+        rec[1, g[at_start]] = m + r[at_start] // S
         g, k = g[~done], nk[~done]
+    return ssa_l[:n_ssa], ssa_lane[:n_ssa], rec
 
-    length = d.clone()
+
+def ssa_finish_plain(m: int, ssa_l: torch.Tensor, ssa_lane: torch.Tensor,
+                     rec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Passes 2 and 3 over every segment's pass 1 (the slots and records
+    `ssa_walk_plain` gives, or the shares of a mesh merged): the four arrays
+    of `ssa_gen_plain` and the records (3, n_seg) after pointer jumping.
+    ssa_l and ssa_lane are rewritten in place."""
+    dev = rec.device
+    d, nxt, term = rec.clone()
+    n_seg = d.numel()
+    seg_ids = torch.arange(n_seg, dtype=torch.int64, device=dev)
     # pass 2: pointer jumping
     for _ in range(jump_rounds(n_seg, m)):
         go = nxt >= 0
         j = torch.where(go, nxt, seg_ids)
         d, nxt, term = torch.where(go, d + d[j], d), nxt[j], term[j]
-
     # pass 3: lanes, then slots; a slot of a segment no lane reaches is cleared
     death_l, final_k = d[:m].clone(), term[:m].clone()
     lane_of = torch.empty(m, dtype=torch.int64, device=dev)
     lane_of[final_k] = torch.arange(m, dtype=torch.int64, device=dev)
-    ssa_l, ssa_lane = ssa_l[:n_ssa], ssa_lane[:n_ssa]
     f = torch.nonzero(ssa_lane >= 0)[:, 0]
     gs = ssa_lane[f].long()
     reached = nxt[gs] < 0
     lane = lane_of[term[gs].clamp(min=0)]
     ssa_l[f] = torch.where(reached, death_l[lane] - (d[gs] - ssa_l[f]), 0)
     ssa_lane[f] = torch.where(reached, lane, -1).int()
-    return ssa_l, ssa_lane, death_l, final_k, torch.stack([length, d, nxt, term])
+    return ssa_l, ssa_lane, death_l, final_k, torch.stack([d, nxt, term])
 
 
 def ssa_gen_cuda(idx: OccIndex, m: int, ssa_shift: int,
@@ -258,30 +284,51 @@ def launch_walk(idx: OccIndex, m: int, ssa_shift: int, S: int,
     1 and after each pass.  Timing loops call this, as the check reads acc
     back to the host."""
     n_ssa, n_seg = n_slots(idx, m, ssa_shift), segments(idx.n, m, S)
-    dev, dt = idx.device, idx.dtype
-    ssa_l = torch.zeros(n_ssa, dtype=dt, device=dev)
-    ssa_lane = torch.full((n_ssa,), -1, dtype=torch.int32, device=dev)
+    ssa_l = torch.zeros(n_ssa, dtype=idx.dtype, device=idx.device)
+    ssa_lane = torch.full((n_ssa,), -1, dtype=torch.int32, device=idx.device)
+    seg = torch.empty((2, SEG_ROWS, n_seg), dtype=torch.int64, device=idx.device)
+    marks = marks or [None] * 4
+    if n_seg:
+        if marks[0] is not None:
+            marks[0].record()
+        launch_walk_range(idx, m, ssa_shift, S, 0, n_seg, ssa_l, ssa_lane, seg[0])
+        ssa_gen_cuda.launches[idx.layout] += 1
+    return launch_finish(idx.layout, m, ssa_l, ssa_lane, seg, marks[1:])
+
+
+def launch_walk_range(idx: OccIndex, m: int, ssa_shift: int, S: int, g0: int, g1: int, ssa_l: torch.Tensor,
+                      ssa_lane: torch.Tensor, rec: torch.Tensor) -> None:
+    """Pass 1 (rb3c_ssa_walk_<layout>) over the segments [g0, g1) at the
+    power-of-two stride S into ssa_l (n_ssa,) in the index's width,
+    ssa_lane (n_ssa,) int32 and the records rec (3, n_seg) int64, all
+    contiguous on the index's device; uncounted (the callers count)."""
+    kernels.launch(f"rb3c_ssa_walk_{idx.layout}", idx.device, *idx.kernel_tables(), m, ssa_shift, S.bit_length() - 1,
+                   rec.shape[1], g0, g1, ssa_l.data_ptr(), ssa_lane.data_ptr(), rec.data_ptr())
+
+
+def launch_finish(layout: str, m: int, ssa_l: torch.Tensor, ssa_lane: torch.Tensor, seg: torch.Tensor,
+                  marks: list | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Passes 2 (rb3c_ssa_jump) and 3 (rb3c_ssa_finish_<layout>) over every
+    segment's pass 1, whose records lie in seg[0] of seg (2, 3, n_seg) int64
+    (seg[1] is scratch), on their device: the four arrays (ssa_l and
+    ssa_lane rewritten in place) and the records after pass 2.  `marks`,
+    three CUDA events or None, are recorded before pass 2 and after each."""
+    dev, dt, n_seg = seg.device, ssa_l.dtype, seg.shape[2]
     death_l = torch.zeros(m, dtype=dt, device=dev)
     final_k = torch.zeros(m, dtype=dt, device=dev)
-    seg = torch.empty((2, SEG_ROWS, n_seg), dtype=torch.int64, device=dev)
     rounds = jump_rounds(n_seg, m)
     if n_seg:
         lane_of = torch.empty(m, dtype=torch.int32, device=dev)
-        passes = (
-            (f"rb3c_ssa_walk_{idx.layout}", *idx.kernel_tables(), m, ssa_shift, S.bit_length() - 1, n_seg,
-             ssa_l.data_ptr(), ssa_lane.data_ptr(), seg.data_ptr()),
-            ("rb3c_ssa_jump", seg.data_ptr(), n_seg, rounds),
-            (f"rb3c_ssa_finish_{idx.layout}", seg[rounds % 2].data_ptr(), n_seg, m, n_ssa, ssa_l.data_ptr(),
-             ssa_lane.data_ptr(), death_l.data_ptr(), final_k.data_ptr(), lane_of.data_ptr()),
-        )
-        marks = marks or [None] * 4
+        passes = (("rb3c_ssa_jump", seg.data_ptr(), n_seg, rounds),
+                  (f"rb3c_ssa_finish_{layout}", seg[rounds % 2].data_ptr(), n_seg, m, ssa_l.numel(), ssa_l.data_ptr(),
+                   ssa_lane.data_ptr(), death_l.data_ptr(), final_k.data_ptr(), lane_of.data_ptr()))
+        marks = marks or [None] * 3
         for ev, (name, *args) in zip(marks, passes):
             if ev is not None:
                 ev.record()
             kernels.launch(name, dev, *args)
-        if marks[3] is not None:
-            marks[3].record()
-        ssa_gen_cuda.launches[idx.layout] += 1
+        if marks[2] is not None:
+            marks[2].record()
     return ssa_l, ssa_lane, death_l, final_k, seg[rounds % 2]
 
 
@@ -312,6 +359,64 @@ def ssa_gen(f: DenseFMIndex, ssa_shift: int = 8, device="cuda", occ: OccIndex | 
     idx = OccIndex.from_dense(f, device) if occ is None else occ
     m = int(f.acc[1])
     return assemble(m, ssa_shift, *ssa_gen_cuda(idx, m, ssa_shift))
+
+
+def ssa_gen_mesh(f: DenseFMIndex, ssa_shift: int, mesh, S: int | None = None) -> SSA:
+    """The SSA of `f` over `mesh` (parallel/mesh.py Mesh), byte-equal to
+    `ssa_gen`'s: the dense rows once on each distinct device of the mesh
+    (no idx split: the JAX package's mesh branch replicates its tables), the
+    walk's segments split over every device of the mesh (`walk_mesh`).  S is
+    the whole index's stride (`walk_stride` on the mesh's first device), not
+    a device's share's: the output is the same either way, the segments and
+    so each device's chains are not."""
+    dev = mesh.devices[0]
+    reps = replicate(OccIndex.from_dense(f, dev), mesh.devices)
+    m = int(f.acc[1])
+    S = walk_stride(f.n, m, dev) if S is None else S
+    check_walk(reps[0], m, ssa_shift, S, kernel=dev.type != "cpu")
+    return assemble(m, ssa_shift, *walk_mesh(reps, m, ssa_shift, S)[:4])
+
+
+ssa_gen_mesh.launches = Counter()
+
+
+def walk_mesh(reps: list, m: int, ssa_shift: int,
+              S: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The walk over a mesh, the port of the mesh branch of
+    ropebwt3_tpu/ssa_ops.py ssa_gen_device (:163-199, lanes over `dp`, the
+    slots merged by a pmax): reps[j] is the dense rows on the mesh's j-th
+    device (`replicate`), which takes the j-th contiguous range of the
+    segments (this process's share under torchrun, launch.segment_ranges).
+    Pass 1 runs on each over its range into its own slots and records;
+    every slot and record has one writer globally, so the shares merge by a
+    max (launch.merge_shares: ssa_lane -1, ssa_l 0 and the records LOW where
+    unwritten; slot n_ssa, the plain version's dummy, is never merged) onto
+    the first device, where passes 2 and 3 run once over every segment
+    (F7: a segment on a `$`-free cycle clears its slots there, whichever
+    device wrote them).  On CUDA each range is one launch of
+    rb3c_ssa_walk_<layout>, counted in `ssa_gen_mesh.launches`; on the CPU
+    the plain passes run.  Returns the four arrays and the records (3,
+    n_seg) after pass 2, as `launch_walk`."""
+    home = reps[0]
+    n_ssa, n_seg = n_slots(home, m, ssa_shift), segments(home.n, m, S)
+    plain = home.device.type == "cpu"
+    seg = None if plain else torch.empty((2, SEG_ROWS, n_seg), dtype=torch.int64, device=home.device)
+    shares = []
+    for j, (x, (g0, g1)) in enumerate(zip(reps, launch.segment_ranges(n_seg, len(reps)))):
+        if plain:
+            shares.append(ssa_walk_plain(x, m, ssa_shift, S, g0, g1))
+            continue
+        rec = seg[0] if j == 0 else torch.empty((SEG_ROWS, n_seg), dtype=torch.int64, device=x.device)
+        share = (torch.zeros(n_ssa, dtype=x.dtype, device=x.device),
+                 torch.full((n_ssa,), -1, dtype=torch.int32, device=x.device), rec.fill_(LOW))
+        if g1 > g0:
+            launch_walk_range(x, m, ssa_shift, S, g0, g1, *share)
+            kernels.count(ssa_gen_mesh.launches, x.layout)
+        shares.append(share)
+    ssa_l, ssa_lane, rec = (launch.merge_shares([sh[i] for sh in shares]) for i in range(3))
+    if plain:
+        return ssa_finish_plain(m, ssa_l, ssa_lane, rec)
+    return launch_finish(home.layout, m, ssa_l, ssa_lane, seg)
 
 
 def ssa_multi_batch(f: DenseFMIndex, sa: SSA, reqs: list[tuple[int, int, int]]) -> list[list[tuple[int, int]]]:

@@ -9,6 +9,10 @@ card, so that two trees (a change and its parent) can be timed in one call:
 
     cd <tree> && PYTHONPATH=. python <this repo>/scripts/k6_time.py --work DIR --tag NAME
 
+With --fmd IDX (chip_smoke.py's bench index, .bench/torch_smoke/idx.fmd),
+K5's walk (ropebwt3_tpu_torch/csrc/ssa_gen.cu: `ssa_ops.launch_walk`) is
+timed too, pass by pass, at -s 8 and the derived stride on dense32 rows.
+
 A tree with segments (`merge.segments`) is timed at the derived stride, as
 the one-thread-per-sequence walk (a stride above n2) and at the strides of
 --sweep; a tree without them (the kernel of one thread per sequence, ins
@@ -130,11 +134,37 @@ def run_input(tag: str, what: str, fa: str, batch_size: int, n_merges: int, lane
         del idx, rec, ins
 
 
+def time_walk(tag: str, fmd: str, reps: int, card: str) -> None:
+    """K5's three passes on the index `fmd` (CUDA events between them, the
+    mean of `reps` walks), and a digest of the arrays."""
+    import torch
+
+    from ropebwt3_tpu_torch import cli, ssa_ops
+    from ropebwt3_tpu_torch.ops.rank import OccIndex
+
+    f = cli.load_index(fmd)
+    x = OccIndex.from_dense(f, "cuda")
+    m, ss = int(f.acc[1]), 8
+    S = ssa_ops.walk_stride(f.n, m, x.device)
+    out = ssa_ops.launch_walk(x, m, ss, S)
+    passes = np.zeros(3)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ssa_ops.launch_walk(x, m, ss, S, marks=ev)
+        torch.cuda.synchronize()
+        passes += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in out[:4])).hexdigest()[:16]
+    print(json.dumps({"tree": tag, "input": "K5 walk", "n": f.n, "m": m, "S": S, "pass_ms": (passes / reps).tolist(),
+                      "ms": float(passes.sum() / reps), "arrays": digest, "card": card}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--work", required=True, help="directory of the data (made once, shared by the trees)")
     ap.add_argument("--tag", required=True, help="the tree's name in the output")
     ap.add_argument("--sweep", default="32,64,128,256,1024", help="strides timed besides the derived one")
+    ap.add_argument("--fmd", help="also time K5's walk on this index")
     args = ap.parse_args()
     import torch
 
@@ -146,6 +176,8 @@ def main() -> None:
     fa, reads = make_data(args.work)
     run_input(args.tag, "genomes -m 16M", fa, 16_000_000, 3, 1, sweep, card)
     run_input(args.tag, "short reads -m 12M", reads, 12_000_000, 1, 5, sweep, card)
+    if args.fmd:
+        time_walk(args.tag, args.fmd, 5, card)
 
 
 if __name__ == "__main__":

@@ -302,9 +302,6 @@ def test_hapdiv_without_cuda_exits_nonzero(corpus, corpus_fmd):
     (["hapdiv", "--engine", "hybrid"], b"hapdiv --engine=hybrid"),
     (["sw", "--engine=hybrid"], b"sw --engine=hybrid"),
     (["search", "--eng=hybrid", "-l21"], b"search --engine=hybrid"),
-    (["ssa", "--mesh=2"], b"ssa --mesh"),
-    (["merge", "--device=cpu", "--mesh", "2x1"], b"merge --mesh"),
-    (["build", "--mesh=4", "-do", "x.fmd"], b"build --mesh"),
 ])
 def test_refuses_jax_device_options(corpus_fmd, argv, why):
     """One ERROR line naming the option and the ROADMAP item, no traceback."""

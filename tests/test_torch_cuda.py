@@ -990,3 +990,87 @@ def test_sharded_kernel_occupancy(cuda_device):
         assert getattr(kernels.lib(), f"rb3c_occupancy_smem_tg_{lay}")(1, ctypes.byref(b), ctypes.byref(loc),
                                                                       ctypes.byref(regs)) == 0
         assert b.value >= 1 and regs.value > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 64, "derived"])
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+def test_merge_rank_sharded_matches_plain(corpus, corpus_index, cuda_device, layout, S):
+    """K6 over B1's rows sharded on a 2x4 mesh of one card (merge_rank_mesh:
+    merge_rank_sh_<layout>, each pass of each of the eight ranges one
+    launch) against merge_rank_chunked_plain over rank6_sharded_plain on the
+    card and against the unsharded kernel, whose entry point runs the full
+    range: ins and every segment record exact; 16 launches counted."""
+    from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
+
+    b1 = torch.from_numpy(np.ascontiguousarray(corpus_index.bwt[: corpus_index.n])).to(cuda_device)
+    int64 = layout == "dense64"
+    idx = rank.OccIndex.from_bwt(b1, int64=int64, mega_shift=6 if int64 else rank.MEGA_BLOCK_SHIFT)
+    views = ShardedRows(idx, make_mesh(2, 4, [cuda_device] * 8)).views
+    acc2, rec = tmerge.lf2_packed(torch.from_numpy(merge_b2(corpus, "mutated")).to(cuda_device))
+    m2 = int(acc2[1])
+    S = tmerge.stride(rec.numel(), cuda_device) if S == "derived" else S
+    before = tmerge.merge_rank_cuda.launches["sh_" + layout]
+    ins, seg = tmerge.merge_rank_mesh(views, rec, m2, S)
+    torch.cuda.synchronize()
+    assert tmerge.merge_rank_cuda.launches["sh_" + layout] == before + 16
+    pins, pseg = tmerge.merge_rank_chunked_plain(views[-1], rec.clone(), m2, S)
+    uins, useg = tmerge.launch_merge_rank(idx, rec, torch.empty_like(rec), m2, S)
+    assert torch.equal(ins, pins) and torch.equal(seg, pseg)
+    assert torch.equal(uins, pins) and torch.equal(useg, pseg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("which", ["corpus", "many", "cyclic"])
+def test_ssa_walk_ranges_sharded_match_plain(corpus_index, cuda_device, layout, which):
+    """K5's pass 1 by range (rb3c_ssa_walk_* over [g0, g1)) on the card: each
+    of eight ranges' slots and records exact against ssa_walk_plain over the
+    same range on the CPU; walk_mesh over [card] x 8 (eight range launches
+    counted, the shares merged, passes 2 and 3 once) equal to
+    ssa_gen_seg_plain and to the unsharded walk, whose pass 1 runs the full
+    range; at S 8 and ss 0 and 3, on the corpus, 3,000 short sequences and a
+    BWT with `$`-free cycles (their slots cleared after the merge)."""
+    from ropebwt3_tpu_torch.parallel.mesh import make_mesh, replicate, split_segments
+
+    f = {"corpus": lambda: corpus_index, "many": lambda: short_seqs_index(3000), "cyclic": lambda: cyclic_bwt_index(0)}[which]()
+    cpu, gpu = make_index(layout, f, "cpu"), make_index(layout, f, cuda_device)
+    reps = replicate(gpu, make_mesh(2, 4, [cuda_device] * 8).devices)
+    m, S = int(f.acc[1]), 8
+    n_seg = ssa_ops.segments(f.n, m, S)
+    cuts = split_segments(n_seg, 8)
+    for ss in (0, 3):
+        n_ssa = ssa_ops.n_slots(cpu, m, ss)
+        for g0, g1 in zip(cuts, cuts[1:]):
+            share = (torch.zeros(n_ssa, dtype=gpu.dtype, device=cuda_device),
+                     torch.full((n_ssa,), -1, dtype=torch.int32, device=cuda_device),
+                     torch.full((3, n_seg), ssa_ops.LOW, dtype=torch.int64, device=cuda_device))
+            ssa_ops.launch_walk_range(gpu, m, ss, S, g0, g1, *share)
+            torch.cuda.synchronize()
+            for got, want in zip(share, ssa_ops.ssa_walk_plain(cpu, m, ss, S, g0, g1)):
+                assert torch.equal(got.cpu().long(), want.long())
+        before = ssa_ops.ssa_gen_mesh.launches[layout]
+        got = ssa_ops.walk_mesh(reps, m, ss, S)
+        torch.cuda.synchronize()
+        assert ssa_ops.ssa_gen_mesh.launches[layout] == before + 8
+        *want, want_rec = ssa_ops.ssa_gen_seg_plain(cpu, m, ss, S)
+        for a, b, c in zip(got, [*want, want_rec[1:]], ssa_ops.launch_walk(gpu, m, ss, S)):
+            assert torch.equal(a.cpu().long(), b.long()) and torch.equal(c, a)
+        if which == "cyclic":
+            assert bool((got[4][1] >= 0).any())
+
+
+@pytest.mark.cuda
+def test_merge_rank_sharded_occupancy(cuda_device):
+    """Both passes of K6, unsharded and sharded, report their registers and
+    resident blocks an SM."""
+    import ctypes
+
+    from ropebwt3_tpu_torch import kernels
+
+    for lay in ("dense32", "dense64", "sh_dense32", "sh_dense64"):
+        for hand_over in (0, 1):
+            b, loc, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            assert getattr(kernels.lib(), f"rb3c_occupancy_merge_rank_{lay}")(
+                hand_over, ctypes.byref(b), ctypes.byref(loc), ctypes.byref(regs)) == 0
+            assert b.value >= 1 and regs.value > 0

@@ -417,19 +417,6 @@ def test_two_gloo_processes_mem(corpus, mesh_fmd):
     assert b"over a 1x1 mesh" in outs[1][1]
 
 
-@pytest.mark.parametrize("argv,why", [
-    (["ssa", "--mesh=2"], "ssa --mesh"),
-    (["build", "--mesh=4", "-do", "x.fmd"], "build --mesh"),
-    (["merge", "--mesh=2x1"], "merge --mesh"),
-])
-def test_refuses_mesh_left_to_port(mesh_fmd, argv, why):
-    """ssa, build and merge --mesh stay refused: one ERROR line naming item 12's remainder."""
-    r = _run("ropebwt3_tpu_torch", argv + [str(mesh_fmd[0])])
-    lines = r.stderr.decode().splitlines()
-    assert r.returncode != 0 and not r.stdout and len(lines) == 1, lines
-    assert why in lines[0] and "ROADMAP queue 1 item 12 (its remainder: ssa, build and merge)" in lines[0]
-
-
 def test_refuses_idx_axis_across_processes(corpus, mesh_fmd):
     """Under two processes `--mesh=1x2` would put the idx axis across them:
     one ERROR line naming item 12, before any process group forms."""
