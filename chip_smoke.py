@@ -152,15 +152,17 @@ it.  Phases:
             route marker on stderr, each timed beside the local one-shot
             port and the native reference; then `serve --stop`, after which
             its process, socket and pid file must be gone
-  mesh      K10's port (parallel/, csrc/occ.cuh Sharded): per layout the
-            rows sharded over a 2x4 mesh whose eight slots are this card;
-            smem_tg_sh_* and smem_tgc_sh_* vs their plain version
-            (smem_tg_plain over rank6_sharded_plain, on the card) on 512
-            reads and on the lanes of 128 short + 4 long reads, exact, the
-            other seven views' kernels equal; on the main path's batch
-            smem_tgc sharded beside unsharded, A B B A, lane trips equal;
-            dense32 and rb32 through the mesh engine (the batch split over
-            the eight views) equal to the unsharded engine; `mem
+  mesh      K10's port (parallel/, csrc/vmm.cu): per layout the rows
+            sharded over a 2x4 mesh whose eight slots are this card, the
+            slabs mapped into one virtual range (its granularity, unit and
+            bytes printed); smem_tg_* and smem_tgc_* over the mapped rows vs
+            their plain version (smem_tg_plain over rank6_sharded_plain, on
+            the card) on 512 reads and on the lanes of 128 short + 4 long
+            reads, exact, the other seven views' kernels equal; on the main
+            path's batch smem_tgc over the mapped rows beside the unsharded
+            rows, A B B A, lane trips equal, registers and blocks an SM of
+            both; dense32 and rb32 through the mesh engine (one share a
+            card) equal to the unsharded engine; `mem
             --mesh=1x1` (and --occ=rb) through cli.main, counts reset
             before and read after, and as a subprocess, and `mem
             --mesh=2x1` under torchrun (two gloo processes on this card):
@@ -168,20 +170,23 @@ it.  Phases:
             `sw` of the 10,000 reads over [this card] x 2 (through the API:
             the CLI maps N to N cards), byte-equal to [hapdiv]'s and [sw]'s
             unsharded runs; `ssa` over a 2x4 mesh of this card on bench.py's
-            index (K5's pass 1 by range, each range exact against the plain
-            pass 1 on the card, the SSA byte-equal to `python -m ropebwt3_tpu
-            ssa`, the range launches and the walk timed beside the unsharded
-            ones, A B B A) and `ssa --mesh=1x1` through cli.main; `build -m
-            16M` of bench.py's genomes with each merge's rank over a 2x4 mesh
-            of this card (merge_rank_sh_dense32 exact against
-            merge_rank_chunked_plain over rank6_sharded_plain on the card and
-            the unsharded K6, segment records too, timed beside it A B B A,
-            registers and blocks an SM; the FMD byte-equal), sh_dense64 on
-            the short reads' first merge, and `build -m 16M --mesh=1x1`
+            index (K5's pass 1 by range, each of the eight slots' ranges
+            exact against the plain pass 1 on the card, the SSA byte-equal
+            to `python -m ropebwt3_tpu ssa` in one range launch a card, the
+            slots' ranges and the walk timed beside the unsharded ones, A B
+            B A) and `ssa --mesh=1x1` through cli.main; `build -m 16M` of
+            bench.py's genomes with each merge's rank over a 2x4 mesh of
+            this card (merge_rank_dense32 over the mapped rows, one launch a
+            pass, exact against merge_rank_chunked_plain over
+            rank6_sharded_plain on the card and the unsharded K6, segment
+            records too, timed beside it A B B A, registers and blocks an
+            SM; each merge's peak card memory, mapped bytes included, at or
+            under merge_mesh_bytes; the FMD byte-equal), dense64 on the
+            short reads' first merge, and `build -m 16M --mesh=1x1`
             through cli.main; `ssa --mesh=2x1` under torchrun, each process
             writing its own file, both byte-equal; with two cards or more,
             `mem`, `ssa` and `build --mesh=2x1` and `1x2` on real cards and
-            the peer-access result, else a line that says they were skipped
+            the mapping they report, else a line that says they were skipped
 
 Any failure exits non-zero.  The last line is {"ok": true, "device": ...}.
 Run from the repository root: python3 chip_smoke.py [--parent TREE]
@@ -249,9 +254,10 @@ HAPDIV_K, HAPDIV_STEP, HAPDIV_CHECK, HAPDIV_INS, HAPDIV_BIG = 101, 50, 960, 64, 
 # flags every one (a score past 4095)
 SW_CHECK, SW_CHECK_E2E, SW_PATH, SW_E2E_PATH, SW_BIG = 128, 64, 10_000, 1_000, 16
 # [mesh]: a MESH_DP x MESH_IDX mesh whose slots are all this card; the
-# sharded kernels' check takes MESH_TG reads (one thread each) and the lanes
-# of MESH_TGC_SHORT short + MESH_TGC_LONG long reads; the main path's batch
-# times smem_tgc sharded and not, A B B A, MESH_REPS launches each
+# kernels' check over its mapped rows takes MESH_TG reads (one thread each)
+# and the lanes of MESH_TGC_SHORT short + MESH_TGC_LONG long reads; the main
+# path's batch times smem_tgc over the mapped rows and the unsharded ones,
+# A B B A, MESH_REPS launches each
 MESH_DP, MESH_IDX, MESH_TG, MESH_TGC_SHORT, MESH_TGC_LONG, MESH_REPS = 2, 4, 512, 128, 4, 3
 MERGE_MESH_REPLACES = ("ropebwt3_tpu/parallel/merge_sharded.py:28 (merge_rank_sharded_fn: K6's window step, B1's rows "
                        "over idx with a psum, lanes over dp), driven by merge_rank_sharded :67")
@@ -1863,7 +1869,8 @@ def dp_mesh_path(cli, cmd: str, fa: str, fmd: str, devices: list, want_fn: str) 
 
 def mesh_cli(cli, counters, argv: list[str], want: bytes, lay: str) -> dict:
     """`mem` with `--mesh` through cli.main, launch counts reset before and
-    read after: its BED byte-equal to native, smem_tgc of `lay` launched."""
+    read after: its BED byte-equal to native, smem_tgc of `lay` launched
+    over the mapped rows (stderr names the mesh)."""
     port_bed = os.path.join(WORK, "port_mesh.bed")
     for counted in counters:
         counted.launches.clear()
@@ -1879,21 +1886,23 @@ def mesh_cli(cli, counters, argv: list[str], want: bytes, lay: str) -> dict:
     got = open(port_bed, "rb").read()
     if got != want:
         fail(f"[mesh] {' '.join(argv[:-2])}: BED differs from --engine=native: {first_diff(got, want)}")
-    if launches["smem_tgc_cuda"].get(lay, 0) < 1:
-        fail(f"[mesh] {' '.join(argv[:-2])}: no {lay} smem_tgc launch ({launches})")
+    if launches["smem_tgc_cuda"].get(lay, 0) < 1 or f"occ layout {lay} ({lay} rows sharded over a 1x1 mesh" not in \
+            err.getvalue():
+        fail(f"[mesh] {' '.join(argv[:-2])}: no {lay} smem_tgc launch over the mapped rows ({launches})")
     return dict(launches=launches, port_s=port_s)
 
 
 def mesh_ssa(cli, probe, dev, card: str, f, fmd: str, x, mesh, lat: float) -> dict:
     """[mesh] (g): `ssa` over a 2x4 mesh of this card on bench.py's index
-    (ssa_ops.ssa_gen_mesh: the rows once, K5's pass 1 by range, the shares
-    merged, passes 2 and 3 once): each range's pass 1 exact against the
-    plain pass 1 over every segment on the card (its slots, those its
-    segments wrote, and its columns of the records); the SSA byte-equal to
-    `python -m ropebwt3_tpu ssa`'s file of [ssa], eight range launches;
-    the range launches timed beside one pass 1 over every segment, and the
-    mesh's walk beside the unsharded walk, A B B A; then `ssa --mesh=1x1`
-    through cli.main (the path: counts reset before, read after)."""
+    (ssa_ops.ssa_gen_mesh: the rows once, K5's pass 1 over one range a card,
+    passes 2 and 3 once): each of the eight slots' ranges' pass 1 exact
+    against the plain pass 1 over every segment on the card (its slots,
+    those its segments wrote, and its columns of the records); the SSA
+    byte-equal to `python -m ropebwt3_tpu ssa`'s file of [ssa], one range
+    launch a card; the eight slots' range launches timed beside one pass 1
+    over every segment (the card's range), and the mesh's walk beside the
+    unsharded walk, A B B A; then `ssa --mesh=1x1` through cli.main (the
+    path: counts reset before, read after)."""
     import torch
 
     from ropebwt3_tpu_torch import ssa_ops
@@ -1934,9 +1943,9 @@ def mesh_ssa(cli, probe, dev, card: str, f, fmd: str, x, mesh, lat: float) -> di
     data = write_ssa_bytes(ssa_ops.ssa_gen_mesh(f, ss, mesh))
     api_s = time.perf_counter() - t0
     api_launches = ssa_ops.ssa_gen_mesh.launches["dense32"]
-    if data != ref or api_launches != len(ranges):
+    if data != ref or api_launches != len(mesh.distinct):
         fail(f"[mesh] ssa_gen_mesh over {mesh}: SSA differs from `python -m ropebwt3_tpu ssa` ({data != ref}) or "
-             f"{api_launches} range launches")
+             f"{api_launches} range launches (one a card expected)")
     reps = replicate(x, mesh.devices)
     full = share()
     k5 = {"unsharded": lambda: ssa_ops.launch_walk(x, m, ss, S), "mesh": lambda: ssa_ops.walk_mesh(reps, m, ss, S)}
@@ -1951,35 +1960,39 @@ def mesh_ssa(cli, probe, dev, card: str, f, fmd: str, x, mesh, lat: float) -> di
     path_s, path_err = cli_run(cli, ["ssa", "--mesh=1x1", "-o", port_fn, fmd])
     launches = dict(ssa_ops.ssa_gen_mesh.launches)
     same_file(port_fn, ref_fn, "`ssa --mesh=1x1` vs `python -m ropebwt3_tpu ssa`")
-    if launches.get("dense32", 0) < 1 or f"{launches['dense32']} ssa_gen range launches (dense32)" not in path_err:
-        fail(f"[mesh] `ssa --mesh=1x1`: no dense32 range launch counted ({launches})")
-    r = dict(S=S, n_seg=n_seg, ranges=len(ranges), err=err, plain_ms=plain_ms, ms=ranges_ms, pass1_ms=pass1_ms,
+    if launches != {"dense32": 1} or "1 ssa_gen range launches (dense32)" not in path_err:
+        fail(f"[mesh] `ssa --mesh=1x1`: {launches} range launches counted (one dense32 expected)")
+    r = dict(S=S, n_seg=n_seg, ranges=len(ranges), err=err, plain_ms=plain_ms, ms=pass1_ms, slot_ranges_ms=ranges_ms,
              walk_abba_ms=abba, api_s=api_s, api_launches=api_launches, launches=launches, path_s=path_s,
              longest_segment_by_range=longest, chain_floor_ms=max(longest) * lat / 1e6,
              bound_ms=bound_ms(x.nbytes + n_ssa * (x.dtype.itemsize + 4) + 8 * ssa_ops.SEG_ROWS * n_seg))
     say(f"[mesh] `ssa` over a {mesh.dp}x{mesh.idx} mesh of {dev} (the API: {mesh}): SSA byte-equal to `python -m "
-        f"ropebwt3_tpu ssa`, {api_launches} range launches, {api_s:.3f} s; S {S}, {n_seg} segments in {len(ranges)} "
-        f"ranges, each range's pass 1 exact vs the plain pass 1 on the card ({plain_ms:.1f} ms); the {len(ranges)} "
-        f"range launches {ranges_ms:.4f} ms vs one pass 1 over every segment {pass1_ms:.4f} ms; the walk A B B A "
-        f"unsharded {abba[0]:.4f}, mesh {abba[1]:.4f} / {abba[2]:.4f}, unsharded {abba[3]:.4f} ms; longest segment "
-        f"by range {longest} (chain floor {r['chain_floor_ms']:.4f} ms at {lat:.1f} ns); bound {r['bound_ms']:.4f} ms; "
-        f"path `ssa --mesh=1x1` through cli.main: file byte-equal, launches {launches}, {path_s:.3f} s ({card})")
+        f"ropebwt3_tpu ssa`, {api_launches} range launch(es), one a card, {api_s:.3f} s; S {S}, {n_seg} segments; "
+        f"each of the {len(ranges)} slots' ranges' pass 1 exact vs the plain pass 1 on the card ({plain_ms:.1f} ms); "
+        f"the {len(ranges)} slots' range launches {ranges_ms:.4f} ms vs the card's one range launch {pass1_ms:.4f} "
+        f"ms; the walk A B B A unsharded {abba[0]:.4f}, mesh {abba[1]:.4f} / {abba[2]:.4f}, unsharded {abba[3]:.4f} "
+        f"ms; longest segment by slot range {longest} (chain floor {r['chain_floor_ms']:.4f} ms at {lat:.1f} ns); "
+        f"bound {r['bound_ms']:.4f} ms; path `ssa --mesh=1x1` through cli.main: file byte-equal, launches {launches}, "
+        f"{path_s:.3f} s ({card})")
     return r
 
 
 def mesh_merge(merge, idx, b2, mesh, reps: int, lat: float) -> dict:
     """One merge of B2's BWT b2 into B1 (its rows idx) with B1's rows sharded
-    over `mesh` (merge_rank_mesh: merge_rank_sh_<layout> by range, each pass
-    a launch): ins and segment records exact against merge_rank_chunked_plain
+    over `mesh` and mapped into one range (merge_rank_mesh:
+    merge_rank_<layout> over the mapped rows, one range a card, each pass a
+    launch): ins and segment records exact against merge_rank_chunked_plain
     over rank6_sharded_plain on the card and against the unsharded K6; the
-    16 range launches timed on buffers made beforehand, and the mesh's whole
-    merge rank (its buffers, launches and merges) beside the unsharded K6,
-    A B B A.  Returns ins and the record."""
+    card's two launches, and the 16 launches of the eight slots' ranges,
+    timed on buffers made beforehand, and the mesh's whole merge rank (its
+    buffers, launches and merges) beside the unsharded K6, A B B A.  Returns
+    ins and the record."""
     import torch
 
     from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, split_segments
 
-    views = ShardedRows(idx, mesh).views
+    sh = ShardedRows(idx, mesh)
+    views = sh.views
     lay = views[0].layout
     acc2, rec = merge.lf2_packed(b2)
     m2, n2 = int(acc2[1]), rec.numel()
@@ -1995,12 +2008,18 @@ def mesh_merge(merge, idx, b2, mesh, reps: int, lat: float) -> dict:
     plain_ms = (time.perf_counter() - t0) * 1e3
     uins, useg = merge.launch_merge_rank(idx, rec, torch.empty_like(rec), m2, S)
     err = max(max_abs(ins, pins), max_abs(ins, uins))
-    if err or not (torch.equal(seg, pseg) and torch.equal(seg, useg)) or launches != 2 * len(views):
+    if err or not (torch.equal(seg, pseg) and torch.equal(seg, useg)) or launches != 2 * len(mesh.distinct):
         fail(f"[mesh] merge_rank_{lay} (n1={idx.n}, n2={n2}, S={S}) differs from the plain version over "
-             f"rank6_sharded_plain or the unsharded K6 by {err}, or its records differ, or {launches} launches")
+             f"rank6_sharded_plain or the unsharded K6 by {err}, or its records differ, or {launches} launches "
+             "(one a pass a card expected)")
     cuts = split_segments(n_seg, len(views))
     bufs = [(torch.empty_like(rec), torch.empty_like(seg)) for _ in views]
     order = [(v, g0, g1, b) for v, g0, g1, b in zip(views, cuts, cuts[1:], bufs)]
+
+    def card():  # the path's launches: one a pass over the card's range
+        x, sg = bufs[0]
+        merge.launch_merge_range(views[0], rec, x, m2, S, sg, 0, n_seg, merge.WALK)
+        merge.launch_merge_range(views[0], rec, x, m2, S, sg, 0, n_seg, merge.HAND_OVER)
 
     def ranges():
         for v, g0, g1, (x, sg) in order:
@@ -2014,7 +2033,8 @@ def mesh_merge(merge, idx, b2, mesh, reps: int, lat: float) -> dict:
     _, length, _, _, hand = (t.cpu().numpy() for t in seg)
     return ins, dict(
         layout=lay, n1=idx.n, n2=n2, m2=m2, S=S, lanes=n_seg, ranges=len(views), err=err, plain_ms=plain_ms,
-        ms=cuda_ms(ranges, reps), merge_rank_abba_ms=abba, check_launches=launches,
+        ms=cuda_ms(card, reps), slot_ranges_ms=cuda_ms(ranges, reps), merge_rank_abba_ms=abba, check_launches=launches,
+        granularity=sh.gran, unit=sh.unit, nb_local=sh.nb_local, mapped_bytes=sh.phys_bytes,
         longest_segment=int(length.max()), longest_hand_over=int(hand.max()),
         chain_floor_ms=(int(length.max()) + int(hand.max())) * lat / 1e6,
         bound_ms=bound_ms(views[0].nbytes + 16 * n2 + 8 * merge.SEG_ROWS * n_seg))
@@ -2024,10 +2044,13 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
     """[mesh] (h): `build -m 16M` of bench.py's genomes with each merge's rank
     over a 2x4 mesh of this card (through the API: the CLI maps 2x4 to eight
     cards), FMD byte-equal to the one-batch index build; each merge held by
-    `mesh_merge`; sh_dense64 on the short reads' first merge, as [construct]
-    runs dense64; registers and blocks an SM of both passes, sharded and
-    not; then `build -m 16M --mesh=1x1` through cli.main (the path: counts
-    reset before, read after)."""
+    `mesh_merge`, then run as `build` runs it (cli._merge_into over the
+    mesh), its peak card memory (PyTorch's peak and the mapped bytes' peak)
+    at or under merge_mesh_bytes; dense64 on the short reads' first merge,
+    as [construct] runs dense64; registers and blocks an SM of both passes
+    over the mapped rows and the unsharded ones; then `build -m 16M
+    --mesh=1x1` through cli.main (the path: counts reset before, read
+    after)."""
     import ctypes
 
     import torch
@@ -2035,6 +2058,7 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
     from ropebwt3_tpu_torch.construct import merge, sa
     from ropebwt3_tpu_torch.formats.fmd import encode_runs
     from ropebwt3_tpu_torch.ops.rank import OccIndex
+    from ropebwt3_tpu_torch.parallel.mesh import mapped_bytes, reset_mapped_peak
 
     merges, bwt = [], None
     t0 = time.perf_counter()
@@ -2044,8 +2068,24 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
             bwt = b2
             continue
         ins, r = mesh_merge(merge, OccIndex.from_bwt(bwt), b2, mesh, 3, ns[LAT_48MB])
+        merged = merge.merge_apply(bwt, b2, ins)
+        del ins
+        # the merge as `build --mesh` runs it: PyTorch's peak and the mapped slabs' (outside its allocator)
+        torch.cuda.synchronize()
+        card0 = mesh.devices[0]
+        torch.cuda.reset_peak_memory_stats(card0)
+        reset_mapped_peak(card0)
+        other = torch.cuda.memory_allocated(card0) - bwt.numel() - b2.numel()
+        got = cli._merge_into(bwt, b2, card0, mesh)
+        torch_peak, mapped_peak = torch.cuda.max_memory_allocated(card0) - other, mapped_bytes(card0)[1]
+        count = merge.merge_mesh_bytes(bwt.numel(), b2.numel(), r["m2"], mesh)[str(card0)]
+        if torch_peak + mapped_peak > count or not torch.equal(got, merged):
+            fail(f"[mesh] merge of {b2.numel()} symbols into {bwt.numel()} over {mesh}: peak {torch_peak} B + mapped "
+                 f"{mapped_peak} B against merge_mesh_bytes {count} B, or _merge_into's BWT differs from the pieces'")
+        r.update(peak_bytes=torch_peak, mapped_peak_bytes=mapped_peak, merge_mesh_bytes=count)
         merges.append(r)
-        bwt = merge.merge_apply(bwt, b2, ins)
+        bwt = merged
+        del got, merged
     if encode_runs(*cli._runs_of_bwt(bwt.cpu().numpy())) != open(fmd, "rb").read():
         fail(f"[mesh] `build -m {CONSTRUCT_M}` with the merge rank over {mesh}: FMD differs from the index build")
     api_s = time.perf_counter() - t0
@@ -2055,33 +2095,42 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
     _, r64 = mesh_merge(merge, OccIndex.from_bwt(b1, int64=True, mega_shift=DENSE64_SHIFT), sa.gsa_bwt(s2, dev)[0],
                         mesh, 5, ns[LAT_L2])
     occupancy = {}
-    for lay in ("dense32", "sh_dense32", "dense64", "sh_dense64"):
+    for tag, lay in (("mapped_dense32", merges[0]["layout"]), ("dense32", "dense32"), ("mapped_dense64", r64["layout"]),
+                     ("dense64", "dense64")):  # the kernels the mesh launched, then the unsharded index's
         for hand_over in (0, 1):
             b, loc, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
             if getattr(kernels.lib(), f"rb3c_occupancy_merge_rank_{lay}")(hand_over, ctypes.byref(b), ctypes.byref(loc),
                                                                            ctypes.byref(regs)):
                 fail(f"rb3c_occupancy_merge_rank_{lay} failed")
-            occupancy[f"{lay}_{'hand_over' if hand_over else 'walk'}"] = dict(regs=regs.value, blocks_per_sm=b.value,
+            occupancy[f"{tag}_{'hand_over' if hand_over else 'walk'}"] = dict(regs=regs.value, blocks_per_sm=b.value,
                                                                               local_bytes=loc.value)
     port = os.path.join(WORK, "construct_port_mesh.fmd")
     merge.merge_rank_cuda.launches.clear()
     path_s, _ = cli_run(cli, ["build", "-m", CONSTRUCT_M, "--mesh=1x1", "-do", port, fa])
     launches = dict(merge.merge_rank_cuda.launches)
     same_file(port, fmd, f"`build -m {CONSTRUCT_M} --mesh=1x1 -do` vs the index build")
-    if launches.get("sh_dense32", 0) < 1 or launches.get("dense32", 0):
-        fail(f"[mesh] `build -m {CONSTRUCT_M} --mesh=1x1` launched {launches} (sh_dense32 only expected)")
+    if launches != {"dense32": 2 * len(merges)}:
+        fail(f"[mesh] `build -m {CONSTRUCT_M} --mesh=1x1` launched {launches} (dense32 over the mapped rows, one a "
+             f"pass a merge: {2 * len(merges)} expected)")
+    for k in occupancy:
+        if k.startswith("mapped_") and occupancy[k] != occupancy[k[7:]]:
+            fail(f"[mesh] the mesh's merge rank ({k}) differs in registers or blocks from the unsharded one")
     for r in merges + [r64]:
         a = r["merge_rank_abba_ms"]
-        say(f"[mesh] merge_rank_{r['layout']} (n1={r['n1']}, n2={r['n2']}, m2={r['m2']}, S {r['S']}, {r['lanes']} "
-            f"segments in {r['ranges']} ranges) over a {mesh.dp}x{mesh.idx} mesh of {dev}: ins and records exact vs "
-            f"merge_rank_chunked_plain over rank6_sharded_plain on the card ({r['plain_ms']:.1f} ms) and vs the "
-            f"unsharded K6; the {2 * r['ranges']} range launches {r['ms']:.4f} ms; the mesh's merge rank A B B A "
-            f"unsharded {a[0]:.4f}, mesh {a[1]:.4f} / {a[2]:.4f}, unsharded {a[3]:.4f} ms; longest segment "
-            f"{r['longest_segment']}, hand-over {r['longest_hand_over']} (chain floor {r['chain_floor_ms']:.4f} ms); "
-            f"bound {r['bound_ms']:.4f} ms ({card})")
+        say(f"[mesh] merge_rank_{r['layout']} over the mapped rows (n1={r['n1']}, n2={r['n2']}, m2={r['m2']}, S "
+            f"{r['S']}, {r['lanes']} segments, one range a card) over a {mesh.dp}x{mesh.idx} mesh of {dev} (granularity "
+            f"{r['granularity']} B, {r['unit']} rows a unit, {r['nb_local']} a slab, {r['mapped_bytes']} B mapped): ins "
+            f"and records exact vs merge_rank_chunked_plain over rank6_sharded_plain on the card ({r['plain_ms']:.1f} "
+            f"ms) and vs the unsharded K6; the card's 2 launches {r['ms']:.4f} ms, the {2 * r['ranges']} launches of "
+            f"the slots' ranges {r['slot_ranges_ms']:.4f} ms; the mesh's merge rank A B B A unsharded {a[0]:.4f}, "
+            f"mesh {a[1]:.4f} / {a[2]:.4f}, unsharded {a[3]:.4f} ms; longest segment {r['longest_segment']}, "
+            f"hand-over {r['longest_hand_over']} (chain floor {r['chain_floor_ms']:.4f} ms); bound {r['bound_ms']:.4f} "
+            "ms" + (f"; `build`'s merge over the mesh: peak {r['peak_bytes']} B + mapped {r['mapped_peak_bytes']} B <= "
+                    f"merge_mesh_bytes {r['merge_mesh_bytes']} B" if "peak_bytes" in r else "") + f" ({card})")
     say(f"[mesh] `build -m {CONSTRUCT_M}` of bench.py's genomes with the merge rank over a {mesh.dp}x{mesh.idx} mesh "
         f"of {dev} (the API): FMD byte-equal to the index build, {api_s:.3f} s; K6 registers / blocks an SM (walk, "
-        "hand-over): " + ", ".join(f"{k} {v['regs']} / {v['blocks_per_sm']}" for k, v in occupancy.items())
+        "hand-over): "
+        + ", ".join(f"{k} {v['regs']} / {v['blocks_per_sm']}" for k, v in occupancy.items())
         + f"; path `build -m {CONSTRUCT_M} --mesh=1x1 -do` through cli.main: FMD byte-equal, launches {launches}, "
         f"{path_s:.3f} s ({card})")
     return dict(merges=merges, dense64=r64, occupancy=occupancy, api_s=api_s, path_s=path_s, launches=launches)
@@ -2090,13 +2139,14 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
 def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict,
                smem_res: dict, want_bed: bytes, f, genomes_fa: str, many_fa: str) -> dict:
     """[mesh]: the SMEM kernels over rows sharded on a 2x4 mesh of this card
-    (csrc/occ.cuh Sharded; parallel/mesh.py), per layout: smem_tg_sh and
-    smem_tgc_sh against their plain version (smem_tg_plain over
-    rank6_sharded_plain, on the card) on a subset of the reads, exact, the
-    other seven views' kernels equal; on the main path's batch smem_tgc
-    sharded beside unsharded, A B B A, their lane trips equal; dense32 and
-    rb32 through the mesh engine (the batch split over the eight views)
-    equal to the unsharded engine.  Then `mem --mesh=1x1` (and --occ=rb)
+    and mapped into one range (parallel/mesh.py, csrc/vmm.cu), per layout:
+    smem_tg and smem_tgc over the mapped rows against their plain version
+    (smem_tg_plain over rank6_sharded_plain, on the card) on a subset of the
+    reads, exact, the other seven views' kernels equal; on the main path's
+    batch smem_tgc over the mapped rows beside the unsharded rows, A B B A,
+    their lane trips, registers and blocks an SM equal; dense32 and rb32
+    through the mesh engine (one share a card) equal to the unsharded
+    engine.  Then `mem --mesh=1x1` (and --occ=rb)
     through cli.main and as a subprocess, and `mem --mesh=2x1` under
     torchrun, two processes on this card: BED byte-equal to native;
     `hapdiv` of the 17th haplotype and `sw` of the 10,000 reads over
@@ -2132,6 +2182,8 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         torch.cuda.synchronize()
         shard_s = time.perf_counter() - t0
         v = sh.views[-1]  # dp row 1, shard column 3
+        if v.layout != name:
+            fail(f"[mesh] {name}: the view over the mapped rows passes for {v.layout}")
         is_rb = name.startswith("rb")
         step = RB_ROUNDS * ns[name] if is_rb else ns[LAT_48MB]
         sc1, scc = (SectorCount(v, [x]), SectorCount(v, [x])) if is_rb else (v, v)
@@ -2157,7 +2209,8 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         tables = (sc1.bytes()[0] if is_rb else v.nbytes)
         ctables = (scc.bytes()[0] if is_rb else v.nbytes)
         del sc1, scc, want1, wantc
-        r = dict(err=err1, cerr=errc, shard_s=shard_s, nb_local=sh.nb_local, nbytes=sh.nbytes, plain=plain, cplain=cplain,
+        r = dict(err=err1, cerr=errc, shard_s=shard_s, nb_local=sh.nb_local, nbytes=sh.nbytes, granularity=sh.gran,
+                 unit=sh.unit, mapped_bytes=sh.phys_bytes, plain=plain, cplain=cplain,
                  ms=probe.queued_ms([lambda: smem.launch_tg(v, sflat, soff, **args)] * 10),
                  bound=bound_ms(tables + nbytes(sflat, soff, k1.n_mem)
                                 + int(k1.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * k1.mems.element_size()),
@@ -2168,7 +2221,11 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
                                  + int(kc.n_log.clamp(max=smem.LOG_LEN).sum()) * 4),
                  cfloor=int(kc.trips.max()) * step / 1e6,
                  occupancy=smem_occupancy(kernels, v.layout, sms),
-                 tg_occupancy=smem_occupancy(kernels, v.layout, sms, chunked=0))
+                 tg_occupancy=smem_occupancy(kernels, v.layout, sms, chunked=0),
+                 unsharded_occupancy=smem_occupancy(kernels, name, sms))
+        if r["occupancy"] != r["unsharded_occupancy"]:
+            fail(f"[mesh] {name}: smem_tgc over the mapped rows takes {r['occupancy']}, the unsharded rows' "
+                 f"{r['unsharded_occupancy']}")
         # the main path's batch: sharded beside unsharded smem_tgc, A B B A
         tu = smem.launch_tgc(x, aflat, aoff, alanes, aorder, trips=True, **args).trips
         ts = smem.launch_tgc(v, aflat, aoff, alanes, aorder, trips=True, **args).trips
@@ -2194,13 +2251,15 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
             if not (np.array_equal(out.counts, want.counts.cpu().numpy())
                     and np.array_equal(out.rows, want.rows.cpu().numpy())):
                 fail(f"[mesh] {v.layout}: the mesh engine's rows on the main path's batch differ from {name}'s")
-            if r["engine_launches"] < len(sh.views):
-                fail(f"[mesh] {v.layout}: the mesh engine launched smem_tgc {r['engine_launches']} times")
+            if r["engine_launches"] < len(mesh.distinct):
+                fail(f"[mesh] {v.layout}: the mesh engine launched smem_tgc {r['engine_launches']} times (one a card "
+                     "at least)")
             r["n_mems"] = int(out.counts.sum())
         res[name] = r
         o = r["occupancy"]
-        say(f"[mesh] {v.layout} over a {mesh.dp}x{mesh.idx} mesh of {dev} ({sh.nb} rows, {sh.nb_local} a slab; sharded "
-            f"in {shard_s:.3f} s): smem_tg exact vs plain on {MESH_TG} reads {r['ms']:.4f} ms (plain {plain:.1f} ms, "
+        say(f"[mesh] {v.layout} over a {mesh.dp}x{mesh.idx} mesh of {dev}, mapped ({sh.nb} rows, {sh.nb_local} a slab, "
+            f"granularity {sh.gran} B, {sh.unit} rows a unit, {sh.phys_bytes} B mapped, {sh.nbytes} B in all; "
+            f"sharded in {shard_s:.3f} s): smem_tg exact vs plain on {MESH_TG} reads {r['ms']:.4f} ms (plain {plain:.1f} ms, "
             f"bound {r['bound']:.4f}, chain floor {r['floor']:.4f}); smem_tgc exact vs plain on the lanes of "
             f"{MESH_TGC_SHORT} short + {MESH_TGC_LONG} long reads ({clanes.shape[0]} lanes; rows, counts, START logs, "
             f"trips; the other 7 views equal) {r['cms']:.4f} ms (plain {cplain:.1f} ms, bound {r['cbound']:.4f}, chain "
@@ -2217,7 +2276,7 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
     # (c) mem --mesh=1x1 through cli.main (the path: counts reset and read) and as a subprocess
     counters = (smem.smem_tg_cuda, smem.smem_tgc_cuda)
     paths = {}
-    for extra, lay in (([], "sh_dense32"), (["--occ=rb"], "sh_rb32")):
+    for extra, lay in (([], "dense32"), (["--occ=rb"], "rb32")):
         argv = ["mem", "--mesh=1x1", f"-l{MIN_LEN}", *extra, fmd, reads_fa]
         paths[lay] = mesh_cli(cli, counters, argv, want_bed, lay)
         say(f"[mesh] path `{' '.join(argv[:-2])}` through cli.main: BED byte-equal to --engine=native; launches "
@@ -2239,11 +2298,14 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
     if open(tr_bed, "rb").read() != want_bed:
         fail(f"[mesh] torchrun mem --mesh=2x1 BED differs from --engine=native: "
              f"{first_diff(open(tr_bed, 'rb').read(), want_bed)}; stderr {tr_err[-1500:]}")
-    n_launch = len(re.findall(r"smem_tg launches \(sh_dense32\): [1-9]", tr_err))
-    if n_launch != 2:
-        fail(f"[mesh] torchrun mem --mesh=2x1: {n_launch} processes report sh_dense32 launches: {tr_err[-1500:]}")
+    n_launch = len(re.findall(r"smem_tg launches \(dense32\): [1-9]", tr_err))
+    n_mapped = tr_err.count("occ layout dense32 (dense32 rows sharded over a 1x1 mesh")
+    if n_launch != 2 or n_mapped != 2:
+        fail(f"[mesh] torchrun mem --mesh=2x1: {n_launch} processes report dense32 launches, {n_mapped} over the "
+             f"mapped rows: {tr_err[-1500:]}")
     say(f"[mesh] `torchrun --standalone --nproc_per_node=2 -m ropebwt3_tpu_torch mem --mesh=2x1 -l{MIN_LEN}` on this "
-        f"card (gloo): BED of process 0 byte-equal to --engine=native, both processes launched sh_dense32; "
+        f"card (gloo): BED of process 0 byte-equal to --engine=native, both processes launched dense32 over their "
+        f"mapped rows; "
         f"{tr_s:.3f} s (one process: {sub_s:.3f} s) ({card})")
 
     # (e) hapdiv and sw over [this card] x 2
@@ -2283,19 +2345,19 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
                               reads_fa], stdout=out)
             if open(bed, "rb").read() != want_bed:
                 fail(f"[mesh] mem --mesh={spec} on {torch.cuda.device_count()} cards: BED differs from native")
-            peer = re.search(r"(peer access[^)]*|no peer access[^)]*)\)", e_)
+            peer = re.search(r"\d+ mapping\(s\) of [^;]*", e_)
             out_ssa, out_fmd = os.path.join(WORK, f"ssa_mesh_{spec}.ssa"), os.path.join(WORK, f"build_mesh_{spec}.fmd")
             ssa_s, _ = run([sys.executable, "-m", "ropebwt3_tpu_torch", "ssa", f"--mesh={spec}", "-o", out_ssa, fmd])
             same_file(out_ssa, os.path.join(WORK, "ssa_bench_ref.ssa"), f"`ssa --mesh={spec}` on real cards")
             build_s, _ = run([sys.executable, "-m", "ropebwt3_tpu_torch", "build", "-m", CONSTRUCT_M, f"--mesh={spec}",
                               "-do", out_fmd, genomes_fa])
             same_file(out_fmd, fmd, f"`build -m {CONSTRUCT_M} --mesh={spec}` on real cards")
-            real[spec] = dict(s=s_, peer=peer.group(1) if peer else None, ssa_s=ssa_s, build_s=build_s)
+            real[spec] = dict(s=s_, peer=peer.group(0) if peer else None, ssa_s=ssa_s, build_s=build_s)
             say(f"[mesh] `mem`, `ssa`, `build -m {CONSTRUCT_M}` with --mesh={spec} on real cards: byte-equal, {s_:.3f} / "
                 f"{ssa_s:.3f} / {build_s:.3f} s; {real[spec]['peer']} ({card})")
     else:
         say(f"[mesh] real --mesh=2x1 and 1x2 (mem, ssa, build) skipped: this machine has {torch.cuda.device_count()} "
-            "card (peer access and scaling across cards unmeasured)")
+            "card (a mapping across cards and scaling across them unmeasured)")
     return dict(res=res, paths=paths, sub_s=sub_s, torchrun_s=tr_s, dp=dps, real=real, ssa=ssa_r, build=build_r,
                 torchrun_ssa_s=trs_s)
 
@@ -2939,21 +3001,23 @@ def main(argv: list[str]) -> None:
             "longest_steps": r["longest_steps"], "table_bytes": r["table_bytes"],
             **({k: r[k] for k in ("suffix_port_s", "suffix_reference_s", "suffix_pieces")} if r["launches"] else {}),
         })
+    mapped_src = " over csrc/vmm.cu's mapping of the slabs (parallel/mesh.py ShardedRows)"
     for name in LAYOUTS:
-        r, lay = ms_["res"][name], f"sh_{name}"
-        path = ms_["paths"].get(lay)
-        mesh_in = f"a {MESH_DP}x{MESH_IDX} mesh of one card"
+        r = ms_["res"][name]
+        path = ms_["paths"].get(name)
+        mesh_in = f"a {MESH_DP}x{MESH_IDX} mesh of one card, its slabs mapped into one range"
         for kern in ("smem_tg", "smem_tgc"):
-            n = path["launches"][f"{kern}_cuda"].get(lay, 0) if path else 0
+            n = path["launches"][f"{kern}_cuda"].get(name, 0) if path else 0
             tgc = kern == "smem_tgc"
-            e = {"name": f"{kern}_{lay}", "route": "cuda", "source": smem_src + " + occ.cuh (Sharded) + parallel/mesh.py",
-                 "replaces": MESH_REPLACES, "launches": n, "path": f"mem --mesh=1x1{' --occ=rb' if lay == 'sh_rb32' else ''}"
+            e = {"name": f"{kern}_{name}_mapped", "route": "cuda", "source": smem_src + mapped_src,
+                 "replaces": MESH_REPLACES, "launches": n, "path": f"mem --mesh=1x1{' --occ=rb' if name == 'rb32' else ''}"
                  if n else None, "max_abs_err": r["cerr" if tgc else "err"], "ms": r["cms" if tgc else "ms"],
                  "plain_ms": r["cplain" if tgc else "plain"], "bound_ms": r["cbound" if tgc else "bound"],
                  "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["cfloor" if tgc else "floor"],
                  "input": (f"the lanes ({smem.CHUNK} + {smem.MARGIN}) of {MESH_TGC_SHORT} short and {MESH_TGC_LONG} long "
                            f"reads, {mesh_in}" if tgc else f"{MESH_TG} x {READ_LEN} bp reads, one thread each, {mesh_in}"),
-                 "occupancy": r["occupancy" if tgc else "tg_occupancy"], "nb_local": r["nb_local"]}
+                 "occupancy": r["occupancy" if tgc else "tg_occupancy"], "nb_local": r["nb_local"],
+                 "granularity": r["granularity"], "unit": r["unit"], "mapped_bytes": r["mapped_bytes"]}
             if tgc:
                 e.update(main_path_batch_ms=r["batch_ms"], main_path_batch_unsharded_ms=r["batch_unsharded_ms"],
                          main_path_batch_bound_ms=r["batch_bound"], main_path_batch_chain_floor_ms=r["batch_floor"],
@@ -2964,16 +3028,17 @@ def main(argv: list[str]) -> None:
     mb, g = ms_["build"], ms_["ssa"]
     for lay in ("dense32", "dense64"):
         rs = mb["merges"] if lay == "dense32" else [mb["dense64"]]
-        n = mb["launches"].get(f"sh_{lay}", 0)
+        n = mb["launches"].get(lay, 0)
         entries.append({
-            "name": f"merge_rank_sh_{lay}", "route": "cuda",
-            "source": "ropebwt3_tpu_torch/csrc/merge_rank.cu + occ.cuh (Sharded) + construct/merge.py merge_rank_mesh",
+            "name": f"merge_rank_{lay}_mapped", "route": "cuda",
+            "source": "ropebwt3_tpu_torch/csrc/merge_rank.cu + occ.cuh" + mapped_src + ", construct/merge.py merge_rank_mesh",
             "replaces": MERGE_MESH_REPLACES, "launches": n,
             "path": f"build -m {CONSTRUCT_M} --mesh=1x1" if n else None, "max_abs_err": max(r["err"] for r in rs),
             "ms": rs[0]["ms"], "plain_ms": rs[0]["plain_ms"], "bound_ms": rs[0]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "chain_floor_ms": rs[0]["chain_floor_ms"],
             "input": (f"the {len(rs)} merges of `build -m {CONSTRUCT_M}` (ms, bounds: the first)" if lay == "dense32"
-                      else f"the short reads' first merge (-m {MANY_M})") + f", {MESH_DP}x{MESH_IDX} mesh of one card",
+                      else f"the short reads' first merge (-m {MANY_M})") + f", {MESH_DP}x{MESH_IDX} mesh of one card; "
+                     "ms: the card's two launches, one a pass",
             "merges": rs, "occupancy": {k: v for k, v in mb["occupancy"].items() if lay in k},
         })
     entries.append({
@@ -2983,9 +3048,9 @@ def main(argv: list[str]) -> None:
         "launches": g["launches"].get("dense32", 0), "path": "ssa --mesh=1x1" if g["launches"] else None,
         "max_abs_err": g["err"], "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "chain_floor_ms": g["chain_floor_ms"],
-        "input": f"bench.py's index, {g['n_seg']} segments in {g['ranges']} ranges (S {g['S']}), {MESH_DP}x{MESH_IDX} "
-                 "mesh of one card; ms: the range launches of pass 1",
-        **{k: g[k] for k in ("pass1_ms", "walk_abba_ms", "longest_segment_by_range", "api_s", "path_s")},
+        "input": f"bench.py's index, {g['n_seg']} segments (S {g['S']}), {MESH_DP}x{MESH_IDX} mesh of one card; ms: "
+                 "pass 1's one range launch a card",
+        **{k: g[k] for k in ("slot_ranges_ms", "walk_abba_ms", "longest_segment_by_range", "api_s", "path_s")},
     })
     say(json.dumps({"kernels": entries, "mesh": {k: ms_[k] for k in ("sub_s", "torchrun_s", "dp", "real",
                                                                      "torchrun_ssa_s")},

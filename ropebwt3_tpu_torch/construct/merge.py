@@ -47,7 +47,7 @@ import torch
 from .. import kernels
 from ..ops.rank import ASIZE, OccIndex, from_bwt_temp_bytes
 from ..parallel import launch
-from ..parallel.mesh import ShardView
+from ..parallel.mesh import ShardView, granularity, slab_plan
 
 APPLY_CHUNK = 1 << 25  # merged positions per chunk of merge_apply
 # The segment stride S of the merge rank: a power of two, short enough to
@@ -57,6 +57,7 @@ APPLY_CHUNK = 1 << 25  # merged positions per chunk of merge_apply
 MIN_STRIDE, LANES_PER_SM = 128, 2048
 SEG_ROWS = 5  # per segment: meet, len, end_pos, end_ka, hand (csrc/merge_rank.cu)
 NEVER = (1 << 63) - 1  # meet of a segment that did not meet
+WALK, HAND_OVER = 1, 2  # the passes of rb3c_merge_rank_* (csrc/merge_rank.cu)
 
 
 def merge_bytes(n1: int, n2: int, m2: int) -> int:
@@ -93,7 +94,7 @@ def lf2_packed(seq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def check_merge(idx, rec: torch.Tensor, m2: int) -> None:
     """B1's dense rows (an OccIndex, or a ShardView of them on a mesh), the
     records on their device, 0 <= m2 <= n2, and rows that count n symbols."""
-    if not (isinstance(idx, OccIndex) or isinstance(idx, ShardView) and not idx.rows.is_rb):
+    if not (isinstance(idx, OccIndex) or isinstance(idx, ShardView) and not idx.is_rb):
         raise TypeError(f"the merge rank takes dense occ rows (OccIndex or their ShardView), not "
                         f"{getattr(idx, 'layout', type(idx).__name__)}")
     if rec.dtype != torch.int64 or rec.dim() != 1 or rec.device != idx.device or not rec.is_contiguous():
@@ -272,14 +273,14 @@ def launch_merge_rank(idx: OccIndex, rec: torch.Tensor, ins: torch.Tensor, m2: i
     seg = torch.empty((SEG_ROWS, n_seg), dtype=torch.int64, device=ins.device)
     if n_seg:
         kernels.launch(f"rb3c_merge_rank_{idx.layout}", idx.device, *idx.kernel_tables(), rec.data_ptr(),
-                       ins.data_ptr(), m2, S.bit_length() - 1, first, n_seg, seg.data_ptr())
+                       ins.data_ptr(), m2, S.bit_length() - 1, first, n_seg, 0, n_seg, WALK | HAND_OVER,
+                       seg.data_ptr())
         merge_rank_cuda.launches[idx.layout] += 1
     return ins, seg
 
 
 merge_rank_cuda.launches = Counter()
 
-WALK, HAND_OVER = 1, 2  # the passes of merge_rank_sh_* (csrc/merge_rank.cu)
 LOW = -(1 << 63)  # a segment record no share wrote: below every written value
 
 
@@ -287,21 +288,22 @@ def merge_rank_mesh(views: list, rec: torch.Tensor, m2: int, S: int | None = Non
     """The merge rank over a mesh (the port of ropebwt3_tpu/parallel/
     merge_sharded.py merge_rank_sharded_fn): `views` are the ShardViews of
     B1's dense rows sharded over the mesh's idx axis (parallel/mesh.py
-    ShardedRows), one a device, and each takes a contiguous range of the
-    segments (this process's share under torchrun, launch.segment_ranges).
-    The stride S and the segments are the whole B2's (`stride` on the first
-    view's device), not a share's.  Pass 1 runs on every view over its range
-    into its own ins (-1 where unwritten) and segment records; the records
-    are gathered onto every device (a hand-over reads the meeting step of a
-    successor another range holds); pass 2 runs over the same ranges; the
-    shares merge by a max onto the first view's device (launch.merge_shares:
-    each position has one writer).  The records go once onto each distinct
-    device.  On CUDA views each pass of a range is one launch of
-    merge_rank_sh_<layout>, counted; on the CPU the plain passes run over
-    the view's rank (rank6_sharded_plain).  Returns (ins, seg): ins (n2,)
-    int64 apart from rec, seg (5, n_seg) as merge_rank_chunked_plain's."""
+    ShardedRows), one a device, and each distinct card takes one contiguous
+    range of the segments, as long as its mesh slots' share (this process's
+    share under torchrun, launch.card_ranges).  The stride S and the
+    segments are the whole B2's (`stride` on the first view's device), not a
+    share's.  Pass 1 runs on each card over its range into its own ins (-1
+    where unwritten) and segment records; the records are gathered onto
+    every card (a hand-over reads the meeting step of a successor another
+    range holds); pass 2 runs over the same ranges; the shares merge by a
+    max onto the first view's device (launch.merge_shares: each position
+    has one writer).  On CUDA views each pass is one launch a card of
+    merge_rank_<layout> over the mapped rows, counted; on the CPU the plain
+    passes run over the view's rank (rank6_sharded_plain).  Returns (ins,
+    seg): ins (n2,) int64 apart from rec, seg (5, n_seg) as
+    merge_rank_chunked_plain's."""
     check_merge(views[0], rec, m2)
-    if any(v.rows is not views[0].rows for v in views):
+    if any(v.origin is not views[0].origin for v in views):
         raise ValueError("the views must be one ShardedRows' (one a device of its mesh)")
     S = stride(rec.numel(), views[0].device) if S is None else S
     if views[0].device.type == "cuda" and S & (S - 1):
@@ -311,41 +313,34 @@ def merge_rank_mesh(views: list, rec: torch.Tensor, m2: int, S: int | None = Non
 
 def launch_merge_mesh(views: list, rec: torch.Tensor, m2: int, S: int) -> tuple[torch.Tensor, torch.Tensor]:
     """`merge_rank_mesh` on views and records that it has checked, at the
-    stride S: no read back to the host on one device, so timing loops call
+    stride S: no read back to the host on one card, so timing loops call
     this."""
-    dev, n2 = views[0].device, rec.numel()
+    n2 = rec.numel()
     n_seg = segments(n2, m2, S)[1]
-    ranges = launch.segment_ranges(n_seg, len(views))
-    recs = {}
-    for v in views:
-        if str(v.device) not in recs:
-            recs[str(v.device)] = rec.to(v.device)
-    ins = [torch.full((n2,), -1, dtype=torch.int64, device=v.device) for v in views]
+    cards = [(views[j], g0, g1) for j, g0, g1 in launch.card_ranges(n_seg, [v.device for v in views])]
+    recs = [rec.to(v.device) for v, _, _ in cards]
+    ins = [torch.full((n2,), -1, dtype=torch.int64, device=v.device) for v, _, _ in cards]
 
     def run(passes, segs):
-        for v, (g0, g1), x, sg in zip(views, ranges, ins, segs):
-            r = recs[str(v.device)]
+        for (v, g0, g1), r, x, sg in zip(cards, recs, ins, segs):
             if v.device.type == "cpu":
                 (merge_walk_plain if passes == WALK else merge_hand_over_plain)(v, r, x, m2, S, sg, g0, g1)
             else:
                 launch_merge_range(v, r, x, m2, S, sg, g0, g1, passes)
 
-    segs = [torch.full((SEG_ROWS, n_seg), LOW, dtype=torch.int64, device=v.device) for v in views]
+    segs = [torch.full((SEG_ROWS, n_seg), LOW, dtype=torch.int64, device=v.device) for v, _, _ in cards]
     run(WALK, segs)
     full = launch.merge_shares(segs)
     del segs
-    fulls = {str(dev): full}  # every range's records, once on every device
-    for v in views:
-        if str(v.device) not in fulls:
-            fulls[str(v.device)] = full.to(v.device)
-    run(HAND_OVER, [fulls[str(v.device)] for v in views])
-    seg = launch.merge_shares(list(fulls.values()))  # each device's hand-over counts
+    fulls = [full.to(v.device) for v, _, _ in cards]  # every range's records on every card
+    run(HAND_OVER, fulls)
+    seg = launch.merge_shares(fulls)  # each card's hand-over counts
     return launch.merge_shares(ins), seg
 
 
 def launch_merge_range(view, rec: torch.Tensor, ins: torch.Tensor, m2: int, S: int, seg: torch.Tensor, g0: int,
                        g1: int, passes: int) -> None:
-    """One launch of merge_rank_sh_<layout> on the view's card, counted:
+    """One launch of merge_rank_<layout> on the view's card, counted:
     `passes` (WALK, HAND_OVER or both) over the segments [g0, g1) of seg (5,
     n_seg), at the power-of-two stride S; nothing for an empty range."""
     first, n_seg = segments(rec.numel(), m2, S)
@@ -359,20 +354,20 @@ def merge_mesh_bytes(n1: int, n2: int, m2: int, mesh) -> dict[str, int]:
     """Card bytes a merge over `mesh` (parallel/mesh.py Mesh) holds on each
     distinct device at its peak, str(device) -> bytes: on the first, the
     merge's own (`merge_bytes`: B1, its rows, B2, the records, merge_apply's
-    positions); on each, the slabs of B1's rows it holds (ShardedRows: 48 B
-    a row, one copy a (device, slab)), the records (the first device's are
-    merge_bytes'), an ins and the segment records for each mesh slot on it,
-    and the gathered records."""
+    positions); on each, the physical slabs of B1's rows it holds (mesh.
+    ShardedRows: one a (device, slab), its real rows rounded up to the
+    granularity; outside PyTorch's allocator), one ins and one set of
+    segment records, the gathered records, and the records themselves (the
+    first device's are merge_bytes')."""
     n_seg = segments(n2, m2, MIN_STRIDE)[1]
-    nb_local = -(-(n1 // 64 + 2) // mesh.idx)
+    cuda = [d.index for d in mesh.distinct if d.type == "cuda"]
+    sizes = slab_plan(n1 // 64 + 2, mesh.idx, 48, granularity(cuda) if cuda else 48)[3]
     slabs = {(str(d), s) for row in mesh.grid for s, d in enumerate(row)}
     first = str(mesh.devices[0])
     out: dict[str, int] = {}
-    for d in map(str, mesh.devices):
-        if d not in out:
-            out[d] = (merge_bytes(n1, n2, m2) if d == first else 8 * n2) + 8 * SEG_ROWS * n_seg + 48 * nb_local * sum(
-                dd == d for dd, _ in slabs)
-        out[d] += 8 * n2 + 8 * SEG_ROWS * n_seg
+    for d in map(str, mesh.distinct):
+        out[d] = ((merge_bytes(n1, n2, m2) if d == first else 8 * n2) + 8 * n2 + 2 * 8 * SEG_ROWS * n_seg
+                  + sum(sizes[s] for dd, s in slabs if dd == d))
     return out
 
 

@@ -50,15 +50,16 @@
 // A mesh (construct/merge.py merge_rank_mesh; the port of
 // ropebwt3_tpu/parallel/merge_sharded.py merge_rank_sharded_fn, whose lanes
 // run over `dp` and whose ranks a psum over `idx` makes whole) runs each
-// pass over a range [g0, g1) of the segments on each device, B1's rows
-// sharded over `idx` (occ.cuh Sharded<Dense<T>>: a rank loads its row from
-// the slab that owns it, so no collective runs inside a step).  Between
-// the passes the host gathers every range's segment records onto every
-// device: a hand-over reads the meeting step of a successor that another
-// range walked.  Each ins position and each record has one writer
-// globally, so the shares merge by a max over ins initialised to -1.
-// Instantiated for the dense rows, int32 and int64 (occ.cuh Dense<T>), and
-// for them sharded.
+// pass over a range [g0, g1) of the segments on each card, B1's rows
+// sharded over `idx` and mapped side by side into one virtual range
+// (parallel/mesh.py ShardedRows, csrc/vmm.cu): the kernel reads global row
+// bi at one base pointer, wherever its slab lies, so no collective and no
+// shard lookup runs inside a step.  Between the passes the host gathers
+// every range's segment records onto every card: a hand-over reads the
+// meeting step of a successor that another range walked.  Each ins
+// position and each record has one writer globally, so the shares merge
+// by a max over ins initialised to -1.  Instantiated for the dense rows,
+// int32 and int64 (occ.cuh Dense<T>).
 //
 // The text up to `#ifdef __CUDACC__` compiles with g++ given a header that
 // defines the CUDA keywords (tests/test_torch_runblock.py HOST_SHIM):
@@ -214,17 +215,22 @@ extern "C" {
 
 // rec (n2,) int64 records; ins (n2,) int64 out, apart from rec.
 // Segments: the m2 sentinel rows, then the multiples of S = 2^shift from
-// first * S (first = ceil(m2 / S)) below n2; seg (5, n_seg) int64 out.
-// m2 >= 1 (the wrapper launches nothing for m2 == 0).  Both passes over
-// every segment.  _occupancy_ gives pass 1's (hand_over 0) or pass 2's
-// resident blocks an SM, local bytes and registers a thread.
+// first * S (first = ceil(m2 / S)) below n2; seg (5, n_seg) int64.
+// m2 >= 1 (the wrapper launches nothing for m2 == 0).  `passes` (1: pass
+// 1, 2: pass 2, 3: both) runs over the segments [g0, g1); pass 2 reads the
+// records of any segment, so a range's pass 2 waits for every range's
+// pass 1 (the unsharded index runs both over [0, n_seg)).  _occupancy_
+// gives pass 1's (hand_over 0) or pass 2's resident blocks an SM, local
+// bytes and registers a thread.
 #define RB3C_MERGE_RANK(name, L)                                                                                    \
   int rb3c_merge_rank_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift, \
                              int block_shift, const int64_t* rec, int64_t* ins, int64_t m2, int shift,               \
-                             int64_t first, int64_t n_seg, int64_t* seg, void* stream) {                            \
+                             int64_t first, int64_t n_seg, int64_t g0, int64_t g1, int passes, int64_t* seg,        \
+                             void* stream) {                                                                         \
+    if (g0 < 0 || g1 > n_seg) return (int)cudaErrorInvalidValue;                                                     \
     const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                        \
     const Walk w{rec, ins, m2, first, n_seg, shift};                                                                 \
-    return merge_rank<L>(ix, w, seg_rows(seg, n_seg), 0, n_seg, kWalk | kHandOver, (cudaStream_t)stream);           \
+    return merge_rank<L>(ix, w, seg_rows(seg, n_seg), g0, g1, passes, (cudaStream_t)stream);                        \
   }                                                                                                                  \
   int rb3c_occupancy_merge_rank_##name(int hand_over, int* blocks, int* local, int* regs) {                         \
     return hand_over ? occupancy(merge_hand_over<L>, blocks, local, regs)                                           \
@@ -232,28 +238,6 @@ extern "C" {
   }
 RB3C_MERGE_RANK(dense32, rb3c::Dense<int>)
 RB3C_MERGE_RANK(dense64, rb3c::Dense<int64_t>)
-
-// The same over B1's rows sharded on a mesh (occ.cuh Sharded): the tables
-// are the shard description as rb3c_smem_tg_sh_* take it (smem_tg.cu), and
-// `passes` (1: pass 1, 2: pass 2, 3: both) runs over the segments
-// [g0, g1) of seg (5, n_seg), whose other columns the passes only read.
-#define RB3C_MERGE_RANK_SH(name, L)                                                                                 \
-  int rb3c_merge_rank_sh_##name(const int64_t* desc, int n_shards, int64_t nb, const int64_t* mega, const void* acc, \
-                                int mega_shift, int block_shift, const int64_t* rec, int64_t* ins, int64_t m2,       \
-                                int shift, int64_t first, int64_t n_seg, int64_t g0, int64_t g1, int passes,        \
-                                int64_t* seg, void* stream) {                                                       \
-    rb3c::Sharded<L> ix;                                                                                             \
-    if (!rb3c::make_sharded(desc, n_shards, nb, mega, acc, mega_shift, block_shift, &ix) || g0 < 0 || g1 > n_seg)   \
-      return (int)cudaErrorInvalidValue;                                                                             \
-    const Walk w{rec, ins, m2, first, n_seg, shift};                                                                 \
-    return merge_rank<rb3c::Sharded<L>>(ix, w, seg_rows(seg, n_seg), g0, g1, passes, (cudaStream_t)stream);        \
-  }                                                                                                                  \
-  int rb3c_occupancy_merge_rank_sh_##name(int hand_over, int* blocks, int* local, int* regs) {                      \
-    return hand_over ? occupancy(merge_hand_over<rb3c::Sharded<L>>, blocks, local, regs)                            \
-                     : occupancy(merge_walk<rb3c::Sharded<L>>, blocks, local, regs);                                \
-  }
-RB3C_MERGE_RANK_SH(dense32, rb3c::Dense<int>)
-RB3C_MERGE_RANK_SH(dense64, rb3c::Dense<int64_t>)
 
 }  // extern "C"
 

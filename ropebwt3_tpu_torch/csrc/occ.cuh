@@ -64,11 +64,7 @@ __device__ __forceinline__ void row_base(const Tables& t, int64_t bi, const int 
 template <typename TT>
 struct Dense {
   using T = TT;
-  static constexpr int kRowWords = 12;  // int32 words a row
   Tables t;
-
-  // the row that rank6 reads for k, 0 <= k <= n (Sharded picks its shard by it)
-  __device__ __forceinline__ int64_t block(T k) const { return k >> 6; }
 
   __device__ __forceinline__ T acc(int c) const { return __ldg(static_cast<const T*>(t.acc) + c); }
 
@@ -178,96 +174,6 @@ struct Dense {
     }
   }
 };
-
-// Rows sharded over the idx axis of a mesh (ropebwt3_tpu_torch/parallel/mesh.py
-// ShardedRows; replaces the JAX package's parallel/mesh.py rank1a_local and
-// its psum over `idx`): a layout that wraps any layout L above or in rb.cuh.
-// Global rows [start[s], start[s + 1]) live in shard s's slab, which may lie
-// on another card of the host (read over NVLink once peer access is on) or
-// be another allocation on this one.  A rank takes L's row for k, picks the
-// shard that owns it and runs L's rank on that shard's tables.  Only the
-// owner holds the row, so this equals the JAX package's masked partial rank
-// made whole by a psum.  The JAX package clamps the owner's row to nb - 1
-// (parallel/mesh.py:149-156) because its rb rank reads row k / S; L's row
-// for k in [0, n] is at most nb - 1 already (F1 on rb rows; dense rows have
-// n / 64 + 1), so no clamp is needed.  rows[s] is biased by -start[s] rows,
-// so L indexes it with the GLOBAL row: its slab is read at the local row,
-// and int64 mode's megablock base (t.mega, replicated) at the global one,
-// as rank1a_local does.  esc[s] is shard s's own escape sub-rows, which its
-// rows number from 0.  t holds the launching card's acc, mega and shifts.
-// The shard's pointers are picked by a chain of selects on compares with
-// the shards' first rows (kernel parameters: constant-bank operands, no
-// indexed load); a chain of compares summed into an index for an indexed
-// load of the pointer, and a tree of selects, each measured slower (PERF.md
-// §6).  No shortcut for one shard or for shards on one card: every rank
-// goes through the table.  On dense L, the merge rank (merge_rank.cu, the
-// port of ropebwt3_tpu/parallel/merge_sharded.py merge_rank_sharded_fn)
-// takes a rank in two halves, as Dense does: `load_row` picks the shard of
-// the global row by the same chain (rows only) and loads it from that
-// shard's slab; `rank1` is L's, its megablock base read at the global row.
-constexpr int kMaxShards = 8;
-
-template <class L>
-struct Sharded {
-  using T = typename L::T;
-  Tables t;                        // acc, mega, shifts (rows and esc unused)
-  const int* rows[kMaxShards];     // shard s's slab, biased to global row 0
-  const int* esc[kMaxShards];      // shard s's escape sub-rows (rb), or null
-  int64_t start[kMaxShards];       // first global row of shard s; past the last shard: INT64_MAX
-  int64_t nb;                      // real rows
-
-  __device__ __forceinline__ T acc(int c) const { return __ldg(static_cast<const T*>(t.acc) + c); }
-
-  __device__ __forceinline__ void rank6(T k, T occ[6]) const {
-    const int64_t bi = L{t}.block(k);
-    Tables ts = t;
-    ts.rows = rows[0];
-    ts.esc = esc[0];
-#pragma unroll
-    for (int j = 1; j < kMaxShards; ++j) {  // the last shard whose first row is at or below bi
-      const bool in = bi >= start[j];
-      ts.rows = in ? rows[j] : ts.rows;
-      ts.esc = in ? esc[j] : ts.esc;
-    }
-    L{ts}.rank6(k, occ);
-  }
-
-  // Global row bi (0 <= bi < nb) from the slab of its shard: dense L only.
-  __device__ __forceinline__ void load_row(int64_t bi, int4& a, int4& b, int4& c) const {
-    Tables ts = t;
-    ts.rows = rows[0];
-#pragma unroll
-    for (int j = 1; j < kMaxShards; ++j) ts.rows = bi >= start[j] ? rows[j] : ts.rows;
-    L{ts}.load_row(bi, a, b, c);
-  }
-
-  // occ_c(k) from k's row as load_row gives it: dense L only.
-  __device__ __forceinline__ T rank1(T k, int c, const int4& a, const int4& b, const int4& c4) const {
-    return L{t}.rank1(k, c, a, b, c4);
-  }
-};
-
-// The Sharded<L> of a shard description as the C entry points take it:
-// desc (n_shards, 3) int64 on the host, each shard's (rows, esc, first
-// global row); the other tables as `Tables` takes them.  Returns false for
-// n_shards outside [1, kMaxShards].  Host code.
-template <class L>
-inline bool make_sharded(const int64_t* desc, int n_shards, int64_t nb, const int64_t* mega, const void* acc,
-                         int mega_shift, int block_shift, Sharded<L>* out) {
-  if (n_shards < 1 || n_shards > kMaxShards) return false;
-  out->t = Tables{nullptr, nullptr, mega, acc, mega_shift, block_shift};
-  out->nb = nb;
-  for (int s = 0; s < kMaxShards; ++s) {
-    const bool on = s < n_shards;
-    const int64_t first = on ? desc[3 * s + 2] : INT64_MAX;
-    // biased in integers: the slab's address minus `first` rows
-    out->rows[s] = on ? reinterpret_cast<const int*>((uintptr_t)desc[3 * s] - (uintptr_t)first * L::kRowWords * 4)
-                      : nullptr;
-    out->esc[s] = on ? reinterpret_cast<const int*>((uintptr_t)desc[3 * s + 1]) : nullptr;
-    out->start[s] = first;
-  }
-  return true;
-}
 
 // Initial bi-interval of one symbol (fm-index.h:90-93).
 template <class L>

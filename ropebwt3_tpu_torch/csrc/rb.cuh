@@ -45,11 +45,7 @@ namespace rb3c {
 template <typename TT>
 struct Rb {
   using T = TT;
-  static constexpr int kRowWords = 40;  // int32 words a row
   Tables t;
-
-  // the row that rank6 reads for k, 0 <= k <= n (F1; Sharded picks its shard by it)
-  __device__ __forceinline__ int64_t block(T k) const { return k > 0 ? (int64_t)(k - 1) >> t.block_shift : 0; }
 
   __device__ __forceinline__ T acc(int c) const { return __ldg(static_cast<const T*>(t.acc) + c); }
 
@@ -127,11 +123,3 @@ struct Rb {
   X(dense64, rb3c::Dense<int64_t>)  \
   X(rb32, rb3c::Rb<int>)            \
   X(rb64, rb3c::Rb<int64_t>)
-
-// the same over rows sharded on a mesh (occ.cuh Sharded): entry points
-// name them sh_<layout>
-#define RB3C_SHARDED_LAYOUTS(X)                       \
-  X(dense32, rb3c::Sharded<rb3c::Dense<int>>)         \
-  X(dense64, rb3c::Sharded<rb3c::Dense<int64_t>>)     \
-  X(rb32, rb3c::Sharded<rb3c::Rb<int>>)               \
-  X(rb64, rb3c::Sharded<rb3c::Rb<int64_t>>)

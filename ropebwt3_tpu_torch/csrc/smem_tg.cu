@@ -238,31 +238,6 @@ cudaError_t queue_grid(int64_t n_lanes, unsigned* grid) {
   return cudaSuccess;
 }
 
-// The launches of both kernels on a layout object (the entry points below
-// build it from their table arguments).
-template <class L>
-int launch_tg(const L& ix, const uint8_t* flat, const int64_t* seq_off, int64_t n_reads, int min_occ, int min_len,
-              int max_mems, void* mems, int* n_mem, int* trips, void* stream) {
-  smem_tg_kernel<L><<<blocks(n_reads), kThreads, 0, (cudaStream_t)stream>>>(
-      ix, flat, seq_off, n_reads, min_occ, min_len, max_mems, static_cast<typename L::T*>(mems), n_mem, trips);
-  return (int)cudaGetLastError();
-}
-
-template <class L>
-int launch_tgc(const L& ix, const uint8_t* flat, const int64_t* seq_off, const int64_t* lanes, const int64_t* order,
-               int64_t n_lanes, int min_occ, int min_len, int max_mems, int log_len, void* mems, int* n_mem, int* log,
-               int* n_log, int* trips, unsigned long long* next, void* stream) {
-  unsigned grid;
-  cudaError_t e = queue_grid<L>(n_lanes, &grid);
-  if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(*next), (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  smem_tgc_kernel<L><<<grid, kThreads, 0, (cudaStream_t)stream>>>(ix, flat, seq_off, lanes, order, n_lanes, min_occ,
-                                                                 min_len, max_mems, log_len,
-                                                                 static_cast<typename L::T*>(mems), n_mem, log, n_log,
-                                                                 trips, next);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -280,7 +255,9 @@ extern "C" {
                           int min_occ, int min_len, int max_mems, void* mems, int* n_mem, int* trips,             \
                           void* stream) {                                                                         \
     const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                      \
-    return launch_tg(ix, flat, seq_off, n_reads, min_occ, min_len, max_mems, mems, n_mem, trips, stream);        \
+    smem_tg_kernel<L><<<blocks(n_reads), kThreads, 0, (cudaStream_t)stream>>>(                                    \
+        ix, flat, seq_off, n_reads, min_occ, min_len, max_mems, static_cast<L::T*>(mems), n_mem, trips);          \
+    return (int)cudaGetLastError();                                                                                \
   }                                                                                                                \
   int rb3c_smem_tgc_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift,  \
                            int block_shift, const uint8_t* flat, const int64_t* seq_off, const int64_t* lanes,   \
@@ -288,79 +265,21 @@ extern "C" {
                            int log_len, void* mems, int* n_mem, int* log, int* n_log, int* trips,                \
                            unsigned long long* next, void* stream) {                                             \
     const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                      \
-    return launch_tgc(ix, flat, seq_off, lanes, order, n_lanes, min_occ, min_len, max_mems, log_len, mems, n_mem, \
-                      log, n_log, trips, next, stream);                                                           \
+    unsigned grid;                                                                                                 \
+    cudaError_t e = queue_grid<L>(n_lanes, &grid);                                                                 \
+    if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(*next), (cudaStream_t)stream);                      \
+    if (e != cudaSuccess) return (int)e;                                                                           \
+    smem_tgc_kernel<L><<<grid, kThreads, 0, (cudaStream_t)stream>>>(ix, flat, seq_off, lanes, order, n_lanes,      \
+                                                                   min_occ, min_len, max_mems, log_len,           \
+                                                                   static_cast<L::T*>(mems), n_mem, log, n_log,   \
+                                                                   trips, next);                                   \
+    return (int)cudaGetLastError();                                                                                \
   }                                                                                                                \
   int rb3c_occupancy_smem_tg_##name(int chunked, int* blocks, int* local, int* regs) {                            \
     return chunked ? occupancy(smem_tgc_kernel<L>, blocks, local, regs)                                            \
                    : occupancy(smem_tg_kernel<L>, blocks, local, regs);                                            \
   }
 RB3C_LAYOUTS(RB3C_SMEM_TG)
-
-// The same kernels over rows sharded on a mesh (occ.cuh Sharded): the
-// tables are the shard description (desc (n_shards, 3) int64 on the host:
-// each shard's rows, escape sub-rows and first global row), the real row
-// count, and the launching card's megablock bases and acc.  The shard table
-// travels as a kernel parameter.  Entry points rb3c_smem_tg_sh_<layout>.
-#define RB3C_SMEM_TG_SH(name, L)                                                                                    \
-  int rb3c_smem_tg_sh_##name(const int64_t* desc, int n_shards, int64_t nb, const int64_t* mega, const void* acc,     \
-                          int mega_shift, int block_shift, const uint8_t* flat, const int64_t* seq_off,           \
-                          int64_t n_reads, int min_occ, int min_len, int max_mems, void* mems, int* n_mem,        \
-                          int* trips, void* stream) {                                                             \
-    L ix;                                                                                                          \
-    if (!rb3c::make_sharded(desc, n_shards, nb, mega, acc, mega_shift, block_shift, &ix))                         \
-      return (int)cudaErrorInvalidValue;                                                                           \
-    return launch_tg(ix, flat, seq_off, n_reads, min_occ, min_len, max_mems, mems, n_mem, trips, stream);        \
-  }                                                                                                                \
-  int rb3c_smem_tgc_sh_##name(const int64_t* desc, int n_shards, int64_t nb, const int64_t* mega, const void* acc,    \
-                           int mega_shift, int block_shift, const uint8_t* flat, const int64_t* seq_off,          \
-                           const int64_t* lanes, const int64_t* order, int64_t n_lanes, int min_occ, int min_len, \
-                           int max_mems, int log_len, void* mems, int* n_mem, int* log, int* n_log, int* trips,   \
-                           unsigned long long* next, void* stream) {                                             \
-    L ix;                                                                                                          \
-    if (!rb3c::make_sharded(desc, n_shards, nb, mega, acc, mega_shift, block_shift, &ix))                         \
-      return (int)cudaErrorInvalidValue;                                                                           \
-    return launch_tgc(ix, flat, seq_off, lanes, order, n_lanes, min_occ, min_len, max_mems, log_len, mems, n_mem, \
-                      log, n_log, trips, next, stream);                                                           \
-  }                                                                                                                \
-  int rb3c_occupancy_smem_tg_sh_##name(int chunked, int* blocks, int* local, int* regs) {                            \
-    return chunked ? occupancy(smem_tgc_kernel<L>, blocks, local, regs)                                            \
-                   : occupancy(smem_tg_kernel<L>, blocks, local, regs);                                            \
-  }
-RB3C_SHARDED_LAYOUTS(RB3C_SMEM_TG_SH)
-
-// Peer access from each of devs[0:n) to each other distinct one, so a
-// kernel on one card reads the shards on the others.  Returns 0, a CUDA
-// error code, or -1 with the first pair that cannot reach each other in
-// *bad_from, *bad_to (cudaDeviceCanAccessPeer).  An access enabled already
-// counts as enabled.  The current device is restored.
-int rb3c_enable_peer(const int* devs, int n, int* bad_from, int* bad_to) {
-  int cur;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e != cudaSuccess) return (int)e;
-  int ret = 0;
-  for (int i = 0; i < n && ret == 0; ++i) {
-    for (int j = 0; j < n && ret == 0; ++j) {
-      if (devs[i] == devs[j]) continue;
-      int can = 0;
-      e = cudaDeviceCanAccessPeer(&can, devs[i], devs[j]);
-      if (e == cudaSuccess && !can) {
-        *bad_from = devs[i], *bad_to = devs[j];
-        ret = -1;
-        break;
-      }
-      if (e == cudaSuccess) e = cudaSetDevice(devs[i]);
-      if (e == cudaSuccess) e = cudaDeviceEnablePeerAccess(devs[j], 0);
-      if (e == cudaErrorPeerAccessAlreadyEnabled) {
-        cudaGetLastError();  // clear it
-        e = cudaSuccess;
-      }
-      if (e != cudaSuccess) ret = (int)e;
-    }
-  }
-  cudaSetDevice(cur);
-  return ret;
-}
 
 }  // extern "C"
 

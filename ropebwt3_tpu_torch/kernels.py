@@ -17,13 +17,11 @@ also write lane 0's phase clocks (ropebwt3_tpu_torch/dp_time.py reads both).
 The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
 dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
-`RunBlockIndex`), and so does `suffix`'s backward search (csrc/walk.cu);
-the SMEM kernels also in one per layout sharded on a mesh (sh_dense32 ..
-sh_rb64, parallel/mesh.py `ShardView`: a shard description in place of the
-tables), beside `rb3c_enable_peer` (peer access between the mesh's cards);
-ssa_gen's walk (its pass 1 over a range of the segments), merge_rank (and
-merge_rank_sh_*, B1's rows sharded on a mesh: a range of segments and the
-passes to run), `get`'s LF walk (its three walking passes),
+`RunBlockIndex`, or a mesh's rows mapped into one range, parallel/mesh.py
+`ShardView`), and so does `suffix`'s backward search (csrc/walk.cu);
+ssa_gen's walk (its pass 1 over a range of the segments), merge_rank (a
+range of the segments and the passes to run), `get`'s LF walk (its three
+walking passes),
 `kount`'s level rank (csrc/kount.cu), the hapdiv DP (one warp a window)
 and the sw DP (one warp a read) in the two dense ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
@@ -33,7 +31,9 @@ widths and its pointer-jumping pass in one; neither reads the index (`get`
 ranks its segments with that same pointer-jumping pass).  The
 probes of csrc/probe.cu take a plain int32 table (probe.py); the suffix
 sort's passes of csrc/sa_round.cu and its radix sort, csrc/sa_sort.cu, take
-plain arrays (construct/sa.py).
+plain arrays (construct/sa.py).  The `rb3c_vmm_*` calls of csrc/vmm.cu
+(the mesh's virtual mapping, parallel/mesh.py) take no stream and return a
+CUresult or CUDA runtime code, which `rb3c_vmm_error` names.
 """
 
 from __future__ import annotations
@@ -50,7 +50,6 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LAYOUTS = ("dense32", "dense64", "rb32", "rb64")
-SHARDED_LAYOUTS = tuple(f"sh_{lay}" for lay in LAYOUTS)
 
 _V, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _TABLES = [_V, _V, _V, _V, _I32, _I32]  # rows, esc, mega, acc, mega_shift, log2 block
@@ -64,25 +63,15 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 4, *[_V] * 7]
     _ENTRIES[f"rb3c_suffix_walk_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_occupancy_smem_tg_{_lay}"] = [_I32, _V, _V, _V]  # no stream: smem_tgc (1) or smem_tg (0)
-# the SMEM kernels over rows sharded on a mesh (parallel/mesh.py): the
-# shard description (n_shards, 3) int64 on the host, n_shards, the real row
-# count, then mega, acc and the shifts, in place of the six tables
-_SH_TABLES = [_V, _I32, _I64, _V, _V, _I32, _I32]
-for _lay in SHARDED_LAYOUTS:
-    _ENTRIES[f"rb3c_smem_tg_{_lay}"] = [*_SH_TABLES, *_ENTRIES[f"rb3c_smem_tg_{_lay[3:]}"][len(_TABLES):]]
-    _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_SH_TABLES, *_ENTRIES[f"rb3c_smem_tgc_{_lay[3:]}"][len(_TABLES):]]
-    _ENTRIES[f"rb3c_occupancy_smem_tg_{_lay}"] = [_I32, _V, _V, _V]
 for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_retrieve_seg_walk_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_retrieve_seg_write_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V, _V, _V, _I64, _V, _V]
     _ENTRIES[f"rb3c_retrieve_seg_cycle_{_lay}"] = [*_TABLES, _V, _V, _I64, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_walk_{_lay}"] = [*_TABLES, _I64, _I32, _I32, _I64, _I64, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_finish_{_lay}"] = [_V, _I64, _I64, _I64, _V, _V, _V, _V, _V, _V]
-    _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _V, _V]
-    # K6 over B1's rows sharded on a mesh: a range of segments, the passes to run
-    _ENTRIES[f"rb3c_merge_rank_sh_{_lay}"] = [*_SH_TABLES, _V, _V, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _V, _V]
-    for _sh in ("", "sh_"):  # no stream: pass 1's (0) or pass 2's (1) attributes
-        _ENTRIES[f"rb3c_occupancy_merge_rank_{_sh}{_lay}"] = [_I32, _V, _V, _V]
+    # a range of the segments [g0, g1) and the passes to run (1, 2 or both) before seg
+    _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _V, _V]
+    _ENTRIES[f"rb3c_occupancy_merge_rank_{_lay}"] = [_I32, _V, _V, _V]  # no stream: pass 1's (0) or pass 2's (1)
     _ENTRIES[f"rb3c_kount_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_hapdiv_{_lay}"] = [*_TABLES, _V, _I64, *[_I32] * 8, _V, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_sw_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 8, *[_V] * 10]
@@ -103,7 +92,12 @@ for _name in ("rb3c_probe_smem_gather", "rb3c_probe_hbm_gather"):
     _ENTRIES[_name] = [_V, _I32, _I32, _I32, _V, _I32, _I32, _V, _V]
 _ENTRIES["rb3c_probe_smem_capacity"] = [_I32, _V, _V]
 _ENTRIES["rb3c_smem_optin"] = [_I32]  # no stream: a device attribute
-_ENTRIES["rb3c_enable_peer"] = [_V, _I32, _V, _V]  # no stream
+# the virtual mapping of csrc/vmm.cu (no stream; sizes, pointers and handles as uint64)
+_U64, _P = ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64)
+_ENTRIES.update({"rb3c_vmm_granularity": [_I32, _P], "rb3c_vmm_can_access": [_I32, _I32, ctypes.POINTER(ctypes.c_int)],
+                 "rb3c_vmm_reserve": [_U64, _U64, _P], "rb3c_vmm_create": [_I32, _U64, _P],
+                 "rb3c_vmm_map": [_U64, _U64, _U64], "rb3c_vmm_release": [_U64], "rb3c_vmm_access": [_U64, _U64, _V, _I32],
+                 "rb3c_vmm_free": [_U64, _U64, _U64, _V, _I32]})
 
 _lib = None
 _COUNT = threading.Lock()
@@ -177,6 +171,8 @@ def lib() -> ctypes.CDLL:
         dll.rb3c_sa_sort_status_len.restype = ctypes.c_int64
         dll.rb3c_error_string.argtypes = [ctypes.c_int]
         dll.rb3c_error_string.restype = ctypes.c_char_p
+        dll.rb3c_vmm_error.argtypes = [ctypes.c_int]
+        dll.rb3c_vmm_error.restype = ctypes.c_char_p
         _lib = dll
     return _lib
 
@@ -194,21 +190,12 @@ def error_string(err: int) -> str:
     return lib().rb3c_error_string(err).decode()
 
 
-def enable_peer(devices) -> None:
-    """Peer access between every two distinct CUDA devices of `devices`
-    (rb3c_enable_peer), so that a kernel on one reads tensors on the others.
-    Raises if a pair cannot reach each other or a call fails: no fallback."""
-    ids = sorted({d.index for d in devices})
-    if len(ids) < 2:
-        return
-    arr = (ctypes.c_int * len(ids))(*ids)
-    a, b = ctypes.c_int(-1), ctypes.c_int(-1)
-    err = lib().rb3c_enable_peer(arr, len(ids), ctypes.byref(a), ctypes.byref(b))
-    if err == -1:
-        raise RuntimeError(f"cuda:{a.value} cannot reach cuda:{b.value} (cudaDeviceCanAccessPeer is 0): the mesh's "
-                           "shards must lie on cards that reach each other")
+def vmm(name: str, *args) -> None:
+    """Call csrc/vmm.cu's `rb3c_vmm_<name>`; raise, naming the call and the
+    CUDA code, if it fails: no fallback."""
+    err = getattr(lib(), f"rb3c_vmm_{name}")(*args)
     if err != 0:
-        raise RuntimeError(f"rb3c_enable_peer: CUDA error {err}: {error_string(err)}")
+        raise RuntimeError(f"rb3c_vmm_{name}: CUDA error {err}: {lib().rb3c_vmm_error(err).decode()}")
 
 
 def launch(name: str, device, *args) -> None:

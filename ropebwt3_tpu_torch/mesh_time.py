@@ -1,5 +1,6 @@
-"""Time K1 over sharded rows (smem_tgc_sh_*, csrc/occ.cuh Sharded) beside
-unsharded K1 on the card, for side-by-side runs of two trees.
+"""Time K1 over sharded rows (smem_tgc over a mesh's mapped range,
+parallel/mesh.py ShardedRows) beside unsharded K1 on the card, for
+side-by-side runs of two trees.
 
     python -m ropebwt3_tpu_torch.mesh_time WORK [TAG]
 
@@ -10,9 +11,10 @@ S) it times smem_tgc on the batch's lanes (CHUNK + MARGIN) with CUDA
 events, queued behind a spin kernel (probe.queued_ms), REPS launches a
 turn, in turns unsharded, 2x4, 1x1, 1x1, 2x4, unsharded: the rows sharded
 over a 2x4 mesh whose eight slots are this card (the last view: dp row 1,
-shard column 3) and over a 1x1 mesh (one shard, the same table walk).  The
-lane trips of all three must be equal.  Also the kernels' registers and
-resident blocks an SM (`rb3c_occupancy_smem_tg_*`).  Prints one JSON line
+shard column 3) and over a 1x1 mesh (one slab), each read through its
+mapping's base pointer by the unsharded kernel.  The lane trips of all
+three must be equal.  Also the kernel's registers and resident blocks an
+SM (`rb3c_occupancy_smem_tg_*`).  Prints one JSON line
 tagged TAG, with the card's name and power limit.  Two trees compare in
 one call: run each from its own root in turns A, B, B, A.
 """
@@ -62,13 +64,12 @@ def main(argv: list[str]) -> None:
                  "1x1": ShardedRows(x, make_mesh(1, 1, [dev])).views[0]}
         trips = {k: smem.launch_tgc(v, flat, off, lanes, order, trips=True, **args).trips for k, v in views.items()}
         if not all(torch.equal(t, trips["unsharded"]) for t in trips.values()):
-            raise SystemExit(f"mesh_time: FAIL: {name}: the sharded kernels' lane trips differ from the unsharded one's")
+            raise SystemExit(f"mesh_time: FAIL: {name}: the lane trips over the mapped rows differ from the unsharded rows'")
         turns = []
         for k in ("unsharded", "2x4", "1x1", "1x1", "2x4", "unsharded"):
             v = views[k]
             turns.append((k, probe.queued_ms([lambda v=v: smem.launch_tgc(v, flat, off, lanes, order, **args)] * REPS)))
-        out[name] = dict(turns=turns, longest_lane_trips=int(trips["unsharded"].max()),
-                         occupancy={name: occupancy(name), f"sh_{name}": occupancy(f"sh_{name}")})
+        out[name] = dict(turns=turns, longest_lane_trips=int(trips["unsharded"].max()), occupancy=occupancy(name))
         print(f"[mesh_time] {tag} {name}: " + ", ".join(f"{k} {ms:.4f}" for k, ms in turns)
               + f" ms; longest lane {out[name]['longest_lane_trips']} trips ({card})", flush=True)
         del views, trips

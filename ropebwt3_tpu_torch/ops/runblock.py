@@ -242,29 +242,26 @@ def pack_escapes(planes: np.ndarray, S: int, device) -> torch.Tensor:
     return out
 
 
-def shard_layout(rows: torch.Tensor, n_idx: int) -> tuple[int, list[tuple[torch.Tensor, torch.Tensor]]]:
-    """The rb rows (nb, 40) cut for an n_idx-way shard of the block axis
-    (parallel/mesh.py ShardedRows; the counterpart of the JAX package's
-    runblock.shard_layout_np for the port's escape sub-rows): the rows pad
-    to a multiple of n_idx with pad rows of no escape (col 6 = -1, never
-    ranked: the owner of a rank clamps to the last real row), and are cut
-    into slabs of nb_local rows; each slab numbers its escape rows from 0,
-    in row order, and carries only their sub-rows.  Returns (nb_local, one
-    (slab (nb_local, 40) int32, the global escape ids it carries (m,) int64)
-    a shard), on the rows' device."""
-    nb = rows.shape[0]
-    nb_local = -(-nb // n_idx)
-    pad = torch.zeros((nb_local * n_idx - nb, RB_COLS), dtype=rows.dtype, device=rows.device)
-    pad[:, 6] = -1
-    full = torch.cat([rows, pad])
-    out = []
+def shard_layout(rows: torch.Tensor, nb_local: int, n_idx: int, align: int) -> tuple[torch.Tensor, list]:
+    """The rb rows (nb, 40) cut into n_idx slabs of nb_local rows, laid out
+    for one virtual range (parallel/mesh.py ShardedRows; the counterpart of
+    the JAX package's runblock.shard_layout_np for the port's escape
+    sub-rows): slab s carries the sub-rows of its own escapes, in row order,
+    from escape row E_s of the range, E_0 = 0 and each E_s a multiple of
+    `align` past the end of the slab before it, and column 6 of its rows is
+    rebased to them.  Returns (the rows rebased, a new tensor; one (E_s, the
+    global escape ids slab s carries (m,) int64) a slab), on the rows'
+    device.  Pad rows past nb are the range's, with no escape."""
+    out = rows.clone()
+    e0, cut = 0, []
     for s in range(n_idx):
-        slab = full[s * nb_local : (s + 1) * nb_local].clone()
-        has = slab[:, 6] >= 0
-        ids = slab[has, 6].long()
-        slab[has, 6] = torch.arange(ids.numel(), dtype=slab.dtype, device=slab.device)
-        out.append((slab, ids))
-    return nb_local, out
+        part = out[s * nb_local : (s + 1) * nb_local]
+        has = part[:, 6] >= 0
+        ids = part[has, 6].long()
+        part[has, 6] = torch.arange(e0, e0 + ids.numel(), dtype=part.dtype, device=part.device)
+        cut.append((e0, ids))
+        e0 += -(-ids.numel() // align) * align
+    return out, cut
 
 
 # ---------------------------------------------------------------------------

@@ -506,9 +506,10 @@ class BatchedSmemTG:
     `.rb.npz` cache when it is fresh) or auto (`resolve_occ`); the width
     follows n.  `rows`, f's rows already on `device` (a resident server's),
     stand in for building them.  With `mesh` (parallel/mesh.py Mesh) the
-    rows are sharded over its idx axis (auto decided per shard) and each
-    batch's reads are split over all its devices (parallel/smem_sharded.py);
-    `device` is then unused.  `n_rerun` and `n_unmerged` add up over
+    rows are sharded over its idx axis (auto decided per shard) and mapped
+    into one range a dp row, and each batch's reads are split over its
+    cards, one share a card (parallel/smem_sharded.py); `device` is then
+    unused.  `n_rerun` and `n_unmerged` add up over
     batches."""
 
     def __init__(self, f: DenseFMIndex, min_occ: int = 1, min_len: int = 19, max_mems: int = MAX_MEMS, *, device,

@@ -10,7 +10,8 @@ dp / WORLD_SIZE x idx on its own devices (`local_mesh`).  Each process takes
 its contiguous share of every batch (`DistMem`, `DistList`); process 0
 writes all output in input order, the others none (ropebwt3_tpu/cli.py
 main: only process 0 owns stdout).  `ssa` and `build` split a walk's
-segments instead (`segment_ranges`), and every process gets every share's
+segments instead (`segment_ranges`: one range a mesh slot, and one a card,
+`card_ranges`), and every process gets every share's
 slots, records and ins (`merge_shares`), finishes the work and writes its
 own `-o` file, as the JAX package's processes do.  An idx axis across
 processes is refused: the rows of one dp row stay in one process.
@@ -22,7 +23,7 @@ import os
 
 import numpy as np
 
-from .mesh import MeshError, cli_devices, make_mesh, parse_mesh, split_segments
+from .mesh import MeshError, by_card, cli_devices, make_mesh, parse_mesh, split_segments
 
 IDX_ACROSS = "ROADMAP queue 1 item 12 (its remainder: an idx axis across processes)"
 
@@ -103,6 +104,15 @@ def segment_ranges(n_seg: int, n_local: int) -> list[tuple[int, int]]:
     rank, size, _ = world()
     cuts = split_segments(n_seg, size * n_local)[rank * n_local :]
     return [(cuts[j], cuts[j + 1]) for j in range(n_local)]
+
+
+def card_ranges(n_seg: int, devices: list) -> list[tuple[int, int, int]]:
+    """This process's share of a walk's n_seg segments as one contiguous
+    range [g0, g1) a distinct card of `devices` (its mesh slots, in order),
+    as long as its slots' ranges (`segment_ranges`) together: (the card's
+    first slot, g0, g1) each, in order of first appearance (mesh.by_card)."""
+    ranges = segment_ranges(n_seg, len(devices))
+    return by_card(devices, [g0 for g0, _ in ranges] + [ranges[-1][1]])
 
 
 def merge_shares(parts: list):

@@ -385,28 +385,30 @@ def walk_mesh(reps: list, m: int, ssa_shift: int,
     """The walk over a mesh, the port of the mesh branch of
     ropebwt3_tpu/ssa_ops.py ssa_gen_device (:163-199, lanes over `dp`, the
     slots merged by a pmax): reps[j] is the dense rows on the mesh's j-th
-    device (`replicate`), which takes the j-th contiguous range of the
-    segments (this process's share under torchrun, launch.segment_ranges).
-    Pass 1 runs on each over its range into its own slots and records;
-    every slot and record has one writer globally, so the shares merge by a
-    max (launch.merge_shares: ssa_lane -1, ssa_l 0 and the records LOW where
-    unwritten; slot n_ssa, the plain version's dummy, is never merged) onto
-    the first device, where passes 2 and 3 run once over every segment
-    (F7: a segment on a `$`-free cycle clears its slots there, whichever
-    device wrote them).  On CUDA each range is one launch of
-    rb3c_ssa_walk_<layout>, counted in `ssa_gen_mesh.launches`; on the CPU
-    the plain passes run.  Returns the four arrays and the records (3,
-    n_seg) after pass 2, as `launch_walk`."""
+    device (`replicate`), and each distinct card takes one contiguous range
+    of the segments, as long as its mesh slots' share (this process's share
+    under torchrun, launch.card_ranges).  Pass 1 runs on each card over its
+    range into its own slots and records; every slot and record has one
+    writer globally, so the shares merge by a max (launch.merge_shares:
+    ssa_lane -1, ssa_l 0 and the records LOW where unwritten; slot n_ssa,
+    the plain version's dummy, is never merged) onto the first device, where
+    passes 2 and 3 run once over every segment (F7: a segment on a
+    `$`-free cycle clears its slots there, whichever card wrote them).  On
+    CUDA each card's range is one launch of rb3c_ssa_walk_<layout>, counted
+    in `ssa_gen_mesh.launches`; on the CPU the plain passes run.  Returns
+    the four arrays and the records (3, n_seg) after pass 2, as
+    `launch_walk`."""
     home = reps[0]
     n_ssa, n_seg = n_slots(home, m, ssa_shift), segments(home.n, m, S)
     plain = home.device.type == "cpu"
     seg = None if plain else torch.empty((2, SEG_ROWS, n_seg), dtype=torch.int64, device=home.device)
     shares = []
-    for j, (x, (g0, g1)) in enumerate(zip(reps, launch.segment_ranges(n_seg, len(reps)))):
+    for i, (j, g0, g1) in enumerate(launch.card_ranges(n_seg, [x.device for x in reps])):
+        x = reps[j]
         if plain:
             shares.append(ssa_walk_plain(x, m, ssa_shift, S, g0, g1))
             continue
-        rec = seg[0] if j == 0 else torch.empty((SEG_ROWS, n_seg), dtype=torch.int64, device=x.device)
+        rec = seg[0] if i == 0 else torch.empty((SEG_ROWS, n_seg), dtype=torch.int64, device=x.device)
         share = (torch.zeros(n_ssa, dtype=x.dtype, device=x.device),
                  torch.full((n_ssa,), -1, dtype=torch.int32, device=x.device), rec.fill_(LOW))
         if g1 > g0:

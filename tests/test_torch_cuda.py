@@ -919,11 +919,13 @@ def sharded_index(layout, f, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_sharded_kernels_match_plain(cuda_device, layout):
-    """smem_tg_sh_* and smem_tgc_sh_* (csrc/occ.cuh Sharded) over a 2x4 mesh
-    of one card against their plain version (smem_tg_plain over
-    rank6_sharded_plain, on the CPU) and against the unsharded kernels: rows,
-    counts, START logs and trips, exact, on every view; reads with N runs
-    rank at k = n, which S divides on rb rows (F1); one launch counted each."""
+    """smem_tg_* and smem_tgc_* over the rows of a 2x4 mesh of one card,
+    mapped into one range (parallel/mesh.py ShardedRows: the unsharded
+    kernels at the range's base pointer), against their plain version
+    (smem_tg_plain over rank6_sharded_plain, on the CPU) and against the
+    kernels over the unsharded rows: rows, counts, START logs and trips,
+    exact, on every view; reads with N runs rank at k = n, which S divides
+    on rb rows (F1); one launch counted each."""
     from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
 
     f = n_index()
@@ -957,9 +959,9 @@ def test_sharded_kernels_match_plain(cuda_device, layout):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["dense32", "rb32"])
 def test_sharded_engine_matches_unsharded(cuda_device, layout):
-    """The engine over a 2x4 mesh of one card (smem_mesh: the reads split
-    over the eight views, each running the chunked engine and its reruns)
-    equals the unsharded engine, and launches only the sharded kernels."""
+    """The engine over a 2x4 mesh of one card (smem_mesh: the card takes
+    the eight slots' shares of the reads as one, one chunked engine over
+    the mapped rows) equals the unsharded engine, in one smem_tgc launch."""
     from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
     from ropebwt3_tpu_torch.parallel.smem_sharded import smem_mesh
 
@@ -970,37 +972,50 @@ def test_sharded_engine_matches_unsharded(cuda_device, layout):
     sh = ShardedRows(gpu, make_mesh(2, 4, [cuda_device] * 8))
     want = smem.smem_tg(gpu, torch.from_numpy(flat).to(cuda_device), torch.from_numpy(off).to(cuda_device),
                         min_occ=1, min_len=19)
-    before = smem.smem_tgc_cuda.launches["sh_" + layout]
+    before = smem.smem_tgc_cuda.launches[layout]
     got = smem_mesh(sh.views, flat, off, min_occ=1, min_len=19)
-    assert smem.smem_tgc_cuda.launches["sh_" + layout] == before + 8
+    assert smem.smem_tgc_cuda.launches[layout] == before + 1 and sh.views[0].layout == layout
     assert np.array_equal(got.counts, want.counts.cpu().numpy()) and np.array_equal(got.rows, want.rows.cpu().numpy())
 
 
-@pytest.mark.cuda
-def test_sharded_kernel_occupancy(cuda_device):
-    """Each sharded SMEM kernel reports its registers and resident blocks,
-    and the peer-access entry accepts a mesh of one card."""
+def occupancy(name: str, which: int) -> tuple[int, int]:
+    """(registers, resident blocks an SM) of a kernel through its
+    rb3c_occupancy_* query."""
     import ctypes
 
     from ropebwt3_tpu_torch import kernels
 
-    kernels.enable_peer([cuda_device, cuda_device])
-    for lay in kernels.SHARDED_LAYOUTS:
-        b, loc, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        assert getattr(kernels.lib(), f"rb3c_occupancy_smem_tg_{lay}")(1, ctypes.byref(b), ctypes.byref(loc),
-                                                                      ctypes.byref(regs)) == 0
-        assert b.value >= 1 and regs.value > 0
+    b, loc, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    assert getattr(kernels.lib(), f"rb3c_occupancy_{name}")(which, ctypes.byref(b), ctypes.byref(loc),
+                                                           ctypes.byref(regs)) == 0
+    assert b.value >= 1 and regs.value > 0
+    return regs.value, b.value
+
+
+@pytest.mark.cuda
+def test_sharded_kernel_occupancy(cuda_device):
+    """The SMEM kernels a 2x4 mesh of one card launches over its mapped rows
+    take the unsharded kernels' registers and resident blocks an SM, in
+    every layout (one thread a lane and a read): they are those kernels."""
+    from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
+
+    f = n_index()
+    for layout in LAYOUTS:
+        v = ShardedRows(sharded_index(layout, f, cuda_device), make_mesh(2, 4, [cuda_device] * 8)).views[-1]
+        for chunked in (1, 0):
+            assert occupancy(f"smem_tg_{v.layout}", chunked) == occupancy(f"smem_tg_{layout}", chunked)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [8, 64, "derived"])
 @pytest.mark.parametrize("layout", ["dense32", "dense64"])
 def test_merge_rank_sharded_matches_plain(corpus, corpus_index, cuda_device, layout, S):
-    """K6 over B1's rows sharded on a 2x4 mesh of one card (merge_rank_mesh:
-    merge_rank_sh_<layout>, each pass of each of the eight ranges one
-    launch) against merge_rank_chunked_plain over rank6_sharded_plain on the
-    card and against the unsharded kernel, whose entry point runs the full
-    range: ins and every segment record exact; 16 launches counted."""
+    """K6 over B1's rows sharded on a 2x4 mesh of one card and mapped into
+    one range (merge_rank_mesh: the card takes the eight slots' segments as
+    one range, each pass one launch of merge_rank_<layout> over the mapped
+    rows) against merge_rank_chunked_plain over rank6_sharded_plain on the
+    card and against the unsharded kernel, which runs both passes in one
+    call: ins and every segment record exact; 2 launches counted."""
     from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
 
     b1 = torch.from_numpy(np.ascontiguousarray(corpus_index.bwt[: corpus_index.n])).to(cuda_device)
@@ -1010,10 +1025,10 @@ def test_merge_rank_sharded_matches_plain(corpus, corpus_index, cuda_device, lay
     acc2, rec = tmerge.lf2_packed(torch.from_numpy(merge_b2(corpus, "mutated")).to(cuda_device))
     m2 = int(acc2[1])
     S = tmerge.stride(rec.numel(), cuda_device) if S == "derived" else S
-    before = tmerge.merge_rank_cuda.launches["sh_" + layout]
+    before = tmerge.merge_rank_cuda.launches[layout]
     ins, seg = tmerge.merge_rank_mesh(views, rec, m2, S)
     torch.cuda.synchronize()
-    assert tmerge.merge_rank_cuda.launches["sh_" + layout] == before + 16
+    assert tmerge.merge_rank_cuda.launches[layout] == before + 2
     pins, pseg = tmerge.merge_rank_chunked_plain(views[-1], rec.clone(), m2, S)
     uins, useg = tmerge.launch_merge_rank(idx, rec, torch.empty_like(rec), m2, S)
     assert torch.equal(ins, pins) and torch.equal(seg, pseg)
@@ -1026,8 +1041,8 @@ def test_merge_rank_sharded_matches_plain(corpus, corpus_index, cuda_device, lay
 def test_ssa_walk_ranges_sharded_match_plain(corpus_index, cuda_device, layout, which):
     """K5's pass 1 by range (rb3c_ssa_walk_* over [g0, g1)) on the card: each
     of eight ranges' slots and records exact against ssa_walk_plain over the
-    same range on the CPU; walk_mesh over [card] x 8 (eight range launches
-    counted, the shares merged, passes 2 and 3 once) equal to
+    same range on the CPU; walk_mesh over [card] x 8 (one range launch a
+    card counted, passes 2 and 3 once) equal to
     ssa_gen_seg_plain and to the unsharded walk, whose pass 1 runs the full
     range; at S 8 and ss 0 and 3, on the corpus, 3,000 short sequences and a
     BWT with `$`-free cycles (their slots cleared after the merge)."""
@@ -1052,7 +1067,7 @@ def test_ssa_walk_ranges_sharded_match_plain(corpus_index, cuda_device, layout, 
         before = ssa_ops.ssa_gen_mesh.launches[layout]
         got = ssa_ops.walk_mesh(reps, m, ss, S)
         torch.cuda.synchronize()
-        assert ssa_ops.ssa_gen_mesh.launches[layout] == before + 8
+        assert ssa_ops.ssa_gen_mesh.launches[layout] == before + 1
         *want, want_rec = ssa_ops.ssa_gen_seg_plain(cpu, m, ss, S)
         for a, b, c in zip(got, [*want, want_rec[1:]], ssa_ops.launch_walk(gpu, m, ss, S)):
             assert torch.equal(a.cpu().long(), b.long()) and torch.equal(c, a)
@@ -1062,15 +1077,59 @@ def test_ssa_walk_ranges_sharded_match_plain(corpus_index, cuda_device, layout, 
 
 @pytest.mark.cuda
 def test_merge_rank_sharded_occupancy(cuda_device):
-    """Both passes of K6, unsharded and sharded, report their registers and
-    resident blocks an SM."""
-    import ctypes
+    """Both passes of K6 over a 2x4 mesh's mapped rows take the unsharded
+    passes' registers and resident blocks an SM, in dense32 and dense64."""
+    from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
 
-    from ropebwt3_tpu_torch import kernels
-
-    for lay in ("dense32", "dense64", "sh_dense32", "sh_dense64"):
+    f = n_index()
+    for layout in ("dense32", "dense64"):
+        v = ShardedRows(make_index(layout, f, cuda_device), make_mesh(2, 4, [cuda_device] * 8)).views[0]
         for hand_over in (0, 1):
-            b, loc, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-            assert getattr(kernels.lib(), f"rb3c_occupancy_merge_rank_{lay}")(
-                hand_over, ctypes.byref(b), ctypes.byref(loc), ctypes.byref(regs)) == 0
-            assert b.value >= 1 and regs.value > 0
+            assert occupancy(f"merge_rank_{v.layout}", hand_over) == occupancy(f"merge_rank_{layout}", hand_over)
+
+
+def runs_bwt(rng, n: int, mean: int) -> np.ndarray:
+    """n symbols in runs of 1 .. 2 mean - 1 of random symbols 0-5: a uint8
+    string as a BWT (its rows need not come from a real text)."""
+    lens = rng.integers(1, 2 * mean, n // mean + 2)
+    return np.repeat(rng.integers(0, 6, lens.size).astype(np.uint8), lens)[:n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32"])
+def test_mapping_reads_across_slab_boundaries(cuda_device, layout):
+    """Eight slabs of one card mapped into one range, each holding real
+    rows (a BWT of 8 mapping units of rows less a few: 131,072 dense rows a
+    unit, 65,536 rb rows at S = 256), ranked by the occ_rank1a kernel through
+    the range's base pointer at every slab boundary (both sides, and the
+    first and last symbols of each side's row) and at random positions:
+    equal to the unsharded rows' rank and to rank6_sharded_plain; the
+    mapped bytes are counted while the rows live and given back after."""
+    import gc
+
+    from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh, mapped_bytes, rank6_sharded_plain
+
+    rng = np.random.default_rng(33)
+    if layout == "rb32":
+        f = DenseFMIndex.from_bwt(runs_bwt(rng, 8 * 65536 * 256 - 3000, 6))
+        x = runblock.RunBlockIndex.from_dense(f, cuda_device, S=256, cache=None)
+        block = 256
+    else:
+        bwt = torch.from_numpy(runs_bwt(rng, 8 * 131072 * 64 - 3000, 3)).to(cuda_device)
+        x = rank.OccIndex.from_bwt(bwt, int64=layout == "dense64", mega_shift=12 if layout == "dense64" else 20)
+        block = 64
+    before = mapped_bytes(cuda_device)[0]
+    sh = ShardedRows(x, make_mesh(1, 8, [cuda_device] * 8))
+    v = sh.views[0]
+    assert v.layout == layout and sh.nb_local == sh.unit and all(s.rows.shape[0] for s in v.slabs)
+    assert mapped_bytes(cuda_device)[0] - before == sh.phys_bytes > 0
+    edge = np.arange(1, 8) * sh.nb_local * block
+    k = np.concatenate([edge[:, None] + np.array([-block - 1, -block, -block + 1, -2, -1, 0, 1, 2, block - 1, block,
+                                                  block + 1])[None, :], rng.integers(0, x.n + 1, (1, 20000))], axis=None)
+    k = torch.from_numpy(np.unique(np.clip(np.append(k, [0, x.n]), 0, x.n))).to(cuda_device)
+    got = rank.rank1a_cuda(v, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got.long(), x.rank1a(k)) and torch.equal(got.long(), rank6_sharded_plain(v, k))
+    del sh, v, got
+    gc.collect()
+    assert mapped_bytes(cuda_device)[0] == before

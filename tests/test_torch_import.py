@@ -105,8 +105,8 @@ def test_kernel_argtypes_match_the_c_signatures():
     """Without argtypes of the right length ctypes passes a pointer or an
     int64 as a 32-bit int: every `int rb3c_*(...)` of csrc/*.cu (the
     `##name` ones for each layout kernels.py lists, after the fixed part
-    of the name: rb3c_smem_tg_sh_##name is the sharded dense32 ..) takes as
-    many arguments as kernels.py declares, stream included."""
+    of the name) takes as many arguments as kernels.py declares, stream
+    included where it takes one."""
     from ropebwt3_tpu_torch import kernels
 
     seen = set()

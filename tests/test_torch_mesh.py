@@ -7,10 +7,14 @@ The JAX side runs on the 8 virtual CPU devices of tests/conftest.py: the
 masked partial rank `rank1a_local` made whole by a psum over `idx` under
 shard_map, and `smem_sharded_fn` (two compiles, dense and rb).  The port's
 side is its plain path: `rank6_sharded_plain`, and `smem_tg_plain` over it,
-on meshes of [cpu] * 8; csrc/occ.cuh's `Sharded` rank is built for the host
-with g++ and held against the plain one."""
+on meshes of [cpu] * 8.  On the CPU `ShardedRows` lays the slabs out as the
+card maps them, in one host tensor (slabs of whole units, escapes rebased
+to their aligned offsets); csrc/occ.cuh's and rb.cuh's unsharded rank and
+smem_tg.cu's lane routine are built for the host with g++ and run over that
+buffer through the view's base pointers, held against the plain twin."""
 
 import ctypes
+import math
 import os
 import socket
 import subprocess
@@ -164,129 +168,120 @@ def test_sharded_rank_matches_jax_psum(n_index, monkeypatch):
         assert np.array_equal(rank6_sharded_plain(sharded[name].views[0], kt).numpy(), dense)
 
 
+def whole(rows: torch.Tensor) -> torch.Tensor:
+    """The host tensor that a slab's rows are a view of: the whole range."""
+    return torch.empty(0, dtype=torch.int32).set_(rows.untyped_storage()).view(-1, rows.shape[1])
+
+
 def test_ownership_and_pad_rows(n_index):
-    """Every rank reads a real row of the shard that owns it: on rb rows the
+    """Every rank reads a real row of the slab that owns it: on rb rows the
     row of k = n is the last real one (F1: the JAX package's ownership clamp
-    has nothing to do), pad rows carry no escape, and each shard numbers its
-    escapes from 0."""
+    has nothing to do); the range's pad rows past the last real one carry
+    no escape, and each slab's escapes start at its own aligned offset."""
     x = trb.RunBlockIndex.from_dense(n_index, "cpu", S=512, cache=None)
-    sh = ShardedRows(x, make_mesh(1, 3, ["cpu"] * 3))  # 32 rows in slabs of 11: one pad row
+    sh = ShardedRows(x, make_mesh(1, 3, ["cpu"] * 3), unit=3)  # 32 rows in slabs of 12 (8 real in the last): one pad row
     v = sh.views[0]
     assert int(block_of(v, torch.tensor(n_index.n))) == sh.nb - 1
-    slabs = [v.shards[s].rows for s in range(3)]
-    assert int(slabs[2][-1, 6]) == -1 and sh.nb_local * 3 - sh.nb == 1
-    for s, slab in enumerate(slabs):
-        real = slab[: min(sh.nb_local, sh.nb - s * sh.nb_local)]
-        ids = real[real[:, 6] >= 0, 6]
-        assert torch.equal(ids, torch.arange(ids.numel(), dtype=ids.dtype))
-        assert v.shards[s].esc.shape[0] == max(ids.numel(), 1)
+    assert sh.nb_local == 12 and [x.rows.shape[0] for x in v.slabs] == [12, 12, 8]
+    full = whole(v.slabs[2].rows)
+    assert full.shape[0] - sh.nb == 1 and int(full[-1, 6]) == -1 and not full[-1, :6].any()
+    for s, slab in enumerate(v.slabs):
+        ids = slab.rows[slab.rows[:, 6] >= 0, 6]
+        assert torch.equal(ids, torch.arange(slab.esc_first, slab.esc_first + ids.numel(), dtype=ids.dtype))
+        assert slab.esc.shape[0] == ids.numel()
 
 
-SHARD_HOST = r"""
-#include "rb.cuh"
+# the unsharded rank of occ.cuh (Dense<T>) and rb.cuh (Rb<T>) for the host,
+# as the card runs it over a mapped range: the view's base pointers
+MAPPED_HOST = r"""
 template <class L>
-static void rank_sh(const int64_t* desc, int n_shards, int64_t nb, const int64_t* mega, const void* acc, int ms, int bs,
-                    const int64_t* k, int64_t n, typename L::T* out) {
-  rb3c::Sharded<L> ix;
-  if (!rb3c::make_sharded(desc, n_shards, nb, mega, acc, ms, bs, &ix)) return;
+static void rank_all(const int* rows, const int* esc, const int64_t* mega, const void* acc, int ms, int bs,
+                     const int64_t* k, int64_t n, typename L::T* out) {
+  const L ix{rb3c::Tables{rows, esc, mega, acc, ms, bs}};
   for (int64_t i = 0; i < n; ++i) ix.rank6((typename L::T)k[i], out + 6 * i);
 }
-#define X(name, L)                                                                                             \
-  extern "C" void rank_##name(const int64_t* d, int ns, int64_t nb, const int64_t* m, const void* a, int ms,  \
-                              int bs, const int64_t* k, int64_t n, void* o) {                                   \
-    rank_sh<L>(d, ns, nb, m, a, ms, bs, k, n, static_cast<L::T*>(o));                                           \
+#define X(name, L)                                                                                               \
+  extern "C" void rank_##name(const int* r, const int* e, const int64_t* m, const void* a, int ms, int bs,       \
+                              const int64_t* k, int64_t n, void* o) {                                           \
+    rank_all<L>(r, e, m, a, ms, bs, k, n, static_cast<L::T*>(o));                                               \
   }
-X(dense32, rb3c::Dense<int>)
-X(dense64, rb3c::Dense<int64_t>)
-X(rb32, rb3c::Rb<int>)
-X(rb64, rb3c::Rb<int64_t>)
+RB3C_LAYOUTS(X)
 """
 
 
 @pytest.fixture(scope="module")
-def sharded_host(tmp_path_factory):
-    """csrc/occ.cuh's Sharded rank, built for the host with g++."""
-    d = tmp_path_factory.mktemp("sharded_host")
-    (d / "sharded_host.cpp").write_text(HOST_SHIM[: HOST_SHIM.index('#include "rb.cuh"')] + SHARD_HOST)
-    so = d / "libsharded_host.so"
+def mapped_host(tmp_path_factory):
+    """csrc/occ.cuh's and rb.cuh's rank, built for the host with g++."""
+    d = tmp_path_factory.mktemp("mapped_host")
+    (d / "mapped_host.cpp").write_text(HOST_SHIM[: HOST_SHIM.index('#include "rb.cuh"') + 18] + MAPPED_HOST)
+    so = d / "libmapped_host.so"
     r = subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-w", "-I", CSRC, "-o", str(so),
-                        str(d / "sharded_host.cpp")], capture_output=True, text=True)
+                        str(d / "mapped_host.cpp")], capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
     return ctypes.CDLL(str(so))
+
+
+def make_layout(f, layout: str):
+    """n_index's rows in `layout`: dense64 in megablocks of 8 rows, rb32 at S 256, rb64 at S 512."""
+    return {"dense32": lambda: trank.OccIndex.from_dense(f, "cpu"),
+            "dense64": lambda: trank.OccIndex.from_dense(f, "cpu", int64=True, mega_shift=MEGA),
+            "rb32": lambda: trb.RunBlockIndex.from_dense(f, "cpu", S=256, cache=None),
+            "rb64": lambda: trb.RunBlockIndex.from_dense(f, "cpu", S=512, int64=True, mega_shift=2, cache=None)}[layout]()
+
+
+def host_tables(v) -> list:
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    rows, esc, mega, acc, ms, bs = v.kernel_tables()
+    return [vp(rows), vp(esc), vp(mega), vp(acc), i32(ms), i32(bs)]
 
 
 @pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32", "rb64"])
 @pytest.mark.parametrize("n_idx", [1, 3, 8])
-def test_sharded_cuh_rank_on_the_host(sharded_host, n_index, layout, n_idx):
-    """The card's sharded rank (occ.cuh Sharded over each layout), built for
-    the host, equals rank6_sharded_plain and the unsharded rank at every k in
-    [0, n], over 1, 3 (uneven tails) and 8 shards."""
+def test_mapped_rank_on_the_host(mapped_host, n_index, layout, n_idx):
+    """The card's rank (occ.cuh Dense / rb.cuh Rb, unsharded) over the
+    mapped layout, built for the host and given the view's base pointers
+    into one host buffer of slabs in units of 3 rows (escapes rebased),
+    equals rank6_sharded_plain and the unsharded rank at every k in [0, n],
+    over 1, 3 (uneven tails) and 8 slabs."""
     f = n_index
-    x = {"dense32": lambda: trank.OccIndex.from_dense(f, "cpu"),
-         "dense64": lambda: trank.OccIndex.from_dense(f, "cpu", int64=True, mega_shift=MEGA),
-         "rb32": lambda: trb.RunBlockIndex.from_dense(f, "cpu", S=256, cache=None),
-         "rb64": lambda: trb.RunBlockIndex.from_dense(f, "cpu", S=512, int64=True, mega_shift=2, cache=None)}[layout]()
-    v = ShardedRows(x, make_mesh(1, n_idx, ["cpu"] * n_idx)).views[-1]
+    x = make_layout(f, layout)
+    v = ShardedRows(x, make_mesh(1, n_idx, ["cpu"] * n_idx), unit=3).views[-1]
     k = torch.arange(f.n + 1)
     out = torch.empty((f.n + 1, 6), dtype=v.dtype)
-    vp = ctypes.c_void_p
-    desc, ns, nb, mega, acc, ms, bs = v.kernel_tables()
-    getattr(sharded_host, f"rank_{layout}")(vp(desc), ctypes.c_int(ns), ctypes.c_int64(nb), vp(mega) if mega else None,
-                                            vp(acc), ctypes.c_int(ms), ctypes.c_int(bs), vp(k.data_ptr()),
-                                            ctypes.c_int64(f.n + 1), vp(out.data_ptr()))
+    getattr(mapped_host, f"rank_{layout}")(*host_tables(v), ctypes.c_void_p(k.data_ptr()), ctypes.c_int64(f.n + 1),
+                                           ctypes.c_void_p(out.data_ptr()))
     want = rank6_sharded_plain(v, k)
     assert torch.equal(out.long(), want) and torch.equal(want, x.rank1a(k))
 
 
-SHARDED_LANES = r"""
-// the lane routine over the sharded row source: run_queue from position 0,
-// stride 1 (one thread takes every lane in `order`)
-#define SH_ENTRY(name, L)                                                                                        \
-  extern "C" void sh_lanes_##name(const int64_t* desc, int ns, int64_t nb, const int64_t* mega, const void* acc, \
-                                  int ms, int bs, const uint8_t* flat, const int64_t* seq_off,                  \
-                                  const int64_t* lanes, const int64_t* order, int64_t n_lanes, int min_occ,      \
-                                  int min_len, int max_mems, int log_len, void* mems, int* n_mem, int* log,      \
-                                  int* n_log, int* trips) {                                                      \
-    L ix;                                                                                                        \
-    if (!rb3c::make_sharded(desc, ns, nb, mega, acc, ms, bs, &ix)) return;                                      \
-    unsigned long long next = 0;                                                                                 \
-    run_queue(ix, flat, seq_off, lanes, order, n_lanes, min_occ, min_len, max_mems, log_len,                     \
-              static_cast<L::T*>(mems), n_mem, log, n_log, trips, 0, 1, &next);                                  \
-  }
-RB3C_SHARDED_LAYOUTS(SH_ENTRY)
-"""
-
-
 @pytest.fixture(scope="module")
-def sharded_lanes_host(tmp_path_factory):
-    """csrc/smem_tg.cu's lane routine over occ.cuh's Sharded, built for the host with g++."""
+def mapped_lanes_host(tmp_path_factory):
+    """csrc/smem_tg.cu's lane routine (Dense / Rb), built for the host with g++."""
     from .test_torch_smem import SMEM_HOST_SRC
 
-    d = tmp_path_factory.mktemp("sharded_lanes")
-    (d / "sharded_lanes.cpp").write_text(SMEM_HOST_SRC + SHARDED_LANES)
-    so = d / "libsharded_lanes.so"
+    d = tmp_path_factory.mktemp("mapped_lanes")
+    (d / "mapped_lanes.cpp").write_text(SMEM_HOST_SRC)
+    so = d / "libmapped_lanes.so"
     r = subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-w", "-I", CSRC, "-o", str(so),
-                        str(d / "sharded_lanes.cpp")], capture_output=True, text=True)
+                        str(d / "mapped_lanes.cpp")], capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
     return ctypes.CDLL(str(so))
 
 
 @pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32", "rb64"])
-def test_sharded_lane_routine_on_the_host(sharded_lanes_host, n_index, layout):
-    """smem_tgc's lane routine over the sharded rows (a 2x4 mesh's last
-    view), built for the host: each lane's rows, counts, START log and trips
-    equal smem_tg_plain's over rank6_sharded_plain and over the unsharded
-    rows, on reads with N runs (ranks at k = n, which S divides)."""
-    from ropebwt3_tpu_torch.ops.smem import Chains, chunk_lanes, lane_order, smem_tg_plain
+def test_mapped_lane_routine_on_the_host(mapped_lanes_host, n_index, layout):
+    """smem_tgc's lane routine over the mapped rows of a 2x4 mesh (the last
+    view; slabs in units of 3 rows), built for the host: each lane's rows,
+    counts, START log and trips equal smem_tg_plain's over
+    rank6_sharded_plain and over the unsharded rows, on reads with N runs
+    (ranks at k = n, which S divides)."""
+    from ropebwt3_tpu_torch.ops.smem import chunk_lanes, lane_order, smem_tg_plain
 
-    from .test_torch_smem import assert_same_chains
+    from .test_torch_smem import assert_same_chains, host_chains
 
     f = n_index
-    x = {"dense32": lambda: trank.OccIndex.from_dense(f, "cpu"),
-         "dense64": lambda: trank.OccIndex.from_dense(f, "cpu", int64=True, mega_shift=MEGA),
-         "rb32": lambda: trb.RunBlockIndex.from_dense(f, "cpu", S=256, cache=None),
-         "rb64": lambda: trb.RunBlockIndex.from_dense(f, "cpu", S=512, int64=True, mega_shift=2, cache=None)}[layout]()
-    v = ShardedRows(x, make_mesh(2, 4, CPU8)).views[-1]
+    x = make_layout(f, layout)
+    v = ShardedRows(x, make_mesh(2, 4, CPU8), unit=3).views[-1]
     rng = np.random.default_rng(4)
     seq, _ = f.retrieve(0)  # reads: pieces of the first sequence (with its N runs), then one of N's
     reads = []
@@ -299,19 +294,57 @@ def test_sharded_lane_routine_on_the_host(sharded_lanes_host, n_index, layout):
     lanes = chunk_lanes(off, 64, 32)
     order = lane_order(lanes, off)
     kw = dict(min_occ=1, min_len=19, max_mems=8)
-    L = lanes.shape[0]
-    mems = torch.zeros((L, 8, 5), dtype=v.dtype)
-    n_mem, n_log, trips = (torch.zeros(L, dtype=torch.int32) for _ in range(3))
-    log = torch.zeros((L, 16), dtype=torch.int32)
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    desc, ns, nb, mega, acc, ms, bs = v.kernel_tables()
-    getattr(sharded_lanes_host, f"sh_lanes_{layout}")(
-        vp(desc), i32(ns), i64(nb), vp(mega), vp(acc), i32(ms), i32(bs), vp(flat.data_ptr()), vp(off.data_ptr()),
-        vp(lanes.data_ptr()), vp(order.data_ptr()), i64(L), i32(1), i32(19), i32(8), i32(16), vp(mems.data_ptr()),
-        vp(n_mem.data_ptr()), vp(log.data_ptr()), vp(n_log.data_ptr()), vp(trips.data_ptr()))
-    got = Chains(mems, n_mem, log, n_log, trips)
+    got = host_chains(mapped_lanes_host, v, flat, off, lanes, order, log_len=16, **kw)
     for idx in (v, x):
         assert_same_chains(got, smem_tg_plain(idx, flat, off, lanes=lanes, log_len=16, **kw), 8, 16)
+
+
+@pytest.mark.parametrize("unit", [1, 3, 64])
+@pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32", "rb64"])
+def test_mapped_layout(n_index, layout, unit):
+    """The layout ShardedRows maps (one host buffer on the CPU), over a 1x4
+    mesh in units of 1, 3 and 64 rows: slabs of nb_local rows, a multiple
+    of the unit; every real row at its global offset, equal to the
+    unsharded row (rb: but column 6); the tail's pad rows carry no escape;
+    each slab's escapes start at a multiple of the escape alignment past the
+    slab before, its rows' column 6 points at its own sub-rows, equal to the
+    unsharded escape's; and rank6_sharded_plain over the slabs equals the
+    unsharded rank."""
+    f = n_index
+    x = make_layout(f, layout)
+    sh = ShardedRows(x, make_mesh(1, 4, ["cpu"] * 4), unit=unit)
+    v = sh.views[0]
+    table = x.rows if sh.is_rb else x.occf
+    nbl = sh.nb_local
+    assert sh.unit == unit and nbl == -(-(-(-sh.nb // 4)) // unit) * unit
+    full = whole(v.slabs[0].rows)
+    assert full.shape[0] == -(-sh.nb // unit) * unit  # the last slab's rows rounded up to the unit
+    pad, real = full[sh.nb :], full[: sh.nb]
+    if sh.is_rb:
+        assert bool((pad[:, 6] == -1).all()) and not pad[:, :6].any()
+    else:
+        assert not pad.any()
+    if sh.is_rb:
+        assert torch.equal(real[:, torch.arange(40) != 6], table[:, torch.arange(40) != 6])
+        assert torch.equal(real[:, 6] >= 0, table[:, 6] >= 0)
+        esc_b = 64 * x.esc.shape[1]
+        align = math.lcm(esc_b, unit * 160) // esc_b
+        end = 0
+        for s, slab in enumerate(v.slabs):
+            assert slab.first == s * nbl and slab.rows.shape[0] == max(0, min(nbl, sh.nb - s * nbl))
+            assert slab.esc_first % align == 0 and slab.esc_first == -(-end // align) * align
+            has = slab.rows[:, 6] >= 0
+            mine = slab.rows[has, 6].long()
+            assert torch.equal(mine, torch.arange(slab.esc_first, slab.esc_first + mine.numel()))
+            assert torch.equal(v.esc[mine], x.esc[table[s * nbl : s * nbl + slab.rows.shape[0]][has, 6].long()])
+            if mine.numel():  # the slab's own tensors are views of the range at its offsets
+                assert slab.rows.data_ptr() == full[s * nbl :].data_ptr()
+                assert slab.esc.data_ptr() == v.esc[slab.esc_first :].data_ptr()
+            end = slab.esc_first + mine.numel()
+    else:
+        assert torch.equal(real, table)
+    k = torch.arange(f.n + 1)
+    assert torch.equal(rank6_sharded_plain(v, k), x.rank1a(k))
 
 
 def test_split_reads_keeps_reads_whole():
@@ -351,7 +384,7 @@ def test_sharded_engine_matches_jax_sharded_smem(corpus, corpus_index, occ):
     mems, n_mem = np.asarray(mems), np.asarray(n_mem)
     flat, off = pack_reads(reads)
     eng = BatchedSmemTG(f, 1, 21, device="cpu", occ=occ, mesh=make_mesh(2, 4, CPU8))
-    assert eng.idx.layout == ("sh_dense32" if occ == "dense" else "sh_rb32")
+    assert eng.idx.layout == ("dense32" if occ == "dense" else "rb32")
     counts, rows = eng.run_flat(flat, off)
     assert np.array_equal(counts, n_mem)
     got = np.split(rows.astype(np.int64), np.cumsum(counts)[:-1])
@@ -370,8 +403,8 @@ def test_cli_mem_mesh_matches_native(corpus, mesh_fmd, occ):
                                       str(corpus / "reads.fa")])
     assert got.returncode == 0, got.stderr.decode()
     assert got.stdout == want
-    lay = "sh_dense32" if occ == "dense" else "sh_rb32"
-    assert f"occ layout {lay}".encode() in got.stderr and b"over a 2x4 mesh" in got.stderr
+    lay = "dense32" if occ == "dense" else "rb32"
+    assert f"occ layout {lay} ({lay} rows sharded over a 2x4 mesh".encode() in got.stderr
 
 
 @pytest.mark.parametrize("cmd", ["sw", "hapdiv"])
@@ -428,9 +461,12 @@ def test_refuses_idx_axis_across_processes(corpus, mesh_fmd):
 
 
 def test_make_mesh_never_wraps():
-    """A mesh of more cards than the machine has stops, naming both counts."""
+    """A mesh of more cards than the machine has stops, naming both counts;
+    a mesh of the CPU and a card stops; the idx axis has no limit (the rows
+    are one range, not a shard table)."""
     have = torch.cuda.device_count()
     with pytest.raises(MeshError, match=f"needs {have + 1} CUDA cards; this machine has {have}"):
         make_mesh(have + 1, 1)
-    with pytest.raises(MeshError, match="at most 8"):
-        make_mesh(1, 9, ["cpu"] * 9)
+    with pytest.raises(MeshError, match="not both"):
+        make_mesh(1, 2, ["cpu", "cuda:0"])
+    assert make_mesh(1, 9, ["cpu"] * 9).idx == 9

@@ -9,8 +9,12 @@ lanes over `dp`) and the mesh branch of `ssa_gen_device` (lanes over `dp`,
 slots merged by a pmax), one compile each.  The port's side is its plain
 path over meshes of [cpu] * 8: each range of the segments walked by the
 plain passes (over `rank6_sharded_plain` for the merge), the shares merged
-by a max.  csrc/occ.cuh's Sharded row load and one-symbol rank, and
-merge_rank.cu's two passes over ranges, are built for the host with g++.
+by a max.  On the CPU a card takes one range of the segments, so
+[cpu] * 8 runs one; the eight ranges' passes are also run one by one.
+csrc/occ.cuh's row load and one-symbol rank, and merge_rank.cu's two passes
+over ranges, are built for the host with g++ and run over the mapped
+layout (one host buffer, slabs in whole units) through the view's base
+pointer.
 The CLI runs in this process, and under two gloo processes; `--mesh` on the
 other commands is parsed as the JAX package parses it."""
 
@@ -147,31 +151,30 @@ def test_ssa_gen_mesh_on_dollar_free_cycles(seed):
         assert write_ssa_bytes(ssa_ops.ssa_gen_mesh(f, ss, mesh, S=4)) == write_ssa_bytes(ssa_ops.ssa_gen(f, ss, "cpu"))
 
 
-# csrc/merge_rank.cu (the text before `#ifdef __CUDACC__`, with occ.cuh's
-# Sharded) for the host: the sharded rank in K6's two halves at every k,
-# and both passes over a range of the segments, behind the C signature of
-# rb3c_merge_rank_sh_* (the stream dropped)
-SHARDED_K6_HOST = r"""
+# csrc/merge_rank.cu (the text before `#ifdef __CUDACC__`) for the host:
+# occ.cuh's rank in K6's two halves at every k, and both passes over a range
+# of the segments, behind the C signature of rb3c_merge_rank_* (the stream
+# dropped), over the tables the view's kernel_tables() gives: the mapped
+# range's base pointer
+MAPPED_K6_HOST = r"""
 #include "merge_rank.cu"
 using rb3c::merge::Seg;
 using rb3c::merge::Walk;
 #define X(name, L)                                                                                                  \
-  extern "C" int rank1_##name(const int64_t* desc, int ns, int64_t nb, const int64_t* mega, const void* acc, int ms, \
-                              int bs, const int64_t* k, int64_t n, void* out) {                                     \
-    rb3c::Sharded<L> ix;                                                                                             \
-    if (!rb3c::make_sharded(desc, ns, nb, mega, acc, ms, bs, &ix)) return 1;                                        \
+  extern "C" void rank1_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int ms,     \
+                               int bs, const int64_t* k, int64_t n, void* out) {                                    \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, ms, bs}};                                                          \
     for (int64_t i = 0; i < n; ++i) {                                                                               \
       int4 a, b, c;                                                                                                  \
       ix.load_row(k[i] >> 6, a, b, c);                                                                               \
       for (int s = 0; s < 6; ++s) static_cast<L::T*>(out)[6 * i + s] = ix.rank1((L::T)k[i], s, a, b, c);          \
     }                                                                                                                \
-    return 0;                                                                                                        \
   }                                                                                                                  \
-  extern "C" int merge_##name(const int64_t* desc, int ns, int64_t nb, const int64_t* mega, const void* acc, int ms, \
-                              int bs, const int64_t* rec, int64_t* ins, int64_t m2, int shift, int64_t first,        \
-                              int64_t n_seg, int64_t g0, int64_t g1, int passes, int64_t* seg) {                    \
-    rb3c::Sharded<L> ix;                                                                                             \
-    if (!rb3c::make_sharded(desc, ns, nb, mega, acc, ms, bs, &ix)) return 1;                                        \
+  extern "C" int merge_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int ms, int bs, \
+                              const int64_t* rec, int64_t* ins, int64_t m2, int shift, int64_t first, int64_t n_seg, \
+                              int64_t g0, int64_t g1, int passes, int64_t* seg) {                                   \
+    if (g0 < 0 || g1 > n_seg) return 1;                                                                              \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, ms, bs}};                                                          \
     const Walk w{rec, ins, m2, first, n_seg, shift};                                                                 \
     const Seg s{seg, seg + n_seg, seg + 2 * n_seg, seg + 3 * n_seg, seg + 4 * n_seg};                                \
     for (int64_t g = g0; g < g1; ++g)                                                                                \
@@ -187,9 +190,9 @@ X(dense64, rb3c::Dense<int64_t>)
 
 @pytest.fixture(scope="module")
 def k6_host(tmp_path_factory):
-    """csrc/merge_rank.cu's passes and occ.cuh's Sharded, built for the host with g++."""
+    """csrc/merge_rank.cu's passes over occ.cuh's Dense, built for the host with g++."""
     d = tmp_path_factory.mktemp("k6_host")
-    (d / "k6_host.cpp").write_text(HOST_SHIM[: HOST_SHIM.index('#include "rb.cuh"')] + SHARDED_K6_HOST)
+    (d / "k6_host.cpp").write_text(HOST_SHIM[: HOST_SHIM.index('#include "rb.cuh"')] + MAPPED_K6_HOST)
     so = d / "libk6_host.so"
     r = subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-w", "-I", CSRC, "-o", str(so),
                         str(d / "k6_host.cpp")], capture_output=True, text=True)
@@ -198,32 +201,37 @@ def k6_host(tmp_path_factory):
 
 
 def _tables(v) -> list:
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    desc, ns, nb, mega, acc, ms, bs = v.kernel_tables()
-    return [vp(desc), i32(ns), i64(nb), vp(mega), vp(acc), i32(ms), i32(bs)]
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    rows, esc, mega, acc, ms, bs = v.kernel_tables()
+    return [vp(rows), vp(esc), vp(mega), vp(acc), i32(ms), i32(bs)]
 
 
 @pytest.mark.parametrize("n_idx", [3, 8])
 @pytest.mark.parametrize("layout", ["dense32", "dense64"])
-def test_sharded_rank1_on_the_host(k6_host, n_index, layout, n_idx):
-    """The card's K6 rank over sharded rows (occ.cuh Sharded::load_row, then
-    rank1 for each symbol), built for the host, equals rank6_sharded_plain
-    at every k in [0, n], over 3 (uneven slabs) and 8 shards, in dense32
-    and dense64 (the megablock base read at the global row)."""
-    v = ShardedRows(dense(n_index, layout), make_mesh(1, n_idx, ["cpu"] * n_idx)).views[-1]
+def test_mapped_rank1_on_the_host(k6_host, n_index, layout, n_idx):
+    """The card's K6 rank over the mapped rows (occ.cuh Dense::load_row,
+    then rank1 for each symbol, at the view's base pointer), built for the
+    host, equals rank6_sharded_plain at every k in [0, n], over 3 (uneven
+    slabs) and 8 slabs in units of 3 rows, in dense32 and dense64 (the
+    megablock base read at the global row)."""
+    v = ShardedRows(dense(n_index, layout), make_mesh(1, n_idx, ["cpu"] * n_idx), unit=3).views[-1]
     k = torch.arange(n_index.n + 1)
     out = torch.empty((n_index.n + 1, 6), dtype=v.dtype)
-    assert getattr(k6_host, f"rank1_{layout}")(*_tables(v), ctypes.c_void_p(k.data_ptr()), ctypes.c_int64(k.numel()),
-                                               ctypes.c_void_p(out.data_ptr())) == 0
+    getattr(k6_host, f"rank1_{layout}")(*_tables(v), ctypes.c_void_p(k.data_ptr()), ctypes.c_int64(k.numel()),
+                                        ctypes.c_void_p(out.data_ptr()))
     assert torch.equal(out.long(), rank6_sharded_plain(v, k))
 
 
 @pytest.mark.parametrize("layout", ["dense32", "dense64"])
-def test_sharded_merge_passes_on_the_host(k6_host, n_index, monkeypatch, layout):
-    """merge_rank_mesh with the card's two passes (merge_rank.cu over
-    occ.cuh Sharded, built for the host) in place of the plain ones, each
-    over its view's range of the segments: ins and segment records equal
+def test_mapped_merge_passes_on_the_host(k6_host, n_index, monkeypatch, layout):
+    """merge_rank_mesh with the card's two passes (merge_rank.cu over the
+    mapped rows of a 2x4 mesh, slabs in units of 3 rows, built for the host)
+    in place of the plain ones; and the same passes over each of the eight
+    slots' ranges one by one, each into its own ins and records, merged by
+    a max between the passes: ins and segment records equal
     merge_rank_chunked_plain's on the unsharded rows, at S 8 and 64."""
+    from ropebwt3_tpu_torch.parallel import launch
+
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
     def host_pass(passes):
@@ -235,12 +243,24 @@ def test_sharded_merge_passes_on_the_host(k6_host, n_index, monkeypatch, layout)
         return run
 
     idx = dense(n_index, layout)
-    views = ShardedRows(idx, make_mesh(2, 4, CPU8)).views
+    views = ShardedRows(idx, make_mesh(2, 4, CPU8), unit=3).views
     acc2, rec = merge.lf2_packed(torch.from_numpy(copies_bwt(5)))
     m2 = int(acc2[1])
     want = {S: merge.merge_rank_chunked_plain(idx, rec.clone(), m2, S) for S in (8, 64)}
-    monkeypatch.setattr(merge, "merge_walk_plain", host_pass(merge.WALK))
-    monkeypatch.setattr(merge, "merge_hand_over_plain", host_pass(merge.HAND_OVER))
+    walk, hand = host_pass(merge.WALK), host_pass(merge.HAND_OVER)
+    for S, (pins, pseg) in want.items():
+        n_seg = merge.segments(rec.numel(), m2, S)[1]
+        cuts = split_segments(n_seg, 8)
+        ins = [torch.full_like(rec, -1) for _ in views]
+        segs = [torch.full((merge.SEG_ROWS, n_seg), merge.LOW, dtype=torch.int64) for _ in views]
+        for v, g0, g1, x, sg in zip(views, cuts, cuts[1:], ins, segs):
+            walk(v, rec, x, m2, S, sg, g0, g1)
+        full = launch.merge_shares(segs)
+        for v, g0, g1, x in zip(views, cuts, cuts[1:], ins):
+            hand(v, rec, x, m2, S, full, g0, g1)
+        assert torch.equal(launch.merge_shares(ins), pins) and torch.equal(full, pseg)
+    monkeypatch.setattr(merge, "merge_walk_plain", walk)
+    monkeypatch.setattr(merge, "merge_hand_over_plain", hand)
     for S, (pins, pseg) in want.items():
         ins, seg = merge.merge_rank_mesh(views, rec, m2, S)
         assert torch.equal(ins, pins) and torch.equal(seg, pseg)
