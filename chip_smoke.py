@@ -138,7 +138,10 @@ it.  Phases:
             dense32), its bound, its chain floor and the JAX package's native
             walk (a subprocess); K12
             (suffix_walk, four layouts) against suffix_plain on the card,
-            exact, on all the reads, timed beside its bound and chain floor;
+            exact, on all the reads, timed beside its bound and chain floor,
+            the row fetches and sectors a launch its design requests
+            (counted on the plain walk's steps, walk_time.traffic) and
+            their time at 3.35 TB/s, registers and blocks an SM;
             kount's level rank on kount's own frontiers (kount_time: every
             level, A B C C B A, occ_rank1a of the node-major and of the
             symbol-major cat([k, l]) and kount_rank, csrc/kount.cu, each
@@ -1555,7 +1558,7 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
     against kount_rank_plain at the widest level, dense32 and dense64."""
     import torch
 
-    from ropebwt3_tpu_torch import kount_time
+    from ropebwt3_tpu_torch import kount_time, walk_time
     from ropebwt3_tpu_torch.ops import kount, rank, smem, walk
 
     f = cli.load_index(fmd)
@@ -1653,11 +1656,14 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
                                                                              sfx_pieces.items())
         + f"), reference {ref_s:.3f} s ({card})")
     flat, off = (torch.from_numpy(a).to(dev) for a in smem.pack_reads(reads))
-    rlen = off[1:] - off[:-1]
     for lay, x in idxs.items():
         is_rb = lay.startswith("rb")
         got = walk.suffix_cuda(x, flat, off)
-        counted = SectorCount(x, [x]) if is_rb else RowCount(x)
+        # the plain walk marks the rows (rb: sectors) it ranks in and keeps
+        # every step's (k, l), on which walk_time.traffic counts the row
+        # fetches and sectors rank2's design requests (a model, not a
+        # count the kernel makes)
+        counted = walk_time.Steps(SectorCount(x, [x]) if is_rb else RowCount(x))
         t0 = time.perf_counter()
         want_t = walk.suffix_plain(counted, flat, off)
         torch.cuda.synchronize()
@@ -1665,17 +1671,25 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
         err = max(max_abs(a, b) for a, b in zip(got, want_t))
         if err:
             fail(f"suffix_walk {lay}: off by {err} against suffix_plain")
+        k, l, _, all_steps = walk_time.step_symbols(counted.calls, flat, off, want_t[0])
+        fetch = walk_time.traffic(x, k, l)
+        del k, l
         start, last = torch.empty_like(got[0]), torch.empty_like(got[1])
         ms = probe.queued_ms([lambda x=x: walk.launch_suffix(x, flat, off, start, last)] * 3)
-        steps = int((rlen - got[0] + (got[0] > 0).long()).max())  # the longest read's steps: its matched symbols and the step that fails
-        table = counted.bytes()[0] if is_rb else counted.bytes()
+        steps = int(all_steps.max())  # the longest read's: its matched symbols and the step that fails
+        table = counted.idx.bytes()[0] if is_rb else counted.idx.bytes()
+        occ = walk_time.occupancy(lay)
         res[f"suffix_walk_{lay}"] = r = dict(
             err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(table + nbytes(flat, off, *got)), table_bytes=table,
             chain_floor_ms=steps * (RB_ROUNDS * ns[lay] if is_rb else ns[LAT_48MB]) / 1e6, longest_steps=steps,
+            regs=occ["regs"], blocks_per_sm=occ["blocks_per_sm"],
             launches=sfx_launches.get(lay, 0), suffix_port_s=port_s, suffix_reference_s=ref_s, suffix_pieces=sfx_pieces)
         say(f"[utils] {lay}: suffix_walk exact vs suffix_plain on {len(reads)} reads; {ms:.4f} ms vs plain "
             f"{plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms ({table} B of tables read), chain floor "
-            f"{r['chain_floor_ms']:.4f} ms (longest read {steps} steps) ({card})")
+            f"{r['chain_floor_ms']:.4f} ms (longest read {steps} steps); counted on the plain walk's "
+            f"{int(all_steps.sum())} steps, rank2 requests {fetch['rank2']['fetches']} row fetches and "
+            f"{fetch['rank2']['sectors']} sectors a launch ({fetch['rank2']['sectors'] * 32 / HBM_BYTES_PER_MS:.4f} ms "
+            f"at 3.35 TB/s); {occ['regs']} registers, {occ['blocks_per_sm']} blocks an SM ({card})")
         del counted
 
     # ---- kount; then its level rank on its own frontiers (dense32, kount's
@@ -2377,6 +2391,9 @@ def main(argv: list[str]) -> None:
 
     if not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu_torch")) or not os.path.isdir(os.path.join(ROOT, "ropebwt3_tpu")):
         fail("run chip_smoke.py from a checkout of the repository")
+    # every command, in this process and in subprocesses, returns its own
+    # exit code: an ERROR line fails the rc checks (both CLIs give 0 otherwise)
+    os.environ["RB3TPU_STRICT_EXIT"] = "1"
     sys.path.insert(0, ROOT)
     import torch
 
@@ -2998,7 +3015,7 @@ def main(argv: list[str]) -> None:
             "launches": r["launches"], "path": "suffix" if r["launches"] else None, "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "chain_floor_ms": r["chain_floor_ms"], "input": f"{len(reads)} reads (the main path's)",
-            "longest_steps": r["longest_steps"], "table_bytes": r["table_bytes"],
+            **{k: r[k] for k in ("longest_steps", "table_bytes", "regs", "blocks_per_sm")},
             **({k: r[k] for k in ("suffix_port_s", "suffix_reference_s", "suffix_pieces")} if r["launches"] else {}),
         })
     mapped_src = " over csrc/vmm.cu's mapping of the slabs (parallel/mesh.py ShardedRows)"

@@ -82,10 +82,14 @@ writes its own `-o` file.  The other commands skip `--mesh`, and fa2kmer
 stops at it (`ERROR: unknown option`), as the JAX package's do.
 
 With the default `--device=cuda` and no CUDA, every command that runs on
-the device exits non-zero; none goes on on the CPU unasked.  An idx axis
-across processes, `--engine=jax|hybrid` and the `--dbg-*` streams are
-refused with one `ERROR:` line that names the ROADMAP queue item porting
-them (`refusal`, `launch.local_mesh`); `python -m ropebwt3_tpu` runs them.  The option parsers, the usage texts,
+the device stops with one `ERROR:` line; none goes on on the CPU unasked.
+An idx axis across processes, `--engine=jax|hybrid` and the `--dbg-*`
+streams are refused with one `ERROR:` line that names the ROADMAP queue
+item porting them (`refusal`, `launch.local_mesh`); `python -m
+ropebwt3_tpu` runs them.  The exit code is the JAX package's (its main,
+after the reference's main.c:46-82): 0 for every known command, its errors
+included, and 1 for an unknown one; with RB3TPU_STRICT_EXIT=1, the
+command's own code (`run`), and UNKNOWN_CMD for an unknown command.  The option parsers, the usage texts,
 the index loader and the writers are copies of ropebwt3_tpu/cli.py's
 (main_build, _dump_index, main_merge, main_plain2fmd, main_search, _run_mem's
 flat path, main_ssa, main_stat, main_get, main_suffix, main_kount,
@@ -114,6 +118,7 @@ from .parallel import MeshError
 from .seqio import batch_nt6_flat, iter_flat_batches, read_batch_nt6, read_seqs, read_sid
 
 REF_VERSION = "3.10-r281"  # ropebwt3 version whose formats and outputs are matched
+UNKNOWN_CMD = 127  # `run`'s code for an unknown command (ropebwt3_tpu/cli.py _UNKNOWN_CMD)
 OWNED = ("build", "merge", "plain2fmd", "mem", "sw", "hapdiv", "search", "ssa", "stat", "get", "suffix", "kount",
          "fa2line", "fa2kmer", "serve", "version")
 # main_search's short and long options (ropebwt3_tpu/cli.py:1022-1029)
@@ -1472,13 +1477,25 @@ def main_fa2kmer(argv: list[str]) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    """The command line's exit code: `run`'s where RB3TPU_STRICT_EXIT=1,
+    else 0 for every known command and 1 for an unknown one, as the JAX
+    package's main gives it."""
+    ret = run(sys.argv[1:] if argv is None else argv)
+    if os.environ.get("RB3TPU_STRICT_EXIT") == "1":
+        return ret
+    return 1 if ret == UNKNOWN_CMD else 0
+
+
+def run(argv: list[str]) -> int:
+    """Run one command: its own exit code (1 on an ERROR line, UNKNOWN_CMD
+    for an unknown command)."""
     if not argv:
         print("Usage: python -m ropebwt3_tpu_torch <command> <arguments>\nCommands: " + ", ".join(OWNED)
               + "; `python -m ropebwt3_tpu` runs the rest")
         return 0
     if why := refusal(argv):
-        return _err(why)
+        _err(why)
+        return UNKNOWN_CMD if argv[0] not in OWNED else 1
     cmd, rest = argv[0], argv[1:]
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         # a torchrun job: only process 0 owns stdout; raw fd 1 goes to

@@ -7,7 +7,8 @@
 // step of ssa_ops.py ssa_gen_device (bwt[k], rank1a, acc), and its `rank1`
 // the one-symbol rank of construct/merge.py's merge rank step.  A layout is a small struct with a
 // position type T (int below 2^31 - 2^20 symbols, int64_t above), a
-// `rank6(k, occ)` and an `acc(c)`; `set_intv` and `extend_c` below work on
+// `rank6(k, occ)`, a `rank2(k, l, c, ok, ol)` (one symbol at both ends of
+// an interval) and an `acc(c)`; `set_intv` and `extend_c` below work on
 // any layout.  This file has the dense fused rows; rb.cuh the run-block rows.
 //
 // Dense layout (ops/rank.py build_occf): one 48-byte row per 64 BWT symbols,
@@ -125,11 +126,42 @@ struct Dense {
   // occ_c(k) = |{i < k : B[i] = c}| for ONE symbol c, 0 <= k <= n, from k's
   // row (a, b, c4) as load_row gives it: the merge rank (merge_rank.cu)
   // issues the row load before the load that tells it c.  lf_step's count
-  // for a symbol known beforehand: the planes masked for KEY[c] below the
-  // offset, and count column c by selects.
+  // for a symbol known beforehand.
   __device__ __forceinline__ T rank1(T k, int c, const int4& a, const int4& b, const int4& c4) const {
-    const int64_t bi = k >> 6;
-    const unsigned off = (unsigned)(k & 63);
+    return count_c(mega_word(k >> 6, c), c, (unsigned)(k & 63), a, b, c4);
+  }
+
+  // occ_c at both ends of an interval, 0 <= k <= l <= n, for ONE symbol c
+  // (suffix_walk's step): one row fetch when both ends fall in one row, two
+  // independent ones otherwise; in int64 mode one 8-B megablock word an end,
+  // or one for both.  Nothing fetched depends on c but that word.
+  __device__ __forceinline__ void rank2(T k, T l, int c, T& ok, T& ol) const {
+    const int64_t bk = k >> 6, bl = l >> 6;
+    int4 a, b, c4, la, lb, lc;
+    load_row(bk, a, b, c4);
+    if (bl != bk)
+      load_row(bl, la, lb, lc);
+    else
+      la = a, lb = b, lc = c4;
+    T mk = 0, ml = 0;
+    if constexpr (sizeof(T) == 8) {
+      mk = mega_word(bk, c);
+      ml = (bl >> t.mega_shift) == (bk >> t.mega_shift) ? mk : mega_word(bl, c);
+    }
+    ok = count_c(mk, c, (unsigned)(k & 63), a, b, c4);
+    ol = count_c(ml, c, (unsigned)(l & 63), la, lb, lc);
+  }
+
+  // symbol c's megablock base for row bi (int64 mode; 0 in int32 mode)
+  __device__ __forceinline__ T mega_word(int64_t bi, int c) const {
+    if constexpr (sizeof(T) == 8) return __ldg(t.mega + 6 * (bi >> t.mega_shift) + c);
+    return 0;
+  }
+
+  // occ_c below offset off (0..63) of a row (a, b, c4), m its megablock
+  // word: the planes masked for KEY[c] below the offset, and count column c
+  // by selects (a dynamic index would put the row in local memory)
+  __device__ __forceinline__ static T count_c(T m, int c, unsigned off, const int4& a, const int4& b, const int4& c4) {
     const int key = comp6(c);
     unsigned lo = low_mask(off), hi = low_mask(off > 32 ? off - 32 : 0);
     const unsigned p[6] = {(unsigned)a.x, (unsigned)a.y, (unsigned)a.z, (unsigned)a.w, (unsigned)b.x, (unsigned)b.y};
@@ -142,7 +174,7 @@ struct Dense {
     const int col = c == 0 ? b.z : c == 1 ? b.w : c == 2 ? c4.x : c == 3 ? c4.y : c == 4 ? c4.z : c4.w;
     T base;
     if constexpr (sizeof(T) == 8) {
-      base = __ldg(t.mega + 6 * (bi >> t.mega_shift) + c) + (int64_t)(uint32_t)col;
+      base = m + (int64_t)(uint32_t)col;
     } else {
       base = col;
     }

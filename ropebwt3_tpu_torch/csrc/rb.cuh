@@ -50,9 +50,9 @@ struct Rb {
   __device__ __forceinline__ T acc(int c) const { return __ldg(static_cast<const T*>(t.acc) + c); }
 
   __device__ __forceinline__ void rank6(T k, T occ[6]) const {
-    const int64_t bi = k > 0 ? (int64_t)(k - 1) >> t.block_shift : 0;
+    int off;
+    const int64_t bi = block_of(k, off);
     const int S = 1 << t.block_shift;
-    const int off = (int)(k - (T)(bi << t.block_shift));  // [0, S]
     const int4* row = reinterpret_cast<const int4*>(t.rows + 40 * bi);  // 160 B: 32-B aligned
     const int4 h0 = __ldg(row), h1 = __ldg(row + 1);
     const int cols[6] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y};
@@ -77,10 +77,10 @@ struct Rb {
           const unsigned w[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
-            const unsigned e16 = (w[r >> 1] >> (16 * (r & 1))) & 0xffffu;
-            const int c = min(off, (e16 >> 3) ? (int)(e16 >> 3) : S);  // F4
+            int end;
+            const int key = record(w, r, S, end);
+            const int c = min(off, end);
             const unsigned len = (unsigned)(c - prev);
-            const int key = (int)(e16 & 7);
             lo += key < 4 ? (uint64_t)len << (16 * key) : 0;
             hi += key < 4 ? 0u : len << (16 * (key & 1));
             prev = c;
@@ -97,21 +97,124 @@ struct Rb {
       const int rem = off - (j << 7);       // [0, 128]
       const uint4* p = reinterpret_cast<const uint4*>(t.esc) + ((int64_t)h1.z * W4 + j) * 4;
       const uint4 c = __ldg(p), a = __ldg(p + 1), b = __ldg(p + 2), d = __ldg(p + 3);
-      const unsigned before[3] = {c.x, c.y, c.z};
-      const unsigned av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w}, dv[4] = {d.x, d.y, d.z, d.w};
 #pragma unroll
-      for (int s = 0; s < 6; ++s) cnt[s] = (int)((before[s >> 1] >> (16 * (s & 1))) & 0xffffu);
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int r = rem - 32 * h;  // >= 32: the full word
-        const unsigned m = r <= 0 ? 0u : low_mask((unsigned)r);
-#pragma unroll
-        for (int s = 0; s < 6; ++s)
-          cnt[s] += __popc(m & (s & 1 ? av[h] : ~av[h]) & (s & 2 ? bv[h] : ~bv[h]) & (s & 4 ? dv[h] : ~dv[h]));
-      }
+      for (int s = 0; s < 6; ++s) cnt[s] = sub_row_count(c, a, b, d, rem, s);
     }
 #pragma unroll
     for (int s = 0; s < 6; ++s) occ[s] = base[s] + cnt[comp6(s)];
+  }
+
+  // occ_c at both ends of an interval, 0 <= k <= l <= n, for ONE symbol c
+  // (suffix_walk's step): one header fetch when both ends fall in one
+  // block, one escape sub-row when both fall in one 128-symbol sub-row, a
+  // run-coded block's records summed once for both offsets, symbol c's
+  // records only; in int64 mode one 8-B megablock word an end, or one for
+  // both.  Ends in two blocks fetch both headers, then both second rounds,
+  // independently.
+  __device__ __forceinline__ void rank2(T k, T l, int c, T& ok, T& ol) const {
+    int offk, offl;
+    const int64_t bk = block_of(k, offk), bl = block_of(l, offl);
+    const int key = comp6(c);
+    const int4* rk = reinterpret_cast<const int4*>(t.rows + 40 * bk);  // 160 B: 32-B aligned
+    const int4* rl = reinterpret_cast<const int4*>(t.rows + 40 * bl);
+    const int4 k0 = __ldg(rk), k1 = __ldg(rk + 1);
+    int4 l0 = k0, l1 = k1;
+    if (bl != bk) l0 = __ldg(rl), l1 = __ldg(rl + 1);
+    T mk = 0, ml = 0;
+    if constexpr (sizeof(T) == 8) {
+      mk = __ldg(t.mega + 6 * (bk >> t.mega_shift) + c);
+      ml = (bl >> t.mega_shift) == (bk >> t.mega_shift) ? mk : __ldg(t.mega + 6 * (bl >> t.mega_shift) + c);
+    }
+    int ck, cl, unused;
+    if (bl == bk) {
+      keyed2(rk, k1.z, offk, offl, key, ck, cl);
+    } else {
+      keyed2(rk, k1.z, offk, offk, key, ck, unused);
+      keyed2(rl, l1.z, offl, offl, key, cl, unused);
+    }
+    ok = base_c(mk, k0, k1, c) + ck;
+    ol = base_c(ml, l0, l1, c) + cl;
+  }
+
+  // k's block (F1: a block boundary, k = n included, at offset S of the
+  // block before; k = 0 at block 0) and its offset there, [0, S]
+  __device__ __forceinline__ int64_t block_of(T k, int& off) const {
+    const int64_t bi = k > 0 ? (int64_t)(k - 1) >> t.block_shift : 0;
+    off = (int)(k - (T)(bi << t.block_shift));
+    return bi;
+  }
+
+  // symbol c's count before a block, from its header (h0, h1) and, in
+  // int64 mode, its megablock word m
+  __device__ __forceinline__ static T base_c(T m, const int4& h0, const int4& h1, int c) {
+    const int col = c == 0 ? h0.x : c == 1 ? h0.y : c == 2 ? h0.z : c == 3 ? h0.w : c == 4 ? h1.x : h1.y;
+    if constexpr (sizeof(T) == 8) return m + (int64_t)(uint32_t)col;
+    return col;
+  }
+
+  // c1, c2: the in-block counts of `key` below offsets o1 <= o2 of the
+  // block whose row is `row` and escape index `e`.  A run-coded block: its
+  // records, as rank6 sums them, for two offsets and one key; an escape
+  // block: the sub-row of each offset, one fetch when both share it.
+  __device__ __forceinline__ void keyed2(const int4* row, int e, int o1, int o2, int key, int& c1, int& c2) const {
+    const int S = 1 << t.block_shift;
+    if (e < 0) {
+      uint4 v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = __ldg(reinterpret_cast<const uint4*>(row + 2 + q));
+      int p1 = 0, p2 = 0;  // min(o, the previous record's end): p1 <= p2
+      c1 = c2 = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (p2 < o2) {
+          const unsigned w[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            int end;
+            const bool is_key = record(w, r, S, end) == key;
+            const int x1 = min(o1, end), x2 = min(o2, end);
+            if (is_key) c1 += x1 - p1, c2 += x2 - p2;
+            p1 = x1, p2 = x2;
+          }
+        }
+      }
+    } else {
+      const int W4 = S >> 7;
+      const int j1 = min(o1 >> 7, W4 - 1), j2 = min(o2 >> 7, W4 - 1);  // o = S: the last sub-row, whole
+      const uint4* p = reinterpret_cast<const uint4*>(t.esc) + ((int64_t)e * W4 + j1) * 4;
+      const uint4 s0 = __ldg(p), s1 = __ldg(p + 1), s2 = __ldg(p + 2), s3 = __ldg(p + 3);
+      uint4 u0 = s0, u1 = s1, u2 = s2, u3 = s3;
+      if (j2 != j1) {
+        const uint4* q = p + (int64_t)(j2 - j1) * 4;
+        u0 = __ldg(q), u1 = __ldg(q + 1), u2 = __ldg(q + 2), u3 = __ldg(q + 3);
+      }
+      c1 = sub_row_count(s0, s1, s2, s3, o1 - (j1 << 7), key);
+      c2 = sub_row_count(u0, u1, u2, u3, o2 - (j2 << 7), key);
+    }
+  }
+
+  // record r (0..7) of four words of a run-coded block's records: its key,
+  // and its end in `end` (F4: a stored end of 0 is S, the block's end)
+  __device__ __forceinline__ static int record(const unsigned w[4], int r, int S, int& end) {
+    const unsigned e16 = (w[r >> 1] >> (16 * (r & 1))) & 0xffffu;
+    end = (e16 >> 3) ? (int)(e16 >> 3) : S;
+    return (int)(e16 & 7);
+  }
+
+  // `key`'s count below offset rem (0..128) of an escape sub-row: its keyed
+  // count before the sub-row (h), then the planes (a, b, d) masked for key
+  __device__ __forceinline__ static int sub_row_count(const uint4& h, const uint4& a, const uint4& b, const uint4& d,
+                                                      int rem, int key) {
+    const unsigned hw = (key >> 1) == 0 ? h.x : (key >> 1) == 1 ? h.y : h.z;
+    int cnt = (int)((hw >> (16 * (key & 1))) & 0xffffu);
+    const unsigned av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w}, dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int r = rem - 32 * w;  // >= 32: the full word
+      const unsigned m = r <= 0 ? 0u : low_mask((unsigned)r);
+      cnt += __popc(m & (key & 1 ? av[w] : ~av[w]) & (key & 2 ? bv[w] : ~bv[w]) & (key & 4 ? dv[w] : ~dv[w]));
+    }
+    return cnt;
   }
 };
 

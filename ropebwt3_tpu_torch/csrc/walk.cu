@@ -46,13 +46,25 @@
 // walk design, and pass 2 has no round.
 //
 // K12 suffix_walk (every layout): one thread per read, from its last
-// symbol down.  A step ranks both ends of the interval, k and l, with all
-// six counts (rank6: the two rows' loads are independent, so a step costs
-// one dependent round of loads), then k = acc[c] + occ_c(k), l = acc[c] +
-// occ_c(l); the lane stops at the first empty interval or the read's
-// start.  It writes i + 1 (where the longest matching suffix starts) and
-// the last non-empty interval's size.  Bound on the card: the longest
-// read's chain of steps; the rows are read at random.
+// symbol down (a read's backward search is one dependent chain).  A step
+// ranks its one symbol c at both ends of the interval with the layout's
+// rank2: one row fetch (rb: one header, one escape sub-row, one set of
+// records) where k and l share it, two independent fetches otherwise,
+// symbol c's count alone; then k = acc[c] + occ_c(k), l = acc[c] +
+// occ_c(l).  The next step's symbol is loaded beside this step's rows, so
+// only the rows lie on the chain.  The lane stops at the first empty
+// interval or the read's start, and writes i + 1 (where the longest
+// matching suffix starts) and the last non-empty interval's size.
+// What bounds it, measured on `suffix`'s 100,200 reads of bench.py's
+// index (H100; walk_time, PERF.md): all the reads at once, ~92 steps each,
+// then the long reads' tail, the longest a chain of 518 steps.  Both ends
+// fall in one row on 74% of the steps once the interval narrows; ranking
+// all six counts at each end fetched 18.4 M rows a launch, rank2
+// fetches 11.5 M.  dense32 took 0.49 ms, now 0.44: the short reads' loaded
+// phase ~0.26 ms (it fell 11%, not with its sectors' 37%) and the longest
+// chain ~0.23 ms (~430 ns a step against ~520).  Holding the rows in a
+// persisting L2 window for the launch was tried and taken back: it cost
+// 4-6% more on dense32 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,12 +77,6 @@ constexpr int kThreads = 256;
 constexpr int64_t kTileBlocks = 132 * 16;  // the tile's grid-stride blocks
 
 unsigned grid_of(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
-// v[c] by selects: a dynamic index would put the array in local memory
-template <typename T>
-__device__ __forceinline__ T pick6(const T v[6], int c) {
-  return c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : c == 3 ? v[3] : c == 4 ? v[4] : v[5];
-}
 
 __device__ __forceinline__ int64_t thread_id() { return blockIdx.x * (int64_t)blockDim.x + threadIdx.x; }
 
@@ -186,22 +192,23 @@ template <class L>
 __global__ void suffix_walk(const L ix, const uint8_t* __restrict__ q, const int64_t* __restrict__ off, int64_t R,
                             int64_t* __restrict__ start, int64_t* __restrict__ last) {
   using T = typename L::T;
-  const int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int64_t r = thread_id();
   if (r >= R) return;
-  const int64_t o = off[r];
-  int64_t i = off[r + 1] - o - 1;
+  const uint8_t* s = q + off[r];
+  int64_t i = off[r + 1] - off[r] - 1;
   T k = 0, l = ix.acc(6), size = 0;
+  int c = i >= 0 ? s[i] : 0;
   while (i >= 0) {
-    const int c = q[o + i];
-    T ok[6], ol[6];
-    ix.rank6(k, ok);
-    ix.rank6(l, ol);
+    const int next = i > 0 ? s[i - 1] : 0;  // the next step's symbol, loaded beside this step's rows
     const T a = ix.acc(c);
-    k = a + pick6(ok, c);
-    l = a + pick6(ol, c);
+    T ok, ol;
+    ix.rank2(k, l, c, ok, ol);
+    k = a + ok;
+    l = a + ol;
     if (l - k <= 0) break;
     size = l - k;
     --i;
+    c = next;
   }
   start[r] = i + 1;
   last[r] = (int64_t)size;
@@ -264,7 +271,8 @@ RB3C_RETRIEVE_SEG_CYCLE(dense32, rb3c::Dense<int>)
 RB3C_RETRIEVE_SEG_CYCLE(dense64, rb3c::Dense<int64_t>)
 
 // K12: reads q (flat uint8 nt6 codes 0..5) at off (R + 1,) int64; start and
-// last (R,) int64 out.
+// last (R,) int64 out.  _occupancy_ gives the kernel's resident blocks an
+// SM, local bytes and registers a thread.
 #define RB3C_SUFFIX_WALK(name, L)                                                                                    \
   int rb3c_suffix_walk_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift, \
                               int block_shift, const uint8_t* q, const int64_t* off, int64_t R, int64_t* start,     \
@@ -272,6 +280,13 @@ RB3C_RETRIEVE_SEG_CYCLE(dense64, rb3c::Dense<int64_t>)
     const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                       \
     suffix_walk<L><<<grid_of(R), kThreads, 0, (cudaStream_t)stream>>>(ix, q, off, R, start, last);                 \
     return (int)cudaGetLastError();                                                                                 \
+  }                                                                                                                 \
+  int rb3c_occupancy_suffix_walk_##name(int* blocks, int* local, int* regs) {                                      \
+    cudaFuncAttributes a;                                                                                           \
+    const cudaError_t e = cudaFuncGetAttributes(&a, suffix_walk<L>);                                                \
+    if (e != cudaSuccess) return (int)e;                                                                            \
+    *local = (int)a.localSizeBytes, *regs = a.numRegs;                                                              \
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, suffix_walk<L>, kThreads, 0);                 \
   }
 RB3C_LAYOUTS(RB3C_SUFFIX_WALK)
 

@@ -74,7 +74,7 @@ def make_workload(work: str) -> tuple[str, np.ndarray, list[np.ndarray]]:
         with open(fa, "wb") as fh:
             fh.write(b"".join(b">g%d\n" % g + alpha[s].tobytes() + b"\n" for g, s in enumerate(gens)))
         with contextlib.redirect_stderr(io.StringIO()):
-            if cli.main(["build", "-do", fmd + ".tmp", fa]) != 0:
+            if cli.run(["build", "-do", fmd + ".tmp", fa]) != 0:
                 fail("the index build failed")
         os.replace(fmd + ".tmp", fmd)
     return fmd, gens[0], list(short[:SW_READS])

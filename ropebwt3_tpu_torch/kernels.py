@@ -11,8 +11,9 @@ is built or loaded when this module is imported; `lib()` does it.
 Every entry point takes PyTorch's current CUDA stream, allocates nothing, and
 returns `cudaGetLastError()` after its launch; `launch` raises on non-zero,
 `call` returns the code (the shared-memory capacity probe reports a refusal).
-The queries `rb3c_smem_optin`, `rb3c_occupancy_*` (the SMEM, DP and
-merge-rank kernels' resident blocks an SM) and `rb3c_sa_sort_status_len` take no stream; the DP kernels' `rb3c_timed_*` twins
+The queries `rb3c_smem_optin`, `rb3c_occupancy_*` (the SMEM, DP,
+merge-rank and suffix kernels' resident blocks an SM) and
+`rb3c_sa_sort_status_len` take no stream; the DP kernels' `rb3c_timed_*` twins
 also write lane 0's phase clocks (ropebwt3_tpu_torch/dp_time.py reads both).
 The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
 thread per lane of a chunked read) come in one variant per occ layout: dense32 and
@@ -62,6 +63,7 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_smem_tg_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I32, _I32, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_smem_tgc_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 4, *[_V] * 7]
     _ENTRIES[f"rb3c_suffix_walk_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
+    _ENTRIES[f"rb3c_occupancy_suffix_walk_{_lay}"] = [_V, _V, _V]  # no stream
     _ENTRIES[f"rb3c_occupancy_smem_tg_{_lay}"] = [_I32, _V, _V, _V]  # no stream: smem_tgc (1) or smem_tg (0)
 for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_retrieve_seg_walk_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V]

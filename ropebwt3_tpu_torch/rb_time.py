@@ -6,7 +6,7 @@ On the index's rb32 rows at S = 8192 and S = 256 (on a pangenome the first
 is mostly escape blocks, the second mostly run-coded) and its dense32 rows:
 occ_rank1a on 2^20 random positions and smem_tgc on the lanes of every read
 of READS.fa (one batch, `-l31`), each queued behind a spin kernel
-(probe.queued_ms); then `mem -l31` through cli.main in-process, warm (the
+(probe.queued_ms); then `mem -l31` through cli.run in-process, warm (the
 second of two runs), with --occ=dense and --occ=rb.  The rank is checked against the plain rank on the card
 and smem_tgc's rows against dense32's, so a tree whose kernel is wrong
 fails.  Prints one JSON line tagged TAG.  Two trees compare in one call:
@@ -44,7 +44,7 @@ def mem_s(argv: list[str]) -> float:
     for _ in range(2):
         t0 = time.perf_counter()
         with open(os.devnull, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
-            if cli.main(argv) != 0:
+            if cli.run(argv) != 0:
                 fail(f"{' '.join(argv)} failed")
         torch.cuda.synchronize()
     return time.perf_counter() - t0

@@ -68,20 +68,23 @@ def make_workload(work: str) -> tuple[str, list[np.ndarray]]:
         with open(fa, "wb") as fh:
             fh.write(b"".join(b">g%d\n" % g + alpha[s].tobytes() + b"\n" for g, s in enumerate(gens)))
         with contextlib.redirect_stderr(io.StringIO()):
-            if cli.main(["build", "-do", fmd + f".tmp{os.getpid()}", fa]) != 0:
+            if cli.run(["build", "-do", fmd + f".tmp{os.getpid()}", fa]) != 0:
                 fail("the index build failed")
         os.replace(fmd + f".tmp{os.getpid()}", fmd)
     return fmd, reads
 
 
-def ptxas() -> dict:
-    """Registers and spill bytes of this tree's smem kernels, as `nvcc
-    -Xptxas -v` reports them: {"smem_tgc_dense32": {...}, ...}."""
+def ptxas(source: str = "smem_tg.cu", kinds: dict | None = None) -> dict:
+    """Registers and spill bytes of this tree's kernels in csrc/`source`, as
+    `nvcc -Xptxas -v` reports them: {"smem_tgc_dense32": {...}, ...}, a key
+    a kernel whose name holds a key of `kinds` (default the smem kernels)
+    in each layout."""
+    kinds = kinds or {"smem_tgc_kernel": "smem_tgc", "smem_tg_kernel": "smem_tg"}
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    obj = os.path.join(kernels.BUILD_DIR, f"ptxas_smem_tg.{os.getpid()}.o")
+    obj = os.path.join(kernels.BUILD_DIR, f"ptxas_{source}.{os.getpid()}.o")
     try:
         r = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I", kernels.CSRC, "-c", "-o", obj,
-                            os.path.join(kernels.CSRC, "smem_tg.cu")], capture_output=True, text=True)
+                            os.path.join(kernels.CSRC, source)], capture_output=True, text=True)
     finally:
         if os.path.exists(obj):
             os.unlink(obj)
@@ -92,7 +95,7 @@ def ptxas() -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            kind = "smem_tgc" if "smem_tgc_kernel" in name else "smem_tg" if "smem_tg_kernel" in name else None
+            kind = next((v for k, v in kinds.items() if k in name), None)
             lay = next((v for k, v in LAYOUT_KEYS.items() if k in name), None)
             cur = out.setdefault(f"{kind}_{lay}", {}) if kind and lay else None
             continue

@@ -23,18 +23,20 @@ from ropebwt3_tpu_torch import cli as tcli
 from ropebwt3_tpu_torch.construct import sa as tsa
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STRICT = {"RB3TPU_STRICT_EXIT": "1"}  # the command's own exit code (cli.main gives 0 for a known command)
 
 
-def _run(module, args):
-    # neither package is installed: both are found from the repo root
-    env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu")
+def _run(module, args, strict=False):
+    # neither package is installed: both are found from the repo root; with
+    # `strict`, RB3TPU_STRICT_EXIT=1: the command's own exit code, not 0
+    env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu", **(STRICT if strict else {}))
     return subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT, capture_output=True, env=env)
 
 
-def _run_without_jax(args):
+def _run_without_jax(args, strict=False):
     """The port's CLI in a process where `import jax` fails."""
     code = "import sys\nsys.modules['jax'] = None\nfrom ropebwt3_tpu_torch.cli import main\nsys.exit(main(sys.argv[1:]))\n"
-    env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu", **(STRICT if strict else {}))
     return subprocess.run([sys.executable, "-c", code] + args, cwd=ROOT, capture_output=True, env=env)
 
 
@@ -108,8 +110,9 @@ def test_merge_and_plain2fmd_match_reference(corpus, tmp_path):
 @pytest.mark.parametrize("budget,what", [(10_000, "a batch of"), (3_000_000, "merging")])
 def test_build_beyond_the_card_stops_with_one_error(monkeypatch, capsys, corpus, tmp_path, budget, what):
     """A batch, or a merge, that the card's memory (here a budget given to
-    the CPU run) cannot hold stops `build` with one ERROR line, exit 1, and
-    no output: nothing moves to the host."""
+    the CPU run) cannot hold stops `build` with one ERROR line, exit 1 under
+    RB3TPU_STRICT_EXIT=1, and no output: nothing moves to the host."""
+    monkeypatch.setenv("RB3TPU_STRICT_EXIT", "1")
     monkeypatch.setattr(tcli, "card_bytes", lambda dev: budget)
     out = tmp_path / "x.fmd"
     rc = tcli.main(["build", "--device=cpu", "-do", str(out), str(corpus / "genomes.fa")])
@@ -124,6 +127,7 @@ def test_build_sorted_beyond_the_card_names_the_cap(monkeypatch, capsys, corpus,
     budget given to the CPU run) splits it, the one ERROR line names the cap
     and the input's size, not -m, which cannot lift the cap."""
     cap = 40_000
+    monkeypatch.setenv("RB3TPU_STRICT_EXIT", "1")
     monkeypatch.setattr(tcli, "card_bytes", lambda dev: cap * 2 * (tsa.SA_BYTES_PER_SYMBOL + 1))
     out = tmp_path / "x.fmd"
     rc = tcli.main(["build", "--device=cpu", order, "-do", str(out), str(corpus / "genomes.fa")])
@@ -144,6 +148,7 @@ def test_build_sizes_wide_batches_apart(monkeypatch, capsys, corpus, tmp_path, b
     want = tmp_path / "want.fmd"
     assert tcli.main(["build", "--device=cpu", "-do", str(want), fa]) == 0
     capsys.readouterr()
+    monkeypatch.setenv("RB3TPU_STRICT_EXIT", "1")
     monkeypatch.setattr(tsa, "PACKED_MAX", 5_000)
     monkeypatch.setattr(tcli, "card_bytes", lambda dev: budget)
     out = tmp_path / "x.fmd"
@@ -186,7 +191,7 @@ def test_build_and_merge_without_cuda_exit_nonzero(corpus, tmp_path):
         pytest.skip("this host has a CUDA card")
     out = tmp_path / "x.fmd"
     for argv in (["build", "-do", str(out), str(corpus / "genomes.fa")], ["merge", "-o", str(out), "a.fmd", "b.fmd"]):
-        r = _run("ropebwt3_tpu_torch", argv)
+        r = _run("ropebwt3_tpu_torch", argv, strict=True)
         assert r.returncode != 0 and not r.stdout and b"CUDA" in r.stderr and not out.exists()
 
 
@@ -228,7 +233,8 @@ def test_mem_occ_matches_native(corpus, corpus_fmd, occ, layout):
 
 
 def test_mem_rejects_bad_occ(corpus, corpus_fmd):
-    r = _run("ropebwt3_tpu_torch", ["mem", "--device=cpu", "--occ=bogus", str(corpus_fmd), str(corpus / "reads.fa")])
+    r = _run("ropebwt3_tpu_torch", ["mem", "--device=cpu", "--occ=bogus", str(corpus_fmd), str(corpus / "reads.fa")],
+             strict=True)
     assert r.returncode != 0 and not r.stdout
     assert b"invalid --occ value" in r.stderr
 
@@ -236,7 +242,7 @@ def test_mem_rejects_bad_occ(corpus, corpus_fmd):
 def test_mem_without_cuda_exits_nonzero(corpus, corpus_fmd):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
-    r = _run("ropebwt3_tpu_torch", ["mem", "-l21", str(corpus_fmd), str(corpus / "reads.fa")])
+    r = _run("ropebwt3_tpu_torch", ["mem", "-l21", str(corpus_fmd), str(corpus / "reads.fa")], strict=True)
     assert r.returncode != 0 and not r.stdout
     assert b"CUDA" in r.stderr
 
@@ -267,7 +273,7 @@ def test_ssa_matches_reference(corpus_fmd, tmp_path, opts):
 def test_ssa_without_cuda_exits_nonzero(corpus_fmd, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
-    r = _run("ropebwt3_tpu_torch", ["ssa", "-o", str(tmp_path / "x.ssa"), str(corpus_fmd)])
+    r = _run("ropebwt3_tpu_torch", ["ssa", "-o", str(tmp_path / "x.ssa"), str(corpus_fmd)], strict=True)
     assert r.returncode != 0 and b"CUDA" in r.stderr and not (tmp_path / "x.ssa").exists()
 
 
@@ -291,7 +297,7 @@ def test_hapdiv_matches_reference(corpus, corpus_fmd, cmd, device_engine):
 def test_hapdiv_without_cuda_exits_nonzero(corpus, corpus_fmd):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
-    r = _run("ropebwt3_tpu_torch", ["hapdiv", str(corpus_fmd), str(corpus / "reads.fa")])
+    r = _run("ropebwt3_tpu_torch", ["hapdiv", str(corpus_fmd), str(corpus / "reads.fa")], strict=True)
     assert r.returncode != 0 and not r.stdout
     lines = r.stderr.decode().splitlines()
     assert len(lines) == 1 and lines[0].startswith("ERROR: ") and "CUDA" in lines[0]
@@ -305,7 +311,7 @@ def test_hapdiv_without_cuda_exits_nonzero(corpus, corpus_fmd):
 ])
 def test_refuses_jax_device_options(corpus_fmd, argv, why):
     """One ERROR line naming the option and the ROADMAP item, no traceback."""
-    r = _run_without_jax(argv + [str(corpus_fmd)])
+    r = _run_without_jax(argv + [str(corpus_fmd)], strict=True)
     assert r.returncode != 0 and not r.stdout
     lines = r.stderr.decode().splitlines()
     assert len(lines) == 1 and lines[0].startswith("ERROR: ") and why.decode() in lines[0], lines
@@ -315,7 +321,8 @@ def test_refuses_jax_device_options(corpus_fmd, argv, why):
 def test_search_never_goes_to_a_server(corpus, corpus_fmd):
     """`search --engine=server`: one ERROR line (the JAX package runs it
     here; `--engine=server` routes mem, sw and hapdiv only)."""
-    r = _run_without_jax(["search", "--device=cpu", "--engine=server", "-l21", str(corpus_fmd), str(corpus / "reads.fa")])
+    r = _run_without_jax(["search", "--device=cpu", "--engine=server", "-l21", str(corpus_fmd), str(corpus / "reads.fa")],
+                         strict=True)
     lines = r.stderr.decode().splitlines()
     assert r.returncode == 1 and not r.stdout and len(lines) == 1
     assert lines[0] == "ERROR: search never goes to a server: `--engine=server` takes mem, sw and hapdiv"
@@ -326,7 +333,7 @@ def test_serve_usage_and_bad_options(argv):
     """`serve` without an index prints its usage; `--engine=jax` (the JAX
     package's engine) and an unknown device are one ERROR line; none starts
     a server or imports jax."""
-    r = _run_without_jax(argv)
+    r = _run_without_jax(argv, strict=True)
     lines = r.stderr.decode().splitlines()
     assert r.returncode == 1 and not r.stdout and len(lines) == 1 and "Traceback" not in r.stderr.decode()
     assert lines[0].startswith("Usage: python -m ropebwt3_tpu_torch serve" if len(argv) == 1 else "ERROR: ")

@@ -129,7 +129,7 @@ def test_refused_command_names_roadmap_item(argv, item):
     """An option the port does not run (the port owns every command now):
     one ERROR line naming its ROADMAP queue 1 item and the JAX package's
     command, exit 1, nothing run."""
-    r = _run_without_jax(argv)
+    r = _run_without_jax(argv, strict=True)
     assert r.returncode == 1 and not r.stdout
     lines = r.stderr.decode().splitlines()
     assert len(lines) == 1 and lines[0].startswith("ERROR: ") and f"ROADMAP queue 1 {item}" in lines[0], lines

@@ -86,7 +86,8 @@ def test_utils_import_no_jax_package(corpus, corpus_fmd):
         f"    rcs.append(main(['fa2kmer', {reads!r}]))\n"
         f"print(rcs, {FORBIDDEN})\n"
     )
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       env=dict(os.environ, RB3TPU_STRICT_EXIT="1"))  # the commands' own codes: `mem`'s error is 1
     assert r.returncode == 0 and r.stdout.strip() == "[1, False, 0, 0, 0, 0, 0] []", r.stdout + r.stderr
 
 

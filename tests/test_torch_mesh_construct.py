@@ -309,11 +309,13 @@ def test_mesh_option_as_the_jax_package_takes_it(corpus, fmd, tmp_path, case):
         assert open(f"{t}/m.fmd", "rb").read() == open(fmd, "rb").read()
         return
     if case == "fa2kmer":
-        # the JAX package exits 0 after an error unless asked for real exit codes
+        # both packages exit 0 after an error unless asked for real exit codes
         env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu", RB3TPU_STRICT_EXIT="1")
         want = subprocess.run([sys.executable, "-m", "ropebwt3_tpu", "fa2kmer", "--mesh=2", reads], cwd=ROOT,
                               capture_output=True, env=env)
-        got = _main(["fa2kmer", "--mesh=2", reads])
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("RB3TPU_STRICT_EXIT", "1")
+            got = _main(["fa2kmer", "--mesh=2", reads])
         assert (got[0], got[1], got[2]) == (want.returncode, want.stdout, want.stderr.decode()) == (
             1, b"", "ERROR: unknown option\n")
         return

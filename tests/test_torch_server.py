@@ -100,7 +100,8 @@ def _want(argv):
 def test_engine_server_without_a_server_is_one_error(corpus, corpus_fmd, tmp_path):  # noqa: F811
     """No server answers for this index: one ERROR line, nothing on stdout."""
     for cmd in ("mem", "sw", "hapdiv"):
-        r = _client([cmd, "--device=cpu", "--engine=server", str(corpus_fmd), str(corpus / "reads.fa")], str(tmp_path))
+        r = _client([cmd, "--device=cpu", "--engine=server", str(corpus_fmd), str(corpus / "reads.fa")], str(tmp_path),
+                    RB3TPU_STRICT_EXIT="1")
         lines = r.stderr.decode().splitlines()
         assert r.returncode == 1 and not r.stdout and len(lines) == 1 and lines[0].startswith("ERROR: no server")
 
@@ -139,7 +140,7 @@ def test_request_for_another_device(corpus, served):
     """A `--device=cuda` request to a CPU server: `--engine=server` is one
     ERROR line; auto runs here (and without CUDA stops with one)."""
     idx, tmpdir, _ = served
-    r = _client(["mem", "--engine=server", "-l21", idx, str(corpus / "reads.fa")], tmpdir)
+    r = _client(["mem", "--engine=server", "-l21", idx, str(corpus / "reads.fa")], tmpdir, RB3TPU_STRICT_EXIT="1")
     lines = r.stderr.decode().splitlines()
     assert r.returncode == 1 and not r.stdout and len(lines) == 1 and "runs on cpu, not cuda" in lines[0]
     r = _client(["mem", "-l21", idx, str(corpus / "reads.fa")], tmpdir)
@@ -197,7 +198,7 @@ def test_stop_cleans_up(served):
     assert r.returncode == 0, r.stderr.decode()
     assert proc.wait(timeout=30) == 0
     assert not os.path.exists(server.sock_path(idx)) and not os.path.exists(server.pid_path(idx))
-    r = _client(["mem", "--device=cpu", "--engine=server", idx, idx], tmpdir)
+    r = _client(["mem", "--device=cpu", "--engine=server", idx, idx], tmpdir, RB3TPU_STRICT_EXIT="1")
     assert r.returncode == 1 and b"ERROR: no server" in r.stderr
 
 

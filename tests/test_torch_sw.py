@@ -266,7 +266,7 @@ def test_cli_matches_reference(corpus_fmd, small_reads, argv):  # noqa: F811
 def test_sw_without_cuda_exits_nonzero(corpus_fmd, small_reads):  # noqa: F811
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
-    r = _run("ropebwt3_tpu_torch", ["sw", str(corpus_fmd), str(small_reads)])
+    r = _run("ropebwt3_tpu_torch", ["sw", str(corpus_fmd), str(small_reads)], strict=True)
     assert r.returncode != 0 and not r.stdout
     lines = r.stderr.decode().splitlines()
     assert len(lines) == 1 and lines[0].startswith("ERROR: ") and "CUDA" in lines[0]

@@ -117,9 +117,11 @@ def test_kount_matches_reference(corpus_fmd, second_fmd, opts, two):  # noqa: F8
 @pytest.mark.parametrize("argv", [["fa2line", "genomes.fa"], ["fa2line", "-R", "reads.fa"], ["fa2line", "-R", "nope.fa"],
                                   ["fa2kmer", "-k31", "-w20", "reads.fa"], ["fa2kmer", "genomes.fa"],
                                   ["fa2kmer", "-w", "0", "reads.fa"], ["fa2kmer", "-k", "1000", "reads.fa"]])
-def test_host_converters_match_reference(corpus, argv):
+def test_host_converters_match_reference(corpus, monkeypatch, argv):
     """fa2line (both strands, -R) and fa2kmer (-w 0: one ERROR line, no
-    output; k past the read: one record a read) on the host."""
+    output, exit 1 under RB3TPU_STRICT_EXIT=1; k past the read: one record
+    a read) on the host."""
+    monkeypatch.setenv("RB3TPU_STRICT_EXIT", "1")
     argv = [str(corpus / a) if a.endswith(".fa") else a for a in argv]
     rc, got, want = _same(argv, device=False)
     assert got == want
@@ -131,7 +133,7 @@ def test_device_utils_without_cuda_exit_nonzero(corpus, corpus_fmd, cmd):  # noq
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
     argv = [{"IDX": str(corpus_fmd), "READS": str(corpus / "reads.fa")}.get(a, a) for a in cmd]
-    r = _run("ropebwt3_tpu_torch", argv)
+    r = _run("ropebwt3_tpu_torch", argv, strict=True)
     assert r.returncode != 0 and not r.stdout
     lines = r.stderr.decode().splitlines()
     assert len(lines) == 1 and lines[0].startswith("ERROR: ") and "CUDA" in lines[0]

@@ -18,11 +18,11 @@ from ropebwt3_tpu import cli as jcli
 from ropebwt3_tpu_torch import cli as tcli
 from ropebwt3_tpu_torch import kernels
 from ropebwt3_tpu_torch.kernels import CSRC
-from ropebwt3_tpu_torch.ops import runblock, walk
+from ropebwt3_tpu_torch.ops import runblock, smem, walk
 from ropebwt3_tpu_torch.ops.rank import OccIndex
 
 from .test_torch_cli import _in_process
-from .test_torch_cuda import corpus_index, cyclic_bwt_index  # noqa: F401  (fixture reuse)
+from .test_torch_cuda import corpus_index, cyclic_bwt_index, n_index  # noqa: F401  (fixture reuse)
 from .test_torch_runblock import HOST_SHIM
 
 HEADS = "heads"  # the heads-only stride, heads_only(n)
@@ -239,6 +239,28 @@ HOST_PASSES(dense32, rb3c::Dense<int>)
 HOST_PASSES(dense64, rb3c::Dense<int64_t>)
 """
 
+# K12's entry point in every layout, its C signature kept, and a loop over
+# the layout's rank2 for its own test
+SUFFIX_ENTRIES = r"""
+#define HOST_SUFFIX(name, L)                                                                                        \
+  extern "C" int rb3c_suffix_walk_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc,     \
+      int ms, int bs, const uint8_t* q, const int64_t* off, int64_t R, int64_t* start, int64_t* last, void*) {      \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, ms, bs}};                                                        \
+    for (int64_t r = 0; r < R; ++r) blockIdx.x = r, suffix_walk<L>(ix, q, off, R, start, last);                    \
+    return 0;                                                                                                       \
+  }                                                                                                                 \
+  extern "C" void rank2_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int ms, int bs, \
+      const int64_t* k, const int64_t* l, const uint8_t* c, int64_t n, int64_t* ok, int64_t* ol) {                 \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, ms, bs}};                                                        \
+    for (int64_t i = 0; i < n; ++i) {                                                                               \
+      typename L::T a, b;                                                                                           \
+      ix.rank2((typename L::T)k[i], (typename L::T)l[i], c[i], a, b);                                               \
+      ok[i] = a, ol[i] = b;                                                                                         \
+    }                                                                                                               \
+  }
+RB3C_LAYOUTS(HOST_SUFFIX)
+"""
+
 JUMP_ENTRY = r"""
 extern "C" int rb3c_ssa_jump(int64_t* seg, int64_t n_seg, int rounds, void*) {
   for (int i = 0; i < rounds; ++i) {
@@ -253,13 +275,14 @@ extern "C" int rb3c_ssa_jump(int64_t* seg, int64_t n_seg, int rounds, void*) {
 @pytest.fixture(scope="module")
 def walk_host(tmp_path_factory):
     """csrc/walk.cu's and ssa_gen.cu's kernels (the text before their C
-    entry points) built for the host with g++, one file each, behind K11's
-    and rb3c_ssa_jump's C signatures: a launch runs the kernel once a
-    thread id.  Returns kernels.launch's stand-in."""
+    entry points) built for the host with g++, one file each, behind K11's,
+    K12's and rb3c_ssa_jump's C signatures: a launch runs the kernel once a
+    thread id.  Returns kernels.launch's stand-in, with the library as its
+    `lib`."""
     shim = HOST_SHIM[: HOST_SHIM.index('#include "rb.cuh"')] + WALK_HOST
     d = tmp_path_factory.mktemp("walk_host")
     files = []
-    for name, entries in (("walk", WALK_ENTRIES), ("ssa_gen", JUMP_ENTRY)):
+    for name, entries in (("walk", WALK_ENTRIES + SUFFIX_ENTRIES), ("ssa_gen", JUMP_ENTRY)):
         src = open(f"{CSRC}/{name}.cu").read()
         body = src[: src.index('extern "C" {')].replace("#include <cuda_runtime.h>", "")
         files.append(d / f"{name}_host.cpp")
@@ -275,6 +298,7 @@ def walk_host(tmp_path_factory):
         fn.argtypes = kernels._ENTRIES[name]
         assert fn(*args, None) == 0
 
+    launch.lib = lib
     return launch
 
 
@@ -298,3 +322,149 @@ def test_walk_cu_on_the_host(walk_host, corpus_index, monkeypatch, which, layout
         assert walk.retrieve_cuda.launches[layout] == before + 1
         assert all(np.array_equal(a, b) for a, b in zip(got[0], want[0])) and np.array_equal(got[1], want[1])
         assert torch.equal(got[2], want[2])
+
+
+@pytest.fixture(scope="module")
+def suffix_texts(corpus_index):  # noqa: F811
+    """The corpus index (n = 128,016) and test_torch_cuda's n_index (n =
+    16,384, a multiple of 64 and of S = 256: l = n at a row and a block
+    boundary, F1)."""
+    return {"corpus": corpus_index, "n64": n_index()}
+
+
+def suffix_index(f, layout: str):
+    """f's rows in `layout` on the CPU: dense64 in megablocks of 2^16
+    symbols (the corpus index's two) or, on a smaller index, of 256; rb at
+    S = 256 (rb64: megablocks of 4 blocks)."""
+    if layout.startswith("dense"):
+        return OccIndex.from_dense(f, "cpu", int64=layout == "dense64", mega_shift=10 if f.n > 1 << 16 else 2)
+    return runblock.RunBlockIndex.from_dense(f, "cpu", S=256, int64=layout == "rb64", mega_shift=2, cache=None)
+
+
+def suffix_reads(f, seed: int) -> list[np.ndarray]:
+    """Seeded reads of f's own sequences (DenseFMIndex.retrieve): pieces of
+    20-300 symbols, half of them with 1% substitutions and some with N's;
+    random reads; a sequence's first 2,500 symbols (n_index's: all of
+    it); an empty read and a lone N."""
+    rng = np.random.default_rng(seed)
+    seqs = [f.retrieve(k)[0] for k in range(int(f.acc[1]))]
+    reads = []
+    for j in range(400):
+        s = seqs[j % len(seqs)]
+        ln = int(rng.integers(20, 300))
+        st = int(rng.integers(0, max(1, len(s) - ln)))
+        r = s[st : st + ln].copy()
+        if j % 2:
+            mut = rng.random(len(r)) < 0.01
+            r[mut] = rng.integers(1, 5, int(mut.sum()))
+        if j % 7 == 0:
+            r[rng.random(len(r)) < 0.02] = 5
+        reads.append(r.astype(np.uint8))
+    reads += [rng.integers(1, 5, int(rng.integers(5, 40))).astype(np.uint8) for _ in range(50)]
+    return reads + [seqs[0][:2500].astype(np.uint8), np.zeros(0, np.uint8), np.full(1, 5, np.uint8)]
+
+
+def jax_suffix(f, reads, tmp_path) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX package's main_suffix of `reads` on f (an FMD written by its
+    plain2fmd): each read's start and last interval size."""
+    alpha = np.frombuffer(b"$ACGTN", np.uint8)
+    bwt = tmp_path / "bwt.txt"
+    bwt.write_bytes(alpha[f.bwt[: f.n]].tobytes())
+    rc, data = _in_process(jcli.main, ["plain2fmd", str(bwt)])
+    assert rc == 0
+    fmd, fa = tmp_path / "s.fmd", tmp_path / "q.fa"
+    fmd.write_bytes(data)
+    fa.write_bytes(b"".join(b">r%d\n%s\n" % (i, alpha[r].tobytes()) for i, r in enumerate(reads)))
+    rc, out = _in_process(jcli.main, ["suffix", str(fmd), str(fa)])
+    rows = [ln.split(b"\t") for ln in out.splitlines()]
+    assert rc == 0 and len(rows) == len(reads) and all(int(x[2]) == len(r) for x, r in zip(rows, reads))
+    return np.array([int(x[1]) for x in rows]), np.array([int(x[3]) for x in rows])
+
+
+@pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32", "rb64"])
+@pytest.mark.parametrize("which", ["corpus", "n64"])
+def test_suffix_walk_on_the_host(walk_host, suffix_texts, monkeypatch, tmp_path, which, layout):
+    """K12, csrc/walk.cu suffix_walk over each layout's rank2, built for
+    the host behind its C signature and launched by launch_suffix (the
+    card's path): start and last equal to suffix_plain's and to the JAX
+    package's main_suffix, read for read."""
+    monkeypatch.setattr(kernels, "launch", walk_host)
+    f = suffix_texts[which]
+    idx = suffix_index(f, layout)
+    reads = suffix_reads(f, 21)
+    flat, off = (torch.from_numpy(a) for a in smem.pack_reads(reads))
+    want = walk.suffix_plain(idx, flat, off)
+    want_start, want_last = jax_suffix(f, reads, tmp_path)
+    assert np.array_equal(want[0].numpy(), want_start) and np.array_equal(want[1].numpy(), want_last)
+    start, last = torch.full_like(want[0], -7), torch.full_like(want[1], -7)
+    walk.launch_suffix(idx, flat, off, start, last)
+    assert torch.equal(start, want[0]) and torch.equal(last, want[1])
+    lens = off[1:] - off[:-1]
+    assert bool((want[0] == 0)[lens > 0].any()) and bool((want[0] > 0).any())  # whole matches, and stops
+
+
+@pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32", "rb64"])
+def test_rank2_on_the_host(walk_host, suffix_texts, layout):
+    """Each layout's rank2 (occ_c at both ends, one symbol) against
+    rank1a's column c, on n_index's rows: pairs in one row or block, pairs
+    that straddle a row, a block, a 128-symbol sub-row or a megablock
+    (256 symbols dense64, 1,024 rb64), k = l, and ends at n, a multiple of
+    64 and of S (F1)."""
+    f = suffix_texts["n64"]
+    idx = suffix_index(f, layout)
+    n = f.n
+    rng = np.random.default_rng(5)
+    k = rng.integers(0, n + 1, 3000)
+    l = np.minimum(n, k + np.concatenate([rng.integers(0, 64, 1000), rng.integers(0, 600, 1000),
+                                          rng.integers(0, n, 1000)]))
+    edges = [(n, n), (n - 1, n), (0, n), (0, 0), (64, 128), (63, 64), (255, 256), (256, 512), (1023, 1025),
+             (127, 129), (n - 64, n), (n - 256, n)]
+    k = np.concatenate([k, [a for a, _ in edges]]).astype(np.int64)
+    l = np.concatenate([l, [b for _, b in edges]]).astype(np.int64)
+    c = rng.integers(0, 6, len(k)).astype(np.uint8)
+    ok, ol = np.zeros(len(k), np.int64), np.zeros(len(k), np.int64)
+    fn = getattr(walk_host.lib, f"rank2_{layout}")
+    fn.argtypes = [*kernels._TABLES, *[ctypes.c_void_p] * 3, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+    fn(*idx.kernel_tables(), k.ctypes.data, l.ctypes.data, c.ctypes.data, len(k), ok.ctypes.data, ol.ctypes.data)
+    ci = torch.from_numpy(c.astype(np.int64))[:, None]
+    want_k = idx.rank1a(torch.from_numpy(k)).long().gather(1, ci)[:, 0]
+    want_l = idx.rank1a(torch.from_numpy(l)).long().gather(1, ci)[:, 0]
+    assert np.array_equal(ok, want_k.numpy()) and np.array_equal(ol, want_l.numpy())
+
+
+@pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32", "rb64"])
+def test_walk_time_counts_the_steps(suffix_texts, layout):
+    """walk_time's step record on the CPU: every step's (k, l, c), in
+    lock-step order, as each read's own backward search from its last
+    symbol gives them; and the row fetches of both designs (rank6: two
+    rows, or two headers and two second rounds, a step; rank2 fewer, where
+    the ends share them)."""
+    from ropebwt3_tpu_torch import walk_time
+
+    f = suffix_texts["corpus"]
+    idx = suffix_index(f, layout)
+    reads = suffix_reads(f, 3)
+    reads = reads[:-3:30] + reads[-2:]  # not the 2,500-step read: as many lock-steps
+    flat, off = (torch.from_numpy(a) for a in smem.pack_reads(reads))
+    counted = walk_time.Steps(idx)
+    start, _ = walk.suffix_plain(counted, flat, off)
+    k, l, c, steps = walk_time.step_symbols(counted.calls, flat, off, start)
+    acc = idx.acc.long().tolist()
+    own = []  # each read's steps, one backward search at a time
+    for r in reads:
+        kk, ll, seq = 0, f.n, []
+        for i in range(len(r) - 1, -1, -1):
+            seq.append((kk, ll, int(r[i])))
+            occ = idx.rank1a(torch.tensor([kk, ll])).long()
+            kk, ll = acc[r[i]] + int(occ[0, r[i]]), acc[r[i]] + int(occ[1, r[i]])
+            if ll <= kk:
+                break
+        own.append(seq)
+    assert [len(x) for x in own] == steps.tolist()
+    want = [own[r][t] for t in range(max(map(len, own))) for r in range(len(own)) if len(own[r]) > t]
+    assert list(zip(k.tolist(), l.tolist(), c.tolist())) == want
+    tr = walk_time.traffic(idx, k, l)
+    N = k.numel()
+    per = 2 if layout.startswith("dense") else 4
+    assert tr["rank6"]["fetches"] == per * N and N <= tr["rank2"]["fetches"] < per * N
+    assert tr["rank2"]["sectors"] < tr["rank6"]["sectors"]
