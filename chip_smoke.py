@@ -111,7 +111,10 @@ it.  Phases:
             n_best 25 and 48 and the phase split of the timing-only twin
             (ropebwt3_tpu_torch.dp_time); then the hapdiv path, `hapdiv`
             through cli.main (counts reset before, read after), byte-equal to
-            `python -m ropebwt3_tpu hapdiv`, and its wall time by piece
+            `python -m ropebwt3_tpu hapdiv`, and its wall time by piece;
+            then `hapdiv --engine=hybrid` (the windows split between K8 and
+            the native DP) byte-equal to the same reference, >= 1 K8
+            launch, its wall and the windows on the card
   sw        K9 (csrc/sw.cu, one warp a read) on bench.py's index: per dense
             layout the kernel vs sw_plain on the card, exact, on the first
             128 short reads the card takes (general DAWGs) and 64 (-e), 16
@@ -122,7 +125,11 @@ it.  Phases:
             before, read after): `sw` on the first 10,000 short reads and
             `sw --all-e2e -b` on the first 1,000, byte-equal to `python -m
             ropebwt3_tpu sw`, with the shares of reads on the card, flagged
-            and sent to the host, and the wall time by piece
+            and sent to the host, and the wall time by piece; then `sw
+            --engine=hybrid` (the reads split between K9 and the native
+            engine) and `sw --engine=jax` on the 10,000 reads, byte-equal to
+            the same reference, >= 1 K9 launch each, their walls and the
+            reads on the card
   utils     `get` of the 32 sequences (from their sentinel rows), 0, n - 1
             and n; `suffix` of all the reads; `kount -k 11 -m 8` (a frontier
             of ~2.6 M 11-mers, at least 10^6 required) through cli.main,
@@ -1337,7 +1344,49 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
         f"{path['n_bad']} windows flagged ({path['n_bad'] / len(wins):.4%}), rerun on the native DP; port "
         f"in-process {port_s:.3f} s (by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in path["pieces"].items())
         + f"), reference (native DP, {os.cpu_count()} host cores) {ref_s:.3f} s ({card})")
-    return dict(res=res, path=path)
+    hyb = engine_path(cli, ["hapdiv", "--engine=hybrid", fmd, hap_fa], ref_out, hapdiv.hapdiv_cuda)
+    say(f"[hapdiv] path `hapdiv --engine=hybrid` on the haplotype: stdout byte-equal to the reference above; launches "
+        f"{hyb['launches']}; {hyb['n_dev']} of {hyb['n_items']} windows on the card (RB3TPU_HAPDIV_SPLIT's default "
+        f"share at the start), the card's share at the end {hyb['share']:.4f}; port in-process {hyb['port_s']:.3f} s "
+        f"against {port_s:.3f} s on auto ({card})")
+    return dict(res=res, path=path, hybrid=hyb)
+
+
+HYBRID_LOG = re.compile(r"hybrid: (\d+) of (\d+) (?:reads|windows) on the card, the card's share at the end ([\d.]+)")
+
+
+def engine_path(cli, argv: list[str], ref_fn: str, counter) -> dict:
+    """`argv` (a DP command with another --engine) through cli.main, launch
+    counts reset before and read after: its stdout byte-equal to the
+    reference output the phase wrote to ref_fn (the split and the engine
+    leave it as it is), at least one dense32 launch of `counter`'s kernel;
+    with --engine=hybrid, the items the card took (at least one) and the
+    share at the end from its log line.  Returns the launches, the
+    in-process wall and those."""
+    engine = next(a for a in argv if a.startswith("--engine="))[len("--engine="):]
+    want = open(ref_fn, "rb").read()
+    out_fn = ref_fn.replace("_ref.txt", f"_{engine}.txt")
+    counter.launches.clear()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with open(out_fn, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    rec = dict(launches=dict(counter.launches), port_s=time.perf_counter() - t0)
+    sys.stderr.write(err.getvalue())
+    name = " ".join(argv[:2])
+    if rc != 0:
+        fail(f"ropebwt3_tpu_torch {name} exited {rc}")
+    got = open(out_fn, "rb").read()
+    if got != want:
+        fail(f"port {name} differs from the reference: {first_diff(got, want)}")
+    if rec["launches"].get("dense32", 0) < 1:
+        fail(f"{name}: launches {rec['launches']}")
+    if engine == "hybrid":
+        m = HYBRID_LOG.search(err.getvalue())
+        if m is None or int(m.group(1)) < 1:
+            fail(f"{name}: the card took no item ({m and m.group(0)})")
+        rec.update(n_dev=int(m.group(1)), n_items=int(m.group(2)), share=float(m.group(3)))
+    return rec
 
 
 SW_LOG = re.compile(r"(\d+) sw launches \(dense32\); (\d+) of (\d+) reads on the card, (\d+) flagged bad and (\d+) of a DAWG")
@@ -1476,7 +1525,15 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
             f"{p['shape_share']:.4%}; port in-process {p['port_s']:.3f} s (by piece: "
             + ", ".join(f"{k} {v:.3f} s" for k, v in p["pieces"].items())
             + f"), reference (native engine, {os.cpu_count()} host cores, a subprocess) {p['ref_s']:.3f} s ({card})")
-    return dict(res=res, path=path, e2e=e2e)
+    engines = {e: engine_path(cli, ["sw", f"--engine={e}", fmd, path_fa], os.path.join(WORK, "sw", "sw_ref.txt"), sw.sw_cuda)
+               for e in ("hybrid", "jax")}
+    hyb = engines["hybrid"]
+    say(f"[sw] path `sw --engine=hybrid` on the first {SW_PATH} short reads: stdout byte-equal to the reference above; "
+        f"launches {hyb['launches']}; {hyb['n_dev']} of {hyb['n_items']} reads on the card (RB3TPU_SW_SPLIT's default "
+        f"share at the start), the card's share at the end {hyb['share']:.4f}; port in-process {hyb['port_s']:.3f} s; "
+        f"`sw --engine=jax`: byte-equal, launches {engines['jax']['launches']}, {engines['jax']['port_s']:.3f} s; "
+        f"against {path['port_s']:.3f} s on auto ({card})")
+    return dict(res=res, path=path, e2e=e2e, engines=engines)
 
 
 # [utils]: `kount` at -k KOUNT_K -m KOUNT_M (the frontier of 11-mers seen

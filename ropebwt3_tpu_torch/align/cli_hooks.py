@@ -6,13 +6,24 @@ ropebwt3_tpu/align/cli_hooks.py's `_iter_named`, `_opt_from_dict`,
 `_pos_stranded`, `write_paf`, `write_all_hits`, `_emit_sw`, `run_sw_cli`
 and `run_hapdiv_cli`, with the port's device engines (align/sw.py,
 align/hapdiv.py) in place of the JAX ones and without the JAX package's
-hybrid pool and resident server.  `--mesh=N` splits each batch over N
-devices (`MeshEngines`; align/hapdiv_jax.py:313-341 and sw_jax.py:686-692
-place the windows and reads over `dp` with the tables replicated), and under
-torchrun each process takes its share (parallel/launch.py `DistList`)."""
+resident server.  `--mesh=N` splits each batch over N devices
+(`MeshEngines`; align/hapdiv_jax.py:313-341 and sw_jax.py:686-692 place the
+windows and reads over `dp` with the tables replicated), and under torchrun
+each process takes its share (parallel/launch.py `DistList`).
+
+The engine, as the JAX package chooses it: `auto` and `jax` the device
+engine (`--mesh` makes `auto` `jax`), `native` the native DP, `hybrid` each
+batch split between the two (`HybridEngine`).  A debug flag (`--dbg-*`, in
+sw_opts["dbg"]) sends the native DP to the Python DP (bwasw.py), which
+writes the traces: `auto` and `native` then run it alone, `sw` read by read
+and `hapdiv` in batches of 64 windows; `hybrid` runs it as its native half;
+`jax` writes only the `Q` lines (--dbg-qname), its engine's reruns staying
+native."""
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import sys
 import time
 from collections import Counter
@@ -23,10 +34,17 @@ import numpy as np
 from .. import log
 from ..nt6 import char2nt6, revcomp
 from ..seqio import iter_flat_batches, read_seqs
-from .bwasw import RB3_SWF_E2E, RB3_SWF_HAPDIV, RB3_SWF_KEEP_RS, HapDiv, SwOpt, rb3_hapdiv_multi, rb3_sw_batch
+from .bwasw import (DBG_QNAME, RB3_SWF_E2E, RB3_SWF_HAPDIV, RB3_SWF_KEEP_RS, HapDiv, SwOpt, rb3_hapdiv_multi,
+                    rb3_sw_batch)
 
 NATIVE_CAP = 16384  # windows a native DP call
+PYTHON_CAP = 64  # windows a Python DP call (lock-step, sw_core_multi)
 SW_BATCH = 4096  # reads an sw engine call
+# --engine=hybrid: (variable, its default) of the device's share at the
+# start, and the floor of the share re-set after each batch; the ceiling is
+# SPLIT_MAX (ropebwt3_tpu/align/cli_hooks.py:176, 206, 305, 332)
+SW_SPLIT, HAPDIV_SPLIT = ("RB3TPU_SW_SPLIT", "0.01", 0.002), ("RB3TPU_HAPDIV_SPLIT", "0.05", 0.02)
+SPLIT_MAX = 0.5
 _CIG = "MIDNSHP=X"
 _NT = "$ACGTN"
 
@@ -57,6 +75,7 @@ def _opt_from_dict(d: dict) -> SwOpt:
     o.e2e_drop = d["e2e_drop"]
     o.r2cache_size = d["r2cache_size"]
     o.max_pos = d["max_pos"]
+    o.dbg = d.get("dbg", 0)
     if d["e2e"]:
         o.flag |= RB3_SWF_E2E
     if d["keep_rs"]:
@@ -187,27 +206,102 @@ class MeshEngines:
         raise AttributeError(name)
 
 
-def _device_engine(cls, f, opt, device, rows, mesh):
+class HybridEngine:
+    """`--engine=hybrid`: each batch's first int(n * share) items (sw's
+    reads, hapdiv's windows) on the device engine `dev`, on one worker
+    thread, and the rest at the same time on `native` (a function of a list
+    of items: the native DP, or with a debug flag the Python DP); the
+    results in input order, the device's first.  After each batch, the share
+    is re-set to the device's measured rate over the sum of both rates,
+    clipped to [floor, SPLIT_MAX] (ropebwt3_tpu/align/cli_hooks.py:183-206,
+    310-334).  n_items and n_dev count the items and the device's; the
+    engine's other attributes are dev's."""
+
+    def __init__(self, dev, native, split):
+        var, default, self.floor = split
+        self.dev, self.native, self.share = dev, native, float(os.environ.get(var, default))
+        self.rates = {"dev": None, "nat": None}
+        self.n_items = self.n_dev = 0
+        self.pool = ThreadPoolExecutor(1)
+
+    @staticmethod
+    def _timed(fn, items):
+        t0 = time.perf_counter()
+        out = fn(items)
+        return time.perf_counter() - t0, out
+
+    def run(self, items: list) -> list:
+        nd = int(len(items) * self.share)
+        fut = self.pool.submit(self._timed, self.dev.run, items[:nd]) if nd else None
+        nat_s, nat = self._timed(self.native, items[nd:])
+        if len(items) > nd:
+            self.rates["nat"] = (len(items) - nd) / max(nat_s, 1e-6)
+        dev: list = []
+        if fut is not None:
+            dev_s, dev = fut.result()
+            self.rates["dev"] = nd / max(dev_s, 1e-6)
+        if self.rates["dev"] and self.rates["nat"]:
+            self.share = min(SPLIT_MAX, max(self.floor, self.rates["dev"] / (self.rates["dev"] + self.rates["nat"])))
+        self.n_items += len(items)
+        self.n_dev += nd
+        return list(dev) + list(nat)
+
+    def close(self) -> None:
+        self.pool.shutdown()
+
+    def __getattr__(self, name):
+        if name == "dev":  # not set yet
+            raise AttributeError(name)
+        return getattr(self.dev, name)
+
+
+def _device_engine(cls, f, opt, device, rows, mesh, hybrid=None):
     """The CLI's DP engine: cls on `device`, over `rows` when given, or over
-    the devices of `mesh` (MeshEngines); under torchrun, each process on its
-    share (parallel/launch.py DistList)."""
+    the devices of `mesh` (MeshEngines), with the options but the debug
+    flags (the device engines write no trace); with `hybrid` = (native,
+    split) a HybridEngine over it; under torchrun, each process on its share
+    (parallel/launch.py DistList)."""
+    opt = dataclasses.replace(opt, dbg=0)
     if mesh is None:
         eng = cls(f, opt, device, idx=rows)
     else:
         eng = MeshEngines(f, mesh, lambda d, idx: cls(f, opt, d, idx=idx))
         log.info("%s over %d devices (%s), the rows replicated on %d", cls.__name__, len(mesh),
                  ", ".join(str(d) for d in mesh), len({str(d) for d in mesh}), func="mesh")
+    if hybrid is not None:
+        eng = HybridEngine(eng, *hybrid)
     from ..parallel.launch import DistList, world
 
     return DistList(eng) if world()[1] > 1 else eng
 
 
-def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None, mesh=None) -> int:
+def _engine_kind(engine: str, opt: SwOpt, device, mesh) -> str:
+    """What runs the DP: "device", "hybrid", "native" or "python" (the
+    Python DP alone: a debug flag on auto or native, as the JAX package's
+    engine choice has it, where --mesh makes auto jax)."""
+    if mesh is not None and engine == "auto":
+        engine = "jax"
+    if device is None or engine == "native":
+        return "python" if opt.dbg else "native"
+    if engine == "hybrid":
+        return "hybrid"
+    return "python" if opt.dbg and engine == "auto" else "device"
+
+
+def _log_hybrid(e, what: str, func: str) -> None:
+    log.info("hybrid: %d of %d %s on the card, the card's share at the end %.4f", e.n_dev, e.n_items, what, e.share,
+             func=func)
+    e.close()
+
+
+def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None, mesh=None, engine="auto") -> int:
     """sw of every read of `files`: on `device` ("cuda" or "cpu") through the
     device engine (align/sw.py), over `rows` (a prebuilt OccIndex of f on
     it) when given, on the devices of `mesh` (a list, one a share) when
-    given, or on the native engine alone when None.  Batches of SW_BATCH
-    reads; the engine runs one batch ahead of the writer."""
+    given, or on the native engine alone when None; `engine` as
+    `_engine_kind` reads it.  Batches of SW_BATCH reads; the engine runs one
+    batch ahead of the writer.  The Python DP alone runs read by read, each
+    read written before the next is read."""
     from ..cli import seq_openable
 
     opt = _opt_from_dict(sw_opts)
@@ -217,11 +311,13 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None, mesh=None) ->
         out.write("CC\tQH  refCount   score     editDist   cs   strand   nOut   totAln\n")
         out.write("CC\n")
     both = sw_opts["write_all"] and sw_opts["both_dir"]
+    kind = _engine_kind(engine, opt, device, mesh)
     dev_engine = None
-    if device is not None:
+    if kind in ("device", "hybrid"):
         from .sw import SwDeviceEngine
 
-        dev_engine = _device_engine(SwDeviceEngine, f, opt, device, rows, mesh)
+        hybrid = ((lambda qs: rb3_sw_batch(opt, f, qs)), SW_SPLIT) if kind == "hybrid" else None
+        dev_engine = _device_engine(SwDeviceEngine, f, opt, device, rows, mesh, hybrid)
 
     def _sw_batch(qs):
         return rb3_sw_batch(opt, f, qs) if dev_engine is None else dev_engine.run(qs)
@@ -262,7 +358,14 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None, mesh=None) ->
             break
         for name0, q in _iter_named(fn, is_line):
             seq_id += 1
-            batch.append((name0 if name0 else f"seq{seq_id}", q))
+            name = name0 if name0 else f"seq{seq_id}"
+            if opt.dbg & DBG_QNAME:
+                sys.stderr.write(f"Q\t{name}\t0\n")
+            if kind == "python":  # the Python DP: each read's traces, then its output
+                hits = rb3_sw_batch(opt, f, [q, revcomp(q)] if both else [q])
+                _emit_sw(out, f, sw_opts, name, q, hits[0], hits[1] if both else None)
+                continue
+            batch.append((name, q))
             if len(batch) >= SW_BATCH:
                 flush(batch)
                 batch = []
@@ -283,14 +386,17 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None, mesh=None) ->
         log.info("wall seconds by piece (the engine's overlap the writer's): %s, write %.3f",
                  ", ".join(f"{k} {e.seconds[k]:.3f}" for k in SwDeviceEngine.PIECES),
                  write_s, func="sw")
+        if kind == "hybrid":
+            _log_hybrid(e, "reads", "sw")
     return 0
 
 
-def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None, mesh=None) -> int:
+def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None, mesh=None, engine="auto") -> int:
     """hapdiv of every k-mer at step w of each sequence of `files`: on
     `device` ("cuda" or "cpu") through the device engine, over `rows` (a
     prebuilt OccIndex of f on it) when given, on the devices of `mesh` (a
-    list, one a share) when given, or on the native DP alone when None."""
+    list, one a share) when given, or on the native DP alone when None;
+    `engine` as `_engine_kind` reads it."""
     from ..cli import seq_openable
 
     opt = _opt_from_dict(sw_opts)
@@ -300,13 +406,18 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None, mes
     # Windows are batched ACROSS reads into one DP call: short reads
     # contribute only 1-2 windows each.  Window results are run-length
     # merged per sequence (search.c:327-353); batching cannot change any row.
-    CAP = NATIVE_CAP
+    # A batch closes once it holds CAP windows or more: the Python DP's
+    # traces interleave the windows of a batch, so its batches are cut as
+    # the JAX package cuts them (ropebwt3_tpu/align/cli_hooks.py:282)
+    kind = _engine_kind(engine, opt, device, mesh)
+    CAP = PYTHON_CAP if kind == "python" else NATIVE_CAP
     dev_engine = None
-    if device is not None:
+    if kind in ("device", "hybrid"):
         from .hapdiv import LANES, HapdivDeviceEngine
 
-        dev_engine = _device_engine(HapdivDeviceEngine, f, opt, device, rows, mesh)
-        CAP = LANES
+        hybrid = ((lambda ws: rb3_hapdiv_multi(opt, f, ws)), HAPDIV_SPLIT) if kind == "hybrid" else None
+        dev_engine = _device_engine(HapdivDeviceEngine, f, opt, device, rows, mesh, hybrid)
+        CAP = LANES if hybrid is None else 4 * LANES
 
     def _compute(batch_wins):
         if dev_engine is None:
@@ -385,4 +496,6 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None, mes
                  hapdiv_cuda.launches[lay], lay, dev_engine.n_bad, n_win, func="hapdiv")
         log.info("wall seconds by piece (the engine's overlap the cut and the write): %s",
                  ", ".join(f"{p} {dev_engine.seconds[p]:.3f}" for p in HapdivDeviceEngine.PIECES), func="hapdiv")
+        if kind == "hybrid":
+            _log_hybrid(dev_engine, "windows", "hapdiv")
     return 0

@@ -21,25 +21,34 @@ would pass 75% of the card's memory, ops/smem.py `resolve_occ`), and writes
 the BED from the engine's flat (counts, rows), with `-c`, `--gap`, `--cov`
 and `-p`, byte-equal to `python -m ropebwt3_tpu mem --engine=native`.
 
-`hapdiv [--device=cuda|cpu] [--engine=auto|native] [options] idx.fmd
-seqs...` (and `mem -a/-w`, which run it) counts the haplotypes at each edit
-distance of every -a-mer at step -w of each sequence: the windows, batched
-across sequences, go through the hapdiv DP on the device (align/hapdiv.py:
-the kernel of csrc/hapdiv.cu, or its plain version with --device=cpu), the
-windows it flags rerun on the native DP (native/bwasw_core.cpp), and the
-rows are written byte-equal to `python -m ropebwt3_tpu hapdiv`, whose engine
-is the native DP; `--engine=native` runs the native DP alone.
+`mem --old-mem` (and `search --old-mem`) runs the original ropebwt2/fermi
+SMEM algorithm read by read on the host (ops/smem_ref.py `smem_orig`), as
+the JAX package does, and writes its BED through the same writer.
 
-`sw [--device=cuda|cpu] [--engine=auto|native] [options] idx.fmd reads...`
-(and `mem -d`, which runs it) aligns each read to the index with BWA-SW:
-the reads, 4,096 a batch, are staged natively (the -j prefilter and each
-read's DAWG), scored on the device (align/sw.py: the kernel of csrc/sw.cu,
-or its plain version with --device=cpu), their hits taken from the archive
-by the native backtrack, and the reads the device does not take or flags
-rerun on the native engine; PAF, or --all-e2e / -g records, byte-equal to
-`python -m ropebwt3_tpu sw`, whose engine is the native one;
-`--engine=native` runs the native engine alone.  `search` runs `mem`,
-`hapdiv` or `sw` by its options, as ropebwt3_tpu/cli.py main_search does.
+`hapdiv [--device=cuda|cpu] [--engine=auto|native|jax|hybrid] [options]
+idx.fmd seqs...` (and `mem -a/-w`, which run it) counts the haplotypes at
+each edit distance of every -a-mer at step -w of each sequence: the
+windows, batched across sequences, go through the hapdiv DP on the device
+(align/hapdiv.py: the kernel of csrc/hapdiv.cu, or its plain version with
+--device=cpu), the windows it flags rerun on the native DP
+(native/bwasw_core.cpp), and the rows are written byte-equal to `python -m
+ropebwt3_tpu hapdiv`, whose engine is the native DP; `--engine=native` runs
+the native DP alone, `jax` is `auto`, and `hybrid` splits each batch
+between the two (align/cli_hooks.py `HybridEngine`).
+
+`sw [--device=cuda|cpu] [--engine=auto|native|jax|hybrid] [options] idx.fmd
+reads...` (and `mem -d`, which runs it) aligns each read to the index with
+BWA-SW: the reads, 4,096 a batch, are staged natively (the -j prefilter and
+each read's DAWG), scored on the device (align/sw.py: the kernel of
+csrc/sw.cu, or its plain version with --device=cpu), their hits taken from
+the archive by the native backtrack, and the reads the device does not take
+or flags rerun on the native engine; PAF, or --all-e2e / -g records,
+byte-equal to `python -m ropebwt3_tpu sw`, whose engine is the native one;
+the engines as `hapdiv`'s.  `--dbg-dawg`, `--dbg-sw`, `--dbg-qname` and
+`--dbg-bt` write the Python DP's traces to stderr as the JAX package does
+(align/bwasw.py; on auto and native the Python DP runs alone).  `search`
+runs `mem`, `hapdiv` or `sw` by its options, as ropebwt3_tpu/cli.py
+main_search does.
 
 `ssa [--device=cuda|cpu] [-s INT] [-o FILE] [-t INT] idx.fmd` walks every
 sequence on the device's dense occ rows (ssa_ops.py) and writes the SSA
@@ -83,10 +92,9 @@ stops at it (`ERROR: unknown option`), as the JAX package's do.
 
 With the default `--device=cuda` and no CUDA, every command that runs on
 the device stops with one `ERROR:` line; none goes on on the CPU unasked.
-An idx axis across processes, `--engine=jax|hybrid` and the `--dbg-*`
-streams are refused with one `ERROR:` line that names the ROADMAP queue
-item porting them (`refusal`, `launch.local_mesh`); `python -m
-ropebwt3_tpu` runs them.  The exit code is the JAX package's (its main,
+An idx axis across processes is refused with one `ERROR:` line that names
+the ROADMAP queue item porting it (`launch.local_mesh`); `python -m
+ropebwt3_tpu` runs it.  The exit code is the JAX package's (its main,
 after the reference's main.c:46-82): 0 for every known command, its errors
 included, and 1 for an unknown one; with RB3TPU_STRICT_EXIT=1, the
 command's own code (`run`), and UNKNOWN_CMD for an unknown command.  The option parsers, the usage texts,
@@ -125,10 +133,7 @@ OWNED = ("build", "merge", "plain2fmd", "mem", "sw", "hapdiv", "search", "ssa", 
 _SEARCH_OPTS = "Ll:c:t:K:MdN:A:B:O:E:C:m:k:uj:ey:a:w:p:bg:"
 _LONG_OPTS = ["no-ssa", "seq", "gap=", "cov", "old-mem", "all-e2e", "no-kalloc", "dbg-dawg", "dbg-sw", "dbg-qname",
               "dbg-bt", "engine=", "mesh=", "occ="]
-# the ROADMAP queue 1 item that ports each engine the port refuses
-_ENGINE_ITEM = {"sw": "item 11 (its remainder: the hybrid engine)",
-                "hapdiv": "item 10 (its remainder: the hybrid engine)",
-                "search": "items 10 and 11 (their remainders: the hybrid engine)"}
+DP_ENGINES = ("auto", "native", "jax", "hybrid")  # sw's and hapdiv's --engine (a server's: server.EngineCache.ENGINES)
 # sw's scoring options (ropebwt3_tpu/cli.py _SW_SCORING)
 _SW_SCORING = """  -N INT      keep up to INT hits per DAWG node [25]
   -m INT      min alignment score [30]
@@ -290,6 +295,7 @@ Options:
   --gap=NUM   output regions >=NUM that are not covered by MEMs [0]
   --cov       output breadth of coverage
   -p INT      output up to INT positions [0]
+  --old-mem   use the original MEM algorithm, on the host (for testing)
   -L          one sequence per line in the input
   -K NUM      query batch size [100m]
   --device=STR  cuda (the kernels) or cpu (the plain PyTorch engine) [cuda]
@@ -311,7 +317,8 @@ Options:
   -p INT      output up to INT positions [0]
   -L          one sequence per line in the input
   --device=STR  cuda (the kernel) or cpu (the plain PyTorch version) [cuda]
-  --engine=STR  DP engine: auto (the device) or native (the host DP) [auto]
+  --engine=STR  DP engine: auto or jax (the device), native (the host DP),
+                hybrid (each batch split between the two) [auto]
   --mesh=N      run the device DP data-parallel over N devices (reads over
                 the dp axis, tables replicated) []""",
     "search": "Usage: python -m ropebwt3_tpu_torch search [options] <idx.fmr> <seq.fa> [...]",
@@ -328,7 +335,8 @@ Options:
   -y INT      ignore secondary hits scored INT lower than the best [-1]
   -L          one sequence per line in the input
   --device=STR  cuda (the kernel) or cpu (the plain PyTorch version) [cuda]
-  --engine=STR  DP engine: auto (the device) or native (the host DP) [auto]
+  --engine=STR  DP engine: auto or jax (the device), native (the host DP),
+                hybrid (each batch split between the two) [auto]
   --mesh=N      run the device DP data-parallel over N devices (windows over
                 the dp axis, tables replicated) []""",
     "ssa": """Usage: python -m ropebwt3_tpu_torch ssa [options] <in.fmd>
@@ -449,13 +457,11 @@ def load_index(fn: str, load_ssa: bool = False, load_sid: bool = False) -> Dense
 
 
 def refusal(argv: list[str]) -> str | None:
-    """Why the port refuses `argv`, or None: `sw` / `hapdiv` / `search` with
-    `--engine=jax|hybrid` would reach the JAX package's device code (`sw`
-    and `hapdiv` run the port's own device engines with `--engine=auto`, a
-    resident server's with `--engine=server`); `search` never goes to a
-    server.  `--mesh` is each command's own: mem, sw, hapdiv, search, build
-    and ssa take it, fa2kmer (a strict parse) stops at it, and the others
-    skip it, as the JAX package's commands do."""
+    """Why the port refuses `argv`, or None: an unknown command, or `search`
+    with `--engine=server` (search never goes to a server).  `--mesh` is
+    each command's own: mem, sw, hapdiv, search, build and ssa take it,
+    fa2kmer (a strict parse) stops at it, and the others skip it, as the
+    JAX package's commands do."""
     cmd, rest = argv[0], argv[1:]
     if cmd not in OWNED:
         return f"unknown command '{cmd}'"
@@ -465,8 +471,6 @@ def refusal(argv: list[str]) -> str | None:
     # and unambiguous prefixes (no other long option of any command starts
     # with `e`); the last value wins
     engine = dict(ketopt(rest, "", ["engine="])[0]).get("--engine", "auto")
-    if cmd in _ENGINE_ITEM and engine in ("jax", "hybrid"):
-        return f"{cmd} --engine={engine} runs the JAX package's device engine, not ported: ROADMAP queue 1 {_ENGINE_ITEM[cmd]}"
     if cmd == "search" and engine == "server":
         return "search never goes to a server: `--engine=server` takes mem, sw and hapdiv"
     return None
@@ -476,7 +480,7 @@ def route(cmd: str, rest: list[str]) -> int | None:
     """Send `cmd rest` to a resident server (server.py) where it belongs:
     `mem`, `sw` or `hapdiv` with `--engine=server` (one ERROR line when no
     server answers for the index on the request's device), and `mem` on auto
-    (its SMEM path, not -d or -a/-w) when one answers; RB3TPU_AUTO_SERVE=1
+    (its SMEM path, not -d, -a/-w or --old-mem) when one answers; RB3TPU_AUTO_SERVE=1
     starts one in the background for `mem` when none does.  Returns the
     server's exit code, or None to run here.  Imports no torch."""
     from . import server
@@ -493,6 +497,8 @@ def route(cmd: str, rest: list[str]) -> int | None:
             algo = "sw"
         elif o in ("-a", "-w") and cmd == "mem":
             algo = "hapdiv"
+        elif o == "--old-mem" and cmd == "mem":
+            algo = "mem_ori"
     if len(args) < 2 or not (engine == "server" or (engine == "auto" and algo == "mem" and not mesh)):
         return None
     got = server.server_device(args[0])
@@ -859,8 +865,9 @@ def main_plain2fmd(argv: list[str]) -> int:
 
 
 def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int:
-    """`mem`, or `search` (cmd "search"): SMEMs, or with -d sw and with
-    -a/-w hapdiv, the last of them given (ropebwt3_tpu/cli.py:1053-1058).
+    """`mem`, or `search` (cmd "search"): SMEMs, with --old-mem by the
+    original algorithm on the host, or with -d sw and with -a/-w hapdiv, the
+    last of them given (ropebwt3_tpu/cli.py:1053-1058, 1108-1109).
     `served`: a resident server's EngineCache (server.py), whose index and
     occ rows the request runs on."""
     from .ops.smem import BatchedSmemTG, smem_tg_cuda, smem_tgc_cuda
@@ -870,7 +877,7 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
     except KetoptUnknown:
         return 1
     is_line, min_len, min_occ, max_pos, min_gap_len, write_cov = False, 19, 1, 0, 0, False
-    occ, batch_size, other, algo, mesh_spec = "auto", 100_000_000, None, "mem", None
+    occ, batch_size, algo, mesh_spec = "auto", 100_000_000, "mem", None
     for o, a in opts:
         if o == "-L":
             is_line = True
@@ -891,11 +898,11 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
                 raise getopt.GetoptError(f"invalid --occ value '{a}' (auto|dense|rb)")
             occ = a
         elif o == "-d":
-            algo, other = "sw", None
+            algo = "sw"
         elif o in ("-a", "-w"):
-            algo, other = "hapdiv", None
+            algo = "hapdiv"
         elif o == "--old-mem":
-            algo, other = "mem", f"{cmd} --old-mem (the original MEM algorithm) is not ported: ROADMAP queue 1 item 4"
+            algo = "mem_ori"
         elif o == "--mesh":
             mesh_spec = a
     if algo == "hapdiv":
@@ -904,16 +911,16 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
         return main_sw(argv, device, cmd, served)
     if len(args) < 2:
         return _usage(cmd)
-    if other:
-        return _err(f"{other}; `python -m ropebwt3_tpu {cmd} --old-mem` runs it")
     if min_gap_len > 0:
         max_pos = 0
-    mesh = _cli_mesh(mesh_spec, device, served, "mem")
+    mesh = None if algo == "mem_ori" else _cli_mesh(mesh_spec, device, served, "mem")
     f = _index(args[0], max_pos > 0, served)
     if max_pos > 0 and (f.ssa is None or f.sid is None):
         return _err("failed to load suffix array samples or sequence names/lengths")
     if not f.is_symmetric():
         return _err("BWT doesn't contain both strands")
+    if algo == "mem_ori":
+        return _run_old_mem(f, args[1:], is_line, batch_size, min_occ, min_len, min_gap_len, write_cov, max_pos)
     rows = None if served is None else served.mem_rows(occ)
     eng = BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ, rows=rows, mesh=mesh)
     if mesh is not None:
@@ -952,8 +959,11 @@ def _cli_mesh(spec: str | None, device: str, served, func: str, engine: str = "a
 
 def _search_args(argv: list[str], cmd: str):
     """main_search's parse (ropebwt3_tpu/cli.py:1031-1132) for the sw and
-    hapdiv options: a namespace of them, or an exit code (an unknown option,
-    a `--dbg-*` refused).  `--gap` > 0 zeroes max_pos, not sw_opts' copy."""
+    hapdiv options: a namespace of them, or an exit code (an unknown
+    option).  `--gap` > 0 zeroes max_pos, not sw_opts' copy; the `--dbg-*`
+    flags go to sw_opts["dbg"], for this command only."""
+    from .align.bwasw import DBG_OPTS
+
     try:
         opts, args = ketopt(argv, _SEARCH_OPTS, _LONG_OPTS, strict=True)
     except KetoptUnknown:
@@ -963,7 +973,7 @@ def _search_args(argv: list[str], cmd: str):
     a.sw_opts = {
         "n_best": 25, "min_sc": 30, "match": 1, "mis": 3, "gap_open": 5, "gap_ext": 2, "end_len": 11,
         "min_mem_len": 0, "e2e_drop": -1, "r2cache_size": 0x10000, "max_pos": 0, "e2e": False, "keep_rs": False,
-        "write_all": False, "max_all_out": 0, "both_dir": False, "write_unmap": False,
+        "write_all": False, "max_all_out": 0, "both_dir": False, "write_unmap": False, "dbg": 0,
     }
     for o, v in opts:
         if o == "-L":
@@ -1003,9 +1013,8 @@ def _search_args(argv: list[str], cmd: str):
             a.mesh = v
         elif o == "--occ" and v not in ("auto", "dense", "rb"):
             raise getopt.GetoptError(f"invalid --occ value '{v}' (auto|dense|rb)")
-        elif o.startswith("--dbg-"):
-            return _err(f"{cmd} {o} (the DP's debug streams) is not ported: ROADMAP queue 1 item 22; "
-                        f"`python -m ropebwt3_tpu {cmd} {o}` runs it")
+        elif o in DBG_OPTS:
+            a.sw_opts["dbg"] |= DBG_OPTS[o]
     if a.min_gap_len > 0:
         a.max_pos = 0
     return a
@@ -1025,7 +1034,7 @@ def _search_index(a, cmd: str, load_all: bool, served=None):
     serve the options (a server's EngineCache.ENGINES include its own)."""
     if len(a.args) < 2:
         return _usage(cmd)
-    engines = ("auto", "native") if served is None else served.ENGINES
+    engines = DP_ENGINES if served is None else served.ENGINES
     if a.engine not in engines:
         return _err(f"invalid --engine '{a.engine}' ({'|'.join(engines)})")
     f = _index(a.args[0], load_all, served)
@@ -1037,16 +1046,16 @@ def _search_index(a, cmd: str, load_all: bool, served=None):
 
 
 def _dp_engine(a, device: str, served, func: str) -> dict:
-    """run_sw_cli / run_hapdiv_cli's engine arguments: none for the native
-    engines (--engine=native), else the device, and with --mesh the devices
-    of its dp rows (one each; the rows replicated); on a resident server
-    its EngineCache.dp_engine decides."""
+    """run_sw_cli / run_hapdiv_cli's engine arguments: the engine's name;
+    unless it is native, the device, and with --mesh the devices of its dp
+    rows (one each; the rows replicated); on a resident server its
+    EngineCache.dp_engine decides the device."""
     mesh = _cli_mesh(a.mesh, device, served, func, a.engine)
     if served is not None:
-        return served.dp_engine(a.engine)
+        return {**served.dp_engine(a.engine), "engine": a.engine}
     if a.engine == "native":
-        return {}
-    return {"device": device} if mesh is None else {"device": device, "mesh": [row[0] for row in mesh.grid]}
+        return {"engine": "native"}
+    return {"device": device, "engine": a.engine, **({} if mesh is None else {"mesh": [row[0] for row in mesh.grid]})}
 
 
 def main_sw(argv: list[str], device: str, cmd: str = "sw", served=None) -> int:
@@ -1112,6 +1121,27 @@ def _run_mem(f, eng, files: list[str], is_line: bool, batch_size: int, min_gap_l
             if got is None:  # a process of a torchrun job other than 0: process 0 writes
                 continue
             seq_id = write_bed(sys.stdout, f, names, offs, *got, seq_id, min_gap_len, write_cov, max_pos)
+    return 0
+
+
+def _run_old_mem(f, files: list[str], is_line: bool, batch_size: int, min_occ: int, min_len: int, min_gap_len: int,
+                 write_cov: bool, max_pos: int) -> int:
+    """`mem --old-mem`: each read's MEMs by the original algorithm on the
+    host (smem_ref.smem_orig, read by read, as ropebwt3_tpu/cli.py:1384-1385
+    runs it), written by write_bed a batch of ~batch_size symbols at a time."""
+    from .ops.smem_ref import smem_orig
+
+    seq_id = 0
+    for fn in files:
+        if not seq_openable(fn):
+            print(f"ERROR: failed to load the sequence file '{fn}'", file=sys.stderr)
+            break
+        for names, flat, offs in record_batches(fn, is_line, batch_size):
+            mems = [smem_orig(f, flat[offs[i] : offs[i + 1]], min_occ, min_len) for i in range(len(names))]
+            counts = np.array([len(m) for m in mems], np.int64)
+            rows = np.array([(m.start, m.end, m.size, m.lo, m.lo_rc) for ms in mems for m in ms], np.int64)
+            rows = rows.reshape(-1, 5)
+            seq_id = write_bed(sys.stdout, f, names, offs, counts, rows, seq_id, min_gap_len, write_cov, max_pos)
     return 0
 
 

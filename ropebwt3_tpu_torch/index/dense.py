@@ -6,6 +6,9 @@ rows (ops/rank.py, ops/runblock.py) and runs the native multi-locate
 (native/locate.cpp) on these arrays; the `.dense` sidecar (sidecar.py)
 stores them in the JAX package's format.  The tables are built natively
 (native/rld_codec.cpp), as the JAX package does when its library loads.
+The numpy rank, bidirectional extend and LF (`rank1a`, `extend`, ...) serve
+the host algorithms: `--old-mem` (ops/smem_ref.py) and the Python BWA-SW DP
+of the debug streams (align/bwasw.py).
 """
 
 from __future__ import annotations
@@ -66,6 +69,59 @@ class DenseFMIndex:
         if self.n == 0:
             return 0
         return int(1 + np.count_nonzero(b[1:] != b[:-1]))
+
+    # -- rank, extend and LF on the host (ropebwt3_tpu/index/dense.py:159-242)
+    def rank1a(self, k) -> np.ndarray:
+        """occ[c] = |{i < k : B[i] = c}| for all c; vectorized over array k.
+
+        Returns shape k.shape + (6,)."""
+        k = np.minimum(np.asarray(k, dtype=np.int64), self.n)
+        blk_i = k // BLOCK
+        sup_i = blk_i // BLOCKS_PER_SUPER
+        base = self.occ_super[sup_i] + self.occ_block[blk_i].astype(np.int64)
+        blks = self.bwt[(blk_i[..., None] * BLOCK + np.arange(BLOCK)).reshape(-1)].reshape(*k.shape, BLOCK)
+        off = (k % BLOCK)[..., None]
+        inpref = np.arange(BLOCK) < off
+        add = np.stack([((blks == c) & inpref).sum(axis=-1) for c in range(ASIZE)], axis=-1)
+        return base + add
+
+    def rank2a(self, k, l) -> tuple[np.ndarray, np.ndarray]:
+        return self.rank1a(k), self.rank1a(l)
+
+    def symbol_at(self, k) -> np.ndarray:
+        return self.bwt[np.asarray(k, dtype=np.int64)]
+
+    def extend(self, ik: np.ndarray, is_back: bool) -> np.ndarray:
+        """ik: [..., 3] int64 rows (x0, x1, size) = (backward lo, forward lo, size).
+        Returns ok: [..., 6, 3] for each next symbol, replicating the exact
+        complement-order prefix sums of rld_extend (rld0.c:486-502)."""
+        ik = np.asarray(ik, dtype=np.int64)
+        prim = 0 if is_back else 1  # index of x[!is_back]
+        sec = 1 - prim
+        tk = self.rank1a(ik[..., prim])
+        tl = self.rank1a(ik[..., prim] + ik[..., 2])
+        sz = tl - tk  # [..., 6]
+        ok = np.zeros(ik.shape[:-1] + (ASIZE, 3), dtype=np.int64)
+        ok[..., :, prim] = self.acc[:ASIZE] + tk
+        ok[..., :, 2] = sz
+        o = ik[..., sec]
+        for c, prev in ((0, None), (4, 0), (3, 4), (2, 3), (1, 2), (5, 1)):
+            if prev is not None:
+                o = o + sz[..., prev]
+            ok[..., c, sec] = o
+        return ok
+
+    def set_intv(self, c: int) -> np.ndarray:
+        """Initial bi-interval of single symbol c (fm-index.h:90-93)."""
+        comp = 5 - c if 1 <= c <= 4 else c
+        return np.array([self.acc[c], self.acc[comp], self.acc[c + 1] - self.acc[c]], dtype=np.int64)
+
+    def lf(self, k) -> tuple[np.ndarray, np.ndarray]:
+        """Return (symbol at k, LF(k)) vectorized."""
+        k = np.asarray(k, dtype=np.int64)
+        ok = self.rank1a(k)
+        c = self.bwt[k].astype(np.int64)
+        return c, self.acc[c] + np.take_along_axis(ok, c[..., None], axis=-1)[..., 0]
 
     def is_symmetric(self) -> bool:
         a = self.acc

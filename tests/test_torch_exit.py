@@ -58,14 +58,15 @@ def test_exit_code_matches_jax(monkeypatch, reads, case, strict):
 
 @pytest.mark.parametrize("strict", [False, True], ids=["mirrored", "strict"])
 def test_refused_option_exits_as_an_error(monkeypatch, reads, strict):
-    """A queue-1 refusal (`mem --old-mem`) is one ERROR line: exit 0, or 1
-    under RB3TPU_STRICT_EXIT=1, as the JAX package's error on the same
-    missing index."""
+    """`mem --old-mem`, refused until the port ran it, now runs as the JAX
+    package's does: on a missing index one ERROR line, exit 0, or 1 under
+    RB3TPU_STRICT_EXIT=1, as the JAX package's error on the same index."""
     monkeypatch.setenv("RB3TPU_STRICT_EXIT", "1" if strict else "0")
     got, err = _code(tcli.main, ["mem", "--device=cpu", "--old-mem", MISSING, reads])
-    want, _ = _code(jcli.main, ["mem", "--old-mem", MISSING, reads])
+    want, want_err = _code(jcli.main, ["mem", "--old-mem", MISSING, reads])
     assert got == want == int(strict)
-    assert err.count("\n") == 1 and err.startswith("ERROR: ") and "ROADMAP queue 1 item 4" in err
+    assert err.count("\n") == 1 and err.startswith("ERROR: ") and "ROADMAP" not in err
+    assert "failed to load" in err and "failed to load" in want_err
 
 
 def test_run_returns_the_commands_own_code(reads):

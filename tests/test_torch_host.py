@@ -1,8 +1,8 @@
 """The port's own host layer against the JAX package's, on the CPU tests'
 corpus: the index loader (FMD, FMR and BRE; the dense tables, acc, the
 runs and the `.dense` sidecar both ways), the SSA writer, the flat read
-batches, the native multi-locate, `stat` byte for byte, and one ERROR line
-for a command the port refuses."""
+batches, the native multi-locate, `stat` byte for byte, and `version` and
+an unknown command."""
 
 import os
 import shutil
@@ -117,24 +117,6 @@ def test_stat_matches(indexes):
     got = _run("ropebwt3_tpu_torch", ["stat", indexes["fmd"]])
     assert got.returncode == 0, got.stderr.decode()
     assert want.stdout and got.stdout == want.stdout
-
-
-@pytest.mark.parametrize("argv,item", [(["search", "--device=cpu", "--old-mem", "x.fmd", "y.fa"], "item 4"),
-                                       (["sw", "--device=cpu", "--dbg-bt", "x.fmd", "y.fa"], "item 22"),
-                                       (["mem", "--device=cpu", "-a31", "--dbg-qname", "x.fmd", "y.fa"], "item 22"),
-                                       (["sw", "--device=cpu", "--dbg-dawg", "x.fmd", "y.fa"], "item 22"),
-                                       (["mem", "--device=cpu", "-d", "--old-mem", "x.fmd", "y.fa"], "item 4"),
-                                       (["hapdiv", "--device=cpu", "--dbg-sw", "x.fmd", "y.fa"], "item 22")])
-def test_refused_command_names_roadmap_item(argv, item):
-    """An option the port does not run (the port owns every command now):
-    one ERROR line naming its ROADMAP queue 1 item and the JAX package's
-    command, exit 1, nothing run."""
-    r = _run_without_jax(argv, strict=True)
-    assert r.returncode == 1 and not r.stdout
-    lines = r.stderr.decode().splitlines()
-    assert len(lines) == 1 and lines[0].startswith("ERROR: ") and f"ROADMAP queue 1 {item}" in lines[0], lines
-    assert f"python -m ropebwt3_tpu {argv[0]}" in lines[0]
-    assert not os.path.exists(os.path.join(ROOT, "x.fmd"))
 
 
 def test_version_and_unknown_command():

@@ -31,6 +31,9 @@ def port_modules() -> list[str]:
 def test_port_imports_no_jax():
     mods = port_modules()
     assert "ropebwt3_tpu_torch.native" in mods and "ropebwt3_tpu_torch.index.sidecar" in mods
+    # the host code of --old-mem and of the Python BWA-SW DP
+    assert {"ropebwt3_tpu_torch.ops.smem_ref", "ropebwt3_tpu_torch.align.bwtl",
+            "ropebwt3_tpu_torch.align.khashl_compat"} <= set(mods)
     code = "import importlib, sys\n" + "".join(f"importlib.import_module({m!r})\n" for m in mods) + f"print({FORBIDDEN})\n"
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
     assert r.stdout.strip() == "[]", r.stdout
