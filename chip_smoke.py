@@ -99,7 +99,14 @@ it.  Phases:
   mem       the main path: `mem -l31` through ropebwt3_tpu_torch.cli.main with
             launch counts reset before and read after; its BED must equal
             `python -m ropebwt3_tpu mem --engine=native` byte for byte; then
-            its host work piece by piece
+            its host work piece by piece; then `mem -l31 --engine=native`
+            (the threaded native SMEM engine alone: no occ rows, no launch)
+            and `--engine=hybrid` (each batch split between K1 and the
+            native engine) on the full batch through cli.main, counts reset
+            before and read after, each BED byte-equal to the same
+            reference; the hybrid launches smem_tgc at least once and puts
+            at least one read on the card, and prints its share; the
+            in-process walls by engine
   mem-rb    the second path: `mem -l31 --occ=rb`, counts reset before and
             read after; BED byte-equal to native, >= 1 rb32 smem_tgc launch
   hapdiv    K8 (csrc/hapdiv.cu, one warp a window) on bench.py's index: a
@@ -156,8 +163,10 @@ it.  Phases:
             kount_rank_plain on the card, dense32 and dense64, exact, there
             and on as many random unsorted (k, l)
   serve     `python -m ropebwt3_tpu_torch serve --daemon` on bench.py's
-            index; one-shot `mem -l31`, and `hapdiv` and `sw` with
-            `--engine=server`, as subprocesses answered by it: stdout
+            index; one-shot `mem -l31`, `mem -l31 --engine=hybrid` (split on
+            the server between its resident rows and the native engine), and
+            `hapdiv` and `sw` with `--engine=server`, as subprocesses
+            answered by it: stdout
             byte-equal to the references of [mem], [hapdiv] and [sw], the
             route marker on stderr, each timed beside the local one-shot
             port and the native reference; then `serve --stop`, after which
@@ -340,13 +349,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def wall_ms(fn) -> float:
+    return wall_ms_of(fn)[1]
+
+
+def wall_ms_of(fn) -> tuple:
+    """(fn(), its wall milliseconds, the card synchronized before and after)."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def first_diff(a: bytes, b: bytes) -> str:
@@ -1844,13 +1858,16 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
     return res
 
 
-def check_serve(card: str, fmd: str, reads_fa: str, mem_one_shot_s: float, mem_native_s: float, hd: dict, swr: dict) -> dict:
-    """`serve --daemon` on bench.py's index; one-shot `mem -l31`, and
-    `hapdiv` and `sw` with `--engine=server`, as subprocesses answered by
-    it, stdout byte-equal to the reference outputs of [mem], [hapdiv] and
-    [sw], with the route marker on stderr; each timed beside the native
-    reference and the local port: mem's one-shot process ([mem]'s), hapdiv's
-    and sw's in-process path ([hapdiv]'s, [sw]'s: a one-shot process adds
+def check_serve(card: str, fmd: str, reads_fa: str, mem_one_shot_s: float, mem_native_s: float, mem_hybrid_s: float,
+                hd: dict, swr: dict) -> dict:
+    """`serve --daemon` on bench.py's index; one-shot `mem -l31` and `mem
+    -l31 --engine=hybrid` (which the client sends to the server, whose
+    hybrid must log reads on the card), and `hapdiv` and `sw` with
+    `--engine=server`, as subprocesses answered by it, stdout byte-equal to
+    the reference outputs of [mem], [hapdiv] and [sw], with the route marker
+    on stderr; each timed beside the native reference and the local port:
+    mem's one-shot process ([mem]'s), the hybrid's, hapdiv's and sw's
+    in-process path ([mem]'s, [hapdiv]'s, [sw]'s: a one-shot process adds
     the start that mem's shows); then `serve --stop`, after which the
     server's process, socket and pid file must be gone."""
     from ropebwt3_tpu_torch import server
@@ -1859,11 +1876,14 @@ def check_serve(card: str, fmd: str, reads_fa: str, mem_one_shot_s: float, mem_n
     hap_fa, sw_fa = os.path.join(WORK, "hap17.fa"), os.path.join(WORK, "sw", "reads.fa")
     on = f"--device={DEVICE}"
     reqs = [("mem", ["mem", on, f"-l{MIN_LEN}", fmd, reads_fa], os.path.join(WORK, "native.bed"), mem_native_s),
+            ("mem-hybrid", ["mem", on, "--engine=hybrid", f"-l{MIN_LEN}", fmd, reads_fa], os.path.join(WORK, "native.bed"),
+             mem_native_s),
             ("hapdiv", ["hapdiv", on, "--engine=server", fmd, hap_fa], os.path.join(WORK, "hapdiv_ref.txt"),
              hd["path"]["ref_s"]),
             ("sw", ["sw", on, "--engine=server", fmd, sw_fa], os.path.join(WORK, "sw", "sw_ref.txt"),
              swr["path"]["ref_s"])]
-    local = {"mem": ("one-shot", mem_one_shot_s), "hapdiv": ("in-process", hd["path"]["port_s"]),
+    local = {"mem": ("one-shot", mem_one_shot_s), "mem-hybrid": ("in-process", mem_hybrid_s),
+             "hapdiv": ("in-process", hd["path"]["port_s"]),
              "sw": ("in-process", swr["path"]["port_s"])}
     os.makedirs(os.path.join(WORK, "serve"), exist_ok=True)
     t0 = time.perf_counter()
@@ -1888,13 +1908,18 @@ def check_serve(card: str, fmd: str, reads_fa: str, mem_one_shot_s: float, mem_n
             if m is None:
                 fail(f"{name}: no `{server.MARKER}` on stderr: {err[-1000:]}")
             on_server = float(m.group(1))
+            hyb = HYBRID_LOG.search(err)
+            if (hyb is not None) != (name == "mem-hybrid") or (hyb is not None and int(hyb.group(1)) < 1):
+                fail(f"{name}: the server's hybrid line is wrong or missing: {err[-1000:]}")
             how, local_s = local[name]
             res["requests"][name] = dict(served_s=served_s, on_server_s=on_server, client_s=served_s - on_server,
-                                         **{f"local_{how.replace('-', '_')}_s": local_s}, reference_s=ref_s)
-            say(f"[serve] `{' '.join(argv[:3])}` through the server: stdout byte-equal, marker on stderr; one-shot "
+                                         **{f"local_{how.replace('-', '_')}_s": local_s}, reference_s=ref_s,
+                                         **({} if hyb is None else dict(on_card=int(hyb.group(1)), share=float(hyb.group(3)))))
+            say(f"[serve] `{' '.join(argv[:-2])}` through the server: stdout byte-equal, marker on stderr; one-shot "
                 f"{served_s:.3f} s (on the server {on_server:.3f} s, the client's process and transfer "
-                f"{served_s - on_server:.3f} s), local {how} port {local_s:.3f} s, native reference {ref_s:.3f} s "
-                f"({card})")
+                f"{served_s - on_server:.3f} s), local {how} port {local_s:.3f} s, native reference {ref_s:.3f} s"
+                + ("" if hyb is None else f"; {hyb.group(1)} of {hyb.group(2)} reads on the card, the share at the end "
+                   f"{hyb.group(3)}") + f" ({card})")
     finally:
         run(port + ["serve", "--stop", fmd])
     gone = not server.alive(pid) and not os.path.exists(server.sock_path(fmd)) and not os.path.exists(server.pid_path(fmd))
@@ -2659,21 +2684,26 @@ def main(argv: list[str]) -> None:
         is_rb = name.startswith("rb")
         sc1, scc = (SectorCount(x, [x]), SectorCount(x, [x])) if is_rb else (x, x)
         step = RB_ROUNDS * ns[name] if is_rb else ns[LAT_48MB]
+        # the plain checks' runs are their timed runs on the dense rows; the
+        # rb checks count sectors as they go, so the rb plain runs again alone
         k1 = smem.smem_tg_cuda(x, sflat, soff, trips=True, **args)
-        err1 = chains_err(k1, smem.smem_tg_plain(sc1, sflat, soff, **args), MAX_MEMS, f"smem_tg {name}")
+        p1, plain_ms = wall_ms_of(lambda: smem.smem_tg_plain(sc1, sflat, soff, **args))
+        err1 = chains_err(k1, p1, MAX_MEMS, f"smem_tg {name}")
         kc = smem.smem_tgc_cuda(x, cflat, coff, clanes, trips=True, **args)
-        errc = chains_err(kc, smem.smem_tg_plain(scc, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args), MAX_MEMS,
-                          f"smem_tgc {name}")
+        pc, cplain_ms = wall_ms_of(lambda: smem.smem_tg_plain(scc, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args))
+        errc = chains_err(kc, pc, MAX_MEMS, f"smem_tgc {name}")
+        del p1, pc
         if err1 or errc:
             fail(f"smem {name}: smem_tg off by {err1}, smem_tgc off by {errc} against smem_tg_plain")
         r = dict(err=err1, cerr=errc,
                  ms=probe.queued_ms([lambda: smem.launch_tg(x, sflat, soff, **args)] * 10),
-                 plain=wall_ms(lambda: smem.smem_tg_plain(x, sflat, soff, **args)),
+                 plain=wall_ms(lambda: smem.smem_tg_plain(x, sflat, soff, **args)) if is_rb else plain_ms,
                  bound=bound_ms((sc1.bytes()[0] if is_rb else x.nbytes) + nbytes(sflat, soff) + nbytes(k1.n_mem)
                                 + int(k1.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * k1.mems.element_size()),
                  floor=int(k1.trips.max()) * step / 1e6,
                  cms=probe.queued_ms([lambda: smem.launch_tgc(x, cflat, coff, clanes, corder, **args)] * 10),
-                 cplain=wall_ms(lambda: smem.smem_tg_plain(x, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args)),
+                 cplain=(wall_ms(lambda: smem.smem_tg_plain(x, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args))
+                         if is_rb else cplain_ms),
                  cbound=bound_ms((scc.bytes()[0] if is_rb else x.nbytes) + nbytes(cflat, coff, clanes, kc.n_mem, kc.n_log)
                                  + int(kc.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * kc.mems.element_size()
                                  + int(kc.n_log.clamp(max=smem.LOG_LEN).sum()) * 4),
@@ -2821,6 +2851,42 @@ def main(argv: list[str]) -> None:
             f"({n_all / port_s:.1f} reads/s)"
         )
 
+    # mem's other engines on the full batch, through cli.main with the counts
+    # reset before and read after: the native host engine alone (no occ
+    # rows, no launch of any kind) and the hybrid (K1 beside it)
+    engines = {"auto": dict(port_s=paths["mem"]["port_s"])}
+    for engine in ("native", "hybrid"):
+        argv = ["mem", f"--engine={engine}", f"-l{MIN_LEN}", fmd, reads_fa]
+        out_fn = os.path.join(WORK, f"port_mem_{engine}.bed")
+        for counted in counters:
+            counted.launches.clear()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with open(out_fn, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        rec = dict(port_s=time.perf_counter() - t0,
+                   launches={name: dict(counted.launches) for name, counted in zip(names, counters)})
+        sys.stderr.write(err.getvalue())
+        if rc != 0:
+            fail(f"ropebwt3_tpu_torch {' '.join(argv)} exited {rc}")
+        got_bed = open(out_fn, "rb").read()
+        if got_bed != want:
+            fail(f"port mem --engine={engine} BED differs from --engine=native: {first_diff(got_bed, want)}")
+        if engine == "native":
+            if any(rec["launches"].values()) or "native SMEM engine" not in err.getvalue():
+                fail(f"mem --engine=native launched {rec['launches']} or did not log its engine")
+        else:
+            m = HYBRID_LOG.search(err.getvalue())
+            if rec["launches"]["smem_tgc"].get("dense32", 0) < 1 or m is None or int(m.group(1)) < 1:
+                fail(f"mem --engine=hybrid: launches {rec['launches']}, log {m and m.group(0)}")
+            rec.update(n_dev=int(m.group(1)), n_items=int(m.group(2)), share=float(m.group(3)))
+        engines[engine] = rec
+    say(f"[mem] in-process walls by engine, `mem -l{MIN_LEN}` of the full batch ({n_all} reads), each BED byte-equal "
+        f"to --engine=native: auto (K1) {engines['auto']['port_s']:.3f} s, native {engines['native']['port_s']:.3f} s "
+        f"(no launch), hybrid {engines['hybrid']['port_s']:.3f} s ({engines['hybrid']['n_dev']} of "
+        f"{engines['hybrid']['n_items']} reads on the card, the card's share at the end {engines['hybrid']['share']:.4f}; "
+        f"launches {engines['hybrid']['launches']}) ({card})")
+
     # the main path's host work, piece by piece (warm: the sidecar and the
     # kernels exist), through the functions `mem` runs; its BED must match too
     from ropebwt3_tpu_torch import seqio
@@ -2884,7 +2950,7 @@ def main(argv: list[str]) -> None:
     phase_done("utils")
 
     # ---- serve -------------------------------------------------------------------
-    sv = check_serve(card, fmd, reads_fa, sub_s, native_s, hd, swr)
+    sv = check_serve(card, fmd, reads_fa, sub_s, native_s, engines["hybrid"]["port_s"], hd, swr)
     phase_done("serve")
 
     # ---- mesh --------------------------------------------------------------------

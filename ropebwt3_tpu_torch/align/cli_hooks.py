@@ -42,9 +42,11 @@ PYTHON_CAP = 64  # windows a Python DP call (lock-step, sw_core_multi)
 SW_BATCH = 4096  # reads an sw engine call
 # --engine=hybrid: (variable, its default) of the device's share at the
 # start, and the floor of the share re-set after each batch; the ceiling is
-# SPLIT_MAX (ropebwt3_tpu/align/cli_hooks.py:176, 206, 305, 332)
+# SPLIT_MAX for the DPs (ropebwt3_tpu/align/cli_hooks.py:176, 206, 305, 332)
+# and MEM_SPLIT_MAX for mem's SMEM engines (ropebwt3_tpu/cli.py:1418, 1442)
 SW_SPLIT, HAPDIV_SPLIT = ("RB3TPU_SW_SPLIT", "0.01", 0.002), ("RB3TPU_HAPDIV_SPLIT", "0.05", 0.02)
 SPLIT_MAX = 0.5
+MEM_SPLIT, MEM_SPLIT_MAX = ("RB3TPU_MEM_SPLIT", "0.35", 0.05), 0.8
 _CIG = "MIDNSHP=X"
 _NT = "$ACGTN"
 
@@ -208,43 +210,64 @@ class MeshEngines:
 
 class HybridEngine:
     """`--engine=hybrid`: each batch's first int(n * share) items (sw's
-    reads, hapdiv's windows) on the device engine `dev`, on one worker
-    thread, and the rest at the same time on `native` (a function of a list
-    of items: the native DP, or with a debug flag the Python DP); the
-    results in input order, the device's first.  After each batch, the share
-    is re-set to the device's measured rate over the sum of both rates,
-    clipped to [floor, SPLIT_MAX] (ropebwt3_tpu/align/cli_hooks.py:183-206,
-    310-334).  n_items and n_dev count the items and the device's; the
-    engine's other attributes are dev's."""
+    reads, hapdiv's windows, mem's reads) on the device engine `dev`, on one
+    worker thread, and the rest at the same time on `native`; the results
+    in input order, the device's first.  After each batch, the share is
+    re-set to the device's measured rate over the sum of both rates, clipped
+    to [floor, ceiling] (ropebwt3_tpu/align/cli_hooks.py:183-206, 310-334;
+    ropebwt3_tpu/cli.py:1404-1448).  `run` takes a list (`dev.run`, and
+    `native` a function of a list: the native DP, or with a debug flag the
+    Python DP); `run_flat` a flat batch of reads (`dev.run_flat`, and
+    `native` a function of (flat, seq_off)), each half returning (counts,
+    rows), as mem's engines do.  n_items and n_dev count the items and the
+    device's; the engine's other attributes are dev's."""
 
-    def __init__(self, dev, native, split):
+    def __init__(self, dev, native, split, ceiling: float = SPLIT_MAX):
         var, default, self.floor = split
-        self.dev, self.native, self.share = dev, native, float(os.environ.get(var, default))
+        self.dev, self.native, self.share, self.ceiling = dev, native, float(os.environ.get(var, default)), ceiling
         self.rates = {"dev": None, "nat": None}
         self.n_items = self.n_dev = 0
         self.pool = ThreadPoolExecutor(1)
 
     @staticmethod
-    def _timed(fn, items):
+    def _timed(fn, *args):
         t0 = time.perf_counter()
-        out = fn(items)
+        out = fn(*args)
         return time.perf_counter() - t0, out
 
-    def run(self, items: list) -> list:
-        nd = int(len(items) * self.share)
-        fut = self.pool.submit(self._timed, self.dev.run, items[:nd]) if nd else None
-        nat_s, nat = self._timed(self.native, items[nd:])
-        if len(items) > nd:
-            self.rates["nat"] = (len(items) - nd) / max(nat_s, 1e-6)
-        dev: list = []
+    def _split(self, n: int, cut, dev_fn, nat_fn):
+        """dev_fn on the worker thread and nat_fn here on the halves of a
+        batch of n items, cut(nd) giving each one's arguments; (dev's result
+        or None when it got no item, native's result)."""
+        nd = int(n * self.share)
+        dev_args, nat_args = cut(nd)
+        fut = self.pool.submit(self._timed, dev_fn, *dev_args) if nd else None
+        nat_s, nat = self._timed(nat_fn, *nat_args)
+        if n > nd:
+            self.rates["nat"] = (n - nd) / max(nat_s, 1e-6)
+        dev = None
         if fut is not None:
             dev_s, dev = fut.result()
             self.rates["dev"] = nd / max(dev_s, 1e-6)
         if self.rates["dev"] and self.rates["nat"]:
-            self.share = min(SPLIT_MAX, max(self.floor, self.rates["dev"] / (self.rates["dev"] + self.rates["nat"])))
-        self.n_items += len(items)
+            self.share = min(self.ceiling, max(self.floor, self.rates["dev"] / (self.rates["dev"] + self.rates["nat"])))
+        self.n_items += n
         self.n_dev += nd
-        return list(dev) + list(nat)
+        return dev, nat
+
+    def run(self, items: list) -> list:
+        dev, nat = self._split(len(items), lambda nd: ((items[:nd],), (items[nd:],)), self.dev.run, self.native)
+        return list(dev or []) + list(nat)
+
+    def run_flat(self, flat: np.ndarray, seq_off: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        def cut(nd):
+            a = seq_off[nd]
+            return (flat[:a], seq_off[: nd + 1]), (flat[a:], seq_off[nd:] - a)
+
+        dev, nat = self._split(len(seq_off) - 1, cut, self.dev.run_flat, self.native)
+        if dev is None:
+            return nat
+        return np.concatenate([dev[0], nat[0]]), np.concatenate([dev[1], nat[1]])
 
     def close(self) -> None:
         self.pool.shutdown()
@@ -288,7 +311,9 @@ def _engine_kind(engine: str, opt: SwOpt, device, mesh) -> str:
     return "python" if opt.dbg and engine == "auto" else "device"
 
 
-def _log_hybrid(e, what: str, func: str) -> None:
+def log_hybrid(e, what: str, func: str) -> None:
+    """The hybrid's line (what ran on the card, its share at the end); then
+    its worker thread is shut down."""
     log.info("hybrid: %d of %d %s on the card, the card's share at the end %.4f", e.n_dev, e.n_items, what, e.share,
              func=func)
     e.close()
@@ -387,7 +412,7 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None, mesh=None, en
                  ", ".join(f"{k} {e.seconds[k]:.3f}" for k in SwDeviceEngine.PIECES),
                  write_s, func="sw")
         if kind == "hybrid":
-            _log_hybrid(e, "reads", "sw")
+            log_hybrid(e, "reads", "sw")
     return 0
 
 
@@ -497,5 +522,5 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None, mes
         log.info("wall seconds by piece (the engine's overlap the cut and the write): %s",
                  ", ".join(f"{p} {dev_engine.seconds[p]:.3f}" for p in HapdivDeviceEngine.PIECES), func="hapdiv")
         if kind == "hybrid":
-            _log_hybrid(dev_engine, "windows", "hapdiv")
+            log_hybrid(dev_engine, "windows", "hapdiv")
     return 0

@@ -13,13 +13,20 @@ ropebwt3_tpu build` with the same arguments.  `merge` merges FMD/FMR/BRE
 indexes the same way and writes FMR; `plain2fmd` (host only) encodes a
 plain-text BWT as FMD.
 
-`mem [--device=cuda|cpu] [--occ=auto|dense|rb] [options] idx.fmd reads...`
-loads the index (`load_index`), reads each file in flat batches of -K
-symbols (`seqio.iter_flat_batches`), finds each batch's MEMs with
-`BatchedSmemTG` on the device's occ rows (--occ auto: dense unless they
-would pass 75% of the card's memory, ops/smem.py `resolve_occ`), and writes
-the BED from the engine's flat (counts, rows), with `-c`, `--gap`, `--cov`
-and `-p`, byte-equal to `python -m ropebwt3_tpu mem --engine=native`.
+`mem [--device=cuda|cpu] [--engine=auto|jax|native|hybrid|py]
+[--occ=auto|dense|rb] [options] idx.fmd reads...` loads the index
+(`load_index`), reads each file in flat batches of -K symbols
+(`seqio.iter_flat_batches`), finds each batch's MEMs with `BatchedSmemTG`
+on the device's occ rows (--occ auto: dense unless they would pass 75% of
+the card's memory, ops/smem.py `resolve_occ`), and writes the BED from the
+engine's flat (counts, rows), with `-c`, `--gap`, `--cov` and `-p`,
+byte-equal to `python -m ropebwt3_tpu mem --engine=native`.  That is the
+engine of `auto` and `jax`; `native` runs the threaded native SMEM-TG
+engine (ops/smem_native.py) instead, each batch's BED written while the
+next one runs, and builds no rows; `hybrid` splits each batch between the
+two (align/cli_hooks.py `HybridEngine`, RB3TPU_MEM_SPLIT); `py` (or any
+other value) runs ops/smem_ref.py's smem_tg read by read.  `--occ` and
+`--mesh` apply to the card's engine.
 
 `mem --old-mem` (and `search --old-mem`) runs the original ropebwt2/fermi
 SMEM algorithm read by read on the host (ops/smem_ref.py `smem_orig`), as
@@ -72,9 +79,11 @@ ropebwt3_tpu`'s.
 
 `serve [--device=cuda|cpu] [--engine=auto|native] [--warm=...]
 [--warm-hapdiv=...] [--warm-sw=...] [--daemon] [--stop] idx.fmd` keeps the
-index and one set of occ rows resident (server.py).  `mem` goes to a server that holds its index on its device
-when one answers; `mem`, `sw` and `hapdiv` with `--engine=server` go to one
-or fail with one ERROR line; `search`, and `sw` and `hapdiv` on auto, stay
+index and one set of occ rows resident (server.py).  `mem` on auto or
+hybrid, and `sw` and `hapdiv` on jax or hybrid, go to a server that holds
+their index on their device when one answers (`route`), and run here when
+none does; `mem`, `sw` and `hapdiv` with `--engine=server` go to one or
+fail with one ERROR line; `search`, and `sw` and `hapdiv` on auto, stay
 here.  That choice is made before torch is imported, so a request that a
 server answers never imports it.  RB3TPU_AUTO_SERVE=1 starts a server in the
 background when none answers `mem`.
@@ -134,6 +143,9 @@ _SEARCH_OPTS = "Ll:c:t:K:MdN:A:B:O:E:C:m:k:uj:ey:a:w:p:bg:"
 _LONG_OPTS = ["no-ssa", "seq", "gap=", "cov", "old-mem", "all-e2e", "no-kalloc", "dbg-dawg", "dbg-sw", "dbg-qname",
               "dbg-bt", "engine=", "mesh=", "occ="]
 DP_ENGINES = ("auto", "native", "jax", "hybrid")  # sw's and hapdiv's --engine (a server's: server.EngineCache.ENGINES)
+# mem's --engine values that run K1 on the card (server: a resident server's
+# own); native runs the native engine, any other value the Python one
+MEM_DEVICE_ENGINES = ("auto", "jax", "hybrid", "server")
 # sw's scoring options (ropebwt3_tpu/cli.py _SW_SCORING)
 _SW_SCORING = """  -N INT      keep up to INT hits per DAWG node [25]
   -m INT      min alignment score [30]
@@ -479,10 +491,13 @@ def refusal(argv: list[str]) -> str | None:
 def route(cmd: str, rest: list[str]) -> int | None:
     """Send `cmd rest` to a resident server (server.py) where it belongs:
     `mem`, `sw` or `hapdiv` with `--engine=server` (one ERROR line when no
-    server answers for the index on the request's device), and `mem` on auto
-    (its SMEM path, not -d, -a/-w or --old-mem) when one answers; RB3TPU_AUTO_SERVE=1
-    starts one in the background for `mem` when none does.  Returns the
-    server's exit code, or None to run here.  Imports no torch."""
+    server answers for the index on the request's device); without --mesh,
+    when one answers, `mem` on auto or hybrid (its SMEM path, not -d, -a/-w
+    or --old-mem) and `sw` and `hapdiv` (or `mem -d`, `mem -a/-w`) on jax or
+    hybrid, as ropebwt3_tpu/cli.py:1161-1166 does: otherwise they run here.
+    RB3TPU_AUTO_SERVE=1 starts a server in the background for `mem` on auto
+    when none answers.  Returns the server's exit code, or None to run here.
+    Imports no torch."""
     from . import server
 
     device, argv = _split_device(rest)
@@ -499,7 +514,8 @@ def route(cmd: str, rest: list[str]) -> int | None:
             algo = "hapdiv"
         elif o == "--old-mem" and cmd == "mem":
             algo = "mem_ori"
-    if len(args) < 2 or not (engine == "server" or (engine == "auto" and algo == "mem" and not mesh)):
+    sent = {"mem": ("auto", "hybrid"), "sw": ("jax", "hybrid"), "hapdiv": ("jax", "hybrid")}.get(algo, ())
+    if len(args) < 2 or not (engine == "server" or (engine in sent and not mesh)):
         return None
     got = server.server_device(args[0])
     if got == device:
@@ -513,7 +529,8 @@ def route(cmd: str, rest: list[str]) -> int | None:
         if got is None:
             return _err(f"no server for '{args[0]}' (start one: python -m ropebwt3_tpu_torch serve {args[0]})")
         return _err(f"the server for '{args[0]}' runs on {got}, not {device}")
-    server.maybe_autospawn(args[0], device)
+    if engine == "auto" and algo == "mem":
+        server.maybe_autospawn(args[0], device)
     return None
 
 
@@ -868,16 +885,21 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
     """`mem`, or `search` (cmd "search"): SMEMs, with --old-mem by the
     original algorithm on the host, or with -d sw and with -a/-w hapdiv, the
     last of them given (ropebwt3_tpu/cli.py:1053-1058, 1108-1109).
-    `served`: a resident server's EngineCache (server.py), whose index and
-    occ rows the request runs on."""
-    from .ops.smem import BatchedSmemTG, smem_tg_cuda, smem_tgc_cuda
-
+    `--engine` picks the SMEM engine as ropebwt3_tpu/cli.py:1384-1467 does,
+    but for auto: `auto`, `jax` (and a server's own `server`) run K1 on
+    `device` (`mem_engine`), where the JAX package's one-shot auto runs the
+    native engine and its server's auto the hybrid; the port's auto is the
+    card, as it is for `sw` and `hapdiv`.  `native` runs the native engine
+    (ops/smem_native.py) alone, `hybrid` each batch split between K1 and the
+    native engine (align/cli_hooks.py HybridEngine), and `py` or any other
+    value smem_ref.smem_tg read by read.  `served`: a resident server's
+    EngineCache (server.py), whose index and occ rows the request runs on."""
     try:
         opts, args = ketopt(argv, _SEARCH_OPTS, _LONG_OPTS, strict=True)
     except KetoptUnknown:
         return 1
     is_line, min_len, min_occ, max_pos, min_gap_len, write_cov = False, 19, 1, 0, 0, False
-    occ, batch_size, algo, mesh_spec = "auto", 100_000_000, "mem", None
+    occ, batch_size, algo, mesh_spec, engine = "auto", 100_000_000, "mem", None, "auto"
     for o, a in opts:
         if o == "-L":
             is_line = True
@@ -905,6 +927,8 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
             algo = "mem_ori"
         elif o == "--mesh":
             mesh_spec = a
+        elif o == "--engine":
+            engine = a
     if algo == "hapdiv":
         return main_hapdiv(argv, device, cmd, served)
     if algo == "sw":
@@ -913,42 +937,117 @@ def main_mem(argv: list[str], device: str, cmd: str = "mem", served=None) -> int
         return _usage(cmd)
     if min_gap_len > 0:
         max_pos = 0
-    mesh = None if algo == "mem_ori" else _cli_mesh(mesh_spec, device, served, "mem")
+    mesh = None if algo == "mem_ori" else _cli_mesh(mesh_spec, device, served, "mem", engine)
     f = _index(args[0], max_pos > 0, served)
     if max_pos > 0 and (f.ssa is None or f.sid is None):
         return _err("failed to load suffix array samples or sequence names/lengths")
     if not f.is_symmetric():
         return _err("BWT doesn't contain both strands")
+    out = (f, args[1:], is_line, batch_size, min_gap_len, write_cov, max_pos)
     if algo == "mem_ori":
-        return _run_old_mem(f, args[1:], is_line, batch_size, min_occ, min_len, min_gap_len, write_cov, max_pos)
-    rows = None if served is None else served.mem_rows(occ)
-    eng = BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ, rows=rows, mesh=mesh)
+        from .ops.smem_ref import smem_orig
+
+        _run_mem(_per_read(smem_orig, f, min_occ, min_len), *out)
+        return 0
+    from .ops.smem_native import smem_tg_flat_native
+
+    def native(flat: np.ndarray, offs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        return smem_tg_flat_native(f, flat, offs, min_occ, min_len)
+
+    if engine == "native":
+        n = _run_mem(native, *out, pipelined=True)
+        log.info("native SMEM engine (ops/smem_native.py): %d reads on up to %d host threads; no smem_tg kernel or plain "
+                 "version ran", n, os.cpu_count() or 1, func="mem")
+        return 0
+    if engine not in MEM_DEVICE_ENGINES:
+        from .ops.smem_ref import smem_tg
+
+        n = _run_mem(_per_read(smem_tg, f, min_occ, min_len), *out)
+        log.info("Python SMEM engine (ops/smem_ref.py smem_tg, read by read): %d reads; no smem_tg kernel or plain "
+                 "version ran", n, func="mem")
+        return 0
+    from .ops.smem import smem_tg_cuda, smem_tgc_cuda
+
+    eng = card = mem_engine(f, min_occ, min_len, device, occ, served, mesh, engine)
+    if engine == "hybrid":
+        from .align.cli_hooks import MEM_SPLIT, MEM_SPLIT_MAX, HybridEngine, log_hybrid
+
+        eng = HybridEngine(card, native, MEM_SPLIT, MEM_SPLIT_MAX)
     if mesh is not None:
         from .parallel.launch import DistMem, world
 
         eng = DistMem(eng) if world()[1] > 1 else eng
-    ret = _run_mem(f, eng, args[1:], is_line, batch_size, min_gap_len, write_cov, max_pos)
-    lay = eng.idx.layout
+    try:
+        _run_mem(eng.run_flat, *out, pipelined=engine == "hybrid")
+    finally:
+        if engine == "hybrid":
+            log_hybrid(eng, "reads", "mem")
+    lay = card.idx.layout
     log.info("%d smem_tg launches (%s): %d chunked, %d one-thread; %d reads rerun on the card, %d unmerged, %d whole",
              smem_tgc_cuda.launches[lay] + smem_tg_cuda.launches[lay], lay, smem_tgc_cuda.launches[lay],
-             smem_tg_cuda.launches[lay], eng.n_rerun, eng.n_unmerged, eng.n_whole, func="mem")
-    return ret
+             smem_tg_cuda.launches[lay], card.n_rerun, card.n_unmerged, card.n_whole, func="mem")
+    return 0
+
+
+def mem_engine(f, min_occ: int, min_len: int, device: str, occ: str, served, mesh, engine: str = "auto"):
+    """The card's SMEM engine of `mem` (ops/smem.py BatchedSmemTG) over a
+    resident server's rows when `served`, else over rows it builds.  For
+    `--engine=hybrid` it is built on a worker thread (`Building`), so the
+    rows are made while the native half runs its share of the first batch."""
+    from .ops.smem import BatchedSmemTG
+
+    rows = None if served is None else served.mem_rows(occ)
+
+    def build():
+        return BatchedSmemTG(f, min_occ, min_len, device=device, occ=occ, rows=rows, mesh=mesh)
+
+    return Building(build) if engine == "hybrid" else build()
+
+
+class Building:
+    """An object that `build()` makes on a worker thread from now on: its
+    attributes (run_flat, idx, ...) wait for it and raise what the build
+    raised."""
+
+    def __init__(self, build):
+        from concurrent.futures import ThreadPoolExecutor
+
+        ex = ThreadPoolExecutor(1)
+        self._made = ex.submit(build)
+        ex.shutdown(wait=False)  # its thread ends once the build has
+
+    def __getattr__(self, name):
+        return getattr(self._made.result(), name)
+
+
+def _per_read(fn, f, min_occ: int, min_len: int):
+    """A host SMEM algorithm of ops/smem_ref.py (smem_tg, smem_orig), read by
+    read, as an engine's run_flat: (counts, rows) of a flat batch."""
+
+    def run_flat(flat: np.ndarray, offs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        mems = [fn(f, flat[offs[i] : offs[i + 1]], min_occ, min_len) for i in range(len(offs) - 1)]
+        counts = np.array([len(m) for m in mems], np.int64)
+        rows = np.array([(m.start, m.end, m.size, m.lo, m.lo_rc) for ms in mems for m in ms], np.int64)
+        return counts, rows.reshape(-1, 5)
+
+    return run_flat
 
 
 def _cli_mesh(spec: str | None, device: str, served, func: str, engine: str = "auto"):
     """This process's mesh for `--mesh=spec` (parallel/launch.py
     `local_mesh`; under torchrun it joins the process group), or None: no
     spec, or one that the engine ignores, with the JAX package's warning
-    (ropebwt3_tpu/align/cli_hooks.py:133-142): a host engine
-    (`--engine=native`) or a resident server's engine answers."""
+    (ropebwt3_tpu/align/cli_hooks.py:133-142): a host engine (any
+    `--engine` but auto, jax and hybrid) or a resident server's engine
+    answers."""
     if not spec:
         return None
     if served is not None or engine == "server":
         sys.stderr.write(f"[W::{func}] --mesh={spec} ignored: the resident server's engine answers (serve takes no "
                          "--mesh)\n")
         return None
-    if engine == "native":
-        sys.stderr.write(f"[W::{func}] --mesh={spec} ignored with --engine=native (host engine)\n")
+    if engine not in ("auto", "jax", "hybrid"):
+        sys.stderr.write(f"[W::{func}] --mesh={spec} ignored with --engine={engine} (host engine)\n")
         return None
     from .parallel import launch
 
@@ -1107,42 +1206,42 @@ def record_batches(fn: str, is_line: bool, batch_size: int):
         yield names, *pack_reads(seqs)
 
 
-def _run_mem(f, eng, files: list[str], is_line: bool, batch_size: int, min_gap_len: int, write_cov: bool,
-             max_pos: int) -> int:
-    seq_id = 0
-    for fn in files:
-        if not seq_openable(fn):
-            # search.c:571-575: report and stop processing further files
-            print(f"ERROR: failed to load the sequence file '{fn}'", file=sys.stderr)
-            break
-        batches = iter_flat_batches(fn, is_line, batch_size)
-        for names, flat, offs in batches if batches is not None else record_batches(fn, is_line, batch_size):
-            got = eng.run_flat(flat, offs)
-            if got is None:  # a process of a torchrun job other than 0: process 0 writes
-                continue
+def _run_mem(run_flat, f, files: list[str], is_line: bool, batch_size: int, min_gap_len: int, write_cov: bool,
+             max_pos: int, pipelined: bool = False) -> int:
+    """The BED of every read of `files` through an engine's `run_flat`, a
+    flat batch of ~batch_size symbols at a time.  `pipelined` (an engine
+    that releases the GIL: the native one, the hybrid): batch i+1 runs on a
+    worker thread while batch i's BED is written, as
+    ropebwt3_tpu/cli.py:1449-1467 does.  Returns the reads run."""
+    seq_id = n_reads = 0
+
+    def emit(names, offs, got) -> None:
+        nonlocal seq_id
+        if got is not None:  # None: a process of a torchrun job other than 0 (process 0 writes)
             seq_id = write_bed(sys.stdout, f, names, offs, *got, seq_id, min_gap_len, write_cov, max_pos)
-    return 0
 
+    from concurrent.futures import ThreadPoolExecutor
 
-def _run_old_mem(f, files: list[str], is_line: bool, batch_size: int, min_occ: int, min_len: int, min_gap_len: int,
-                 write_cov: bool, max_pos: int) -> int:
-    """`mem --old-mem`: each read's MEMs by the original algorithm on the
-    host (smem_ref.smem_orig, read by read, as ropebwt3_tpu/cli.py:1384-1385
-    runs it), written by write_bed a batch of ~batch_size symbols at a time."""
-    from .ops.smem_ref import smem_orig
-
-    seq_id = 0
-    for fn in files:
-        if not seq_openable(fn):
-            print(f"ERROR: failed to load the sequence file '{fn}'", file=sys.stderr)
-            break
-        for names, flat, offs in record_batches(fn, is_line, batch_size):
-            mems = [smem_orig(f, flat[offs[i] : offs[i + 1]], min_occ, min_len) for i in range(len(names))]
-            counts = np.array([len(m) for m in mems], np.int64)
-            rows = np.array([(m.start, m.end, m.size, m.lo, m.lo_rc) for ms in mems for m in ms], np.int64)
-            rows = rows.reshape(-1, 5)
-            seq_id = write_bed(sys.stdout, f, names, offs, counts, rows, seq_id, min_gap_len, write_cov, max_pos)
-    return 0
+    with ThreadPoolExecutor(1) as ex:
+        for fn in files:
+            if not seq_openable(fn):
+                # search.c:571-575: report and stop processing further files
+                print(f"ERROR: failed to load the sequence file '{fn}'", file=sys.stderr)
+                break
+            batches = iter_flat_batches(fn, is_line, batch_size)
+            pend = None
+            for names, flat, offs in batches if batches is not None else record_batches(fn, is_line, batch_size):
+                n_reads += len(names)
+                if not pipelined:
+                    emit(names, offs, run_flat(flat, offs))
+                    continue
+                fut = ex.submit(run_flat, flat, offs)
+                if pend is not None:
+                    emit(pend[0], pend[1], pend[2].result())
+                pend = (names, offs, fut)
+            if pend is not None:
+                emit(pend[0], pend[1], pend[2].result())
+    return n_reads
 
 
 def write_bed(out, f, names, offs, counts, rows, seq_id: int, min_gap_len: int, write_cov: bool, max_pos: int) -> int:

@@ -15,14 +15,17 @@ stdout to a file under WORK:
   pays for what it loads first);
 - `hapdiv` of the haplotype (-a101 -w50) with auto, hybrid and native, then
   in the reverse order;
-- `mem --old-mem -l31` of the first OLD_MEM_READS reads, beside `mem -l31`
-  of the same reads;
+- `mem -l31` of bench.py's 100,000 reads with --engine=auto (K1 on the
+  card), native (the host engine) and hybrid, then in the reverse order;
+- `mem --old-mem -l31` and `mem --engine=py -l31` (the Python engines,
+  read by read) of the first OLD_MEM_READS reads, beside `mem -l31` of the
+  same reads;
 - `sw --dbg-dawg --dbg-sw --dbg-qname --dbg-bt` of the first DBG_READS
   reads (the Python DP), its traces to a file.
 
 Every engine's stdout must equal auto's (a run that differs fails).  The
-hybrids start from RB3TPU_SW_SPLIT / RB3TPU_HAPDIV_SPLIT (their defaults
-unless set).  Prints one JSON line tagged TAG: each run's wall (a list, in
+hybrids start from RB3TPU_SW_SPLIT / RB3TPU_HAPDIV_SPLIT / RB3TPU_MEM_SPLIT
+(their defaults unless set).  Prints one JSON line tagged TAG: each run's wall (a list, in
 run order, for the engines), the hybrid's items on the card and its share
 at the end (its log line), the card's name and power limit.
 """
@@ -104,20 +107,28 @@ def main(argv: list[str]) -> int:
     hap_fa = write_fasta(os.path.join(work, "hap17.fa"), ["hap17"], [hap])
     reads_fa = write_fasta(os.path.join(work, "reads.fa"), [f"r{i}" for i in range(len(reads))], reads)
     few_fa = write_fasta(os.path.join(work, "few.fa"), [f"r{i}" for i in range(OLD_MEM_READS)], reads[:OLD_MEM_READS])
+    rng = np.random.default_rng(SEED)  # all of bench.py's reads, as make_workload draws them
+    all_reads = corpus.short_reads(rng, corpus.genomes(rng)[0])
+    all_fa = write_fasta(os.path.join(work, "all.fa"), [f"r{i}" for i in range(len(all_reads))], all_reads)
     dbg_fa = write_fasta(os.path.join(work, "dbg.fa"), [f"r{i}" for i in range(DBG_READS)], reads[:DBG_READS])
     res = {"tag": argv[1] if len(argv) == 2 else None, "card": probe.card_line(), "reads": len(reads),
            "hapdiv_windows": (len(hap) - 101) // 50 + 1,
-           "split": {v: os.environ.get(v) for v in ("RB3TPU_SW_SPLIT", "RB3TPU_HAPDIV_SPLIT")}}
-    for cmd, engines, fa in (("sw", ("auto", "jax", "hybrid", "native"), reads_fa),
-                             ("hapdiv", ("auto", "hybrid", "native"), hap_fa)):
+           "mem_reads": len(all_reads),
+           "split": {v: os.environ.get(v) for v in ("RB3TPU_SW_SPLIT", "RB3TPU_HAPDIV_SPLIT", "RB3TPU_MEM_SPLIT")}}
+    for cmd, engines, fa, opts in (("sw", ("auto", "jax", "hybrid", "native"), reads_fa, []),
+                                   ("hapdiv", ("auto", "hybrid", "native"), hap_fa, []),
+                                   ("mem", ("auto", "native", "hybrid"), all_fa, ["-l31"])):
         for eng in engines + engines[::-1]:
             name = f"{cmd}_{eng}"
-            rec = timed(work, name, [cmd, f"--engine={eng}", fmd, fa])
+            rec = timed(work, name, [cmd, f"--engine={eng}", *opts, fmd, fa])
             same(work, f"{cmd}_auto", name)
             res.setdefault(name, []).append(rec)
     res["mem"] = timed(work, "mem", ["mem", "-l31", fmd, few_fa])
     res["old_mem"] = timed(work, "old_mem", ["mem", "--old-mem", "-l31", fmd, few_fa])
     res["old_mem"]["reads"] = OLD_MEM_READS
+    res["mem_py"] = timed(work, "mem_py", ["mem", "--engine=py", "-l31", fmd, few_fa])
+    res["mem_py"]["reads"] = OLD_MEM_READS
+    same(work, "mem", "mem_py")
     res["sw_dbg"] = timed(work, "sw_dbg", ["sw", "--dbg-dawg", "--dbg-sw", "--dbg-qname", "--dbg-bt", fmd, dbg_fa])
     with open(os.path.join(work, "sw_dbg.err")) as fh:
         res["sw_dbg"].update(reads=DBG_READS, trace_lines=sum(1 for line in fh if re.match(r"(DG|SW|BT|Q)\t", line)))

@@ -14,8 +14,9 @@ at the 1.34 Gsym index (PERF_NOTES round 4), because x86 drops prefetches
 on TLB misses, so at multi-GB table footprints the interleaved LF-walk
 engines' latency hiding only works when the TLB covers the tables.
 Version 1 files (64-byte alignment) remain readable via plain np.memmap.
-Copied from ropebwt3_tpu/index/sidecar.py without the pline records, which
-the port does not use: both packages read and write the same `.dense` file.
+Copied from ropebwt3_tpu/index/sidecar.py, with its pline file
+(`<index>.dense.pl`, `write_pline` / `read_pline`): both packages read and
+write the same `.dense` and `.dense.pl` files.
 
 Layout: magic "RB3TDNS1"/"RB3TDNS2" | int64 n, n_bwt, n_block_rows,
 n_super_rows | int64 acc[7] | pad | bwt uint8[n_bwt] | pad |
@@ -102,9 +103,9 @@ class _HugeMap:
         finally:
             os.close(fd)
 
-    # No __del__/munmap: numpy views of the mapping (index tables) may
-    # outlive this object through caller references, and a munmap under a
-    # live view is a segfault.  Mappings are file-backed,
+    # No __del__/munmap: numpy views of the mapping (index tables, pline
+    # records) may outlive this object through caller references, and a
+    # munmap under a live view is a segfault.  Mappings are file-backed,
     # read-only, and one-per-index — letting them live for the process is
     # the same contract as the reference's mmap -M (rld0.c:322-341).
 
@@ -152,5 +153,57 @@ def read_sidecar(path: str) -> DenseFMIndex | None:
     f = DenseFMIndex(bwt=bwt, n=n, acc=acc, occ_block=occ_block, occ_super=occ_super)
     f._mm_ref = hm  # keep the mapping alive with the index
     f._sidecar_version = 2 if magic == MAGIC_V2 else 1
-    f._sidecar_path = path  # the .rb.npz cache is checked against it (F3)
+    f._sidecar_path = path  # the .rb.npz cache (F3) and the .pl file are checked against it
     return f
+
+
+# ---- pline sidecar (`<index>.dense.pl`) ----------------------------------
+# Persists the packed one-line rank records (ops/smem_native.pline_table:
+# one 64 B record per 128 symbols) so each `mem --engine=native|hybrid` maps
+# them hugepage-backed instead of building them again.
+MAGIC_PL = b"RB3TPLN1"
+
+
+def write_pline(path: str, n: int, recs: np.ndarray) -> None:
+    header = np.zeros(_ALIGN // 8, dtype="<i8")
+    header[1] = n
+    header[2] = len(recs) // 64
+    hb = bytearray(header.tobytes())
+    hb[:8] = MAGIC_PL
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as fp:
+        fp.write(hb)
+        fp.write(b"\0" * (_HUGE - fp.tell()))
+        recs.tofile(fp)
+    os.replace(tmp, path)
+
+
+def read_pline(path: str, n: int) -> tuple[np.ndarray, object] | None:
+    """Hugepage-mmap the pline records for an index of n symbols; returns
+    (records, keepalive) (the caller must hold `keepalive` as long as the
+    records are used) or None when absent or mismatched."""
+    try:
+        with open(path, "rb") as fp:
+            head = fp.read(_ALIGN)
+    except OSError:
+        return None
+    if head[:8] != MAGIC_PL:
+        return None
+    hdr = np.frombuffer(head, dtype="<i8", count=4)
+    if int(hdr[1]) != n:
+        return None
+    n_recs = int(hdr[2])
+    want = _HUGE + n_recs * 64
+    if os.path.getsize(path) < want or n_recs != (n >> 7) + 1:
+        return None
+    try:
+        hm: object = _HugeMap(path)
+        mm = hm.arr
+    except Exception:
+        try:
+            mm = np.memmap(path, dtype=np.uint8, mode="r")
+            hm = mm
+        except (OSError, ValueError):
+            return None
+    out = np.frombuffer(mm, dtype=np.uint8, count=n_recs * 64, offset=_HUGE)
+    return out, hm

@@ -4,7 +4,12 @@
 // and the hapdiv annotation), the query BWT and prefix DAWG with the -j
 // prefilter (:929-1244), the full backtrack, sw_read and the hit blobs
 // (:1532-1724), and the entry points rb3t_hapdiv_batch, rb3t_sw_batch and
-// rb3t_buf_free.  The port passes no packed one-line records ("pline"):
+// rb3t_buf_free.  The native `mem` engine (ops/smem_native.py) is copied
+// too: MemRec, smem1_tg, smem_tg_read and the interleaved SmemSM
+// (:1246-1308, 1382-1531) with rb3t_pline_build and rb3t_smem_batch
+// (:2335-2466), without the k-mer seed table (RB3T_SMEM_SEED) and the fused
+// 128-B records (rb3t_fused_build), both measured losses there and off by
+// default.  The DP entry points pass no packed one-line records ("pline"):
 // they change speed only, never a count.  Two entry points are the port's
 // own, built from the copied code: rb3t_sw_stage and rb3t_sw_finish, the
 // host halves of the device sw engine (align/sw.py).
@@ -1250,6 +1255,198 @@ static bool smem_present_cpp(const Fmi& f, RankCache& rc, const uint8_t* q, int3
   return false;
 }
 
+// ---- SMEM-TG per read (fm-index.c:483-528; ops/smem_ref.py smem_tg) ------
+// The native `mem` engine (ops/smem_native.py).  smem1_tg is the serial
+// form; rb3t_smem_batch runs SmemSM, whose transitions follow it step for
+// step.
+
+struct MemRec {
+  int64_t st, en, size, lo, lo_rc;
+};
+
+static int32_t smem1_tg(const Fmi& f, RankCache& rc, const uint8_t* q, int32_t n, int32_t x,
+                        int64_t min_occ, int32_t min_len, std::vector<MemRec>& mems) {
+  if (n - x < min_len) return n;
+  int c0 = q[x + min_len - 1];
+  int comp0 = (c0 >= 1 && c0 <= 4) ? 5 - c0 : c0;
+  int64_t ik_lo = f.acc[c0], ik_rc = f.acc[comp0], ik_sz = f.acc[c0 + 1] - f.acc[c0];
+  int32_t i = x + min_len - 2;
+  Ext e;
+  while (i >= x) {
+    extend_back(f, ik_lo, ik_rc, ik_sz, e, rc);
+    int c = q[i];
+    if (e.sz[c] < min_occ) break;
+    ik_lo = e.lo[c];
+    ik_rc = e.rc[c];
+    ik_sz = e.sz[c];
+    --i;
+  }
+  if (i >= x) return i + 1;  // the min_len window does not fully match
+  int32_t j = x + min_len;
+  static const int COMP[6] = {0, 4, 3, 2, 1, 5};
+  while (j < n) {
+    int c = COMP[q[j]];
+    // forward extend = backward extend on the other strand: swap coordinates
+    extend_back(f, ik_rc, ik_lo, ik_sz, e, rc);
+    if (e.sz[c] < min_occ) break;
+    ik_rc = e.lo[c];
+    ik_lo = e.rc[c];
+    ik_sz = e.sz[c];
+    ++j;
+  }
+  mems.push_back({x, j, ik_sz, ik_lo, ik_rc});
+  if (j == n) return n;
+  c0 = q[j];
+  comp0 = (c0 >= 1 && c0 <= 4) ? 5 - c0 : c0;
+  ik_lo = f.acc[c0];
+  ik_rc = f.acc[comp0];
+  ik_sz = f.acc[c0 + 1] - f.acc[c0];
+  i = j - 1;
+  while (i > x) {
+    extend_back(f, ik_lo, ik_rc, ik_sz, e, rc);
+    int c = q[i];
+    if (e.sz[c] < min_occ) break;
+    ik_lo = e.lo[c];
+    ik_rc = e.rc[c];
+    ik_sz = e.sz[c];
+    --i;
+  }
+  return i + 1;
+}
+
+static void smem_tg_read(const Fmi& f, RankCache& rc, const uint8_t* q, int32_t n,
+                         int64_t min_occ, int32_t min_len, std::vector<MemRec>& mems) {
+  mems.clear();
+  int32_t x = 0;
+  while (x < n) x = smem1_tg(f, rc, q, n, x, min_occ, min_len, mems);
+}
+
+// smem_tg_read as a resumable state machine: one extend_back (= two rank1a)
+// per step, with the NEXT extend's rank streams prefetched as soon as its
+// interval is known, so a thread can interleave G independent reads and hide
+// the random-access DRAM latency of the dependent LF chain.  Transition
+// order is exactly smem1_tg's, so per-read output is bit-identical.
+struct SmemSM {
+  static constexpr int PH_B1 = 1, PH_FWD = 2, PH_B2 = 3;
+  const uint8_t* q = nullptr;
+  int32_t n = 0, x = 0, i = 0, j = 0;
+  int64_t ik_lo = 0, ik_rc = 0, ik_sz = 0;
+  int phase = 0;
+  bool live = false;
+  std::vector<MemRec>* mems = nullptr;
+
+  void init_ik(const Fmi& f, int c0) {
+    int comp0 = (c0 >= 1 && c0 <= 4) ? 5 - c0 : c0;
+    ik_lo = f.acc[c0];
+    ik_rc = f.acc[comp0];
+    ik_sz = f.acc[c0 + 1] - f.acc[c0];
+  }
+  void pf_back(const Fmi& f) {
+    prefetch_rank(f, ik_lo);
+    prefetch_rank(f, ik_lo + ik_sz);
+  }
+  void pf_fwd(const Fmi& f) {
+    prefetch_rank(f, ik_rc);
+    prefetch_rank(f, ik_rc + ik_sz);
+  }
+
+  // Enter the TG window at x0 (smem1_tg preamble, rank-free): leaves either
+  // an extend pending (live) or the read finished (!live).
+  void start_window(const Fmi& f, int32_t min_len, int32_t x0) {
+    x = x0;
+    live = true;
+    if (n - x < min_len) {
+      live = false;
+      return;
+    }
+    init_ik(f, q[x + min_len - 1]);
+    i = x + min_len - 2;
+    if (i >= x) {
+      phase = PH_B1;
+      pf_back(f);
+      return;
+    }
+    j = x + min_len;  // min_len == 1: BACK1 loop is empty
+    if (j < n) {
+      phase = PH_FWD;
+      pf_fwd(f);
+      return;
+    }
+    mems->push_back({x, j, ik_sz, ik_lo, ik_rc});
+    live = false;
+  }
+
+  void step(const Fmi& f, RankCache& rc, int64_t min_occ, int32_t min_len) {
+    static const int COMP[6] = {0, 4, 3, 2, 1, 5};
+    Ext e;
+    if (phase == PH_FWD) {
+      extend_back(f, ik_rc, ik_lo, ik_sz, e, rc);
+      int c = COMP[q[j]];
+      if (e.sz[c] < min_occ) {
+        mems->push_back({x, j, ik_sz, ik_lo, ik_rc});
+        init_ik(f, q[j]);  // BACK2 preamble (j < n on this path)
+        i = j - 1;
+        if (i > x) {
+          phase = PH_B2;
+          pf_back(f);
+          return;
+        }
+        start_window(f, min_len, i + 1);
+        return;
+      }
+      ik_rc = e.lo[c];
+      ik_lo = e.rc[c];
+      ik_sz = e.sz[c];
+      ++j;
+      if (j < n) {
+        pf_fwd(f);
+        return;
+      }
+      mems->push_back({x, j, ik_sz, ik_lo, ik_rc});
+      live = false;
+      return;
+    }
+    extend_back(f, ik_lo, ik_rc, ik_sz, e, rc);
+    int c = q[i];
+    bool ok = e.sz[c] >= min_occ;
+    if (phase == PH_B1) {
+      if (!ok) {
+        start_window(f, min_len, i + 1);
+        return;
+      }
+      ik_lo = e.lo[c];
+      ik_rc = e.rc[c];
+      ik_sz = e.sz[c];
+      --i;
+      if (i >= x) {
+        pf_back(f);
+        return;
+      }
+      j = x + min_len;
+      if (j < n) {
+        phase = PH_FWD;
+        pf_fwd(f);
+        return;
+      }
+      mems->push_back({x, j, ik_sz, ik_lo, ik_rc});
+      live = false;
+      return;
+    }
+    // PH_B2
+    if (ok) {
+      ik_lo = e.lo[c];
+      ik_rc = e.rc[c];
+      ik_sz = e.sz[c];
+      --i;
+      if (i > x) {
+        pf_back(f);
+        return;
+      }
+    }
+    start_window(f, min_len, i + 1);
+  }
+};
+
 // ---- full backtrack (align/bwasw.py _backtrack1*, _cs_core) --------------
 
 struct Hit {
@@ -1659,6 +1856,107 @@ uint8_t* rb3t_sw_finish(const uint8_t* bwt, const uint16_t* occ_block, const int
       serialize_hits(hits, blobs[i]);
     }
   });
+  return pack_blobs(blobs, out_len);
+}
+
+// Build the pline record table (one 64-B PlRec per 128 symbols; see PlRec).
+// n_recs = (n >> 7) + 1; counts come from the existing per-64-block rows
+// (record b starts exactly at 64-block 2b); plane bits read the bwt buffer,
+// zero-filling past n_pad (the buffer is padded one 64-block past n, which
+// covers every in-range rank query — bits beyond n are never counted).
+void rb3t_pline_build(const uint8_t* bwt, const uint16_t* occ_block, int64_t n_recs,
+                      int64_t n_pad, uint8_t* out, int32_t n_threads) {
+  if (n_threads < 1) n_threads = 1;
+  auto work = [&](int64_t b0, int64_t b1) {
+    for (int64_t b = b0; b < b1; ++b) {
+      PlRec* r = (PlRec*)out + b;
+      std::memset(r, 0, sizeof(PlRec));
+      std::memcpy(r->cnt, occ_block + (size_t)b * 2 * 6, 12);
+      int64_t base = b << PL_SHIFT;
+      int lim = (int)std::min<int64_t>(128, n_pad - base);
+      for (int i = 0; i < lim; ++i) {
+        uint64_t s = bwt[base + i];
+        int w = i >> 6, bit = i & 63;
+        r->p[w] |= (s & 1) << bit;
+        r->p[2 + w] |= ((s >> 1) & 1) << bit;
+        r->p[4 + w] |= ((s >> 2) & 1) << bit;
+      }
+    }
+  };
+  if (n_threads == 1 || n_recs < (int64_t)1 << 16) {
+    work(0, n_recs);
+    return;
+  }
+  std::vector<std::thread> th;
+  int64_t per = (n_recs + n_threads - 1) / n_threads;
+  for (int32_t t = 1; t < n_threads; ++t) {
+    int64_t a = per * t, b = std::min(n_recs, a + per);
+    if (a < b) th.emplace_back(work, a, b);
+  }
+  work(0, std::min(n_recs, per));
+  for (auto& x : th) x.join();
+}
+
+// Batched SMEM-TG (threaded CPU engine) over the split rows, or the pline
+// records when `pline` is given.  Returns a malloc'd buffer:
+// [n_reads+1 int64 blob offsets][per read: int64 n_mems, then n_mems x
+// (st,en,size,lo,lo_rc) int64 rows]; free with rb3t_buf_free.
+uint8_t* rb3t_smem_batch(const uint8_t* bwt, const uint16_t* occ_block, const int64_t* occ_super,
+                         const int64_t* acc, int64_t n, int64_t min_occ, int32_t min_len,
+                         const uint8_t* seqs, const int64_t* seq_off, int64_t n_reads,
+                         int32_t n_threads, int64_t* out_len, const uint8_t* pline) {
+  Fmi f{bwt, occ_block, occ_super, acc, n, nullptr, (const PlRec*)pline};
+  if (n_threads < 1) n_threads = 1;
+  std::vector<std::string> blobs(n_reads);
+  constexpr int G = 16;  // reads interleaved per thread (latency hiding)
+  // dynamic per-read claiming instead of a static range split: when a core
+  // is partially stolen (e.g. the device engine's thread during
+  // --engine=hybrid), a static partition makes that thread the straggler
+  // for the whole call.  blobs[] is indexed by global read id, so the
+  // schedule cannot change any output byte.
+  std::atomic<int64_t> cursor(0);
+  auto work = [&]() {
+    // with the one-line pline records the rank cache's hit value drops but
+    // its 3.5 MB footprint cost stays: 2^12 entries with them
+    RankCache rc(f.pline ? 12 : 16);
+    std::vector<SmemSM> sm(G);
+    std::vector<std::vector<MemRec>> memv(G);
+    std::vector<int64_t> rid(G);
+    auto flush = [&](int gi) {
+      std::string& b = blobs[rid[gi]];
+      put_i64(b, (int64_t)memv[gi].size());
+      put_bytes(b, memv[gi].data(), memv[gi].size() * sizeof(MemRec));
+    };
+    for (;;) {
+      bool any = false;
+      for (int gi = 0; gi < G; ++gi) {
+        while (!sm[gi].live) {
+          int64_t r = cursor.fetch_add(1, std::memory_order_relaxed);
+          if (r >= n_reads) break;
+          rid[gi] = r;
+          memv[gi].clear();
+          sm[gi].q = seqs + seq_off[r];
+          sm[gi].n = (int32_t)(seq_off[r + 1] - seq_off[r]);
+          sm[gi].mems = &memv[gi];
+          sm[gi].start_window(f, min_len, 0);
+          if (!sm[gi].live) flush(gi);
+        }
+        if (sm[gi].live) {
+          any = true;
+          sm[gi].step(f, rc, min_occ, min_len);
+          if (!sm[gi].live) flush(gi);
+        }
+      }
+      if (!any) break;
+    }
+  };
+  if (n_threads == 1 || n_reads < 2) {
+    work();
+  } else {
+    std::vector<std::thread> th;
+    for (int32_t t = 0; t < n_threads && t < n_reads; ++t) th.emplace_back(work);
+    for (std::thread& t : th) t.join();
+  }
   return pack_blobs(blobs, out_len);
 }
 

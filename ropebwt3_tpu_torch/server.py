@@ -243,11 +243,21 @@ class EngineCache:
     check.  It decides which engine and rows a request gets.  `native`: sw
     and hapdiv requests run on the native engines."""
 
-    ENGINES = ("auto", "native", "server")  # a request's --engine; server is the server's own
+    # a request's --engine (server: the server's own).  A request's auto is
+    # the card, as a one-shot command's is; the JAX package's server turns
+    # auto into hybrid (ropebwt3_tpu/cli.py:1214-1221) because there the
+    # split beat its TPU kernel alone.  Here the rows are resident and K1
+    # takes milliseconds of a batch, so the native half only adds to the
+    # wall: bench.py's `mem -l31` took 0.975 s on the server on auto and
+    # 1.986 s on hybrid (PERF.md section 5, an H100).  jax is the card
+    # engine, hybrid each batch split between the resident rows and the
+    # native engine.
+    ENGINES = ("auto", "native", "jax", "hybrid", "server")
 
     def __init__(self, path: str, f, device, native: bool = False):
         self.path, self.f, self.device, self.native = os.path.realpath(path), f, device, native
         self._rows: dict = {}
+        self._bare = None
         self.mem_rows("auto")
 
     def rows(self, occ: str):
@@ -278,7 +288,9 @@ class EngineCache:
     def dp_engine(self, engine: str) -> dict:
         """run_sw_cli / run_hapdiv_cli's engine arguments for a request with
         --engine `engine`: none (the native engines) on a native server or
-        when the request asks for them, else the device and its dense rows."""
+        when the request asks for them, else the device and its dense rows
+        (auto, jax and server: the device engine; hybrid: its half of each
+        batch)."""
         if self.native or engine == "native":
             return {}
         return {"device": self.device.type, "rows": self.rows("dense")}
@@ -289,7 +301,11 @@ class EngineCache:
         so its output is the one-shot command's."""
         if os.path.realpath(fn) != self.path:
             raise RequestError(f"the server holds '{self.path}', not '{fn}'")
-        return self.f if load_all else dataclasses.replace(self.f, ssa=None, sid=None)
+        if load_all:
+            return self.f
+        if self._bare is None:  # one copy, so what an engine attaches to it (pline_table's records) persists
+            self._bare = dataclasses.replace(self.f, ssa=None, sid=None)
+        return self._bare
 
 
 def _card_failed(device, exc: BaseException) -> bool:

@@ -1,6 +1,7 @@
 """The port's resident server (ropebwt3_tpu_torch/server.py) on the CPU:
 `serve --device=cpu` in a subprocess on the corpus index; `mem` (auto),
-`mem -p`, `hapdiv` and `sw` with `--engine=server` answered by it, stdout
+`mem --engine=hybrid`, `sw --engine=jax`, and `mem -p`, `hapdiv` and `sw`
+with `--engine=server` answered by it, stdout
 byte-equal to `python -m ropebwt3_tpu ... --engine=native` (the native
 engines), the route marker on stderr, the client run with torch and jax
 unimportable; `--engine=server` with no server and a request for another
@@ -11,6 +12,7 @@ has its own timeout."""
 
 import contextlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -134,6 +136,29 @@ def test_engine_server_matches_native(corpus, served, tmp_path, argv):
     native = [] if argv[0] == "hapdiv" else ["--engine=native"]
     assert r.stdout == _want([argv[0], *native, *argv[1:], idx, reads]) and r.stdout
     assert server.MARKER.encode() in r.stderr
+
+
+@pytest.mark.parametrize("argv", [["mem", "--engine=hybrid", "-l21"], ["sw", "--engine=jax"]],
+                         ids=["mem-hybrid", "sw-jax"])
+def test_device_engines_go_to_the_server(corpus, served, tmp_path, argv):
+    """`mem --engine=hybrid` and `sw --engine=jax` go to the server that
+    holds their index, as ropebwt3_tpu/cli.py:1161-1166 sends them, torch
+    and jax unimportable in the client: stdout byte-equal to the native
+    engine's; the hybrid splits each batch between the resident rows and
+    the native engine.  sw on the corpus's first 4 reads."""
+    idx, tmpdir, _ = served
+    reads = str(corpus / "reads.fa")
+    if argv[0] == "sw":
+        reads = str(tmp_path / "few.fa")
+        with open(reads, "w") as fh:
+            fh.write("".join((corpus / "reads.fa").read_text().splitlines(keepends=True)[:8]))
+    r = _client([argv[0], "--device=cpu", *argv[1:], idx, reads], tmpdir, no_torch=True)
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout == _want([argv[0], "--engine=native", *argv[2:], idx, reads]) and r.stdout
+    assert server.MARKER.encode() in r.stderr
+    if argv[0] == "mem":
+        m = re.search(rb"hybrid: (\d+) of 60 reads on the card", r.stderr)
+        assert m is not None and int(m.group(1)) >= 1, r.stderr.decode()
 
 
 def test_request_for_another_device(corpus, served):
