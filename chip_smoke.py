@@ -203,7 +203,15 @@ it.  Phases:
             under merge_mesh_bytes; the FMD byte-equal), dense64 on the
             short reads' first merge, and `build -m 16M --mesh=1x1`
             through cli.main; `ssa --mesh=2x1` under torchrun, each process
-            writing its own file, both byte-equal; with two cards or more,
+            writing its own file, both byte-equal; an idx axis across
+            processes: `mem -l31`, `build -m 16M` and `ssa` with
+            --mesh=1x2 under torchrun (two processes on this card, one dp
+            row, each slab created by the process that holds its slot,
+            exported as a POSIX file descriptor and mapped by the other):
+            BED, both FMDs and both SSA files byte-equal, each process's
+            log naming the slab it imported and its launches (smem_tgc
+            over a mapping with one imported slab, merge_rank, ssa_gen's
+            range), each wall beside the one-process run; with two cards or more,
             `mem`, `ssa` and `build --mesh=2x1` and `1x2` on real cards and
             the mapping they report, else a line that says they were skipped
 
@@ -2248,9 +2256,10 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
     `hapdiv` of the 17th haplotype and `sw` of the 10,000 reads over
     [this card] x 2, byte-equal to the unsharded runs; `ssa` (`mesh_ssa`) and
     `build -m 16M` (`mesh_build`) over a 2x4 mesh of this card, and `ssa
-    --mesh=2x1` under torchrun, each process's file byte-equal; with two
-    cards or more, `mem`, `ssa` and `build --mesh=2x1` and `1x2` on real
-    cards."""
+    --mesh=2x1` under torchrun, each process's file byte-equal; `mem`,
+    `build` and `ssa` with --mesh=1x2 under torchrun, an idx axis across
+    the two processes (`mesh_across`); with two cards or more, `mem`,
+    `ssa` and `build --mesh=2x1` and `1x2` on real cards."""
     import torch
 
     from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, make_mesh
@@ -2431,6 +2440,21 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         f"card (gloo): both files byte-equal to `python -m ropebwt3_tpu ssa`'s, process 1's stdout empty, both "
         f"processes launched their range; {trs_s:.3f} s ({card})")
 
+    # (j) an idx axis across processes: torchrun, two processes on this card, --mesh=1x2 (one dp row, a slot each):
+    # each process creates and fills its slab, exports it (a POSIX fd of the VMM allocation) and maps the other's
+    across = mesh_across(fmd, reads_fa, want_bed, genomes_fa)
+    say(f"[mesh] idx across processes (`torchrun --standalone --nproc_per_node=2`, --mesh=1x2, one slab a process, "
+        f"each mapping the other's): `mem -l{MIN_LEN}` BED byte-equal to --engine=native, {across['mem']['s']:.3f} s "
+        f"(one process, `mem --mesh=1x1`: {sub_s:.3f} s; two, `--mesh=2x1`: {tr_s:.3f} s); `build -m {CONSTRUCT_M}` "
+        f"both FMDs byte-equal to the index build, {across['build']['s']:.3f} s (one process, `build -m {CONSTRUCT_M} "
+        f"--mesh=1x1` in-process: {build_r['path_s']:.3f} s); `ssa` both files byte-equal, {across['ssa']['s']:.3f} s "
+        f"(two processes, `--mesh=2x1`: {trs_s:.3f} s); imports "
+        + "; ".join(f"{c}: " + ", ".join(f"process {r} {v}" for r, v in enumerate(across[c]["imported"]))
+                    for c in ("mem", "build", "ssa"))
+        + f"; launches a process: smem_tgc {across['mem']['launches']}, merge_rank {across['build']['launches']}, "
+        f"ssa_gen range {across['ssa']['launches']}; slabs shared in (s, each process): mem "
+        f"{across['mem']['share_s']}, build's merges {across['build']['share_s']} ({card})")
+
     # (f) real cards, where the machine has them
     real = {}
     if torch.cuda.device_count() >= 2:
@@ -2455,7 +2479,72 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         say(f"[mesh] real --mesh=2x1 and 1x2 (mem, ssa, build) skipped: this machine has {torch.cuda.device_count()} "
             "card (a mapping across cards and scaling across them unmeasured)")
     return dict(res=res, paths=paths, sub_s=sub_s, torchrun_s=tr_s, dp=dps, real=real, ssa=ssa_r, build=build_r,
-                torchrun_ssa_s=trs_s)
+                torchrun_ssa_s=trs_s, across=across)
+
+
+def shared_s(stderr: str) -> list[float]:
+    """The seconds each ShardedRows across processes took to share its slabs
+    (create, export, send, import, map, fill and the barrier), as logged."""
+    return [float(x) for x in re.findall(r"slabs shared across \d+ processes in ([\d.]+) s", stderr)]
+
+
+def mesh_across(fmd: str, reads_fa: str, want_bed: bytes, genomes_fa: str) -> dict:
+    """[mesh] (j): `mem`, `build -m 16M` and `ssa` with --mesh=1x2 under
+    torchrun, two processes on this card: one dp row whose idx axis spans
+    the processes, each slab created and filled by its owner, exported as
+    a POSIX file descriptor and mapped by the other (parallel/mesh.py
+    ShardedRows, parallel/ipc.py, csrc/vmm.cu rb3c_vmm_export / _import).
+    Process 0's BED byte-equal to --engine=native, both FMDs to the index
+    build, both SSA files to `python -m ropebwt3_tpu ssa`'s; each process's
+    log names the slab it imported and its launches over the range (mem:
+    smem_tgc dense32 over a mapping with one imported slab; build:
+    merge_rank; ssa: replicated rows, so no slab, and its range launch).
+    Returns per command the wall, each process's imports (mem: its slab;
+    build: one a merge whose slab has rows) and launches."""
+    tr = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2"]
+    out = {}
+    bed = os.path.join(WORK, "port_mesh_across.bed")
+    with open(bed, "wb") as fh:
+        s_, err = run(tr + ["-m", "ropebwt3_tpu_torch", "mem", "--mesh=1x2", f"-l{MIN_LEN}", fmd, reads_fa], stdout=fh)
+    if open(bed, "rb").read() != want_bed:
+        fail(f"[mesh] torchrun mem --mesh=1x2 BED differs from --engine=native: "
+             f"{first_diff(open(bed, 'rb').read(), want_bed)}; stderr {err[-1500:]}")
+    imported = re.findall(r"imported slab (\d) of dp row 0 \(rows, (\d+) B\) from process (\d)", err)
+    launches = re.findall(r"([1-9]\d*) smem_tg launches \(dense32\): ([1-9]\d*) chunked", err)
+    mapped = err.count("dense32 rows sharded over a 1x2 mesh of ")
+    one_imported = len(re.findall(r"1 mapping\(s\) of 1 physical slab\(s\) and 1 imported \(slab \d of dp row 0 "
+                                  r"from process \d\)", err))
+    if sorted((sl, o) for sl, _, o in imported) != [("0", "0"), ("1", "1")] or len(launches) != 2 or mapped != 2 \
+            or one_imported != 2:
+        fail(f"[mesh] torchrun mem --mesh=1x2: imports {imported}, launches {launches}, {mapped} mapped rows, "
+             f"{one_imported} mappings with one imported slab (two of each expected): {err[-2500:]}")
+    out["mem"] = dict(s=s_, launches=[int(c) for _, c in launches], share_s=shared_s(err),
+                      imported=[f"slab {sl} ({b} B) from process {o}" for sl, b, o in sorted(imported, reverse=True)])
+    cmd = (f"exec {sys.executable} -m ropebwt3_tpu_torch build -m {CONSTRUCT_M} --mesh=1x2 -do "
+           f"{WORK}/build_across_p$RANK.fmd {genomes_fa}")
+    s_, err = run(tr + ["--no-python", "bash", "-c", cmd])
+    for r in range(2):
+        same_file(f"{WORK}/build_across_p{r}.fmd", fmd, f"torchrun `build -m {CONSTRUCT_M} --mesh=1x2`, process {r}")
+    n_merge = err.count("merge rank over dense32 rows sharded over a 1x2 mesh")
+    imp = [len(re.findall(rf"imported slab {1 - r} of dp row 0 \(rows, \d+ B\) from process {1 - r}", err))
+           for r in range(2)]
+    launches = [int(c) for c in re.findall(r"merge_rank launches: (\d+) dense32", err)]
+    if n_merge < 2 or min(imp) < 1 or len(launches) != 2 or min(launches) < 2:
+        fail(f"[mesh] torchrun build --mesh=1x2: {n_merge} merges logged, imports {imp}, merge_rank launches "
+             f"{launches}: {err[-2500:]}")
+    out["build"] = dict(s=s_, imported=[f"{imp[r]} slab(s) over {n_merge // 2} merges" for r in range(2)],
+                        launches=launches, share_s=shared_s(err))
+    cmd = (f"exec {sys.executable} -m ropebwt3_tpu_torch ssa --mesh=1x2 -o {WORK}/ssa_across_p$RANK.ssa {fmd} "
+           f"> {WORK}/ssa_across_p$RANK.out")
+    s_, err = run(tr + ["--no-python", "bash", "-c", cmd])
+    for r in range(2):
+        same_file(f"{WORK}/ssa_across_p{r}.ssa", os.path.join(WORK, "ssa_bench_ref.ssa"),
+                  f"torchrun `ssa --mesh=1x2`, process {r}")
+    launches = [int(c) for c in re.findall(r"([1-9]\d*) ssa_gen range launches \(dense32\) over a 1x2 mesh", err)]
+    if open(f"{WORK}/ssa_across_p1.out", "rb").read() or len(launches) != 2:
+        fail(f"[mesh] torchrun ssa --mesh=1x2: process 1 wrote stdout, or not both processes launched: {err[-1500:]}")
+    out["ssa"] = dict(s=s_, imported=["none (the rows are replicated)"] * 2, launches=launches)
+    return out
 
 
 def main(argv: list[str]) -> None:
@@ -3164,6 +3253,8 @@ def main(argv: list[str]) -> None:
                          main_path_batch_longest_lane_trips=r["lane_trips"],
                          **({"mesh_engine_ms": r["engine_ms"], "unsharded_engine_ms": r["engine_unsharded_ms"],
                              "mesh_engine_launches": r["engine_launches"]} if "engine_ms" in r else {}))
+                if name == "dense32":  # mem --mesh=1x2 under torchrun: launches a process, each over one imported slab
+                    e["idx_across_processes"] = ms_["across"]["mem"]
             entries.append(e)
     mb, g = ms_["build"], ms_["ssa"]
     for lay in ("dense32", "dense64"):
@@ -3180,6 +3271,7 @@ def main(argv: list[str]) -> None:
                       else f"the short reads' first merge (-m {MANY_M})") + f", {MESH_DP}x{MESH_IDX} mesh of one card; "
                      "ms: the card's two launches, one a pass",
             "merges": rs, "occupancy": {k: v for k, v in mb["occupancy"].items() if lay in k},
+            **({"idx_across_processes": ms_["across"]["build"]} if lay == "dense32" else {}),
         })
     entries.append({
         "name": "ssa_gen_mesh_dense32", "route": "cuda",
@@ -3191,9 +3283,10 @@ def main(argv: list[str]) -> None:
         "input": f"bench.py's index, {g['n_seg']} segments (S {g['S']}), {MESH_DP}x{MESH_IDX} mesh of one card; ms: "
                  "pass 1's one range launch a card",
         **{k: g[k] for k in ("slot_ranges_ms", "walk_abba_ms", "longest_segment_by_range", "api_s", "path_s")},
+        "idx_across_processes": ms_["across"]["ssa"],
     })
     say(json.dumps({"kernels": entries, "mesh": {k: ms_[k] for k in ("sub_s", "torchrun_s", "dp", "real",
-                                                                     "torchrun_ssa_s")},
+                                                                     "torchrun_ssa_s", "across")},
                     "utils": {k: ut[k] for k in ("kount", "fa2line", "fa2kmer", "tools_call")},
                     "serve": sv, "phase_s": phase_s}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

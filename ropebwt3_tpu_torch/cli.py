@@ -93,19 +93,22 @@ batch's reads over all DP x IDX of them (parallel/); `sw`, `hapdiv` and
 `search --mesh=N` split each batch's reads or windows over N devices, the
 rows replicated; `ssa` and `build` take it as above.  The devices are
 cuda:0 .. (one a mesh slot; too few cards is one ERROR line), or the CPU
-with --device=cpu.  Under torchrun the spec is global: each process runs
-its dp share on its own devices and joins a gloo group; process 0 writes
-all output (parallel/launch.py), and with `ssa` and `build` every process
-writes its own `-o` file.  The other commands skip `--mesh`, and fa2kmer
-stops at it (`ERROR: unknown option`), as the JAX package's do.
+with --device=cpu.  Under torchrun the spec is global: its DP x IDX slots
+are dealt out row by row, DP x IDX / WORLD_SIZE a process, each on its own
+devices, and the processes join a gloo group.  An idx axis may span the
+processes of one node: each slab is created and filled by the process that
+holds its slot and mapped by every process of its dp row (parallel/mesh.py
+ShardedRows, parallel/ipc.py); a dp row across hosts is one ERROR line.
+Process 0 writes all output (parallel/launch.py), and with `ssa` and
+`build` every process writes its own `-o` file.  The other commands skip
+`--mesh`, and fa2kmer stops at it (`ERROR: unknown option`), as the JAX
+package's do.
 
 With the default `--device=cuda` and no CUDA, every command that runs on
 the device stops with one `ERROR:` line; none goes on on the CPU unasked.
-An idx axis across processes is refused with one `ERROR:` line that names
-the ROADMAP queue item porting it (`launch.local_mesh`); `python -m
-ropebwt3_tpu` runs it.  The exit code is the JAX package's (its main,
-after the reference's main.c:46-82): 0 for every known command, its errors
-included, and 1 for an unknown one; with RB3TPU_STRICT_EXIT=1, the
+The exit code is the JAX package's (its main, after the reference's
+main.c:46-82): 0 for every known command, its errors included, and 1 for
+an unknown one; with RB3TPU_STRICT_EXIT=1, the
 command's own code (`run`), and UNKNOWN_CMD for an unknown command.  The option parsers, the usage texts,
 the index loader and the writers are copies of ropebwt3_tpu/cli.py's
 (main_build, _dump_index, main_merge, main_plain2fmd, main_search, _run_mem's
@@ -292,7 +295,9 @@ Options:
   Device:
     --device=STR  cuda (the kernels) or cpu (the plain PyTorch versions) [cuda]
     --mesh=DPxIDX  run the merge rank phase over a device mesh: its segments
-                over all DP x IDX devices, occ rows over IDX devices []""",
+                over all DP x IDX devices, occ rows over IDX devices; under
+                torchrun the spec is global, an idx axis may span the
+                processes of one node []""",
     "merge": """Usage: python -m ropebwt3_tpu_torch merge [options] <base.fmr> <other1.fmr> [...]
 Options:
   -t INT     number of threads [1]
@@ -312,7 +317,9 @@ Options:
   -K NUM      query batch size [100m]
   --device=STR  cuda (the kernels) or cpu (the plain PyTorch engine) [cuda]
   --mesh=DPxIDX shard over a device mesh: reads over all DP x IDX devices,
-                occ rows over IDX devices (e.g. --mesh=4x2) []
+                occ rows over IDX devices (e.g. --mesh=4x2); under torchrun
+                the spec is global, an idx axis may span the processes of
+                one node []
   --occ=STR     device occ rows: auto, dense, rb (run-block compressed) [auto]""",
     "sw": f"""Usage: python -m ropebwt3_tpu_torch sw [options] <idx.fmr> <seq.fa> [...]
 Options:
@@ -358,7 +365,8 @@ Options:
   -o FILE    output to file [stdout]
   --device=STR  cuda or cpu [cuda]
   --mesh=DPxIDX  generate on a device mesh: the LF walk's segments over all
-                 DP x IDX devices, the occ rows on each []""",
+                 DP x IDX devices, the occ rows on each; under torchrun the
+                 spec is global []""",
     "stat": "Usage: python -m ropebwt3_tpu_torch stat [-M] <idx.fmd>",
     "get": "Usage: python -m ropebwt3_tpu_torch get <idx.fmr> <int> [...]",
     "suffix": """Usage: python -m ropebwt3_tpu_torch suffix [options] <idx.fmr> <seq.fa> [...]
@@ -588,7 +596,7 @@ def _merge_into(bwt, seq2, dev, mesh=None):
 
     from .construct.merge import merge_bytes, merge_mesh_bytes, merge_plain
     from .ops.rank import OccIndex
-    from .parallel.mesh import ShardedRows
+    from .parallel.mesh import ShardedRows, settle
 
     n1, n2, m2 = bwt.numel(), len(seq2), int((seq2 == 0).sum())
     need = {str(dev): merge_bytes(n1, n2, m2)} if mesh is None else merge_mesh_bytes(n1, n2, m2, mesh)
@@ -597,11 +605,14 @@ def _merge_into(bwt, seq2, dev, mesh=None):
         if budget is not None and b > budget:
             raise CapacityError(f"merging {n2} symbols into an index of {n1} needs ~{b} B of {d}, which has {budget} B")
     rows = OccIndex.from_bwt(bwt)
-    if mesh is not None:
-        sharded = ShardedRows(rows, mesh)
-        log.info("merge rank over %s", sharded.describe(), func="merge")
-        rows = sharded.views
-    return merge_plain(rows, bwt, seq2)
+    if mesh is None:
+        return merge_plain(rows, bwt, seq2)
+    sharded = ShardedRows(rows, mesh)
+    log.info("merge rank over %s", sharded.describe(), func="merge")
+    merged = merge_plain(sharded.views, bwt, seq2)
+    del sharded, rows
+    settle()  # the slabs that other processes map go once every process has merged
+    return merged
 
 
 def _launch_summary() -> str:
@@ -1034,8 +1045,9 @@ def _per_read(fn, f, min_occ: int, min_len: int):
 
 
 def _cli_mesh(spec: str | None, device: str, served, func: str, engine: str = "auto"):
-    """This process's mesh for `--mesh=spec` (parallel/launch.py
-    `local_mesh`; under torchrun it joins the process group), or None: no
+    """This process's share of the global `--mesh=spec` (parallel/launch.py
+    `local_mesh`: under torchrun a dp row may span the processes of one
+    node, and the process joins the process group), or None: no
     spec, or one that the engine ignores, with the JAX package's warning
     (ropebwt3_tpu/align/cli_hooks.py:133-142): a host engine (any
     `--engine` but auto, jax and hybrid) or a resident server's engine
@@ -1154,7 +1166,8 @@ def _dp_engine(a, device: str, served, func: str) -> dict:
         return {**served.dp_engine(a.engine), "engine": a.engine}
     if a.engine == "native":
         return {"engine": "native"}
-    return {"device": device, "engine": a.engine, **({} if mesh is None else {"mesh": [row[0] for row in mesh.grid]})}
+    return {"device": device, "engine": a.engine,
+            **({} if mesh is None else {"mesh": [next(d for d in row if d is not None) for row in mesh.grid]})}
 
 
 def main_sw(argv: list[str], device: str, cmd: str = "sw", served=None) -> int:

@@ -354,15 +354,16 @@ def merge_mesh_bytes(n1: int, n2: int, m2: int, mesh) -> dict[str, int]:
     """Card bytes a merge over `mesh` (parallel/mesh.py Mesh) holds on each
     distinct device at its peak, str(device) -> bytes: on the first, the
     merge's own (`merge_bytes`: B1, its rows, B2, the records, merge_apply's
-    positions); on each, the physical slabs of B1's rows it holds (mesh.
-    ShardedRows: one a (device, slab), its real rows rounded up to the
-    granularity; outside PyTorch's allocator), one ins and one set of
-    segment records, the gathered records, and the records themselves (the
-    first device's are merge_bytes')."""
+    positions); on each, the physical slabs of B1's rows this process
+    owns there (mesh.ShardedRows: one a (device, slab) of its slots, its
+    real rows rounded up to the granularity; outside PyTorch's allocator;
+    a slab that another process owns and this one maps is its owner's),
+    one ins and one set of segment records, the gathered records, and the
+    records themselves (the first device's are merge_bytes')."""
     n_seg = segments(n2, m2, MIN_STRIDE)[1]
     cuda = [d.index for d in mesh.distinct if d.type == "cuda"]
-    sizes = slab_plan(n1 // 64 + 2, mesh.idx, 48, granularity(cuda) if cuda else 48)[3]
-    slabs = {(str(d), s) for row in mesh.grid for s, d in enumerate(row)}
+    sizes = slab_plan(n1 // 64 + 2, mesh.idx, 48, granularity(cuda, mesh.shared) if cuda else 48)[3]
+    slabs = {(str(d), s) for row in mesh.grid for s, d in enumerate(row) if d is not None}
     first = str(mesh.devices[0])
     out: dict[str, int] = {}
     for d in map(str, mesh.distinct):

@@ -11,6 +11,15 @@
 // mesh.py rank1a_local).  libcuda's cuMem* calls are looked up through
 // cudaGetDriverEntryPoint(ByVersion): no link-time dependency on libcuda.
 //
+// Across the processes of one node (a dp row whose slots two processes
+// hold), the process that owns a slab creates it shareable, exports it as
+// a POSIX file descriptor (rb3c_vmm_export), and every other process of
+// the row imports the descriptor (rb3c_vmm_import) and maps the handle it
+// gets into its own copy of the row's range, at the slab's offset; each
+// process then grants its own cards access to its whole range.  The
+// descriptors travel between the processes over a Unix socket
+// (parallel/ipc.py).
+//
 // Every entry point returns 0 or an error code: a CUresult, or kRuntime +
 // a cudaError_t where a runtime call failed (rb3c_vmm_error names either).
 // Sizes and offsets are bytes, multiples of the granularity; pointers and
@@ -34,6 +43,10 @@ struct CuApi {
   decltype(&cuMemUnmap) unmap = nullptr;
   decltype(&cuMemSetAccess) set_access = nullptr;
   decltype(&cuGetErrorString) error_string = nullptr;
+  decltype(&cuMemExportToShareableHandle) export_handle = nullptr;
+  decltype(&cuMemImportFromShareableHandle) import_handle = nullptr;
+  decltype(&cuDeviceGet) device_get = nullptr;
+  decltype(&cuDeviceGetAttribute) attribute = nullptr;
   int status = -1;  // -1: not loaded yet; then 0 or the error of the first lookup that failed
 };
 
@@ -66,6 +79,10 @@ int cu_api(CuApi** out) {
     if (!s) s = entry("cuMemUnmap", &d.unmap);
     if (!s) s = entry("cuMemSetAccess", &d.set_access);
     if (!s) s = entry("cuGetErrorString", &d.error_string);
+    if (!s) s = entry("cuMemExportToShareableHandle", &d.export_handle);
+    if (!s) s = entry("cuMemImportFromShareableHandle", &d.import_handle);
+    if (!s) s = entry("cuDeviceGet", &d.device_get);
+    if (!s) s = entry("cuDeviceGetAttribute", &d.attribute);
     d.status = s;
   }
   if (d.status) return d.status;
@@ -75,11 +92,14 @@ int cu_api(CuApi** out) {
   return 0;
 }
 
-CUmemAllocationProp device_prop(int dev) {
+// An allocation on card dev; `shareable` ones can be exported as a POSIX
+// file descriptor (a handle type the allocation must be created with).
+CUmemAllocationProp device_prop(int dev, int shareable) {
   CUmemAllocationProp p = {};
   p.type = CU_MEM_ALLOCATION_TYPE_PINNED;
   p.location.type = CU_MEM_LOCATION_TYPE_DEVICE;
   p.location.id = dev;
+  if (shareable) p.requestedHandleTypes = CU_MEM_HANDLE_TYPE_POSIX_FILE_DESCRIPTOR;
   return p;
 }
 
@@ -88,12 +108,12 @@ CUmemAllocationProp device_prop(int dev) {
 extern "C" {
 
 // The minimum granularity of a physical allocation on card dev (and so of
-// every mapped size and offset), in bytes.
-int rb3c_vmm_granularity(int dev, unsigned long long* out) {
+// every mapped size and offset), in bytes, for a shareable allocation or not.
+int rb3c_vmm_granularity(int dev, int shareable, unsigned long long* out) {
   CuApi* d;
   int s = cu_api(&d);
   if (s) return s;
-  const CUmemAllocationProp p = device_prop(dev);
+  const CUmemAllocationProp p = device_prop(dev, shareable);
   size_t g = 0;
   s = (int)d->granularity(&g, &p, CU_MEM_ALLOC_GRANULARITY_MINIMUM);
   *out = g;
@@ -117,14 +137,47 @@ int rb3c_vmm_reserve(unsigned long long size, unsigned long long align, unsigned
   return s;
 }
 
-// A physical allocation of `size` bytes on card dev; *handle names it.
-int rb3c_vmm_create(int dev, unsigned long long size, unsigned long long* handle) {
+// *ok = 1 when card dev can export and import allocations as POSIX file
+// descriptors.
+int rb3c_vmm_handle_fd_ok(int dev, int* ok) {
   CuApi* d;
   int s = cu_api(&d);
   if (s) return s;
-  const CUmemAllocationProp p = device_prop(dev);
+  CUdevice cu;
+  s = (int)d->device_get(&cu, dev);
+  return s ? s : (int)d->attribute(ok, CU_DEVICE_ATTRIBUTE_HANDLE_TYPE_POSIX_FILE_DESCRIPTOR_SUPPORTED, cu);
+}
+
+// A physical allocation of `size` bytes on card dev, exportable when
+// `shareable`; *handle names it.
+int rb3c_vmm_create(int dev, unsigned long long size, int shareable, unsigned long long* handle) {
+  CuApi* d;
+  int s = cu_api(&d);
+  if (s) return s;
+  const CUmemAllocationProp p = device_prop(dev, shareable);
   CUmemGenericAllocationHandle h = 0;
   s = (int)d->create(&h, size, &p, 0);
+  *handle = h;
+  return s;
+}
+
+// A new POSIX file descriptor *fd for the shareable allocation `handle`,
+// for another process to import; the caller closes it once it is sent.
+int rb3c_vmm_export(unsigned long long handle, int* fd) {
+  CuApi* d;
+  const int s = cu_api(&d);
+  return s ? s : (int)d->export_handle(fd, handle, CU_MEM_HANDLE_TYPE_POSIX_FILE_DESCRIPTOR, 0);
+}
+
+// The handle of the allocation that another process exported as fd; the
+// caller closes fd (the handle keeps the allocation) and releases the
+// handle (rb3c_vmm_release) once nothing maps it.
+int rb3c_vmm_import(int fd, unsigned long long* handle) {
+  CuApi* d;
+  int s = cu_api(&d);
+  if (s) return s;
+  CUmemGenericAllocationHandle h = 0;
+  s = (int)d->import_handle(&h, (void*)(uintptr_t)fd, CU_MEM_HANDLE_TYPE_POSIX_FILE_DESCRIPTOR);
   *handle = h;
   return s;
 }
@@ -144,7 +197,9 @@ int rb3c_vmm_release(unsigned long long handle) {
 }
 
 // Let each of cards devs[0:n) read and write [ptr, ptr + size), which must
-// be mapped throughout (the upload writes the slabs through the mapping).
+// be mapped throughout (the upload writes the slabs through the mapping);
+// an importer calls it once every piece, its own and the imported, is
+// mapped.
 int rb3c_vmm_access(unsigned long long ptr, unsigned long long size, const int* devs, int n) {
   CuApi* d;
   const int s = cu_api(&d);

@@ -96,10 +96,12 @@ _ENTRIES["rb3c_probe_smem_capacity"] = [_I32, _V, _V]
 _ENTRIES["rb3c_smem_optin"] = [_I32]  # no stream: a device attribute
 # the virtual mapping of csrc/vmm.cu (no stream; sizes, pointers and handles as uint64)
 _U64, _P = ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64)
-_ENTRIES.update({"rb3c_vmm_granularity": [_I32, _P], "rb3c_vmm_can_access": [_I32, _I32, ctypes.POINTER(ctypes.c_int)],
-                 "rb3c_vmm_reserve": [_U64, _U64, _P], "rb3c_vmm_create": [_I32, _U64, _P],
-                 "rb3c_vmm_map": [_U64, _U64, _U64], "rb3c_vmm_release": [_U64], "rb3c_vmm_access": [_U64, _U64, _V, _I32],
-                 "rb3c_vmm_free": [_U64, _U64, _U64, _V, _I32]})
+_PI = ctypes.POINTER(ctypes.c_int)
+_ENTRIES.update({"rb3c_vmm_granularity": [_I32, _I32, _P], "rb3c_vmm_can_access": [_I32, _I32, _PI],
+                 "rb3c_vmm_handle_fd_ok": [_I32, _PI], "rb3c_vmm_reserve": [_U64, _U64, _P],
+                 "rb3c_vmm_create": [_I32, _U64, _I32, _P], "rb3c_vmm_export": [_U64, _PI],
+                 "rb3c_vmm_import": [_I32, _P], "rb3c_vmm_map": [_U64, _U64, _U64], "rb3c_vmm_release": [_U64],
+                 "rb3c_vmm_access": [_U64, _U64, _V, _I32], "rb3c_vmm_free": [_U64, _U64, _U64, _V, _I32]})
 
 _lib = None
 _COUNT = threading.Lock()
@@ -193,11 +195,13 @@ def error_string(err: int) -> str:
 
 
 def vmm(name: str, *args) -> None:
-    """Call csrc/vmm.cu's `rb3c_vmm_<name>`; raise, naming the call and the
-    CUDA code, if it fails: no fallback."""
+    """Call csrc/vmm.cu's `rb3c_vmm_<name>`; raise a MeshError, naming the
+    call and the CUDA code, if it fails: no fallback."""
     err = getattr(lib(), f"rb3c_vmm_{name}")(*args)
     if err != 0:
-        raise RuntimeError(f"rb3c_vmm_{name}: CUDA error {err}: {lib().rb3c_vmm_error(err).decode()}")
+        from .parallel import MeshError
+
+        raise MeshError(f"rb3c_vmm_{name}: CUDA error {err}: {lib().rb3c_vmm_error(err).decode()}")
 
 
 def launch(name: str, device, *args) -> None:

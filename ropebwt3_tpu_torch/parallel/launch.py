@@ -1,20 +1,22 @@
-"""dp across processes: the CLI under `torchrun`.
+"""dp and idx across processes: the CLI under `torchrun`.
 
 Port of ropebwt3_tpu/parallel/launch.py (`init_distributed`, `global_mesh`,
 `to_host`).  torchrun sets WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR and
-MASTER_PORT; the CLI then joins a gloo process group (`init`).  The only
-traffic is the host-side gather of each batch's outputs, and gloo lets two
-processes share one card, which NCCL refuses.  The `--mesh` spec is global,
-as the JAX package's is: dp divides by WORLD_SIZE and each process runs
-dp / WORLD_SIZE x idx on its own devices (`local_mesh`).  Each process takes
-its contiguous share of every batch (`DistMem`, `DistList`); process 0
-writes all output in input order, the others none (ropebwt3_tpu/cli.py
-main: only process 0 owns stdout).  `ssa` and `build` split a walk's
-segments instead (`segment_ranges`: one range a mesh slot, and one a card,
-`card_ranges`), and every process gets every share's
-slots, records and ins (`merge_shares`), finishes the work and writes its
-own `-o` file, as the JAX package's processes do.  An idx axis across
-processes is refused: the rows of one dp row stay in one process.
+MASTER_PORT; the CLI then joins a gloo process group (`init`).  Its
+traffic is the host-side gather of each batch's outputs and, where a dp
+row spans processes, the slabs' descriptors (parallel/ipc.py); gloo lets
+two processes share one card, which NCCL refuses.  The `--mesh` spec is
+global, as the JAX package's is: its dp x idx slots are dealt out row by
+row, dp x idx / WORLD_SIZE a process (`local_mesh`), so a process holds
+whole dp rows, or a dp row's idx axis spans processes of one node, whose
+slabs each process maps from their owners (mesh.ShardedRows).  Each
+process takes its contiguous share of every batch (`DistMem`,
+`DistList`); process 0 writes all output in input order, the others none
+(ropebwt3_tpu/cli.py main: only process 0 owns stdout).  `ssa` and
+`build` split a walk's segments instead (`segment_ranges`: one range a
+mesh slot, and one a card, `card_ranges`), and every process gets every
+share's slots, records and ins (`merge_shares`), finishes the work and
+writes its own `-o` file, as the JAX package's processes do.
 """
 
 from __future__ import annotations
@@ -23,9 +25,7 @@ import os
 
 import numpy as np
 
-from .mesh import MeshError, by_card, cli_devices, make_mesh, parse_mesh, split_segments
-
-IDX_ACROSS = "ROADMAP queue 1 item 12 (its remainder: an idx axis across processes)"
+from .mesh import MeshError, by_card, cli_devices, parse_mesh, process_mesh, settle, split_segments
 
 
 def world() -> tuple[int, int, int]:
@@ -35,19 +35,17 @@ def world() -> tuple[int, int, int]:
 
 
 def local_mesh(spec: str, device: str):
-    """This process's share of the global `--mesh` spec: a (dp / world) x
-    idx mesh of its devices (`mesh.cli_devices`).  MeshError when dp does
-    not divide by the processes, or when an idx axis would span them."""
+    """This process's share of the global `--mesh` spec (`mesh.process_mesh`):
+    its dp x idx / world slots, row by row, on its devices
+    (`mesh.cli_devices`).  MeshError when the processes do not divide the
+    slots."""
     dp, idx = parse_mesh(spec)
     rank, size, local_world = world()
-    if dp % size:
-        if dp * idx % size == 0:
-            raise MeshError(f"--mesh={spec} over {size} processes puts an idx axis across processes: not ported, "
-                            f"{IDX_ACROSS}")
-        raise MeshError(f"--mesh={spec}: dp ({dp}) must be a multiple of the {size} processes")
-    local_dp = dp // size
+    if dp * idx % size:
+        raise MeshError(f"--mesh={spec}: dp x idx ({dp * idx}) must be a multiple of the {size} processes")
+    m = dp * idx // size
     local_rank = int(os.environ.get("LOCAL_RANK", str(rank)))
-    return make_mesh(local_dp, idx, cli_devices(device, local_dp * idx, local_rank, local_world))
+    return process_mesh(dp, idx, rank, m, cli_devices(device, m, local_rank, local_world))
 
 
 def init() -> None:
@@ -59,10 +57,21 @@ def init() -> None:
         dist.init_process_group("gloo")
 
 
+def barrier() -> None:
+    """Wait for every process of the job (nothing in one process)."""
+    import torch.distributed as dist
+
+    if world()[1] > 1:
+        dist.barrier()
+
+
 def finish() -> None:
+    """Leave the process group, once every process is past its last launch
+    over a slab that another process owns (`mesh.settle`)."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
+        settle()
         dist.destroy_process_group()
 
 

@@ -31,6 +31,19 @@ the same cards in the same order share one mapping, and one physical copy a
 read another's memory is a MeshError.  On the CPU the same layout sits in
 one host tensor, its unit a parameter (default 1).
 
+Across processes (torchrun; `process_mesh` deals the global spec's slots
+out row by row, so a dp row may span the processes of one node): the
+process that holds a slot creates its slab (shareable: its memory can be
+exported as a POSIX file descriptor) and fills it; every other process of
+the dp row imports the slab from the descriptor its owner sent
+(parallel/ipc.py) and maps it at the same offset into its own copy of the
+row's range, then grants its own cards access.  Each step ends with every
+process's word (`_agree`): a MeshError in one stops all.  The fills end
+with a barrier before any read, and the owners keep their slabs until
+`settle` (a barrier) so that none frees or exits while a peer launches.
+On the CPU a slab is a memfd, and a range is one span of addresses with
+the memfds mapped side by side (`_HostRange`), page-aligned.
+
 A `ShardView` is the rows as one device of the mesh sees them: its dp row's
 range as tensors (`occf`, or `rows` and `esc`), its own acc and megablock
 bases.  It passes for an index of the plain layout (`layout`,
@@ -43,8 +56,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import mmap
+import os
+import socket
+import time
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -69,9 +86,15 @@ def parse_mesh(spec: str) -> tuple[int, int]:
 
 @dataclass(frozen=True)
 class Mesh:
-    """A (dp, idx) grid of devices; a device may appear more than once."""
+    """A (dp, idx) grid of devices; a device may appear more than once.
+    Under torchrun it is one process's share of the global spec
+    (`process_mesh`): the dp rows it holds a slot in, from global row
+    `row0`, each slot its device or None where another process holds it;
+    the job's processes hold `per_process` slots each, row by row."""
 
-    grid: tuple[tuple[torch.device, ...], ...]
+    grid: tuple[tuple[torch.device | None, ...], ...]
+    row0: int = 0
+    per_process: int = 0  # 0: one process holds the whole mesh
 
     @property
     def dp(self) -> int:
@@ -83,8 +106,8 @@ class Mesh:
 
     @property
     def devices(self) -> list[torch.device]:
-        """Every device of the mesh, row by row."""
-        return [d for row in self.grid for d in row]
+        """Every device of this process's slots, row by row."""
+        return [d for row in self.grid for d in row if d is not None]
 
     @property
     def distinct(self) -> list[torch.device]:
@@ -95,8 +118,24 @@ class Mesh:
                 out.append(d)
         return out
 
+    @property
+    def shared(self) -> bool:
+        """Whether a dp row of this process's has a slot of another process."""
+        return any(d is None for row in self.grid for d in row)
+
+    def owner(self, row: int, s: int) -> int:
+        """The process that holds slot s of global dp row `row`."""
+        return (row * self.idx + s) // self.per_process if self.per_process else 0
+
+    def rows_of(self, rank: int) -> range:
+        """The global dp rows in which process `rank` holds a slot."""
+        m = self.per_process
+        return range(rank * m // self.idx, ((rank + 1) * m - 1) // self.idx + 1)
+
     def __str__(self) -> str:
-        return f"{self.dp}x{self.idx} mesh of " + ", ".join(str(d) for d in self.devices)
+        return f"{self.dp}x{self.idx} mesh of " + ", ".join(
+            str(d) if d is not None else f"process {self.owner(self.row0 + r, s)}"
+            for r, row in enumerate(self.grid) for s, d in enumerate(row))
 
 
 def make_mesh(dp: int, idx: int, devices=None) -> Mesh:
@@ -123,6 +162,20 @@ def make_mesh(dp: int, idx: int, devices=None) -> Mesh:
         if d.type == "cuda" and d.index >= torch.cuda.device_count():
             raise MeshError(f"{d} is not a CUDA card of this machine (it has {torch.cuda.device_count()})")
     return Mesh(tuple(tuple(devices[r * idx : (r + 1) * idx]) for r in range(dp)))
+
+
+def process_mesh(dp: int, idx: int, rank: int, per_process: int, devices) -> Mesh:
+    """Process `rank`'s share of a global dp x idx mesh whose slots are
+    dealt out `per_process` a process, row by row: slots [rank x
+    per_process, (rank + 1) x per_process) on `devices` (one a slot), the
+    other slots of their dp rows None.  Whole rows, a row across
+    processes, or parts of two rows are all shares."""
+    mine = make_mesh(1, per_process, devices).devices
+    a = rank * per_process
+    r0, r1 = a // idx, (a + per_process - 1) // idx + 1
+    grid = tuple(tuple(mine[r * idx + s - a] if a <= r * idx + s < a + per_process else None for s in range(idx))
+                 for r in range(r0, r1))
+    return Mesh(grid, r0, per_process)
 
 
 def _copy(t: torch.Tensor | None, dev: torch.device) -> torch.Tensor | None:
@@ -161,28 +214,53 @@ def _account(card: int, nbytes: int) -> None:
     _PEAK[card] = max(_PEAK.get(card, 0), _LIVE[card])
 
 
-def granularity(cards) -> int:
+def granularity(cards, shareable: bool = False) -> int:
     """The granularity every mapping over `cards` (device indices) keeps:
-    the largest of their minimum physical allocation sizes (powers of two)."""
+    the largest of their minimum physical allocation sizes (powers of two),
+    of allocations that can be exported when `shareable`."""
     out = 1
     for c in cards:
         g = ctypes.c_uint64()
-        kernels.vmm("granularity", c, ctypes.byref(g))
+        kernels.vmm("granularity", c, int(shareable), ctypes.byref(g))
         out = max(out, g.value)
     return out
 
 
-class _Phys:
-    """A physical allocation of `nbytes` on card `card`; its handle is
-    released when the last range that maps it has been unmapped."""
+_HELD: list = []  # a list a ShardedRows across processes: the slabs this process owns there, released at `settle`
 
-    def __init__(self, card: int, nbytes: int):
+
+def settle() -> None:
+    """Wait for every process of the job, then let go of the slabs this
+    process owns and other processes map (ShardedRows across processes
+    holds them here): no owner gives its memory back, or exits, while a
+    peer may still launch over it.  Every process calls it at the same
+    point (after a merge, at the end of a command); nothing to do, and no
+    wait, when no dp row spans processes."""
+    if _HELD:
+        from . import launch
+
+        launch.barrier()
+        _HELD.clear()
+
+
+class _Phys:
+    """A physical allocation of `nbytes` on card `card`, exportable to other
+    processes when `shareable`; its handle is released when the last range
+    that maps it has been unmapped."""
+
+    def __init__(self, card: int, nbytes: int, shareable: bool = False):
         self.nbytes = nbytes
         h = ctypes.c_uint64()
-        kernels.vmm("create", card, nbytes, ctypes.byref(h))
+        kernels.vmm("create", card, nbytes, int(shareable), ctypes.byref(h))
         self.handle = h.value
         _account(card, nbytes)
         weakref.finalize(self, _release, card, nbytes, self.handle)
+
+    def export(self) -> int:
+        """A new POSIX file descriptor of the allocation, for another process."""
+        fd = ctypes.c_int()
+        kernels.vmm("export", self.handle, ctypes.byref(fd))
+        return fd.value
 
 
 def _release(card: int, nbytes: int, handle: int) -> None:
@@ -190,11 +268,55 @@ def _release(card: int, nbytes: int, handle: int) -> None:
     _account(card, -nbytes)
 
 
+class _Imported:
+    """Another process's slab on the card: the handle imported from the
+    descriptor it sent (closed here: the handle keeps the allocation),
+    released when no range maps it.  Its owner counts its bytes."""
+
+    def __init__(self, fd: int, nbytes: int):
+        self.nbytes = nbytes
+        h = ctypes.c_uint64()
+        try:
+            kernels.vmm("import", fd, ctypes.byref(h))
+        finally:
+            os.close(fd)
+        self.handle = h.value
+        weakref.finalize(self, kernels.lib().rb3c_vmm_release, self.handle)
+
+
+class _HostPhys:
+    """On the CPU, a slab shared between processes: a memfd of `nbytes`,
+    mapped writable by its owner; closed when the object goes (its
+    mappings keep the memory)."""
+
+    writable = True
+
+    def __init__(self, nbytes: int):
+        self.nbytes = nbytes
+        self.fd = os.memfd_create("rb3torch-slab", os.MFD_CLOEXEC)
+        weakref.finalize(self, os.close, self.fd)
+        os.ftruncate(self.fd, nbytes)
+
+    def export(self) -> int:
+        return os.dup(self.fd)
+
+
+class _HostImported:
+    """On the CPU, another process's slab: the memfd it sent, mapped
+    read-only, then closed (`close`, once mapped)."""
+
+    writable = False
+
+    def __init__(self, fd: int, nbytes: int):
+        self.nbytes, self.fd = nbytes, fd
+        self.close = weakref.finalize(self, os.close, fd)
+
+
 class _Range:
     """One reserved virtual range with physical allocations mapped side by
     side from its start, readable (and writable: the upload writes through
-    it) by each card of `cards`.  `pieces` (offset, _Phys) in order, without
-    gaps; unmapped and freed when no tensor over it is left."""
+    it) by each card of `cards`.  `pieces` (offset, _Phys or _Imported) in
+    order, without gaps; unmapped and freed when no tensor over it is left."""
 
     def __init__(self, pieces: list, cards: list[int], gran: int):
         self.size = sum(p.nbytes for _, p in pieces)
@@ -234,6 +356,60 @@ class _Window:
                                          "strides": None}
 
 
+_PROT_READ, _PROT_WRITE, _MAP_SHARED, _MAP_PRIVATE, _MAP_FIXED, _MAP_ANONYMOUS, _MAP_NORESERVE = (
+    1, 2, 0x01, 0x02, 0x10, 0x20, 0x4000)
+_libc = None
+
+
+def _mmap():
+    """libc's mmap and munmap, which Python's mmap module does not give at a fixed address."""
+    global _libc
+    if _libc is None:
+        c = ctypes.CDLL(None, use_errno=True)
+        c.mmap.restype = ctypes.c_void_p
+        c.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_long]
+        c.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+        _libc = c
+    return _libc
+
+
+class _HostRange:
+    """The CPU's _Range across processes: one reserved span of addresses
+    with each piece's memfd mapped (MAP_SHARED | MAP_FIXED) side by side
+    from its start, writable where this process owns the piece, read-only
+    where it was imported (whose descriptor is closed once mapped);
+    unmapped when no tensor over it is left.  Offsets and sizes are
+    multiples of the page size."""
+
+    def __init__(self, pieces: list):
+        self.size = sum(p.nbytes for _, p in pieces)
+        self.ptr = 0
+        if not self.size:
+            return
+        c = _mmap()
+        ptr = c.mmap(None, self.size, 0, _MAP_PRIVATE | _MAP_ANONYMOUS | _MAP_NORESERVE, -1, 0)
+        if ptr in (None, ctypes.c_void_p(-1).value):
+            raise MeshError(f"cannot reserve {self.size} B of addresses: errno {ctypes.get_errno()}")
+        self.ptr = ptr
+        weakref.finalize(self, c.munmap, ptr, self.size)
+        for off, p in pieces:
+            prot = _PROT_READ | (_PROT_WRITE if p.writable else 0)
+            if c.mmap(ptr + off, p.nbytes, prot, _MAP_SHARED | _MAP_FIXED, p.fd, 0) != ptr + off:
+                raise MeshError(f"cannot map a slab of {p.nbytes} B at offset {off}: errno {ctypes.get_errno()}")
+            if not p.writable:
+                p.close()
+
+    def tensor(self, shape: tuple, card=None) -> torch.Tensor:
+        """An int32 tensor of `shape` over the range from its start (it
+        keeps this object alive)."""
+        n = math.prod(shape)
+        if not n:
+            return torch.empty(shape, dtype=torch.int32)
+        buf = (ctypes.c_char * self.size).from_address(self.ptr)
+        buf.owner = self
+        return torch.frombuffer(buf, dtype=torch.int32, count=n).view(shape)
+
+
 # ---------------------------------------------------------------------------
 # the sharded rows
 # ---------------------------------------------------------------------------
@@ -261,13 +437,184 @@ class Slab:
     esc_first: int = 0
 
 
+def _agree(step: str, fn):
+    """fn() in this process, then a word from every process of the job: a
+    MeshError in any of them stops all of them, with its message (no
+    process is left waiting at the next collective)."""
+    from . import launch
+
+    try:
+        out, err = fn(), None
+    except MeshError as e:
+        out, err = None, str(e)
+    bad = [(p, e) for p, e in enumerate(launch.all_gather(err)) if e]
+    if bad:
+        raise MeshError(f"sharing the mesh's slabs ({step}): " + "; ".join(f"process {p}: {e}" for p, e in bad))
+    return out
+
+
+def _meet(mesh: Mesh, gran: int):
+    """The processes of the job, before they share slabs: this process's
+    Mailbox and every process's (host, mailbox name, granularity),
+    all-gathered; a dp row whose processes lie on two hosts stops them all
+    (ipc.check_one_host)."""
+    from . import ipc, launch
+
+    rank, size, _ = launch.world()
+    box = ipc.Mailbox(rank, size - 1)
+    try:
+        info = launch.all_gather((socket.gethostname(), box.name, gran))
+        n_rows = mesh.per_process * size // mesh.idx
+        ipc.check_one_host([{mesh.owner(r, s) for s in range(mesh.idx)} for r in range(n_rows)], [x[0] for x in info])
+    except BaseException:
+        box.close()
+        raise
+    return box, info
+
+
+def _share(mesh: Mesh, meet, owned: dict, sizes: list, cuda: bool) -> dict:
+    """The slabs of this process's dp rows that other processes own, from
+    their owners, and this process's own slabs to the processes that map
+    them: each piece (rows; on rb rows the escapes too: sizes[i][s] bytes
+    of kind i in slab s) as one descriptor, exported (`_Phys.export`, or
+    the memfd), sent, imported (`_Imported`, or mapped as `_HostImported`)
+    and closed.  Returns (global row, s) -> [piece of each kind, None where
+    it maps nothing]."""
+    from . import launch
+
+    box, info = meet
+    rank, size, _ = launch.world()
+
+    def pieces(row, s):
+        return [(row, s, i) for i, sz in enumerate(sizes) if sz[s]]
+
+    sends = {p: [k for row in mesh.rows_of(p) for s in range(mesh.idx) if mesh.owner(row, s) == rank
+                 for k in pieces(row, s)] for p in range(size) if p != rank}
+    sends = {p: keys for p, keys in sends.items() if keys}
+    need = [k for row in mesh.rows_of(rank) for s in range(mesh.idx) if mesh.owner(row, s) != rank
+            for k in pieces(row, s)]
+    senders = {mesh.owner(row, s) for row, s, _ in need}
+    fds: dict[int, list[int]] = {}
+
+    def export():
+        for p, keys in sends.items():
+            fds[p] = []
+            for row, s, i in keys:
+                fds[p].append(owned[(str(mesh.grid[row - mesh.row0][s]), s)][i].export())
+
+    def send():
+        for p, keys in sends.items():
+            box.send(info[p][1], keys, fds[p])
+
+    try:
+        _agree("export", export)
+        _agree("send", send)
+    finally:
+        for f in fds.values():
+            for fd in f:
+                os.close(fd)
+    out: dict = {}
+
+    def receive():
+        msgs = box.receive(len(senders))
+        left = {fd for _, _, fd_list in msgs for fd in fd_list}  # closed here unless a piece takes it
+        try:
+            got = {tuple(k): (sender, fd) for sender, keys, fd_list in msgs for k, fd in zip(keys, fd_list)}
+            if any(len(keys) != len(fd_list) for _, keys, fd_list in msgs) or set(got) != set(need):
+                raise MeshError(f"expected slab pieces {sorted(need)} from processes {sorted(senders)}, got "
+                                f"{[(sender, keys, len(fd_list)) for sender, keys, fd_list in msgs]}")
+            for row, s, i in need:
+                sender, fd = got[(row, s, i)]
+                left.discard(fd)
+                nbytes = sizes[i][s]
+                piece = _Imported(fd, nbytes) if cuda else _HostImported(fd, nbytes)
+                out.setdefault((row, s), [None] * len(sizes))[i] = piece
+                log.info("imported slab %d of dp row %d (%s, %d B) from process %d", s, row,
+                         "rows" if i == 0 else "escape sub-rows", nbytes, sender, func="mesh")
+        finally:
+            for fd in left:
+                os.close(fd)
+
+    _agree("import", receive)
+    return out
+
+
+def _row_key(mesh: Mesh, r: int) -> tuple:
+    """Local dp row r's mapping key: dp rows of the same slots share one."""
+    return tuple(str(d) if d is not None else f"row {mesh.row0 + r} slab {s}" for s, d in enumerate(mesh.grid[r]))
+
+
+def _map_rows(mesh: Mesh, sizes: list, gran: int, cuda: bool, meet=None) -> tuple[dict, dict, dict]:
+    """The mapped ranges of the rows (sizes[0], bytes a slab) and, on rb
+    rows, of their escapes (sizes[1]): one of each a distinct dp row of
+    this process's, each slab at its offset; one physical copy a (device,
+    slab) of this process's slots, the other processes' slabs imported from
+    them (`_share`, with `meet`).  Returns (key -> the row's ranges, (device,
+    s) -> the pieces this process owns, (global row, s) -> the imported
+    pieces)."""
+    shared = meet is not None
+    step = _agree if shared else (lambda what, fn: fn())
+    owned: dict = {}
+
+    def create():
+        if cuda and shared:
+            for d in mesh.distinct:
+                ok = ctypes.c_int()
+                kernels.vmm("handle_fd_ok", d.index, ctypes.byref(ok))
+                if not ok.value:
+                    raise MeshError(f"{d} cannot share its memory as POSIX file descriptors "
+                                    "(CU_DEVICE_ATTRIBUTE_HANDLE_TYPE_POSIX_FILE_DESCRIPTOR_SUPPORTED is 0): an idx "
+                                    "axis across processes needs them")
+        for row in mesh.grid:
+            for s, d in enumerate(row):
+                if d is not None and (str(d), s) not in owned:
+                    owned[(str(d), s)] = [(_Phys(d.index, sz[s], shared) if cuda else _HostPhys(sz[s])) if sz[s]
+                                          else None for sz in sizes]
+
+    step("create", create)
+    imported = _share(mesh, meet, owned, sizes, cuda) if shared else {}
+    ranges: dict = {}
+
+    def map_all():
+        for r, row in enumerate(mesh.grid):
+            key = _row_key(mesh, r)
+            if key in ranges:
+                continue
+            cards = sorted({d.index for d in row if d is not None})
+            maps = []
+            for i, sz in enumerate(sizes):
+                pieces = [(sum(sz[:s]), owned[(str(d), s)][i] if d is not None else imported[(mesh.row0 + r, s)][i])
+                          for s, d in enumerate(row) if sz[s]]
+                maps.append(_Range(pieces, cards, gran) if cuda else _HostRange(pieces))
+            ranges[key] = maps
+
+    step("map", map_all)
+    return ranges, owned, imported
+
+
+def _check_peers(cards) -> None:
+    """MeshError unless each card of `cards` (one dp row's, in this process)
+    can read the memory of each other."""
+    for a in cards:
+        for b in set(cards) - {a}:
+            can = ctypes.c_int()
+            kernels.vmm("can_access", a, b, ctypes.byref(can))
+            if not can.value:
+                raise MeshError(f"cuda:{a} cannot read the memory of cuda:{b} (cuDeviceCanAccessPeer is 0): "
+                                "the cards of a dp row must reach each other")
+
+
 class ShardedRows:
     """An index's occ rows sharded over the idx axis of `mesh` (module
-    docstring).  `views[j]` is the j-th device's ShardView (row by row);
-    `nb` the real rows, `nb_local` the rows a slab (a multiple of `unit`),
-    `gran` the granularity in bytes, `nbytes` the tables on all devices.
-    `unit` is the CPU's mapping unit in rows; on the card it follows from
-    the granularity."""
+    docstring).  `views[j]` is the ShardView of this process's j-th slot
+    (row by row); `nb` the real rows, `nb_local` the rows a slab (a
+    multiple of `unit`), `gran` the granularity in bytes, `nbytes` the
+    tables this process holds.  `unit` is the CPU's mapping unit in rows;
+    on the card it follows from the granularity.  Where a dp row spans
+    processes (`mesh.shared`), each process creates and fills the slabs of
+    its own slots and maps the others' from their owners: every process of
+    the job builds its ShardedRows at the same point, and `imported` lists
+    (global row, slab, owner, bytes) of what this one mapped from others."""
 
     def __init__(self, idx, mesh: Mesh, unit: int | None = None):
         self.mesh, self.layout, self.n, self.origin = mesh, idx.layout, idx.n, object()
@@ -278,22 +625,31 @@ class ShardedRows:
         table = idx.rows if self.is_rb else idx.occf
         self.nb, width = table.shape
         row_b = 4 * width
-        cuda = mesh.devices[0].type == "cuda"
+        cuda, shared = mesh.devices[0].type == "cuda", mesh.shared
         if cuda:
             if unit is not None:
                 raise ValueError("on the card the mapping unit follows from the granularity")
-            cards = [d.index for d in mesh.distinct]
             for row in mesh.grid:
-                for a in {d.index for d in row}:
-                    for b in {d.index for d in row} - {a}:
-                        can = ctypes.c_int()
-                        kernels.vmm("can_access", a, b, ctypes.byref(can))
-                        if not can.value:
-                            raise MeshError(f"cuda:{a} cannot read the memory of cuda:{b} (cuDeviceCanAccessPeer is 0): "
-                                            "the cards of a dp row must reach each other")
-            self.gran = granularity(cards)
-        else:
-            self.gran = (unit or 1) * row_b
+                _check_peers({d.index for d in row if d is not None})
+            self.gran = granularity([d.index for d in mesh.distinct], shared)
+        else:  # across processes the memfds map at page-aligned offsets
+            self.gran = math.lcm((unit or 1) * row_b, mmap.PAGESIZE) if shared else (unit or 1) * row_b
+        t0 = time.perf_counter()
+        meet = _meet(mesh, self.gran) if shared else None
+        try:
+            if shared:  # one plan in every process
+                self.gran = max(x[2] for x in meet[1])
+            self._place(idx, table, width, row_b, cuda, meet)
+        finally:
+            if meet is not None:
+                meet[0].close()
+        if shared:
+            log.info("slabs shared across %d processes in %.3f s: %d imported (%d B), %d B owned", len(meet[1]),
+                     time.perf_counter() - t0, len(self.imported), sum(x[3] for x in self.imported),
+                     self.phys_bytes + self.host_bytes, func="mesh")
+
+    def _place(self, idx, table, width: int, row_b: int, cuda: bool, meet) -> None:
+        mesh = self.mesh
         self.unit, self.nb_local, real, row_bytes = slab_plan(self.nb, mesh.idx, row_b, self.gran)
         nbl = self.nb_local
         esc_bytes = [0] * mesh.idx
@@ -318,37 +674,42 @@ class ShardedRows:
             esc_t[: ids.numel()] = idx.esc[ids.to(idx.esc.device)].to(esc_t.device)
             esc_t[ids.numel() :] = 0
 
-        # the ranges: one a distinct dp row of cards (on the CPU one host tensor for all)
-        ranges = {}  # tuple of str(device) of a dp row -> (rows over the range, escapes over it, its _Ranges)
-        if cuda:
-            phys = {}  # (card, s) -> (_Phys of rows, _Phys of escapes): one copy a (card, slab)
-            for row in mesh.grid:
-                for s, d in enumerate(row):
-                    if (d.index, s) not in phys:
-                        phys[(d.index, s)] = (_Phys(d.index, row_bytes[s]) if row_bytes[s] else None,
-                                              _Phys(d.index, esc_bytes[s]) if self.is_rb and esc_bytes[s] else None)
-            for row in mesh.grid:
-                key = tuple(map(str, row))
+        # the ranges: one a distinct dp row of this process's (on the CPU in one process one host tensor for all)
+        sizes = [row_bytes, esc_bytes][: 1 + self.is_rb]
+        ranges = {}  # row key -> (rows over the range, escapes over it, its ranges)
+        self.imported, self.host_bytes, self.phys_bytes = [], 0, 0
+        if cuda or meet is not None:
+            maps_of, owned, imported = _map_rows(mesh, sizes, self.gran, cuda, meet)
+            for r, row in enumerate(mesh.grid):
+                key = _row_key(mesh, r)
                 if key not in ranges:
-                    cards_r, home = sorted({d.index for d in row}), row[0].index
-                    maps = [_Range([(sum(sizes[:s]), phys[(d.index, s)][i]) for s, d in enumerate(row) if sizes[s]],
-                                   cards_r, self.gran) for i, sizes in enumerate([row_bytes, esc_bytes][: 1 + self.is_rb])]
+                    maps, home = maps_of[key], next(d for d in row if d is not None).index if cuda else None
                     ranges[key] = (maps[0].tensor((maps[0].size // row_b, width), home),
                                    maps[1].tensor((maps[1].size // esc_b, W4, 16), home) if self.is_rb else None,
                                    tuple(maps))
-            self.host_bytes, self.phys_bytes = 0, sum(p.nbytes for pair in phys.values() for p in pair if p is not None)
-            self.placement = (f"{len(ranges)} mapping(s) of {len(phys)} physical slab(s), granularity {self.gran} B, "
-                         f"{self.unit} rows a unit")
+            own = sum(p.nbytes for ps in owned.values() for p in ps if p is not None)
+            if cuda:
+                self.phys_bytes = own
+            else:
+                self.host_bytes = own
+            self.imported = [(row, s, mesh.owner(row, s), sum(p.nbytes for p in ps if p is not None))
+                             for (row, s), ps in sorted(imported.items())]
+            if meet is not None:
+                _HELD.append([p for ps in owned.values() for p in ps if p is not None])  # an entry in every process
+            froms = ", ".join(f"slab {s} of dp row {row} from process {o}" for row, s, o, _ in self.imported)
+            self.placement = (f"{len(ranges)} mapping(s) of {len(owned)} physical slab(s)"
+                              + (f" and {len(imported)} imported ({froms})" if imported else "")
+                              + f", granularity {self.gran} B, {self.unit} rows a unit")
         else:
             host = (torch.empty((sum(row_bytes) // row_b, width), dtype=torch.int32),
                     torch.empty((sum(esc_bytes) // esc_b, W4, 16), dtype=torch.int32) if self.is_rb else None, ())
-            ranges = {tuple(map(str, row)): host for row in mesh.grid}
-            self.host_bytes, self.phys_bytes = sum(t.numel() * 4 for t in host[:2] if t is not None), 0
+            ranges = {_row_key(mesh, r): host for r in range(mesh.dp)}
+            self.host_bytes = sum(t.numel() * 4 for t in host[:2] if t is not None)
             self.placement = "one host tensor"
-        # each slab its own view of its range; uploaded once a (device, slab)
+        # each slab its own view of its range; this process's slots uploaded once a (device, slab)
         filled, per_row = set(), {}
-        for row in mesh.grid:
-            key = tuple(map(str, row))
+        for r, row in enumerate(mesh.grid):
+            key = _row_key(mesh, r)
             if key in per_row:
                 continue
             rows_r, esc_r, maps = ranges[key]
@@ -356,7 +717,7 @@ class ShardedRows:
             for s, d in enumerate(row):
                 part = rows_r[s * nbl : s * nbl + row_bytes[s] // row_b]
                 esc = esc_r[e0 : e0 + esc_bytes[s] // esc_b] if self.is_rb else None
-                if (str(d), s) not in filled:
+                if d is not None and (str(d), s) not in filled:
                     fill(part, s)
                     if self.is_rb:
                         fill_esc(esc, s)
@@ -367,8 +728,12 @@ class ShardedRows:
         if cuda:
             for d in mesh.distinct:  # the uploads done before any card reads a range
                 torch.cuda.synchronize(d)
-        self.views = [ShardView(self, r, dev, *per_row[tuple(map(str, row))], *per_dev[str(dev)])
-                      for r, row in enumerate(mesh.grid) for dev in row]
+        if meet is not None:  # ... and before any process reads one
+            from . import launch
+
+            launch.barrier()
+        self.views = [ShardView(self, r, dev, *per_row[_row_key(mesh, r)], *per_dev[str(dev)])
+                      for r, row in enumerate(mesh.grid) for dev in row if dev is not None]
 
     @classmethod
     def from_dense(cls, f, mesh: Mesh, occ: str = "auto") -> "ShardedRows":
@@ -546,5 +911,5 @@ def cli_devices(device: str, need: int, rank: int = 0, local_world: int = 1) -> 
 
 
 __all__ = ["Mesh", "MeshError", "ShardView", "ShardedRows", "Slab", "block_of", "by_card", "cli_devices", "granularity",
-           "make_mesh", "mapped_bytes", "parse_mesh", "rank6_sharded_plain", "replicate", "reset_mapped_peak",
-           "slab_plan", "split_segments"]
+           "make_mesh", "mapped_bytes", "parse_mesh", "process_mesh", "rank6_sharded_plain", "replicate",
+           "reset_mapped_peak", "settle", "slab_plan", "split_segments"]

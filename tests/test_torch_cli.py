@@ -1,8 +1,7 @@
 """`python -m ropebwt3_tpu_torch` against `python -m ropebwt3_tpu` on the
 corpus: `build` (every output format and input option, several merges,
 `-S` then `-i`), `merge` and `plain2fmd` output byte for byte, `mem` stdout
-byte for byte against `--engine=native`, `hapdiv` and `mem -a/-w` stdout
-byte for byte, the `ssa` file byte for byte; and
+byte for byte against `--engine=native`, the `ssa` file byte for byte; and
 `--engine=jax|hybrid` stopping at a missing card with jax unimportable."""
 
 import contextlib
@@ -274,23 +273,6 @@ def test_ssa_without_cuda_exits_nonzero(corpus_fmd, tmp_path):
         pytest.skip("this host has a CUDA card")
     r = _run("ropebwt3_tpu_torch", ["ssa", "-o", str(tmp_path / "x.ssa"), str(corpus_fmd)], strict=True)
     assert r.returncode != 0 and b"CUDA" in r.stderr and not (tmp_path / "x.ssa").exists()
-
-
-@pytest.mark.parametrize("cmd,device_engine", [
-    (["hapdiv"], True), (["mem", "-a51", "-w20"], True), (["hapdiv", "--engine=native"], False)],
-    ids=["hapdiv", "mem-a51-w20", "native"])
-def test_hapdiv_matches_reference(corpus, corpus_fmd, cmd, device_engine):
-    """`hapdiv` and `mem -a/-w` (whose -k end_len stays 11) through the
-    port's device engine on the CPU (the plain version, flagged windows on
-    the native DP), or its native DP alone, with jax unimportable: stdout
-    byte-equal to `python -m ropebwt3_tpu`, whose engine is the native DP."""
-    files = [str(corpus_fmd), str(corpus / "reads.fa")]
-    want = _run("ropebwt3_tpu", cmd + files)
-    got = _run_without_jax(cmd + ["--device=cpu"] + files)
-    assert want.returncode == 0, want.stderr.decode()
-    assert got.returncode == 0, got.stderr.decode()
-    assert want.stdout.count(b"\n") >= 60 and got.stdout == want.stdout
-    assert (b"0 hapdiv launches (dense32)" in got.stderr) == device_engine
 
 
 def test_hapdiv_without_cuda_exits_nonzero(corpus, corpus_fmd):

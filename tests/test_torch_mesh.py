@@ -450,16 +450,6 @@ def test_two_gloo_processes_mem(corpus, mesh_fmd):
     assert b"over a 1x1 mesh" in outs[1][1]
 
 
-def test_refuses_idx_axis_across_processes(corpus, mesh_fmd):
-    """Under two processes `--mesh=1x2` would put the idx axis across them:
-    one ERROR line naming item 12, before any process group forms."""
-    r = _run("ropebwt3_tpu_torch", ["mem", "--device=cpu", "--mesh=1x2", "-l21", str(mesh_fmd[0]),
-                                    str(corpus / "reads.fa")], env=dict(WORLD_SIZE="2", RANK="0", RB3TPU_STRICT_EXIT="1"))
-    lines = r.stderr.decode().splitlines()
-    assert r.returncode != 0 and not r.stdout and len(lines) == 1, lines
-    assert "idx axis across processes" in lines[0] and "ROADMAP queue 1 item 12" in lines[0]
-
-
 def test_make_mesh_never_wraps():
     """A mesh of more cards than the machine has stops, naming both counts;
     a mesh of the CPU and a card stops; the idx axis has no limit (the rows
