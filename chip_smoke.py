@@ -15,7 +15,12 @@ probes.  Every rank and SMEM kernel runs on each of the four occ layouts
 (dense32, dense64, rb32, rb64), ssa_gen on both dense ones.  The reference
 outputs come from `python -m ropebwt3_tpu` in subprocesses (`build`,
 `merge`, `mem --engine=native`, `ssa -o`): this script imports nothing of
-it.  Phases:
+it.  Those reference commands, and [mesh]'s one-shot and torchrun
+runs, go one at a time on a background thread (`Background`), started as
+soon as their inputs exist and read where a phase checks them, so their
+walls are taken beside the phases' own work.  A plain check's result is
+the BWT's function, whatever the rows: dense64's kernels are held against
+dense32's plain run (PLAIN_ROWS).  Phases:
 
   build     compile the kernels from csrc/ (nvcc, sm_90a, one nvcc per source)
   corpus    generate the data from a seed; build the FMD with the repo's own
@@ -41,17 +46,21 @@ it.  Phases:
             merge's peak card memory at or under merge_bytes; `merge` of the
             genomes' two halves byte-equal to `python -m ropebwt3_tpu merge`;
             beside each, the JAX package's native command timed
-  rank      occ_rank1a / occ_extend_c of each layout vs the plain PyTorch
-            rank1a / extend_c on the card, on the bench index: 1 M positions
-            (0, n, block and megablock boundaries included), 1 M intervals;
-            exact.  rb32 at choose_S's S; rb64 at S = 256; dense64 and rb64
+  rank      occ_rank1a / occ_extend_c / occ_lf of each layout vs the plain
+            PyTorch rank1a / extend_c / lf on the card, on the bench index:
+            1 M positions (0, n, block and megablock boundaries included;
+            occ_lf those below n), 1 M intervals; exact.  rb32 at choose_S's S; rb64 at S = 256; dense64 and rb64
             with megablocks shrunk to 2^20 symbols
   rank64    rb64 rows of a synthetic BWT given as runs, n = 2^32 + 2^31
             (no suffix array): S = 8192 from choose_S, escape blocks from a
             high-entropy stretch across 2^32; occ_rank1a / occ_extend_c vs
             the plain rb rank on the card and rank1a vs an independent rank
             from the run lengths, on 1 M positions incl. 0, n, 2^32 +- 1 and
-            block boundaries; exact
+            block boundaries; occ_lf_rb64 at those below n vs the plain lf
+            and the runs (the symbol of the run that holds k, acc plus its
+            run-length rank); kount_rank_rb64 on 2^18 random intervals and
+            on intervals from the special positions vs kount_rank_plain and
+            the run-length rank at both ends; exact
   probe     the three probe kernels (csrc/probe.cu) vs their plain versions
             on the card, exact: shared-memory capacity at the opt-in limit
             (one 512-B row past it must be refused), the shared-memory and
@@ -79,22 +88,27 @@ it.  Phases:
             bound counts the 32-B sectors that the plain twin's ranks read
             (on the main path's batch: its lanes on the dense32 rows, the
             same positions), and the chain floor takes two dependent load
-            rounds a trip
+            rounds a trip; the plain time of an rb layout is its run that
+            marks the sectors
   ssa       ssa_gen (csrc/ssa_gen.cu: segments walked at once, ranked by
-            pointer jumping) on three indexes: bench.py's (m = 32 walks of
-            2 M steps, dense32 and dense64 with megablocks of 2^20 symbols),
+            pointer jumping) in the four layouts on three indexes: bench.py's
+            (m = 32 walks of 2 M steps, dense64 with megablocks of 2^20
+            symbols; its rb walks checked against the dense64 rows' plain
+            walk, the same BWT's),
             one of the 100,000 short reads (m = 200,000, cached under
             .bench/torch_smoke/many/) and the CPU tests' corpus, at the
             derived stride: the SSA byte-equal to `python -m ropebwt3_tpu ssa`
             (whose run gives the native walk's time), the kernel's arrays and
             segment records equal to ssa_gen_seg_plain on the card, its
-            arrays to ssa_gen_plain (lock-step; not on bench.py's index: ~2 M
-            trips), each walk's peak card memory at or under ssa_bytes; S,
-            segments, the longest segment, chain floor, bounds, each pass's
-            ms and the heads-only walk (one thread a sequence) in the same
-            call; on bench.py's index a stride sweep (32 to 1024, heads only); then
-            `ssa` through ropebwt3_tpu_torch.cli.main on each index (bench.py's
-            is the ssa path: counts reset before, read after) and once as
+            arrays to ssa_gen_plain (lock-step, dense rows; not on bench.py's
+            index: ~2 M trips), each walk's peak card memory at or under
+            ssa_bytes; S, segments, the longest segment, chain floor, bounds,
+            each pass's ms and (dense) the heads-only walk (one thread a
+            sequence) in the same call; on bench.py's index a stride sweep
+            (32 to 1024, heads only); then `ssa` through
+            ropebwt3_tpu_torch.cli.main on each index (bench.py's is the ssa
+            path: counts reset before, read after; again on rb rows,
+            RB3TPU_DEVICE_OCC=rb, rb32 launches) and once as
             `python -m ropebwt3_tpu_torch ssa`
   mem       the main path: `mem -l31` through ropebwt3_tpu_torch.cli.main with
             launch counts reset before and read after; its BED must equal
@@ -140,17 +154,20 @@ it.  Phases:
   utils     `get` of the 32 sequences (from their sentinel rows), 0, n - 1
             and n; `suffix` of all the reads; `kount -k 11 -m 8` (a frontier
             of ~2.6 M 11-mers, at least 10^6 required) through cli.main,
-            counts reset before and read after; `fa2line` and `fa2kmer` of
+            counts reset before and read after, then each again on rb rows
+            (RB3TPU_DEVICE_OCC=rb: rb32 launches, stdout equal to the same
+            reference bytes); `fa2line` and `fa2kmer` of
             the genomes and `python -m ropebwt3_tpu_torch.tools call` on
             `sw --all-e2e` of 1,000 101-mers of the 17th haplotype, as
             subprocesses; each byte-equal to `python -m ropebwt3_tpu`.  K11
-            (csrc/walk.cu retrieve_seg, dense32 and dense64: segments ranked
-            by ssa_gen.cu's pointer jumping) against retrieve_seg_plain on
-            the card over the whole get walk, symbols, end rows and segment
-            records exact (one plain walk, on dense32 rows), each pass timed
-            (CUDA events) beside the heads-only walk (one thread a walk, on
-            dense32), its bound, its chain floor and the JAX package's native
-            walk (a subprocess); K12
+            (csrc/walk.cu retrieve_seg, four layouts: segments ranked by
+            ssa_gen.cu's pointer jumping) against retrieve_seg_plain on the
+            card over the whole get walk, symbols, end rows and segment
+            records exact (one plain walk, on dense32 rows: the walk is the
+            BWT's), each pass timed (CUDA events) beside the heads-only walk
+            (one thread a walk, on dense32), its bound, its chain floor,
+            pass 1's ns a row (extrapolated to the human100 index's 603.2 G
+            symbols) and the JAX package's native walk (a subprocess); K12
             (suffix_walk, four layouts) against suffix_plain on the card,
             exact, on all the reads, timed beside its bound and chain floor,
             the row fetches and sectors a launch its design requests
@@ -160,8 +177,8 @@ it.  Phases:
             level, A B C C B A, occ_rank1a of the node-major and of the
             symbol-major cat([k, l]) and kount_rank, csrc/kount.cu, each
             beside its bound), and at the widest level kount_rank against
-            kount_rank_plain on the card, dense32 and dense64, exact, there
-            and on as many random unsorted (k, l)
+            kount_rank_plain on the card, four layouts, exact, there and on
+            as many random unsorted (k, l)
   serve     `python -m ropebwt3_tpu_torch serve --daemon` on bench.py's
             index; one-shot `mem -l31`, `mem -l31 --engine=hybrid` (split on
             the server between its resident rows and the native engine), and
@@ -196,8 +213,8 @@ it.  Phases:
             B A) and `ssa --mesh=1x1` through cli.main; `build -m 16M` of
             bench.py's genomes with each merge's rank over a 2x4 mesh of
             this card (merge_rank_dense32 over the mapped rows, one launch a
-            pass, exact against merge_rank_chunked_plain over
-            rank6_sharded_plain on the card and the unsharded K6, segment
+            pass, exact against the unsharded K6 and, on the first merge,
+            merge_rank_chunked_plain over rank6_sharded_plain on the card, segment
             records too, timed beside it A B B A, registers and blocks an
             SM; each merge's peak card memory, mapped bytes included, at or
             under merge_mesh_bytes; the FMD byte-equal), dense64 on the
@@ -224,6 +241,7 @@ lacks them).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
@@ -263,11 +281,18 @@ DENSE64_SHIFT, RB64_S, RB64_SHIFT = 14, 256, 12
 # lanes); the short reads in batches of 40,000, 40,000 and 20,000 reads
 CONSTRUCT_M, MANY_M = "16M", "12M"
 N64 = (1 << 32) + (1 << 31)  # rank64: 6,442,450,944 symbols, a multiple of 8192
+# the paper's human100 index: 301.6 Gb x 2 strands (SURVEY.md), where only rb
+# rows fit one card; K11's pass 1 time a row is extrapolated to it
+HUMAN100_N = 603_200_000_000
 # dependent load rounds of one rank on rb rows (csrc/rb.cuh): the row's
 # header, then its records or one escape sub-row; an SMEM trip's two ranks
 # run side by side
 RB_ROUNDS = 2
 DEVICE = "cuda"
+# a plain check's result is the BWT's function, whatever the rows: dense64's
+# kernels ([smem], [hapdiv], [sw], [mesh]) are held against dense32's plain
+# run, the rows the plain time is taken on
+PLAIN_ROWS = {"dense64": "dense32"}
 # [hapdiv]: a 17th haplotype (genome 0 at 1% substitutions) at `hapdiv`'s
 # -a101 -w50; the kernel's check takes HAPDIV_CHECK of its windows, then
 # HAPDIV_INS windows with four T's inserted at the middle (where flags
@@ -290,6 +315,13 @@ MERGE_MESH_REPLACES = ("ropebwt3_tpu/parallel/merge_sharded.py:28 (merge_rank_sh
                        "over idx with a psum, lanes over dp), driven by merge_rank_sharded :67")
 MESH_REPLACES = ("ropebwt3_tpu/parallel/mesh.py:132 (rank1a_local, its psum over idx in extend_sharded_c :211) "
                  "inside ropebwt3_tpu/parallel/smem_sharded.py:34 (smem_sharded_fn); K1 ropebwt3_tpu/ops/smem_pallas.py:91")
+
+
+def plain_note(name: str) -> str:
+    """Where a layout's plain result and time come from (PLAIN_ROWS)."""
+    if name in PLAIN_ROWS:
+        return f"the plain run over {PLAIN_ROWS[name]} rows, the same result"
+    return "its own plain run over these rows" + (", marking the sectors it reads" if name.startswith("rb") else "")
 
 
 def fail(msg: str):
@@ -339,6 +371,79 @@ def run(cmd: list[str], stdout=subprocess.DEVNULL) -> tuple[float, str]:
     if r.returncode != 0:
         fail(f"{' '.join(cmd)} exited {r.returncode}: {r.stderr.decode()[-2000:]}")
     return time.perf_counter() - t0, r.stderr.decode()
+
+
+class Background:
+    """Subprocesses run one at a time on a thread beside the phases' work:
+    the JAX package's reference commands and the port's one-shot and
+    torchrun runs, started as soon as their inputs exist and read where a
+    phase checks them.  `submit` takes the environment as it is then;
+    `result` waits and gives `run`'s (seconds, stderr) or fails as `run`
+    would.  Their walls are measured beside the phases' own load."""
+
+    def __init__(self):
+        import queue
+        import threading
+
+        self.jobs, self.done, self.proc, self.closed = queue.Queue(), {}, None, False
+        self.cv = threading.Condition()
+        threading.Thread(target=self._work, daemon=True).start()
+
+    def submit(self, key: str, cmd: list[str], stdout: str | None = None) -> None:
+        with self.cv:
+            if key in self.done:
+                fail(f"background job {key} submitted twice")
+            self.done[key] = None
+        self.jobs.put((key, list(cmd), stdout, dict(os.environ)))
+
+    def _work(self) -> None:
+        while True:
+            key, cmd, stdout, env = self.jobs.get()
+            t0 = time.perf_counter()
+            # the child keeps its own handle on `out`; under the lock, so stop() starts nothing after it
+            with open(stdout, "wb") if stdout else contextlib.nullcontext(subprocess.DEVNULL) as out, self.cv:
+                if self.closed:
+                    return
+                p = self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.PIPE, env=env,
+                                                 start_new_session=True)
+            try:
+                _, err = p.communicate(timeout=SUBPROCESS_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                self.kill()
+                _, err = p.communicate()
+            s, err = time.perf_counter() - t0, err.decode()
+            res = (s, err) if p.returncode == 0 else SystemExit(
+                f"chip_smoke: FAIL: {' '.join(cmd)} exited {p.returncode} (in the background): {err[-2000:]}")
+            with self.cv:
+                self.proc = None
+                self.done[key] = res
+                self.cv.notify_all()
+
+    def result(self, key: str) -> tuple[float, str]:
+        with self.cv:
+            if key not in self.done:
+                fail(f"background job {key} was never submitted")
+            self.cv.wait_for(lambda: self.done[key] is not None)
+            res = self.done[key]
+        if isinstance(res, BaseException):
+            raise res
+        return res
+
+    def kill(self) -> None:
+        """Ends the running job's whole process group (torchrun's workers too)."""
+        import signal
+
+        with self.cv:
+            p = self.proc
+        if p is not None and p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+
+    def stop(self) -> None:
+        """Kills what still runs and starts nothing more (at exit, or on a failure)."""
+        with self.cv:
+            self.closed = True
+        self.kill()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -472,8 +577,9 @@ def table_bytes(rank, idx, k) -> int:
 
 
 def check_occ_kernels(rank, idx, k, ik, c, back, plain_reps: int) -> dict:
-    """occ_rank1a and occ_extend_c of idx's layout vs the plain versions on
-    the card; fails unless exact.  Returns errors, times (ms) and bounds."""
+    """occ_rank1a, occ_extend_c and occ_lf (at the positions k below n) of
+    idx's layout vs the plain versions on the card; fails unless exact.
+    Returns errors, times (ms) and bounds, and occ_lf's result."""
     import torch
 
     got = rank.rank1a_cuda(idx, k)
@@ -483,11 +589,17 @@ def check_occ_kernels(rank, idx, k, ik, c, back, plain_reps: int) -> dict:
     e_got = rank.extend_c_cuda(idx, ik, c, back)
     e_want = rank.extend_c(idx, ik, c, back).to(idx.dtype)
     e_err = max_abs(e_got, e_want)
-    if r_err or e_err:
-        fail(f"{idx.layout}: occ_rank1a off by {r_err}, occ_extend_c off by {e_err} against the plain versions")
+    kl = k[k < idx.n].contiguous()
+    lf_got = rank.lf_cuda(idx, kl)
+    lf_err = max(max_abs(a, b) for a, b in zip(lf_got, rank.lf(idx, kl)))
+    if r_err or e_err or lf_err:
+        fail(f"{idx.layout}: occ_rank1a off by {r_err}, occ_extend_c off by {e_err}, occ_lf off by {lf_err} against "
+             "the plain versions")
     prim = torch.where(back, ik[:, 0], ik[:, 1]).long()
     return dict(
-        got=got, rank_err=r_err, ext_err=e_err,
+        got=got, lf_got=lf_got, rank_err=r_err, ext_err=e_err, lf_err=lf_err,
+        lf_ms=cuda_ms(lambda: rank.lf_cuda(idx, kl), 10), lf_plain=cuda_ms(lambda: rank.lf(idx, kl), plain_reps),
+        lf_bound=bound_ms(table_bytes(rank, idx, kl) + nbytes(kl, *lf_got)), lf_positions=kl.numel(),
         rank_ms=cuda_ms(lambda: rank.rank1a_cuda(idx, k), 10), rank_plain=cuda_ms(lambda: rank.rank1a(idx, k), plain_reps),
         ext_ms=cuda_ms(lambda: rank.extend_c_cuda(idx, ik, c, back), 10),
         ext_plain=cuda_ms(lambda: rank.extend_c(idx, ik, c, back), plain_reps),
@@ -650,34 +762,45 @@ def walk_passes(ssa_ops, probe, x, m: int, ss: int, S: int) -> list[float]:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
 
-def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict, reads, ns: dict) -> tuple[dict, dict]:
-    """ssa_gen of both dense layouts on bench.py's index, the many-sequence
+def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict, reads, ns: dict,
+              side: Background) -> tuple[dict, dict]:
+    """ssa_gen of the four layouts on bench.py's index, the many-sequence
     index and the CPU tests' corpus, at the derived stride: byte-equal to
     `python -m ropebwt3_tpu ssa`, arrays and segment records equal to
-    ssa_gen_seg_plain on the card, arrays equal to ssa_gen_plain where its
-    lock-step walk is short, peak card memory at or under ssa_bytes; the
-    passes timed, and beside them the heads-only walk (one thread a
-    sequence) and, on bench.py's index, a stride sweep; then `ssa` through the CLI on each,
-    byte-equal to the same file.  Returns the per-layout records and the ssa
-    path's launch counts (bench.py's index)."""
+    ssa_gen_seg_plain on the card (on bench.py's index the rb walks against
+    the plain walk over its dense64 rows: the walk is the BWT's, and a plain
+    walk over rb rows there would take tens of seconds), arrays equal to
+    ssa_gen_plain where its lock-step walk is short (dense rows), peak card
+    memory at or under ssa_bytes; the passes timed, and beside them (dense
+    rows) the heads-only walk (one thread a sequence) and, on bench.py's
+    index, a stride sweep; then `ssa` through the CLI on each, byte-equal to
+    the same file, and on bench.py's index once more on rb rows
+    (RB3TPU_DEVICE_OCC=rb).  Returns the per-layout records and the ssa
+    paths' launch counts (bench.py's index: dense32, rb32)."""
     import torch
 
     from ropebwt3_tpu_torch.construct.merge import stride
     from ropebwt3_tpu_torch.formats.ssa import write_ssa_bytes
+    from ropebwt3_tpu_torch.ops.runblock import RunBlockIndex
 
-    inputs = [("bench", f, fmd, idxs["dense32"], idxs["dense64"], SSA_SHIFT)]
+    inputs = [("bench", f, fmd, idxs, SSA_SHIFT)]
     t0 = time.perf_counter()
     for name, fa, ss in (("many", write_fasta(os.path.join(WORK, "many", "reads.fa"), reads[:N_READS]), SSA_SHIFT),
                          ("corpus", make_test_corpus(os.path.join(WORK, "corpus")), 4)):
         x_fmd = build_index(fa)
         xf = cli.load_index(x_fmd)
-        inputs.append((name, xf, x_fmd, rank.OccIndex.from_dense(xf, dev),
-                       rank.OccIndex.from_dense(xf, dev, int64=True, mega_shift=DENSE64_SHIFT), ss))
+        inputs.append((name, xf, x_fmd, {
+            "dense32": rank.OccIndex.from_dense(xf, dev),
+            "dense64": rank.OccIndex.from_dense(xf, dev, int64=True, mega_shift=DENSE64_SHIFT),
+            "rb32": RunBlockIndex.from_dense(xf, dev, cache=None),
+            "rb64": RunBlockIndex.from_dense(xf, dev, S=RB64_S, int64=True, mega_shift=RB64_SHIFT, cache=None)}, ss))
+    sub_fn = os.path.join(WORK, "ssa_many_sub.ssa")
+    side.submit("ssa_sub", [sys.executable, "-m", "ropebwt3_tpu_torch", "ssa", "-o", sub_fn, inputs[1][2]])
     say("[ssa] indexes: " + "; ".join(f"{x[0]} n={x[1].n} m={int(x[1].acc[1])}" for x in inputs)
         + f" (built or loaded in {time.perf_counter() - t0:.3f} s)")
-    res = {lay: {"err": 0} for lay in ("dense32", "dense64")}
+    res = {lay: {"err": 0} for lay in LAYOUTS}
     refs = {}
-    for name, xf, x_fmd, d32, d64, ss in inputs:
+    for name, xf, x_fmd, rows, ss in inputs:
         m = int(xf.acc[1])
         opts = [] if ss == SSA_SHIFT else ["-s", str(ss)]
         ref_fn = os.path.join(WORK, f"ssa_{name}_ref.ssa")
@@ -687,7 +810,8 @@ def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict
         refs[name] = (ref_fn, ref_s, opts)
         lat = ns[LAT_48MB] if name == "bench" else ns[LAT_L2]  # the many index's 22.6 MB of rows stay in the L2
         reps = 3 if name == "bench" else 5
-        for lay, x in (("dense32", d32), ("dense64", d64)):
+        for lay, x in rows.items():
+            is_rb = lay.startswith("rb")
             S = ssa_ops.walk_stride(xf.n, m, dev)
             heads = ssa_ops.heads_only(xf.n)
             n_seg = ssa_ops.segments(xf.n, m, S)
@@ -701,13 +825,15 @@ def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict
             *got, rec = ssa_ops.launch_walk(x, m, ss, S)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - before + x.nbytes
-            cap = ssa_ops.ssa_bytes(xf.n, m, ss, S, x.mega_shift if x.int64 else None)
+            cap = ssa_ops.ssa_bytes(xf.n, m, ss, S, x.mega_shift if x.int64 else None, rb=x if is_rb else None)
             if peak > cap:
                 fail(f"ssa_gen {lay} on the {name} index: peak card memory {peak} B above ssa_bytes {cap} B")
-            t1 = time.perf_counter()
-            *want_seg, want_rec = ssa_ops.ssa_gen_seg_plain(x, m, ss, S)
-            torch.cuda.synchronize()
-            seg_plain_ms = (time.perf_counter() - t1) * 1e3
+            if not (is_rb and name == "bench"):  # else the dense rows' plain walk, the same BWT's
+                plain_rows = lay
+                t1 = time.perf_counter()
+                *want_seg, want_rec = ssa_ops.ssa_gen_seg_plain(x, m, ss, S)
+                torch.cuda.synchronize()
+                seg_plain_ms = (time.perf_counter() - t1) * 1e3
             err = max(walk_err(got, want_seg), max_abs(rec, want_rec[1:]), walk_err(walk, want_seg))
             if err:
                 fail(f"ssa_gen {lay} on the {name} index: arrays or segment records differ from ssa_gen_seg_plain "
@@ -715,18 +841,22 @@ def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict
             longest_seg, longest = int(want_rec[0].max()), int(walk[2].max())
             ms = probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss, S)] * reps)
             passes = walk_passes(ssa_ops, probe, x, m, ss, S)
-            heads_ms = probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss, heads)] * (1 if name == "bench" else reps))
+            heads_ms = None if is_rb else probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss, heads)]
+                                                          * (1 if name == "bench" else reps))
             S_cut = stride(xf.n - m, dev)  # the shared stride rule alone, without walk_stride's heads-only cases
-            cut_ms = ms if S_cut == S else probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss, S_cut)] * reps)
+            cut_ms = ms if S_cut == S or is_rb else probe.queued_ms([lambda: ssa_ops.launch_walk(x, m, ss, S_cut)] * reps)
             out_bytes = nbytes(*walk)
+            # an rb step: RB_ROUNDS dependent loads at the tables' ns, the header's sector then up to 128 B
+            step = RB_ROUNDS * (ns[lay] if name == "bench" else ns[LAT_L2]) if is_rb else lat
             r = dict(input=f"{name} index: n={xf.n}, m={m}, -s {ss}", S=S, n_seg=n_seg, ms=ms, pass_ms=passes,
                      heads_only_ms=heads_ms, seg_plain_ms=seg_plain_ms,
-                     longest_segment=longest_seg, longest_walk=longest, chain_floor_ms=longest_seg * lat / 1e6,
-                     heads_only_chain_floor_ms=longest * lat / 1e6, bound_ms=bound_ms(x.nbytes + out_bytes),
-                     row_load_bound_ms=bound_ms(64 * xf.n), peak_bytes=peak, ssa_bytes=cap, native_ms=native_ms,
-                     rule_stride=S_cut, rule_stride_ms=cut_ms)
+                     plain_rows=plain_rows,
+                     longest_segment=longest_seg, longest_walk=longest, chain_floor_ms=longest_seg * step / 1e6,
+                     heads_only_chain_floor_ms=longest * step / 1e6, bound_ms=bound_ms(x.nbytes + out_bytes),
+                     row_load_bound_ms=bound_ms((160 if is_rb else 64) * xf.n), peak_bytes=peak, ssa_bytes=cap,
+                     native_ms=native_ms, rule_stride=S_cut, rule_stride_ms=cut_ms)
             note = ""
-            if name != "bench":  # the lock-step walk, as the JAX package defines it: ~2 M trips on bench.py's index
+            if name != "bench" and not is_rb:  # the lock-step walk, as the JAX package defines it: ~2 M trips on bench.py's
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 want_arr = ssa_ops.ssa_gen_plain(x, m, ss)
@@ -754,50 +884,52 @@ def check_ssa(cli, ssa_ops, probe, rank, dev, card: str, f, fmd: str, idxs: dict
                     for w in sweep)
             res[lay]["err"] = max(res[lay]["err"], err)
             res[lay][name] = r
-            say(f"[ssa] {name} {lay}: SSA (-s {ss}) byte-equal to `python -m ropebwt3_tpu ssa`; S {S}, {n_seg} "
-                f"segments; kernel {ms:.4f} ms (passes {passes[0]:.4f} / {passes[1]:.4f} / {passes[2]:.4f}), heads-only walk "
-                f"{heads_ms:.4f} ms, at the stride rule's S {S_cut} {cut_ms:.4f} ms; longest segment {longest_seg} "
-                f"steps (chain floor {r['chain_floor_ms']:.4f} ms at {lat:.1f} ns), longest walk {longest} "
+            heads_note = "" if heads_ms is None else f", heads-only walk {heads_ms:.4f} ms"
+            say(f"[ssa] {name} {lay}: SSA (-s {ss}) byte-equal to `python -m ropebwt3_tpu ssa`; segment stride {S}, "
+                f"{n_seg} segments; kernel {ms:.4f} ms (passes {passes[0]:.4f} / {passes[1]:.4f} / {passes[2]:.4f})"
+                f"{heads_note}, at the stride rule's S {S_cut} {cut_ms:.4f} ms; longest segment {longest_seg} "
+                f"steps (chain floor {r['chain_floor_ms']:.4f} ms at {step:.1f} ns), longest walk {longest} "
                 f"({r['heads_only_chain_floor_ms']:.4f} ms); bounds: tables and outputs {r['bound_ms']:.4f} ms, row "
                 f"loads {r['row_load_bound_ms']:.4f} ms; peak card memory {peak} B <= ssa_bytes {cap} B; arrays and "
-                f"segment records equal to ssa_gen_seg_plain on the card "
+                f"segment records equal to ssa_gen_seg_plain on the card over {r['plain_rows']} rows "
                 f"({seg_plain_ms:.4f} ms){note}; the reference's native walk and write {native_ms:.4f} ms "
                 f"({os.cpu_count()} host cores; its log) ({card})")
 
-    path = None
-    for name, xf, x_fmd, d32, d64, ss in inputs:
+    paths = {}
+    for name, xf, x_fmd, rows, ss in inputs:
         ref_fn, ref_s, opts = refs[name]
-        port_fn = os.path.join(WORK, f"ssa_{name}_port.ssa")
-        argv = ["ssa", *opts, "-o", port_fn, x_fmd]
-        ssa_ops.ssa_gen_cuda.launches.clear()
-        err = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stderr(err):
-            rc = cli.main(argv)
-        port_s = time.perf_counter() - t0
-        launches = dict(ssa_ops.ssa_gen_cuda.launches)
-        sys.stderr.write(err.getvalue())
-        if rc != 0:
-            fail(f"ropebwt3_tpu_torch {' '.join(argv)} exited {rc}")
-        if open(port_fn, "rb").read() != open(ref_fn, "rb").read():
-            fail(f"port `ssa` on the {name} index differs from `python -m ropebwt3_tpu ssa`")
-        if launches.get("dense32", 0) < 1 or f"{launches['dense32']} ssa_gen launches (dense32)" not in err.getvalue():
-            fail(f"port `ssa` on the {name} index: no dense32 ssa_gen launch counted ({launches})")
-        if name == "bench":
-            path = dict(launches=launches, port_s=port_s)
-        say(f"[ssa] `{' '.join(['ssa', *opts])}` on the {name} index: file byte-equal to `python -m ropebwt3_tpu ssa`; "
-            f"launches {launches}; port in-process {port_s:.3f} s, reference `python -m ropebwt3_tpu ssa` {ref_s:.3f} s")
-    many_fmd = inputs[1][2]
-    sub_fn = os.path.join(WORK, "ssa_many_sub.ssa")
-    sub_s, sub_err = run([sys.executable, "-m", "ropebwt3_tpu_torch", "ssa", "-o", sub_fn, many_fmd])
+        for lay in ("dense32", "rb32") if name == "bench" else ("dense32",):
+            port_fn = os.path.join(WORK, f"ssa_{name}_{lay}_port.ssa")
+            argv = ["ssa", *opts, "-o", port_fn, x_fmd]
+            ssa_ops.ssa_gen_cuda.launches.clear()
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err), rb_rows_chosen() if lay == "rb32" else contextlib.nullcontext():
+                rc = cli.main(argv)
+            port_s = time.perf_counter() - t0
+            launches = dict(ssa_ops.ssa_gen_cuda.launches)
+            sys.stderr.write(err.getvalue())
+            if rc != 0:
+                fail(f"ropebwt3_tpu_torch {' '.join(argv)} exited {rc}")
+            if open(port_fn, "rb").read() != open(ref_fn, "rb").read():
+                fail(f"port `ssa` on the {name} index ({lay} rows) differs from `python -m ropebwt3_tpu ssa`")
+            if launches.get(lay, 0) < 1 or f"{launches[lay]} ssa_gen launches ({lay})" not in err.getvalue() \
+                    or f"occ layout {lay}" not in err.getvalue():
+                fail(f"port `ssa` on the {name} index: no {lay} rows or ssa_gen launch counted ({launches})")
+            if name == "bench":
+                paths[lay] = dict(launches=launches, port_s=port_s)
+            say(f"[ssa] `{' '.join(['ssa', *opts])}` on the {name} index{' (RB3TPU_DEVICE_OCC=rb)' if lay == 'rb32' else ''}"
+                f": file byte-equal to `python -m ropebwt3_tpu ssa`; launches {launches}; port in-process {port_s:.3f} s, "
+                f"reference `python -m ropebwt3_tpu ssa` {ref_s:.3f} s")
+    sub_s, sub_err = side.result("ssa_sub")
     m_sub = re.search(r"(\d+) ssa_gen launches \(dense32\)", sub_err)
     if m_sub is None or int(m_sub.group(1)) < 1:
         fail(f"`python -m ropebwt3_tpu_torch ssa` reported no dense32 launch: {sub_err[-500:]}")
     if open(sub_fn, "rb").read() != open(refs["many"][0], "rb").read():
         fail("`python -m ropebwt3_tpu_torch ssa` on the many index differs from `python -m ropebwt3_tpu ssa`")
     say(f"[ssa] `python -m ropebwt3_tpu_torch ssa` on the many index: byte-equal, {m_sub.group(1)} dense32 launch, "
-        f"{sub_s:.3f} s one-shot ({card})")
-    return res, path
+        f"{sub_s:.3f} s one-shot (in the background) ({card})")
+    return res, paths
 
 
 def chains_err(got, want, max_mems: int, what: str) -> int:
@@ -1006,7 +1138,23 @@ def log_merge_s(stderr: str) -> list[float]:
     return [t - stamps[i - 1][0] for i, (t, msg) in enumerate(stamps) if msg.startswith("merged the partial BWT") and i]
 
 
-def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: str, many_fmd: str) -> dict:
+CONSTRUCT_REFS = {  # [construct]'s reference builds: tag, output under WORK, argv of `python -m ropebwt3_tpu`
+    "construct_ref": ("construct_ref.fmd", ["build", "-do"]),
+    "construct_ref16": ("construct_ref_m16.fmd", ["build", "-m", CONSTRUCT_M, "-do"]),
+    "construct_ref_many": ("construct_ref_many.fmd", ["build", "-m", MANY_M, "-do"]),
+}
+
+
+def submit_construct_refs(bg: Background, fa: str, many_fa: str) -> None:
+    """Starts [construct]'s reference builds in the background: the genomes
+    in one batch and with -m 16M, the short reads with -m 12M."""
+    for tag, (out, argv) in CONSTRUCT_REFS.items():
+        bg.submit(tag, [sys.executable, "-m", "ropebwt3_tpu", *argv, os.path.join(WORK, out),
+                        many_fa if tag == "construct_ref_many" else fa])
+
+
+def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: str, many_fmd: str,
+                    bg: Background, side: Background) -> dict:
     """[construct]: `build` on the card, its FMDs byte-equal to the repo's
     own (native SA-IS) index build; K7 and K6 against their plain versions
     on the card; `merge` byte-equal to the JAX package's.  Returns the
@@ -1020,18 +1168,20 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     from ropebwt3_tpu_torch.ops.rank import OccIndex
 
     out = {}
-    # 1. bench.py's genomes in one batch
+    # 1. bench.py's genomes in one batch (the one-shot port on the side lane
+    # meanwhile: its card work ends before K7 is timed below)
+    sub_fmd = os.path.join(WORK, "construct_sub.fmd")
+    side.submit("construct_sub", [sys.executable, "-m", "ropebwt3_tpu_torch", "build", "-do", sub_fmd, fa])
     port_fmd = os.path.join(WORK, "construct_port.fmd")
     torch.cuda.reset_peak_memory_stats(dev)
     base_mem = torch.cuda.memory_allocated(dev)
     one_s, _ = cli_run(cli, ["build", "-do", port_fmd, fa])
     peak = torch.cuda.max_memory_allocated(dev) - base_mem
     same_file(port_fmd, fmd, "port `build -do` (one batch) vs the repo's index build")
-    ref_fmd = os.path.join(WORK, "construct_ref.fmd")
-    ref_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "build", "-do", ref_fmd, fa])
+    ref_fmd = os.path.join(WORK, CONSTRUCT_REFS["construct_ref"][0])
+    ref_s, _ = bg.result("construct_ref")
     same_file(ref_fmd, fmd, "a fresh `python -m ropebwt3_tpu build -do`")
-    sub_fmd = os.path.join(WORK, "construct_sub.fmd")
-    sub_s, _ = run([sys.executable, "-m", "ropebwt3_tpu_torch", "build", "-do", sub_fmd, fa])
+    sub_s, _ = side.result("construct_sub")
     same_file(sub_fmd, fmd, "`python -m ropebwt3_tpu_torch build -do`")
     # its pieces, warm: read, sort (upload, K7, download), FMD encode
     t0 = time.perf_counter()
@@ -1083,7 +1233,7 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     say(f"[construct] `build -do` of bench.py's genomes (one batch, n={n}): FMD byte-equal to the repo's index build; "
         f"port in-process {one_s:.3f} s (read {t_read:.3f} s, upload + sort + download {t_sort:.3f} s, FMD encode "
         f"{t_enc:.3f} s), one-shot `python -m ropebwt3_tpu_torch build -do` {sub_s:.3f} s, fresh `python -m "
-        f"ropebwt3_tpu build -do` (native SA-IS, {os.cpu_count()} host cores) {ref_s:.3f} s; peak card memory {peak} B "
+        f"ropebwt3_tpu build -do` (native SA-IS, {os.cpu_count()} host cores, in the background) {ref_s:.3f} s; peak card memory {peak} B "
         f"({peak / n:.2f} B a symbol, SA_BYTES_PER_SYMBOL {sa.SA_BYTES_PER_SYMBOL}) ({card})")
     say(f"[construct] K7 on bench.py's batch: {nr} rounds, live bits / digit passes and card ms per round (keys / "
         f"sa_sort / torch.sort of the same keys / flags / cumsum / scatter; wall): " + "; ".join(
@@ -1109,8 +1259,8 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     if min(out["path"]["sa"].get(p, 0) for p in ("sa_keys", "sa_sort", "sa_flags", "sa_scatter", "sa_bwt")) < 1 or \
             out["path"]["merge"].get("dense32", 0) < 1:
         fail(f"[construct] the build path launched {out['path']} (every sa_round pass, sa_sort and merge_rank_dense32 expected)")
-    ref16 = os.path.join(WORK, "construct_ref_m16.fmd")
-    ref16_s, ref16_err = run([sys.executable, "-m", "ropebwt3_tpu", "build", "-m", CONSTRUCT_M, "-do", ref16, fa])
+    ref16 = os.path.join(WORK, CONSTRUCT_REFS["construct_ref16"][0])
+    ref16_s, ref16_err = bg.result("construct_ref16")
     same_file(ref16, fmd, f"`python -m ropebwt3_tpu build -m {CONSTRUCT_M} -do`")
     merges, bwt = [], None
     for seq in host_batches(fa, cli.parse_num(CONSTRUCT_M)):
@@ -1154,7 +1304,7 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     out["merges16"] = merges
     say(f"[construct] `build -m {CONSTRUCT_M} -do` (the build path): FMD byte-equal to the one-batch build; launches "
         f"{out['path']['sa']}, merge_rank {out['path']['merge']}; port in-process {path_s:.3f} s, `python -m "
-        f"ropebwt3_tpu build -m {CONSTRUCT_M} -do` {ref16_s:.3f} s (its merges {[round(x, 3) for x in native16]} s); "
+        f"ropebwt3_tpu build -m {CONSTRUCT_M} -do` (in the background) {ref16_s:.3f} s (its merges {[round(x, 3) for x in native16]} s); "
         f"K7 per later batch (upload, sort) {[round(m['k7_s'] * 1e3, 3) for m in merges]} ms ({card})")
     for m in merges:
         say(f"[construct] -m {CONSTRUCT_M} merge, dense32, {k6_line(m)}; rows (OccIndex.from_bwt) "
@@ -1165,8 +1315,8 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     many_port = os.path.join(WORK, "construct_port_many.fmd")
     many_s, _ = cli_run(cli, ["build", "-m", MANY_M, "-do", many_port, many_fa])
     same_file(many_port, many_fmd, f"port `build -m {MANY_M}` of the short reads vs their index build")
-    many_ref = os.path.join(WORK, "construct_ref_many.fmd")
-    many_ref_s, many_ref_err = run([sys.executable, "-m", "ropebwt3_tpu", "build", "-m", MANY_M, "-do", many_ref, many_fa])
+    many_ref = os.path.join(WORK, CONSTRUCT_REFS["construct_ref_many"][0])
+    many_ref_s, many_ref_err = bg.result("construct_ref_many")
     same_file(many_ref, many_fmd, f"`python -m ropebwt3_tpu build -m {MANY_M}` of the short reads")
     s1, s2 = host_batches(many_fa, cli.parse_num(MANY_M))[:2]
     b1, b2 = sa.gsa_bwt(s1, dev)[0], sa.gsa_bwt(s2, dev)[0]
@@ -1183,7 +1333,7 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
         say(f"[construct] merge_rank_{layout} on the short reads' first merge (longest walk {steps} steps), {k6_line(r)} "
             f"({card})")
     say(f"[construct] `build -m {MANY_M}` of the {N_READS} short reads: FMD byte-equal to their index build; port "
-        f"in-process {many_s:.3f} s, `python -m ropebwt3_tpu build -m {MANY_M}` {many_ref_s:.3f} s (its merges "
+        f"in-process {many_s:.3f} s, `python -m ropebwt3_tpu build -m {MANY_M}` (in the background) {many_ref_s:.3f} s (its merges "
         f"{[round(x, 3) for x in log_merge_s(many_ref_err)]} s) ({card})")
     del b1, b2
 
@@ -1199,11 +1349,13 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
         halves.append(os.path.join(WORK, f"construct_half{i}.fmd"))
         cli_run(cli, ["build", "-do", halves[-1], part])
     port_fmr, ref_fmr = os.path.join(WORK, "construct_port.fmr"), os.path.join(WORK, "construct_ref.fmr")
+    side.submit("construct_merge_ref", [sys.executable, "-m", "ropebwt3_tpu", "merge", "-o", ref_fmr, *halves])
     merge_s, _ = cli_run(cli, ["merge", "-o", port_fmr, *halves])
-    ref_merge_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "merge", "-o", ref_fmr, *halves])
+    ref_merge_s, _ = side.result("construct_merge_ref")
     same_file(port_fmr, ref_fmr, "port `merge` vs `python -m ropebwt3_tpu merge`")
     say(f"[construct] `merge` of the two halves ({N_GENOMES // 2} genomes each, built by the port): FMR byte-equal to "
-        f"`python -m ropebwt3_tpu merge`; port in-process {merge_s:.3f} s, reference {ref_merge_s:.3f} s ({card})")
+        f"`python -m ropebwt3_tpu merge`; port in-process {merge_s:.3f} s, reference {ref_merge_s:.3f} s (beside it, in "
+        f"the background) ({card})")
     return out
 
 
@@ -1225,12 +1377,15 @@ class RowCount:
         self.rows[k.flatten().long() >> 6] = True
         return self.idx.rank1a(k)
 
-    def bytes(self) -> int:
+    def bytes(self, idx=None) -> int:
+        """The marked rows' bytes in `idx`'s layout (by default its own):
+        the same 48-B rows of 64 symbols, idx's megablock bases and acc."""
         import torch
 
+        idx = idx or self.idx
         rows = self.rows.nonzero().flatten()
-        mega = torch.unique(rows >> self.idx.mega_shift).numel() * 48 if self.idx.int64 else 0
-        return rows.numel() * 48 + mega + nbytes(self.idx.acc)
+        mega = torch.unique(rows >> idx.mega_shift).numel() * 48 if idx.int64 else 0
+        return rows.numel() * 48 + mega + nbytes(idx.acc)
 
 
 PIECES_LOG = re.compile(r"wall seconds by piece[^:]*: (.*)")
@@ -1257,7 +1412,7 @@ def dp_card_lines(dp_time, kind: str, lay: str, split: dict) -> tuple[dict, str]
     return {"occupancy": occ, "split": split}, words
 
 
-def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -> dict:
+def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict, bg: Background) -> dict:
     """K8 (csrc/hapdiv.cu) on bench.py's index: a 17th haplotype, genome 0
     at 1% substitutions from the seed, cut into `hapdiv`'s windows.  Per
     dense layout the kernel against hapdiv_plain on the card, exact (the
@@ -1285,6 +1440,8 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
     hap_fa = os.path.join(WORK, "hap17.fa")
     with open(hap_fa, "wb") as fh:
         fh.write(b">hap17\n" + np.frombuffer(b"$ACGTN", dtype=np.uint8)[hap].tobytes() + b"\n")
+    ref_out, port_out = os.path.join(WORK, "hapdiv_ref.txt"), os.path.join(WORK, "hapdiv_port.txt")
+    bg.submit("hapdiv_ref", [sys.executable, "-m", "ropebwt3_tpu", "hapdiv", fmd, hap_fa], ref_out)
     K = HAPDIV_K
     offs = np.arange(0, len(hap) - K + 1, HAPDIV_STEP)
     wins = hap[offs[:, None] + np.arange(K)].astype(np.int32)
@@ -1296,22 +1453,26 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
     seqs = torch.from_numpy(check).to(dev)
     big = torch.from_numpy(wins[:HAPDIV_BIG]).to(dev)
     full = torch.from_numpy(wins[: hapdiv.LANES]).to(dev)
-    res = {}
+    res, plain_ref = {}, None
     for lay in ("dense32", "dense64"):
         x = idxs[lay]
         got = hapdiv.hapdiv_cuda(x, seqs, K, trips=True)
-        counted = RowCount(x)
-        t0 = time.perf_counter()
-        want = hapdiv.hapdiv_plain(counted, seqs, K, trips=True)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        if lay in PLAIN_ROWS:  # the result is the BWT's function: dense32's plain run, its rows marked
+            want, wb, counted, plain_ms = plain_ref
+        else:
+            counted = RowCount(x)
+            t0 = time.perf_counter()
+            want = hapdiv.hapdiv_plain(counted, seqs, K, trips=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            wb = hapdiv.hapdiv_plain(x, big, K, match=100)
+            plain_ref = (want, wb, counted, plain_ms)
         ok = ~want[3]
         err = max(max_abs(a, b) for a, b in zip(got[:4], want[:4]))
         if err or not torch.equal(got[4][ok], want[4][ok]):
             fail(f"hapdiv {lay}: the kernel differs from hapdiv_plain by {err} (trips equal: "
                  f"{torch.equal(got[4][ok], want[4][ok])})")
         gb = hapdiv.hapdiv_cuda(x, big, K, match=100)
-        wb = hapdiv.hapdiv_plain(x, big, K, match=100)
         if not all(torch.equal(a, b) for a, b in zip(gb, wb)) or not bool(gb[3].all()):
             fail(f"hapdiv {lay}: at -A 100 the kernel gives {gb[3].tolist()} flags, the plain version {wb[3].tolist()}")
         arch = torch.empty((len(check), K, hapdiv.N_BEST, 2), dtype=torch.int32, device=dev)
@@ -1323,8 +1484,8 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
         io_bytes = nbytes(seqs, *got[:4])
         trips = int(got[4][ok].max())
         res[lay] = dict(err=err, ms=ms, plain_ms=plain_ms, n_win=len(check), n_bad=int(want[3].sum()),
-                        n_bad_ins=int(want[3][HAPDIV_CHECK:].sum()), rows_bytes=counted.bytes(),
-                        bound_ms=bound_ms(counted.bytes() + io_bytes), max_trips=trips, mean_trips=float(got[4][ok].float().mean()),
+                        n_bad_ins=int(want[3][HAPDIV_CHECK:].sum()), rows_bytes=counted.bytes(x),
+                        plain_rows=PLAIN_ROWS.get(lay, lay), bound_ms=bound_ms(counted.bytes(x) + io_bytes), max_trips=trips, mean_trips=float(got[4][ok].float().mean()),
                         chain_floor_ms=trips * ns[LAT_48MB] / 1e6, full_ms=full_ms, full_windows=full.shape[0])
         rec, words = dp_card_lines(dp_time, "hapdiv", lay, dp_time.timed_hapdiv(x, full, K))
         res[lay].update(rec)
@@ -1332,16 +1493,14 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
         say(f"[hapdiv] {lay}: hapdiv_cuda exact vs hapdiv_plain on {r['n_win']} windows ({HAPDIV_CHECK} of the "
             f"haplotype, {HAPDIV_INS} with an insertion; {r['n_bad']} flagged, {r['n_bad_ins']} of them insertion "
             f"windows; trips of the others equal) and on {HAPDIV_BIG} at -A 100 (all flagged); kernel {ms:.4f} ms vs "
-            f"plain {plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms ({r['rows_bytes']} B of rows read); chain floor "
+            f"plain {plain_ms:.1f} ms ({plain_note(lay)}); bound {r['bound_ms']:.4f} ms ({r['rows_bytes']} B of rows read); chain floor "
             f"{r['chain_floor_ms']:.4f} ms (longest window {trips} trips, mean {r['mean_trips']:.1f}, at "
             f"{ns[LAT_48MB]} ns); a batch of {r['full_windows']} windows {full_ms:.3f} ms ({card})")
         say(f"[hapdiv] {lay}: {words} ({card})")
-    del seqs, big, full
+    del seqs, big, full, plain_ref
 
-    # the hapdiv path: the reference first (its run times the native DP)
-    ref_out, port_out = os.path.join(WORK, "hapdiv_ref.txt"), os.path.join(WORK, "hapdiv_port.txt")
-    with open(ref_out, "wb") as out:
-        ref_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "hapdiv", fmd, hap_fa], stdout=out)
+    # the hapdiv path: the reference (its run times the native DP) went to the background above
+    ref_s, _ = bg.result("hapdiv_ref")
     want = open(ref_out, "rb").read()
     hapdiv.hapdiv_cuda.launches.clear()
     err = io.StringIO()
@@ -1365,7 +1524,7 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict) -
         f"stdout byte-equal to `python -m ropebwt3_tpu hapdiv` ({path['lines']} lines); launches {launches}; "
         f"{path['n_bad']} windows flagged ({path['n_bad'] / len(wins):.4%}), rerun on the native DP; port "
         f"in-process {port_s:.3f} s (by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in path["pieces"].items())
-        + f"), reference (native DP, {os.cpu_count()} host cores) {ref_s:.3f} s ({card})")
+        + f"), reference (native DP, {os.cpu_count()} host cores, in the background) {ref_s:.3f} s ({card})")
     hyb = engine_path(cli, ["hapdiv", "--engine=hybrid", fmd, hap_fa], ref_out, hapdiv.hapdiv_cuda)
     say(f"[hapdiv] path `hapdiv --engine=hybrid` on the haplotype: stdout byte-equal to the reference above; launches "
         f"{hyb['launches']}; {hyb['n_dev']} of {hyb['n_items']} windows on the card (RB3TPU_HAPDIV_SPLIT's default "
@@ -1414,16 +1573,15 @@ def engine_path(cli, argv: list[str], ref_fn: str, counter) -> dict:
 SW_LOG = re.compile(r"(\d+) sw launches \(dense32\); (\d+) of (\d+) reads on the card, (\d+) flagged bad and (\d+) of a DAWG")
 
 
-def sw_path(cli, argv: list[str], fa: str, fmd: str, tag: str) -> dict:
+def sw_path(cli, argv: list[str], fa: str, fmd: str, tag: str, bg: Background) -> dict:
     """`sw <argv>` on `fa` through cli.main, launch counts reset before and
     read after, its stdout byte-equal to `python -m ropebwt3_tpu sw <argv>`
-    (the reference first: its run times the native engine).  Returns the
-    counts, shares, pieces and times."""
+    (`submit_sw_ref`'s, run in the background: it times the native engine).
+    Returns the counts, shares, pieces and times."""
     from ropebwt3_tpu_torch.align import sw
 
     ref_out, port_out = os.path.join(WORK, "sw", f"{tag}_ref.txt"), os.path.join(WORK, "sw", f"{tag}_port.txt")
-    with open(ref_out, "wb") as out:
-        ref_s, _ = run([sys.executable, "-m", "ropebwt3_tpu", "sw", *argv, fmd, fa], stdout=out)
+    ref_s, _ = bg.result(f"sw_{tag}_ref")
     want = open(ref_out, "rb").read()
     sw.sw_cuda.launches.clear()
     err = io.StringIO()
@@ -1447,7 +1605,14 @@ def sw_path(cli, argv: list[str], fa: str, fmd: str, tag: str) -> dict:
                 bad_share=n_bad / n_reads, shape_share=n_shape / n_reads, pieces=pieces, lines=want.count(b"\n"))
 
 
-def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict:
+def submit_sw_ref(bg: Background, argv: list[str], fa: str, fmd: str, tag: str) -> None:
+    """Starts `python -m ropebwt3_tpu sw <argv>` on `fa` in the background,
+    its stdout to sw/<tag>_ref.txt, for `sw_path`."""
+    bg.submit(f"sw_{tag}_ref", [sys.executable, "-m", "ropebwt3_tpu", "sw", *argv, fmd, fa],
+              os.path.join(WORK, "sw", f"{tag}_ref.txt"))
+
+
+def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict, bg: Background) -> dict:
     """K9 (csrc/sw.cu) on bench.py's index.  Per mode (general DAWGs, -e) and
     dense layout the kernel against sw_plain on the card, exact (bad,
     best_sc and best_pos of every read, the archive and the trips of those
@@ -1474,6 +1639,8 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
         fh.write("".join(f"g{g}\t{GENOME_LEN}\n" for g in range(N_GENOMES)))
     path_fa = write_fasta(os.path.join(WORK, "sw", "reads.fa"), reads[:SW_PATH])
     e2e_fa = write_fasta(os.path.join(WORK, "sw", "reads_e2e.fa"), reads[:SW_E2E_PATH])
+    submit_sw_ref(bg, [], path_fa, fmd, "sw")
+    submit_sw_ref(bg, ["--all-e2e", "-b"], e2e_fa, fmd, "e2e")
     f = cli.load_index(fmd)
     res = {}
     for mode, n_check in (("general", SW_CHECK), ("e2e", SW_CHECK_E2E)):
@@ -1488,15 +1655,22 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
 
         check, full = dawgs(elig[:n_check]), dawgs(elig[: sw.LANES])
         kw = dict(end_len=opt.end_len)
+        big = [t[:SW_BIG] for t in check]  # scored -A 100, every read passes 4095 and is flagged
+        plain_ref = None
         for lay in ("dense32", "dense64"):
             x = idxs[lay]
             got = sw.sw_cuda(x, *check, trips=True, **kw)
-            counted = RowCount(x)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = sw.sw_plain(counted, *check, trips=True, **kw)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
+            if lay in PLAIN_ROWS:  # the result is the BWT's function: dense32's plain run, its rows marked
+                want, wb, counted, plain_ms = plain_ref
+            else:
+                counted = RowCount(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = sw.sw_plain(counted, *check, trips=True, **kw)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                wb = sw.sw_plain(x, *big, match=100, **kw)
+                plain_ref = (want, wb, counted, plain_ms)
             okr = ~want[6]
             rows = torch.repeat_interleave(okr, check[2].long())
             err = max(max(max_abs(a, b) for a, b in zip(got[4:7], want[4:7])),
@@ -1504,8 +1678,7 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
             if err or not torch.equal(got[7][okr], want[7][okr]):
                 fail(f"sw {mode} {lay}: the kernel differs from sw_plain by {err} (trips equal: "
                      f"{torch.equal(got[7][okr], want[7][okr])})")
-            big = [t[:SW_BIG] for t in check]  # scored -A 100, every read passes 4095 and is flagged
-            gb, wb = sw.sw_cuda(x, *big, match=100, **kw), sw.sw_plain(x, *big, match=100, **kw)
+            gb = sw.sw_cuda(x, *big, match=100, **kw)
             if not all(torch.equal(a, b) for a, b in zip(gb[4:7], wb[4:7])) or not bool(gb[6].all()):
                 fail(f"sw {mode} {lay}: at -A 100 the kernel gives {gb[6].tolist()} flags, the plain version "
                      f"{wb[6].tolist()}")
@@ -1522,31 +1695,32 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict) -> dict
             trips = int(got[7][okr].max())
             r = res[f"{mode}_{lay}"] = dict(
                 err=err, ms=ms, plain_ms=plain_ms, n_reads=len(check[2]), n_bad=int(want[6].sum()),
-                NC=check[0].shape[1], P=check[1].shape[2], rows_bytes=counted.bytes(), io_bytes=io_bytes,
-                bound_ms=bound_ms(counted.bytes() + io_bytes), max_trips=trips, mean_trips=float(got[7][okr].float().mean()),
+                NC=check[0].shape[1], P=check[1].shape[2], rows_bytes=counted.bytes(x), io_bytes=io_bytes,
+                plain_rows=PLAIN_ROWS.get(lay, lay), bound_ms=bound_ms(counted.bytes(x) + io_bytes), max_trips=trips, mean_trips=float(got[7][okr].float().mean()),
                 chain_floor_ms=trips * ns[LAT_48MB] / 1e6, full_ms=full_ms, full_reads=len(full[2]))
             words = None
             if mode == "general":
                 rec, words = dp_card_lines(dp_time, "sw", lay, dp_time.timed_sw(x, full, kw))
                 r.update(rec)
             say(f"[sw] {mode} {lay}: sw_cuda exact vs sw_plain on {r['n_reads']} reads (NC {r['NC']}, P {r['P']}; "
-                f"{r['n_bad']} flagged; trips of the others equal) and on {SW_BIG} at -A 100 (all flagged); kernel {ms:.4f} ms vs plain {plain_ms:.1f} ms; bound "
+                f"{r['n_bad']} flagged; trips of the others equal) and on {SW_BIG} at -A 100 (all flagged); kernel {ms:.4f} ms vs plain {plain_ms:.1f} ms "
+                f"({plain_note(lay)}); bound "
                 f"{r['bound_ms']:.4f} ms ({r['rows_bytes']} B of rows read, {io_bytes} B in and out); chain floor "
                 f"{r['chain_floor_ms']:.4f} ms (longest read {trips} trips, mean {r['mean_trips']:.1f}, at "
                 f"{ns[LAT_48MB]} ns); a launch of {r['full_reads']} reads {full_ms:.3f} ms ({card})")
             if words:
                 say(f"[sw] {lay}: {words} ({card})")
-        del check, full
+        del check, full, big, plain_ref
 
-    path = sw_path(cli, [], path_fa, fmd, "sw")
-    e2e = sw_path(cli, ["--all-e2e", "-b"], e2e_fa, fmd, "e2e")
+    path = sw_path(cli, [], path_fa, fmd, "sw", bg)
+    e2e = sw_path(cli, ["--all-e2e", "-b"], e2e_fa, fmd, "e2e", bg)
     for name, p, fa_n in (("sw", path, SW_PATH), ("sw --all-e2e -b", e2e, SW_E2E_PATH)):
         say(f"[sw] path `{name}` on the first {fa_n} short reads ({p['n_reads']} DP reads): stdout byte-equal to "
             f"`python -m ropebwt3_tpu {name}` ({p['lines']} lines); launches {p['launches']}; reads on the card "
             f"{p['card_share']:.4%}, flagged {p['bad_share']:.4%}, sent to the host for their DAWG "
             f"{p['shape_share']:.4%}; port in-process {p['port_s']:.3f} s (by piece: "
             + ", ".join(f"{k} {v:.3f} s" for k, v in p["pieces"].items())
-            + f"), reference (native engine, {os.cpu_count()} host cores, a subprocess) {p['ref_s']:.3f} s ({card})")
+            + f"), reference (native engine, {os.cpu_count()} host cores, a subprocess in the background) {p['ref_s']:.3f} s ({card})")
     engines = {e: engine_path(cli, ["sw", f"--engine={e}", fmd, path_fa], os.path.join(WORK, "sw", "sw_ref.txt"), sw.sw_cuda)
                for e in ("hybrid", "jax")}
     hyb = engines["hybrid"]
@@ -1576,15 +1750,33 @@ GET_REFERENCE = ("import sys, time\nfrom ropebwt3_tpu.cli import main\nfrom rope
 SERVE_READY_S = 300  # seconds for `serve --daemon` to answer
 
 
-def same_output(argv: list[str], port_out: str, tag: str, ref: list[str] | None = None) -> tuple[float, bytes, str]:
-    """`python -m ropebwt3_tpu <argv>` (or `ref <argv>`) in a subprocess
-    (its wall seconds) against the port's output already in `port_out`;
-    fails unless byte-equal.  Returns (seconds, the reference's bytes, its
-    stderr)."""
-    ref_out = os.path.join(WORK, "utils", f"{tag}_ref.out")
-    with open(ref_out, "wb") as out:
-        ref_s, ref_err = run((ref or [sys.executable, "-m", "ropebwt3_tpu"]) + argv, stdout=out)
-    want, got = open(ref_out, "rb").read(), open(port_out, "rb").read()
+def utils_refs(f, fmd: str, reads_fa: str) -> dict:
+    """[utils]' byte-equal checks: per tag the argv both packages take and
+    the reference's command before it (`get`: the 32 sequences from their
+    sentinel rows, 0 again, n - 1 and n; `suffix` of every read; `kount`)."""
+    m = int(f.acc[1])
+    ks = list(range(m)) + [0, f.n - 1, f.n]
+    jax = [sys.executable, "-m", "ropebwt3_tpu"]
+    return {"get": (["get", fmd, *map(str, ks)], [sys.executable, "-c", GET_REFERENCE]),
+            "suffix": (["suffix", fmd, reads_fa], jax),
+            "kount": (["kount", "-k", str(KOUNT_K), "-m", str(KOUNT_M), fmd], jax)}
+
+
+def submit_utils_refs(bg: Background, f, fmd: str, reads_fa: str) -> None:
+    """Starts [utils]' reference commands in the background (they read only
+    the index and the reads), each writing utils/<tag>_ref.out."""
+    os.makedirs(os.path.join(WORK, "utils"), exist_ok=True)
+    for tag, (argv, ref) in utils_refs(f, fmd, reads_fa).items():
+        bg.submit(f"{tag}_ref", ref + argv, os.path.join(WORK, "utils", f"{tag}_ref.out"))
+
+
+def same_output(bg: Background, argv: list[str], port_out: str, tag: str) -> tuple[float, bytes, str]:
+    """The reference's output for `tag` (`submit_utils_refs`; its wall
+    seconds, measured in the background) against the port's already in
+    `port_out`; fails unless byte-equal.  Returns (seconds, the reference's
+    bytes, its stderr)."""
+    ref_s, ref_err = bg.result(f"{tag}_ref")
+    want, got = open(os.path.join(WORK, "utils", f"{tag}_ref.out"), "rb").read(), open(port_out, "rb").read()
     if got != want:
         fail(f"port {' '.join(argv[:1])} differs from `python -m ropebwt3_tpu {' '.join(argv[:1])}`: {first_diff(got, want)}")
     return ref_s, want, ref_err
@@ -1610,6 +1802,40 @@ def port_path(cli, argv: list[str], tag: str, counters) -> tuple[float, str, str
     return port_s, port_out, err.getvalue()
 
 
+@contextlib.contextmanager
+def rb_rows_chosen():
+    """RB3TPU_DEVICE_OCC=rb for the commands run inside: the row chooser
+    (cli.occ_rows) takes rb rows, as it does where dense ones would not fit
+    the card."""
+    old = os.environ.get("RB3TPU_DEVICE_OCC")
+    os.environ["RB3TPU_DEVICE_OCC"] = "rb"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RB3TPU_DEVICE_OCC"]
+        else:
+            os.environ["RB3TPU_DEVICE_OCC"] = old
+
+
+def rb_path(cli, argv: list[str], tag: str, counters, want: bytes, log_line: str) -> tuple[float, dict, dict]:
+    """`argv` through the port's cli.main on rb rows (rb_rows_chosen),
+    counts reset before and read after; fails unless its stdout equals
+    `want`, the reference bytes the dense run fetched, its stderr names the
+    rb32 rows and `log_line`, the first kernel of `counters` launched on
+    rb32 and the others not at all.  Returns (wall seconds, the first
+    kernel's launches, the pieces)."""
+    with rb_rows_chosen():
+        port_s, port_out, err = port_path(cli, argv, tag, counters)
+    launches, others = dict(counters[0].launches), [dict(c.launches) for c in counters[1:]]
+    got = open(port_out, "rb").read()
+    if got != want:
+        fail(f"port {argv[0]} on rb rows differs from `python -m ropebwt3_tpu {argv[0]}`: {first_diff(got, want)}")
+    if "occ layout rb32 (block size S " not in err or log_line not in err or not launches.get("rb32") or any(others):
+        fail(f"{argv[0]} on rb rows: no rb32 rows or launch logged ({launches}; others {others}): {err[-800:]}")
+    return port_s, launches, pieces_of(err, argv[0])
+
+
 def retrieve_passes(walk, x, k, m: int, S: int) -> tuple[list[float], tuple]:
     """K11's walk of the ks `k` at stride S with CUDA events around each
     pass: (ms of passes 1-4, the walk's result)."""
@@ -1622,7 +1848,8 @@ def retrieve_passes(walk, x, k, m: int, S: int) -> tuple[list[float], tuple]:
             ev[4].elapsed_time(ev[5])], out
 
 
-def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict) -> dict:
+def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict,
+                bg: Background) -> dict:
     """`get`, `suffix` and `kount` through cli.main on bench.py's index
     (counts reset before, read after), `fa2line` and `fa2kmer` of the
     genomes and `tools call` on `sw --all-e2e` of a haplotype's k-mers
@@ -1642,16 +1869,22 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
 
     f = cli.load_index(fmd)
     res = {}
+    refs = utils_refs(f, fmd, reads_fa)
+    # the host converters of the genomes, both packages', meanwhile (checked at the end)
+    tools = {tag: ([tag, fa], "ropebwt3_tpu_torch") for tag in ("fa2line", "fa2kmer")}
+    for tag, (targv, module) in tools.items():
+        for pkg, who in ((module, "port"), (module.replace("ropebwt3_tpu_torch", "ropebwt3_tpu"), "ref")):
+            bg.submit(f"{tag}_{who}", [sys.executable, "-m", pkg, *targv], os.path.join(WORK, "utils", f"{tag}_{who}.out"))
     # ---- get: the 32 sequences from their sentinel rows, 0 again, n - 1, n
     m = int(f.acc[1])
-    ks = list(range(m)) + [0, f.n - 1, f.n]
-    argv = ["get", fmd, *map(str, ks)]
+    argv = refs["get"][0]
+    ks = [int(k) for k in argv[2:]]
     port_s, port_out, err = port_path(cli, argv, "get", [walk.retrieve_cuda])
     get_pieces = pieces_of(err, "get")
     get_launches = dict(walk.retrieve_cuda.launches)
     if get_launches.get("dense32", 0) != 1 or "1 retrieve_seg walks (dense32)" not in err:
         fail(f"get: not one dense32 retrieve_seg walk ({get_launches})")
-    ref_s, want, ref_err = same_output(argv, port_out, "get", [sys.executable, "-c", GET_REFERENCE])
+    ref_s, want, ref_err = same_output(bg, argv, port_out, "get")
     valid = [k for k in ks if 0 <= k < f.n]
     lens = [len(ln) for ln in want.split(b"\n")[1::2]]
     mt = re.search(r"native walks (\d+) ([0-9.e-]+)", ref_err)
@@ -1661,14 +1894,19 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
     S = walk.walk_stride(f.n, m, len(valid), dev)
     heads = walk.heads_only(f.n)
     say(f"[utils] get of {len(ks)} positions ({len(valid)} walks, longest {max(lens)} steps): stdout byte-equal to "
-        f"`python -m ropebwt3_tpu get`; walks {get_launches} at S {S}; port in-process {port_s:.3f} s, reference "
-        f"{ref_s:.3f} s (a subprocess), its native walks {native_walk:.3f} s a walk (the mean of {len(valid)}, "
-        f"timed inside it); port by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in get_pieces.items()) + f" ({card})")
+        f"`python -m ropebwt3_tpu get`; walks {get_launches} at segment stride {S}; port in-process {port_s:.3f} s, "
+        f"reference {ref_s:.3f} s (a subprocess, in the background), its native walks {native_walk:.3f} s a walk (the mean of "
+        f"{len(valid)}, timed inside it); port by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in get_pieces.items())
+        + f" ({card})")
+    rb_s, rb_get, rb_pieces = rb_path(cli, argv, "get_rb", [walk.retrieve_cuda], want, "1 retrieve_seg walks (rb32)")
+    say(f"[utils] get on rb rows (RB3TPU_DEVICE_OCC=rb): stdout byte-equal; walks {rb_get}; port in-process "
+        f"{rb_s:.3f} s; by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in rb_pieces.items()) + f" ({card})")
     # K11 over the whole get walk: the kernel's symbols, end rows and records
-    # in both layouts against one retrieve_seg_plain on the card (dense32
-    # rows: the walk is the layout's function, and the plain walk takes ~12
-    # s); the passes timed K11_REPS times; on dense32, the heads-only walk
-    # (one thread a walk) in the same call
+    # in every layout against one retrieve_seg_plain on the card (dense32
+    # rows: the walk is the BWT's function, whatever the rows, and the plain
+    # walk takes ~12 s); the passes timed K11_REPS times; on dense32, the
+    # heads-only walk (one thread a walk) in the same call; on rb rows,
+    # pass 1's time a row
     k, _ = walk.check_retrieve(idxs["dense32"], valid, S, kernel=True)
     t0 = time.perf_counter()
     w_seqs, w_ends, w_rec = walk.retrieve_seg_plain(idxs["dense32"], valid, S)
@@ -1680,8 +1918,9 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
     writes = (nxt < 0) & (terms[j] == term) & (d - length < lmax[j]) & (length > 0)
     longest1, longest3 = int(length.max()), int(length[writes].max())
     n_seg = walk.segments(f.n, m, len(valid), S)
-    for lay in ("dense32", "dense64"):
+    for lay in LAYOUTS:
         x = idxs[lay]
+        is_rb = lay.startswith("rb")
         seqs, ends, rec = walk.launch_retrieve(x, k, m, S)
         torch.cuda.synchronize()
         err = max([max_abs(rec, w_rec), int(np.abs(ends - w_ends).max())]
@@ -1701,39 +1940,51 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
             del h_seqs
         rows = (f.n + 63) // 64
         mega = (((rows - 1) >> x.mega_shift) + 1) * 48 if x.int64 else 0
+        table = x.nbytes if is_rb else rows * 48 + mega
+        step = RB_ROUNDS * ns[lay] if is_rb else ns[LAT_48MB]  # an rb step: the header, then its second round
         totals = [sum(p) for p in runs]
+        pass1 = sum(p[0] for p in runs) / len(runs)
         res[f"retrieve_seg_{lay}"] = r = dict(
             err=err, S=S, n_seg=n_seg, rounds=walk.jump_rounds(n_seg, len(valid)), ms=sum(totals) / len(totals),
             walk_ms=totals, pass_ms=runs, plain_ms=plain_ms, plain_rows="dense32",
-            bound_ms=bound_ms(rows * 48 + mega + sum(lens) + 2 * nbytes(k)),
-            chain_floor_ms=(longest1 + longest3) * ns[LAT_48MB] / 1e6, longest_pass1=longest1,
-            longest_pass3=longest3, walk_steps=sum(lens), lanes=len(valid), launches=get_launches.get(lay, 0),
-            native_walk_s_a_walk=native_walk, get_port_s=port_s, get_reference_s=ref_s, get_pieces=get_pieces)
+            bound_ms=bound_ms(table + sum(lens) + 2 * nbytes(k)), table_bytes=table,
+            chain_floor_ms=(longest1 + longest3) * step / 1e6, longest_pass1=longest1,
+            longest_pass3=longest3, walk_steps=sum(lens), lanes=len(valid),
+            launches=(rb_get if is_rb else get_launches).get(lay, 0),
+            path="get (RB3TPU_DEVICE_OCC=rb)" if is_rb else "get", pass1_ns_a_row=pass1 * 1e6 / f.n,
+            pass1_s_at_human100=pass1 / f.n * HUMAN100_N / 1e3,
+            native_walk_s_a_walk=native_walk, get_port_s=rb_s if is_rb else port_s, get_reference_s=ref_s,
+            get_pieces=rb_pieces if is_rb else get_pieces)
         if lay == "dense32":
             r.update(heads_only_ms=sum(head_passes), heads_only_pass_ms=head_passes,
                      heads_only_chain_floor_ms=2 * max(lens) * ns[LAT_48MB] / 1e6)
         say(f"[utils] {lay}: retrieve_seg exact vs retrieve_seg_plain over the whole get walk ({len(valid)} heads, "
-            f"{sum(lens)} symbols; S {S}, {n_seg} segments, {r['rounds']} jump rounds; symbols, end rows and "
-            f"segment records): kernel " + " / ".join(f"{t:.4f}" for t in totals) + " ms (passes 1-4: "
+            f"{sum(lens)} symbols; segment stride {S}, {n_seg} segments, {r['rounds']} jump rounds; symbols, end "
+            f"rows and segment records): kernel " + " / ".join(f"{t:.4f}" for t in totals) + " ms (passes 1-4: "
             + "; ".join(", ".join(f"{p:.4f}" for p in run) for run in runs) + f"); plain on the card (dense32 rows) "
-            f"{plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms; chain floor {r['chain_floor_ms']:.4f} ms (longest "
-            f"segment {longest1} + {longest3} steps at {ns[LAT_48MB]} ns){heads_note}; the native walk "
-            f"{native_walk * 1e3:.3f} ms a walk ({card})")
+            f"{plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms ({table} B of tables); chain floor "
+            f"{r['chain_floor_ms']:.4f} ms (longest segment {longest1} + {longest3} steps at {step:.1f} ns){heads_note}; "
+            f"pass 1 {r['pass1_ns_a_row']:.3f} ns a row ({r['pass1_s_at_human100']:.1f} s at {HUMAN100_N} symbols); the "
+            f"native walk {native_walk * 1e3:.3f} ms a walk ({card})")
         del seqs, rec
     del w_seqs, w_rec
 
     # ---- suffix: every read
-    argv = ["suffix", fmd, reads_fa]
+    argv = refs["suffix"][0]
     port_s, port_out, err = port_path(cli, argv, "suffix", [walk.suffix_cuda])
     sfx_launches = dict(walk.suffix_cuda.launches)
     sfx_pieces = pieces_of(err, "suffix")
     if sfx_launches.get("dense32", 0) < 1 or f"{sfx_launches['dense32']} suffix_walk launches (dense32)" not in err:
         fail(f"suffix: no dense32 suffix_walk launch ({sfx_launches})")
-    ref_s, want, _ = same_output(argv, port_out, "suffix")
+    ref_s, want, _ = same_output(bg, argv, port_out, "suffix")
     say(f"[utils] suffix of {len(reads)} reads: stdout byte-equal to `python -m ropebwt3_tpu suffix`; launches "
         f"{sfx_launches}; port in-process {port_s:.3f} s (by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in
                                                                              sfx_pieces.items())
-        + f"), reference {ref_s:.3f} s ({card})")
+        + f"), reference {ref_s:.3f} s (in the background) ({card})")
+    sfx_rb_s, sfx_rb, sfx_rb_pieces = rb_path(cli, argv, "suffix_rb", [walk.suffix_cuda], want,
+                                              "suffix_walk launches (rb32)")
+    say(f"[utils] suffix on rb rows (RB3TPU_DEVICE_OCC=rb): stdout byte-equal; launches {sfx_rb}; port in-process "
+        f"{sfx_rb_s:.3f} s; by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in sfx_rb_pieces.items()) + f" ({card})")
     flat, off = (torch.from_numpy(a).to(dev) for a in smem.pack_reads(reads))
     for lay, x in idxs.items():
         is_rb = lay.startswith("rb")
@@ -1761,8 +2012,9 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
         res[f"suffix_walk_{lay}"] = r = dict(
             err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(table + nbytes(flat, off, *got)), table_bytes=table,
             chain_floor_ms=steps * (RB_ROUNDS * ns[lay] if is_rb else ns[LAT_48MB]) / 1e6, longest_steps=steps,
-            regs=occ["regs"], blocks_per_sm=occ["blocks_per_sm"],
-            launches=sfx_launches.get(lay, 0), suffix_port_s=port_s, suffix_reference_s=ref_s, suffix_pieces=sfx_pieces)
+            regs=occ["regs"], blocks_per_sm=occ["blocks_per_sm"], launches=(sfx_rb if is_rb else sfx_launches).get(lay, 0),
+            path="suffix (RB3TPU_DEVICE_OCC=rb)" if is_rb else "suffix", suffix_port_s=sfx_rb_s if is_rb else port_s,
+            suffix_reference_s=ref_s, suffix_pieces=sfx_rb_pieces if is_rb else sfx_pieces)
         say(f"[utils] {lay}: suffix_walk exact vs suffix_plain on {len(reads)} reads; {ms:.4f} ms vs plain "
             f"{plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms ({table} B of tables read), chain floor "
             f"{r['chain_floor_ms']:.4f} ms (longest read {steps} steps); counted on the plain walk's "
@@ -1776,11 +2028,11 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
     # node-major cat([k, l]), occ_rank1a of the symbol-major one, kount_rank);
     # at the widest level kount_rank against kount_rank_plain on the card,
     # dense32 and dense64, and on random unsorted (k, l) at that width
-    argv = ["kount", "-k", str(KOUNT_K), "-m", str(KOUNT_M), fmd]
+    argv = refs["kount"][0]
     port_s, port_out, err = port_path(cli, argv, "kount", [kount.kount_rank_cuda, rank.rank1a_cuda])
     kount_launches, rank_launches = dict(kount.kount_rank_cuda.launches), dict(rank.rank1a_cuda.launches)
     kount_pieces = pieces_of(err, "kount")
-    ref_s, want, _ = same_output(argv, port_out, "kount")
+    ref_s, want, _ = same_output(bg, argv, port_out, "kount")
     nodes = want.count(b"\n")
     m = re.search(r"(\d+) kount_rank launches \(dense32\), the widest of (\d+) nodes", err)
     if nodes < KOUNT_MIN_NODES or kount_launches != {"dense32": KOUNT_K} or sum(rank_launches.values()) or m is None \
@@ -1788,6 +2040,13 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
         fail(f"kount: {nodes} k-mers (at least {KOUNT_MIN_NODES} wanted), kount_rank launches {kount_launches} "
              f"({KOUNT_K} dense32 wanted), occ_rank1a launches {rank_launches} (none wanted)")
     width = int(m.group(2))
+    kount_rb_s, kount_rb, kount_rb_pieces = rb_path(cli, argv, "kount_rb", [kount.kount_rank_cuda, rank.rank1a_cuda],
+                                                    want, f"{KOUNT_K} kount_rank launches (rb32), the widest of {width}")
+    if kount_rb != {"rb32": KOUNT_K}:
+        fail(f"kount on rb rows: kount_rank launches {kount_rb} ({KOUNT_K} rb32 wanted, no occ_rank1a)")
+    say(f"[utils] kount on rb rows (RB3TPU_DEVICE_OCC=rb): stdout byte-equal; launches {kount_rb}; port in-process "
+        f"{kount_rb_s:.3f} s; by piece: " + ", ".join(f"{k} {v:.3f} s" for k, v in kount_rb_pieces.items())
+        + f" ({card})")
     x = idxs["dense32"]
     levels, frontiers = kount_time.levels(x, KOUNT_K, KOUNT_M, log=lambda line: say(f"[utils] kount {line} ({card})"))
     w = max(range(len(levels)), key=lambda d: levels[d]["nodes"])
@@ -1800,8 +2059,9 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
     mean = {v: sum(t) / len(t) for v, t in levels[w]["ms"].items()}
     res["kount"] = kr = dict(nodes=nodes, launches=kount_launches, occ_rank1a_launches=rank_launches, port_s=port_s,
                              reference_s=ref_s, pieces=kount_pieces, widest_level=w, widest_nodes=width, levels=levels,
-                             widest_ms=mean, widest_bound_ms=levels[w]["bound_ms"])
-    for lay in ("dense32", "dense64"):
+                             widest_ms=mean, widest_bound_ms=levels[w]["bound_ms"], rb_launches=kount_rb,
+                             rb_port_s=kount_rb_s, rb_pieces=kount_rb_pieces)
+    for lay in LAYOUTS:
         xi = idxs[lay]
         k, l = kw.to(xi.dtype), lw.to(xi.dtype)
         got = kount.kount_rank_cuda(xi, k, l)
@@ -1816,19 +2076,27 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
             fail(f"kount_rank {lay}: off by {err} on kount's widest level, by {rand_err} on random (k, l), against "
                  f"kount_rank_plain")
         ok, size = (torch.empty_like(t) for t in got)
-        st = kount_time.level_stats(xi, k, l, perm)
         ms = mean["C"] if lay == "dense32" else probe.queued_ms(
             [lambda: kount.launch_kount_rank(xi, k, l, ok, size)] * kount_time.REPS)
-        kr[lay] = dict(err=err, random_err=rand_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(st["bytes"]["C"]),
-                       rows=st["rows"], row_fetches=st["warp_rows"]["C"])
+        if lay.startswith("rb"):  # the 32-B sectors of the rb tables that the ranks at k and l read
+            table = table_bytes(rank, xi, torch.cat([k, l]))
+            kr[lay] = dict(err=err, random_err=rand_err, ms=ms, plain_ms=plain_ms, table_bytes=table,
+                           bound_ms=bound_ms(table + nbytes(k, l, *got)))
+            note = f"{table} B of rb sectors"
+        else:
+            st = kount_time.level_stats(xi, k, l, perm)
+            kr[lay] = dict(err=err, random_err=rand_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(st["bytes"]["C"]),
+                           rows=st["rows"], row_fetches=st["warp_rows"]["C"])
+            note = f"{st['rows']} rows, {st['warp_rows']['C']} row fetches"
+        kr[lay]["launches"] = (kount_rb if lay.startswith("rb") else kount_launches).get(lay, 0)
         say(f"[utils] kount_rank {lay}: exact vs kount_rank_plain on kount's widest level ({width} nodes, level {w}) "
             f"and on {width} random unsorted (k, l); {ms:.4f} ms vs plain {plain_ms:.1f} ms, bound "
-            f"{kr[lay]['bound_ms']:.4f} ms ({st['rows']} rows, {st['warp_rows']['C']} row fetches) ({card})")
+            f"{kr[lay]['bound_ms']:.4f} ms ({note}) ({card})")
         del got, want_t, rk, rl, ok, size
     say(f"[utils] kount -k {KOUNT_K} -m {KOUNT_M}: stdout byte-equal to `python -m ropebwt3_tpu kount` ({nodes} "
         f"k-mers: the last level's frontier); kount_rank launches {kount_launches}, occ_rank1a none, the widest of "
         f"{width} nodes; port in-process {port_s:.3f} s (by piece: "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in kount_pieces.items()) + f"), reference {ref_s:.3f} s; widest level: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in kount_pieces.items()) + f"), reference {ref_s:.3f} s (in the background); widest level: "
         f"occ_rank1a node-major {mean['A']:.4f} ms, symbol-major {mean['B']:.4f} ms (bound "
         f"{levels[w]['bound_ms']['A']:.4f}), kount_rank {mean['C']:.4f} ms (bound {levels[w]['bound_ms']['C']:.4f}); "
         f"all {len(levels)} levels: " + ", ".join(f"{v} {sum(sum(lv['ms'][v]) / 2 for lv in levels):.4f}" for v in "ABC")
@@ -1848,21 +2116,24 @@ def check_utils(cli, probe, dev, card: str, fa: str, fmd: str, reads_fa: str, re
         fh.write(name + seq[:TOOLS_BP] + b"\n")
     _, kmers, _ = port_path(cli, ["fa2kmer", "-k101", "-w50", head], "hap17_kmers", [])
     _, sw_e2e, _ = port_path(cli, ["sw", "--all-e2e", fmd, kmers], "hap17_kmers_e2e", [])
-    for tag, argv, module in (("fa2line", ["fa2line", fa], "ropebwt3_tpu_torch"),
-                              ("fa2kmer", ["fa2kmer", fa], "ropebwt3_tpu_torch"),
-                              ("tools_call", ["call", str(TOOLS_HAP), sw_e2e], "ropebwt3_tpu_torch.tools")):
+    tools["tools_call"] = (["call", str(TOOLS_HAP), sw_e2e], "ropebwt3_tpu_torch.tools")
+    for tag, (argv, module) in tools.items():
         port_out = os.path.join(WORK, "utils", f"{tag}_port.out")
-        with open(port_out, "wb") as out:
-            port_s, _ = run([sys.executable, "-m", module, *argv], stdout=out)
         ref_out = os.path.join(WORK, "utils", f"{tag}_ref.out")
-        with open(ref_out, "wb") as out:
-            ref_s, _ = run([sys.executable, "-m", module.replace("ropebwt3_tpu_torch", "ropebwt3_tpu"), *argv], stdout=out)
+        if tag == "tools_call":  # its input comes from this phase's `sw`
+            with open(port_out, "wb") as out:
+                port_s, _ = run([sys.executable, "-m", module, *argv], stdout=out)
+            with open(ref_out, "wb") as out:
+                ref_s, _ = run([sys.executable, "-m", module.replace("ropebwt3_tpu_torch", "ropebwt3_tpu"), *argv],
+                               stdout=out)
+        else:
+            port_s, ref_s = bg.result(f"{tag}_port")[0], bg.result(f"{tag}_ref")[0]
         got, want = open(port_out, "rb").read(), open(ref_out, "rb").read()
         if got != want or not got:
             fail(f"port {tag} differs from the JAX package's: {first_diff(got, want)}")
         res[tag] = dict(port_s=port_s, reference_s=ref_s, bytes=len(got))
         say(f"[utils] {module} {' '.join(argv[:1])}: stdout byte-equal ({len(got)} B); port {port_s:.3f} s, "
-            f"reference {ref_s:.3f} s (subprocesses) ({card})")
+            f"reference {ref_s:.3f} s (subprocesses{', in the background' if tag != 'tools_call' else ''}) ({card})")
     return res
 
 
@@ -2081,7 +2352,7 @@ def mesh_ssa(cli, probe, dev, card: str, f, fmd: str, x, mesh, lat: float) -> di
     return r
 
 
-def mesh_merge(merge, idx, b2, mesh, reps: int, lat: float) -> dict:
+def mesh_merge(merge, idx, b2, mesh, reps: int, lat: float, plain: bool = True) -> dict:
     """One merge of B2's BWT b2 into B1 (its rows idx) with B1's rows sharded
     over `mesh` and mapped into one range (merge_rank_mesh:
     merge_rank_<layout> over the mapped rows, one range a card, each pass a
@@ -2089,8 +2360,10 @@ def mesh_merge(merge, idx, b2, mesh, reps: int, lat: float) -> dict:
     over rank6_sharded_plain on the card and against the unsharded K6; the
     card's two launches, and the 16 launches of the eight slots' ranges,
     timed on buffers made beforehand, and the mesh's whole merge rank (its
-    buffers, launches and merges) beside the unsharded K6, A B B A.  Returns
-    ins and the record."""
+    buffers, launches and merges) beside the unsharded K6, A B B A.  Without
+    `plain`, against the unsharded K6 alone (which [construct] holds against
+    both plain versions and the native walk on the same merge).  Returns ins
+    and the record."""
     import torch
 
     from ropebwt3_tpu_torch.parallel.mesh import ShardedRows, split_segments
@@ -2105,12 +2378,9 @@ def mesh_merge(merge, idx, b2, mesh, reps: int, lat: float) -> dict:
     before = merge.merge_rank_cuda.launches[lay]
     ins, seg = merge.merge_rank_mesh(views, rec, m2, S)
     launches = merge.merge_rank_cuda.launches[lay] - before
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pins, pseg = merge.merge_rank_chunked_plain(views[-1], rec.clone(), m2, S)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
     uins, useg = merge.launch_merge_rank(idx, rec, torch.empty_like(rec), m2, S)
+    (pins, pseg), plain_ms = wall_ms_of(lambda: merge.merge_rank_chunked_plain(views[-1], rec.clone(), m2, S)) \
+        if plain else ((uins, useg), None)
     err = max(max_abs(ins, pins), max_abs(ins, uins))
     if err or not (torch.equal(seg, pseg) and torch.equal(seg, useg)) or launches != 2 * len(mesh.distinct):
         fail(f"[mesh] merge_rank_{lay} (n1={idx.n}, n2={n2}, S={S}) differs from the plain version over "
@@ -2171,7 +2441,7 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
         if bwt is None:
             bwt = b2
             continue
-        ins, r = mesh_merge(merge, OccIndex.from_bwt(bwt), b2, mesh, 3, ns[LAT_48MB])
+        ins, r = mesh_merge(merge, OccIndex.from_bwt(bwt), b2, mesh, 3, ns[LAT_48MB], plain=not merges)
         merged = merge.merge_apply(bwt, b2, ins)
         del ins
         # the merge as `build --mesh` runs it: PyTorch's peak and the mapped slabs' (outside its allocator)
@@ -2224,8 +2494,9 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
         say(f"[mesh] merge_rank_{r['layout']} over the mapped rows (n1={r['n1']}, n2={r['n2']}, m2={r['m2']}, S "
             f"{r['S']}, {r['lanes']} segments, one range a card) over a {mesh.dp}x{mesh.idx} mesh of {dev} (granularity "
             f"{r['granularity']} B, {r['unit']} rows a unit, {r['nb_local']} a slab, {r['mapped_bytes']} B mapped): ins "
-            f"and records exact vs merge_rank_chunked_plain over rank6_sharded_plain on the card ({r['plain_ms']:.1f} "
-            f"ms) and vs the unsharded K6; the card's 2 launches {r['ms']:.4f} ms, the {2 * r['ranges']} launches of "
+            f"and records exact vs " + (f"merge_rank_chunked_plain over rank6_sharded_plain on the card ({r['plain_ms']:.1f} "
+                                        "ms) and vs " if r["plain_ms"] is not None else "")
+            + f"the unsharded K6; the card's 2 launches {r['ms']:.4f} ms, the {2 * r['ranges']} launches of "
             f"the slots' ranges {r['slot_ranges_ms']:.4f} ms; the mesh's merge rank A B B A unsharded {a[0]:.4f}, "
             f"mesh {a[1]:.4f} / {a[2]:.4f}, unsharded {a[3]:.4f} ms; longest segment {r['longest_segment']}, "
             f"hand-over {r['longest_hand_over']} (chain floor {r['chain_floor_ms']:.4f} ms); bound {r['bound_ms']:.4f} "
@@ -2241,7 +2512,7 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
 
 
 def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict,
-               smem_res: dict, want_bed: bytes, f, genomes_fa: str, many_fa: str) -> dict:
+               smem_res: dict, want_bed: bytes, f, genomes_fa: str, many_fa: str, bg: Background) -> dict:
     """[mesh]: the SMEM kernels over rows sharded on a 2x4 mesh of this card
     and mapped into one range (parallel/mesh.py, csrc/vmm.cu), per layout:
     smem_tg and smem_tgc over the mapped rows against their plain version
@@ -2280,7 +2551,7 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
     alanes = smem.chunk_lanes(aoff)
     aorder = smem.lane_order(alanes, aoff)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    res = {}
+    res, plain_ref = {}, None
     for name, x in idxs.items():
         t0 = time.perf_counter()
         sh = ShardedRows(x, mesh)
@@ -2293,16 +2564,16 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         step = RB_ROUNDS * ns[name] if is_rb else ns[LAT_48MB]
         sc1, scc = (SectorCount(v, [x]), SectorCount(v, [x])) if is_rb else (v, v)
         k1 = smem.smem_tg_cuda(v, sflat, soff, trips=True, **args)
-        t0 = time.perf_counter()
-        want1 = smem.smem_tg_plain(sc1, sflat, soff, **args)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t0) * 1e3
-        err1 = chains_err(k1, want1, MAX_MEMS, f"[mesh] smem_tg_{v.layout}")
         kc = smem.smem_tgc_cuda(v, cflat, coff, clanes, trips=True, **args)
-        t0 = time.perf_counter()
-        wantc = smem.smem_tg_plain(scc, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args)
-        torch.cuda.synchronize()
-        cplain = (time.perf_counter() - t0) * 1e3
+        if name in PLAIN_ROWS:  # the chains are the BWT's function: dense32's plain runs over its mapped rows
+            want1, plain, wantc, cplain = plain_ref
+        else:
+            want1, plain = wall_ms_of(lambda: smem.smem_tg_plain(sc1, sflat, soff, **args))
+            wantc, cplain = wall_ms_of(
+                lambda: smem.smem_tg_plain(scc, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args))
+        if name == "dense32":
+            plain_ref = (want1, plain, wantc, cplain)
+        err1 = chains_err(k1, want1, MAX_MEMS, f"[mesh] smem_tg_{v.layout}")
         errc = chains_err(kc, wantc, MAX_MEMS, f"[mesh] smem_tgc_{v.layout}")
         if err1 or errc:
             fail(f"[mesh] {v.layout}: smem_tg off by {err1}, smem_tgc off by {errc} against the plain version")
@@ -2315,7 +2586,7 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         ctables = (scc.bytes()[0] if is_rb else v.nbytes)
         del sc1, scc, want1, wantc
         r = dict(err=err1, cerr=errc, shard_s=shard_s, nb_local=sh.nb_local, nbytes=sh.nbytes, granularity=sh.gran,
-                 unit=sh.unit, mapped_bytes=sh.phys_bytes, plain=plain, cplain=cplain,
+                 unit=sh.unit, mapped_bytes=sh.phys_bytes, plain=plain, cplain=cplain, plain_rows=PLAIN_ROWS.get(name, name),
                  ms=probe.queued_ms([lambda: smem.launch_tg(v, sflat, soff, **args)] * 10),
                  bound=bound_ms(tables + nbytes(sflat, soff, k1.n_mem)
                                 + int(k1.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * k1.mems.element_size()),
@@ -2364,7 +2635,7 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         o = r["occupancy"]
         say(f"[mesh] {v.layout} over a {mesh.dp}x{mesh.idx} mesh of {dev}, mapped ({sh.nb} rows, {sh.nb_local} a slab, "
             f"granularity {sh.gran} B, {sh.unit} rows a unit, {sh.phys_bytes} B mapped, {sh.nbytes} B in all; "
-            f"sharded in {shard_s:.3f} s): smem_tg exact vs plain on {MESH_TG} reads {r['ms']:.4f} ms (plain {plain:.1f} ms, "
+            f"sharded in {shard_s:.3f} s; plain: {plain_note(name)}): smem_tg exact vs plain on {MESH_TG} reads {r['ms']:.4f} ms (plain {plain:.1f} ms, "
             f"bound {r['bound']:.4f}, chain floor {r['floor']:.4f}); smem_tgc exact vs plain on the lanes of "
             f"{MESH_TGC_SHORT} short + {MESH_TGC_LONG} long reads ({clanes.shape[0]} lanes; rows, counts, START logs, "
             f"trips; the other 7 views equal) {r['cms']:.4f} ms (plain {cplain:.1f} ms, bound {r['cbound']:.4f}, chain "
@@ -2376,7 +2647,7 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
                f"to {name}'s: {r['engine_ms']:.1f} ms wall vs {r['engine_unsharded_ms']:.1f}" if "engine_ms" in r else "")
             + f" ({card})")
         del sh, v, k1, kc
-    del sflat, soff, cflat, coff, aflat, aoff, alanes, aorder
+    del sflat, soff, cflat, coff, aflat, aoff, alanes, aorder, plain_ref
 
     # (c) mem --mesh=1x1 through cli.main (the path: counts reset and read) and as a subprocess
     counters = (smem.smem_tg_cuda, smem.smem_tgc_cuda)
@@ -2386,20 +2657,16 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         paths[lay] = mesh_cli(cli, counters, argv, want_bed, lay)
         say(f"[mesh] path `{' '.join(argv[:-2])}` through cli.main: BED byte-equal to --engine=native; launches "
             f"{paths[lay]['launches']}; in-process {paths[lay]['port_s']:.3f} s ({card})")
-    sub_bed = os.path.join(WORK, "port_mesh_subprocess.bed")
-    with open(sub_bed, "wb") as out:
-        sub_s, sub_err = run([sys.executable, "-m", "ropebwt3_tpu_torch", "mem", "--mesh=1x1", f"-l{MIN_LEN}", fmd,
-                              reads_fa], stdout=out)
-    if open(sub_bed, "rb").read() != want_bed:
+    sub_s, sub_err = bg.result("mesh_sub")
+    if open(os.path.join(WORK, MESH_JOBS["mesh_sub"][0]), "rb").read() != want_bed:
         fail("[mesh] `python -m ropebwt3_tpu_torch mem --mesh=1x1` BED differs from --engine=native")
-    say(f"[mesh] `python -m ropebwt3_tpu_torch mem --mesh=1x1 -l{MIN_LEN}`: BED byte-equal, {sub_s:.3f} s; stderr: "
+    say(f"[mesh] `python -m ropebwt3_tpu_torch mem --mesh=1x1 -l{MIN_LEN}` (in the background): BED byte-equal, "
+        f"{sub_s:.3f} s; stderr: "
         + " | ".join(ln for ln in sub_err.strip().splitlines() if "smem_tg launches" in ln or "occ layout" in ln))
 
     # (d) two processes under torchrun on this card, dp 2
-    tr_bed = os.path.join(WORK, "port_mesh_torchrun.bed")
-    with open(tr_bed, "wb") as out:
-        tr_s, tr_err = run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2", "-m",
-                            "ropebwt3_tpu_torch", "mem", "--mesh=2x1", f"-l{MIN_LEN}", fmd, reads_fa], stdout=out)
+    tr_bed = os.path.join(WORK, MESH_JOBS["mesh_tr_mem"][0])
+    tr_s, tr_err = bg.result("mesh_tr_mem")
     if open(tr_bed, "rb").read() != want_bed:
         fail(f"[mesh] torchrun mem --mesh=2x1 BED differs from --engine=native: "
              f"{first_diff(open(tr_bed, 'rb').read(), want_bed)}; stderr {tr_err[-1500:]}")
@@ -2409,8 +2676,8 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
         fail(f"[mesh] torchrun mem --mesh=2x1: {n_launch} processes report dense32 launches, {n_mapped} over the "
              f"mapped rows: {tr_err[-1500:]}")
     say(f"[mesh] `torchrun --standalone --nproc_per_node=2 -m ropebwt3_tpu_torch mem --mesh=2x1 -l{MIN_LEN}` on this "
-        f"card (gloo): BED of process 0 byte-equal to --engine=native, both processes launched dense32 over their "
-        f"mapped rows; "
+        f"card (gloo, in the background): BED of process 0 byte-equal to --engine=native, both processes launched "
+        f"dense32 over their mapped rows; "
         f"{tr_s:.3f} s (one process: {sub_s:.3f} s) ({card})")
 
     # (e) hapdiv and sw over [this card] x 2
@@ -2428,23 +2695,21 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
 
     # (i) ssa under torchrun: two processes on this card, dp 2, each writes its own file
     outs = [os.path.join(WORK, f"ssa_torchrun_p{r}") for r in range(2)]
-    cmd = (f"exec {sys.executable} -m ropebwt3_tpu_torch ssa --mesh=2x1 -o {WORK}/ssa_torchrun_p$RANK.ssa {fmd} "
-           f"> {WORK}/ssa_torchrun_p$RANK.out")
-    trs_s, trs_err = run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
-                          "--no-python", "bash", "-c", cmd])
+    trs_s, trs_err = bg.result("mesh_tr_ssa")
     for r, o in enumerate(outs):
         same_file(o + ".ssa", os.path.join(WORK, "ssa_bench_ref.ssa"), f"torchrun `ssa --mesh=2x1`, process {r}")
     if open(outs[1] + ".out", "rb").read() or len(re.findall(r"[1-9]\d* ssa_gen range launches \(dense32\)", trs_err)) != 2:
         fail(f"[mesh] torchrun ssa --mesh=2x1: process 1 wrote stdout, or not both processes launched: {trs_err[-1500:]}")
     say(f"[mesh] `torchrun --standalone --nproc_per_node=2 -m ropebwt3_tpu_torch ssa --mesh=2x1 -o pRANK.ssa` on this "
-        f"card (gloo): both files byte-equal to `python -m ropebwt3_tpu ssa`'s, process 1's stdout empty, both "
+        f"card (gloo, in the background): both files byte-equal to `python -m ropebwt3_tpu ssa`'s, process 1's stdout "
+        f"empty, both "
         f"processes launched their range; {trs_s:.3f} s ({card})")
 
     # (j) an idx axis across processes: torchrun, two processes on this card, --mesh=1x2 (one dp row, a slot each):
     # each process creates and fills its slab, exports it (a POSIX fd of the VMM allocation) and maps the other's
-    across = mesh_across(fmd, reads_fa, want_bed, genomes_fa)
+    across = mesh_across(bg, fmd, want_bed)
     say(f"[mesh] idx across processes (`torchrun --standalone --nproc_per_node=2`, --mesh=1x2, one slab a process, "
-        f"each mapping the other's): `mem -l{MIN_LEN}` BED byte-equal to --engine=native, {across['mem']['s']:.3f} s "
+        f"each mapping the other's; in the background): `mem -l{MIN_LEN}` BED byte-equal to --engine=native, {across['mem']['s']:.3f} s "
         f"(one process, `mem --mesh=1x1`: {sub_s:.3f} s; two, `--mesh=2x1`: {tr_s:.3f} s); `build -m {CONSTRUCT_M}` "
         f"both FMDs byte-equal to the index build, {across['build']['s']:.3f} s (one process, `build -m {CONSTRUCT_M} "
         f"--mesh=1x1` in-process: {build_r['path_s']:.3f} s); `ssa` both files byte-equal, {across['ssa']['s']:.3f} s "
@@ -2488,7 +2753,34 @@ def shared_s(stderr: str) -> list[float]:
     return [float(x) for x in re.findall(r"slabs shared across \d+ processes in ([\d.]+) s", stderr)]
 
 
-def mesh_across(fmd: str, reads_fa: str, want_bed: bytes, genomes_fa: str) -> dict:
+def submit_mesh_jobs(bg: Background, fmd: str, reads_fa: str, genomes_fa: str) -> None:
+    """Starts [mesh]'s subprocesses in the background once their references
+    exist (the native BED of [mem], the SSA of [ssa]): `mem --mesh=1x1` as
+    a one-shot process, `mem` and `ssa` with --mesh=2x1 under torchrun, and
+    `mesh_across`'s three --mesh=1x2 runs."""
+    tr = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2"]
+    port = [sys.executable, "-m", "ropebwt3_tpu_torch"]
+    cmds = {
+        "mesh_sub": port + ["mem", "--mesh=1x1", f"-l{MIN_LEN}", fmd, reads_fa],
+        "mesh_tr_mem": tr + ["-m", "ropebwt3_tpu_torch", "mem", "--mesh=2x1", f"-l{MIN_LEN}", fmd, reads_fa],
+        "mesh_tr_ssa": tr + ["--no-python", "bash", "-c", f"exec {sys.executable} -m ropebwt3_tpu_torch ssa --mesh=2x1 "
+                             f"-o {WORK}/ssa_torchrun_p$RANK.ssa {fmd} > {WORK}/ssa_torchrun_p$RANK.out"],
+        "across_mem": tr + ["-m", "ropebwt3_tpu_torch", "mem", "--mesh=1x2", f"-l{MIN_LEN}", fmd, reads_fa],
+        "across_build": tr + ["--no-python", "bash", "-c", f"exec {sys.executable} -m ropebwt3_tpu_torch build -m "
+                              f"{CONSTRUCT_M} --mesh=1x2 -do {WORK}/build_across_p$RANK.fmd {genomes_fa}"],
+        "across_ssa": tr + ["--no-python", "bash", "-c", f"exec {sys.executable} -m ropebwt3_tpu_torch ssa --mesh=1x2 "
+                            f"-o {WORK}/ssa_across_p$RANK.ssa {fmd} > {WORK}/ssa_across_p$RANK.out"],
+    }
+    for key, cmd in cmds.items():
+        out = MESH_JOBS.get(key, (None,))[0]
+        bg.submit(key, cmd, os.path.join(WORK, out) if out else None)
+
+
+MESH_JOBS = {"mesh_sub": ("port_mesh_subprocess.bed",), "mesh_tr_mem": ("port_mesh_torchrun.bed",),
+             "across_mem": ("port_mesh_across.bed",)}  # the jobs' stdout files under WORK
+
+
+def mesh_across(bg: Background, fmd: str, want_bed: bytes) -> dict:
     """[mesh] (j): `mem`, `build -m 16M` and `ssa` with --mesh=1x2 under
     torchrun, two processes on this card: one dp row whose idx axis spans
     the processes, each slab created and filled by its owner, exported as
@@ -2499,13 +2791,12 @@ def mesh_across(fmd: str, reads_fa: str, want_bed: bytes, genomes_fa: str) -> di
     log names the slab it imported and its launches over the range (mem:
     smem_tgc dense32 over a mapping with one imported slab; build:
     merge_rank; ssa: replicated rows, so no slab, and its range launch).
-    Returns per command the wall, each process's imports (mem: its slab;
-    build: one a merge whose slab has rows) and launches."""
-    tr = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2"]
+    The runs are `submit_mesh_jobs`'.  Returns per command the wall, each
+    process's imports (mem: its slab; build: one a merge whose slab has
+    rows) and launches."""
     out = {}
-    bed = os.path.join(WORK, "port_mesh_across.bed")
-    with open(bed, "wb") as fh:
-        s_, err = run(tr + ["-m", "ropebwt3_tpu_torch", "mem", "--mesh=1x2", f"-l{MIN_LEN}", fmd, reads_fa], stdout=fh)
+    bed = os.path.join(WORK, MESH_JOBS["across_mem"][0])
+    s_, err = bg.result("across_mem")
     if open(bed, "rb").read() != want_bed:
         fail(f"[mesh] torchrun mem --mesh=1x2 BED differs from --engine=native: "
              f"{first_diff(open(bed, 'rb').read(), want_bed)}; stderr {err[-1500:]}")
@@ -2520,9 +2811,7 @@ def mesh_across(fmd: str, reads_fa: str, want_bed: bytes, genomes_fa: str) -> di
              f"{one_imported} mappings with one imported slab (two of each expected): {err[-2500:]}")
     out["mem"] = dict(s=s_, launches=[int(c) for _, c in launches], share_s=shared_s(err),
                       imported=[f"slab {sl} ({b} B) from process {o}" for sl, b, o in sorted(imported, reverse=True)])
-    cmd = (f"exec {sys.executable} -m ropebwt3_tpu_torch build -m {CONSTRUCT_M} --mesh=1x2 -do "
-           f"{WORK}/build_across_p$RANK.fmd {genomes_fa}")
-    s_, err = run(tr + ["--no-python", "bash", "-c", cmd])
+    s_, err = bg.result("across_build")
     for r in range(2):
         same_file(f"{WORK}/build_across_p{r}.fmd", fmd, f"torchrun `build -m {CONSTRUCT_M} --mesh=1x2`, process {r}")
     n_merge = err.count("merge rank over dense32 rows sharded over a 1x2 mesh")
@@ -2534,9 +2823,7 @@ def mesh_across(fmd: str, reads_fa: str, want_bed: bytes, genomes_fa: str) -> di
              f"{launches}: {err[-2500:]}")
     out["build"] = dict(s=s_, imported=[f"{imp[r]} slab(s) over {n_merge // 2} merges" for r in range(2)],
                         launches=launches, share_s=shared_s(err))
-    cmd = (f"exec {sys.executable} -m ropebwt3_tpu_torch ssa --mesh=1x2 -o {WORK}/ssa_across_p$RANK.ssa {fmd} "
-           f"> {WORK}/ssa_across_p$RANK.out")
-    s_, err = run(tr + ["--no-python", "bash", "-c", cmd])
+    s_, err = bg.result("across_ssa")
     for r in range(2):
         same_file(f"{WORK}/ssa_across_p{r}.ssa", os.path.join(WORK, "ssa_bench_ref.ssa"),
                   f"torchrun `ssa --mesh=1x2`, process {r}")
@@ -2572,7 +2859,7 @@ def main(argv: list[str]) -> None:
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     import ropebwt3_tpu_torch
     from ropebwt3_tpu_torch import cli, corpus, kernels, probe, sa_time, ssa_ops
-    from ropebwt3_tpu_torch.ops import rank, runblock, smem
+    from ropebwt3_tpu_torch.ops import kount, rank, runblock, smem
 
     if os.path.dirname(os.path.abspath(ropebwt3_tpu_torch.__file__)) != os.path.join(ROOT, "ropebwt3_tpu_torch"):
         fail(f"imported ropebwt3_tpu_torch from {ropebwt3_tpu_torch.__file__}, not from this checkout")
@@ -2587,6 +2874,9 @@ def main(argv: list[str]) -> None:
     say(card)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     counters = (rank.rank1a_cuda, rank.extend_c_cuda, smem.smem_tg_cuda, smem.smem_tgc_cuda)
+    bg, side = Background(), Background()  # the references' lane; the port's one-shot and torchrun runs'
+    atexit.register(bg.stop)
+    atexit.register(side.stop)
 
     # ---- build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2640,7 +2930,9 @@ def main(argv: list[str]) -> None:
 
     # ---- construct -----------------------------------------------------------
     many_fa = write_fasta(os.path.join(WORK, "many", "reads.fa"), reads[:N_READS])
-    con = check_construct(cli, sa_time, dev, card, fa, fmd, many_fa, build_index(many_fa))
+    submit_construct_refs(bg, fa, many_fa)
+    submit_utils_refs(bg, f, fmd, reads_fa)
+    con = check_construct(cli, sa_time, dev, card, fa, fmd, many_fa, build_index(many_fa), bg, side)
     phase_done("construct")
 
     # ---- rank ----------------------------------------------------------------
@@ -2658,9 +2950,11 @@ def main(argv: list[str]) -> None:
             fail(f"{name}: rank1a(n) is not the symbol totals")
         say(
             f"[rank] {name}: exact on {N_CHECK} positions and {N_CHECK} intervals; occ_rank1a {r['rank_ms']:.4f} ms "
-            f"vs plain {r['rank_plain']:.4f} ms; occ_extend_c {r['ext_ms']:.4f} ms vs plain {r['ext_plain']:.4f} ms ({card})"
+            f"vs plain {r['rank_plain']:.4f} ms; occ_extend_c {r['ext_ms']:.4f} ms vs plain {r['ext_plain']:.4f} ms; "
+            f"occ_lf on the {r['lf_positions']} below n {r['lf_ms']:.4f} ms vs plain {r['lf_plain']:.4f} ms, bound "
+            f"{r['lf_bound']:.4f} ms ({card})"
         )
-        del r["got"]
+        del r["got"], r["lf_got"]
     phase_done("rank")
 
     # ---- rank64 --------------------------------------------------------------
@@ -2690,15 +2984,47 @@ def main(argv: list[str]) -> None:
     r64 = check_occ_kernels(rank, x64, torch.from_numpy(k64).to(dev), ik64, c, back, 2)
     indep = run_length_rank(syms, lens, k64)
     ind_err = int(np.abs(r64.pop("got").cpu().numpy() - indep).max())
-    if ind_err:
-        fail(f"rank64: occ_rank1a differs from the run-length rank by up to {ind_err}")
-    del syms, lens, indep
+    # occ_lf at the positions below n: the symbol of the run that holds k,
+    # LF(k) = acc[c] + its run-length rank
+    below = k64 < N64
+    lf_c, lf_nk = (t.cpu().numpy() for t in r64.pop("lf_got"))
+    want_c = syms[np.searchsorted(np.cumsum(lens) - lens, k64[below], side="right") - 1].astype(np.int64)
+    acc64 = np.concatenate([[0], np.cumsum(np.bincount(syms, weights=lens, minlength=6).astype(np.int64))])
+    want_nk = acc64[want_c] + np.take_along_axis(indep[below], want_c[:, None], 1)[:, 0]
+    lf_ind_err = max(int(np.abs(lf_c - want_c).max()), int(np.abs(lf_nk - want_nk).max()))
+    if ind_err or lf_ind_err:
+        fail(f"rank64: occ_rank1a differs from the run-length rank by up to {ind_err}, occ_lf by {lf_ind_err}")
+    # kount_rank on random intervals, and intervals from the special
+    # positions, against the plain version and the run-length rank at both ends
+    ka = np.concatenate([special[special < N64], rng.integers(0, N64 + 1, N_CHECK // 4)])
+    kb = np.minimum(N64, ka + np.concatenate([rng.integers(0, 1 << 14, len(ka) - N_CHECK // 4),
+                                              rng.integers(0, 1 << 34, N_CHECK // 4)]))
+    kt, lt = (torch.from_numpy(v.astype(np.int64)).to(dev) for v in (ka, kb))
+    kr_got = kount.kount_rank_cuda(x64, kt, lt)
+    kr_err = max(max_abs(a, b) for a, b in zip(kr_got, kount.kount_rank_plain(x64, kt, lt)))
+    rk, rl = run_length_rank(syms, lens, ka), run_length_rank(syms, lens, kb)
+    kr_ind_err = max(int(np.abs(kr_got[0].cpu().numpy() - rk[:, 1:5].T).max()),
+                     int(np.abs(kr_got[1].cpu().numpy() - (rl - rk)[:, 1:5].T).max()))
+    if kr_err or kr_ind_err:
+        fail(f"rank64: kount_rank_rb64 off by {kr_err} against kount_rank_plain, by {kr_ind_err} against the "
+             "run-length rank")
+    rank64_kount = dict(err=kr_err, run_length_err=kr_ind_err, intervals=len(ka),
+                        ms=cuda_ms(lambda: kount.kount_rank_cuda(x64, kt, lt), 10),
+                        plain_ms=cuda_ms(lambda: kount.kount_rank_plain(x64, kt, lt), 2),
+                        bound_ms=bound_ms(table_bytes(rank, x64, torch.cat([kt, lt])) + nbytes(kt, lt, *kr_got)))
+    r64["lf_run_length_err"] = lf_ind_err
+    del syms, lens, indep, rk, rl, kr_got
     say(
         f"[rank64] exact on {N_CHECK} positions (vs plain and vs the run-length rank) and {N_CHECK} intervals; "
         f"occ_rank1a {r64['rank_ms']:.4f} ms vs plain {r64['rank_plain']:.4f} ms; occ_extend_c {r64['ext_ms']:.4f} ms "
-        f"vs plain {r64['ext_plain']:.4f} ms ({card})"
+        f"vs plain {r64['ext_plain']:.4f} ms; occ_lf_rb64 on the {r64['lf_positions']} positions below n (2^31, 2^32 "
+        f"and their neighbours among them) exact vs plain and vs the runs, {r64['lf_ms']:.4f} ms vs plain "
+        f"{r64['lf_plain']:.4f} ms, bound {r64['lf_bound']:.4f} ms; kount_rank_rb64 on {len(ka)} intervals (from the "
+        f"special positions, and random) exact vs plain and vs the run-length rank at both ends, "
+        f"{rank64_kount['ms']:.4f} ms vs plain {rank64_kount['plain_ms']:.4f} ms, bound {rank64_kount['bound_ms']:.4f} "
+        f"ms ({card})"
     )
-    del x64, ik64
+    del x64, ik64, kt, lt
     phase_done("rank64")
 
     # ---- probe ---------------------------------------------------------------
@@ -2766,33 +3092,37 @@ def main(argv: list[str]) -> None:
     lorder = smem.lane_order(llanes, loff)
     n_short = N_READS * READ_LEN
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    smem_res, ref, sweep = {}, None, []
+    smem_res, ref, sweep, plain_ref = {}, None, [], {}
     for name, x in idxs.items():
         # rb: the tables' bytes are the sectors the plain twin's ranks read;
         # a trip's chain step is RB_ROUNDS loads at the rb tables' size
         is_rb = name.startswith("rb")
         sc1, scc = (SectorCount(x, [x]), SectorCount(x, [x])) if is_rb else (x, x)
         step = RB_ROUNDS * ns[name] if is_rb else ns[LAT_48MB]
-        # the plain checks' runs are their timed runs on the dense rows; the
-        # rb checks count sectors as they go, so the rb plain runs again alone
+        # the plain checks' runs are their timed runs (rb: with the sectors
+        # counted as they go).  The chains are the BWT's function, whatever
+        # the rows, so dense64 is held against dense32's plain run
         k1 = smem.smem_tg_cuda(x, sflat, soff, trips=True, **args)
-        p1, plain_ms = wall_ms_of(lambda: smem.smem_tg_plain(sc1, sflat, soff, **args))
+        p1, plain_ms = plain_ref["tg"] if name == "dense64" else wall_ms_of(
+            lambda: smem.smem_tg_plain(sc1, sflat, soff, **args))
         err1 = chains_err(k1, p1, MAX_MEMS, f"smem_tg {name}")
         kc = smem.smem_tgc_cuda(x, cflat, coff, clanes, trips=True, **args)
-        pc, cplain_ms = wall_ms_of(lambda: smem.smem_tg_plain(scc, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args))
+        pc, cplain_ms = plain_ref["tgc"] if name == "dense64" else wall_ms_of(
+            lambda: smem.smem_tg_plain(scc, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args))
         errc = chains_err(kc, pc, MAX_MEMS, f"smem_tgc {name}")
+        if name == "dense32":
+            plain_ref = {"tg": (p1, plain_ms), "tgc": (pc, cplain_ms)}
         del p1, pc
         if err1 or errc:
             fail(f"smem {name}: smem_tg off by {err1}, smem_tgc off by {errc} against smem_tg_plain")
         r = dict(err=err1, cerr=errc,
                  ms=probe.queued_ms([lambda: smem.launch_tg(x, sflat, soff, **args)] * 10),
-                 plain=wall_ms(lambda: smem.smem_tg_plain(x, sflat, soff, **args)) if is_rb else plain_ms,
+                 plain=plain_ms, plain_rows=PLAIN_ROWS.get(name, name),
                  bound=bound_ms((sc1.bytes()[0] if is_rb else x.nbytes) + nbytes(sflat, soff) + nbytes(k1.n_mem)
                                 + int(k1.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * k1.mems.element_size()),
                  floor=int(k1.trips.max()) * step / 1e6,
                  cms=probe.queued_ms([lambda: smem.launch_tgc(x, cflat, coff, clanes, corder, **args)] * 10),
-                 cplain=(wall_ms(lambda: smem.smem_tg_plain(x, cflat, coff, lanes=clanes, log_len=smem.LOG_LEN, **args))
-                         if is_rb else cplain_ms),
+                 cplain=cplain_ms,
                  cbound=bound_ms((scc.bytes()[0] if is_rb else x.nbytes) + nbytes(cflat, coff, clanes, kc.n_mem, kc.n_log)
                                  + int(kc.n_mem.clamp(max=MAX_MEMS).sum()) * 5 * kc.mems.element_size()
                                  + int(kc.n_log.clamp(max=smem.LOG_LEN).sum()) * 4),
@@ -2829,7 +3159,7 @@ def main(argv: list[str]) -> None:
             f"[smem] {name}: smem_tg exact on {N_SMEM} reads ({int(k1.n_mem.sum())} MEMs) {r['ms']:.4f} ms vs plain "
             f"{r['plain']:.4f} ms; smem_tgc exact on the lanes of {N_TGC_SHORT} short + {N_TGC_LONG} long reads "
             f"({clanes.shape[0]} lanes; rows, counts, START logs, trips) {r['cms']:.4f} ms vs plain {r['cplain']:.4f} ms "
-            f"({card})")
+            f"(plain: {plain_note(name)}) ({card})")
         say(
             f"[smem] {name} main path's batch ({len(reads)} reads, {r['lanes']} lanes of {smem.CHUNK} + {smem.MARGIN}): "
             f"chunked engine rows equal to the one-thread kernel's ({r['n_mems']} MEMs) and dense32's; smem_tgc "
@@ -2885,13 +3215,13 @@ def main(argv: list[str]) -> None:
                     f"smem_tgc {smem_res[name]['tgc_ms']:.4f} ms" for name in ("rb32", "rb64"))
         + f"; dense32 smem_tgc {smem_res['dense32']['tgc_ms']:.4f} ms; trips whose two ranks fall in one dense row "
         f"{smem_res['dense32']['one_row_share']:.4f} ({card})")
-    del sc, chains, aflat, aoff, alanes, aorder, lflat, loff, llanes, lorder, ref
+    del sc, chains, aflat, aoff, alanes, aorder, lflat, loff, llanes, lorder, ref, plain_ref
     if parent:  # K1 of a parent tree beside this one's, A B B A, on the main path's batch
         smem_ab = parent_ab(parent, card)
     phase_done("smem")
 
     # ---- ssa -----------------------------------------------------------------
-    ssa_res, ssa_path = check_ssa(cli, ssa_ops, probe, rank, dev, card, f, fmd, idxs, reads, ns)
+    ssa_res, ssa_path = check_ssa(cli, ssa_ops, probe, rank, dev, card, f, fmd, idxs, reads, ns, side)
     phase_done("ssa")
 
     # ---- mem: the main path, then --occ=rb --------------------------------------
@@ -3024,18 +3354,19 @@ def main(argv: list[str]) -> None:
                     f"{smem_res[name]['tg_ms']:.4f} ms" for name, x in idxs.items())
         + f" ({card})"
     )
+    submit_mesh_jobs(side, fmd, reads_fa, fa)
     phase_done("mem")
 
     # ---- hapdiv ----------------------------------------------------------------
-    hd = check_hapdiv(cli, dev, card, fa, fmd, idxs, ns)
+    hd = check_hapdiv(cli, dev, card, fa, fmd, idxs, ns, bg)
     phase_done("hapdiv")
 
     # ---- sw --------------------------------------------------------------------
-    swr = check_sw(cli, dev, card, fmd, reads, idxs, ns)
+    swr = check_sw(cli, dev, card, fmd, reads, idxs, ns, bg)
     phase_done("sw")
 
     # ---- utils -------------------------------------------------------------------
-    ut = check_utils(cli, probe, dev, card, fa, fmd, reads_fa, reads, idxs, ns)
+    ut = check_utils(cli, probe, dev, card, fa, fmd, reads_fa, reads, idxs, ns, bg)
     phase_done("utils")
 
     # ---- serve -------------------------------------------------------------------
@@ -3044,7 +3375,7 @@ def main(argv: list[str]) -> None:
 
     # ---- mesh --------------------------------------------------------------------
     ms_ = check_mesh(cli, smem, kernels, probe, dev, card, fmd, reads_fa, reads, idxs, ns, smem_res, want, f, fa,
-                     many_fa)
+                     many_fa, side)
     phase_done("mesh")
 
     def path_launches(kernel: str, layout: str) -> tuple[int, str | None]:
@@ -3066,6 +3397,7 @@ def main(argv: list[str]) -> None:
         entries.append({
             "name": f"smem_tg_{name}", "route": "cuda", "source": smem_src, "replaces": smem_rep, "launches": n,
             "path": path if n else None, "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain"],
+            "plain_rows": s["plain_rows"],
             "bound_ms": s["bound"], "bound_by": "bytes", "library_ms": None, "chain_floor_ms": s["floor"],
             "input": f"{N_SMEM} x {READ_LEN} bp reads, one thread each",
             "main_path_batch_ms": s["tg_ms"], "main_path_batch_short_reads_ms": s["short_ms"],
@@ -3076,6 +3408,7 @@ def main(argv: list[str]) -> None:
         entries.append({
             "name": f"smem_tgc_{name}", "route": "cuda", "source": smem_src, "replaces": smem_rep, "launches": n,
             "path": path, "max_abs_err": s["cerr"], "ms": s["cms"], "plain_ms": s["cplain"], "bound_ms": s["cbound"],
+            "plain_rows": s["plain_rows"],
             "bound_by": "bytes", "library_ms": None, "chain_floor_ms": s["cfloor"],
             "input": f"the lanes ({smem.CHUNK} + {smem.MARGIN}) of {N_TGC_SHORT} short and {N_TGC_LONG} long reads",
             "main_path_batch_ms": s["tgc_ms"], "main_path_batch_engine_ms": s["engine_ms"],
@@ -3109,22 +3442,38 @@ def main(argv: list[str]) -> None:
                 e.update({"rank64_ms": r64[f"{key}_ms"], "rank64_plain_ms": r64[f"{key}_plain"],
                           "rank64_max_abs_err": r64[f"{key}_err"], "rank64_vs_run_length_rank_err": ind_err})
             entries.append(e)
+    for name in LAYOUTS:
+        o = occ_res[name]
+        entries.append({
+            "name": f"occ_lf_{name}", "route": "cuda",
+            "source": "ropebwt3_tpu_torch/csrc/occ_rank.cu + " + ("rb.cuh" if name.startswith("rb") else "occ.cuh"),
+            "replaces": "ropebwt3_tpu/index/dense.py:237 (DenseFMIndex.lf: host numpy, no TPU kernel)", "launches": 0,
+            "path": None, "max_abs_err": o["lf_err"], "ms": o["lf_ms"], "plain_ms": o["lf_plain"],
+            "bound_ms": o["lf_bound"], "bound_by": "bytes", "library_ms": None,
+            "input": f"the {o['lf_positions']} of {N_CHECK} positions below n on the bench index",
+            **({"rank64_ms": r64["lf_ms"], "rank64_plain_ms": r64["lf_plain"], "rank64_bound_ms": r64["lf_bound"],
+                "rank64_max_abs_err": r64["lf_err"], "rank64_vs_runs_err": r64["lf_run_length_err"],
+                "rank64_positions": r64["lf_positions"]} if name == "rb64" else {}),
+        })
     for name in ("probe_smem_capacity", "probe_smem_gather", "probe_hbm_gather"):
         r = probe_res[name]
         entries.append({"name": name, "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/probe.cu", "replaces": r["replaces"],
                         "launches": r["launches"], "path": "probe", "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain"], "bound_ms": r["bound"], "bound_by": "bytes", "library_ms": r["library"],
                         "input": r["input"], **({"indep_ms": r["indep_ms"]} if "indep_ms" in r else {})})
-    for name in ("dense32", "dense64"):
+    for name in LAYOUTS:
         r = ssa_res[name]
         b = r["bench"]
-        n = ssa_path["launches"].get(name, 0)
+        is_rb = name.startswith("rb")
+        n = ssa_path["rb32" if is_rb else "dense32"]["launches"].get(name, 0)
         entries.append({
-            "name": f"ssa_gen_{name}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/ssa_gen.cu + occ.cuh",
+            "name": f"ssa_gen_{name}", "route": "cuda",
+            "source": "ropebwt3_tpu_torch/csrc/ssa_gen.cu + " + ("rb.cuh" if is_rb else "occ.cuh"),
             "replaces": "ropebwt3_tpu/ssa_ops.py:127-147 (ssa_gen_device body)", "launches": n,
-            "path": "ssa" if n else None, "max_abs_err": r["err"], "ms": b["ms"], "plain_ms": b["seg_plain_ms"],
-            "bound_ms": b["bound_ms"], "bound_by": "bytes", "library_ms": None, **b,
-            "many_index": r["many"], "corpus_index": r["corpus"],
+            "path": ("ssa (RB3TPU_DEVICE_OCC=rb)" if is_rb else "ssa") if n else None, "max_abs_err": r["err"],
+            "ms": b["ms"], "plain_ms": b["seg_plain_ms"], "bound_ms": b["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, **b, "many_index": r["many"], "corpus_index": r["corpus"],
+            **({"path_port_s": ssa_path["rb32"]["port_s"]} if is_rb else {}),
         })
     k7, path = con["sa_round"], con["path"]
     entries.append({
@@ -3167,7 +3516,7 @@ def main(argv: list[str]) -> None:
             "path": "hapdiv" if n else None, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["chain_floor_ms"],
             "input": f"{r['n_win']} windows of {HAPDIV_K} (haplotype and insertion windows)", "n_bad": r["n_bad"],
-            "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"],
+            "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"], "plain_rows": r["plain_rows"],
             "full_batch_ms": r["full_ms"], "full_batch_windows": r["full_windows"], "occupancy": r["occupancy"],
             "phase_split": r["split"],
             **({"path_windows": hd["path"]["n_win"], "path_bad": hd["path"]["n_bad"], "path_port_s": hd["path"]["port_s"],
@@ -3182,22 +3531,27 @@ def main(argv: list[str]) -> None:
             "path": "sw, sw --all-e2e -b" if n else None, "max_abs_err": max(r["err"], e["err"]), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "chain_floor_ms": r["chain_floor_ms"], "input": f"{r['n_reads']} short reads' general DAWGs (NC {r['NC']}, P {r['P']})",
-            "n_bad": r["n_bad"], "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"],
+            "n_bad": r["n_bad"], "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"], "plain_rows": r["plain_rows"],
             "full_batch_ms": r["full_ms"], "full_batch_reads": r["full_reads"], "occupancy": r["occupancy"],
             "phase_split": r["split"], "e2e": e,
             **({"path_sw": swr["path"], "path_all_e2e": swr["e2e"]} if n else {}),
         })
     kt = ut["kount"]
-    for layout in ("dense32", "dense64"):
-        r, n = kt[layout], kt["launches"].get(layout, 0)
+    for layout in LAYOUTS:
+        r = kt[layout]
+        n = r["launches"]
+        is_rb = layout.startswith("rb")
         entries.append({
-            "name": f"kount_rank_{layout}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/kount.cu + occ.cuh",
+            "name": f"kount_rank_{layout}", "route": "cuda",
+            "source": "ropebwt3_tpu_torch/csrc/kount.cu + " + ("rb.cuh" if is_rb else "occ.cuh"),
             "replaces": "ropebwt3_tpu/cli.py:886 (main_kount's rank1a_fast of each level: host numpy, no TPU kernel)",
-            "launches": n, "path": "kount" if n else None, "max_abs_err": max(r["err"], r["random_err"]), "ms": r["ms"],
+            "launches": n, "path": ("kount (RB3TPU_DEVICE_OCC=rb)" if is_rb else "kount") if n else None,
+            "max_abs_err": max(r["err"], r["random_err"]), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "input": f"kount -k {KOUNT_K} -m {KOUNT_M}'s widest level ({kt['widest_nodes']} nodes, level "
                      f"{kt['widest_level']}) and as many random (k, l)",
-            "rows": r["rows"], "row_fetches": r["row_fetches"],
+            **({"table_bytes": r["table_bytes"]} if is_rb else {"rows": r["rows"], "row_fetches": r["row_fetches"]}),
+            **({"rank64": rank64_kount} if layout == "rb64" else {}),
             **({"occ_rank1a_widest_node_major_ms": kt["widest_ms"]["A"],
                 "occ_rank1a_widest_symbol_major_ms": kt["widest_ms"]["B"],
                 "occ_rank1a_widest_bound_ms": kt["widest_bound_ms"]["A"],
@@ -3206,17 +3560,18 @@ def main(argv: list[str]) -> None:
                if layout == "dense32" else {}),
         })
     walk_src = "ropebwt3_tpu_torch/csrc/walk.cu + "
-    for layout in ("dense32", "dense64"):
+    for layout in LAYOUTS:
         r = ut[f"retrieve_seg_{layout}"]
         entries.append({
-            "name": f"retrieve_seg_{layout}", "route": "cuda", "source": walk_src + "ssa_gen.cu (rb3c_ssa_jump) + occ.cuh",
+            "name": f"retrieve_seg_{layout}", "route": "cuda",
+            "source": walk_src + "ssa_gen.cu (rb3c_ssa_jump) + " + ("rb.cuh" if layout.startswith("rb") else "occ.cuh"),
             "replaces": "ropebwt3_tpu/index/dense.py:244 (DenseFMIndex.retrieve: a host walk, no TPU kernel)",
-            "launches": r["launches"], "path": "get" if r["launches"] else None, "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "launches": r["launches"], "path": r["path"] if r["launches"] else None, "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "chain_floor_ms": r["chain_floor_ms"],
-            "input": f"the whole get walk: {r['lanes']} heads, {r['walk_steps']} symbols, S {r['S']}",
+            "input": f"the whole get walk: {r['lanes']} heads, {r['walk_steps']} symbols, segment stride {r['S']}",
             **{k: v for k, v in r.items() if k not in ("err", "ms", "plain_ms", "bound_ms", "chain_floor_ms", "launches",
-                                                      "lanes", "walk_steps")},
+                                                      "lanes", "walk_steps", "path")},
         })
     for layout in LAYOUTS:
         r = ut[f"suffix_walk_{layout}"]
@@ -3224,7 +3579,7 @@ def main(argv: list[str]) -> None:
             "name": f"suffix_walk_{layout}", "route": "cuda",
             "source": walk_src + ("rb.cuh" if layout.startswith("rb") else "occ.cuh"),
             "replaces": "ropebwt3_tpu/cli.py:799-829 (main_suffix's flush: host numpy over rank1a_fast, no TPU kernel)",
-            "launches": r["launches"], "path": "suffix" if r["launches"] else None, "max_abs_err": r["err"], "ms": r["ms"],
+            "launches": r["launches"], "path": r["path"] if r["launches"] else None, "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "chain_floor_ms": r["chain_floor_ms"], "input": f"{len(reads)} reads (the main path's)",
             **{k: r[k] for k in ("longest_steps", "table_bytes", "regs", "blocks_per_sm")},
@@ -3243,6 +3598,7 @@ def main(argv: list[str]) -> None:
                  if n else None, "max_abs_err": r["cerr" if tgc else "err"], "ms": r["cms" if tgc else "ms"],
                  "plain_ms": r["cplain" if tgc else "plain"], "bound_ms": r["cbound" if tgc else "bound"],
                  "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["cfloor" if tgc else "floor"],
+                 "plain_rows": r["plain_rows"],
                  "input": (f"the lanes ({smem.CHUNK} + {smem.MARGIN}) of {MESH_TGC_SHORT} short and {MESH_TGC_LONG} long "
                            f"reads, {mesh_in}" if tgc else f"{MESH_TG} x {READ_LEN} bp reads, one thread each, {mesh_in}"),
                  "occupancy": r["occupancy" if tgc else "tg_occupancy"], "nb_local": r["nb_local"],

@@ -1326,7 +1326,7 @@ def _mem_line(f, nm: str, st: int, en: int, sz: int, pos: list[tuple[int, int]])
 
 def main_ssa(argv: list[str], device: str) -> int:
     from .formats.ssa import write_ssa
-    from .ops.rank import OccIndex, needs_int64
+    from .ops.rank import needs_int64
     from .ssa_ops import ssa_gen, ssa_gen_cuda, ssa_gen_mesh
 
     opts, args = ketopt(argv, "t:s:o:", ["mesh="])
@@ -1349,7 +1349,7 @@ def main_ssa(argv: list[str], device: str) -> int:
         log.info("%d ssa_gen range launches (%s) over a %s", sum(ssa_gen_mesh.launches.values()),
                  "dense64" if needs_int64(f.n) else "dense32", mesh, func="ssa")
         return 0
-    idx = OccIndex.from_dense(f, device)
+    idx = occ_rows([f], device, "ssa")[0]
     write_ssa(out_fn if out_fn else "-", ssa_gen(f, ssa_shift, occ=idx))
     log.info("%d ssa_gen launches (%s)", sum(ssa_gen_cuda.launches.values()), idx.layout, func="ssa")
     return 0
@@ -1386,22 +1386,42 @@ def _log_pieces(sec: Counter, func: str) -> None:
     log.info("wall seconds by piece: %s", ", ".join(f"{k} {v:.3f}" for k, v in sec.items()), func=func)
 
 
-def dense_rows(fs: list[DenseFMIndex], device: str) -> list:
-    """The dense occ rows (`OccIndex.from_dense`, width from n) of each
-    index on `device`; on the card, after a check that they all fit it."""
+def occ_rows(fs: list[DenseFMIndex], device: str, func: str, occ: str = "auto") -> list:
+    """The occ rows of each index on `device` that `get`, `suffix`, `kount`
+    and `ssa` run on: the layout ops/smem.py `resolve_occ` picks for the
+    indexes' total n, as `mem` picks it (dense rows, or rb rows where dense
+    ones would pass the card's budget; RB3TPU_DEVICE_OCC overrides), the
+    width from each n.  rb rows come from the `.rb.npz` cache where it is
+    fresh.  On the card, a CapacityError naming the bytes unless they all
+    fit, before any upload or launch.  Logs the layout, its block size and
+    the bytes on the device under `func`."""
     import torch
 
+    from .ops import runblock
     from .ops.rank import OccIndex
+    from .ops.smem import resolve_occ
 
     dev = torch.device(device)
     budget = card_bytes(dev)
-    need = sum(48 * len(f.occ_block) for f in fs)
+    layout = resolve_occ(occ, sum(f.n for f in fs), dev)
+    if layout == "rb":
+        host = [runblock.from_dense_np(f) for f in fs]
+        need = sum(runblock.device_bytes(d) for d in host)
+    else:
+        need = sum(48 * len(f.occ_block) for f in fs)
     if budget is not None and need > budget:
-        raise CapacityError(f"the occ rows of {len(fs)} index(es) need ~{need} B of the card, which has {budget} B")
+        raise CapacityError(f"the occ rows of {len(fs)} index(es) need ~{need} B of the card ({layout} rows), which "
+                            f"has {budget} B")
     try:
-        return [OccIndex.from_dense(f, dev) for f in fs]
+        rows = ([runblock.RunBlockIndex.from_np(d, dev) for d in host] if layout == "rb"
+                else [OccIndex.from_dense(f, dev) for f in fs])
     except torch.OutOfMemoryError as e:
         raise CapacityError(f"out of card memory: {str(e).splitlines()[0]}") from e
+    for x in rows:
+        s = f"block size S {x.S}, {x.n_esc} escape blocks, " if layout == "rb" else ""
+        log.info("occ layout %s (%s%s rows): %d bytes on %s", x.layout, s, "int64" if x.int64 else "int32", x.nbytes,
+                 x.device, func=func)
+    return rows
 
 
 def main_get(argv: list[str], device: str) -> int:
@@ -1421,7 +1441,7 @@ def main_get(argv: list[str], device: str) -> int:
     if not valid:
         return 0
     t0 = _lap(sec, "load", t0)
-    idx = dense_rows([f], device)[0]
+    idx = occ_rows([f], device, "get")[0]
     t0 = _lap(sec, "rows", t0)
     seqs, ends = retrieve_cuda(idx, valid)
     t0 = _lap(sec, "walk", t0)
@@ -1453,7 +1473,7 @@ def main_suffix(argv: list[str], device: str) -> int:
     sec, t0 = Counter(), time.perf_counter()
     f = load_index(args[0])
     t0 = _lap(sec, "load", t0)
-    idx = dense_rows([f], device)[0]
+    idx = occ_rows([f], device, "suffix")[0]
     t0 = _lap(sec, "rows", t0)
     rec_num = 0
     for fn in args[1:]:
@@ -1503,7 +1523,7 @@ def main_kount(argv: list[str], device: str) -> int:
     if depth <= 0:
         return 0
     t0 = _lap(sec, "load", t0)
-    idxs = dense_rows(fs, device)
+    idxs = occ_rows(fs, device, "kount")
     t0 = _lap(sec, "rows", t0)
     widths = []
     last = kount_levels(idxs, depth, min_occ, on_level=lambda d, ks, ls, chars: widths.append(len(ks[0])))

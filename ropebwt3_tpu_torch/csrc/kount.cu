@@ -26,13 +26,19 @@
 // a warp writes 32 consecutive words.  The answer does not depend on the
 // order of the nodes; only the speed does.
 //
+// On rb rows (rb.cuh; where dense rows do not fit the card) a node ranks
+// each end with Rb<T>::rank6, the two ends' loads independent: a header,
+// then a block's records or one escape sub-row, each end.  Both ends in one
+// block fetch the same sectors twice, the second time from L1; a rank2-
+// style share of one decode for both ends is left to a later design.
+//
 // The text up to `#ifdef __CUDACC__` compiles with g++ given a header that
 // defines the CUDA keywords (tests/test_torch_runblock.py HOST_SHIM):
-// `kount_node` then runs one node on the host.
+// `kount_node` then runs one node on the host, on either layout.
 
 #include <stdint.h>
 
-#include "occ.cuh"
+#include "rb.cuh"
 
 namespace rb3c {
 namespace kount {
@@ -80,6 +86,21 @@ __device__ __forceinline__ void kount_node(const Dense<T>& ix, const T* __restri
   }
 }
 
+// the same on rb rows: rank6 at each end, the four bases kept
+template <typename T>
+__device__ __forceinline__ void kount_node(const Rb<T>& ix, const T* __restrict__ k, const T* __restrict__ l, int64_t n,
+                                           int64_t t, T* __restrict__ ok, T* __restrict__ size) {
+  const T kt = __ldg(k + t), lt = __ldg(l + t);
+  T ck[6], cl[6];
+  ix.rank6(kt, ck);
+  ix.rank6(lt, cl);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    ok[s * n + t] = ck[s + 1];
+    size[s * n + t] = cl[s + 1] - ck[s + 1];
+  }
+}
+
 }  // namespace kount
 }  // namespace rb3c
 
@@ -91,11 +112,11 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T>
-__global__ void kount_rank_kernel(const rb3c::Dense<T> ix, const T* __restrict__ k, const T* __restrict__ l, int64_t n,
-                                  T* __restrict__ ok, T* __restrict__ size) {
+template <class L>
+__global__ void kount_rank_kernel(const L ix, const typename L::T* __restrict__ k, const typename L::T* __restrict__ l,
+                                  int64_t n, typename L::T* __restrict__ ok, typename L::T* __restrict__ size) {
   const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t < n) rb3c::kount::kount_node<T>(ix, k, l, n, t, ok, size);
+  if (t < n) rb3c::kount::kount_node<typename L::T>(ix, k, l, n, t, ok, size);
 }
 
 }  // namespace
@@ -104,19 +125,19 @@ extern "C" {
 
 // ok (4, n) T = occ_a(k), size (4, n) T = occ_a(l) - occ_a(k) for a = nt6
 // 1..4, from k, l (n,) T with 0 <= k <= l <= n_bwt (the wrapper checks);
-// the dense layouts only
-#define RB3C_KOUNT_RANK(name, T)                                                                                    \
+// one entry point per layout
+#define RB3C_KOUNT_RANK(name, L)                                                                                    \
   int rb3c_kount_rank_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int mega_shift, \
                              int block_shift, const void* k, const void* l, int64_t n, void* ok, void* size,       \
                              void* stream) {                                                                       \
-    const rb3c::Dense<T> ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                         \
+    using T = L::T;                                                                                                \
+    const L ix{rb3c::Tables{rows, esc, mega, acc, mega_shift, block_shift}};                                      \
     const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);                                             \
-    kount_rank_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(                                           \
+    kount_rank_kernel<L><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(                                           \
         ix, static_cast<const T*>(k), static_cast<const T*>(l), n, static_cast<T*>(ok), static_cast<T*>(size));    \
     return (int)cudaGetLastError();                                                                                \
   }
-RB3C_KOUNT_RANK(dense32, int)
-RB3C_KOUNT_RANK(dense64, int64_t)
+RB3C_LAYOUTS(RB3C_KOUNT_RANK)
 
 }  // extern "C"
 

@@ -32,6 +32,15 @@
 // lanes cannot stop early; a rank that popcounted the planes below its
 // offset read ~1.5 KB in a loop of dependent trips.
 //
+// The LF step (`lf_step`, K11's and K5's walks on rb rows) reads the symbol
+// at k and its count below k in one decode of the same two rounds: B[k]
+// lies in block k >> block_shift at offset k & (S - 1) (never F1's block
+// before: k < n); a run-coded block's records are summed as rank6 sums
+// them, and the one that covers the offset gives the key; an escape block's
+// sub-row gives the key from its planes' bits at the offset, then that
+// key's count below it.  Counting only the symbol the step reads is left
+// to a later design (PERF.md).
+//
 // The reference's two faults are fixed here:
 //   F1  k at a block boundary (k = n included) is ranked at offset S of block
 //       (k-1) >> block_shift, k = 0 at block 0: no row past the table.
@@ -134,6 +143,82 @@ struct Rb {
     }
     ok = base_c(mk, k0, k1, c) + ck;
     ol = base_c(ml, l0, l1, c) + cl;
+  }
+
+  // One LF step from k, 0 <= k < n: returns c = B[k] and sets nk = acc[c] +
+  // occ_c(k), Dense<T>::lf_step's contract.  Round 1 is the row's header
+  // (and, in int64 mode, its megablock's six bases); round 2 the records
+  // or the escape sub-row, which give both the symbol and its count.
+  __device__ __forceinline__ int lf_step(T k, T& nk) const {
+    const int64_t bi = (int64_t)k >> t.block_shift;  // not block_of: k < n needs no F1 case
+    const int off = (int)(k - (T)(bi << t.block_shift));
+    const int4* row = reinterpret_cast<const int4*>(t.rows + 40 * bi);
+    const int4 h0 = __ldg(row), h1 = __ldg(row + 1);
+    const int cols[6] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y};
+    T base[6];
+    row_base<T>(t, bi, cols, base);
+    int cnt;
+    const int c = comp6(key_at(row, h1.z, off, cnt));
+    // base[c] by selects: a dynamic index would put the bases in local memory
+    const T b = c == 0 ? base[0] : c == 1 ? base[1] : c == 2 ? base[2] : c == 3 ? base[3] : c == 4 ? base[4] : base[5];
+    nk = acc(c) + b + cnt;
+    return c;
+  }
+
+  // The symbol at k, 0 <= k < n: lf_step's decode without the count's use
+  __device__ __forceinline__ int sym_at(T k) const {
+    const int64_t bi = (int64_t)k >> t.block_shift;
+    const int4* row = reinterpret_cast<const int4*>(t.rows + 40 * bi);
+    int cnt;
+    return comp6(key_at(row, __ldg(row + 1).z, (int)(k - (T)(bi << t.block_shift)), cnt));
+  }
+
+  // The KEYED symbol at offset off (0..S-1) of the block whose row is `row`
+  // and escape index `e`, and in cnt its count below off in the block.  A
+  // run-coded block: the first record whose end passes off covers it; each
+  // record adds min(off, end) - min(off, its start) to its key's 16-bit
+  // field, as rank6 sums them, and a group of eight that starts past off is
+  // skipped.  An escape block: the bits at off of the planes of its sub-row.
+  __device__ __forceinline__ int key_at(const int4* row, int e, int off, int& cnt) const {
+    const int S = 1 << t.block_shift;
+    if (e < 0) {
+      uint4 v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = __ldg(reinterpret_cast<const uint4*>(row + 2 + q));
+      uint64_t lo = 0;
+      unsigned hi = 0;
+      int start = 0, key = 0;  // start: the previous record's end, unclamped
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (start <= off) {
+          const unsigned w[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            int end;
+            const int rk = record(w, r, S, end);
+            const unsigned len = (unsigned)(min(off, end) - min(off, start));
+            lo += rk < 4 ? (uint64_t)len << (16 * rk) : 0;
+            hi += rk < 4 ? 0u : len << (16 * (rk & 1));
+            if (start <= off && off < end) key = rk;  // one record: ends never decrease
+            start = end;
+          }
+        }
+      }
+      cnt = (int)((key < 4 ? (unsigned)(lo >> (16 * key)) : hi >> (16 * (key & 1))) & 0xffffu);
+      return key;
+    }
+    const uint4* p = reinterpret_cast<const uint4*>(t.esc) + ((int64_t)e * (S >> 7) + (off >> 7)) * 4;
+    const uint4 h = __ldg(p), a = __ldg(p + 1), b = __ldg(p + 2), d = __ldg(p + 3);
+    const int rem = off & 127, wi = rem >> 5;
+    const unsigned sh = (unsigned)(rem & 31);
+    const int key = (int)(((word(a, wi) >> sh) & 1u) | (((word(b, wi) >> sh) & 1u) << 1) | (((word(d, wi) >> sh) & 1u) << 2));
+    cnt = sub_row_count(h, a, b, d, rem, key);
+    return key;
+  }
+
+  // word i (0..3) of v, by selects
+  __device__ __forceinline__ static unsigned word(const uint4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
   }
 
   // k's block (F1: a block boundary, k = n included, at offset S of the

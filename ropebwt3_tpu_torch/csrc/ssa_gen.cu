@@ -48,14 +48,16 @@
 // the records INT64_MIN where unwritten), and passes 2 and 3 run once,
 // on the mesh's first device, over the merged ones (ssa_ops.py walk_mesh).
 //
-// Instantiated for the dense layouts only (rb rows: later work).  ssa_l,
-// death_l and final_k are in the layout's T; ssa_lane and lane_of int32
-// (segment ids below 2^31: the wrapper checks); the segment records int64.
+// Pass 1 is instantiated for every layout (rb rows: Rb<T>::lf_step of
+// rb.cuh, where dense rows do not fit the card); passes 2 and 3 read no
+// rows, and pass 3 comes in each layout's width.  ssa_l, death_l and final_k
+// are in the layout's T; ssa_lane and lane_of int32 (segment ids below
+// 2^31: the wrapper checks); the segment records int64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "occ.cuh"
+#include "rb.cuh"
 
 namespace {
 
@@ -176,8 +178,7 @@ extern "C" {
                                                                           segs_at(seg, n_seg));                    \
     return (int)cudaGetLastError();                                                                                 \
   }
-RB3C_SSA_WALK(dense32, rb3c::Dense<int>)
-RB3C_SSA_WALK(dense64, rb3c::Dense<int64_t>)
+RB3C_LAYOUTS(RB3C_SSA_WALK)
 
 // Pass 2: `rounds` rounds over seg (2, 3, n_seg) int64, pass 1's records in
 // buffer 0; the result lies in buffer rounds % 2.
@@ -209,5 +210,7 @@ int rb3c_ssa_jump(int64_t* seg, int64_t n_seg, int rounds, void* stream) {
   }
 RB3C_SSA_FINISH(dense32, int)
 RB3C_SSA_FINISH(dense64, int64_t)
+RB3C_SSA_FINISH(rb32, int)
+RB3C_SSA_FINISH(rb64, int64_t)
 
 }  // extern "C"

@@ -5,7 +5,8 @@
 // behind it; ropebwt3_tpu/cli.py main_suffix's flush, :799-829, over
 // rank1a_fast).  The plain PyTorch versions are ops/walk.py's.
 //
-// K11 retrieve_seg (dense rows, Dense<T>::lf_step of occ.cuh).  A walk from
+// K11 retrieve_seg (every layout: Dense<T>::lf_step of occ.cuh, Rb<T>::
+// lf_step of rb.cuh, where dense rows do not fit the card).  A walk from
 // k reads B[k], steps k = LF(k), and so on until it reads symbol 0 (the
 // sentinel); it prints what it read, reversed, and the row that holds the
 // sentinel (fm-index.c:552-567).  On a `$`-free LF cycle (a BWT string
@@ -16,9 +17,10 @@
 // walk leaves a pangenome's few 2 M-step walks at one chain each with the
 // card idle.  So, as K5 (ssa_gen.cu) does, the walks are cut into
 // segments and the cut is mended by list ranking; with q heads (the queried
-// ks) and m = acc[1]:
+// ks) and m = acc[1] (S below is the segment stride, 2^shift, not an rb
+// row's block size, 2^block_shift):
 //   pass 1 (retrieve_seg_walk): one thread per segment.  Segments 0..q-1
-//     start at the ks; segment q + j, S = 2^shift, at row m + j S.  A
+//     start at the ks; segment q + j at row m + j S.  A
 //     segment walks LF until it reads a `$` (term = that row, nxt = -1), or
 //     steps onto a start row m + j S (nxt = q + j), or, a head only, back
 //     onto its own start (nxt = itself: a cycle with no start row on it).
@@ -230,8 +232,7 @@ extern "C" {
                                                                                 len);                             \
     return (int)cudaGetLastError();                                                                                 \
   }
-RB3C_RETRIEVE_SEG_WALK(dense32, rb3c::Dense<int>)
-RB3C_RETRIEVE_SEG_WALK(dense64, rb3c::Dense<int64_t>)
+RB3C_LAYOUTS(RB3C_RETRIEVE_SEG_WALK)
 
 // K11 pass 3: seg (3, n_seg) pass 2's result, len pass 1's; terms, lmax and
 // base (u,) int64 (terms ascending); out the symbol buffer.
@@ -246,8 +247,7 @@ RB3C_RETRIEVE_SEG_WALK(dense64, rb3c::Dense<int64_t>)
                                                                                  len, terms, lmax, base, u, out); \
     return (int)cudaGetLastError();                                                                                 \
   }
-RB3C_RETRIEVE_SEG_WRITE(dense32, rb3c::Dense<int>)
-RB3C_RETRIEVE_SEG_WRITE(dense64, rb3c::Dense<int64_t>)
+RB3C_LAYOUTS(RB3C_RETRIEVE_SEG_WRITE)
 
 // K11 pass 4: heads (n_cyc,) int64 the cycle heads' segment ids; out (n_cyc,
 // n) uint8, period and end (n_cyc,) int64 out.  Two launches: the laps, then
@@ -267,8 +267,7 @@ RB3C_RETRIEVE_SEG_WRITE(dense64, rb3c::Dense<int64_t>)
                         (cudaStream_t)stream>>>(n_cyc, n, out, period);                                             \
     return (int)cudaGetLastError();                                                                                 \
   }
-RB3C_RETRIEVE_SEG_CYCLE(dense32, rb3c::Dense<int>)
-RB3C_RETRIEVE_SEG_CYCLE(dense64, rb3c::Dense<int64_t>)
+RB3C_LAYOUTS(RB3C_RETRIEVE_SEG_CYCLE)
 
 // K12: reads q (flat uint8 nt6 codes 0..5) at off (R + 1,) int64; start and
 // last (R,) int64 out.  _occupancy_ gives the kernel's resident blocks an

@@ -15,21 +15,21 @@ The queries `rb3c_smem_optin`, `rb3c_occupancy_*` (the SMEM, DP,
 merge-rank and suffix kernels' resident blocks an SM) and
 `rb3c_sa_sort_status_len` take no stream; the DP kernels' `rb3c_timed_*` twins
 also write lane 0's phase clocks (ropebwt3_tpu_torch/dp_time.py reads both).
-The rank and SMEM kernels (smem_tg: one thread per read; smem_tgc: one
-thread per lane of a chunked read) come in one variant per occ layout: dense32 and
-dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
+The rank, LF-step and SMEM kernels (smem_tg: one thread per read; smem_tgc:
+one thread per lane of a chunked read) come in one variant per occ layout:
+dense32 and dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
 `RunBlockIndex`, or a mesh's rows mapped into one range, parallel/mesh.py
-`ShardView`), and so does `suffix`'s backward search (csrc/walk.cu);
-ssa_gen's walk (its pass 1 over a range of the segments), merge_rank (a
-range of the segments and the passes to run), `get`'s LF walk (its three
-walking passes),
-`kount`'s level rank (csrc/kount.cu), the hapdiv DP (one warp a window)
-and the sw DP (one warp a read) in the two dense ones.
+`ShardView`), and so do `suffix`'s backward search and `get`'s LF walk (its
+three walking passes; csrc/walk.cu), ssa_gen's walk (its pass 1 over a
+range of the segments) and finish, and `kount`'s level rank
+(csrc/kount.cu); merge_rank (a range of the segments and the passes to
+run), the hapdiv DP (one warp a window) and the sw DP (one warp a read)
+come in the two dense ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
 them: rows, escape sub-rows, megablock bases, acc, the megablock shift and
-log2 of the block size.  ssa_gen's finish pass comes in the two dense
-widths and its pointer-jumping pass in one; neither reads the index (`get`
-ranks its segments with that same pointer-jumping pass).  The
+log2 of the block size.  ssa_gen's finish pass and its pointer-jumping pass
+read no rows (`get` ranks its segments with that same pointer-jumping
+pass).  The
 probes of csrc/probe.cu take a plain int32 table (probe.py); the suffix
 sort's passes of csrc/sa_round.cu and its radix sort, csrc/sa_sort.cu, take
 plain arrays (construct/sa.py).  The `rb3c_vmm_*` calls of csrc/vmm.cu
@@ -65,16 +65,17 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_suffix_walk_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_occupancy_suffix_walk_{_lay}"] = [_V, _V, _V]  # no stream
     _ENTRIES[f"rb3c_occupancy_smem_tg_{_lay}"] = [_I32, _V, _V, _V]  # no stream: smem_tgc (1) or smem_tg (0)
-for _lay in LAYOUTS[:2]:
+    _ENTRIES[f"rb3c_occ_lf_{_lay}"] = [*_TABLES, _V, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_retrieve_seg_walk_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_retrieve_seg_write_{_lay}"] = [*_TABLES, _V, _I64, _I64, _I32, _I64, _V, _V, _V, _V, _V, _I64, _V, _V]
     _ENTRIES[f"rb3c_retrieve_seg_cycle_{_lay}"] = [*_TABLES, _V, _V, _I64, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_walk_{_lay}"] = [*_TABLES, _I64, _I32, _I32, _I64, _I64, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_finish_{_lay}"] = [_V, _I64, _I64, _I64, _V, _V, _V, _V, _V, _V]
+    _ENTRIES[f"rb3c_kount_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
+for _lay in LAYOUTS[:2]:
     # a range of the segments [g0, g1) and the passes to run (1, 2 or both) before seg
     _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _V, _V]
     _ENTRIES[f"rb3c_occupancy_merge_rank_{_lay}"] = [_I32, _V, _V, _V]  # no stream: pass 1's (0) or pass 2's (1)
-    _ENTRIES[f"rb3c_kount_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
     _ENTRIES[f"rb3c_hapdiv_{_lay}"] = [*_TABLES, _V, _I64, *[_I32] * 8, _V, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_sw_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 8, *[_V] * 10]
     # the DP kernels' timing-only twins (lane 0's phase clocks, clk last)

@@ -142,7 +142,7 @@ def main(argv: list[str]) -> int:
         print("kount_time: needs a CUDA card", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    x = cli.dense_rows([cli.load_index(args[0])], "cuda")[0]
+    x = cli.occ_rows([cli.load_index(args[0])], "cuda", "kount_time", "dense")[0]
     kernels.lib()
     card = probe.card_line()
     lv, _ = levels(x, depth, min_occ, log=lambda line: print(f"{line} ({card})", file=sys.stderr))

@@ -1,4 +1,5 @@
-"""`kount`'s trie, a level at a time, on the device's dense occ rows.
+"""`kount`'s trie, a level at a time, on the device's occ rows (dense, or
+rb where dense ones do not fit the card).
 
 A level of the trie is a frontier of BWT intervals [k, l), one a node and
 index.  A node's children are acc[a] + occ_a(k) .. acc[a] + occ_a(l) for
@@ -6,7 +7,7 @@ a = A, C, G, T (nt6 1..4), and a child lives when its size reaches -m in
 any index.  `kount_rank_cuda` ranks a whole frontier in one launch of
 csrc/kount.cu (one thread a node, both ends, the four bases only; ok and
 size come out symbol-major, (4, N)); `kount_rank_plain` is its plain
-PyTorch version over `OccIndex.rank1a`, the CPU path and the reference on
+PyTorch version over the index's `rank1a`, the CPU path and the reference on
 the card.  A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises.
 
@@ -40,10 +41,11 @@ def kount_rank_plain(idx, k: torch.Tensor, l: torch.Tensor) -> tuple[torch.Tenso
 
 
 def check_kount(idx, k: torch.Tensor, l: torch.Tensor) -> None:
-    """Raise unless idx has dense rows and k, l are 1-D tensors of one
-    length, of the index's width and on its device, with 0 <= k <= l <= n."""
-    if idx.layout not in ("dense32", "dense64"):
-        raise ValueError(f"kount_rank takes dense occ rows, not {idx.layout}")
+    """Raise unless idx has rows of a kernel layout (kernels.LAYOUTS) and
+    k, l are 1-D tensors of one length, of the index's width and on its
+    device, with 0 <= k <= l <= n."""
+    if idx.layout not in kernels.LAYOUTS:
+        raise ValueError(f"kount_rank takes {kernels.LAYOUTS} occ rows, not {idx.layout}")
     if k.dim() != 1 or k.shape != l.shape:
         raise ValueError("kount_rank takes k and l of shape (N,)")
     if k.dtype != idx.dtype or l.dtype != idx.dtype or k.device != idx.device or l.device != idx.device:
@@ -79,8 +81,8 @@ kount_rank_cuda.launches = Counter()
 
 def kount_levels(idxs: list, depth: int, min_occ: int, on_level=None) -> tuple[torch.Tensor, torch.Tensor] | None:
     """The k-mers of length `depth` whose every prefix (the symbols chosen
-    so far) occurs at least `min_occ` times in one of the indexes (dense
-    occ rows on one device), expanded a level at a time: one kount_rank a
+    so far) occurs at least `min_occ` times in one of the indexes (occ
+    rows on one device), expanded a level at a time: one kount_rank a
     level and index, the frontier kept on the device, symbol-major.
     `on_level(d, ks, ls, chars)`, when given, sees each level's frontier
     before it is ranked (tuples of each index's k and l, and the (nodes, d)

@@ -242,6 +242,10 @@ class OccIndex:
             base = self.mega[bi >> self.mega_shift] + (base & U32)
         return base + _inblock_counts(row[..., :6] & U32, k & (BLOCK - 1))
 
+    def sym_and_rank(self, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B[k], rank1a(k)) for each k in [0, n), as `lf` takes them."""
+        return self.sym_at(k), self.rank1a(k)
+
     def sym_at(self, k: torch.Tensor) -> torch.Tensor:
         """The BWT symbol at each k in [0, n), from the row's bit-planes:
         bit k & 63 of the three planes is KEY[sym], and KEY is its own
@@ -296,11 +300,10 @@ def rank1a(idx, k: torch.Tensor) -> torch.Tensor:
 
 def lf(idx, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One LF step from each k in [0, n): (c = B[k], acc[c] + occ_c(k)),
-    as index/dense.py DenseFMIndex.lf, on an index with `sym_at` and
-    `rank1a`.  Returns two int64 tensors."""
-    c = idx.sym_at(k)
-    occ = idx.rank1a(k).gather(-1, c[..., None])[..., 0]
-    return c, idx.acc.long()[c] + occ
+    as index/dense.py DenseFMIndex.lf, on an index with `sym_and_rank`.
+    Returns two int64 tensors."""
+    c, occ = idx.sym_and_rank(k)
+    return c, idx.acc.long()[c] + occ.gather(-1, c[..., None])[..., 0]
 
 
 def _rank_pair(idx, prim: torch.Tensor, size: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -410,3 +413,28 @@ def extend_c_cuda(idx, ik: torch.Tensor, c: torch.Tensor, is_back: torch.Tensor)
 
 
 extend_c_cuda.launches = Counter()
+
+
+def lf_cuda(idx, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`lf` of k (N,) int64 in [0, n) through the occ_lf kernel of the
+    index's layout (the LF step K5's and K11's walks inline): (c (N,)
+    int32, LF(k) (N,) in the index's width).  A CPU tensor takes the plain
+    version."""
+    if k.device != idx.device or k.dtype != torch.int64 or k.dim() != 1:
+        raise ValueError("k must be a 1-D int64 tensor on the index's device")
+    if k.numel() and (int(k.min()) < 0 or int(k.max()) >= idx.n):
+        raise ValueError(f"LF position outside [0, {idx.n})")
+    if k.device.type == "cpu":
+        c, nk = lf(idx, k)
+        return c.int(), nk.to(idx.dtype)
+    k = k.contiguous()
+    c = torch.empty(k.numel(), dtype=torch.int32, device=k.device)
+    nk = torch.empty(k.numel(), dtype=idx.dtype, device=k.device)
+    if k.numel():
+        kernels.launch(f"rb3c_occ_lf_{idx.layout}", k.device, *idx.kernel_tables(), k.data_ptr(), k.numel(),
+                       c.data_ptr(), nk.data_ptr())
+        lf_cuda.launches[idx.layout] += 1
+    return c, nk
+
+
+lf_cuda.launches = Counter()

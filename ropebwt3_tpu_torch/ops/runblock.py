@@ -39,9 +39,10 @@ The `.rb.npz` cache is used only when its n, S and width match and it is no
 older than the index's sidecar (F3).
 
 `RunBlockIndex.rank1a` is the plain decode, from the same sub-rows the card
-reads; `extend`, `extend_c` and `set_intv` of ops/rank.py take this index as
-they take `OccIndex`, and so do the kernel wrappers, which launch the rb32 /
-rb64 kernels (csrc/rb.cuh).  The host builder calls the native
+reads, and `sym_and_rank` the symbol at k from two of its ranks; `extend`,
+`extend_c`, `set_intv` and `lf` of ops/rank.py take this index as they take
+`OccIndex`, and so do the kernel wrappers, which launch the rb32 / rb64
+kernels (csrc/rb.cuh).  The host builder calls the native
 `rb3t_runblock_count` / `_fill` (../native/rld_codec.cpp, the port's copy of
 the JAX package's builder).
 """
@@ -58,7 +59,7 @@ from .. import native
 from .rank import ASIZE, FLIP, KEY, U32, extend, extend_c, needs_int64, popcount32, rank1a, rebase_mega, set_intv
 
 __all__ = ["RunBlockIndex", "rank1a", "extend", "extend_c", "set_intv", "choose_S", "build_runblock_np", "runs_from_dense",
-           "pack_escapes", "shard_layout"]
+           "pack_escapes", "device_bytes", "shard_layout"]
 
 RB_R = 64  # run records per row
 RB_COLS = 40
@@ -150,6 +151,19 @@ class RunBlockIndex:
         k = k.long()
         return self.rank_row(k, self.rows[self.block_and_offset(k)[0]])
 
+    def sym_at(self, k: torch.Tensor) -> torch.Tensor:
+        """The BWT symbol at each k in [0, n) (int64)."""
+        return self.sym_and_rank(k)[0]
+
+    def sym_and_rank(self, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B[k], rank1a(k)) for each k in [0, n), as ops/rank.py `lf`
+        takes them: the symbol is the one column where rank1a(k + 1) -
+        rank1a(k) is 1 (csrc/rb.cuh decodes it from its block instead), both
+        ranks in one gather.  Both int64."""
+        k = k.long()
+        r = self.rank1a(torch.stack([k, k + 1]))
+        return (r[1] - r[0]).argmax(-1), r[0]
+
     def rank_row(self, k: torch.Tensor, row: torch.Tensor, sub: torch.Tensor | None = None) -> torch.Tensor:
         """rank1a of int64 k from its row (..., 40) as gathered, the offset
         and the megablock base taken at k's global row; an escape block from
@@ -240,6 +254,14 @@ def pack_escapes(planes: np.ndarray, S: int, device) -> torch.Tensor:
         out[a : a + step, :, :3] = (before[..., 0::2] | (before[..., 1::2] << 16)).int()
         out[a : a + step, :, 3] = 0
     return out
+
+
+def device_bytes(d: dict) -> int:
+    """Bytes that the host rows `d` (`build_runblock_np`, the cache) take
+    on the device once uploaded: `RunBlockIndex.from_np(d, dev).nbytes`,
+    the escapes as S/2 B of sub-rows each."""
+    return d["rows"].nbytes + len(d["esc"]) * d["S"] // 2 + np.asarray(d["acc"]).nbytes + (
+        0 if d["mega"] is None else np.asarray(d["mega"]).nbytes)
 
 
 def shard_layout(rows: torch.Tensor, nb_local: int, n_idx: int, align: int) -> tuple[torch.Tensor, list]:

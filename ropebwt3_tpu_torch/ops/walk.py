@@ -5,8 +5,10 @@ The JAX package runs both on the host: `get` through DenseFMIndex.retrieve
 `suffix` through main_suffix's lock-step `flush` (ropebwt3_tpu/cli.py:799-829,
 one rank1a_fast of every active read's k and l a step).  Here each has a
 plain PyTorch version, the reference and the CPU path, and a CUDA wrapper
-around its kernel in csrc/walk.cu: K11 `retrieve_seg` (dense rows) and K12
-`suffix_walk` (every layout).  A wrapper given CPU tensors runs the plain
+around its kernel in csrc/walk.cu: K11 `retrieve_seg` and K12 `suffix_walk`,
+each in every layout (dense rows, or rb rows where dense ones do not fit
+the card).  The segment stride S of a retrieve walk is not an rb row's
+block size (`RunBlockIndex.S`).  A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises.
 
 A retrieve walk runs as segments (csrc/walk.cu says how): one from each
@@ -59,13 +61,15 @@ def walk_stride(n: int, m: int, q: int, device) -> int:
 
 
 def check_retrieve(idx, ks, S: int, kernel: bool) -> tuple[torch.Tensor, int]:
-    """The bounds the walk relies on (ROADMAP F2), before any launch: dense
-    rows whose acc counts n nt6 symbols; ks a 1-D list of positions in
-    [0, n); a positive stride, for the kernel a power of two of at most
-    2^MAX_SHIFT; segment ids below 2^31.  Returns (ks as an int64 tensor
+    """The bounds the walk relies on (ROADMAP F2), before any launch: occ
+    rows of a kernel layout (kernels.LAYOUTS) whose acc counts n nt6
+    symbols; ks a 1-D list of positions in [0, n); a positive stride, for
+    the kernel a power of two of at most 2^MAX_SHIFT; segment ids below
+    2^31.  Returns (ks as an int64 tensor
     on the index's device, m = acc[1])."""
-    if getattr(idx, "layout", None) not in ("dense32", "dense64"):
-        raise ValueError(f"the retrieve walk runs on dense rows, not {getattr(idx, 'layout', type(idx).__name__)}")
+    if getattr(idx, "layout", None) not in kernels.LAYOUTS:
+        raise ValueError(f"the retrieve walk runs on {kernels.LAYOUTS} rows, not "
+                         f"{getattr(idx, 'layout', type(idx).__name__)}")
     acc = idx.acc.tolist()
     if acc[6] != idx.n or any(a > b for a, b in zip(acc, acc[1:])):
         raise ValueError(f"acc {acc} does not count n = {idx.n} nt6 symbols")
@@ -213,7 +217,7 @@ def retrieve_plain(idx, ks) -> tuple[list[np.ndarray], np.ndarray]:
 
 def retrieve_cuda(idx, ks, S: int | None = None) -> tuple[list[np.ndarray], np.ndarray]:
     """retrieve_seg_plain through the retrieve_seg kernel of the index's
-    dense layout: each k's symbols and end row.  S, the segment stride, is
+    layout: each k's symbols and end row.  S, the segment stride, is
     derived from n, m, the number of ks and the card (`walk_stride`); the
     tests pass small ones (any positive int on the CPU, a power of two on
     the card).  A CPU index takes the plain version."""

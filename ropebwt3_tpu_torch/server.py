@@ -266,17 +266,7 @@ class EngineCache:
         if occ not in self._rows:
             from . import cli
 
-            if occ == "rb":
-                import torch
-
-                from .ops.runblock import RunBlockIndex
-
-                try:
-                    self._rows[occ] = RunBlockIndex.from_dense(self.f, self.device)
-                except torch.OutOfMemoryError as e:
-                    raise cli.CapacityError(f"out of card memory: {str(e).splitlines()[0]}") from e
-            else:
-                self._rows[occ] = cli.dense_rows([self.f], self.device)[0]
+            self._rows[occ] = cli.occ_rows([self.f], self.device, "serve", occ)[0]
         return self._rows[occ]
 
     def mem_rows(self, occ: str):

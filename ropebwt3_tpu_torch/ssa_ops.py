@@ -14,8 +14,9 @@ passes of that kernel; `ssa_gen_seg_plain` is their lock-step PyTorch
 version (the CPU path, and the reference on the card); `ssa_gen_plain`, all
 m lanes in lock-step, is the body of ssa_ops.py:127-147 as the JAX package
 defines it.  All take the dense occ rows of ops/rank.py `OccIndex` (dense32
-or dense64): the symbol at k comes from the rows' bit-planes, so no BWT
-array goes to the device.
+or dense64) or, where those do not fit the card, the run-block rows of
+ops/runblock.py `RunBlockIndex` (rb32 or rb64): the symbol at k comes from
+the rows, so no BWT array goes to the device.
 
 `ssa_gen_mesh` (`ssa --mesh`) splits the segments over the devices of a
 mesh: pass 1 of each range on its device, the shares merged, passes 2 and
@@ -38,6 +39,7 @@ from .construct.merge import LANES_PER_SM, LOW, sm_count, stride
 from .formats.ssa import SSA
 from .index.dense import DenseFMIndex
 from .ops.rank import OccIndex, lf
+from .ops.runblock import RunBlockIndex
 from .parallel import launch
 from .parallel.mesh import replicate
 
@@ -59,7 +61,7 @@ def sid_bits(m: int) -> int:
     return ms
 
 
-def n_slots(idx: OccIndex, m: int, ssa_shift: int) -> int:
+def n_slots(idx: OccIndex | RunBlockIndex, m: int, ssa_shift: int) -> int:
     return (int(idx.acc[6]) - m + (1 << ssa_shift) - 1) >> ssa_shift
 
 
@@ -97,16 +99,17 @@ def segments(n: int, m: int, S: int) -> int:
     return m + (-(-(n - m) // S) if S <= n - m else 0)
 
 
-def check_walk(idx: OccIndex, m: int, ssa_shift: int, S: int | None = None, kernel: bool = False) -> None:
-    """The bounds a walk relies on (ROADMAP F2): dense rows; every symbol an
-    nt6 code (acc[6] = n: the rows count symbols 0..5 only); lanes 0..m-1
-    that are the sentinel rows, m = acc[1], with lane ids in int32; a shift
-    in [0, MAX_SHIFT].  Steps fit the index's width: a lane walks at most n
-    steps, and dense32 holds n < 2^31.  With a stride S: segment ids in
-    int32, and for the kernel S a power of two (a mask in each step) of at
-    most 2^62."""
-    if not isinstance(idx, OccIndex):
-        raise TypeError(f"SSA generation takes dense occ rows (OccIndex), not {type(idx).__name__}")
+def check_walk(idx: OccIndex | RunBlockIndex, m: int, ssa_shift: int, S: int | None = None,
+               kernel: bool = False) -> None:
+    """The bounds a walk relies on (ROADMAP F2): dense or rb rows; every
+    symbol an nt6 code (acc[6] = n: the rows count symbols 0..5 only); lanes
+    0..m-1 that are the sentinel rows, m = acc[1], with lane ids in int32; a
+    shift in [0, MAX_SHIFT].  Steps fit the index's width: a lane walks at
+    most n steps, and dense32 and rb32 hold n < 2^31.  With a stride S:
+    segment ids in int32, and for the kernel S a power of two (a mask in
+    each step) of at most 2^62."""
+    if not isinstance(idx, (OccIndex, RunBlockIndex)):
+        raise TypeError(f"SSA generation takes occ rows (OccIndex, RunBlockIndex), not {type(idx).__name__}")
     acc = idx.acc.tolist()
     if acc[6] != idx.n or any(a > b for a, b in zip(acc, acc[1:])):
         raise ValueError(f"acc {acc} does not count n = {idx.n} nt6 symbols")
@@ -126,25 +129,33 @@ def check_segments(n: int, m: int, S: int, kernel: bool) -> None:
         raise ValueError(f"the kernel takes a power-of-two stride of at most 2^{MAX_SHIFT}, not {S}")
 
 
-def ssa_bytes(n: int, m: int, ssa_shift: int, S: int, mega_shift: int | None = None) -> int:
+def ssa_bytes(n: int, m: int, ssa_shift: int, S: int, mega_shift: int | None = None,
+              rb: RunBlockIndex | None = None) -> int:
     """Card bytes of a walk at its peak: the index's rows (48 B a 64
     symbols, the padded last block and the extra row; int64 rows
-    (`mega_shift` given) add a 48-B base a megablock of 2^mega_shift rows),
-    acc, the slot arrays, death_l, final_k and lane_of, and the segment
+    (`mega_shift` given) add a 48-B base a megablock of 2^mega_shift rows;
+    or the arrays of `rb`, its rows, escape sub-rows and megablock bases:
+    `RunBlockIndex.nbytes`, acc apart), acc, the slot arrays, death_l,
+    final_k and lane_of, and the segment
     records: three int64 a segment, double-buffered (48 B; 0.375 B a symbol
     at S = 128).  Each array as PyTorch's caching allocator counts it:
     rounded up to 512 B, and one of 1 MiB or more may hold a rest of up to
     1 MiB that the allocator does not split off."""
-    w = 4 if mega_shift is None else 8
+    w = 8 if (rb.int64 if rb is not None else mega_shift is not None) else 4
     nb = n // 64 + 2
     n_ssa = (n - m + (1 << ssa_shift) - 1) >> ssa_shift
-    arrays = [48 * nb, 7 * w, w * n_ssa, 4 * n_ssa, w * m, w * m, 4 * m, 2 * SEG_ROWS * 8 * segments(n, m, S)]
-    if mega_shift is not None:
-        arrays.append(48 * ((nb + (1 << mega_shift) - 1) >> mega_shift))
+    arrays = [7 * w, w * n_ssa, 4 * n_ssa, w * m, w * m, 4 * m, 2 * SEG_ROWS * 8 * segments(n, m, S)]
+    if rb is not None:
+        arrays += [t.numel() * t.element_size() for t in (rb.rows, rb.esc, rb.mega) if t is not None]
+    else:
+        arrays.append(48 * nb)
+        if mega_shift is not None:
+            arrays.append(48 * ((nb + (1 << mega_shift) - 1) >> mega_shift))
     return sum(-(-a // ALLOC_ROUND) * ALLOC_ROUND + (ALLOC_SPLIT if a >= ALLOC_SPLIT else 0) for a in arrays)
 
 
-def ssa_gen_plain(idx: OccIndex, m: int, ssa_shift: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+def ssa_gen_plain(idx: OccIndex | RunBlockIndex, m: int,
+                  ssa_shift: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """All m lanes in lock-step, one LF step per trip, as ssa_ops.py:127-147:
     (ssa_l (n_ssa,) int64, ssa_lane (n_ssa,) int32 with -1 where no lane hit,
     death_l (m,) int64, final_k (m,) int64)."""
@@ -190,7 +201,7 @@ def ssa_gen_seg_plain(idx, m: int, ssa_shift: int,
     return *out, torch.cat([length[None], rec])
 
 
-def ssa_walk_plain(idx: OccIndex, m: int, ssa_shift: int, S: int, g0: int,
+def ssa_walk_plain(idx: OccIndex | RunBlockIndex, m: int, ssa_shift: int, S: int, g0: int,
                    g1: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pass 1 over the segments [g0, g1), in lock-step: (ssa_l (n_ssa,)
     int64 with 0 and ssa_lane (n_ssa,) int32 with -1 where no segment of the
@@ -261,21 +272,31 @@ def ssa_finish_plain(m: int, ssa_l: torch.Tensor, ssa_lane: torch.Tensor,
     return ssa_l, ssa_lane, death_l, final_k, torch.stack([d, nxt, term])
 
 
-def ssa_gen_cuda(idx: OccIndex, m: int, ssa_shift: int,
+def ssa_gen_cuda(idx: OccIndex | RunBlockIndex, m: int, ssa_shift: int,
                  S: int | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The walk through the ssa_gen kernel of the index's layout: the same
     four tensors as `ssa_gen_plain`, ssa_l, death_l and final_k in the
     index's width.  S, the segment stride, is derived from n, m and the card
     (`walk_stride`); the tests pass small ones (any positive int on the CPU,
-    a power of two on the card).  A CPU index takes the plain version."""
+    a power of two on the card).  A CPU index takes the plain version; on
+    the card the walk's `ssa_bytes` must fit the card's budget
+    (cli.CapacityError before any launch)."""
     S = walk_stride(idx.n, m, idx.device) if S is None else S
     check_walk(idx, m, ssa_shift, S, kernel=idx.device.type != "cpu")
     if idx.device.type == "cpu":
         return ssa_gen_seg_plain(idx, m, ssa_shift, S)[:4]
+    from .cli import CapacityError, card_bytes
+
+    budget = card_bytes(idx.device)
+    rb = idx if isinstance(idx, RunBlockIndex) else None
+    need = ssa_bytes(idx.n, m, ssa_shift, S, idx.mega_shift if idx.int64 else None, rb=rb)
+    if budget is not None and need > budget:
+        raise CapacityError(f"ssa: the walk on {idx.layout} rows at stride {S} needs ~{need} B of the card, which "
+                            f"has {budget} B")
     return launch_walk(idx, m, ssa_shift, S)[:4]
 
 
-def launch_walk(idx: OccIndex, m: int, ssa_shift: int, S: int,
+def launch_walk(idx: OccIndex | RunBlockIndex, m: int, ssa_shift: int, S: int,
                 marks: list | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """`ssa_gen_cuda` on a CUDA index that `check_walk` has passed at the
     stride S: the four arrays and the segment records (3, n_seg) int64, d,
@@ -296,7 +317,7 @@ def launch_walk(idx: OccIndex, m: int, ssa_shift: int, S: int,
     return launch_finish(idx.layout, m, ssa_l, ssa_lane, seg, marks[1:])
 
 
-def launch_walk_range(idx: OccIndex, m: int, ssa_shift: int, S: int, g0: int, g1: int, ssa_l: torch.Tensor,
+def launch_walk_range(idx: OccIndex | RunBlockIndex, m: int, ssa_shift: int, S: int, g0: int, g1: int, ssa_l: torch.Tensor,
                       ssa_lane: torch.Tensor, rec: torch.Tensor) -> None:
     """Pass 1 (rb3c_ssa_walk_<layout>) over the segments [g0, g1) at the
     power-of-two stride S into ssa_l (n_ssa,) in the index's width,
@@ -351,11 +372,11 @@ def assemble(m: int, ssa_shift: int, ssa_l, ssa_lane, death_l, final_k) -> SSA:
     return SSA(ssa_shift, ms, m, r2i, ssa)
 
 
-def ssa_gen(f: DenseFMIndex, ssa_shift: int = 8, device="cuda", occ: OccIndex | None = None) -> SSA:
+def ssa_gen(f: DenseFMIndex, ssa_shift: int = 8, device="cuda", occ: OccIndex | RunBlockIndex | None = None) -> SSA:
     """The SSA of `f`, byte-equal to ropebwt3_tpu.ssa_ops.ssa_gen_native.
-    `occ` is f's dense rows already on the device (default: built on
-    `device`, int64 from n >= 2^31 - 2^20 on); on a CUDA device the walk
-    runs the kernel, on the CPU the plain version."""
+    `occ` is f's dense or rb rows already on the device (default: dense
+    rows built on `device`, int64 from n >= 2^31 - 2^20 on); on a CUDA
+    device the walk runs the kernel, on the CPU the plain version."""
     idx = OccIndex.from_dense(f, device) if occ is None else occ
     m = int(f.acc[1])
     return assemble(m, ssa_shift, *ssa_gen_cuda(idx, m, ssa_shift))

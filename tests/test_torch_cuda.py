@@ -448,14 +448,32 @@ def test_occ_extend_c_at_row_edges(corpus_index, cuda_device, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_occ_lf_kernel_matches_plain(corpus_index, cuda_device, layout):
+    """occ_lf (csrc/occ_rank.cu over each layout's lf_step) at every k of
+    the corpus index: the symbol and LF(k) equal to the plain `lf` on the
+    card and to DenseFMIndex.lf; one count a launch."""
+    x = make_index(layout, corpus_index, cuda_device)
+    k = torch.arange(corpus_index.n, device=cuda_device)
+    before = rank.lf_cuda.launches[layout]
+    c, nk = rank.lf_cuda(x, k)
+    torch.cuda.synchronize()
+    assert rank.lf_cuda.launches[layout] == before + 1 and c.dtype == torch.int32 and nk.dtype == x.dtype
+    want_c, want_nk = rank.lf(x, k)
+    assert torch.equal(c.long(), want_c) and torch.equal(nk.long(), want_nk)
+    jc, jnk = corpus_index.lf(np.arange(corpus_index.n))
+    assert np.array_equal(c.cpu().numpy(), jc) and np.array_equal(nk.cpu().numpy(), jnk)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["frontier", "random", "edges", "empty"])
-@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("layout", LAYOUTS)
 def test_kount_rank_kernel_matches_plain(corpus_index, cuda_device, layout, case):
     """kount_rank (csrc/kount.cu) equals kount_rank_plain exactly: on every
     level of the corpus's `kount -k 8 -m 2` frontier (symbol-major, as
     kount ranks it), on random unsorted (k, l), on the edges 0 and n and
-    both sides of every row edge, and on N = 0 (no launch); one count a
-    launch."""
+    both sides of every row edge (rb: of every block, 256 dividing 64's
+    multiples), and on N = 0 (no launch); one count a launch."""
     cpu, gpu = make_index(layout, corpus_index, "cpu"), make_index(layout, corpus_index, cuda_device)
     n, rng = corpus_index.n, np.random.default_rng(23)
     if case == "frontier":
@@ -489,7 +507,7 @@ def short_seqs_index(m, seed=9, lo=20, hi=200):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("which", ["corpus", "many"])
 def test_ssa_kernel_matches_plain(corpus_index, cuda_device, layout, which):
     """ssa_gen's four arrays from the kernel equal the lock-step plain
@@ -511,7 +529,7 @@ def test_ssa_kernel_matches_plain(corpus_index, cuda_device, layout, which):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [4, 128, "above_n"])
-@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("which", ["corpus", "many"])
 def test_ssa_segments_match_plain(corpus_index, cuda_device, layout, which, S):
     """ssa_gen's three passes on the card against ssa_gen_seg_plain on the
@@ -828,7 +846,7 @@ def test_sw_engine_on_card_matches_native(corpus, corpus_index, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["corpus", "cyclic"])
 @pytest.mark.parametrize("S", [8, 256, "heads"])
-@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("layout", LAYOUTS)
 def test_retrieve_seg_matches_plain(corpus_index, cuda_device, layout, S, which):
     """K11 (csrc/walk.cu retrieve_seg: passes 1, 3 and 4, with ssa_gen.cu's
     pointer jumping) against retrieve_seg_plain on the card at stride S:

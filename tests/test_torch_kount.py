@@ -17,6 +17,7 @@ from ropebwt3_tpu.construct.sa import gsa_bwt
 from ropebwt3_tpu.index.dense import DenseFMIndex
 from ropebwt3_tpu.nt6 import char2nt6, revcomp
 from ropebwt3_tpu.seqio import read_seqs
+from ropebwt3_tpu_torch import kernels
 from ropebwt3_tpu_torch.kernels import CSRC
 from ropebwt3_tpu_torch.kount_time import level_stats, node_major
 from ropebwt3_tpu_torch.ops import kount, runblock
@@ -24,6 +25,7 @@ from ropebwt3_tpu_torch.ops.rank import OccIndex
 
 from .test_torch_cuda import corpus_index  # noqa: F401  (fixture reuse)
 from .test_torch_runblock import HOST_SHIM
+from .test_torch_walk import OtherLayout
 
 DEPTH, MIN_OCC = 8, 2  # the corpus index's frontier peaks at 10,544 nodes (level 7)
 
@@ -36,7 +38,11 @@ def first_genome_index(corpus):
 
 
 def occ_index(f, layout):
-    """dense32, or dense64 with megablocks of 2^6 rows (several on the corpus)."""
+    """dense32, or dense64 with megablocks of 2^6 rows (several on the
+    corpus); rb32 or rb64 at S = 256 (mostly run-coded), rb64 in megablocks
+    of 4 blocks."""
+    if layout.startswith("rb"):
+        return runblock.RunBlockIndex.from_dense(f, "cpu", S=256, int64=layout == "rb64", mega_shift=2, cache=None)
     return OccIndex.from_dense(f, "cpu", int64=layout == "dense64", mega_shift=6)
 
 
@@ -116,7 +122,8 @@ def test_node_major_is_the_old_expansion(corpus_index, layout):  # noqa: F811
 def test_kount_rank_checks(corpus_index, case):  # noqa: F811
     """The wrapper raises, before any launch, on a position outside [0, n],
     on k > l, on a dtype or device other than the index's, on k and l of
-    other shapes, and on rb rows."""
+    other shapes, and on rows of no kernel layout (rb rows are one: they
+    rank, as the plain version on the CPU)."""
     idx = OccIndex.from_dense(corpus_index, "cpu")
     n = idx.n
     k = torch.tensor([0, 5, 100], dtype=torch.int32)
@@ -134,7 +141,10 @@ def test_kount_rank_checks(corpus_index, case):  # noqa: F811
     elif case == "shape":
         l = l[:2]
     else:
-        idx = runblock.RunBlockIndex.from_dense(corpus_index, "cpu", cache=None)
+        rb = runblock.RunBlockIndex.from_dense(corpus_index, "cpu", cache=None)
+        for a, b in zip(kount.kount_rank_cuda(rb, k, l), kount.kount_rank_plain(idx, k, l)):
+            assert torch.equal(a, b)
+        idx = OtherLayout(rb)
     before = dict(kount.kount_rank_cuda.launches)
     with pytest.raises(ValueError):
         kount.kount_rank_cuda(idx, k, l)
@@ -157,18 +167,16 @@ def test_kount_rank_cpu_takes_plain(corpus_index):  # noqa: F811
 
 KOUNT_HOST = """
 #include "kount.cu"
-template <typename T>
-static void kount_all(const int* rows, const int64_t* mega, const void* acc, int mega_shift, const T* k, const T* l,
-                      int64_t n, T* ok, T* size) {
-  const rb3c::Dense<T> ix{rb3c::Tables{rows, nullptr, mega, acc, mega_shift, 6}};
-  for (int64_t t = 0; t < n; ++t) rb3c::kount::kount_node<T>(ix, k, l, n, t, ok, size);
-}
-extern "C" void kount_dense32(const int* r, const int64_t* m, const void* a, int ms, const int* k, const int* l,
-                              int64_t n, int* ok, int* size) { kount_all<int>(r, m, a, ms, k, l, n, ok, size); }
-extern "C" void kount_dense64(const int* r, const int64_t* m, const void* a, int ms, const int64_t* k,
-                              const int64_t* l, int64_t n, int64_t* ok, int64_t* size) {
-  kount_all<int64_t>(r, m, a, ms, k, l, n, ok, size);
-}
+#define KOUNT_ALL(name, L)                                                                                        \\
+  extern "C" void kount_##name(const int* rows, const int* esc, const int64_t* mega, const void* acc, int ms,       \\
+                               int bs, const void* k, const void* l, int64_t n, void* ok, void* size) {             \\
+    using T = L::T;                                                                                                \\
+    const L ix{rb3c::Tables{rows, esc, mega, acc, ms, bs}};                                                       \\
+    for (int64_t t = 0; t < n; ++t)                                                                                \\
+      rb3c::kount::kount_node<T>(ix, static_cast<const T*>(k), static_cast<const T*>(l), n, t, static_cast<T*>(ok), \\
+                                 static_cast<T*>(size));                                                           \\
+  }
+RB3C_LAYOUTS(KOUNT_ALL)
 """
 
 
@@ -186,11 +194,12 @@ def kount_host(tmp_path_factory):
 
 
 @pytest.mark.parametrize("case", ["frontier", "random", "edges"])
-@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32", "rb64"])
 def test_kount_cu_on_the_host(kount_host, corpus_index, layout, case):  # noqa: F811
-    """The card's node routine, built for the host, equals kount_rank_plain
-    on every level's frontier, on random unsorted (k, l) pairs, and on the
-    edges: 0, n, and both sides of every row and megablock boundary."""
+    """The card's node routine of each layout, built for the host, equals
+    kount_rank_plain on every level's frontier, on random unsorted (k, l)
+    pairs, and on the edges: 0, n, and both sides of every row, block and
+    megablock boundary (multiples of 64)."""
     idx = occ_index(corpus_index, layout)
     n, rng = idx.n, np.random.default_rng(17)
     if case == "frontier":
@@ -202,14 +211,12 @@ def test_kount_cu_on_the_host(kount_host, corpus_index, layout, case):  # noqa: 
         e = np.unique(np.clip(np.concatenate([np.arange(0, n + 1, 64) + d for d in (-1, 0, 1)] + [[0, n]]), 0, n))
         pairs = [(torch.from_numpy(e).to(idx.dtype), torch.from_numpy(np.full_like(e, n)).to(idx.dtype)),
                  (torch.zeros(len(e), dtype=idx.dtype), torch.from_numpy(e).to(idx.dtype))]
-    vp = ctypes.c_void_p
-    mega = vp(idx.mega.data_ptr()) if idx.int64 else None
+    fn = getattr(kount_host, f"kount_{layout}")
+    fn.argtypes = [*kernels._TABLES, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
     for k, l in pairs:
         k, l = k.contiguous(), l.contiguous()
         ok, size = (torch.empty((4, len(k)), dtype=idx.dtype) for _ in range(2))
-        getattr(kount_host, f"kount_{layout}")(vp(idx.occf.data_ptr()), mega, vp(idx.acc.data_ptr()),
-                                               ctypes.c_int(idx.mega_shift), vp(k.data_ptr()), vp(l.data_ptr()),
-                                               ctypes.c_int64(len(k)), vp(ok.data_ptr()), vp(size.data_ptr()))
+        fn(*idx.kernel_tables(), k.data_ptr(), l.data_ptr(), len(k), ok.data_ptr(), size.data_ptr())
         want_ok, want_size = kount.kount_rank_plain(idx, k, l)
         assert torch.equal(ok, want_ok) and torch.equal(size, want_size)
 

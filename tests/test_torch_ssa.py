@@ -88,8 +88,11 @@ def test_walk_checks_bounds(indexes):
         ssa_ops.ssa_gen_cuda(idx, m + 1, 3)
     with pytest.raises(ValueError):
         ssa_ops.ssa_gen_cuda(idx, m, ssa_ops.MAX_SHIFT + 1)
-    with pytest.raises(TypeError):  # rb rows are not walked yet
-        ssa_ops.ssa_gen_cuda(runblock.RunBlockIndex.from_dense(f, "cpu", cache=None), m, 3)
+    rb = runblock.RunBlockIndex.from_dense(f, "cpu", cache=None)  # rb rows walk, as the dense ones
+    for a, b in zip(ssa_ops.ssa_gen_cuda(rb, m, 3), ssa_ops.ssa_gen_cuda(idx, m, 3)):
+        assert torch.equal(a.long(), b.long())
+    with pytest.raises(TypeError):  # not occ rows
+        ssa_ops.check_walk(f, m, 3)
 
 
 @pytest.fixture(scope="module")

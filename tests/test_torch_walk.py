@@ -164,9 +164,9 @@ def test_get_on_a_cyclic_fmd_matches_reference(tmp_path):
 
 def test_retrieve_checks_its_inputs(corpus_index, monkeypatch):  # noqa: F811
     """F2, before any walk: positions outside [0, n), a k list that is not
-    1-D integers, rb rows, a stride that is not a positive int (the kernel:
-    a power of two), segment ids past 2^31, and the card budget (named in
-    the CapacityError)."""
+    1-D integers, rows of no kernel layout (rb rows are one: they walk), a
+    stride that is not a positive int (the kernel: a power of two), segment
+    ids past 2^31, and the card budget (named in the CapacityError)."""
     f = corpus_index
     idx = OccIndex.from_dense(f, "cpu")
     for ks in ([0, f.n], [-1, 0], [[0, 1]], [0.5]):
@@ -179,8 +179,11 @@ def test_retrieve_checks_its_inputs(corpus_index, monkeypatch):  # noqa: F811
     with pytest.raises(ValueError, match="power-of-two"):
         walk.check_retrieve(idx, [0, 5], 3, kernel=True)
     rb = runblock.RunBlockIndex.from_dense(f, "cpu", S=256, cache=None)
-    with pytest.raises(ValueError, match="dense rows"):
-        walk.retrieve_cuda(rb, [0, 1])
+    assert walk.check_retrieve(rb, [0, 5], 8, kernel=True)[1] == int(f.acc[1])
+    seqs, ends = walk.retrieve_cuda(rb, [0, 1], 8)
+    assert all(np.array_equal(s, f.retrieve(k)[0]) for k, s in zip([0, 1], seqs))
+    with pytest.raises(ValueError, match="rows, not rb16"):
+        walk.retrieve_cuda(OtherLayout(rb), [0, 1])
     big = OccIndex(idx.occf, torch.tensor([0, 1, 2, 3, 4, 5, 1 << 32]), 1 << 32)
     with pytest.raises(ValueError, match="2\\^31"):
         walk.check_retrieve(big, [0], 1, kernel=False)
@@ -188,6 +191,16 @@ def test_retrieve_checks_its_inputs(corpus_index, monkeypatch):  # noqa: F811
     with pytest.raises(tcli.CapacityError, match="1000 B"):
         walk._fits(torch.device("cpu"), 1001, "the segment records")
     walk._fits(torch.device("cpu"), 1000, "the segment records")
+
+
+class OtherLayout:
+    """An index whose layout no kernel has: the wrappers refuse it."""
+
+    def __init__(self, idx, layout: str = "rb16"):
+        self.idx, self.layout = idx, layout
+
+    def __getattr__(self, name):
+        return getattr(self.idx, name)
 
 
 def test_walk_stride():
@@ -235,8 +248,7 @@ WALK_ENTRIES = r"""
     retrieve_seg_tile(n_cyc, n, out, period);                                                                      \
     return 0;                                                                                                       \
   }
-HOST_PASSES(dense32, rb3c::Dense<int>)
-HOST_PASSES(dense64, rb3c::Dense<int64_t>)
+RB3C_LAYOUTS(HOST_PASSES)
 """
 
 # K12's entry point in every layout, its C signature kept, and a loop over
@@ -303,16 +315,19 @@ def walk_host(tmp_path_factory):
 
 
 @pytest.mark.parametrize("which", ["corpus", "cyclic"])
-@pytest.mark.parametrize("layout", ["dense32", "dense64"])
+@pytest.mark.parametrize("layout", ["dense32", "dense64", "rb32", "rb64"])
 def test_walk_cu_on_the_host(walk_host, corpus_index, monkeypatch, which, layout):  # noqa: F811
     """launch_retrieve, the card's path, with the kernels built for the host
-    (K11's passes 1, 3 and 4 and K5's pointer jumping) at power-of-two
-    strides (and, on the random BWT, the heads alone): symbols, end rows
-    and segment records equal to retrieve_seg_plain's (cycle heads
-    included on the random BWT), one count a walk."""
+    (K11's passes 1, 3 and 4 over each layout's lf_step, and K5's pointer
+    jumping) at power-of-two strides (and, on the random BWT, the heads
+    alone): symbols, end rows and segment records equal to
+    retrieve_seg_plain's (cycle heads included on the random BWT), one
+    count a walk.  rb rows at S = 256 (rb64: megablocks of 4 blocks): the
+    corpus's mostly run-coded, the random BWT's escapes."""
     monkeypatch.setattr(kernels, "launch", walk_host)
     f = corpus_index if which == "corpus" else cyclic_bwt_index(2)
-    idx = OccIndex.from_dense(f, "cpu", int64=layout == "dense64", mega_shift=10)
+    idx = (OccIndex.from_dense(f, "cpu", int64=layout == "dense64", mega_shift=10) if layout.startswith("dense")
+           else runblock.RunBlockIndex.from_dense(f, "cpu", S=256, int64=layout == "rb64", mega_shift=2, cache=None))
     for S in ((64,) if which == "corpus" else (1, 8, walk.heads_only(f.n))):
         ks = corpus_ks(f, S) if which == "corpus" else list(range(f.n)) + [3, 3]
         want = walk.retrieve_seg_plain(idx, ks, S)
