@@ -45,7 +45,19 @@ dense32's plain run (PLAIN_ROWS).  Phases:
             lanes, meeting lengths and hand-overs; each -m 16M
             merge's peak card memory at or under merge_bytes; `merge` of the
             genomes' two halves byte-equal to `python -m ropebwt3_tpu merge`;
-            beside each, the JAX package's native command timed
+            beside each, the JAX package's native command timed.  The host
+            placement (B1 and the merged BWT in host memory, B1's rows on
+            the card): `build -m 16M -do` with RB3TPU_DEVICE_OCC=rb (every
+            merge there, on rb32 rows), counts reset and read, its FMD
+            byte-equal, one merge_rank_rb32 launch a merge; each -m 16M
+            merge again through merge_host on dense32 and rb32 rows, equal
+            to the card path's BWT, its wall by piece (rows, lf2 and K6, ins
+            download, native apply) beside the card path's; merge_rank_rb32
+            timed beside dense32 on each, its ins equal to dense32's, on the
+            first exact against merge_rank_chunked_plain over the rb32 rows
+            (segment records too; its ranks' sectors give the bound); and
+            merge_rank_rb64 (S 256, megablocks of 2^20 symbols) on the short
+            reads' first merge, as dense64
   rank      occ_rank1a / occ_extend_c / occ_lf of each layout vs the plain
             PyTorch rank1a / extend_c / lf on the card, on the bench index:
             1 M positions (0, n, block and megablock boundaries included;
@@ -73,8 +85,8 @@ dense32's plain run (PLAIN_ROWS).  Phases:
             chain floors' step
   smem      per layout: smem_tg (one thread per read) vs smem_tg_plain on the
             card, 4,096 reads, exact; smem_tgc (the lanes taken heaviest first
-            from a queue) vs the plain lanes on the main path's lanes of 64
-            long reads and 2,048 short ones (rows, counts, START logs,
+            from a queue) vs the plain lanes on the main path's lanes of 32
+            long reads and 1,024 short ones (rows, counts, START logs,
             trips), exact; then on the main path's
             batch the chunked engine (smem_tgc, stitch, reruns) must equal
             the one-thread kernel's rows and counts (rerun with a buffer of
@@ -135,7 +147,11 @@ dense32's plain run (PLAIN_ROWS).  Phases:
             `python -m ropebwt3_tpu hapdiv`, and its wall time by piece;
             then `hapdiv --engine=hybrid` (the windows split between K8 and
             the native DP) byte-equal to the same reference, >= 1 K8
-            launch, its wall and the windows on the card
+            launch, its wall and the windows on the card; then past the
+            card (F10): `hapdiv` on auto with mem's share of the card cut
+            below the dense rows (the native DP: byte-equal, 0 launches,
+            its choice logged) and `--engine=jax` with cli.card_bytes
+            patched small (one ERROR line, exit 1, no traceback)
   sw        K9 (csrc/sw.cu, one warp a read) on bench.py's index: per dense
             layout the kernel vs sw_plain on the card, exact, on the first
             128 short reads the card takes (general DAWGs) and 64 (-e), 16
@@ -150,7 +166,7 @@ dense32's plain run (PLAIN_ROWS).  Phases:
             --engine=hybrid` (the reads split between K9 and the native
             engine) and `sw --engine=jax` on the 10,000 reads, byte-equal to
             the same reference, >= 1 K9 launch each, their walls and the
-            reads on the card
+            reads on the card; then past the card as [hapdiv]
   utils     `get` of the 32 sequences (from their sentinel rows), 0, n - 1
             and n; `suffix` of all the reads; `kount -k 11 -m 8` (a frontier
             of ~2.6 M 11-mers, at least 10^6 required) through cli.main,
@@ -243,6 +259,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import copy
 import io
 import json
 import os
@@ -265,7 +282,7 @@ PROBE_HBM_SHAPES = ((1_000_000, 12), (2_000_000, 128))  # 48 MB of 48-B rows, 1 
 SSA_SHIFT = 8  # `ssa`'s default -s; the CPU tests' corpus runs -s 4
 N_CHECK = 1 << 20  # rank phase positions and intervals
 N_SMEM = 4096  # smem phase: reads of the one-thread kernel's plain check
-N_TGC_SHORT, N_TGC_LONG = 2048, 64  # smem phase: reads of the chunked kernel's plain check
+N_TGC_SHORT, N_TGC_LONG = 1024, 32  # smem phase: reads of the chunked kernel's plain check
 CHUNK_SWEEP = (64, 128, 256, 512, 1024)  # smem phase, dense32: chunk sizes timed (margin = chunk / 2)
 MAX_MEMS = 64  # BatchedSmemTG's MEM buffer rows per chain
 HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's 3.35 TB/s HBM3 rate, in bytes a millisecond
@@ -1081,7 +1098,8 @@ def check_k6(merge, idx, b1, b2, reps: int, lanes_plain: bool) -> dict:
     derived stride, as merge_rank_cuda runs it: timed, and its ins held
     exactly against merge_rank_chunked_plain on the card (segment records
     too), the native walk, and (lanes_plain) merge_rank_plain on the card.
-    Returns ins and the record of the merge."""
+    On rb rows the plain run counts the sectors its ranks read, the bound's
+    table bytes.  Returns ins and the record of the merge."""
     import torch
 
     acc2, rec = merge.lf2_packed(b2)
@@ -1089,9 +1107,11 @@ def check_k6(merge, idx, b1, b2, reps: int, lanes_plain: bool) -> dict:
     S = merge.stride(n2, idx.device)
     first, n_seg = merge.segments(n2, m2, S)
     ms, ins, seg = k6_ms(merge, idx, rec, m2, S, reps)
+    rb = idx.layout.startswith("rb")
+    sc = SectorCount(idx, [idx]) if rb else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pins, pseg = merge.merge_rank_chunked_plain(idx, rec.clone(), m2, S)
+    pins, pseg = merge.merge_rank_chunked_plain(counted(idx, sc) if rb else idx, rec.clone(), m2, S)
     torch.cuda.synchronize()
     chunked_plain = (time.perf_counter() - t0) * 1e3
     nat, nat_s = native_ins(b1, b2)
@@ -1115,9 +1135,20 @@ def check_k6(merge, idx, b1, b2, reps: int, lanes_plain: bool) -> dict:
         chunked_plain_ms=chunked_plain, native_walk_s=nat_s, meet_median=float(q[0]), meet_p99=float(q[1]),
         meet_max=int(met.max()) if met.size else 0, never_met=int(n_seg - m2 - met.size),
         longest_segment=int(length.max()) if n_seg else 0, longest_hand_over=int(hand.max()) if n_seg else 0,
-        # the rows and acc read, the records read and ins written (8 B each a
-        # B2 symbol), the segment records written
-        bound=bound_ms(idx.nbytes + 16 * n2 + 8 * merge.SEG_ROWS * n_seg))
+        # the rows and acc read (rb: the 32-B sectors the plain version's
+        # ranks read), the records read and ins written (8 B each a B2
+        # symbol), the segment records written
+        bound=bound_ms((sc.bytes()[0] if rb else idx.nbytes) + 16 * n2 + 8 * merge.SEG_ROWS * n_seg),
+        **({"table_bytes": idx.nbytes, "S_block": idx.S, "escape_blocks": idx.n_esc} if rb else {}))
+
+
+def counted(idx, sc):
+    """A copy of the rb index idx whose rank1a marks, in SectorCount sc,
+    the sectors the card's rank reads: the plain merge rank takes it as it
+    takes the index (check_merge holds it to RunBlockIndex)."""
+    x = copy.copy(idx)
+    object.__setattr__(x, "rank1a", sc.rank1a)  # an instance attribute of the frozen dataclass
+    return x
 
 
 def k6_line(m: dict) -> str:
@@ -1128,6 +1159,91 @@ def k6_line(m: dict) -> str:
             f"merge_rank_chunked_plain on the card {m['chunked_plain_ms']:.1f} ms"
             + (f", merge_rank_plain {m['plain']:.1f} ms" if m["plain"] is not None else "")
             + f"; ins exact against both plain versions and the native walk ({m['native_walk_s']:.2f} s subprocess)")
+
+
+HOST_PIECES = re.compile(r"merge in host memory over B1's (\S+) rows .*?seconds by piece: (.*)")
+
+
+def check_host_merges(cli, merge, sa, dev, card: str, fa: str, fmd: str, steps: list, final, merges: list) -> dict:
+    """[construct]'s host placement (F11): B1 and the merged BWT in host
+    memory, B1's rows on the card.  `build -m 16M -do` with every merge
+    placed there, in-process, by RB3TPU_DEVICE_OCC=rb (rb32 rows: the card
+    path holds dense rows only), counts reset and read: its FMD byte-equal
+    to the index build, one merge_rank_rb32 launch a merge and none of
+    dense32, each merge logged with its rows and pieces.  Then the same
+    merges (`steps`: B1 in host memory, B2 on the card, dense32 K6's ins)
+    one by one through merge_host on dense32 and on rb32 rows, each merged
+    BWT equal to the card path's, timed by piece beside the card path's
+    (`merges`); and K6 on the rb32 rows at the derived stride, timed beside
+    dense32's on the same merge, its ins equal to dense32's, on the first
+    merge also ins and segment records exact against
+    merge_rank_chunked_plain over the same rows on the card, whose ranks'
+    sectors give the bound."""
+    import torch
+
+    from ropebwt3_tpu_torch.index.dense import runs_of_bwt
+    from ropebwt3_tpu_torch.ops.runblock import RunBlockIndex, build_runblock_np
+
+    port = os.path.join(WORK, "construct_port_m16_host.fmd")
+    sa.SA_LAUNCHES.clear()
+    merge.merge_rank_cuda.launches.clear()
+    os.environ["RB3TPU_DEVICE_OCC"] = "rb"
+    try:
+        path_s, err = cli_run(cli, ["build", "-m", CONSTRUCT_M, "-do", port, fa])
+    finally:
+        del os.environ["RB3TPU_DEVICE_OCC"]
+    launches = dict(merge.merge_rank_cuda.launches)
+    same_file(port, fmd, f"port `build -m {CONSTRUCT_M} -do` on the host placement (rb32 rows) vs the index build")
+    logged = HOST_PIECES.findall(err)
+    if launches != {"rb32": len(steps)} or len(logged) != len(steps) or any(lay != "rb32" for lay, _ in logged):
+        fail(f"[construct] the host placement's build launched {launches} and logged {logged}: one merge_rank_rb32 "
+             f"launch and one rb32 host merge for each of the {len(steps)} merges expected")
+    path_pieces = [dict((k, float(v)) for k, v in (x.rsplit(" ", 1) for x in p.split(", "))) for _, p in logged]
+    say(f"[construct] `build -m {CONSTRUCT_M} -do` with every merge on the host placement (RB3TPU_DEVICE_OCC=rb: "
+        f"B1 and the merged BWT in host memory, B1's rb32 rows on the card): FMD byte-equal to the index build; "
+        f"launches {launches}; port in-process {path_s:.3f} s (the card path's run above: see its line); seconds by "
+        f"piece a merge {path_pieces} ({card})")
+    recs = []
+    for i, ((b1h, b2, ins_d), m) in enumerate(zip(steps, merges)):
+        want = steps[i + 1][0] if i + 1 < len(steps) else final
+        rec = dict(n1=len(b1h), n2=b2.numel(), card_path=dict(rows_s=m["rows_s"], k6_ms=m["ms"], apply_s=m["apply_s"]))
+        for layout in ("dense", "rb"):
+            pieces = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = merge.merge_host(b1h, b2, dev, layout, pieces)
+            pieces["wall"] = time.perf_counter() - t0
+            if not np.array_equal(got, want):
+                fail(f"[construct] merge_host on {layout} rows (merge {i}) gives another BWT than the card path")
+            rec[f"host_{layout}"] = pieces
+        x = RunBlockIndex.from_np(build_runblock_np(*runs_of_bwt(b1h), n=len(b1h)), dev)
+        if i == 0:
+            _, k6 = check_k6(merge, x, torch.from_numpy(b1h), b2, 3, lanes_plain=False)
+            k6["input"] = f"the first -m {CONSTRUCT_M} merge: n1={len(b1h)}, n2={b2.numel()}"
+        else:
+            acc2, r2 = merge.lf2_packed(b2)
+            S = merge.stride(b2.numel(), dev)
+            ms, ins, seg = k6_ms(merge, x, r2, int(acc2[1]), S, 3)
+            length, hand = seg[1].max(), seg[4].max()
+            k6 = dict(ms=ms, S=S, longest_segment=int(length), longest_hand_over=int(hand), table_bytes=x.nbytes)
+            if not np.array_equal(ins.cpu().numpy(), ins_d):
+                fail(f"[construct] merge_rank_rb32 on merge {i} differs from merge_rank_dense32's ins")
+            del ins, seg, r2
+        k6.update(dense32_ms=m["ms"], S_block=x.S, escape_blocks=x.n_esc, table_bytes=x.nbytes)
+        rec["k6_rb32"] = k6
+        recs.append(rec)
+        say(f"[construct] merge {i} (n1={rec['n1']}, n2={rec['n2']}) on the host placement: merge_rank_rb32 over B1's "
+            f"rb32 rows (S {x.S}, {x.n_esc} escape blocks, {x.nbytes} B) {k6['ms']:.4f} ms beside merge_rank_dense32 "
+            f"{m['ms']:.4f} ms, ins equal" + (f" and exact against merge_rank_chunked_plain over the rb32 rows on the "
+                                             f"card ({k6['chunked_plain_ms']:.1f} ms; segment records too), bound "
+                                             f"{k6['bound']:.4f} ms" if i == 0 else "")
+            + f"; wall by piece, card path: rows {m['rows_s'] * 1e3:.1f} ms, K6 {m['ms']:.1f} ms, merge_apply "
+            f"{m['apply_s'] * 1e3:.1f} ms; host path dense32: " + ", ".join(
+                f"{k} {v * 1e3:.1f} ms" for k, v in rec["host_dense"].items() if isinstance(v, float))
+            + "; host path rb32: " + ", ".join(
+                f"{k} {v * 1e3:.1f} ms" for k, v in rec["host_rb"].items() if isinstance(v, float)) + f" ({card})")
+        del x
+    return dict(launches=launches, path_s=path_s, path_pieces=path_pieces, merges=recs)
 
 
 def log_merge_s(stderr: str) -> list[float]:
@@ -1162,10 +1278,11 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     step)."""
     import torch
 
-    from ropebwt3_tpu_torch.cli import _runs_of_bwt
     from ropebwt3_tpu_torch.construct import merge, sa
     from ropebwt3_tpu_torch.formats.fmd import encode_runs
+    from ropebwt3_tpu_torch.index.dense import runs_of_bwt
     from ropebwt3_tpu_torch.ops.rank import OccIndex
+    from ropebwt3_tpu_torch.ops.runblock import RunBlockIndex, build_runblock_np
 
     out = {}
     # 1. bench.py's genomes in one batch (the one-shot port on the side lane
@@ -1194,7 +1311,7 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     bwt_host = sa.gsa_bwt(seq_d, dev)[0].cpu().numpy()
     t_sort = time.perf_counter() - t0
     t0 = time.perf_counter()
-    data = encode_runs(*_runs_of_bwt(bwt_host))
+    data = encode_runs(*runs_of_bwt(bwt_host))
     t_enc = time.perf_counter() - t0
     if data != open(fmd, "rb").read():
         fail("[construct] gsa_bwt's BWT of bench.py's batch, encoded, differs from the index build's FMD")
@@ -1262,7 +1379,7 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     ref16 = os.path.join(WORK, CONSTRUCT_REFS["construct_ref16"][0])
     ref16_s, ref16_err = bg.result("construct_ref16")
     same_file(ref16, fmd, f"`python -m ropebwt3_tpu build -m {CONSTRUCT_M} -do`")
-    merges, bwt = [], None
+    merges, bwt, steps = [], None, []  # steps: each merge's B1 in host memory, B2 on the card, dense32 K6's ins
     for seq in host_batches(fa, cli.parse_num(CONSTRUCT_M)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1277,6 +1394,7 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
         torch.cuda.synchronize()
         t_rows = time.perf_counter() - t0
         ins, m = check_k6(merge, idx, bwt, b2, 3, lanes_plain=False)
+        steps.append((bwt.cpu().numpy(), b2, ins.cpu().numpy()))
         t0 = time.perf_counter()
         merged = merge.merge_apply(bwt, b2, ins)
         torch.cuda.synchronize()
@@ -1297,7 +1415,8 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
         merges.append(m)
         bwt = merged
         del got
-    if encode_runs(*_runs_of_bwt(bwt.cpu().numpy())) != open(fmd, "rb").read():
+    final = bwt.cpu().numpy()
+    if encode_runs(*runs_of_bwt(final)) != open(fmd, "rb").read():
         fail(f"[construct] the -m {CONSTRUCT_M} pieces, run one by one, give another FMD")
     del bwt, b2
     native16 = log_merge_s(ref16_err)
@@ -1310,6 +1429,8 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
         say(f"[construct] -m {CONSTRUCT_M} merge, dense32, {k6_line(m)}; rows (OccIndex.from_bwt) "
             f"{m['rows_s'] * 1e3:.3f} ms, merge_apply {m['apply_s'] * 1e3:.3f} ms; peak card memory {m['peak_bytes']} "
             f"B, merge_bytes {m['merge_bytes']} B ({card})")
+    out["host"] = check_host_merges(cli, merge, sa, dev, card, fa, fmd, steps, final, merges)
+    del steps, final
 
     # 3. many short walks: the 100,000 reads with -m 12M
     many_port = os.path.join(WORK, "construct_port_many.fmd")
@@ -1321,21 +1442,26 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
     s1, s2 = host_batches(many_fa, cli.parse_num(MANY_M))[:2]
     b1, b2 = sa.gsa_bwt(s1, dev)[0], sa.gsa_bwt(s2, dev)[0]
     steps = longest_walk(s2)
+    b1h = b1.cpu().numpy()
     for layout, idx in (("dense32", OccIndex.from_bwt(b1)),
-                        ("dense64", OccIndex.from_bwt(b1, int64=True, mega_shift=DENSE64_SHIFT))):
+                        ("dense64", OccIndex.from_bwt(b1, int64=True, mega_shift=DENSE64_SHIFT)),
+                        ("rb64", RunBlockIndex.from_np(build_runblock_np(*runs_of_bwt(b1h), n=len(b1h), S=RB64_S,
+                                                                         int64=True, mega_shift=RB64_SHIFT), dev))):
         if idx.layout != layout:
             fail(f"[construct] the short reads' B1 rows are {idx.layout}, not {layout}")
-        _, r = check_k6(merge, idx, b1, b2, 5, lanes_plain=True)
+        _, r = check_k6(merge, idx, b1, b2, 5, lanes_plain=layout != "rb64")
         r.update(longest=steps, many_native_merges_s=log_merge_s(many_ref_err),
                  input=f"the short reads' first merge (-m {MANY_M}): n1={idx.n}, n2={len(s2)}, m2={r['m2']} sequences "
                        f"of up to {steps} steps")
         out[f"merge_rank_{layout}"] = r
-        say(f"[construct] merge_rank_{layout} on the short reads' first merge (longest walk {steps} steps), {k6_line(r)} "
-            f"({card})")
+        say(f"[construct] merge_rank_{layout} on the short reads' first merge (longest walk {steps} steps)"
+            + (f", B1's rows rb64 at S {idx.S} ({idx.n_esc} escape blocks, {idx.mega.shape[0]} megablocks, "
+               f"{idx.nbytes} B; bound: the rb sectors the plain version's ranks read)" if layout == "rb64" else "")
+            + f", {k6_line(r)} ({card})")
     say(f"[construct] `build -m {MANY_M}` of the {N_READS} short reads: FMD byte-equal to their index build; port "
         f"in-process {many_s:.3f} s, `python -m ropebwt3_tpu build -m {MANY_M}` (in the background) {many_ref_s:.3f} s (its merges "
         f"{[round(x, 3) for x in log_merge_s(many_ref_err)]} s) ({card})")
-    del b1, b2
+    del b1, b2, b1h
 
     # 5. merge: the first and the second half of the genomes, built by the port
     halves = []
@@ -1530,7 +1656,11 @@ def check_hapdiv(cli, dev, card: str, fa: str, fmd: str, idxs: dict, ns: dict, b
         f"{hyb['launches']}; {hyb['n_dev']} of {hyb['n_items']} windows on the card (RB3TPU_HAPDIV_SPLIT's default "
         f"share at the start), the card's share at the end {hyb['share']:.4f}; port in-process {hyb['port_s']:.3f} s "
         f"against {port_s:.3f} s on auto ({card})")
-    return dict(res=res, path=path, hybrid=hyb)
+    past = past_card(cli, ["hapdiv", fmd, hap_fa], ref_out, hapdiv.hapdiv_cuda, "hapdiv")
+    say(f"[hapdiv] past the card (F10): `hapdiv` on auto with the dense rows past mem's share of the card runs the "
+        f"native DP, stdout byte-equal to the reference above, 0 hapdiv launches, in-process {past['auto_s']:.3f} s; "
+        f"`hapdiv --engine=jax` with the rows past the card's bytes: one line, {past['error']!r} ({card})")
+    return dict(res=res, path=path, hybrid=hyb, past_card=past)
 
 
 HYBRID_LOG = re.compile(r"hybrid: (\d+) of (\d+) (?:reads|windows) on the card, the card's share at the end ([\d.]+)")
@@ -1567,6 +1697,47 @@ def engine_path(cli, argv: list[str], ref_fn: str, counter) -> dict:
         if m is None or int(m.group(1)) < 1:
             fail(f"{name}: the card took no item ({m and m.group(0)})")
         rec.update(n_dev=int(m.group(1)), n_items=int(m.group(2)), share=float(m.group(3)))
+    return rec
+
+
+def past_card(cli, argv: list[str], ref_fn: str, counter, what: str) -> dict:
+    """F10 on the card: `argv` (a DP command on auto) through cli.main with
+    the card's budget for dense rows forced below the index's (ops/smem.py
+    AUTO_RB_SHARE cut to 1e-12, mem's rule): stdout byte-equal to the
+    reference in ref_fn (the JAX package's default, native), no launch of
+    `counter`'s kernel, the native choice logged; then with --engine=jax
+    and cli.card_bytes patched to 1,000 B: one ERROR line naming the rows'
+    bytes, exit 1, no traceback, no launch, no output.  Returns the walls."""
+    from ropebwt3_tpu_torch.ops import smem
+
+    want = open(ref_fn, "rb").read()
+    rec = {}
+    for engine in ("auto", "jax"):
+        counter.launches.clear()
+        out_fn, err = ref_fn.replace("_ref.txt", f"_past_card_{engine}.txt"), io.StringIO()
+        share, budget = smem.AUTO_RB_SHARE, cli.card_bytes
+        if engine == "auto":
+            smem.AUTO_RB_SHARE = 1e-12
+        else:
+            cli.card_bytes = lambda dev: 1000
+        t0 = time.perf_counter()
+        try:
+            with open(out_fn, "w") as out, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main([argv[0], *([] if engine == "auto" else ["--engine=jax"]), *argv[1:]])
+        finally:
+            smem.AUTO_RB_SHARE, cli.card_bytes = share, budget
+        rec[f"{engine}_s"] = time.perf_counter() - t0
+        got, log_ = open(out_fn, "rb").read(), err.getvalue()
+        errors = [ln for ln in log_.splitlines() if not ln.startswith("[M::")]
+        if sum(counter.launches.values()) or "Traceback" in log_:
+            fail(f"{what} past the card ({engine}): launches {dict(counter.launches)}, or a traceback: {log_[-2000:]}")
+        if engine == "auto" and (rc != 0 or got != want or "auto runs the native DP: the dense rows need" not in log_):
+            fail(f"{what} on auto past the card: exit {rc}, stdout {first_diff(got, want)}, or no native choice logged")
+        if engine == "jax" and (rc != 1 or got or len(errors) != 1 or not errors[0].startswith(
+                "ERROR: the occ rows of 1 index(es) need ~") or "which has 1000 B" not in errors[0]):
+            fail(f"{what} --engine=jax past the card: exit {rc}, {len(got)} B out, errors {errors}")
+        if engine == "jax":
+            rec["error"] = errors[0]
     return rec
 
 
@@ -1729,7 +1900,11 @@ def check_sw(cli, dev, card: str, fmd: str, reads, idxs: dict, ns: dict, bg: Bac
         f"share at the start), the card's share at the end {hyb['share']:.4f}; port in-process {hyb['port_s']:.3f} s; "
         f"`sw --engine=jax`: byte-equal, launches {engines['jax']['launches']}, {engines['jax']['port_s']:.3f} s; "
         f"against {path['port_s']:.3f} s on auto ({card})")
-    return dict(res=res, path=path, e2e=e2e, engines=engines)
+    past = past_card(cli, ["sw", fmd, path_fa], os.path.join(WORK, "sw", "sw_ref.txt"), sw.sw_cuda, "sw")
+    say(f"[sw] past the card (F10): `sw` on auto with the dense rows past mem's share of the card runs the native "
+        f"engine, stdout byte-equal to the reference above, 0 sw launches, in-process {past['auto_s']:.3f} s; `sw "
+        f"--engine=jax` with the rows past the card's bytes: one line, {past['error']!r} ({card})")
+    return dict(res=res, path=path, e2e=e2e, engines=engines, past_card=past)
 
 
 # [utils]: `kount` at -k KOUNT_K -m KOUNT_M (the frontier of 11-mers seen
@@ -2460,7 +2635,7 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
         merges.append(r)
         bwt = merged
         del got, merged
-    if encode_runs(*cli._runs_of_bwt(bwt.cpu().numpy())) != open(fmd, "rb").read():
+    if encode_runs(*cli.runs_of_bwt(bwt.cpu().numpy())) != open(fmd, "rb").read():
         fail(f"[mesh] `build -m {CONSTRUCT_M}` with the merge rank over {mesh}: FMD differs from the index build")
     api_s = time.perf_counter() - t0
     del bwt, b2
@@ -3072,6 +3247,19 @@ def main(argv: list[str]) -> None:
         + f" ({ns[LAT_L2]} ns a step); -m {CONSTRUCT_M} merges "
         + ", ".join(f"{m['chain_floor_ms']:.3f} ms (K6 {m['ms']:.3f} ms)" for m in con["merges16"])
         + f" ({ns[LAT_48MB]} ns a step) ({card})")
+    # K6 over rb rows: two rounds a step (header, then records or sub-row)
+    # at the ns of a table of that merge's B1 rb tables' size
+    for k6 in [r["k6_rb32"] for r in con["host"]["merges"]] + [con["merge_rank_rb64"]]:
+        nb = k6["table_bytes"]
+        lat = probe.latency_sweep(dev, gen, tables=[(f"48 B x {nb // 48} ({nb / 1e6:.1f} MB)", nb // 48, 12)])[0]
+        k6["chain_floor_ns_per_step"] = lat["ns_per_step"]
+        k6["chain_floor_ms"] = (k6["longest_segment"] + k6["longest_hand_over"]) * RB_ROUNDS * lat["ns_per_step"] / 1e6
+    say("[construct] K6 chain floors on rb rows ((longest segment + longest hand-over) x 2 rounds at the ns of a table "
+        "of B1's rb tables' size): -m " + CONSTRUCT_M + " merges (rb32) " + ", ".join(
+            f"{r['k6_rb32']['chain_floor_ms']:.3f} ms (K6 {r['k6_rb32']['ms']:.3f} ms, "
+            f"{r['k6_rb32']['chain_floor_ns_per_step']} ns)" for r in con["host"]["merges"])
+        + f"; short reads' merge (rb64) {con['merge_rank_rb64']['chain_floor_ms']:.4f} ms (K6 "
+        f"{con['merge_rank_rb64']['ms']:.4f} ms, {con['merge_rank_rb64']['chain_floor_ns_per_step']} ns) ({card})")
     phase_done("probe")
 
     # ---- smem ----------------------------------------------------------------
@@ -3508,6 +3696,24 @@ def main(argv: list[str]) -> None:
             **{k: r[k] for k in k6_keys},
             **({"build_path_merges": con["merges16"]} if layout == "dense32" else {}),
         })
+    host = con["host"]
+    for layout in ("rb32", "rb64"):
+        r = host["merges"][0]["k6_rb32"] if layout == "rb32" else con["merge_rank_rb64"]
+        n = host["launches"].get(layout, 0)
+        entries.append({
+            "name": f"merge_rank_{layout}", "route": "cuda", "source": "ropebwt3_tpu_torch/csrc/merge_rank.cu + rb.cuh",
+            "replaces": "ropebwt3_tpu/construct/merge.py:112-123 (window.step)", "launches": n,
+            "path": f"build -m {CONSTRUCT_M} on the host placement (RB3TPU_DEVICE_OCC=rb)" if n else None,
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["chunked_plain_ms"], "bound_ms": r["bound"],
+            "bound_by": "bytes", "library_ms": None, "chain_floor_ms": r["chain_floor_ms"],
+            "input": r["input"] + "; plain_ms: merge_rank_chunked_plain over the same rb rows on the card; bound: the "
+                     "rb sectors its ranks read, records in and ins out",
+            "dense32_ms": r["dense32_ms"] if layout == "rb32" else con["merge_rank_dense32"]["ms"],
+            "S_block": r["S_block"], "escape_blocks": r["escape_blocks"], "table_bytes": r["table_bytes"],
+            "chain_floor_ns_per_step": r["chain_floor_ns_per_step"], **{k: r[k] for k in k6_keys},
+            **({"host_merges": host["merges"], "host_path_s": host["path_s"], "host_path_pieces": host["path_pieces"]}
+               if layout == "rb32" else {}),
+        })
     for layout in ("dense32", "dense64"):
         r, n = hd["res"][layout], hd["path"]["launches"].get(layout, 0)
         entries.append({
@@ -3520,7 +3726,7 @@ def main(argv: list[str]) -> None:
             "full_batch_ms": r["full_ms"], "full_batch_windows": r["full_windows"], "occupancy": r["occupancy"],
             "phase_split": r["split"],
             **({"path_windows": hd["path"]["n_win"], "path_bad": hd["path"]["n_bad"], "path_port_s": hd["path"]["port_s"],
-                "path_reference_s": hd["path"]["ref_s"]} if n else {}),
+                "path_reference_s": hd["path"]["ref_s"], "past_card": hd["past_card"]} if n else {}),
         })
     for layout in ("dense32", "dense64"):
         r, e = swr["res"][f"general_{layout}"], swr["res"][f"e2e_{layout}"]
@@ -3534,7 +3740,7 @@ def main(argv: list[str]) -> None:
             "n_bad": r["n_bad"], "max_trips": r["max_trips"], "mean_trips": r["mean_trips"], "rows_bytes": r["rows_bytes"], "plain_rows": r["plain_rows"],
             "full_batch_ms": r["full_ms"], "full_batch_reads": r["full_reads"], "occupancy": r["occupancy"],
             "phase_split": r["split"], "e2e": e,
-            **({"path_sw": swr["path"], "path_all_e2e": swr["e2e"]} if n else {}),
+            **({"path_sw": swr["path"], "path_all_e2e": swr["e2e"], "past_card": swr["past_card"]} if n else {}),
         })
     kt = ut["kount"]
     for layout in LAYOUTS:

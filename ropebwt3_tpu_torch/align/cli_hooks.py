@@ -167,8 +167,11 @@ class MeshEngines:
     counts add up, and so do their seconds in `seconds` after each run."""
 
     def __init__(self, f, devices, make):
+        from ..cli import check_card
         from ..ops.rank import OccIndex
 
+        for d in {str(d): d for d in devices}.values():  # before any rows are built: one copy a distinct device
+            check_card(48 * len(f.occ_block), d, f"the replicated occ rows of a mesh ({d})", "dense")
         rows = {}
         for d in devices:
             rows.setdefault(str(d), OccIndex.from_dense(f, d))
@@ -298,17 +301,47 @@ def _device_engine(cls, f, opt, device, rows, mesh, hybrid=None):
     return DistList(eng) if world()[1] > 1 else eng
 
 
-def _engine_kind(engine: str, opt: SwOpt, device, mesh) -> str:
+def auto_on_card(f, device, func: str) -> bool:
+    """Whether `--engine=auto` runs the DP on the card for index f: not
+    where ops/smem.py `resolve_occ` would pick rb rows for it (mem's rule:
+    dense rows past AUTO_RB_SHARE of the card, or RB3TPU_DEVICE_OCC=rb),
+    nor where the dense rows pass the card's free bytes (cli.card_bytes).
+    The JAX package's auto runs the native DP at every index size, so this
+    choice places the work and hides no kernel; a native choice is logged
+    with the rows' bytes and the budget."""
+    import torch
+
+    from ..cli import card_bytes
+    from ..ops.smem import auto_rb_budget, resolve_occ
+
+    need, free = 48 * len(f.occ_block), card_bytes(torch.device(device))
+    if resolve_occ("auto", f.n, device) == "rb":
+        why = f"rb rows by mem's rule (dense rows past {auto_rb_budget(device):.0f} B, or RB3TPU_DEVICE_OCC=rb)"
+    elif free is not None and need > free:
+        why = f"past the card's {free} B"
+    else:
+        return True
+    log.info("auto runs the native DP: the dense rows need %d B, %s", need, why, func=func)
+    return False
+
+
+def _engine_kind(engine: str, opt: SwOpt, device, mesh, f=None, rows=None, func: str = "sw") -> str:
     """What runs the DP: "device", "hybrid", "native" or "python" (the
     Python DP alone: a debug flag on auto or native, as the JAX package's
-    engine choice has it, where --mesh makes auto jax)."""
+    engine choice has it, where --mesh makes auto jax).  Auto without
+    rows already on the card (f given) is the native DP where
+    `auto_on_card` says the dense rows do not belong there."""
     if mesh is not None and engine == "auto":
         engine = "jax"
     if device is None or engine == "native":
         return "python" if opt.dbg else "native"
     if engine == "hybrid":
         return "hybrid"
-    return "python" if opt.dbg and engine == "auto" else "device"
+    if opt.dbg and engine == "auto":
+        return "python"
+    if engine == "auto" and rows is None and f is not None and not auto_on_card(f, device, func):
+        return "native"
+    return "device"
 
 
 def log_hybrid(e, what: str, func: str) -> None:
@@ -336,7 +369,7 @@ def run_sw_cli(f, files, is_line, sw_opts, device=None, rows=None, mesh=None, en
         out.write("CC\tQH  refCount   score     editDist   cs   strand   nOut   totAln\n")
         out.write("CC\n")
     both = sw_opts["write_all"] and sw_opts["both_dir"]
-    kind = _engine_kind(engine, opt, device, mesh)
+    kind = _engine_kind(engine, opt, device, mesh, f, rows, "sw")
     dev_engine = None
     if kind in ("device", "hybrid"):
         from .sw import SwDeviceEngine
@@ -434,7 +467,7 @@ def run_hapdiv_cli(f, files, is_line, sw_opts, k, w, device=None, rows=None, mes
     # A batch closes once it holds CAP windows or more: the Python DP's
     # traces interleave the windows of a batch, so its batches are cut as
     # the JAX package cuts them (ropebwt3_tpu/align/cli_hooks.py:282)
-    kind = _engine_kind(engine, opt, device, mesh)
+    kind = _engine_kind(engine, opt, device, mesh, f, rows, "hapdiv")
     CAP = PYTHON_CAP if kind == "python" else NATIVE_CAP
     dev_engine = None
     if kind in ("device", "hybrid"):

@@ -492,6 +492,10 @@ class HapdivDeviceEngine:
             and opt.e2e_drop < 0
             and (opt.flag & (RB3_SWF_E2E | RB3_SWF_HAPDIV)) == (RB3_SWF_E2E | RB3_SWF_HAPDIV)
         )
+        if idx is None and self.supported:  # the rows come at first use: their bytes are checked now
+            from ..cli import check_card
+
+            check_card(48 * len(f.occ_block), self.device, "the occ rows of 1 index(es)", "dense")
 
     def _lap(self, piece: str, t0: float) -> float:
         t = time.perf_counter()

@@ -486,6 +486,10 @@ class SwDeviceEngine:
         self.n_reads = self.n_card = self.n_bad = self.n_shape = 0
         self.seconds = Counter()
         self.supported = f.n < (1 << 32) and 2 <= opt.n_best <= SCAP and not (opt.flag & RB3_SWF_HAPDIV)
+        if idx is None and self.supported:  # the rows come at first use: their bytes are checked now
+            from ..cli import check_card
+
+            check_card(48 * len(f.occ_block), self.device, "the occ rows of 1 index(es)", "dense")
 
     def _lap(self, piece: str, t0: float) -> float:
         t = time.perf_counter()

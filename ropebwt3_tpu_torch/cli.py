@@ -132,7 +132,7 @@ import numpy as np
 
 from . import log
 from .bufio import write_all
-from .index.dense import DenseFMIndex
+from .index.dense import DenseFMIndex, runs_of_bwt
 from .nt6 import COMP_TABLE, NT6_TABLE, char2nt6, nt6_to_str, revcomp
 from .parallel import MeshError
 from .seqio import batch_nt6_flat, iter_flat_batches, read_batch_nt6, read_seqs, read_sid
@@ -579,40 +579,93 @@ def card_bytes(dev) -> int | None:
     return torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
 
 
-def _to_device(bwt: np.ndarray, dev):
+def check_card(need: int, dev, what: str, layout: str) -> None:
+    """A CapacityError naming the bytes unless `need` B of `layout` rows
+    (`what`: whose) fit the card's budget (card_bytes), raised before any
+    upload; nothing off the card."""
     import torch
 
+    budget = card_bytes(torch.device(dev))
+    if budget is not None and need > budget:
+        raise CapacityError(f"{what} need ~{need} B of the card ({layout} rows), which has {budget} B")
+
+
+def _to_device(bwt, dev):
+    """The BWT on `dev`: a tensor as it is, a host array uploaded."""
+    import torch
+
+    if torch.is_tensor(bwt):
+        return bwt.to(dev)
     return torch.from_numpy(np.ascontiguousarray(bwt, dtype=np.uint8)).to(dev)
 
 
-def _merge_into(bwt, seq2, dev, mesh=None):
-    """B2 (a uint8 BWT, host or device) merged into the device BWT `bwt`,
-    on B1's rows built where it lies (with `mesh`, whose first device is
-    dev: those rows sharded over it, parallel/mesh.py ShardedRows, and the
-    merge rank's segments split over its devices); the check comes first,
-    so a merge that would not fit a card stops with one error, never on
-    the host."""
+def _on_host(bwt) -> np.ndarray:
+    """The BWT in host memory: an array as it is, a tensor downloaded."""
+    return bwt if isinstance(bwt, np.ndarray) else bwt.cpu().numpy()
+
+
+def _placement(bwt, seq2, dev, mesh=None, host: bool = False) -> str:
+    """Where merging seq2 (B2) into `bwt` runs, "card" or "host"
+    (construct/merge.py placement; a mesh's merges stay on the card, and
+    with `host` an index already in host memory stays there), logged with
+    why: its bytes against the card's."""
+    from .construct.merge import placement
+
+    if mesh is not None:
+        return "card"
+    n1, n2, m2 = len(bwt), len(seq2), int((seq2 == 0).sum())
+    where, why = placement(n1, n2, m2, dev)
+    if host and where == "card":
+        where, why = "host", f"the index stays in host memory ({why})"
+    log.info("merging %d symbols into %d on the %s: %s", n2, n1, where, why, func="merge")
+    return where
+
+
+def _merge_into(bwt, seq2, dev, mesh=None, where: str | None = None):
+    """B2 (a uint8 BWT, host or device) merged into `bwt` (B1: a tensor on
+    the card, or an array in host memory), where `_placement` puts it (or
+    `where`).  On the card: B1 there (uploaded if it is in host memory), on
+    its rows built where it lies (with `mesh`, whose first device is dev:
+    those rows sharded over it, parallel/mesh.py ShardedRows, and the merge
+    rank's segments split over its devices), the merged BWT a tensor there;
+    the mesh's check comes first, so a merge that would not fit a card
+    stops with one error.  On the host: construct/merge.py merge_host, B1's
+    rows on the card and the merged BWT in host memory."""
     import torch
 
-    from .construct.merge import merge_bytes, merge_mesh_bytes, merge_plain
+    from .construct.merge import merge_host, merge_mesh_bytes, merge_plain
     from .ops.rank import OccIndex
     from .parallel.mesh import ShardedRows, settle
 
+    where = _placement(bwt, seq2, dev, mesh) if where is None else where
+    if where == "host":
+        return merge_host(_on_host(bwt), seq2, dev)
+    bwt = _to_device(bwt, dev)
+    if mesh is None:
+        return merge_plain(OccIndex.from_bwt(bwt), bwt, seq2)
     n1, n2, m2 = bwt.numel(), len(seq2), int((seq2 == 0).sum())
-    need = {str(dev): merge_bytes(n1, n2, m2)} if mesh is None else merge_mesh_bytes(n1, n2, m2, mesh)
-    for d, b in need.items():
+    for d, b in merge_mesh_bytes(n1, n2, m2, mesh).items():
         budget = card_bytes(torch.device(d))
         if budget is not None and b > budget:
             raise CapacityError(f"merging {n2} symbols into an index of {n1} needs ~{b} B of {d}, which has {budget} B")
     rows = OccIndex.from_bwt(bwt)
-    if mesh is None:
-        return merge_plain(rows, bwt, seq2)
     sharded = ShardedRows(rows, mesh)
     log.info("merge rank over %s", sharded.describe(), func="merge")
     merged = merge_plain(sharded.views, bwt, seq2)
     del sharded, rows
     settle()  # the slabs that other processes map go once every process has merged
     return merged
+
+
+def _merge_step(bwt, seq2, dev, mesh=None, stay: bool = False):
+    """One merge of `build` or `merge`: the placement (with `stay`, the
+    index a merge left in host memory stays there), B1 moved to the host
+    first where the merge runs there, so the card holds no copy of it,
+    then `_merge_into`."""
+    where = _placement(bwt, seq2, dev, mesh, host=stay)
+    if where == "host":
+        bwt = _on_host(bwt)
+    return _merge_into(bwt, seq2, dev, mesh, where)
 
 
 def _launch_summary() -> str:
@@ -667,12 +720,14 @@ def main_build(argv: list[str], device: str) -> int:
     # the segments over all its devices); the batches on its first device
     mesh = _cli_mesh(mesh_spec, device, None, "main_build")
     dev = torch.device(device) if mesh is None else mesh.devices[0]
-    bwt = None  # the BWT built so far, on the device
+    # the BWT built so far: a tensor on the card, or an array in host memory
+    # (an index loaded by -i, or one that a merge left there: it stays)
+    bwt, stay = None, False
     if fn_in is not None:
         if sort_order != 0:
             return _err("-s/-r cannot be combined with -i yet")
         f = load_index(fn_in)
-        bwt = _to_device(f.bwt[: f.n], dev)
+        bwt = np.asarray(f.bwt[: f.n])
         del f
     try:  # the input's size in symbols, roughly (its files' bytes, times the strands)
         est = sum(os.path.getsize(fn) for fn in args if fn != "-" and os.path.exists(fn))
@@ -730,28 +785,30 @@ def main_build(argv: list[str], device: str) -> int:
             yield None  # file boundary (for -S checkpointing)
 
     n_batches = 0
-    try:
-        for seq in batches():
-            if seq is None:
-                if fn_tmp and bwt is not None:
-                    write_fmr(fn_tmp, *_runs_of_bwt(bwt.cpu().numpy()))
-                    log.info("saved the current index to '%s'", fn_tmp, func="main_build")
-                continue
-            n1 = 0 if bwt is None else bwt.numel()
-            budget = card_bytes(dev)
-            if budget is not None and (bytes_per_symbol(len(seq)) + 1) * len(seq) + n1 > budget:
-                raise CapacityError(f"a batch of {len(seq)} symbols does not fit the card beside an index of {n1} "
-                                    f"symbols ({budget} B); lower -m")
-            b2 = gsa_bwt(seq, dev)[0]
-            log.info("constructed partial BWT for %d symbols", len(b2), func="main_build")
-            bwt = b2 if bwt is None else _merge_into(bwt, b2, dev, mesh)
-            if n1:
-                log.info("merged the partial BWT for %d symbols", len(b2), func="main_build")
-    except torch.OutOfMemoryError as e:
-        raise CapacityError(f"out of card memory: {str(e).splitlines()[0]}") from e
+    for seq in batches():
+        if seq is None:
+            if fn_tmp and bwt is not None:
+                write_fmr(fn_tmp, *runs_of_bwt(_on_host(bwt)))
+                log.info("saved the current index to '%s'", fn_tmp, func="main_build")
+            continue
+        n1 = 0 if bwt is None else len(bwt)
+        on_card = n1 if torch.is_tensor(bwt) else 0  # an index in host memory takes no card bytes
+        budget = card_bytes(dev)
+        if budget is not None and (bytes_per_symbol(len(seq)) + 1) * len(seq) + on_card > budget:
+            raise CapacityError(f"a batch of {len(seq)} symbols does not fit the card beside an index of {on_card} "
+                                f"symbols on it ({budget} B); lower -m")
+        b2 = gsa_bwt(seq, dev)[0]
+        log.info("constructed partial BWT for %d symbols", len(b2), func="main_build")
+        if bwt is None:
+            bwt = b2
+        else:
+            bwt = _merge_step(bwt, b2, dev, mesh, stay)
+            stay = isinstance(bwt, np.ndarray)
+        if n1:
+            log.info("merged the partial BWT for %d symbols", len(b2), func="main_build")
     if bwt is None:
         return 1
-    _dump_index(bwt.cpu().numpy(), fmt, out_fn)
+    _dump_index(_on_host(bwt), fmt, out_fn)
     log.info(_launch_summary(), func="main_build")
     return 0
 
@@ -773,21 +830,11 @@ def _sort_units(seq: np.ndarray, sort_order: int) -> np.ndarray:
     return np.concatenate([x for t in order for x in (units[t], zero)])
 
 
-def _runs_of_bwt(bwt: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Run-length encode a raw BWT array: (symbols uint8, lengths int64)."""
-    if len(bwt) == 0:
-        return np.zeros(0, dtype=np.uint8), np.zeros(0, dtype=np.int64)
-    change = np.flatnonzero(bwt[1:] != bwt[:-1]) + 1
-    starts = np.concatenate(([0], change))
-    ends = np.concatenate((change, [len(bwt)]))
-    return bwt[starts].copy(), (ends - starts).astype(np.int64)
-
-
 def _dump_index(raw: np.ndarray, fmt: str, out_fn: str | None) -> None:
     """Write a BWT (uint8 array) as plain text, FMD, FMR, BRE or the -T tree."""
     from .formats.fmr import _pack_leaves, rle_decode_block, split_runs_into_buckets
 
-    syms, lens = _runs_of_bwt(raw)
+    syms, lens = runs_of_bwt(raw)
     out = sys.stdout.buffer if out_fn is None else open(out_fn, "wb")
     try:
         if fmt == "plain":
@@ -832,17 +879,15 @@ def main_merge(argv: list[str], device: str) -> int:
         return _usage("merge")
     dev = torch.device(device)
     f = load_index(args[0])
-    bwt = _to_device(f.bwt[: f.n], dev)
+    bwt, stay = np.asarray(f.bwt[: f.n]), False  # in host memory until a merge on the card takes it there
     del f
-    try:
-        for fn in args[1:]:
-            syms, lens = load_runs(fn)
-            bwt = _merge_into(bwt, np.repeat(syms, lens), dev)
-            if fn_tmp:
-                write_fmr(fn_tmp, *_runs_of_bwt(bwt.cpu().numpy()))
-    except torch.OutOfMemoryError as e:
-        raise CapacityError(f"out of card memory: {str(e).splitlines()[0]}") from e
-    write_fmr(out_fn if out_fn else "-", *_runs_of_bwt(bwt.cpu().numpy()))
+    for fn in args[1:]:
+        syms, lens = load_runs(fn)
+        bwt = _merge_step(bwt, np.repeat(syms, lens), dev, stay=stay)
+        stay = isinstance(bwt, np.ndarray)
+        if fn_tmp:
+            write_fmr(fn_tmp, *runs_of_bwt(_on_host(bwt)))
+    write_fmr(out_fn if out_fn else "-", *runs_of_bwt(_on_host(bwt)))
     log.info(_launch_summary(), func="main_merge")
     return 0
 
@@ -874,7 +919,7 @@ def main_plain2fmd(argv: list[str]) -> int:
         a = np.frombuffer(data, dtype=np.uint8)
         codes = NT6_TABLE[a]
         codes[(a == ord("\n")) | (a == ord("$"))] = 0
-        s, l = _runs_of_bwt(codes)
+        s, l = runs_of_bwt(codes)
         syms.append(s)
         lens.append(l)
     data = encode_runs(np.concatenate(syms), np.concatenate(lens))
@@ -1402,16 +1447,13 @@ def occ_rows(fs: list[DenseFMIndex], device: str, func: str, occ: str = "auto") 
     from .ops.smem import resolve_occ
 
     dev = torch.device(device)
-    budget = card_bytes(dev)
     layout = resolve_occ(occ, sum(f.n for f in fs), dev)
     if layout == "rb":
         host = [runblock.from_dense_np(f) for f in fs]
         need = sum(runblock.device_bytes(d) for d in host)
     else:
         need = sum(48 * len(f.occ_block) for f in fs)
-    if budget is not None and need > budget:
-        raise CapacityError(f"the occ rows of {len(fs)} index(es) need ~{need} B of the card ({layout} rows), which "
-                            f"has {budget} B")
+    check_card(need, dev, f"the occ rows of {len(fs)} index(es)", layout)
     try:
         rows = ([runblock.RunBlockIndex.from_np(d, dev) for d in host] if layout == "rb"
                 else [OccIndex.from_dense(f, dev) for f in fs])
@@ -1697,6 +1739,11 @@ def run(argv: list[str]) -> int:
         ret = _err(str(e))
     except BrokenPipeError:
         ret = 0
+    except Exception as e:  # torch's OutOfMemoryError: one ERROR line, as a CapacityError (torch is imported by then)
+        torch = sys.modules.get("torch")
+        if torch is None or not isinstance(e, torch.OutOfMemoryError):
+            raise
+        ret = _err(f"out of card memory: {str(e).splitlines()[0]}")
     finally:
         if (launch := sys.modules.get(f"{__package__}.parallel.launch")) is not None:
             launch.finish()

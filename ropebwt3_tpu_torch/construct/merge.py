@@ -26,26 +26,49 @@ merge rank split over all its devices (`merge_rank_mesh`, the port of
 ropebwt3_tpu/parallel/merge_sharded.py; `merge_mesh_bytes` counts what it
 puts on each device).
 
-Capacity: a merge holds B1 (1 B a symbol), its rows (0.75 B) and B2 (1 B)
-throughout; beside them, in turn, `OccIndex.from_bwt`'s temporaries (1.5 B
-a B1 symbol and a chunk's), lf2_packed's (~33 B a B2 symbol), the kernel's
+Placement (`placement`): a merge runs on the card, B1 and the merged BWT
+there (`merge_plain`), while `merge_bytes` fits the card's budget and B1's
+rows are dense; otherwise on the host (`merge_host`): B1 and the merged
+BWT stay in host memory, and the card holds only B1's rows (the layout
+ops/smem.py `resolve_occ` picks for n1: dense, or rb where dense rows pass
+0.75 of the card), B2, lf2_packed's temporaries, the records and ins.  K6
+runs on the card on both (merge_rank_rb32 / rb64 over rb rows, csrc/rb.cuh
+`Rb<T>::rank1` / `rank2`); ins comes down (8 B a B2 symbol) and the native
+`rb3t_merge_apply` writes the merged BWT.  B1's rows never put B1 whole on
+the card: dense ones are built chunk by chunk (`OccIndex.from_bwt` of the
+host array), rb ones on the host from B1's runs (`build_runblock_np`).
+`merge_host_bytes` counts the host path's card bytes; past the budget it
+stops with a CapacityError before any upload.  On the CPU device the
+budget is CPU_BUDGET (None: no limit), which the tests set.
+
+Capacity on the card path: a merge holds B1 (1 B a symbol), its rows (0.75 B) and B2 (1 B)
+throughout; beside them, in turn, `OccIndex.from_bwt`'s temporaries (a
+chunk's), lf2_packed's (~33 B a B2 symbol), the kernel's
 records and ins (16 B a B2 symbol) and segments, and merge_apply's positions (24 B a B2 symbol) with
 the merged BWT (1 B a symbol of either) and a chunk's temporaries:
-`merge_bytes` counts the largest.  The largest merged index a card holds is
-therefore about its free memory / 3.25 in symbols, less the last batch's
-~34 B a symbol (an 80 GB NVIDIA H100: ~24 G symbols).  Run-block B1 rows for
-merges are not ported (ROADMAP queue 1 item 8).
+`merge_bytes` counts the largest.  The largest merged index a card holds on
+that path is therefore about its free memory / 3.25 in symbols, less the
+last batch's ~34 B a symbol (an 80 GB NVIDIA H100: ~24 G symbols).  On the
+host path the card holds B1's rows beside one batch's ~34 B a symbol:
+dense rows up to 0.75 of the card (~80 G symbols on 80 GB), then rb rows,
+160/S B a symbol plus S/2 B an escape block; host memory holds B1, the
+merged BWT and ins (8 B a B2 symbol).  `build --mesh` stays on the card
+path (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, log, native
+from ..index.dense import runs_of_bwt
+from ..ops import runblock
 from ..ops.rank import ASIZE, OccIndex, from_bwt_temp_bytes
+from ..ops.runblock import RunBlockIndex
 from ..parallel import launch
 from ..parallel.mesh import ShardView, granularity, slab_plan
 
@@ -58,6 +81,10 @@ MIN_STRIDE, LANES_PER_SM = 128, 2048
 SEG_ROWS = 5  # per segment: meet, len, end_pos, end_ka, hand (csrc/merge_rank.cu)
 NEVER = (1 << 63) - 1  # meet of a segment that did not meet
 WALK, HAND_OVER = 1, 2  # the passes of rb3c_merge_rank_* (csrc/merge_rank.cu)
+# The card's budget for a merge where the device is the CPU (cli.card_bytes
+# gives none there): None, no limit.  The tests set it to force the host
+# placement.
+CPU_BUDGET: int | None = None
 
 
 def merge_bytes(n1: int, n2: int, m2: int) -> int:
@@ -65,10 +92,54 @@ def merge_bytes(n1: int, n2: int, m2: int) -> int:
     what is held beside them in turn: OccIndex.from_bwt's temporaries,
     lf2_packed's (~33 B a B2 symbol), the merge rank's records, ins and
     segments, and merge_apply's positions, merged BWT and chunk."""
-    keep = n1 + 48 * (n1 // 64 + 2) + n2
-    rank = 16 * n2 + 8 * SEG_ROWS * segments(n2, m2, MIN_STRIDE)[1]
+    keep = n1 + dense_rows_bytes(n1) + n2
     apply = 24 * n2 + n1 + n2 + 24 * min(APPLY_CHUNK, n1 + n2)
-    return keep + max(from_bwt_temp_bytes(n1), 33 * n2, rank, apply)
+    return keep + max(from_bwt_temp_bytes(n1), 33 * n2, rank_bytes(n2, m2), apply)
+
+
+def dense_rows_bytes(n: int) -> int:
+    """Bytes of an n-symbol index's dense rows on the device (OccIndex)."""
+    return 48 * (n // 64 + 2)
+
+
+def rank_bytes(n2: int, m2: int) -> int:
+    """Bytes of the merge rank's records and ins (8 B each a B2 symbol) and
+    segment records at the smallest stride."""
+    return 16 * n2 + 8 * SEG_ROWS * segments(n2, m2, MIN_STRIDE)[1]
+
+
+def merge_host_bytes(n2: int, m2: int, rows: int, build: int) -> int:
+    """Card bytes at a host-placed merge's peak: B1's rows (`rows` B) and
+    B2, and the largest of what is held beside them in turn: the rows'
+    build (`build` B: from_bwt's chunk, or pack_escapes'), lf2_packed's
+    temporaries (~33 B a B2 symbol), and the merge rank's records, ins and
+    segments.  B1 and the merged BWT stay in host memory."""
+    return rows + n2 + max(build, 33 * n2, rank_bytes(n2, m2))
+
+
+def budget(dev) -> int | None:
+    """The card bytes a merge on `dev` may take (cli.card_bytes), or
+    CPU_BUDGET on the CPU."""
+    from ..cli import card_bytes
+
+    got = card_bytes(torch.device(dev))
+    return CPU_BUDGET if got is None else got
+
+
+def placement(n1: int, n2: int, m2: int, dev) -> tuple[str, str]:
+    """("card" or "host", why) for merging n2 symbols (m2 sequences) into
+    an index of n1 on `dev`: the card while `merge_bytes` fits its budget
+    and B1's rows are dense (ops/smem.py resolve_occ for n1, the
+    RB3TPU_DEVICE_OCC override included), the host otherwise."""
+    from ..ops.smem import resolve_occ
+
+    need, have = merge_bytes(n1, n2, m2), budget(dev)
+    of = f"~{need} B of the card's {'unlimited' if have is None else have} B"
+    if resolve_occ("auto", n1, dev) == "rb":
+        return "host", f"B1's rows are rb (the card path, dense rows only, would need {of})"
+    if have is not None and need > have:
+        return "host", f"the card path needs {of}"
+    return "card", f"the card path needs {of}"
 
 
 def lf2_table(seq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -92,10 +163,11 @@ def lf2_packed(seq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def check_merge(idx, rec: torch.Tensor, m2: int) -> None:
-    """B1's dense rows (an OccIndex, or a ShardView of them on a mesh), the
-    records on their device, 0 <= m2 <= n2, and rows that count n symbols."""
-    if not (isinstance(idx, OccIndex) or isinstance(idx, ShardView) and not idx.is_rb):
-        raise TypeError(f"the merge rank takes dense occ rows (OccIndex or their ShardView), not "
+    """B1's rows (an OccIndex or a RunBlockIndex, or a ShardView of dense
+    rows on a mesh), the records on their device, 0 <= m2 <= n2, and rows
+    that count n symbols."""
+    if not (isinstance(idx, (OccIndex, RunBlockIndex)) or isinstance(idx, ShardView) and not idx.is_rb):
+        raise TypeError(f"the merge rank takes occ rows (OccIndex, RunBlockIndex, or a dense ShardView), not "
                         f"{getattr(idx, 'layout', type(idx).__name__)}")
     if rec.dtype != torch.int64 or rec.dim() != 1 or rec.device != idx.device or not rec.is_contiguous():
         raise ValueError("rec must be a contiguous 1-D int64 tensor on the index's device")
@@ -130,7 +202,7 @@ def segments(n2: int, m2: int, S: int) -> tuple[int, int]:
     return first, m2 + max(0, -(-n2 // S) - first)
 
 
-def merge_rank_plain(idx: OccIndex, rec: torch.Tensor, m2: int) -> torch.Tensor:
+def merge_rank_plain(idx, rec: torch.Tensor, m2: int) -> torch.Tensor:
     """All m2 lanes in lock-step, one LF step a trip (merge.py:56-91 on
     packed records): rec becomes ins, in place, and is returned."""
     check_merge(idx, rec, m2)
@@ -151,8 +223,8 @@ def merge_rank_plain(idx: OccIndex, rec: torch.Tensor, m2: int) -> torch.Tensor:
 def merge_rank_chunked_plain(idx, rec: torch.Tensor, m2: int, S: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's two passes, each over all its lanes in lock-step: rec
     becomes ins, in place.  Returns (rec, seg), seg (5, n_seg) int64 as the
-    kernel fills it.  idx: an OccIndex or, over a mesh, a dense ShardView
-    (its rank `rank6_sharded_plain`)."""
+    kernel fills it.  idx: an OccIndex, a RunBlockIndex or, over a mesh, a
+    dense ShardView (its rank `rank6_sharded_plain`)."""
     check_merge(idx, rec, m2)
     n_seg = segments(rec.numel(), m2, S)[1]
     seg = torch.full((SEG_ROWS, n_seg), -1, dtype=torch.int64, device=rec.device)
@@ -240,9 +312,9 @@ def merge_hand_over_plain(idx, rec: torch.Tensor, ins: torch.Tensor, m2: int, S:
         stop = (c == 0) | (t == mt)
 
 
-def merge_rank_cuda(idx: OccIndex, rec: torch.Tensor, m2: int, S: int | None = None) -> torch.Tensor:
+def merge_rank_cuda(idx, rec: torch.Tensor, m2: int, S: int | None = None) -> torch.Tensor:
     """The merge rank through the merge_rank kernel of the index's layout
-    (dense32 or dense64): returns ins, a new tensor (the kernel reads the
+    (dense32, dense64, rb32 or rb64): returns ins, a new tensor (the kernel reads the
     records and writes ins apart from them; over them it runs ~5x slower,
     PERF.md).  S, the segment stride, is derived from n2 and the card
     (`stride`); the tests pass small ones (any positive int on the CPU, a
@@ -255,7 +327,7 @@ def merge_rank_cuda(idx: OccIndex, rec: torch.Tensor, m2: int, S: int | None = N
     return launch_merge_rank(idx, rec, torch.empty_like(rec), m2, S)[0]
 
 
-def launch_merge_rank(idx: OccIndex, rec: torch.Tensor, ins: torch.Tensor, m2: int,
+def launch_merge_rank(idx, rec: torch.Tensor, ins: torch.Tensor, m2: int,
                       S: int) -> tuple[torch.Tensor, torch.Tensor]:
     """`merge_rank_cuda` on a CUDA index that `check_merge` has passed: the
     kernel reads lf2_packed's records `rec` and writes ins into `ins`, an
@@ -411,3 +483,74 @@ def merge_plain(idx, bwt1: torch.Tensor, seq2: torch.Tensor | np.ndarray) -> tor
     ins = merge_rank_mesh(idx, rec, int(acc2[1]))[0] if mesh else merge_rank_cuda(idx, rec, int(acc2[1]))
     del rec  # apart from ins on the card: freed before merge_apply's peak
     return merge_apply(bwt1, seq2, ins)
+
+
+def apply_host(bwt1: np.ndarray, seq2: np.ndarray, ins: np.ndarray) -> np.ndarray:
+    """`merge_apply` in host memory, by the native interleave
+    (rb3t_merge_apply): B2[i] at ins[i] + i, B1 in order in the other places."""
+    n1, n2 = len(bwt1), len(seq2)
+    bwt1, seq2 = np.ascontiguousarray(bwt1, np.uint8), np.ascontiguousarray(seq2, np.uint8)
+    ins = np.ascontiguousarray(ins, np.int64)
+    if ins.shape != (n2,) or n2 and (ins[0] < 0 or ins[-1] > n1 or bool((ins[1:] < ins[:-1]).any())):
+        raise ValueError("insertion ranks must be nondecreasing within [0, n1], one a B2 symbol")
+    merged = np.empty(n1 + n2, np.uint8)
+    native.lib().rb3t_merge_apply(bwt1.ctypes.data, n1, seq2.ctypes.data, ins.ctypes.data, n2, merged.ctypes.data)
+    return merged
+
+
+def merge_host(bwt1: np.ndarray, seq2, dev, layout: str | None = None, pieces: dict | None = None) -> np.ndarray:
+    """Merge the plain partial BWT seq2 (B2: a uint8 tensor, on `dev` or
+    the host, or a numpy array) into B1, whose BWT bwt1 lies in host
+    memory; returns the merged BWT in host memory.  B1's rows go to `dev`
+    in `layout` (None: resolve_occ's for n1): dense ones chunk by chunk
+    (`OccIndex.from_bwt` of the host array), rb ones built on the host from
+    B1's runs and uploaded (`RunBlockIndex.from_np`), after a check of
+    `merge_host_bytes` against the budget (a CapacityError naming the
+    bytes).  lf2_packed and K6 run on `dev`, ins comes down, and the native
+    interleave writes the merged BWT.  Logs the layout, S, the card bytes
+    and the seconds of each piece, and puts them in `pieces` when given."""
+    from ..cli import CapacityError
+    from ..ops.smem import resolve_occ
+
+    dev = torch.device(dev)
+    n1, n2 = len(bwt1), len(seq2)
+    layout = resolve_occ("auto", n1, dev) if layout is None else layout
+    sec, t = {}, time.perf_counter()
+
+    def lap(piece):
+        nonlocal t
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sec[piece], t = time.perf_counter() - t, time.perf_counter()
+
+    seq2_h = seq2.cpu().numpy() if torch.is_tensor(seq2) else np.ascontiguousarray(seq2, np.uint8)
+    m2 = int(np.count_nonzero(seq2_h == 0))
+    if layout == "rb":
+        host = runblock.build_runblock_np(*runs_of_bwt(np.asarray(bwt1)), n=n1)
+        rows_b, build_b = runblock.device_bytes(host), runblock.pack_temp_bytes(len(host["esc"]), host["S"])
+        lap("rows on the host")
+    else:
+        rows_b, build_b = dense_rows_bytes(n1), from_bwt_temp_bytes(n1)
+    need, have = merge_host_bytes(n2, m2, rows_b, build_b), budget(dev)
+    if have is not None and need > have:
+        raise CapacityError(f"merging {n2} symbols into an index of {n1} in host memory needs ~{need} B of {dev} "
+                            f"(B1's {layout} rows {rows_b} B, a batch's ~34 B a symbol), which has {have} B")
+    idx = RunBlockIndex.from_np(host, dev) if layout == "rb" else OccIndex.from_bwt(np.asarray(bwt1), dev)
+    lap("rows")
+    seq2_d = seq2.to(dev) if torch.is_tensor(seq2) else torch.from_numpy(seq2_h).to(dev)
+    acc2, rec = lf2_packed(seq2_d)
+    del seq2_d
+    ins = merge_rank_cuda(idx, rec, int(acc2[1]))
+    lap("lf2 and K6")
+    desc = (f"{idx.layout} rows (" + (f"S {idx.S}, {idx.n_esc} escape blocks, " if layout == "rb" else "")
+            + f"{idx.nbytes} B on {dev})")
+    del rec, idx
+    ins = ins.cpu().numpy()
+    lap("ins download")
+    merged = apply_host(bwt1, seq2_h, ins)
+    lap("native apply")
+    log.info("merge in host memory over B1's %s: ~%d B of the card's %s B; seconds by piece: %s", desc, need,
+             "unlimited" if have is None else have, ", ".join(f"{k} {v:.3f}" for k, v in sec.items()), func="merge")
+    if pieces is not None:
+        pieces.update(sec, layout=desc, card_bytes=need)
+    return merged

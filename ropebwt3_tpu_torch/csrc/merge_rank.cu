@@ -59,7 +59,17 @@
 // meeting step of a successor that another range walked.  Each ins
 // position and each record has one writer globally, so the shares merge
 // by a max over ins initialised to -1.  Instantiated for the dense rows,
-// int32 and int64 (occ.cuh Dense<T>).
+// int32 and int64 (occ.cuh Dense<T>), and for the run-block rows (rb.cuh
+// Rb<T>), which a merge whose B1 lives in host memory ranks on the card
+// (construct/merge.py merge_host).
+//
+// A dense rank is one 48-B row that k alone names, so a step issues the
+// row loads before the record that tells it c.  An rb rank cannot be
+// fetched ahead: its header names the records or the escape sub-row that
+// hold k, so its step reads the record first, then ranks the one symbol:
+// both bounds by `rank2` (one header and second round where they share a
+// block) until they meet, then `rank1`; pass 2 by `rank1`.  The dense
+// routines are the same text as before the rb ones were added.
 //
 // The text up to `#ifdef __CUDACC__` compiles with g++ given a header that
 // defines the CUDA keywords (tests/test_torch_runblock.py HOST_SHIM):
@@ -67,7 +77,9 @@
 
 #include <stdint.h>
 
-#include "occ.cuh"
+#include <type_traits>
+
+#include "rb.cuh"
 
 namespace rb3c {
 namespace merge {
@@ -91,8 +103,15 @@ struct Walk {
   __device__ __forceinline__ int64_t seg_of(int64_t kb) const { return m2 + (kb >> shift) - first; }
 };
 
-// Pass 1 of segment g, 0 <= g < n_seg.
+// Whether a layout's one-symbol rank reads one row that k alone names, so
+// the row can be loaded before the record (Dense<T>), or not (Rb<T>)
 template <class L>
+struct RowFirst : std::false_type {};
+template <typename T>
+struct RowFirst<Dense<T>> : std::true_type {};
+
+// Pass 1 of segment g, 0 <= g < n_seg.
+template <class L, typename std::enable_if<RowFirst<L>::value, int>::type = 0>
 __device__ __forceinline__ void walk_segment(const L& ix, const Walk& w, const Seg& seg, int64_t g) {
   using T = typename L::T;
   const bool sentinel = g < w.m2;
@@ -132,7 +151,7 @@ __device__ __forceinline__ void walk_segment(const L& ix, const Walk& w, const S
 }
 
 // Pass 2 of segment g, 0 <= g < n_seg, once every segment's pass 1 is done.
-template <class L>
+template <class L, typename std::enable_if<RowFirst<L>::value, int>::type = 0>
 __device__ __forceinline__ void hand_over(const L& ix, const Walk& w, const Seg& seg, int64_t g) {
   using T = typename L::T;
   int64_t kb = seg.end_pos[g], steps = 0;
@@ -152,6 +171,70 @@ __device__ __forceinline__ void hand_over(const L& ix, const Walk& w, const Seg&
       ka = ix.acc(c) + ix.rank1(ka, c, a, b, c4);
       if (w.is_start(kb)) {
         if (t == meet) break;  // met on its last step: its own lane hands over
+        meet = seg.meet[w.seg_of(kb)], t = 0;
+      }
+    }
+  }
+  seg.hand[g] = steps;
+}
+
+// Pass 1 of segment g on a layout whose rank reads its row after the
+// record (Rb<T>): the dense walk's steps and writes, ranked once c is known.
+template <class L, typename std::enable_if<!RowFirst<L>::value, int>::type = 0>
+__device__ __forceinline__ void walk_segment(const L& ix, const Walk& w, const Seg& seg, int64_t g) {
+  using T = typename L::T;
+  const bool sentinel = g < w.m2;
+  int64_t kb = sentinel ? g : (w.first + (g - w.m2)) << w.shift;
+  T lo = sentinel ? ix.acc(1) : (T)0, hi = sentinel ? lo : ix.acc(6);  // acc1[6] = n1
+  int64_t t = 0, meet = lo == hi ? 0 : kNever;
+  for (;;) {
+    const bool met = lo == hi;
+    const int64_t r = w.load(kb);
+    const int c = (int)(r & 7);
+    if (met) w.ins[kb] = (int64_t)lo;
+    ++t;
+    if (c == 0) {
+      kb = -1;
+      break;
+    }
+    kb = r >> 3;
+    if (met) {
+      lo = hi = ix.acc(c) + ix.rank1(lo, c);
+    } else {
+      T ol, oh;
+      ix.rank2(lo, hi, c, ol, oh);  // lo <= hi: the walks are monotone
+      lo = ix.acc(c) + ol;
+      hi = ix.acc(c) + oh;
+      if (lo == hi) meet = t;
+    }
+    if (w.is_start(kb)) break;
+  }
+  seg.meet[g] = meet;
+  seg.len[g] = t;
+  seg.end_pos[g] = kb;
+  seg.end_ka[g] = kb >= 0 && lo == hi ? (int64_t)lo : -1;
+  seg.hand[g] = 0;
+}
+
+// Pass 2 of segment g on such a layout: the dense hand-over, ranked once c is known.
+template <class L, typename std::enable_if<!RowFirst<L>::value, int>::type = 0>
+__device__ __forceinline__ void hand_over(const L& ix, const Walk& w, const Seg& seg, int64_t g) {
+  using T = typename L::T;
+  int64_t kb = seg.end_pos[g], steps = 0;
+  const int64_t ka0 = seg.end_ka[g];
+  if (kb >= 0 && ka0 >= 0) {
+    T ka = (T)ka0;
+    int64_t meet = seg.meet[w.seg_of(kb)], t = 0;
+    while (t != meet) {
+      const int64_t r = w.load(kb);
+      const int c = (int)(r & 7);
+      w.ins[kb] = (int64_t)ka;
+      ++steps, ++t;
+      if (c == 0) break;
+      kb = r >> 3;
+      ka = ix.acc(c) + ix.rank1(ka, c);
+      if (w.is_start(kb)) {
+        if (t == meet) break;
         meet = seg.meet[w.seg_of(kb)], t = 0;
       }
     }
@@ -238,6 +321,8 @@ extern "C" {
   }
 RB3C_MERGE_RANK(dense32, rb3c::Dense<int>)
 RB3C_MERGE_RANK(dense64, rb3c::Dense<int64_t>)
+RB3C_MERGE_RANK(rb32, rb3c::Rb<int>)
+RB3C_MERGE_RANK(rb64, rb3c::Rb<int64_t>)
 
 }  // extern "C"
 

@@ -39,7 +39,8 @@
 // them, and the one that covers the offset gives the key; an escape block's
 // sub-row gives the key from its planes' bits at the offset, then that
 // key's count below it.  Counting only the symbol the step reads is left
-// to a later design (PERF.md).
+// to a later design (PERF.md).  The merge rank's step (`rank1`, and `rank2`
+// while its two bounds differ) counts one symbol it knows beforehand.
 //
 // The reference's two faults are fixed here:
 //   F1  k at a block boundary (k = n included) is ranked at offset S of block
@@ -143,6 +144,22 @@ struct Rb {
     }
     ok = base_c(mk, k0, k1, c) + ck;
     ol = base_c(ml, l0, l1, c) + cl;
+  }
+
+  // occ_c(k) = |{i < k : B[i] = c}| for ONE known symbol c, 0 <= k <= n
+  // (the merge rank's step, csrc/merge_rank.cu): rank2's one-end half.
+  // Round 1 is k's header (F1's block), in int64 mode with c's megablock
+  // word; round 2 the records (symbol c's summed) or the escape sub-row.
+  __device__ __forceinline__ T rank1(T k, int c) const {
+    int off;
+    const int64_t bk = block_of(k, off);
+    const int4* rk = reinterpret_cast<const int4*>(t.rows + 40 * bk);  // 160 B: 32-B aligned
+    const int4 k0 = __ldg(rk), k1 = __ldg(rk + 1);
+    T mk = 0;
+    if constexpr (sizeof(T) == 8) mk = __ldg(t.mega + 6 * (bk >> t.mega_shift) + c);
+    int ck, unused;
+    keyed2(rk, k1.z, off, off, comp6(c), ck, unused);
+    return base_c(mk, k0, k1, c) + ck;
   }
 
   // One LF step from k, 0 <= k < n: returns c = B[k] and sets nk = acc[c] +

@@ -26,6 +26,16 @@ SUPER = 1 << 16
 BLOCKS_PER_SUPER = SUPER // BLOCK
 
 
+def runs_of_bwt(bwt: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Run-length encode a raw BWT array: (symbols uint8, lengths int64)."""
+    if len(bwt) == 0:
+        return np.zeros(0, dtype=np.uint8), np.zeros(0, dtype=np.int64)
+    change = np.flatnonzero(bwt[1:] != bwt[:-1]) + 1
+    starts = np.concatenate(([0], change))
+    ends = np.concatenate((change, [len(bwt)]))
+    return bwt[starts].copy(), (ends - starts).astype(np.int64)
+
+
 @dataclass
 class DenseFMIndex:
     bwt: np.ndarray  # uint8 [n_pad], padded with zeros beyond n

@@ -22,9 +22,10 @@ dense32 and dense64 (ops/rank.py `OccIndex`), rb32 and rb64 (ops/runblock.py
 `ShardView`), and so do `suffix`'s backward search and `get`'s LF walk (its
 three walking passes; csrc/walk.cu), ssa_gen's walk (its pass 1 over a
 range of the segments) and finish, and `kount`'s level rank
-(csrc/kount.cu); merge_rank (a range of the segments and the passes to
-run), the hapdiv DP (one warp a window) and the sw DP (one warp a read)
-come in the two dense ones.
+(csrc/kount.cu), and merge_rank (a range of the segments and the passes to
+run; rb rows since a merge's B1 may live in host memory); the hapdiv DP
+(one warp a window) and the sw DP (one warp a read) come in the two dense
+ones.
 These take the index's tables first, as the index's `kernel_tables()` gives
 them: rows, escape sub-rows, megablock bases, acc, the megablock shift and
 log2 of the block size.  ssa_gen's finish pass and its pointer-jumping pass
@@ -72,10 +73,10 @@ for _lay in LAYOUTS:
     _ENTRIES[f"rb3c_ssa_walk_{_lay}"] = [*_TABLES, _I64, _I32, _I32, _I64, _I64, _I64, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_ssa_finish_{_lay}"] = [_V, _I64, _I64, _I64, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_kount_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _V, _V, _V]
-for _lay in LAYOUTS[:2]:
     # a range of the segments [g0, g1) and the passes to run (1, 2 or both) before seg
     _ENTRIES[f"rb3c_merge_rank_{_lay}"] = [*_TABLES, _V, _V, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _V, _V]
     _ENTRIES[f"rb3c_occupancy_merge_rank_{_lay}"] = [_I32, _V, _V, _V]  # no stream: pass 1's (0) or pass 2's (1)
+for _lay in LAYOUTS[:2]:
     _ENTRIES[f"rb3c_hapdiv_{_lay}"] = [*_TABLES, _V, _I64, *[_I32] * 8, _V, _V, _V, _V, _V, _V, _V]
     _ENTRIES[f"rb3c_sw_{_lay}"] = [*_TABLES, _V, _V, _V, _V, _I64, *[_I32] * 8, *[_V] * 10]
     # the DP kernels' timing-only twins (lane 0's phase clocks, clk last)

@@ -5,8 +5,10 @@ multi-locate that `mem -p` and `sw` run (locate.cpp), and the BWA-SW engine
 (bwasw_core.cpp): the hapdiv DP and the full sw path, which `hapdiv` and
 `sw` rerun flagged windows and reads on or run alone with
 `--engine=native`, and the staging and finish of the device sw engine;
-and the threaded SMEM-TG engine that `mem --engine=native|hybrid` runs
-(ops/smem_native.py), in the same file.
+the threaded SMEM-TG engine that `mem --engine=native|hybrid` runs
+(ops/smem_native.py), and the merge's interleave of a B1 held in host
+memory (`rb3t_merge_apply`, construct/merge.py's host placement), in the
+same file.
 They are copies of the functions the port calls from ropebwt3_tpu/native,
 and two entry points of the port's own built from them, compiled into one
 library.
@@ -48,6 +50,7 @@ _ENTRIES = {
     "rb3t_pline_build": (None, [_V, _V, _I64, _I64, _V, _I32]),
     "rb3t_smem_batch": (_V, [_V, _V, _V, _V, _I64, _I64, _I32, _V, _V, _I64, _I32, ctypes.POINTER(_I64), _V]),
     "rb3t_buf_free": (None, [_V]),
+    "rb3t_merge_apply": (None, [_V, _I64, _V, _V, _I64, _V]),
 }
 
 _lib = None

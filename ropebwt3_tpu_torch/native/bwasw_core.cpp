@@ -1962,4 +1962,87 @@ uint8_t* rb3t_smem_batch(const uint8_t* bwt, const uint16_t* occ_block, const in
 
 void rb3t_buf_free(void* p) { std::free(p); }
 
+// Interleave B1 (bwt1, length n1) with B2 (seq2, length n2) into merged:
+// the host half of a merge whose B1 lives in host memory
+// (construct/merge.py merge_host; ropebwt3_tpu/native/bwasw_core.cpp:2067).
+// B2 symbol i lands at position ins[i]+i, B1 symbols fill the gaps in order.
+void rb3t_merge_apply(const uint8_t* bwt1, int64_t n1, const uint8_t* seq2, const int64_t* ins,
+                      int64_t n2, uint8_t* merged) {
+  int64_t n = n1 + n2;
+  int nt = (int)std::thread::hardware_concurrency();
+  if (nt > 8) nt = 8;
+  if (nt < 2 || n < (int64_t)1 << 22) {
+    memset(merged, 0xFF, (size_t)n);
+    for (int64_t i = 0; i < n2; i++) merged[ins[i] + i] = seq2[i];
+    int64_t j = 0;
+    for (int64_t p = 0; p < n; p++)
+      if (merged[p] == 0xFF) merged[p] = bwt1[j++];
+    return;
+  }
+  // phase 1: per-chunk histogram of B2 target positions (chunking the merged
+  // array), so the gap-fill can run chunk-parallel with exact B1 offsets
+  std::vector<int64_t> bound(nt + 1);
+  for (int t = 0; t <= nt; t++) bound[t] = n * t / nt;
+  std::vector<std::vector<int64_t>> hist(nt);
+  {
+    std::vector<std::thread> th;
+    for (int t = 0; t < nt; ++t)
+      th.emplace_back([&, t] {
+        auto& h = hist[t];
+        h.assign(nt, 0);
+        int64_t a = n2 * t / nt, b = n2 * (t + 1) / nt;
+        for (int64_t i = a; i < b; i++) {
+          int64_t p = ins[i] + i;
+          int c = (int)((p * nt) / n);  // approx, then align to floor bounds
+          if (c > nt - 1) c = nt - 1;
+          while (p >= bound[c + 1]) c++;
+          while (p < bound[c]) c--;
+          h[c]++;
+        }
+      });
+    for (auto& t : th) t.join();
+  }
+  {
+    std::vector<std::thread> th;
+    for (int t = 0; t < nt; ++t)
+      th.emplace_back([&, t] {
+        int64_t a = n * t / nt, b = n * (t + 1) / nt;
+        memset(merged + a, 0xFF, (size_t)(b - a));
+      });
+    for (auto& t : th) t.join();
+  }
+  {
+    // parallel scatter of B2 symbols (disjoint random targets)
+    std::vector<std::thread> th;
+    for (int t = 0; t < nt; ++t)
+      th.emplace_back([=] {
+        int64_t a = n2 * t / nt, b = n2 * (t + 1) / nt;
+        for (int64_t i = a; i < b; i++) {
+          if (i + 16 < b) __builtin_prefetch(&merged[ins[i + 16] + i + 16], 1, 0);
+          merged[ins[i] + i] = seq2[i];
+        }
+      });
+    for (auto& t : th) t.join();
+  }
+  {
+    // chunk c of merged contains (b2_in_chunk) B2 symbols; B1 fills the rest
+    // in order, so chunk c's B1 read offset = chunk_start - B2_before_chunk
+    std::vector<int64_t> b2_before(nt + 1, 0);
+    for (int c = 0; c < nt; c++) {
+      int64_t s = 0;
+      for (int t = 0; t < nt; t++) s += hist[t][c];
+      b2_before[c + 1] = b2_before[c] + s;
+    }
+    std::vector<std::thread> th;
+    for (int t = 0; t < nt; ++t)
+      th.emplace_back([&, t] {
+        int64_t a = n * t / nt, b = n * (t + 1) / nt;
+        int64_t j = a - b2_before[t];
+        for (int64_t p = a; p < b; p++)
+          if (merged[p] == 0xFF) merged[p] = bwt1[j++];
+      });
+    for (auto& t : th) t.join();
+  }
+}
+
 }  // extern "C"

@@ -52,10 +52,10 @@ FROM_BWT_BLOCKS = 1 << 18  # rows per chunk of OccIndex.from_bwt (16 M symbols)
 
 def from_bwt_temp_bytes(n: int) -> int:
     """Bytes `OccIndex.from_bwt` holds at its peak for n symbols, beside the
-    BWT and the rows it returns: its (nb + 1, 6) int64 counts, room for a
-    scan's copy of them, and one chunk's temporaries (< 32 B a symbol)."""
+    BWT and the rows it returns: one chunk's temporaries (< 32 B a symbol
+    and three (rows, 6) int64 count tables) and the megablock bases."""
     nb = n // BLOCK + 2
-    return 2 * 48 * nb + 32 * BLOCK * min(nb, FROM_BWT_BLOCKS)
+    return (32 * BLOCK + 3 * 48) * min(nb, FROM_BWT_BLOCKS) + 48 * ((nb >> MEGA_BLOCK_SHIFT) + 1)
 
 
 def needs_int64(n: int) -> bool:
@@ -156,52 +156,70 @@ class OccIndex:
         return cls.from_jax_arrays(occf, f.acc, f.n, device, mega=mega, mega_shift=mega_shift)
 
     @classmethod
-    def from_bwt(cls, bwt: torch.Tensor, device=None, int64: bool | None = None,
+    def from_bwt(cls, bwt, device=None, int64: bool | None = None,
                  mega_shift: int = MEGA_BLOCK_SHIFT) -> "OccIndex":
-        """The rows of a uint8 BWT tensor, built with torch ops where it
-        lies (or on `device`), so a BWT on the card never visits the host:
-        bit for bit `build_occf(DenseFMIndex.from_bwt(bwt))`, the padded last
-        block and the extra row (k = n) included.  Chunks of FROM_BWT_BLOCKS
-        rows keep the int64 temporaries small.  int64 None picks the width
-        from n."""
-        bwt = bwt.to(device) if device is not None else bwt
-        if bwt.dtype != torch.uint8 or bwt.dim() != 1:
-            raise ValueError("from_bwt takes a 1-D uint8 BWT")
-        dev, n = bwt.device, bwt.numel()
+        """The rows of a uint8 BWT, a tensor or a numpy array in host
+        memory, built with torch ops on `device` (None: where the tensor
+        lies), so a BWT on the card never visits the host: bit for bit
+        `build_occf(DenseFMIndex.from_bwt(bwt))`, the padded last block and
+        the extra row (k = n) included.  It goes FROM_BWT_BLOCKS rows a
+        chunk: each chunk's symbols reach the device alone (a BWT in host
+        memory never sits whole on the card), and the counts before each
+        block are carried from chunk to chunk, so only one chunk's
+        temporaries sit beside the rows.  int64 None picks the width from n."""
+        if isinstance(bwt, np.ndarray):
+            if bwt.dtype != np.uint8 or bwt.ndim != 1:
+                raise ValueError("from_bwt takes a 1-D uint8 BWT")
+            dev = torch.device("cpu" if device is None else device)
+            host = bwt
+
+            def part(a, b):  # a copy: the array may be a read-only map
+                return torch.from_numpy(np.array(host[a:b])).to(dev)
+        else:
+            if bwt.dtype != torch.uint8 or bwt.dim() != 1:
+                raise ValueError("from_bwt takes a 1-D uint8 BWT")
+            dev = bwt.device if device is None else torch.device(device)
+
+            def part(a, b):
+                return bwt[a:b].to(dev)
+        n = len(bwt)
         int64 = needs_int64(n) if int64 is None else int64
         nb = (n + BLOCK - 1) // BLOCK + 1
         occf = torch.empty((nb, 12), dtype=torch.int32, device=dev)
-        cnt = torch.zeros((nb + 1, ASIZE), dtype=torch.int64, device=dev)  # row i + 1: symbols in block i
+        mega = torch.empty((((nb - 1) >> mega_shift) + 1, ASIZE), dtype=torch.int64, device=dev) if int64 else None
+        carry = torch.zeros(ASIZE, dtype=torch.int64, device=dev)  # the symbols before the chunk
         key = torch.as_tensor(np.append(KEY, 0), dtype=torch.int64, device=dev)  # padding (6) keys as 0
         shifts = torch.arange(32, dtype=torch.int64, device=dev)
         for b0 in range(0, nb, FROM_BWT_BLOCKS):
             b1 = min(b0 + FROM_BWT_BLOCKS, nb)
             blk = torch.full(((b1 - b0) * BLOCK,), ASIZE, dtype=torch.uint8, device=dev)
-            part = bwt[b0 * BLOCK : min(b1 * BLOCK, n)]
-            blk[: part.numel()] = part
+            if b0 * BLOCK < n:
+                blk[: min(b1 * BLOCK, n) - b0 * BLOCK] = part(b0 * BLOCK, min(b1 * BLOCK, n))
             blk = blk.view(b1 - b0, BLOCK)
             keyed = key[blk.long()].view(b1 - b0, 2, 32)
             for plane in range(3):
                 words = (((keyed >> plane) & 1) << shifts).sum(-1)  # (rows, 2) in [0, 2^32)
                 occf[b0:b1, 2 * plane : 2 * plane + 2] = _as_int32(words)
-            for c in range(ASIZE):
-                cnt[b0 + 1 : b1 + 1, c] = (blk == c).sum(1)
-            del blk, keyed  # before the next chunk's
-        cnt.cumsum_(0)  # in place: row i counts the symbols before block i
-        before = cnt[:nb]
+            del keyed
+            cnt = torch.stack([(blk == c).sum(1) for c in range(ASIZE)], 1)  # symbols in each block
+            del blk
+            before = torch.cumsum(cnt, 0) - cnt + carry  # row i: the symbols before block i
+            carry = before[-1] + cnt[-1]
+            del cnt
+            if not int64:
+                occf[b0:b1, 6:] = before
+                continue
+            rows = 1 << mega_shift  # the megablocks that start in this chunk take their bases here
+            m0, m1 = -(-b0 // rows), ((b1 - 1) >> mega_shift) + 1
+            mega[m0:m1] = before[torch.arange(m0, m1, device=dev) * rows - b0]
+            before -= mega[torch.arange(b0, b1, device=dev) >> mega_shift]
+            if int(before.max()) > U32:
+                raise ValueError(f"a megablock of 2^{mega_shift} rows holds more than 2^32 symbols")
+            occf[b0:b1, 6:] = _as_int32(before)
         acc = torch.zeros(ASIZE + 1, dtype=torch.int64, device=dev)
-        acc[1:] = torch.cumsum(cnt[nb], 0)
+        acc[1:] = torch.cumsum(carry, 0)
         if not int64:
-            occf[:, 6:] = before
             return cls(occf=occf, acc=acc.int(), n=n)
-        rows = 1 << mega_shift
-        mega = before[::rows].clone()
-        full = nb // rows * rows  # rebased in place, megablock by megablock
-        before[:full].view(-1, rows, ASIZE).sub_(mega[: full // rows, None])
-        before[full:].sub_(mega[-1])
-        if int(before.max()) > U32:
-            raise ValueError(f"a megablock of 2^{mega_shift} rows holds more than 2^32 symbols")
-        occf[:, 6:] = before.view(torch.int32)[:, 0::2]  # the low 32 bits (little-endian), as _as_int32 gives them
         return cls(occf=occf, acc=acc, n=n, mega=mega, mega_shift=int(mega_shift))
 
     @classmethod

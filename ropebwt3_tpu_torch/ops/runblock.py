@@ -56,10 +56,11 @@ import numpy as np
 import torch
 
 from .. import native
+from ..index.dense import runs_of_bwt
 from .rank import ASIZE, FLIP, KEY, U32, extend, extend_c, needs_int64, popcount32, rank1a, rebase_mega, set_intv
 
 __all__ = ["RunBlockIndex", "rank1a", "extend", "extend_c", "set_intv", "choose_S", "build_runblock_np", "runs_from_dense",
-           "pack_escapes", "device_bytes", "shard_layout"]
+           "pack_escapes", "pack_temp_bytes", "device_bytes", "shard_layout"]
 
 RB_R = 64  # run records per row
 RB_COLS = 40
@@ -256,6 +257,14 @@ def pack_escapes(planes: np.ndarray, S: int, device) -> torch.Tensor:
     return out
 
 
+def pack_temp_bytes(n_esc: int, S: int) -> int:
+    """Bytes `pack_escapes` holds at its peak beside its output for n_esc
+    escape blocks of S symbols: one chunk's planes, as uploaded and
+    widened to int64, and the temporaries of its counts (< 64 B a word)."""
+    step = max(1, PACK_WORDS // (3 * S // 32))
+    return 64 * min(max(n_esc, 1), step) * (3 * S // 32)
+
+
 def device_bytes(d: dict) -> int:
     """Bytes that the host rows `d` (`build_runblock_np`, the cache) take
     on the device once uploaded: `RunBlockIndex.from_np(d, dev).nbytes`,
@@ -293,11 +302,7 @@ def shard_layout(rows: torch.Tensor, nb_local: int, n_idx: int, align: int) -> t
 
 def runs_from_dense(f) -> tuple[np.ndarray, np.ndarray]:
     """(syms, lens) of the global BWT runs of a DenseFMIndex."""
-    bwt = np.asarray(f.bwt[: f.n])
-    brk = np.flatnonzero(np.diff(bwt)) + 1
-    starts = np.concatenate([[0], brk])
-    ends = np.concatenate([brk, [f.n]])
-    return bwt[starts], ends - starts
+    return runs_of_bwt(np.asarray(f.bwt[: f.n]))
 
 
 def _split_counts(lens: np.ndarray, S: int, n: int) -> np.ndarray:

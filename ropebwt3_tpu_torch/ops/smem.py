@@ -483,6 +483,13 @@ def smem_tg(
     return SmemOut(counts, rows, n_rerun, *unmet)
 
 
+def auto_rb_budget(device) -> float:
+    """The bytes of dense rows past which `occ=auto` takes rb rows on
+    `device`: AUTO_RB_SHARE of the card's memory, AUTO_RB_BYTES_CPU on the CPU."""
+    dev = torch.device(device)
+    return AUTO_RB_SHARE * torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else AUTO_RB_BYTES_CPU
+
+
 def resolve_occ(occ: str, n: int, device) -> str:
     """"dense" or "rb" for `occ` auto|dense|rb, as the JAX package resolves
     it (ropebwt3_tpu/ops/smem.py:154-157), the RB3TPU_DEVICE_OCC override
@@ -493,9 +500,7 @@ def resolve_occ(occ: str, n: int, device) -> str:
     if occ not in ("auto", "dense", "rb"):
         raise ValueError(f"invalid occ '{occ}' (auto|dense|rb)")
     if occ == "auto":
-        dev = torch.device(device)
-        budget = AUTO_RB_SHARE * torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else AUTO_RB_BYTES_CPU
-        occ = "rb" if n * 0.75 > budget else "dense"
+        occ = "rb" if n * 0.75 > auto_rb_budget(device) else "dense"
     return occ
 
 

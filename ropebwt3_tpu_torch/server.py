@@ -277,11 +277,15 @@ class EngineCache:
 
     def dp_engine(self, engine: str) -> dict:
         """run_sw_cli / run_hapdiv_cli's engine arguments for a request with
-        --engine `engine`: none (the native engines) on a native server or
-        when the request asks for them, else the device and its dense rows
-        (auto, jax and server: the device engine; hybrid: its half of each
-        batch)."""
-        if self.native or engine == "native":
+        --engine `engine`: none (the native engines) on a native server,
+        when the request asks for them, and on auto where the one-shot
+        command's auto would run them (align/cli_hooks.py auto_on_card: the
+        index's dense rows do not belong on the card), else the device and
+        its dense rows (auto, jax and server: the device engine; hybrid:
+        its half of each batch), built through the card's check."""
+        from .align.cli_hooks import auto_on_card
+
+        if self.native or engine == "native" or engine == "auto" and not auto_on_card(self.f, self.device, "serve"):
             return {}
         return {"device": self.device.type, "rows": self.rows("dense")}
 

@@ -109,11 +109,14 @@ def test_merge_and_plain2fmd_match_reference(corpus, tmp_path):
 def test_build_beyond_the_card_stops_with_one_error(monkeypatch, capsys, corpus, tmp_path, budget, what):
     """A batch, or a merge, that the card's memory (here a budget given to
     the CPU run) cannot hold stops `build` with one ERROR line, exit 1 under
-    RB3TPU_STRICT_EXIT=1, and no output: nothing moves to the host."""
+    RB3TPU_STRICT_EXIT=1, and no output.  A merge past the card runs with
+    B1 in host memory, so the merge that stops is one whose B1 rows and
+    batch do not fit the card either: the corpus given twice, whose later
+    merges build their 128,016-symbol B1's rows beside a batch."""
     monkeypatch.setenv("RB3TPU_STRICT_EXIT", "1")
     monkeypatch.setattr(tcli, "card_bytes", lambda dev: budget)
     out = tmp_path / "x.fmd"
-    rc = tcli.main(["build", "--device=cpu", "-do", str(out), str(corpus / "genomes.fa")])
+    rc = tcli.main(["build", "--device=cpu", "-do", str(out), str(corpus / "genomes.fa"), str(corpus / "genomes.fa")])
     err = [ln for ln in capsys.readouterr().err.splitlines() if not ln.startswith("[M::")]
     assert rc == 1 and not out.exists()
     assert len(err) == 1 and err[0].startswith(f"ERROR: {what}"), err
@@ -163,8 +166,11 @@ def test_build_sizes_wide_batches_apart(monkeypatch, capsys, corpus, tmp_path, b
 
 def test_merge_into_refuses_past_merge_bytes(monkeypatch, corpus):
     """`_merge_into` checks merge_bytes, which counts OccIndex.from_bwt's
-    temporaries, against the card's budget: one byte short stops it with a
-    CapacityError before any work; the exact count lets it merge."""
+    temporaries, against the card's budget: the exact count merges on the
+    card; one byte short moves the merge to the host (B1 and the merged
+    BWT in host memory, the same BWT); a budget one byte short of the host
+    path's (merge_host_bytes: B1's rows and the batch) stops it with a
+    CapacityError before any work."""
     from ropebwt3_tpu_torch.construct import merge as tmerge
     from ropebwt3_tpu_torch.ops.rank import OccIndex, from_bwt_temp_bytes
 
@@ -176,12 +182,18 @@ def test_merge_into_refuses_past_merge_bytes(monkeypatch, corpus):
     n1, n2, m2 = bwt.numel(), seq2.numel(), int((seq2 == 0).sum())
     need = tmerge.merge_bytes(n1, n2, m2)
     assert need >= n1 + 48 * (n1 // 64 + 1) + n2 + from_bwt_temp_bytes(n1) and m2 == 3
-    monkeypatch.setattr(tcli, "card_bytes", lambda dev: need - 1)
-    with pytest.raises(tcli.CapacityError, match=f"needs ~{need} B"):
+    want = tmerge.merge_plain(OccIndex.from_bwt(bwt), bwt, seq2)
+    host = tmerge.merge_host_bytes(n2, m2, tmerge.dense_rows_bytes(n1), from_bwt_temp_bytes(n1))
+    assert host < need
+    monkeypatch.setattr(tcli, "card_bytes", lambda dev: host - 1)
+    with pytest.raises(tcli.CapacityError, match=f"needs ~{host} B"):
         tcli._merge_into(bwt, seq2, torch.device("cpu"))
+    monkeypatch.setattr(tcli, "card_bytes", lambda dev: need - 1)
+    got = tcli._merge_into(bwt, seq2, torch.device("cpu"))
+    assert isinstance(got, np.ndarray) and np.array_equal(got, want.numpy())
     monkeypatch.setattr(tcli, "card_bytes", lambda dev: need)
     got = tcli._merge_into(bwt, seq2, torch.device("cpu"))
-    assert torch.equal(got, tmerge.merge_plain(OccIndex.from_bwt(bwt), bwt, seq2))
+    assert torch.equal(got, want)
 
 
 def test_build_and_merge_without_cuda_exit_nonzero(corpus, tmp_path):

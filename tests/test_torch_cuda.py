@@ -741,6 +741,33 @@ def test_merge_rank_segments_match_plain(corpus, corpus_index, cuda_device, layo
         tmerge.merge_rank_cuda(idx, rec.clone(), m2, S=7)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,block", [("rb32", 8192), ("rb32", 256), ("rb64", 256), ("rb64", 8192)])
+@pytest.mark.parametrize("b2", ["many_short", "genomes", "mutated"])
+@pytest.mark.parametrize("S", [8, "derived"])
+def test_merge_rank_rb_matches_plain(corpus, corpus_index, cuda_device, layout, block, b2, S):
+    """K6 over rb rows (merge_rank_rb32 / rb64: Rb<T>::rank2 until the
+    bounds meet, then rank1) on the card against merge_rank_chunked_plain
+    over the same rows on the card (ins and every segment record) and
+    merge_rank_plain over the dense rows, exact: blocks of 8192 (all
+    escapes) and 256 (run-coded), rb64 in megablocks of 4 rows."""
+    int64 = layout == "rb64"
+    idx = runblock.RunBlockIndex.from_dense(corpus_index, cuda_device, S=block, int64=int64,
+                                            mega_shift=2 if int64 else None, cache=None)
+    assert idx.layout == layout
+    acc2, rec = tmerge.lf2_packed(torch.from_numpy(merge_b2(corpus, b2)).to(cuda_device))
+    m2, n2 = int(acc2[1]), rec.numel()
+    S = tmerge.stride(n2, cuda_device) if S == "derived" else S
+    want = tmerge.merge_rank_plain(rank.OccIndex.from_dense(corpus_index, cuda_device), rec.clone(), m2)
+    pins, pseg = tmerge.merge_rank_chunked_plain(idx, rec.clone(), m2, S)
+    assert torch.equal(pins, want)
+    before = tmerge.merge_rank_cuda.launches[layout]
+    got, seg = tmerge.launch_merge_rank(idx, rec, torch.empty_like(rec), m2, S)
+    torch.cuda.synchronize()
+    assert tmerge.merge_rank_cuda.launches[layout] == before + 1
+    assert torch.equal(got, want) and torch.equal(seg, pseg)
+
+
 # the cases of the DP kernels' card tests: the corpus (the ids of the first
 # cases), a low-complexity index and its windows or reads, and -A 100
 # (every window or read that aligns passes the 12-bit score field)
