@@ -41,11 +41,16 @@ dense32's plain run (PLAIN_ROWS).  Phases:
             dense64, megablocks of 2^20 symbols) at the derived stride, its
             ins exact against merge_rank_chunked_plain on the card (segment
             records too), the JAX package's native walk (a subprocess) and,
-            on the short reads, merge_rank_plain on the card; its stride,
+            on the short reads, merge_rank_plain on the card (of the -m 16M
+            merges, the first only: the FMD holds the others); its stride,
             lanes, meeting lengths and hand-overs; each -m 16M
             merge's peak card memory at or under merge_bytes; `merge` of the
             genomes' two halves byte-equal to `python -m ropebwt3_tpu merge`;
-            beside each, the JAX package's native command timed.  The host
+            beside each, the JAX package's native command timed.  `build
+            -s` of the short reads past K7's cap (F6: cli.card_bytes cut
+            in-process to a 12 M-symbol cap; the sorted batch cut at read
+            boundaries, the pieces merged in order), byte-equal to `python
+            -m ropebwt3_tpu build -s` (one batch, on the background lane).  The host
             placement (B1 and the merged BWT in host memory, B1's rows on
             the card): `build -m 16M -do` with RB3TPU_DEVICE_OCC=rb (every
             merge there, on rb32 rows), counts reset and read, its FMD
@@ -236,7 +241,13 @@ dense32's plain run (PLAIN_ROWS).  Phases:
             under merge_mesh_bytes; the FMD byte-equal), dense64 on the
             short reads' first merge, and `build -m 16M --mesh=1x1`
             through cli.main; `ssa --mesh=2x1` under torchrun, each process
-            writing its own file, both byte-equal; an idx axis across
+            writing its own file, both byte-equal; `build -m 16M
+            --mesh=2x4` through cli.main with every merge on the host
+            placement over a 2x4 mesh of this card (F12: the merge budget
+            cut in-process; B1 in host memory, its dense rows built slab by
+            slab, OccIndex.from_bwt never called), byte-equal to
+            [construct]'s `python -m ropebwt3_tpu build -m 16M`, slabs and
+            pieces logged, two merge_rank_dense32 launches a merge; an idx axis across
             processes: `mem -l31`, `build -m 16M` and `ssa` with
             --mesh=1x2 under torchrun (two processes on this card, one dp
             row, each slab created by the process that holds its slot,
@@ -1093,13 +1104,13 @@ def native_ins(b1, b2) -> tuple[np.ndarray, float]:
     return np.load(dst), s
 
 
-def check_k6(merge, idx, b1, b2, reps: int, lanes_plain: bool) -> dict:
+def check_k6(merge, idx, b1, b2, reps: int, lanes_plain: bool, plain: bool = True) -> dict:
     """K6 on one merge, B2's BWT b2 into B1 (b1, its rows idx), at the
-    derived stride, as merge_rank_cuda runs it: timed, and its ins held
-    exactly against merge_rank_chunked_plain on the card (segment records
-    too), the native walk, and (lanes_plain) merge_rank_plain on the card.
-    On rb rows the plain run counts the sectors its ranks read, the bound's
-    table bytes.  Returns ins and the record of the merge."""
+    derived stride, as merge_rank_cuda runs it: timed, and (plain) its ins
+    held exactly against merge_rank_chunked_plain on the card (segment
+    records too), the native walk, and (lanes_plain) merge_rank_plain on
+    the card.  On rb rows the plain run counts the sectors its ranks read,
+    the bound's table bytes.  Returns ins and the record of the merge."""
     import torch
 
     acc2, rec = merge.lf2_packed(b2)
@@ -1109,13 +1120,16 @@ def check_k6(merge, idx, b1, b2, reps: int, lanes_plain: bool) -> dict:
     ms, ins, seg = k6_ms(merge, idx, rec, m2, S, reps)
     rb = idx.layout.startswith("rb")
     sc = SectorCount(idx, [idx]) if rb else None
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pins, pseg = merge.merge_rank_chunked_plain(counted(idx, sc) if rb else idx, rec.clone(), m2, S)
-    torch.cuda.synchronize()
-    chunked_plain = (time.perf_counter() - t0) * 1e3
-    nat, nat_s = native_ins(b1, b2)
-    err = max(max_abs(ins, pins), int(np.abs(ins.cpu().numpy() - nat).max()) if n2 else 0)
+    chunked_plain = nat_s = None
+    pseg, err = seg, 0
+    if plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pins, pseg = merge.merge_rank_chunked_plain(counted(idx, sc) if rb else idx, rec.clone(), m2, S)
+        torch.cuda.synchronize()
+        chunked_plain = (time.perf_counter() - t0) * 1e3
+        nat, nat_s = native_ins(b1, b2)
+        err = max(max_abs(ins, pins), int(np.abs(ins.cpu().numpy() - nat).max()) if n2 else 0)
     plain = None
     if lanes_plain:
         torch.cuda.synchronize()
@@ -1156,9 +1170,11 @@ def k6_line(m: dict) -> str:
             f"{m['meet_median']:.0f} / p99 {m['meet_p99']:.0f} / max {m['meet_max']} steps ({m['never_met']} strided "
             f"segments never met), longest segment {m['longest_segment']}, longest hand-over "
             f"{m['longest_hand_over']}; K6 {m['ms']:.4f} ms, bytes bound {m['bound']:.4f} ms; "
-            f"merge_rank_chunked_plain on the card {m['chunked_plain_ms']:.1f} ms"
-            + (f", merge_rank_plain {m['plain']:.1f} ms" if m["plain"] is not None else "")
-            + f"; ins exact against both plain versions and the native walk ({m['native_walk_s']:.2f} s subprocess)")
+            + ("no plain check (the first merge's is; the FMD is byte-equal)" if m["chunked_plain_ms"] is None else
+               f"merge_rank_chunked_plain on the card {m['chunked_plain_ms']:.1f} ms"
+               + (f", merge_rank_plain {m['plain']:.1f} ms" if m["plain"] is not None else "")
+               + f"; ins exact against both plain versions and the native walk ({m['native_walk_s']:.2f} s "
+                 "subprocess)"))
 
 
 HOST_PIECES = re.compile(r"merge in host memory over B1's (\S+) rows .*?seconds by piece: (.*)")
@@ -1258,15 +1274,17 @@ CONSTRUCT_REFS = {  # [construct]'s reference builds: tag, output under WORK, ar
     "construct_ref": ("construct_ref.fmd", ["build", "-do"]),
     "construct_ref16": ("construct_ref_m16.fmd", ["build", "-m", CONSTRUCT_M, "-do"]),
     "construct_ref_many": ("construct_ref_many.fmd", ["build", "-m", MANY_M, "-do"]),
+    "construct_ref_s": ("construct_ref_s.fmd", ["build", "-s", "-do"]),
 }
 
 
 def submit_construct_refs(bg: Background, fa: str, many_fa: str) -> None:
     """Starts [construct]'s reference builds in the background: the genomes
-    in one batch and with -m 16M, the short reads with -m 12M."""
+    in one batch and with -m 16M, the short reads with -m 12M and with -s
+    (one batch, in RLO order)."""
     for tag, (out, argv) in CONSTRUCT_REFS.items():
         bg.submit(tag, [sys.executable, "-m", "ropebwt3_tpu", *argv, os.path.join(WORK, out),
-                        many_fa if tag == "construct_ref_many" else fa])
+                        many_fa if tag in ("construct_ref_many", "construct_ref_s") else fa])
 
 
 def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: str, many_fmd: str,
@@ -1393,7 +1411,8 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
         idx = OccIndex.from_bwt(bwt)
         torch.cuda.synchronize()
         t_rows = time.perf_counter() - t0
-        ins, m = check_k6(merge, idx, bwt, b2, 3, lanes_plain=False)
+        # the plain versions on the first merge only (a depth cut: the later two cost ~15 s on an H100)
+        ins, m = check_k6(merge, idx, bwt, b2, 3, lanes_plain=False, plain=not merges)
         steps.append((bwt.cpu().numpy(), b2, ins.cpu().numpy()))
         t0 = time.perf_counter()
         merged = merge.merge_apply(bwt, b2, ins)
@@ -1463,6 +1482,13 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
         f"{[round(x, 3) for x in log_merge_s(many_ref_err)]} s) ({card})")
     del b1, b2, b1h
 
+    # 4. `build -s` of the short reads past the suffix sort's cap (F6): the
+    # card's budget cut in-process to give a cap of MANY_M symbols a batch,
+    # the sorted batch cut at read boundaries, each piece sorted by K7 and
+    # merged in order (on the host placement: the cut budget holds no card
+    # path merge)
+    out["sorted"] = check_sorted_build(cli, merge, sa, card, many_fa, bg)
+
     # 5. merge: the first and the second half of the genomes, built by the port
     halves = []
     with open(fa, "rb") as fh:
@@ -1483,6 +1509,44 @@ def check_construct(cli, sa_time, dev, card: str, fa: str, fmd: str, many_fa: st
         f"`python -m ropebwt3_tpu merge`; port in-process {merge_s:.3f} s, reference {ref_merge_s:.3f} s (beside it, in "
         f"the background) ({card})")
     return out
+
+
+def check_sorted_build(cli, merge, sa, card: str, many_fa: str, bg: Background) -> dict:
+    """[construct] 4: `build -s -do` of the short reads through cli.main
+    with cli.card_bytes cut to a budget whose batch cap is MANY_M symbols:
+    the log's cut into batches and their merges' placement, K7 launched,
+    one merge_rank_dense32 launch a merge (counts reset before, read after),
+    the FMD byte-equal to `python -m ropebwt3_tpu build -s -do` (one batch,
+    native SA-IS, on the background lane)."""
+    cap = cli.parse_num(MANY_M)
+    budget = cap * 2 * (sa.SA_BYTES_PER_SYMBOL + 1)
+    port = os.path.join(WORK, "construct_port_s.fmd")
+    real = cli.card_bytes
+    cli.card_bytes = lambda dev: budget
+    sa.SA_LAUNCHES.clear()
+    merge.merge_rank_cuda.launches.clear()
+    try:
+        s, err = cli_run(cli, ["build", "-s", "-do", port, many_fa])
+    finally:
+        cli.card_bytes = real
+    launches = dict(merge=dict(merge.merge_rank_cuda.launches), sa=sum(sa.SA_LAUNCHES.values()))
+    cut = re.search(r"cut the sorted batch of (\d+) symbols into (\d+) batches", err)
+    placed = re.findall(r"merging \d+ symbols into \d+ on the (card|host)", err)
+    if not cut or int(cut.group(2)) < 2 or len(placed) != int(cut.group(2)) - 1 or \
+            launches["merge"] != {"dense32": len(placed)} or not launches["sa"]:
+        fail(f"[construct] `build -s` past a cap of {cap} symbols: cut {cut and cut.group(0)}, placements {placed}, "
+             f"launches {launches}: {err[-1500:]}")
+    ref_s, _ = bg.result("construct_ref_s")
+    same_file(port, os.path.join(WORK, CONSTRUCT_REFS["construct_ref_s"][0]),
+              "port `build -s` cut into batches vs `python -m ropebwt3_tpu build -s` (one batch)")
+    r = dict(cap=cap, budget=budget, symbols=int(cut.group(1)), batches=int(cut.group(2)), placements=placed,
+             launches=launches, s=s, reference_s=ref_s)
+    say(f"[construct] `build -s -do` of the {N_READS} short reads with the card's budget cut in-process to {budget} B "
+        f"(a batch cap of {cap} symbols): the sorted batch of {r['symbols']} symbols cut into {r['batches']} batches, "
+        f"merged on the {'/'.join(placed)}; launches: {launches['sa']} K7, merge_rank {launches['merge']}; FMD "
+        f"byte-equal to `python -m ropebwt3_tpu build -s -do` (one batch); port in-process {s:.3f} s, reference "
+        f"{ref_s:.3f} s (in the background) ({card})")
+    return r
 
 
 class RowCount:
@@ -2686,6 +2750,84 @@ def mesh_build(cli, kernels, dev, card: str, fa: str, fmd: str, many_fa: str, me
     return dict(merges=merges, dense64=r64, occupancy=occupancy, api_s=api_s, path_s=path_s, launches=launches)
 
 
+HOST_MESH = re.compile(r"merge in host memory over B1's (\S+) rows sharded over a (\S+) mesh .*?; slabs built here: "
+                       r"(.*?); .*?seconds by piece: (.*)")
+
+
+def mesh_host_build(cli, dev, card: str, fa: str) -> dict:
+    """[mesh] (k): `build -m 16M -do --mesh=2x4` through cli.main with every
+    merge on the host placement over a 2x4 mesh of this card (F12:
+    launch.local_mesh patched to give it, as the CLI maps 2x4 to eight
+    cards; construct/merge.py budget cut in-process between the host
+    placement's largest need and the card path's smallest): B1 and the
+    merged BWT in host memory, B1's dense rows built slab by slab on the
+    card (OccIndex.from_bwt never called), K6 over the mapped slabs.  Its
+    FMD byte-equal to [construct]'s `python -m ropebwt3_tpu build -m 16M
+    -do`, each merge's slabs and pieces logged, merge_rank_dense32
+    launched twice a merge (one range, a launch a pass; counts reset
+    before, read after)."""
+    import torch
+
+    from ropebwt3_tpu_torch.construct import merge
+    from ropebwt3_tpu_torch.ops import rank
+    from ropebwt3_tpu_torch.parallel import launch
+    from ropebwt3_tpu_torch.parallel.mesh import make_mesh, mapped_bytes, reset_mapped_peak
+
+    mesh = make_mesh(MESH_DP, MESH_IDX, [dev] * (MESH_DP * MESH_IDX))
+    card0 = str(mesh.devices[0])
+    sizes = [(len(b), int(np.count_nonzero(b == 0))) for b in host_batches(fa, cli.parse_num(CONSTRUCT_M))]
+    steps = [(sum(n for n, _ in sizes[: k + 1]), *sizes[k + 1]) for k in range(len(sizes) - 1)]
+    host = [merge.merge_mesh_host_bytes(n1, n2, m2, mesh)[card0] for n1, n2, m2 in steps]
+    card_path = [merge.merge_mesh_bytes(n1, n2, m2, mesh)[card0] for n1, n2, m2 in steps]
+    budget = max(host)
+    if budget >= min(card_path):
+        fail(f"[mesh] no budget puts every merge on the host placement: host needs {host}, card path {card_path}")
+    port = os.path.join(WORK, "construct_port_mesh_host.fmd")
+    saved = merge.budget, launch.local_mesh, rank.OccIndex.__dict__["from_bwt"]  # the classmethod itself
+    whole = []
+
+    def from_bwt(cls, *a, **kw):
+        whole.append(1)
+        return saved[2].__func__(cls, *a, **kw)
+
+    merge.budget, launch.local_mesh = (lambda d: budget), (lambda spec, device: mesh)
+    rank.OccIndex.from_bwt = classmethod(from_bwt)
+    merge.merge_rank_cuda.launches.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_mapped_peak(dev)
+    base = torch.cuda.memory_allocated(dev)
+    try:
+        s, err = cli_run(cli, ["build", "-m", CONSTRUCT_M, f"--mesh={MESH_DP}x{MESH_IDX}", "-do", port, fa])
+    finally:
+        merge.budget, launch.local_mesh, rank.OccIndex.from_bwt = saved
+    peak = torch.cuda.max_memory_allocated(dev) - base, mapped_bytes(dev)[1]
+    launches = dict(merge.merge_rank_cuda.launches)
+    same_file(port, os.path.join(WORK, CONSTRUCT_REFS["construct_ref16"][0]),
+              f"`build -m {CONSTRUCT_M} --mesh={MESH_DP}x{MESH_IDX}` on the host placement vs `python -m ropebwt3_tpu "
+              f"build -m {CONSTRUCT_M} -do`")
+    logged = HOST_MESH.findall(err)
+    placed = re.findall(r"merging \d+ symbols into \d+ on the host: the card path over the", err)
+    if len(logged) != len(steps) or len(placed) != len(steps) or whole or \
+            launches != {"dense32": 2 * len(steps)} or any(lay != "dense32" or sl.count(f" on {card0} ") != MESH_IDX
+                                                          for lay, _, sl, _ in logged):
+        fail(f"[mesh] host-placed `build --mesh`: {len(placed)} placements and {len(logged)} host merges logged for "
+             f"{len(steps)} merges, OccIndex.from_bwt called {len(whole)} times, launches {launches} (dense32, 2 a "
+             f"merge, expected): {err[-2000:]}")
+    pieces = [dict((k, float(v)) for k, v in (x.rsplit(" ", 1) for x in p.split(", "))) for _, _, _, p in logged]
+    slabs = [[float(x.rsplit(" ", 2)[1]) for x in sl.split(", ")] for _, _, sl, _ in logged]
+    r = dict(merges=[dict(n1=n1, n2=n2, m2=m2, host_bytes=h, card_path_bytes=c, pieces=p, slab_s=sl)
+                     for (n1, n2, m2), h, c, p, sl in zip(steps, host, card_path, pieces, slabs)],
+             budget=budget, launches=launches, s=s, torch_peak_bytes=peak[0], mapped_peak_bytes=peak[1])
+    say(f"[mesh] `build -m {CONSTRUCT_M} -do --mesh={MESH_DP}x{MESH_IDX}` through cli.main on the host placement over "
+        f"a {MESH_DP}x{MESH_IDX} mesh of {dev} (merge budget cut in-process to {budget} B: the host placement needs "
+        f"{host} B, the card path {card_path} B): FMD byte-equal to `python -m ropebwt3_tpu build -m {CONSTRUCT_M} -do`; "
+        f"B1's rows built slab by slab ({MESH_IDX} slabs a merge, s each {slabs}), OccIndex.from_bwt not called; "
+        f"launches {launches}; seconds by piece a merge {pieces}; {s:.3f} s in all; card peak {peak[0]} B (PyTorch, "
+        f"K7's batches included) + {peak[1]} B mapped ({card})")
+    return r
+
+
 def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: str, reads, idxs: dict, ns: dict,
                smem_res: dict, want_bed: bytes, f, genomes_fa: str, many_fa: str, bg: Background) -> dict:
     """[mesh]: the SMEM kernels over rows sharded on a 2x4 mesh of this card
@@ -2867,6 +3009,8 @@ def check_mesh(cli, smem, kernels, probe, dev, card: str, fmd: str, reads_fa: st
     # (g) ssa and (h) build over a 2x4 mesh of this card
     ssa_r = mesh_ssa(cli, probe, dev, card, f, fmd, idxs["dense32"], mesh, ns[LAT_48MB])
     build_r = mesh_build(cli, kernels, dev, card, genomes_fa, fmd, many_fa, mesh, ns)
+    # (k) build over a 2x4 mesh of this card on the host placement (F12)
+    build_r["host_placed"] = mesh_host_build(cli, dev, card, genomes_fa)
 
     # (i) ssa under torchrun: two processes on this card, dp 2, each writes its own file
     outs = [os.path.join(WORK, f"ssa_torchrun_p{r}") for r in range(2)]
@@ -3833,7 +3977,8 @@ def main(argv: list[str]) -> None:
                       else f"the short reads' first merge (-m {MANY_M})") + f", {MESH_DP}x{MESH_IDX} mesh of one card; "
                      "ms: the card's two launches, one a pass",
             "merges": rs, "occupancy": {k: v for k, v in mb["occupancy"].items() if lay in k},
-            **({"idx_across_processes": ms_["across"]["build"]} if lay == "dense32" else {}),
+            **({"idx_across_processes": ms_["across"]["build"], "host_placed_build": mb["host_placed"]}
+               if lay == "dense32" else {}),
         })
     entries.append({
         "name": "ssa_gen_mesh_dense32", "route": "cuda",

@@ -606,17 +606,19 @@ def _on_host(bwt) -> np.ndarray:
 
 def _placement(bwt, seq2, dev, mesh=None, host: bool = False) -> str:
     """Where merging seq2 (B2) into `bwt` runs, "card" or "host"
-    (construct/merge.py placement; a mesh's merges stay on the card, and
-    with `host` an index already in host memory stays there), logged with
-    why: its bytes against the card's."""
+    (construct/merge.py placement, over `mesh` when given; with `host` an
+    index already in host memory stays there; over a mesh under torchrun
+    every process takes the host where any one would), logged with why:
+    its bytes against the card's."""
     from .construct.merge import placement
+    from .parallel import launch
 
-    if mesh is not None:
-        return "card"
     n1, n2, m2 = len(bwt), len(seq2), int((seq2 == 0).sum())
-    where, why = placement(n1, n2, m2, dev)
+    where, why = placement(n1, n2, m2, dev, mesh)
     if host and where == "card":
         where, why = "host", f"the index stays in host memory ({why})"
+    if mesh is not None and "host" in launch.all_gather(where) and where == "card":  # one answer for the job
+        where, why = "host", f"another process's card path does not fit ({why})"
     log.info("merging %d symbols into %d on the %s: %s", n2, n1, where, why, func="merge")
     return where
 
@@ -630,16 +632,21 @@ def _merge_into(bwt, seq2, dev, mesh=None, where: str | None = None):
     rank's segments split over its devices), the merged BWT a tensor there;
     the mesh's check comes first, so a merge that would not fit a card
     stops with one error.  On the host: construct/merge.py merge_host, B1's
-    rows on the card and the merged BWT in host memory."""
+    rows on the card, or with `mesh` merge_host_mesh, B1's rows slab by
+    slab on the cards of its idx axis; the merged BWT in host memory."""
     import torch
 
-    from .construct.merge import merge_host, merge_mesh_bytes, merge_plain
+    from .construct.merge import merge_host, merge_host_mesh, merge_mesh_bytes, merge_plain
     from .ops.rank import OccIndex
     from .parallel.mesh import ShardedRows, settle
 
     where = _placement(bwt, seq2, dev, mesh) if where is None else where
-    if where == "host":
+    if where == "host" and mesh is None:
         return merge_host(_on_host(bwt), seq2, dev)
+    if where == "host":
+        merged = merge_host_mesh(_on_host(bwt), seq2, mesh)
+        settle()  # the slabs that other processes map go once every process has merged
+        return merged
     bwt = _to_device(bwt, dev)
     if mesh is None:
         return merge_plain(OccIndex.from_bwt(bwt), bwt, seq2)
@@ -655,17 +662,6 @@ def _merge_into(bwt, seq2, dev, mesh=None, where: str | None = None):
     del sharded, rows
     settle()  # the slabs that other processes map go once every process has merged
     return merged
-
-
-def _merge_step(bwt, seq2, dev, mesh=None, stay: bool = False):
-    """One merge of `build` or `merge`: the placement (with `stay`, the
-    index a merge left in host memory stays there), B1 moved to the host
-    first where the merge runs there, so the card holds no copy of it,
-    then `_merge_into`."""
-    where = _placement(bwt, seq2, dev, mesh, host=stay)
-    if where == "host":
-        bwt = _on_host(bwt)
-    return _merge_into(bwt, seq2, dev, mesh, where)
 
 
 def _launch_summary() -> str:
@@ -740,18 +736,21 @@ def main_build(argv: list[str], device: str) -> int:
         if est > 160_000_000:
             batch_size = min(max(est // 6, 48_000_000), 320_000_000)
             log.info("auto batch size %d for ~%d input symbols (pass -m to override)", batch_size, est, func="main_build")
-    budget, capped = card_bytes(dev), False
+    budget, cap = card_bytes(dev), None
     if budget is not None:
         # half the card for a batch's suffix sort, the rest for the index;
         # batches stay on the packed path, which SA_BYTES_PER_SYMBOL sizes
         cap = min(budget // (2 * (SA_BYTES_PER_SYMBOL + 1)), PACKED_MAX - 1)
-        capped = cap < batch_size
-        batch_size = min(batch_size, cap)
-        log.info("batch size %d symbols (the card has %d B; the suffix sort takes %d B a symbol)", batch_size, budget,
-                 SA_BYTES_PER_SYMBOL + 1, func="main_build")
+        log.info("batch size %d symbols (the card has %d B; the suffix sort takes %d B a symbol)", min(batch_size, cap),
+                 budget, SA_BYTES_PER_SYMBOL + 1, func="main_build")
+    # -s/-r read the one batch the JAX package reads, sort its units, and
+    # cut the sorted stream at unit boundaries into batches the card takes:
+    # sentinels sort by position and a merge keeps B1's sequences before
+    # B2's, so the cuts change no output
+    read_size = batch_size if sort_order != 0 or cap is None else min(batch_size, cap)
 
     def from_records(records):
-        while (got := read_batch_nt6(records, batch_size, is_for, is_rev))[0]:
+        while (got := read_batch_nt6(records, read_size, is_for, is_rev))[0]:
             yield got
 
     def batches():
@@ -762,7 +761,7 @@ def main_build(argv: list[str], device: str) -> int:
                 print(f"ERROR: failed to open file '{fn}'", file=sys.stderr)
                 continue
             strands = int(is_for) + int(is_rev)
-            fb = iter_flat_batches(fn, is_line, max(1, batch_size // strands))
+            fb = iter_flat_batches(fn, is_line, max(1, read_size // strands))
             if fb is not None:
                 gen = (batch_nt6_flat(bflat, boffs, is_for, is_rev) for _names, bflat, boffs in fb)
             else:
@@ -773,14 +772,15 @@ def main_build(argv: list[str], device: str) -> int:
                 n_batches += 1
                 log.info("read %d symbols", len(seq), func="main_build")
                 if sort_order != 0:
-                    if n_batches > 1 and capped:
-                        raise IndexLoadError(
-                            f"-s/-r sort the input as one batch, and the card takes batches of at most {batch_size} "
-                            f"symbols ({budget} B at {2 * (SA_BYTES_PER_SYMBOL + 1)} B a symbol), but the input has "
-                            + (f"~{est} symbols" if est > batch_size else f"more than {batch_size} symbols"))
                     if n_batches > 1:
                         raise IndexLoadError("-s/-r only supported within a single batch; raise -m")
                     seq = _sort_units(seq, sort_order)
+                    if cap is not None and len(seq) > cap:
+                        cuts = _unit_cuts(seq, cap)
+                        log.info("cut the sorted batch of %d symbols into %d batches of whole sequences, at most %d "
+                                 "symbols each where a sequence allows", len(seq), len(cuts) - 1, cap, func="main_build")
+                        yield from (seq[a:b] for a, b in zip(cuts[:-1], cuts[1:]))
+                        continue
                 yield seq
             yield None  # file boundary (for -S checkpointing)
 
@@ -802,7 +802,10 @@ def main_build(argv: list[str], device: str) -> int:
         if bwt is None:
             bwt = b2
         else:
-            bwt = _merge_step(bwt, b2, dev, mesh, stay)
+            where = _placement(bwt, b2, dev, mesh, host=stay)
+            if where == "host":
+                bwt = _on_host(bwt)  # the card keeps no copy of B1 through a merge on the host
+            bwt = _merge_into(bwt, b2, dev, mesh, where)
             stay = isinstance(bwt, np.ndarray)
         if n1:
             log.info("merged the partial BWT for %d symbols", len(b2), func="main_build")
@@ -811,6 +814,20 @@ def main_build(argv: list[str], device: str) -> int:
     _dump_index(_on_host(bwt), fmt, out_fn)
     log.info(_launch_summary(), func="main_build")
     return 0
+
+
+def _unit_cuts(seq: np.ndarray, cap: int) -> list[int]:
+    """Cut points [0, ..., len(seq)] of a batch of 0-terminated units into
+    runs of whole units of at most `cap` symbols each (a unit longer than
+    the cap alone)."""
+    ends = np.flatnonzero(seq == 0) + 1
+    cuts = [0]
+    while cuts[-1] < len(seq):
+        j = int(np.searchsorted(ends, cuts[-1] + cap, side="right")) - 1
+        if j < 0 or ends[j] <= cuts[-1]:
+            j = int(np.searchsorted(ends, cuts[-1], side="right"))
+        cuts.append(int(ends[j]))
+    return cuts
 
 
 def _sort_units(seq: np.ndarray, sort_order: int) -> np.ndarray:
@@ -883,7 +900,11 @@ def main_merge(argv: list[str], device: str) -> int:
     del f
     for fn in args[1:]:
         syms, lens = load_runs(fn)
-        bwt = _merge_step(bwt, np.repeat(syms, lens), dev, stay=stay)
+        seq2 = np.repeat(syms, lens)
+        where = _placement(bwt, seq2, dev, host=stay)
+        if where == "host":
+            bwt = _on_host(bwt)  # the card keeps no copy of B1 through a merge on the host
+        bwt = _merge_into(bwt, seq2, dev, where=where)
         stay = isinstance(bwt, np.ndarray)
         if fn_tmp:
             write_fmr(fn_tmp, *runs_of_bwt(_on_host(bwt)))
@@ -1594,7 +1615,36 @@ def main_kount(argv: list[str], device: str) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _fa2line_native(argv: list[str]) -> int:
+    """`fa2line [-R] files` through the native program (native/fa2line.cpp,
+    built at first use; a failed build raises): its stdout copied to ours
+    as it comes, its stderr after; its exit code."""
+    import subprocess
+    import threading
+
+    from .native import fa2line_binary
+
+    sys.stdout.flush()
+    proc = subprocess.Popen([fa2line_binary(), *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    err: list[bytes] = []
+    drain = threading.Thread(target=lambda: err.append(proc.stderr.read()))
+    drain.start()
+    while chunk := proc.stdout.read(1 << 22):
+        write_all(sys.stdout.buffer, chunk)
+    drain.join()
+    sys.stderr.write(b"".join(err).decode(errors="replace"))
+    return proc.wait()
+
+
+def _fa2line_shape(argv: list[str]) -> bool:
+    """Whether argv is the shape bin/rb3tpu hands to the JAX package's
+    native fa2line: -R and file names (or -) only, at least one file."""
+    return any(a != "-R" for a in argv) and all(a in ("-R", "-") or not a.startswith("-") for a in argv)
+
+
 def main_fa2line(argv: list[str]) -> int:
+    if _fa2line_shape(argv):
+        return _fa2line_native(argv)
     opts, args = ketopt(argv, "R")
     no_rev = any(o == "-R" for o, _ in opts)
     if not args:

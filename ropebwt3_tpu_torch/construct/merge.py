@@ -52,8 +52,20 @@ last batch's ~34 B a symbol (an 80 GB NVIDIA H100: ~24 G symbols).  On the
 host path the card holds B1's rows beside one batch's ~34 B a symbol:
 dense rows up to 0.75 of the card (~80 G symbols on 80 GB), then rb rows,
 160/S B a symbol plus S/2 B an escape block; host memory holds B1, the
-merged BWT and ins (8 B a B2 symbol).  `build --mesh` stays on the card
-path (ROADMAP queue 1 item 8).
+merged BWT and ins (8 B a B2 symbol).
+
+Over a mesh (`build --mesh`) the card path holds B1 and its whole rows on
+the first device (`merge_mesh_bytes`).  Past any device's budget the merge
+runs on the host placement over the mesh (`merge_host_mesh`), as the JAX
+package's mesh merge does (ropebwt3_tpu/construct/merge.py:201-236): B1
+and the merged BWT in host memory, B1's dense rows built slab by slab, each
+on the card that holds it, from its part of the host array
+(ops/rank.py HostBwtRows through parallel/mesh.py ShardedRows), B2,
+lf2_packed and the records on the first device, K6 over the mapped slabs,
+ins down and the native interleave.  No card holds B1 or the whole table,
+so the index is bounded by host memory and the idx axis's card memory for
+the rows (`merge_mesh_host_bytes`, each device's peak); rb rows over a mesh
+are ROADMAP item 8's.
 """
 
 from __future__ import annotations
@@ -67,10 +79,10 @@ import torch
 from .. import kernels, log, native
 from ..index.dense import runs_of_bwt
 from ..ops import runblock
-from ..ops.rank import ASIZE, OccIndex, from_bwt_temp_bytes
+from ..ops.rank import ASIZE, HostBwtRows, OccIndex, from_bwt_temp_bytes
 from ..ops.runblock import RunBlockIndex
 from ..parallel import launch
-from ..parallel.mesh import ShardView, granularity, slab_plan
+from ..parallel.mesh import ShardedRows, ShardView, granularity, slab_plan
 
 APPLY_CHUNK = 1 << 25  # merged positions per chunk of merge_apply
 # The segment stride S of the merge rank: a power of two, short enough to
@@ -126,13 +138,21 @@ def budget(dev) -> int | None:
     return CPU_BUDGET if got is None else got
 
 
-def placement(n1: int, n2: int, m2: int, dev) -> tuple[str, str]:
+def placement(n1: int, n2: int, m2: int, dev, mesh=None) -> tuple[str, str]:
     """("card" or "host", why) for merging n2 symbols (m2 sequences) into
     an index of n1 on `dev`: the card while `merge_bytes` fits its budget
     and B1's rows are dense (ops/smem.py resolve_occ for n1, the
-    RB3TPU_DEVICE_OCC override included), the host otherwise."""
+    RB3TPU_DEVICE_OCC override included), the host otherwise.  Over `mesh`
+    (dense rows only): the card while `merge_mesh_bytes` fits every
+    device's budget, the host otherwise."""
     from ..ops.smem import resolve_occ
 
+    if mesh is not None:
+        need = merge_mesh_bytes(n1, n2, m2, mesh)
+        have, over = over_budget(need)
+        d = over[0] if over else str(mesh.devices[0])
+        of = f"~{need[d]} B of {d}'s {'unlimited' if have[d] is None else have[d]} B"
+        return ("host" if over else "card"), f"the card path over the {mesh.dp}x{mesh.idx} mesh needs {of}"
     need, have = merge_bytes(n1, n2, m2), budget(dev)
     of = f"~{need} B of the card's {'unlimited' if have is None else have} B"
     if resolve_occ("auto", n1, dev) == "rb":
@@ -433,15 +453,40 @@ def merge_mesh_bytes(n1: int, n2: int, m2: int, mesh) -> dict[str, int]:
     one ins and one set of segment records, the gathered records, and the
     records themselves (the first device's are merge_bytes')."""
     n_seg = segments(n2, m2, MIN_STRIDE)[1]
+    first = str(mesh.devices[0])
+    return {d: (merge_bytes(n1, n2, m2) if d == first else 8 * n2) + 8 * n2 + 2 * 8 * SEG_ROWS * n_seg + slab
+            for d, slab in slab_bytes(n1, mesh).items()}
+
+
+def slab_bytes(n1: int, mesh) -> dict[str, int]:
+    """str(device) -> the physical bytes of the slabs of B1's dense rows
+    this process owns on each distinct device of `mesh`."""
     cuda = [d.index for d in mesh.distinct if d.type == "cuda"]
     sizes = slab_plan(n1 // 64 + 2, mesh.idx, 48, granularity(cuda, mesh.shared) if cuda else 48)[3]
     slabs = {(str(d), s) for row in mesh.grid for s, d in enumerate(row) if d is not None}
-    first = str(mesh.devices[0])
-    out: dict[str, int] = {}
-    for d in map(str, mesh.distinct):
-        out[d] = ((merge_bytes(n1, n2, m2) if d == first else 8 * n2) + 8 * n2 + 2 * 8 * SEG_ROWS * n_seg
-                  + sum(sizes[s] for dd, s in slabs if dd == d))
-    return out
+    return {d: sum(sizes[s] for dd, s in slabs if dd == d) for d in map(str, mesh.distinct)}
+
+
+def over_budget(need: dict[str, int]) -> tuple[dict, list[str]]:
+    """(each device's `budget`, the devices whose `need` passes it)."""
+    have = {d: budget(d) for d in need}
+    return have, [d for d in need if have[d] is not None and need[d] > have[d]]
+
+
+def merge_mesh_host_bytes(n1: int, n2: int, m2: int, mesh) -> dict[str, int]:
+    """Card bytes a host-placed merge over `mesh` (`merge_host_mesh`) holds
+    on each distinct device at its peak, str(device) -> bytes: the slabs of
+    B1's dense rows this process owns there (as merge_mesh_bytes counts
+    them), and beside them on the first device `merge_host_bytes` with no
+    rows (B2, then in turn a slab's build, lf2_packed's temporaries, the
+    records, ins and segments), on every other the larger of a slab's build
+    and the merge rank's share; on each, one ins and the segment records
+    twice (merge_mesh_bytes' share).  B1 and the merged BWT stay in host
+    memory."""
+    n_seg = segments(n2, m2, MIN_STRIDE)[1]
+    first, build, share = str(mesh.devices[0]), from_bwt_temp_bytes(n1), 16 * n2 + 2 * 8 * SEG_ROWS * n_seg
+    return {d: (merge_host_bytes(n2, m2, 0, build) + share if d == first else max(build, share)) + slab
+            for d, slab in slab_bytes(n1, mesh).items()}
 
 
 def merge_apply(bwt1: torch.Tensor, seq2: torch.Tensor, ins: torch.Tensor) -> torch.Tensor:
@@ -553,4 +598,64 @@ def merge_host(bwt1: np.ndarray, seq2, dev, layout: str | None = None, pieces: d
              "unlimited" if have is None else have, ", ".join(f"{k} {v:.3f}" for k, v in sec.items()), func="merge")
     if pieces is not None:
         pieces.update(sec, layout=desc, card_bytes=need)
+    return merged
+
+
+def merge_host_mesh(bwt1: np.ndarray, seq2, mesh, pieces: dict | None = None) -> np.ndarray:
+    """Merge the plain partial BWT seq2 (B2: a uint8 tensor or a numpy
+    array) into B1, whose BWT bwt1 lies in host memory, with the merge rank
+    over `mesh`; returns the merged BWT in host memory.  After a check of
+    `merge_mesh_host_bytes` against each device's budget (a CapacityError
+    naming the device and the bytes; every process of a torchrun job stops
+    with it), the counts of B1's symbols are taken on the host
+    (HostBwtRows), B1's dense rows are built slab by slab on the cards of
+    the mesh's idx axis (ShardedRows: this process's slabs, the others'
+    mapped from their owners), lf2_packed runs on the first device and K6
+    over the slabs (`merge_rank_mesh`), ins comes down, and the native
+    interleave writes the merged BWT.  Logs the slabs, S, the card bytes
+    and the seconds of each piece, and puts them in `pieces` when given."""
+    from ..cli import CapacityError
+
+    dev = mesh.devices[0]
+    n1, n2 = len(bwt1), len(seq2)
+    sec, t = {}, time.perf_counter()
+
+    def lap(piece):
+        nonlocal t
+        for d in mesh.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        sec[piece], t = time.perf_counter() - t, time.perf_counter()
+
+    seq2_h = seq2.cpu().numpy() if torch.is_tensor(seq2) else np.ascontiguousarray(seq2, np.uint8)
+    m2 = int(np.count_nonzero(seq2_h == 0))
+    need = merge_mesh_host_bytes(n1, n2, m2, mesh)
+    have, over = over_budget(need)
+    err = (f"merging {n2} symbols into an index of {n1} in host memory over the {mesh.dp}x{mesh.idx} mesh needs "
+           f"~{need[over[0]]} B of {over[0]} (its slabs of B1's dense rows, a batch's ~34 B a symbol), which has "
+           f"{have[over[0]]} B") if over else None
+    errs = [e for e in launch.all_gather(err) if e]
+    if errs:
+        raise CapacityError(errs[0])
+    rows = HostBwtRows(np.asarray(bwt1))
+    lap("counts on the host")
+    sharded = ShardedRows(rows, mesh)
+    lap("rows by slab")
+    seq2_d = seq2.to(dev) if torch.is_tensor(seq2) else torch.from_numpy(seq2_h).to(dev)
+    acc2, rec = lf2_packed(seq2_d)
+    del seq2_d
+    ins = merge_rank_mesh(sharded.views, rec, int(acc2[1]))[0]
+    lap("lf2 and K6")
+    desc = sharded.describe()
+    del rec, sharded
+    ins = ins.cpu().numpy()
+    lap("ins download")
+    merged = apply_host(bwt1, seq2_h, ins)
+    lap("native apply")
+    slabs = ", ".join(f"rows {b0}+{nb} on {d} {s:.3f} s" for b0, nb, d, s in rows.filled)
+    cards = ", ".join(f"~{need[d]} B of {d}'s {'unlimited' if have[d] is None else have[d]} B" for d in need)
+    log.info("merge in host memory over B1's %s; slabs built here: %s; %s; seconds by piece: %s", desc,
+             slabs or "none", cards, ", ".join(f"{k} {v:.3f}" for k, v in sec.items()), func="merge")
+    if pieces is not None:
+        pieces.update(sec, layout=desc, card_bytes=need, slabs=rows.filled)
     return merged

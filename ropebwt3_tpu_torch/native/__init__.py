@@ -11,11 +11,13 @@ memory (`rb3t_merge_apply`, construct/merge.py's host placement), in the
 same file.
 They are copies of the functions the port calls from ropebwt3_tpu/native,
 and two entry points of the port's own built from them, compiled into one
-library.
+library.  `fa2line` (fa2line.cpp, with zlib) is a program of its own, which
+`fa2line [-R] files` runs (`fa2line_binary`).
 
 The library lands in `../_build/` (gitignored), keyed on a hash of the
 sources, the flags and the machine, since `-march=native` code must never
-run on another CPU.  The port has no pure-Python fallback: `lib()` raises
+run on another CPU; the program beside it, keyed on its source and flags.
+The port has no pure-Python fallback: `lib()` and `fa2line_binary()` raise
 with the compiler's output when the build fails.
 """
 
@@ -66,6 +68,37 @@ def _machine() -> bytes:
         return platform.machine().encode()
 
 
+FA2LINE_SOURCE = os.path.join(_DIR, "fa2line.cpp")
+FA2LINE_FLAGS = ["-O2", "-std=c++17"]
+
+
+def _compile(out: str, args: list[str], what: str) -> str:
+    """g++ `args` into `out` unless it exists, through a name of this
+    process's own (concurrent builds never share a path); return `out`."""
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp.{os.getpid()}"
+    try:
+        r = subprocess.run(["g++", "-o", tmp, *args], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"g++ failed ({r.returncode}) on {what}:\n{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def fa2line_binary() -> str:
+    """The fa2line program (fa2line.cpp), compiled into
+    `_build/fa2line_<hash>` unless it exists; its path."""
+    with open(FA2LINE_SOURCE, "rb") as fh:
+        h = hashlib.sha256(" ".join(FA2LINE_FLAGS).encode() + fh.read())
+    return _compile(os.path.join(BUILD_DIR, f"fa2line_{h.hexdigest()[:16]}"),
+                    [*FA2LINE_FLAGS, FA2LINE_SOURCE, "-lz"], "native/fa2line.cpp")
+
+
 def build() -> str:
     """Compile the sources into `_build/libhost_<hash>.so` unless it exists;
     return its path."""
@@ -73,20 +106,8 @@ def build() -> str:
     for p in SOURCES:
         with open(p, "rb") as fh:
             h.update(fh.read())
-    so = os.path.join(BUILD_DIR, f"libhost_{h.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp.{os.getpid()}"  # concurrent builds never share a path
-    try:
-        r = subprocess.run(["g++", *CXXFLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"g++ failed ({r.returncode}) on the port's native sources:\n{r.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+    return _compile(os.path.join(BUILD_DIR, f"libhost_{h.hexdigest()[:16]}.so"), [*CXXFLAGS, *SOURCES],
+                    "the port's native sources")
 
 
 def lib() -> ctypes.CDLL:

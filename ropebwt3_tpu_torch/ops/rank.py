@@ -22,6 +22,7 @@ csrc/rb.cuh that the SMEM kernel inlines.
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 from dataclasses import dataclass
 
@@ -56,6 +57,58 @@ def from_bwt_temp_bytes(n: int) -> int:
     and three (rows, 6) int64 count tables) and the megablock bases."""
     nb = n // BLOCK + 2
     return (32 * BLOCK + 3 * 48) * min(nb, FROM_BWT_BLOCKS) + 48 * ((nb >> MEGA_BLOCK_SHIFT) + 1)
+
+
+def n_rows(n: int) -> int:
+    """Rows of an n-symbol index's dense table: one a 64-symbol block, the
+    last padded, and the extra row (k = n)."""
+    return (n + BLOCK - 1) // BLOCK + 1
+
+
+def _check_host_bwt(bwt: np.ndarray) -> None:
+    if bwt.dtype != np.uint8 or bwt.ndim != 1:
+        raise ValueError("from_bwt takes a 1-D uint8 BWT")
+
+
+def _blocks(bwt, b0: int, b1: int, dev) -> torch.Tensor:
+    """The symbols of rows [b0, b1) of a BWT (a tensor, or a numpy array in
+    host memory: a copy, as it may be a read-only map) on `dev`, (b1 - b0,
+    64) uint8, the padding symbol 6 past n."""
+    n = len(bwt)
+    blk = torch.full(((b1 - b0) * BLOCK,), ASIZE, dtype=torch.uint8, device=dev)
+    if b0 * BLOCK < n:
+        a, b = b0 * BLOCK, min(b1 * BLOCK, n)
+        blk[: b - a] = torch.from_numpy(np.array(bwt[a:b])).to(dev) if isinstance(bwt, np.ndarray) else bwt[a:b].to(dev)
+    return blk.view(b1 - b0, BLOCK)
+
+
+def _chunk_rows(blk: torch.Tensor, out: torch.Tensor, carry: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bit-planes of the blocks `blk` (rows, 64) into out[:, :6];
+    returns (the counts before each row (rows, 6) int64, from `carry`, the
+    counts before the first; the counts after the last)."""
+    dev = blk.device
+    key = torch.as_tensor(np.append(KEY, 0), dtype=torch.int64, device=dev)  # padding (6) keys as 0
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    keyed = key[blk.long()].view(blk.shape[0], 2, 32)
+    for plane in range(3):
+        words = (((keyed >> plane) & 1) << shifts).sum(-1)  # (rows, 2) in [0, 2^32)
+        out[:, 2 * plane : 2 * plane + 2] = _as_int32(words)
+    del keyed
+    cnt = torch.stack([(blk == c).sum(1) for c in range(ASIZE)], 1)  # symbols in each block
+    before = torch.cumsum(cnt, 0) - cnt + carry  # row i: the symbols before block i
+    return before, before[-1] + cnt[-1]
+
+
+def _count_cols(out: torch.Tensor, before: torch.Tensor, b0: int, mega: torch.Tensor | None, mega_shift: int) -> None:
+    """out[:, 6:] of rows b0.. from the counts before each: absolute, or
+    (mega given: int64 rows) relative to the base of the row's megablock."""
+    if mega is None:
+        out[:, 6:] = before
+        return
+    before = before - mega[torch.arange(b0, b0 + len(before), device=before.device) >> mega_shift]
+    if int(before.max()) > U32:
+        raise ValueError(f"a megablock of 2^{mega_shift} rows holds more than 2^32 symbols")
+    out[:, 6:] = _as_int32(before)
 
 
 def needs_int64(n: int) -> bool:
@@ -168,54 +221,26 @@ class OccIndex:
         block are carried from chunk to chunk, so only one chunk's
         temporaries sit beside the rows.  int64 None picks the width from n."""
         if isinstance(bwt, np.ndarray):
-            if bwt.dtype != np.uint8 or bwt.ndim != 1:
-                raise ValueError("from_bwt takes a 1-D uint8 BWT")
+            _check_host_bwt(bwt)
             dev = torch.device("cpu" if device is None else device)
-            host = bwt
-
-            def part(a, b):  # a copy: the array may be a read-only map
-                return torch.from_numpy(np.array(host[a:b])).to(dev)
         else:
             if bwt.dtype != torch.uint8 or bwt.dim() != 1:
                 raise ValueError("from_bwt takes a 1-D uint8 BWT")
             dev = bwt.device if device is None else torch.device(device)
-
-            def part(a, b):
-                return bwt[a:b].to(dev)
         n = len(bwt)
         int64 = needs_int64(n) if int64 is None else int64
-        nb = (n + BLOCK - 1) // BLOCK + 1
+        nb = n_rows(n)
         occf = torch.empty((nb, 12), dtype=torch.int32, device=dev)
         mega = torch.empty((((nb - 1) >> mega_shift) + 1, ASIZE), dtype=torch.int64, device=dev) if int64 else None
         carry = torch.zeros(ASIZE, dtype=torch.int64, device=dev)  # the symbols before the chunk
-        key = torch.as_tensor(np.append(KEY, 0), dtype=torch.int64, device=dev)  # padding (6) keys as 0
-        shifts = torch.arange(32, dtype=torch.int64, device=dev)
         for b0 in range(0, nb, FROM_BWT_BLOCKS):
             b1 = min(b0 + FROM_BWT_BLOCKS, nb)
-            blk = torch.full(((b1 - b0) * BLOCK,), ASIZE, dtype=torch.uint8, device=dev)
-            if b0 * BLOCK < n:
-                blk[: min(b1 * BLOCK, n) - b0 * BLOCK] = part(b0 * BLOCK, min(b1 * BLOCK, n))
-            blk = blk.view(b1 - b0, BLOCK)
-            keyed = key[blk.long()].view(b1 - b0, 2, 32)
-            for plane in range(3):
-                words = (((keyed >> plane) & 1) << shifts).sum(-1)  # (rows, 2) in [0, 2^32)
-                occf[b0:b1, 2 * plane : 2 * plane + 2] = _as_int32(words)
-            del keyed
-            cnt = torch.stack([(blk == c).sum(1) for c in range(ASIZE)], 1)  # symbols in each block
-            del blk
-            before = torch.cumsum(cnt, 0) - cnt + carry  # row i: the symbols before block i
-            carry = before[-1] + cnt[-1]
-            del cnt
-            if not int64:
-                occf[b0:b1, 6:] = before
-                continue
-            rows = 1 << mega_shift  # the megablocks that start in this chunk take their bases here
-            m0, m1 = -(-b0 // rows), ((b1 - 1) >> mega_shift) + 1
-            mega[m0:m1] = before[torch.arange(m0, m1, device=dev) * rows - b0]
-            before -= mega[torch.arange(b0, b1, device=dev) >> mega_shift]
-            if int(before.max()) > U32:
-                raise ValueError(f"a megablock of 2^{mega_shift} rows holds more than 2^32 symbols")
-            occf[b0:b1, 6:] = _as_int32(before)
+            before, carry = _chunk_rows(_blocks(bwt, b0, b1, dev), occf[b0:b1], carry)
+            if int64:  # the megablocks that start in this chunk take their bases here
+                rows = 1 << mega_shift
+                m0, m1 = -(-b0 // rows), ((b1 - 1) >> mega_shift) + 1
+                mega[m0:m1] = before[torch.arange(m0, m1, device=dev) * rows - b0]
+            _count_cols(occf[b0:b1], before, b0, mega, mega_shift)
         acc = torch.zeros(ASIZE + 1, dtype=torch.int64, device=dev)
         acc[1:] = torch.cumsum(carry, 0)
         if not int64:
@@ -277,6 +302,71 @@ class OccIndex:
             word = planes[..., 2 * plane : 2 * plane + 2].gather(-1, half[..., None])[..., 0]
             key |= ((word >> (off & 31)) & 1) << plane
         return torch.as_tensor(KEY, dtype=torch.int64, device=k.device)[key]
+
+
+class HostBwtRows:
+    """The dense rows of a BWT in host memory, built range by range on any
+    device (`fill`), never whole: bit for bit the rows of
+    `OccIndex.from_bwt`.  One pass over the array on the host (torch's
+    bincount, FROM_BWT_BLOCKS rows a chunk) takes the counts before every
+    FROM_BWT_BLOCKS-th row, so acc, the megablock bases (int64 rows) and the
+    counts before any row (`counts_at`) cost one partial chunk's count; a
+    range's rows are then from_bwt's chunked build started from the counts
+    before its first row, its symbols uploaded chunk by chunk to the range's
+    device.  It passes for an OccIndex with parallel/mesh.py ShardedRows,
+    which fills each slab on the card that holds it (build --mesh on the
+    host placement, construct/merge.py merge_host_mesh).  `filled` records
+    (first row, rows, device, seconds) of each fill."""
+
+    def __init__(self, bwt: np.ndarray, int64: bool | None = None, mega_shift: int = MEGA_BLOCK_SHIFT):
+        _check_host_bwt(bwt)
+        self.bwt, self.n, self.mega_shift = bwt, len(bwt), int(mega_shift)
+        self.int64 = needs_int64(self.n) if int64 is None else int64
+        self.shape = (n_rows(self.n), 12)
+        step = FROM_BWT_BLOCKS * BLOCK
+        marks = [np.zeros(ASIZE, np.int64)]  # marks[i]: the counts before symbol i x step
+        for a in range(0, self.n, step):
+            marks.append(marks[-1] + self._count(a, min(a + step, self.n)))
+        self._marks = marks
+        acc = np.zeros(ASIZE + 1, np.int64)
+        acc[1:] = np.cumsum(marks[-1])
+        self.acc = torch.from_numpy(acc if self.int64 else acc.astype(np.int32))
+        n_mega = ((self.shape[0] - 1) >> self.mega_shift) + 1
+        self.mega = torch.from_numpy(np.stack([self.counts_at(m << self.mega_shift) for m in range(n_mega)])) \
+            if self.int64 else None
+        self.filled: list[tuple[int, int, str, float]] = []
+
+    @property
+    def layout(self) -> str:
+        return "dense64" if self.int64 else "dense32"
+
+    def _count(self, a: int, b: int) -> np.ndarray:
+        """Counts of each symbol in bwt[a:b]."""
+        if b <= a:
+            return np.zeros(ASIZE, np.int64)
+        return torch.bincount(torch.from_numpy(np.array(self.bwt[a:b])), minlength=ASIZE)[:ASIZE].numpy()
+
+    def counts_at(self, row: int) -> np.ndarray:
+        """(6,) int64: the symbols before `row` (those of its blocks before it)."""
+        pos = min(row * BLOCK, self.n)
+        i = pos // (FROM_BWT_BLOCKS * BLOCK)
+        return self._marks[i] + self._count(i * FROM_BWT_BLOCKS * BLOCK, pos)
+
+    def fill(self, out: torch.Tensor, b0: int) -> None:
+        """Rows [b0, b0 + len(out)) into `out` ((rows, 12) int32, on any
+        device), built there, FROM_BWT_BLOCKS rows a chunk."""
+        t = time.perf_counter()
+        dev = out.device
+        carry = torch.from_numpy(self.counts_at(b0)).to(dev)
+        mega = self.mega.to(dev) if self.int64 else None
+        for a in range(b0, b0 + len(out), FROM_BWT_BLOCKS):
+            b = min(a + FROM_BWT_BLOCKS, b0 + len(out))
+            part = out[a - b0 : b - b0]
+            before, carry = _chunk_rows(_blocks(self.bwt, a, b, dev), part, carry)
+            _count_cols(part, before, a, mega, self.mega_shift)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.filled.append((b0, len(out), str(dev), time.perf_counter() - t))
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from .. import kernels, log
-from ..ops.rank import OccIndex
+from ..ops.rank import HostBwtRows, OccIndex
 from ..ops.runblock import RunBlockIndex, shard_layout
 from . import MeshError
 
@@ -606,7 +606,9 @@ def _check_peers(cards) -> None:
 
 class ShardedRows:
     """An index's occ rows sharded over the idx axis of `mesh` (module
-    docstring).  `views[j]` is the ShardView of this process's j-th slot
+    docstring): an OccIndex's or a RunBlockIndex's, each slab copied from
+    its table, or a HostBwtRows' (dense rows of a BWT in host memory), each
+    slab built on the card that holds it from its part of the array.  `views[j]` is the ShardView of this process's j-th slot
     (row by row); `nb` the real rows, `nb_local` the rows a slab (a
     multiple of `unit`), `gran` the granularity in bytes, `nbytes` the
     tables this process holds.  `unit` is the CPU's mapping unit in rows;
@@ -622,8 +624,9 @@ class ShardedRows:
         self.is_rb = isinstance(idx, RunBlockIndex)
         self.S = idx.S if self.is_rb else None
         self.block_shift = self.S.bit_length() - 1 if self.is_rb else 6
-        table = idx.rows if self.is_rb else idx.occf
-        self.nb, width = table.shape
+        # a HostBwtRows has no table: each slab's rows are built on its card
+        table = None if isinstance(idx, HostBwtRows) else idx.rows if self.is_rb else idx.occf
+        self.nb, width = idx.shape if table is None else table.shape
         row_b = 4 * width
         cuda, shared = mesh.devices[0].type == "cuda", mesh.shared
         if cuda:
@@ -664,7 +667,10 @@ class ShardedRows:
             per_dev[str(d)] = (_copy(idx.acc, d), _copy(idx.mega, d))
 
         def fill(rows_t, s):  # slab s's mapped rows: the real ones, then pad rows (zero, no escape)
-            rows_t[: real[s]] = table[s * nbl : s * nbl + real[s]].to(rows_t.device)
+            if table is None:
+                idx.fill(rows_t[: real[s]], s * nbl)
+            else:
+                rows_t[: real[s]] = table[s * nbl : s * nbl + real[s]].to(rows_t.device)
             rows_t[real[s] :] = 0
             if self.is_rb:
                 rows_t[real[s] :, 6] = -1

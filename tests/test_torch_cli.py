@@ -125,17 +125,25 @@ def test_build_beyond_the_card_stops_with_one_error(monkeypatch, capsys, corpus,
 @pytest.mark.parametrize("order", ["-s", "-r"])
 def test_build_sorted_beyond_the_card_names_the_cap(monkeypatch, capsys, corpus, tmp_path, order):
     """-s/-r sort the input as one batch: when the card's batch cap (a
-    budget given to the CPU run) splits it, the one ERROR line names the cap
-    and the input's size, not -m, which cannot lift the cap."""
+    budget given to the CPU run) is below it, the sorted batch is cut at
+    sequence boundaries into batches the cap holds, the log line naming the
+    cap, and merged in order (here on the host placement, with
+    OccIndex.from_bwt's chunks cut to 64 rows): the FMD of the JAX
+    package's one batch."""
+    from ropebwt3_tpu_torch.ops import rank as trank
+
     cap = 40_000
+    want = tmp_path / "want.fmd"
+    assert _in_process(jcli.main, ["build", order, "-do", str(want), str(corpus / "genomes.fa")])[0] == 0
+    capsys.readouterr()
     monkeypatch.setenv("RB3TPU_STRICT_EXIT", "1")
+    monkeypatch.setattr(trank, "FROM_BWT_BLOCKS", 64)
     monkeypatch.setattr(tcli, "card_bytes", lambda dev: cap * 2 * (tsa.SA_BYTES_PER_SYMBOL + 1))
     out = tmp_path / "x.fmd"
     rc = tcli.main(["build", "--device=cpu", order, "-do", str(out), str(corpus / "genomes.fa")])
-    err = [ln for ln in capsys.readouterr().err.splitlines() if not ln.startswith("[M::")]
-    size = 2 * os.path.getsize(corpus / "genomes.fa")
-    assert rc == 1 and not out.exists() and len(err) == 1, err
-    assert f"batches of at most {cap} symbols" in err[0] and f"~{size} symbols" in err[0] and "-m" not in err[0], err
+    err = capsys.readouterr().err
+    assert rc == 0 and out.read_bytes() == want.read_bytes(), err[-2000:]
+    assert f"cut the sorted batch of 128016 symbols into 4 batches of whole sequences, at most {cap} symbols" in err
 
 
 @pytest.mark.parametrize("budget", [10**9, 48 * 16_002])
